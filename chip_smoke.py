@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's main path on one CUDA card.
+"""Drive the PyTorch/H100 port's main paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,23 +8,47 @@ from beside this file (never JAX, never ``predictionio_tpu``).  Phases,
 each of which fails the run (exit code != 0, no final ``ok`` line):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build every CUDA kernel from the checkout's sources (one ``nvcc`` each,
-   started together) and print the build seconds and ptxas reports;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it (-inf positions exact, finite values
-   within rtol 1e-5, atol 1e-5);
-4. build the full-width ALS model — 5,000 users x 100,000 items x rank 32,
+2. build every CUDA kernel from the checkout's sources (K1, K2, K3: one
+   ``nvcc`` each, started together) and print the build seconds and ptxas
+   reports;
+3. hold K1 (masked score) against its plain PyTorch version at the serving
+   shapes (-inf positions exact, finite values within rtol/atol 1e-5);
+4. hold K2 (LLR + masking) against its plain version at [100,000 x 4,096],
+   [8,192 x 8,192] and [37 x 190], thresholds 0 and 2 (-inf positions
+   exact, finite values within rtol/atol 1e-4);
+5. hold K3 (exact row top-b) against its plain version at [100,000 x 4,096]
+   and [8,192 x 8,192] with b = 64, one row of 300,000, [37 x 300] with
+   b = 8, with planted ties and -inf runs (values and ids equal);
+ALS serving (the first slice's path):
+6. build the full-width ALS model — 5,000 users x 100,000 items x rank 32,
    random factors from a seed — through ``als_model_from_state``;
-5. serve it with ``deploy_models`` and POST ``/queries.json`` over HTTP;
-6. score 256 queries through ``batch_predictor``;
-   every answer of 5 and 6 is checked against the same query scored by the
-   plain version on the card and ranked on the host (score descending,
-   lower item id first);
-7. show from the launch counters that phases 5 and 6 went through the
-   kernels;
-8. time each kernel, its plain version and a PyTorch yardstick with CUDA
-   events, beside its bound (bytes over 3.35 TB/s or fp32 operations over
-   67 TFLOP/s, the H100 SXM data sheet's peaks).
+7. serve it with ``deploy_models`` and POST ``/queries.json`` over HTTP;
+8. score 256 queries through ``batch_predictor``;
+   every answer of 7 and 8 is checked against the same query scored by the
+   plain version on the card and ranked on the host;
+9. show from K1's launch counter that 7 and 8 went through it;
+UR training and serving (this slice's path):
+10. train CCO at ``bench_ur``'s full shape (100,000 users x 8,192 items,
+    1M buy + 3M view events from ``synth_commerce(seed=0)``, top_k 50):
+    the dense strategy through ``cco_train_indicators``, and the resident
+    tiled strategy (item tile 1,024) called directly, whose indicator
+    tables must be bit-identical, and both are timed; 64 sampled count
+    rows against numpy;
+11. train the UR at the deployed width (20,000 users x 100,000 items, 400k
+    purchase + 800k view events, top_k 50, tile 4,096) through
+    ``URAlgorithm.train``: the resident tiled path, 25 tiles x 2 event
+    types, so K2 and K3 each launch 50 times (counters set to 0 just before
+    the run and read just after);
+12. serve that model over HTTP (``deploy_models``, two deployments: LLR
+    weights off and on): nine listed queries of every kind, then 300
+    timed ones (p50 and p99) drawn from 100 users with history, the items
+    and item sets; the listed answers and every tenth timed one are
+    checked against the port's own predict on a CPU copy of the model
+    (the plain path);
+13. time each kernel, its plain version and a PyTorch yardstick where one
+    exists, with CUDA events and the L2 flushed, beside its bound (bytes
+    over 3.35 TB/s or fp32 operations over 67 TFLOP/s, the H100 SXM data
+    sheet's peaks).
 
 The line before the last is one JSON object with a row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -38,6 +62,7 @@ import subprocess
 import sys
 import time
 import traceback
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -49,7 +74,19 @@ N_USERS, N_ITEMS, RANK = 5_000, 100_000, 32
 RTOL, ATOL = 1e-5, 1e-5
 PEAK_BYTES_S = 3.35e12        # H100 SXM HBM3
 PEAK_F32_FLOP_S = 67e12       # H100 SXM fp32 outside the tensor cores
-REPLACES = "predictionio_tpu/ops/pallas_kernels.py:105"
+REPLACES = {"masked_score": "predictionio_tpu/ops/pallas_kernels.py:105",
+            "llr_masked": "predictionio_tpu/ops/pallas_kernels.py:191",
+            "tile_topk": "predictionio_tpu/ops/pallas_kernels.py:321"}
+LLR_RTOL, LLR_ATOL = 1e-4, 1e-4   # K2: f32 log1p and division orders
+# K2 per cell: ~48 fp32 adds, multiplies, divides and max, plus four log1pf
+# counted at ~10 operations each
+LLR_OPS_PER_CELL = 88
+# bench_ur's full shape (bench.py:62-63) and the deployed UR width
+# (bench.py:150): users, items, primary events, other events, top_k, tile
+BENCH_UR = (100_000, 8_192, 1_000_000, 3_000_000, 50, 4_096)
+DEPLOYED_UR = (20_000, 100_000, 400_000, 800_000, 50, 4_096)
+UR_POOL, UR_TIMED = 100, 300   # users with history in the store; timed UR queries
+T0 = 1_780_000_000.0
 
 
 class SmokeFailure(Exception):
@@ -65,7 +102,7 @@ def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
 
-# -- phase 3: kernel against its plain version --------------------------------
+# -- phase 3: K1 against its plain version --------------------------------------
 
 
 def score_inputs(b, k, n, dev, gen, mask_dtype=torch.uint8):
@@ -105,7 +142,7 @@ def compare_kernel(hk, dev, gen) -> float:
     return worst
 
 
-# -- phases 4-6: the served model ----------------------------------------------
+# -- phases 6-8: the served ALS model ----------------------------------------
 
 
 def make_state(rng):
@@ -187,7 +224,7 @@ def post(url, body):
         return json.loads(resp.read())
 
 
-# -- phase 8: timing -----------------------------------------------------------
+# -- phase 13: timing ----------------------------------------------------------
 
 
 def time_cold(fn, flush, reps=50):
@@ -207,11 +244,16 @@ def time_cold(fn, flush, reps=50):
     return statistics.median(times)
 
 
+def bound(bytes_, f32_ops):
+    """(ms, "bytes" | "operations"): the larger of the bytes over the
+    memory rate and the fp32 operations over their peak rate."""
+    t_bytes, t_ops = bytes_ / PEAK_BYTES_S * 1e3, f32_ops / PEAK_F32_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def bound_ms(b, k, n, with_bias=False, mask_bytes=1):
     bytes_ = 4 * (b * k + n * k + b * n) + mask_bytes * b * n + (4 * n if with_bias else 0)
-    flops = 2 * b * n * k + (b * n if with_bias else 0)
-    t_bytes, t_ops = bytes_ / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound(bytes_, 2 * b * n * k + (b * n if with_bias else 0))
 
 
 def time_masked_score(hk, dev, gen, b, k, n, flush):
@@ -231,6 +273,380 @@ def time_masked_score(hk, dev, gen, b, k, n, flush):
     return row
 
 
+def time_llr(hk, dev, gen, r, c, flush):
+    counts, row, col, n = llr_inputs(r, c, dev, gen)
+    launches = hk.llr_masked_scores.launches
+    row_ = {"R": r, "C": c,
+            "ms": time_cold(lambda: hk.llr_masked_scores(counts, row, col, n, 2.0), flush),
+            "plain_ms": time_cold(lambda: hk.llr_masked_scores_plain(counts, row, col, n, 2.0),
+                                  flush, reps=10),
+            "library_ms": None}   # no single PyTorch call computes G²
+    hk.llr_masked_scores.launches = launches   # timing launches do not count
+    # int32 counts and marginals in, f32 scores out
+    row_["bound_ms"], row_["bound_by"] = bound(r * c * (4 + 4) + 4 * (r + c),
+                                               r * c * LLR_OPS_PER_CELL)
+    return row_
+
+
+def time_topk(hk, dev, gen, r, w, b, flush):
+    s = topk_inputs(r, w, dev, gen)
+    launches = hk.tile_topk_desc.launches
+    row_ = {"R": r, "W": w, "b": b,
+            "ms": time_cold(lambda: hk.tile_topk_desc(s, b), flush),
+            "plain_ms": time_cold(lambda: hk.tile_topk_desc_plain(s, b), flush, reps=10),
+            "library_ms": time_cold(lambda: torch.topk(s, b, dim=1), flush)}
+    hk.tile_topk_desc.launches = launches
+    # each score read once, b values and ids written; at least one
+    # comparison per score
+    row_["bound_ms"], row_["bound_by"] = bound(r * w * 4 + r * b * 8, r * w)
+    return row_
+
+
+# -- phases 4-5: K2 and K3 against their plain versions -----------------------------
+
+
+def llr_inputs(r, c, dev, gen):
+    """Counts with ~30% nonzero cells and marginals that bound them."""
+    counts = torch.randint(0, 8, (r, c), generator=gen, device=dev, dtype=torch.int32)
+    counts *= torch.rand(r, c, generator=gen, device=dev) < 0.3
+    row = counts.sum(1, dtype=torch.int32) + torch.randint(
+        0, 60, (r,), generator=gen, device=dev, dtype=torch.int32)
+    col = counts.sum(0, dtype=torch.int32) + torch.randint(
+        0, 60, (c,), generator=gen, device=dev, dtype=torch.int32)
+    return counts, row, col, float(int(row.max()) + int(col.max()) + 100)
+
+
+def compare_llr(hk, dev, gen) -> float:
+    worst = 0.0
+    for r, c in ((100_000, 4_096), (8_192, 8_192), (37, 190)):
+        counts, row, col, n = llr_inputs(r, c, dev, gen)
+        for thr in (0.0, 2.0):
+            got = hk.llr_masked_scores(counts, row, col, n, thr)
+            want = hk.llr_masked_scores_plain(counts, row, col, n, thr)
+            torch.cuda.synchronize()
+            tag = f"K2 [{r} x {c}] threshold={thr}"
+            check(torch.equal(torch.isneginf(got), torch.isneginf(want)),
+                  f"-inf positions differ at {tag}")
+            fin = torch.isfinite(want)
+            err = (got[fin] - want[fin]).abs()
+            check(bool((err <= LLR_ATOL + LLR_RTOL * want[fin].abs()).all()),
+                  f"{tag}: beyond rtol/atol 1e-4, max abs err {err.max().item()}")
+            worst = max(worst, err.max().item())
+            print(f"  ok {tag} finite={int(fin.sum())} max_abs_err={err.max().item():.3e} "
+                  f"bit_equal={torch.equal(got, want)}")
+            del got, want, fin, err
+        del counts
+    return worst
+
+
+def topk_inputs(r, w, dev, gen):
+    """Scores on a 1/8 grid (many exact ties), every ninth column -inf,
+    half of row 0 -inf and row 1 one constant."""
+    s = torch.round(torch.randn(r, w, generator=gen, device=dev) * 8) / 8
+    s[:, ::9] = float("-inf")
+    s[0, : w // 2] = float("-inf")
+    if r > 1:
+        s[1] = 0.5
+    return s
+
+
+def compare_topk(hk, dev, gen) -> float:
+    for r, w, b in ((100_000, 4_096, 64), (8_192, 8_192, 64), (1, 300_000, 64),
+                    (37, 300, 8)):
+        s = topk_inputs(r, w, dev, gen)
+        got_v, got_i = hk.tile_topk_desc(s, b)
+        want_v, want_i = hk.tile_topk_desc_plain(s, b)
+        torch.cuda.synchronize()
+        tag = f"K3 [{r} x {w}] b={b}"
+        check(torch.equal(got_v, want_v), f"{tag}: values differ")
+        check(torch.equal(got_i, want_i), f"{tag}: ids differ")
+        print(f"  ok {tag} values and ids equal")
+    return 0.0
+
+
+# -- phases 10-12: UR training and serving -----------------------------------------
+
+
+def synth_commerce(n_users, n_items, n_buy, n_view, seed=0):
+    """bench.py:synth_commerce (zipf-ish popularity), copied: this script
+    imports nothing of the JAX side."""
+    rng = np.random.default_rng(seed)
+    pop = rng.zipf(1.3, size=n_buy * 4) % n_items
+    return (rng.integers(0, n_users, n_buy).astype(np.int32),
+            pop[:n_buy].astype(np.int32),
+            rng.integers(0, n_users, n_view).astype(np.int32),
+            pop[n_buy:n_buy + n_view].astype(np.int32))
+
+
+def deployed_training_data(ur):
+    """The deployed UR width (bench.py:150's commerce events): both event
+    types cover the whole catalog (so each has 25 item tiles of 4,096),
+    then zipf-popular items; one event a second from T0."""
+    n_users, n_items, n_p, n_v, _, _ = DEPLOYED_UR
+    rng = np.random.default_rng(SEED)
+    cover = np.arange(n_items)
+    pu = rng.integers(0, n_users, n_p).astype(np.int32)
+    pi = np.concatenate([cover, rng.zipf(1.3, n_p - n_items) % n_items]).astype(np.int32)
+    vu = rng.integers(0, n_users, n_v).astype(np.int32)
+    vi = np.concatenate([cover, rng.zipf(1.2, n_v - n_items) % n_items]).astype(np.int32)
+    items = [f"i{j}" for j in range(n_items)]
+    td = ur.ur_training_data_from_arrays(
+        ["purchase", "view"], [f"u{j}" for j in range(n_users)],
+        {"purchase": (pu, pi, items, T0 + np.arange(n_p, dtype=np.float64)),
+         "view": (vu, vi, items, T0 + np.arange(n_v, dtype=np.float64))})
+    return td, (pu, pi, vu, vi)
+
+
+def numpy_counts(pu, pi, au, ai, n_items_t, rows):
+    """Exact cooccurrence count rows and row marginals of sampled primary
+    items, from deduplicated pairs."""
+    p = np.unique(pu.astype(np.int64) << 32 | pi)
+    p_u, p_i = p >> 32, p & 0xFFFFFFFF
+    a = np.unique(au.astype(np.int64) << 32 | ai)
+    a_u, a_i = a >> 32, a & 0xFFFFFFFF
+    out, marg = [], []
+    for r in rows:
+        users = p_u[p_i == r]
+        out.append(np.bincount(a_i[np.isin(a_u, users)], minlength=n_items_t))
+        marg.append(len(users))
+    return np.stack(out), np.asarray(marg), np.bincount(a_i, minlength=n_items_t)
+
+
+def train_bench_shape(cco, hk, dev):
+    """Phase 10: bench_ur's full shape through both strategies."""
+    n_users, n_items, n_buy, n_view, top_k, _ = BENCH_UR
+    bu, bi, vu, vi = synth_commerce(n_users, n_items, n_buy, n_view)
+    others = [("buy", bu, bi, n_items), ("view", vu, vi, n_items)]
+    check(cco._dense_path_ok(n_items, n_items), "bench shape should take the dense path")
+    walls = []
+    for run_ in range(2):   # the first run pays one-time set-up
+        hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dense = cco.cco_train_indicators(bu, bi, others, n_users, n_items, top_k=top_k,
+                                         exclude_self_for="buy", device=dev)
+        walls.append(time.perf_counter() - t0)
+    launches = (hk.llr_masked_scores.launches, hk.tile_topk_desc.launches)
+    res_walls = []
+    for run_ in range(2):   # timed as the dense train is: staging included
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prim = cco._ResidentPrimary(bu, bi, n_users, n_items, dev)
+        resident = {name: cco._cco_indicators_resident(
+            prim, au, ai, n_items, n_users, top_k, 0.0, 1_024, name == "buy", au is bu)
+            for name, au, ai, _ in others}
+        res_walls.append(time.perf_counter() - t0)
+    for name in dense:
+        check(np.array_equal(dense[name][0].view(np.int32), resident[name][0].view(np.int32))
+              and np.array_equal(dense[name][1], resident[name][1]),
+              f"{name}: dense and resident tiled indicator tables differ")
+        fin = np.isfinite(dense[name][0])
+        check(fin.any() and not (dense[name][1][fin] < 0).any(), f"{name}: no indicators")
+        print(f"  {name}: dense == resident (tile 1,024) bit for bit, "
+              f"{int(fin.sum())} indicators, mean LLR {float(dense[name][0][fin].mean()):.3f}")
+    del prim
+    runner = cco._DenseRunner(bu, bi, n_users, n_items, n_items, dev)
+    rows = np.random.default_rng(SEED).choice(n_items, 64, replace=False)
+    for name, au, ai in (("buy", bu, bi), ("view", vu, vi)):
+        C, rc, cc = runner.counts(au, ai, n_items, self_pair=name == "buy")
+        want, want_rc, want_cc = numpy_counts(bu, bi, au, ai, n_items, rows)
+        got = C[torch.as_tensor(rows, device=dev)].cpu().numpy()[:, :n_items]
+        check(np.array_equal(got, want), f"{name}: count rows differ from numpy")
+        check(np.array_equal(rc.cpu().numpy()[rows], want_rc), f"{name}: row marginals differ")
+        check(np.array_equal(cc.cpu().numpy()[:n_items], want_cc), f"{name}: column marginals differ")
+        print(f"  {name}: 64 sampled count rows, their marginals and every column "
+              f"marginal equal numpy's (max count {int(want.max())})")
+        del C
+    events = n_buy + n_view
+    print(f"  users={n_users} items={n_items} events={events} top_k={top_k} dense train "
+          f"wall_s first={walls[0]:.3f} then={walls[1]:.3f} "
+          f"events_per_s={events / walls[1]:.0f} launches K2={launches[0]} K3={launches[1]}")
+    print(f"  resident tiled (tile 1,024) on the same data: wall_s first={res_walls[0]:.4f} "
+          f"then={res_walls[1]:.4f}; dense then={walls[1]:.4f}")
+    return {"wall_s": walls[1], "first_wall_s": walls[0], "events": events,
+            "launches": launches, "resident_wall_s": res_walls[1],
+            "resident_first_wall_s": res_walls[0]}
+
+
+def train_deployed(ur, hk, dev):
+    """Phase 11: the deployed UR width through URAlgorithm.train."""
+    n_users, n_items, n_p, n_v, top_k, tile = DEPLOYED_UR
+    td, arrays = deployed_training_data(ur)
+    params = ur.URAlgorithmParams(app_name="smoke", max_correlators_per_item=top_k,
+                                  item_tile=tile)
+    algo = ur.URAlgorithm(params, device=dev)
+    algo.train(td)   # warm-up: one-time set-up of the count product and kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+    t0 = time.perf_counter()
+    model = algo.train(td)
+    wall = time.perf_counter() - t0
+    launches = (hk.llr_masked_scores.launches, hk.tile_topk_desc.launches)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    tiles = 2 * -(-n_items // tile)
+    check(launches == (tiles, tiles),
+          f"K2/K3 launches {launches} on the 100k-item train, expected {tiles} each")
+    for name in ("purchase", "view"):
+        idx, llr = model.indicator_idx[name], model.indicator_llr[name]
+        check(idx.shape == (n_items, top_k) and (idx >= 0).any(), f"{name}: bad table")
+        check(bool(np.isfinite(llr).all()), f"{name}: non-finite LLR")
+        if name == "purchase":
+            check(not (idx == np.arange(n_items)[:, None]).any(), "self-pairs not excluded")
+        print(f"  {name}: [{n_items} x {top_k}] indicators, {int((idx >= 0).sum())} set")
+    print(f"  users={n_users} items={n_items} events={n_p + n_v} tiles={tiles} "
+          f"train wall_s={wall:.3f} events_per_s={(n_p + n_v) / wall:.0f} "
+          f"peak_device_gb={peak_gb:.2f} launches K2={launches[0]} K3={launches[1]}")
+    return model, arrays, {"wall_s": wall, "events": n_p + n_v, "peak_gb": peak_gb,
+                           "launches": launches}
+
+
+def ur_bodies():
+    """The listed query of every kind phase 12 checks, and the users they
+    ask for."""
+    hist = ["u7", "u1234", "u19999"]
+    return hist, [
+        {"user": hist[0], "num": 10}, {"user": hist[1], "num": 20},
+        {"user": hist[2], "num": 10}, {"user": "no-such-user", "num": 10},
+        {"item": "i42", "num": 10}, {"itemSet": ["i3", "i17", "i512"], "num": 10},
+        {"user": hist[0], "num": 10, "blacklistItems": ["i0", "i1", "i2"]},
+        {"user": hist[1], "num": 1}, {"user": hist[2], "num": 100}]
+
+
+def ur_queries(rng, n, users):
+    """Timed query bodies drawn from the deployed users (all with history
+    in the store), items and item sets; every num, a blacklist every fifth."""
+    n_items = DEPLOYED_UR[1]
+    out = []
+    for j in range(n):
+        if j % 4 < 2:
+            body = {"user": users[int(rng.integers(len(users)))]}
+        elif j % 4 == 2:
+            body = {"item": f"i{int(rng.integers(n_items))}"}
+        else:
+            body = {"itemSet": [f"i{int(i)}" for i in rng.integers(n_items, size=3)]}
+        body["num"] = int(rng.choice([1, 4, 10, 20, 100]))
+        if j % 5 == 4:
+            body["blacklistItems"] = [f"i{int(i)}" for i in rng.integers(n_items, size=5)]
+        out.append(body)
+    return out
+
+
+def history_store(mem, hist_users, arrays):
+    """An event store holding the queried users' events only."""
+    pu, pi, vu, vi = arrays
+    store = mem.MemStorage()
+    app = store.apps.insert("smoke")
+    for name, users, items in (("purchase", pu, pi), ("view", vu, vi)):
+        for u in hist_users:
+            uid = int(u[1:])
+            for k, j in enumerate(np.flatnonzero(users == uid)):
+                store.l_events.insert(mem.Event(
+                    name, "user", u, target_entity_type="item",
+                    target_entity_id=f"i{int(items[j])}", event_time=T0 + k), app)
+    return store
+
+
+def check_ur_answer(body, got, want, signal, item_dict):
+    """Items equal in order, scores within rtol 1e-5; items may trade places
+    only inside a run of scores within that tolerance, and at a run cut by
+    num only with items whose CPU signal lies in the run."""
+    g = [(d["item"], d["score"]) for d in got["itemScores"]]
+    w = [(d["item"], d["score"]) for d in want["itemScores"]]
+    check(len(g) == len(w), f"{body}: {len(g)} items, want {len(w)}")
+    close = lambda a, b: abs(a - b) <= RTOL * abs(b) + 1e-7  # noqa: E731
+    for (_, gs), (_, ws) in zip(g, w):
+        check(close(gs, ws), f"{body}: score {gs} vs {ws}")
+    swaps, j = 0, 0
+    while j < len(w):
+        e = j + 1
+        while e < len(w) and close(w[e][1], w[e - 1][1]):
+            e += 1
+        gi, wi = {x for x, _ in g[j:e]}, {x for x, _ in w[j:e]}
+        swaps += sum(a[0] != b[0] for a, b in zip(g[j:e], w[j:e]))
+        if e < len(w) or signal is None:
+            check(gi == wi, f"{body}: items {sorted(gi)} where {sorted(wi)} belong")
+        else:
+            for x in gi - wi:
+                check(close(float(signal[item_dict.id(x)]), w[j][1]),
+                      f"{body}: item {x} in a run it does not belong to")
+        j = e
+    return swaps
+
+
+def timed_posts(url, bodies):
+    """The answers and the host-clock ms of each POST, one after another."""
+    answers, lat_ms = [], []
+    for body in bodies:
+        t0 = time.perf_counter()
+        answers.append(post(url, body))
+        lat_ms.append((time.perf_counter() - t0) * 1e3)
+    return answers, lat_ms
+
+
+def serve_ur(ur, mem, deploy_models, EngineParams, model, arrays):
+    """Phase 12: two HTTP deployments of the trained model.  The listed
+    bodies go first and are each checked against the CPU predict; then
+    UR_TIMED queries drawn from UR_POOL users with history, items and item
+    sets are timed, and every tenth of them is checked the same way."""
+    hist_users, bodies = ur_bodies()
+    rng = np.random.default_rng(SEED + 1)
+    pool = hist_users + [u for u in (f"u{int(j)}" for j in rng.choice(
+        DEPLOYED_UR[0], UR_POOL, replace=False)) if u not in hist_users][: UR_POOL - 3]
+    timed = ur_queries(rng, UR_TIMED, pool)
+    mem.set_storage(history_store(mem, pool, arrays))
+    cpu_model = ur.ur_model_from_state(model.__getstate__(), device="cpu")
+    engine = ur.UniversalRecommenderEngine.apply()
+    out = {}
+    for use_llr in (False, True):
+        params = ur.URAlgorithmParams(app_name="smoke", use_llr_weights=use_llr)
+        ep = EngineParams(algorithm_params_list=[("ur", params)])
+        server = deploy_models(engine, ep, [model], port=0, query_class=ur.URQuery)
+        try:
+            url = f"http://127.0.0.1:{server.server_address[1]}/queries.json"
+            answers, lat_ms = timed_posts(url, bodies)
+            timed_answers, timed_ms = timed_posts(url, timed)
+            status = refused(url, {"user": hist_users[0], "fields": [
+                {"name": "category", "values": ["x"], "bias": -1}]})
+        finally:
+            server.shutdown()
+            server.server_close()
+        check(status == 400, f"a business-rule query answered {status}, not 400")
+        algo = ur.URAlgorithm(params)
+        checked = list(zip(bodies, answers)) + list(zip(timed, timed_answers))[::10]
+        swaps = 0
+        for body, got in checked:
+            q = ur.URQuery.from_json(body)
+            want = algo.predict(cpu_model, q).to_json()
+            hist = algo._query_hist(cpu_model, q)
+            sig = algo._score_history(cpu_model, hist) if hist is not None else None
+            swaps += check_ur_answer(body, got, want, None if sig is None else sig.numpy(),
+                                     cpu_model.item_dict)
+        for body, got in zip(bodies + timed, answers + timed_answers):
+            check(len(got["itemScores"]) == min(body["num"], len(cpu_model.item_dict))
+                  and all(np.isfinite(d["score"]) for d in got["itemScores"]),
+                  f"{body}: short answer or non-finite score")
+        p50, p99 = np.percentile(timed_ms, [50, 99])
+        print(f"  use_llr_weights={use_llr}: {len(checked)} answers equal the CPU predict "
+              f"({swaps} near-tie swaps), a rule query answered 400; latency_ms "
+              f"first={lat_ms[0]:.3f}, over {len(timed)} timed queries p50={p50:.3f} "
+              f"p99={p99:.3f} max={max(timed_ms):.3f} "
+              "(host clock, one client, a connection per request)")
+        out[use_llr] = {"first_ms": lat_ms[0], "p50_ms": float(p50), "p99_ms": float(p99),
+                        "max_ms": max(timed_ms), "n": len(timed), "checked": len(checked)}
+    return out
+
+
+def refused(url, body) -> int:
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
 # -- the run ---------------------------------------------------------------------
 
 
@@ -242,11 +658,15 @@ def run() -> None:
         from predictionio_tpu_torch.controller import EngineParams
         from predictionio_tpu_torch.device import resolve_device
         from predictionio_tpu_torch.models import recommendation as reco
+        from predictionio_tpu_torch.models import universal_recommender as ur
         from predictionio_tpu_torch.ops import build
+        from predictionio_tpu_torch.ops import cco
         from predictionio_tpu_torch.ops import hopper_kernels as hk
+        from predictionio_tpu_torch.storage import memory as mem
         from predictionio_tpu_torch.workflow.create_server import deploy_models
     except ImportError as e:
         raise SmokeFailure(f"the port is not beside this script: {e}") from e
+    t_start = time.perf_counter()
 
     phase("1. card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -265,11 +685,16 @@ def run() -> None:
             if "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    phase("3. kernel vs plain")
+    phase("3. K1 vs plain")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    max_abs_err = compare_kernel(hk, dev, gen)
+    errs = {"masked_score": compare_kernel(hk, dev, gen)}
+    phase("4. K2 vs plain")
+    errs["llr_masked"] = compare_llr(hk, dev, gen)
+    phase("5. K3 vs plain")
+    errs["tile_topk"] = compare_topk(hk, dev, gen)
+    torch.cuda.empty_cache()
 
-    phase("4. model")
+    phase("6. ALS model")
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
     model = reco.als_model_from_state(make_state(rng), device="cuda")
@@ -278,7 +703,7 @@ def run() -> None:
     print(f"users={N_USERS} items={N_ITEMS} rank={RANK} seen_nnz={model.seen.nnz} "
           f"build_s={time.perf_counter() - t0:.3f}")
 
-    phase("5. HTTP /queries.json")
+    phase("7. ALS HTTP /queries.json")
     listed = [{"user": "u1", "num": 10},
               {"user": "u2", "num": 10, "unseenOnly": True},
               {"user": "u3", "num": 10, "blackList": ["i0", "i1", "i99999", "nope"]},
@@ -291,11 +716,7 @@ def run() -> None:
     server = deploy_models(engine, ep, [model], port=0, query_class=reco.RecoQuery)
     try:
         url = f"http://127.0.0.1:{server.server_address[1]}/queries.json"
-        answers, lat_ms = [], []
-        for body in bodies:
-            t0 = time.perf_counter()
-            answers.append(post(url, body))
-            lat_ms.append((time.perf_counter() - t0) * 1e3)
+        answers, lat_ms = timed_posts(url, bodies)
         http_launches = hk.masked_score_matmul.launches
     finally:
         server.shutdown()
@@ -308,7 +729,7 @@ def run() -> None:
           f"first={lat_ms[0]:.3f} then p50={rest[len(rest) // 2]:.3f} "
           f"max={rest[-1]:.3f} (host clock, one client, a connection per request)")
 
-    phase("6. batch_predictor")
+    phase("8. ALS batch_predictor")
     batch_bodies = queries(rng, 256)
     predict_batch = engine.batch_predictor(ep, [model])
     hk.masked_score_matmul.launches = 0
@@ -322,29 +743,64 @@ def run() -> None:
           f"max_batch={predict_batch.max_batch} wall_s={batch_s:.4f} "
           f"near_tie_swaps={swaps}")
 
-    phase("7. launch counters")
+    phase("9. ALS launch counters")
     check(http_launches > 0, "the HTTP path launched no masked_score kernel")
     check(batch_launches > 0, "batch_predictor launched no masked_score kernel")
     print(f"masked_score launches: http={http_launches} batch={batch_launches}")
+    del model, engine
+    torch.cuda.empty_cache()
 
-    phase("8. timing")
+    phase("10. UR train at bench_ur's full shape: dense and resident tiled")
+    bench = train_bench_shape(cco, hk, dev)
+    torch.cuda.empty_cache()
+
+    phase("11. UR train at the deployed width (URAlgorithm.train)")
+    ur_model, arrays, deployed = train_deployed(ur, hk, dev)
+    torch.cuda.empty_cache()
+
+    phase("12. UR HTTP /queries.json")
+    served = serve_ur(ur, mem, deploy_models, EngineParams, ur_model, arrays)
+    del ur_model
+    torch.cuda.empty_cache()
+
+    phase("13. timing")
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)   # > 50 MB L2
-    rows = [time_masked_score(hk, dev, gen, b, k, N_ITEMS, flush)
-            for b, k in ((1, 32), (64, 32), (256, 64))]
-    for r in rows:
+    rows = {"masked_score": [time_masked_score(hk, dev, gen, b, k, N_ITEMS, flush)
+                             for b, k in ((1, 32), (64, 32), (256, 64))]}
+    n_items, tile = DEPLOYED_UR[1], DEPLOYED_UR[5]
+    rows["llr_masked"] = [time_llr(hk, dev, gen, n_items, tile, flush)]
+    rows["tile_topk"] = [time_topk(hk, dev, gen, n_items, tile, 64, flush)]
+    for r in rows["masked_score"]:
         print(f"  masked_score B={r['B']} K={r['K']} I={r['I']}: "
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"addmm+masked_fill_ {r['library_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | {smi}")
-    main = rows[0]   # the per-query launch of the served path
+    r = rows["llr_masked"][0]
+    print(f"  llr_masked [{r['R']} x {r['C']}] int32 counts: kernel {r['ms']:.4f} ms, "
+          f"plain {r['plain_ms']:.4f} ms, library: no single call, "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | {smi}")
+    r = rows["tile_topk"][0]
+    print(f"  tile_topk [{r['R']} x {r['W']}] b={r['b']}: kernel {r['ms']:.4f} ms, "
+          f"plain {r['plain_ms']:.4f} ms, torch.topk {r['library_ms']:.4f} ms, "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | {smi}")
+    print(f"  UR train: bench shape {bench['events']} events in {bench['wall_s']:.3f} s; "
+          f"deployed width {deployed['events']} events in {deployed['wall_s']:.3f} s, "
+          f"peak {deployed['peak_gb']:.2f} GB; UR HTTP over {served[False]['n']} queries "
+          f"p50 {served[False]['p50_ms']:.3f} ms p99 {served[False]['p99_ms']:.3f} ms | {smi}")
+    launches = {"masked_score": http_launches + batch_launches,
+                "llr_masked": deployed["launches"][0],
+                "tile_topk": deployed["launches"][1]}
+    print(json.dumps({"ur_train": {"bench_shape": bench, "deployed_width": deployed},
+                      "ur_http": {str(k).lower(): v for k, v in served.items()},
+                      "wall_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": [{
-        "name": "masked_score", "route": "cuda",
-        "source": "predictionio_tpu_torch/ops/csrc/masked_score.cu",
-        "replaces": REPLACES, "launches": http_launches + batch_launches,
-        "max_abs_err": max_abs_err, "ms": main["ms"], "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"], "shapes": rows,
-        "card": smi}]}))
+        "name": name, "route": "cuda",
+        "source": f"predictionio_tpu_torch/ops/csrc/{name}.cu",
+        "replaces": REPLACES[name], "launches": launches[name],
+        "max_abs_err": errs[name], "ms": rows[name][0]["ms"],
+        "plain_ms": rows[name][0]["plain_ms"], "bound_ms": rows[name][0]["bound_ms"],
+        "bound_by": rows[name][0]["bound_by"], "library_ms": rows[name][0]["library_ms"],
+        "shapes": rows[name], "card": smi} for name in REPLACES]}))
 
 
 def main() -> int:

@@ -1,12 +1,20 @@
-"""Hand-written Hopper kernels for the serving hot path, with their plain
-PyTorch versions.
+"""Hand-written Hopper kernels for the serving and training hot paths,
+with their plain PyTorch versions.
 
 Counterpart of ``predictionio_tpu/ops/pallas_kernels.py``:
 
-- ``masked_score_matmul`` — the ``/queries.json`` hot path of ALS
+- ``masked_score_matmul`` (K1) — the ``/queries.json`` hot path of ALS
   serving: ``scores = U @ Vᵀ + bias; scores[mask > 0] = -inf`` in one pass
   (``ops/csrc/masked_score.cu``, replacing the Pallas ``_score_kernel``),
   so the [B, I] score matrix is written to device memory once.
+- ``llr_masked_scores`` (K2) — the LLR pass of CCO training: Dunning G²
+  of every cell's 2×2 table, -inf where the count is 0 or G² misses the
+  threshold (``ops/csrc/llr_masked.cu``, replacing ``_llr_kernel``).  It
+  reads the count product's int32 output directly.
+- ``tile_topk_desc`` (K3) — the exact top-b of every row of a score tile,
+  in ``lax.top_k``'s total order (``ops/csrc/tile_topk.cu``, replacing
+  ``_topk_sort_kernel``): the row top-k of the dense CCO strategy and the
+  per-tile top-k of the tiled one.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 only for tensors on the CPU (the CPU tests).  It checks device, dtype,
@@ -23,7 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from predictionio_tpu_torch.ops import build
-from predictionio_tpu_torch.ops.topk import topk_desc
+from predictionio_tpu_torch.ops.topk import tile_topk_desc_plain, topk_desc
 
 _MASK_DTYPES = (torch.bool, torch.uint8, torch.float32)
 # grid.y limit (65535) x rows per block (64)
@@ -127,3 +135,146 @@ def recommend_batch_fused(
     """Fused-kernel scoring + ``lax.top_k``-ordered top-k: ([B, k] scores,
     [B, k] int64 item ids)."""
     return topk_desc(masked_score_matmul(u, v, mask, bias), top_k)
+
+
+# -- K2: fused LLR scoring + masking -------------------------------------------
+
+_MAX_LLR_COLS = 65535 * 1024      # grid.y limit x columns per block
+
+
+def _check_llr_args(counts, row, col) -> None:
+    if not (counts.dim() == 2 and row.dim() == 1 and col.dim() == 1):
+        raise ValueError("llr_masked_scores: counts [R, C], row [R], col [C] "
+                         f"expected, got {tuple(counts.shape)}, "
+                         f"{tuple(row.shape)}, {tuple(col.shape)}")
+    r, c = counts.shape
+    if row.shape[0] != r or col.shape[0] != c:
+        raise ValueError(f"llr_masked_scores: shapes counts {tuple(counts.shape)}, "
+                         f"row {tuple(row.shape)}, col {tuple(col.shape)} disagree")
+    for name, t in (("counts", counts), ("row", row), ("col", col)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"llr_masked_scores: int32 {name} expected, got {t.dtype}")
+    if len({t.device for t in (counts, row, col)}) != 1:
+        raise ValueError("llr_masked_scores: tensors on different devices")
+    if counts.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"llr_masked_scores: unsupported device {counts.device}")
+    # the counts may be a row-strided view (a slice of a padded product)
+    if c > 1 and counts.stride(1) != 1 or r > 1 and counts.stride(0) < c:
+        raise ValueError("llr_masked_scores: counts rows must be contiguous")
+    if c > _MAX_LLR_COLS:
+        raise ValueError(f"llr_masked_scores: C={c} exceeds {_MAX_LLR_COLS}")
+
+
+def llr_masked_scores_plain(
+    counts: torch.Tensor,      # [R, C] int32 cooccurrence counts
+    row: torch.Tensor,         # [R] int32 users per primary item
+    col: torch.Tensor,         # [C] int32 users per other item
+    n_total: float,
+    threshold: float = 0.0,
+) -> torch.Tensor:
+    """Plain PyTorch version of K2 (``_llr_mask_scores(..., pallas="off")``
+    of the JAX package): G² in f32, -inf where the count is 0 or G² <
+    ``threshold``."""
+    from predictionio_tpu_torch.ops.cco import llr_score
+
+    c = counts.to(torch.float32)
+    k11 = c
+    k12 = row.to(torch.float32)[:, None] - c
+    k21 = col.to(torch.float32)[None, :] - c
+    k22 = n_total - k11 - k12 - k21
+    scores = torch.where(c > 0, llr_score(k11, k12, k21, k22), float("-inf"))
+    return torch.where(scores >= threshold, scores, float("-inf"))
+
+
+def llr_masked_scores(
+    counts: torch.Tensor,
+    row: torch.Tensor,
+    col: torch.Tensor,
+    n_total: float,
+    threshold: float = 0.0,
+) -> torch.Tensor:
+    """Fused G² scores with zero-count and threshold masking → [R, C] f32.
+
+    CUDA tensors launch ``ops/csrc/llr_masked.cu`` on the current stream
+    (no synchronisation); CPU tensors take ``llr_masked_scores_plain``."""
+    _check_llr_args(counts, row, col)
+    if counts.device.type == "cpu":
+        return llr_masked_scores_plain(counts, row, col, n_total, threshold)
+    r, c = counts.shape
+    out = torch.empty((r, c), dtype=torch.float32, device=counts.device)
+    if r == 0 or c == 0:
+        return out
+    # the marginals are tiny: one f32 copy each (exact below 2**24)
+    row_f = row.to(torch.float32).contiguous()
+    col_f = col.to(torch.float32).contiguous()
+    fn = build.load("llr_masked").pio_llr_masked
+    with torch.cuda.device(counts.device):
+        err = fn(counts.data_ptr(), counts.stride(0) if r > 1 else c, row_f.data_ptr(),
+                 col_f.data_ptr(), float(n_total), float(threshold),
+                 out.data_ptr(), r, c,
+                 torch.cuda.current_stream(counts.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"llr_masked kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        llr_masked_scores.launches += 1
+    return out
+
+
+llr_masked_scores.launches = 0
+
+
+# -- K3: exact per-row top-b ----------------------------------------------------
+
+_MAX_TOPK_B = 1024
+
+
+def _check_topk_args(scores, b: int, id_offset: int) -> None:
+    if scores.dim() != 2:
+        raise ValueError(f"tile_topk_desc: scores [R, W] expected, got "
+                         f"{tuple(scores.shape)}")
+    if scores.dtype != torch.float32:
+        raise TypeError(f"tile_topk_desc: float32 scores expected, got {scores.dtype}")
+    if scores.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"tile_topk_desc: unsupported device {scores.device}")
+    r, w = scores.shape
+    if not (1 <= b <= _MAX_TOPK_B and b & (b - 1) == 0):
+        raise ValueError(f"tile_topk_desc: b={b} must be a power of two in "
+                         f"[1, {_MAX_TOPK_B}] (see ops.topk.block_width)")
+    if w < 1:
+        raise ValueError("tile_topk_desc: rows must have at least one column")
+    if not (0 <= id_offset and id_offset + max(w, b) < 2**31):
+        raise ValueError(f"tile_topk_desc: id_offset={id_offset} out of range")
+    if w > 1 and scores.stride(1) != 1 or r > 1 and scores.stride(0) < w:
+        raise ValueError("tile_topk_desc: score rows must be contiguous")
+
+
+def tile_topk_desc(
+    scores: torch.Tensor, b: int, id_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-``b`` of every row of f32 ``scores`` [R, W], in
+    (score desc, column asc) order: (values [R, b] f32, int32 column ids +
+    ``id_offset`` [R, b]).  A row narrower than ``b`` is padded with -inf.
+
+    CUDA tensors launch ``ops/csrc/tile_topk.cu`` on the current stream
+    (no synchronisation); CPU tensors take ``ops.topk.tile_topk_desc_plain``."""
+    _check_topk_args(scores, b, id_offset)
+    if scores.device.type == "cpu":
+        return tile_topk_desc_plain(scores, b, id_offset)
+    r, w = scores.shape
+    out_s = torch.empty((r, b), dtype=torch.float32, device=scores.device)
+    out_i = torch.empty((r, b), dtype=torch.int32, device=scores.device)
+    if r == 0:
+        return out_s, out_i
+    fn = build.load("tile_topk").pio_tile_topk
+    with torch.cuda.device(scores.device):
+        err = fn(scores.data_ptr(), scores.stride(0) if r > 1 else w, r, w, b,
+                 id_offset, out_s.data_ptr(), out_i.data_ptr(),
+                 torch.cuda.current_stream(scores.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tile_topk kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        tile_topk_desc.launches += 1
+    return out_s, out_i
+
+
+tile_topk_desc.launches = 0

@@ -54,6 +54,15 @@ class IdDict:
     def __len__(self) -> int:
         return len(self._to_str)
 
+    def strings(self) -> List[str]:
+        return list(self._to_str)
+
+    def lookup_many(self, values: Sequence[str]) -> np.ndarray:
+        """int32 ids of ``values``, -1 for unknown strings."""
+        get = self._index().get
+        return np.fromiter([get(v, -1) for v in values], dtype=np.int32,
+                           count=len(values))
+
     def to_state(self) -> List[str]:
         return self._to_str
 

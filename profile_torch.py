@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Where a served ALS query's time goes in the PyTorch/H100 port.
+"""Where the PyTorch/H100 port's time goes: ALS serving and UR training.
 
-    python3 profile_torch.py [--queries N]
+    python3 profile_torch.py [--queries N] [--only als|ur]
 
-Builds the model ``chip_smoke.py`` serves (5,000 users x 100,000 items x
-rank 32, random factors from a seed) on the CUDA card and measures, after
-a warm-up:
+ALS serving.  Builds the model ``chip_smoke.py`` serves (5,000 users x
+100,000 items x rank 32, random factors from a seed) on the CUDA card and
+measures, after a warm-up:
 
 1. library predict latency (``Engine.predictor``, no HTTP) and batch
    predict latency at the serving micro-batch (64 queries), host clock;
@@ -14,6 +14,17 @@ a warm-up:
    ``lax.top_k``-ordered top-k, the device→host copy, host result assembly;
 3. a ``torch.profiler`` window over ``--queries`` predicts: the device's
    busy share of the wall time and kernel time by kernel name.
+
+UR training.  At ``chip_smoke.py``'s deployed width (20,000 users x
+100,000 items, 400k purchase + 800k view events, top_k 50, item tile
+4,096: the P-resident tiled CCO strategy), after one warm-up train:
+
+4. ``URAlgorithm.train``'s wall time;
+5. one pass over every item tile of both event types with CUDA events
+   between the stages (staging the events, densifying P once, then per
+   tile: densify, count product, K2, K3, carry merge): device ms per stage;
+6. a ``torch.profiler`` window over one train: device busy share and kernel
+   time by kernel name.
 
 Needs a CUDA card; imports neither JAX nor the JAX package.  Prints one
 JSON object as its last line.
@@ -40,15 +51,134 @@ def _ms(samples):
             "n": len(samples)}
 
 
+def _device_kernels(prof, per: int):
+    """Device time by kernel name from a profiler window, per ``per``
+    units (queries or trains), and the window's device busy µs."""
+    kernels = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0) or 0
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.key] = {"us_per": dev_us / per, "calls": ev.count}
+    busy_us = sum(k["us_per"] for k in kernels.values()) * per
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["us_per"])[:12])
+    for name, k in top.items():
+        print(f"  {k['us_per']:11.2f} us  {k['calls']:6d} calls  {name[:90]}")
+    return top, busy_us
+
+
+def profile_ur_train(chip_smoke, smi: str) -> dict:
+    """Steps 4-6: the UR train at the deployed width, stage by stage."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from predictionio_tpu_torch.models import universal_recommender as ur
+    from predictionio_tpu_torch.ops import cco
+    from predictionio_tpu_torch.ops.hopper_kernels import tile_topk_desc
+    from predictionio_tpu_torch.ops.topk import block_width, merge_desc
+
+    n_users, n_items, _, _, top_k, tile = chip_smoke.DEPLOYED_UR
+    td, (pu, pi, vu, vi) = chip_smoke.deployed_training_data(ur)
+    algo = ur.URAlgorithm(ur.URAlgorithmParams(
+        app_name="profile", max_correlators_per_item=top_k, item_tile=tile),
+        device="cuda")
+    algo.train(td)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    algo.train(td)
+    train_s = time.perf_counter() - t0
+
+    # 5. the resident tiled loop of ops/cco.py, a CUDA event after each stage
+    stages = {k: 0.0 for k in ("stage_events", "densify_p", "densify_tile",
+                               "count_product", "llr_k2", "topk_k3", "merge")}
+    events = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((name, ev))
+
+    b = block_width(top_k)
+    n_tiles = -(-n_items // tile)
+    mark(None)
+    prim = cco._ResidentPrimary(pu, pi, n_users, n_items, torch.device("cuda"))
+    mark("densify_p")
+    for name, au, ai in (("purchase", pu, pi), ("view", vu, vi)):
+        self_pair = name == "purchase"
+        if not self_pair:
+            staged = cco._StagedCOO(au, ai, prim.pt.device, "item", tile, n_tiles)
+            mark("stage_events")
+        best_s = torch.full((n_items, b), float("-inf"), device="cuda")
+        best_i = torch.zeros((n_items, b), dtype=torch.int32, device="cuda")
+        for t in range(n_tiles):
+            t0_ = t * tile
+            if self_pair:
+                at = cco._tile_slab(prim.pt, t0_, tile)
+            else:
+                u, i = staged.span(t)
+                at = cco._densify(i - t0_, u, cco._round_up(tile, 8), prim.n_rows)
+            mark("densify_tile")
+            counts = cco._count_product(prim.pt, at)[:n_items, :tile]
+            mark("count_product")
+            scores = cco._llr_mask_scores(counts, prim.rc, cco._marginal(at)[:tile],
+                                          n_users, 0.0)
+            if self_pair:
+                scores.diagonal(offset=-t0_).fill_(float("-inf"))
+            mark("llr_k2")
+            ts, ti = tile_topk_desc(scores, b, id_offset=t0_)
+            mark("topk_k3")
+            best_s, best_i = merge_desc(best_s, best_i, ts, ti)
+            mark("merge")
+    torch.cuda.synchronize()
+    for (_, a), (name, e) in zip(events, events[1:]):
+        stages[name] += a.elapsed_time(e)
+    staged_total = sum(stages.values())
+    for name, ms in stages.items():
+        print(f"  ur train stage {name:14s} {ms:10.3f} ms device "
+              f"({100 * ms / staged_total:5.1f}%) | {smi}")
+    del prim, best_s, best_i
+    torch.cuda.empty_cache()
+
+    # 6. profiler window over one train
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        algo.train(td)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    top, busy_us = _device_kernels(prof, 1)
+    print(f"  ur train wall {train_s:.3f} s, staged device sum {staged_total:.3f} ms | {smi}")
+    return {"shape": {"users": n_users, "items": n_items, "events": len(pu) + len(vu),
+                      "top_k": top_k, "item_tile": tile, "tiles_per_type": n_tiles},
+            "train_wall_s": train_s, "stages_device_ms": stages,
+            "stages_device_total_ms": staged_total,
+            "profiler": {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+                         "device_busy_share": busy_us / wall_us if wall_us else None,
+                         "kernels_us_per_train": top}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--queries", type=int, default=200)
+    ap.add_argument("--only", choices=("als", "ur"), default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import chip_smoke
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(smi)
+    out = {"card": smi}
+    if args.only != "ur":
+        out["als_serving"] = profile_als_serving(chip_smoke, args.queries)
+    if args.only != "als":
+        out["ur_train"] = profile_ur_train(chip_smoke, smi)
+    print(json.dumps(out))
+    return 0
+
+
+def profile_als_serving(chip_smoke, n_queries: int) -> dict:
+    """Steps 1-3: ALS serving latency, per-query stages, profiler window."""
     from predictionio_tpu_torch.controller import EngineParams
     from predictionio_tpu_torch.models import recommendation as reco
     from predictionio_tpu_torch.ops import als as als_ops
@@ -61,17 +191,13 @@ def main() -> int:
     ep = EngineParams(algorithm_params_list=[("als", reco.ALSAlgorithmParams())])
     predict = engine.predictor(ep, [model])
     predict_batch = engine.batch_predictor(ep, [model])
-    qs = [reco.RecoQuery.from_json(b) for b in chip_smoke.queries(rng, args.queries)]
+    qs = [reco.RecoQuery.from_json(b) for b in chip_smoke.queries(rng, n_queries)]
     t0 = time.perf_counter()
     predict(qs[0])
     first_ms = (time.perf_counter() - t0) * 1e3
     for q in qs[:20]:
         predict(q)
     predict_batch(qs[:64])
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip()
-    print(smi)
 
     # 1. end-to-end library latency
     lat = []
@@ -120,25 +246,14 @@ def main() -> int:
             predict(q)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0) or 0
-        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[ev.key] = {"us_per_query": dev_us / len(qs), "calls": ev.count}
-    busy_us = sum(k["us_per_query"] for k in kernels.values()) * len(qs)
-    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["us_per_query"])[:12])
-    for name, k in top.items():
-        print(f"  {k['us_per_query']:9.2f} us/query  {k['calls']:6d} calls  {name[:90]}")
-    print(json.dumps({
-        "card": smi, "first_query_ms": first_ms,
-        "predict_ms": _ms(lat), "batch64_ms": _ms(batch),
-        "stages_ms": {k: _ms(v) for k, v in stages.items()},
-        "profiler": {"queries": len(qs), "wall_ms": wall_us / 1e3,
-                     "device_busy_ms": busy_us / 1e3,
-                     "device_busy_share": busy_us / wall_us if wall_us else None,
-                     "kernels": top},
-    }))
-    return 0
+    top, busy_us = _device_kernels(prof, len(qs))
+    return {"first_query_ms": first_ms,
+            "predict_ms": _ms(lat), "batch64_ms": _ms(batch),
+            "stages_ms": {k: _ms(v) for k, v in stages.items()},
+            "profiler": {"queries": len(qs), "wall_ms": wall_us / 1e3,
+                         "device_busy_ms": busy_us / 1e3,
+                         "device_busy_share": busy_us / wall_us if wall_us else None,
+                         "kernels_us_per_query": top}}
 
 
 if __name__ == "__main__":

@@ -1,0 +1,85 @@
+"""The port's CCO training op on the edge cases of its counts: indicators
+against the JAX package on duplicated events, per-type thresholds and
+counts past bf16's exact range; the dense and P-resident strategies bit
+for bit; the exact int32 count product and marginals; and the strategies
+not ported yet.
+
+Inputs, tolerances and the indicator check are those of
+tests/test_torch_cco.py (tests/_torch_cco_cases.py); counts and marginals
+are exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from predictionio_tpu_torch.ops import cco as port_cco
+
+from _torch_cco_cases import (CORPORA, EDGE_CORPORA, JAX_ENVS, check_cco_matches_jax,
+                              corpus, others, port_result)
+
+
+@pytest.mark.parametrize("ref", sorted(JAX_ENVS))
+@pytest.mark.parametrize("strategy", ["dense", "resident"])
+@pytest.mark.parametrize("corpus", EDGE_CORPORA)
+def test_cco_train_indicators_matches_jax(corpus, strategy, ref):
+    check_cco_matches_jax(corpus, strategy, ref)
+
+
+@pytest.mark.parametrize("name", CORPORA)
+def test_dense_and_resident_strategies_are_bit_identical(name):
+    dense, resident = port_result(name, "dense"), port_result(name, "resident")
+    for event in dense:
+        np.testing.assert_array_equal(dense[event][0].view(np.int32),
+                                      resident[event][0].view(np.int32))
+        np.testing.assert_array_equal(dense[event][1], resident[event][1])
+
+
+@pytest.mark.parametrize("name", ["naive", "duplicates", "planted301", "planted4097"])
+def test_dense_counts_and_marginals_are_exact(name):
+    c = corpus(name)
+    runner = port_cco._DenseRunner(c["pu"], c["pi"], c["n_users"], c["n_ip"],
+                                   max(c["n_ip"], 128), torch.device("cpu"))
+    P = np.zeros((c["n_users"], c["n_ip"]), np.int64)
+    P[c["pu"], c["pi"]] = 1
+    A = np.zeros((c["n_users"], c["n_it"]), np.int64)
+    A[c["vu"], c["vi"]] = 1
+    for self_pair, M in ((True, P), (False, A)):
+        C, rc, cc = runner.counts(c["vu"], c["vi"], c["n_it"], self_pair=self_pair)
+        want = P.T @ M
+        np.testing.assert_array_equal(C.numpy()[:, :want.shape[1]], want)
+        assert not C.numpy()[:, want.shape[1]:].any()
+        np.testing.assert_array_equal(rc.numpy(), P.sum(0))
+        np.testing.assert_array_equal(cc.numpy()[:want.shape[1]], M.sum(0))
+    if name.startswith("planted"):
+        n_big = int(name[len("planted"):])
+        C, _, _ = runner.counts(None, None, c["n_ip"], self_pair=True)
+        assert int(C[0, 1]) >= n_big and int(C[0, 2]) >= 301
+
+
+def test_resident_count_product_is_exact_past_bf16():
+    """One tile's product at planted counts of 4,097 and 301: exact int32."""
+    c = corpus("planted4097")
+    prim = port_cco._ResidentPrimary(c["pu"], c["pi"], c["n_users"], c["n_ip"],
+                                     torch.device("cpu"))
+    counts = port_cco._count_product(prim.pt, prim.pt[:8])[:c["n_ip"], :8]
+    P = np.zeros((c["n_users"], c["n_ip"]), np.int64)
+    P[c["pu"], c["pi"]] = 1
+    np.testing.assert_array_equal(counts.numpy(), (P.T @ P)[:, :8])
+    assert counts.dtype == torch.int32 and int(counts[0, 1]) >= 4097
+
+
+def test_unported_strategies_raise_naming_the_roadmap():
+    c = corpus("train")
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(port_cco, "_DENSE_C_BYTES", 0)
+        mp.setattr(port_cco, "_TILED_P_BYTES", 0)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            port_cco.cco_train_indicators(c["pu"], c["pi"], others(c), c["n_users"],
+                                          c["n_ip"], device="cpu")
+    finally:
+        mp.undo()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_cco.cco_train_indicators(c["pu"], c["pi"], others(c), c["n_users"],
+                                      c["n_ip"], device="cpu", mesh=object())

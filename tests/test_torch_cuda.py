@@ -46,3 +46,45 @@ def test_masked_score_kernel_matches_plain(dev, shape, with_bias, mask_dtype):
     assert torch.equal(torch.isneginf(got), torch.isneginf(want))
     fin = torch.isfinite(want)
     torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-5)
+
+
+def _llr_inputs(dev, r, c, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    counts = torch.randint(0, 8, (r, c), generator=g, device=dev, dtype=torch.int32)
+    counts *= torch.rand(r, c, generator=g, device=dev) < 0.3
+    row = counts.sum(1, dtype=torch.int32) + torch.randint(
+        0, 60, (r,), generator=g, device=dev, dtype=torch.int32)
+    col = counts.sum(0, dtype=torch.int32) + torch.randint(
+        0, 60, (c,), generator=g, device=dev, dtype=torch.int32)
+    return counts, row, col, float(int(row.sum()) + 1000)
+
+
+@pytest.mark.parametrize("thr", [0.0, 2.0])
+@pytest.mark.parametrize("shape", [(37, 190), (1000, 4096), (8192, 1027)])
+def test_llr_masked_kernel_matches_plain(dev, shape, thr):
+    counts, row, col, n = _llr_inputs(dev, *shape, seed=sum(shape))
+    before = hk.llr_masked_scores.launches
+    got = hk.llr_masked_scores(counts, row, col, n, thr)
+    want = hk.llr_masked_scores_plain(counts, row, col, n, thr)
+    torch.cuda.synchronize()
+    assert hk.llr_masked_scores.launches == before + 1
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b", [1, 8, 64, 1024])
+@pytest.mark.parametrize("shape", [(37, 300), (1000, 4096), (3, 300_000), (5, 6)])
+def test_tile_topk_kernel_matches_plain(dev, shape, b):
+    r, w = shape
+    g = torch.Generator(device=dev).manual_seed(r + w + b)
+    s = torch.round(torch.randn(r, w, generator=g, device=dev) * 4) / 4  # ties
+    s[:, ::5] = float("-inf")
+    s[0, : w // 2] = float("-inf")
+    s[-1] = 0.5
+    before = hk.tile_topk_desc.launches
+    got_v, got_i = hk.tile_topk_desc(s, b, id_offset=7)
+    want_v, want_i = hk.tile_topk_desc_plain(s, b, id_offset=7)
+    torch.cuda.synchronize()
+    assert hk.tile_topk_desc.launches == before + 1
+    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)

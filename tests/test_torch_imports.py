@@ -12,7 +12,8 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "predictionio_tpu_torch"
 
-# the port's predict and server path on the CPU, in a fresh interpreter
+# the port's ALS serving and UR train + serving paths on the CPU, in a
+# fresh interpreter
 _DRIVE = r"""
 import json, sys, urllib.request
 import numpy as np
@@ -35,6 +36,28 @@ engine.batch_predictor(ep, [model])([reco.RecoQuery(user="u1", num=2)] * 3)
 server = deploy_models(engine, ep, [model], query_class=reco.RecoQuery)
 url = f"http://127.0.0.1:{server.server_address[1]}/queries.json"
 req = urllib.request.Request(url, data=json.dumps({"user": "u2"}).encode())
+assert json.loads(urllib.request.urlopen(req, timeout=30).read())["itemScores"]
+server.shutdown(); server.server_close()
+
+from predictionio_tpu_torch.models import universal_recommender as ur
+from predictionio_tpu_torch.storage import memory as mem
+u = rng.integers(0, 30, 300)
+i = rng.integers(0, 12, 300)
+td = ur.ur_training_data_from_arrays(
+    ["buy"], [f"u{j}" for j in range(30)],
+    {"buy": (u, i, [f"i{j}" for j in range(12)], np.arange(300.0))})
+params = ur.URAlgorithmParams(app_name="a", max_correlators_per_item=4)
+ur_model = ur.URAlgorithm(params, device="cpu").train(td)
+store = mem.MemStorage()
+store.l_events.insert(mem.Event("buy", "user", "u1", target_entity_type="item",
+                                target_entity_id="i3"), store.apps.insert("a"))
+mem.set_storage(store)
+ur_engine = ur.UniversalRecommenderEngine.apply()
+ur_ep = EngineParams(algorithm_params_list=[("ur", params)])
+assert ur_engine.predictor(ur_ep, [ur_model])(ur.URQuery(user="u1", num=3)).item_scores
+server = deploy_models(ur_engine, ur_ep, [ur_model], query_class=ur.URQuery)
+url = f"http://127.0.0.1:{server.server_address[1]}/queries.json"
+req = urllib.request.Request(url, data=json.dumps({"item": "i2"}).encode())
 assert json.loads(urllib.request.urlopen(req, timeout=30).read())["itemScores"]
 server.shutdown(); server.server_close()
 bad = sorted(m for m in sys.modules

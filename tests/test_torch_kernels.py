@@ -225,7 +225,8 @@ def test_build_is_content_keyed_and_raises_on_a_failed_build(tmp_path, monkeypat
     fake.chmod(0o755)
     csrc = tmp_path / "csrc"
     csrc.mkdir()
-    (csrc / "masked_score.cu").write_text("// v1\n")
+    for name in build.SIGNATURES:            # one stand-in source per kernel
+        (csrc / f"{name}.cu").write_text(f"// {name} v1\n")
     monkeypatch.setenv("PATH", f"{fake.parent}:{os.environ['PATH']}")
     monkeypatch.setattr(build, "CSRC_DIR", csrc)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
@@ -234,6 +235,7 @@ def test_build_is_content_keyed_and_raises_on_a_failed_build(tmp_path, monkeypat
     build.build_all()
     first = build.artifact("masked_score")
     assert first.exists() and "Used 8 registers" in build.build_logs["masked_score"]
+    assert sorted(build.build_logs) == sorted(build.SIGNATURES)   # all, at once
     build.build_logs.clear()
     build.build_all()                       # artifact exists: no nvcc run
     assert build.build_logs == {}
