@@ -13,12 +13,18 @@ each of which fails the run (exit code != 0, no final ``ok`` line):
    reports;
 3. hold K1 (masked score) against its plain PyTorch version at the serving
    shapes (-inf positions exact, finite values within rtol/atol 1e-5);
-4. hold K2 (LLR + masking) against its plain version at [100,000 x 4,096],
-   [8,192 x 8,192] and [37 x 190], thresholds 0 and 2 (-inf positions
-   exact, finite values within rtol/atol 1e-4);
-5. hold K3 (exact row top-b) against its plain version at [100,000 x 4,096]
-   and [8,192 x 8,192] with b = 64, one row of 300,000, [37 x 300] with
-   b = 8, with planted ties and -inf runs (values and ids equal);
+4. hold K2 (LLR + masking) against its plain version, bit for bit, at
+   [100,000 x 4,096], [8,192 x 8,192] and [37 x 190] with ~30% nonzero
+   counts, and at [100,000 x 4,096] and [37 x 190] at the training tiles'
+   sparsity (>99% zeros, all-zero rows), packed and as a row-strided view
+   whose stride is no multiple of 4; thresholds 0 and 2;
+5. hold K3 (exact row top-b) against its plain version, values and ids
+   equal: [100,000 x 4,096] and [8,192 x 8,192] with b = 64, one row of
+   300,000, [37 x 300] with b = 8, with planted ties and -inf runs; rows
+   that are -inf but a few finite scores (and one all -inf), ascending rows
+   (the pre-filter's worst case), b in {8, 64, 1024}; and the carry form
+   against ``merge_desc(carry, tile_topk_desc(...))`` from the tiled loop's
+   (-inf, 0) initial carry and from a random sorted carry;
 ALS serving (the first slice's path):
 6. build the full-width ALS model — 5,000 users x 100,000 items x rank 32,
    random factors from a seed — through ``als_model_from_state``;
@@ -38,7 +44,10 @@ UR training and serving (this slice's path):
     purchase + 800k view events, top_k 50, tile 4,096) through
     ``URAlgorithm.train``: the resident tiled path, 25 tiles x 2 event
     types, so K2 and K3 each launch 50 times (counters set to 0 just before
-    the run and read just after);
+    the run and read just after) and ``merge_desc`` never runs on the card
+    (K3 merges the carry); the indicator tables must equal, bit for bit,
+    tables rebuilt here from the port's pieces with K3 unfused (a tile loop
+    of K3 without a carry, then ``merge_desc``);
 12. serve that model over HTTP (``deploy_models``, two deployments: LLR
     weights off and on): nine listed queries of every kind, then 300
     timed ones (p50 and p99) drawn from 100 users with history, the items
@@ -47,8 +56,14 @@ UR training and serving (this slice's path):
     (the plain path);
 13. time each kernel, its plain version and a PyTorch yardstick where one
     exists, with CUDA events and the L2 flushed, beside its bound (bytes
-    over 3.35 TB/s or fp32 operations over 67 TFLOP/s, the H100 SXM data
-    sheet's peaks).
+    over 3.35 TB/s or operations over 67 TFLOP/s, the H100 SXM data sheet's
+    peaks) and the SM clock and clock-event reasons, sampled through NVML
+    while the timed launches run: K2 and K3 on random inputs and on one count
+    tile and one score tile captured from the deployed-width train (with
+    their measured share of nonzero counts and finite scores), and K1 at
+    B=1 against ``addmm`` + ``masked_fill_`` in 5 interleaved rounds.  K2's
+    operations a nonzero cell are counted from the SASS of its cell
+    function (``cuobjdump``), built in phase 2.
 
 The line before the last is one JSON object with a row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -56,10 +71,13 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 import urllib.error
@@ -77,10 +95,8 @@ PEAK_F32_FLOP_S = 67e12       # H100 SXM fp32 outside the tensor cores
 REPLACES = {"masked_score": "predictionio_tpu/ops/pallas_kernels.py:105",
             "llr_masked": "predictionio_tpu/ops/pallas_kernels.py:191",
             "tile_topk": "predictionio_tpu/ops/pallas_kernels.py:321"}
-LLR_RTOL, LLR_ATOL = 1e-4, 1e-4   # K2: f32 log1p and division orders
-# K2 per cell: ~48 fp32 adds, multiplies, divides and max, plus four log1pf
-# counted at ~10 operations each
-LLR_OPS_PER_CELL = 88
+PEAK_ISSUE_S = PEAK_F32_FLOP_S / 2   # lane-instructions a second: 132 SMs x 128 x 1.98 GHz
+HOST_COVER_CYCLES = 2_000_000       # ~1 ms of device spin before each timed call
 # bench_ur's full shape (bench.py:62-63) and the deployed UR width
 # (bench.py:150): users, items, primary events, other events, top_k, tile
 BENCH_UR = (100_000, 8_192, 1_000_000, 3_000_000, 50, 4_096)
@@ -227,20 +243,94 @@ def post(url, body):
 # -- phase 13: timing ----------------------------------------------------------
 
 
-def time_cold(fn, flush, reps=50):
+class SMClock:
+    """Card 0's SM clock and clock-event (throttle) reasons, read through
+    NVML by a background thread while timed launches run (``sampling``);
+    ``summary`` covers the samples since ``reset``."""
+
+    SM = 1   # NVML_CLOCK_SM
+    REASONS = {0x1: "gpu_idle", 0x2: "applications_clocks", 0x4: "sw_power_cap",
+               0x8: "hw_slowdown", 0x10: "sync_boost", 0x20: "sw_thermal",
+               0x40: "hw_thermal", 0x80: "hw_power_brake", 0x100: "display_clocks"}
+
+    def __init__(self):
+        self.nvml = ctypes.CDLL("libnvidia-ml.so.1")
+        check(self.nvml.nvmlInit_v2() == 0, "nvmlInit_v2 failed")
+        self.handle = ctypes.c_void_p()
+        check(self.nvml.nvmlDeviceGetHandleByIndex_v2(0, ctypes.byref(self.handle)) == 0,
+              "NVML has no card 0")
+        self.reasons_fn = (getattr(self.nvml, "nvmlDeviceGetCurrentClocksEventReasons", None)
+                           or self.nvml.nvmlDeviceGetCurrentClocksThrottleReasons)
+        self.samples = []
+
+    def read(self):
+        """(SM MHz, reason bits) now."""
+        mhz, reasons = ctypes.c_uint(), ctypes.c_ulonglong()
+        check(self.nvml.nvmlDeviceGetClockInfo(self.handle, self.SM, ctypes.byref(mhz)) == 0,
+              "nvmlDeviceGetClockInfo failed")
+        check(self.reasons_fn(self.handle, ctypes.byref(reasons)) == 0,
+              "NVML clock-event reasons failed")
+        return mhz.value, reasons.value
+
+    @contextlib.contextmanager
+    def sampling(self, period_s=0.001):
+        stop, errors = threading.Event(), []
+
+        def poll():
+            try:
+                while True:
+                    self.samples.append(self.read())
+                    if stop.wait(period_s):
+                        return
+            except Exception as e:   # reported by the timing thread
+                errors.append(e)
+
+        thread = threading.Thread(target=poll, daemon=True)
+        thread.start()
+        try:
+            yield
+        finally:
+            stop.set()
+            thread.join()
+        if errors:
+            raise SmokeFailure(f"NVML sampling failed: {errors[0]!r}")
+
+    def reset(self):
+        self.samples = []
+
+    def summary(self) -> dict:
+        mhz = [m for m, _ in self.samples]
+        bits = 0
+        for _, r in self.samples:
+            bits |= r
+        return {"sm_mhz_min": min(mhz), "sm_mhz_max": max(mhz), "samples": len(mhz),
+                "reasons": [name for bit, name in self.REASONS.items() if bits & bit]}
+
+
+def clock_text(c: dict) -> str:
+    return (f"sm {c['sm_mhz_min']}-{c['sm_mhz_max']} MHz over {c['samples']} samples "
+            f"during the timing, reasons {'+'.join(c['reasons']) or 'none'}")
+
+
+def time_cold(fn, flush, clock, reps=50):
     """Median ms of one call with the L2 cache flushed before it (the
-    catalog's factors are not left in L2 by the previous query)."""
+    catalog's factors are not left in L2 by the previous query); the SM
+    clock is sampled while the timed calls run.  A ~1 ms spin on the
+    device follows the flush, so that a launch the host makes late (an
+    NVML read can stall it) adds no idle time between the events."""
     for _ in range(5):
         fn()
     times = []
-    for _ in range(reps):
-        flush.zero_()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
+    with clock.sampling():
+        for _ in range(reps):
+            flush.zero_()
+            torch.cuda._sleep(HOST_COVER_CYCLES)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
     return statistics.median(times)
 
 
@@ -256,7 +346,7 @@ def bound_ms(b, k, n, with_bias=False, mask_bytes=1):
     return bound(bytes_, 2 * b * n * k + (b * n if with_bias else 0))
 
 
-def time_masked_score(hk, dev, gen, b, k, n, flush):
+def time_masked_score(hk, dev, gen, b, k, n, flush, clock):
     u, v, mask, _ = score_inputs(b, k, n, dev, gen)
     fill, zero = mask.bool(), torch.zeros(n, device=dev)
 
@@ -264,51 +354,210 @@ def time_masked_score(hk, dev, gen, b, k, n, flush):
         return torch.addmm(zero, u, v.T).masked_fill_(fill, float("-inf"))
 
     launches = hk.masked_score_matmul.launches
+    clock.reset()
     row = {"B": b, "K": k, "I": n,
-           "ms": time_cold(lambda: hk.masked_score_matmul(u, v, mask), flush),
-           "plain_ms": time_cold(lambda: hk.masked_score_matmul_plain(u, v, mask), flush),
-           "library_ms": time_cold(library, flush)}
+           "ms": time_cold(lambda: hk.masked_score_matmul(u, v, mask), flush, clock),
+           "plain_ms": time_cold(lambda: hk.masked_score_matmul_plain(u, v, mask), flush, clock),
+           "library_ms": time_cold(library, flush, clock)}
     hk.masked_score_matmul.launches = launches   # timing launches do not count
     row["bound_ms"], row["bound_by"] = bound_ms(b, k, n)
+    row["sm_clock"] = clock.summary()
     return row
 
 
-def time_llr(hk, dev, gen, r, c, flush):
-    counts, row, col, n = llr_inputs(r, c, dev, gen)
+def time_llr(hk, counts, row, col, n, flush, clock, ops_per_cell, label):
+    """K2 on one input: kernel, plain version, bound (bytes, or the
+    operations of this input's nonzero cells)."""
     launches = hk.llr_masked_scores.launches
-    row_ = {"R": r, "C": c,
-            "ms": time_cold(lambda: hk.llr_masked_scores(counts, row, col, n, 2.0), flush),
+    r, c = counts.shape
+    nnz = int((counts > 0).sum())
+    clock.reset()
+    row_ = {"input": label, "R": r, "C": c, "nonzero_share": nnz / (r * c),
+            "ms": time_cold(lambda: hk.llr_masked_scores(counts, row, col, n, 2.0), flush, clock),
             "plain_ms": time_cold(lambda: hk.llr_masked_scores_plain(counts, row, col, n, 2.0),
-                                  flush, reps=10),
+                                  flush, clock, reps=10),
             "library_ms": None}   # no single PyTorch call computes G²
     hk.llr_masked_scores.launches = launches   # timing launches do not count
-    # int32 counts and marginals in, f32 scores out
+    # int32 counts and marginals in, f32 scores out; a zero count costs no
+    # operation
     row_["bound_ms"], row_["bound_by"] = bound(r * c * (4 + 4) + 4 * (r + c),
-                                               r * c * LLR_OPS_PER_CELL)
+                                               nnz * ops_per_cell)
+    row_["sm_clock"] = clock.summary()
     return row_
 
 
-def time_topk(hk, dev, gen, r, w, b, flush):
-    s = topk_inputs(r, w, dev, gen)
+def time_topk(hk, s, b, flush, clock, label, carry=None):
+    """K3 on one input, without or with a carry: kernel, plain version,
+    ``torch.topk(values, b)`` and the bound."""
+    from predictionio_tpu_torch.ops.topk import merge_desc
+
     launches = hk.tile_topk_desc.launches
-    row_ = {"R": r, "W": w, "b": b,
-            "ms": time_cold(lambda: hk.tile_topk_desc(s, b), flush),
-            "plain_ms": time_cold(lambda: hk.tile_topk_desc_plain(s, b), flush, reps=10),
-            "library_ms": time_cold(lambda: torch.topk(s, b, dim=1), flush)}
+    r, w = s.shape
+    if carry is None:
+        plain = lambda: hk.tile_topk_desc_plain(s, b)  # noqa: E731
+    else:
+        plain = lambda: merge_desc(*carry, *hk.tile_topk_desc_plain(s, b))  # noqa: E731
+    clock.reset()
+    row_ = {"input": label, "R": r, "W": w, "b": b, "carry": carry is not None,
+            "finite_share": float(torch.isfinite(s).float().mean()),
+            "ms": time_cold(lambda: hk.tile_topk_desc(s, b, carry=carry), flush, clock),
+            "plain_ms": time_cold(plain, flush, clock, reps=10),
+            "library_ms": time_cold(lambda: torch.topk(s, b, dim=1), flush, clock)}
     hk.tile_topk_desc.launches = launches
-    # each score read once, b values and ids written; at least one
-    # comparison per score
-    row_["bound_ms"], row_["bound_by"] = bound(r * w * 4 + r * b * 8, r * w)
+    # each score read once (and the carry), b values and ids written; at
+    # least one comparison per score
+    carry_bytes = r * b * 8 if carry is not None else 0
+    row_["bound_ms"], row_["bound_by"] = bound(r * w * 4 + r * b * 8 + carry_bytes, r * w)
+    row_["sm_clock"] = clock.summary()
     return row_
+
+
+def retime_k1(hk, dev, gen, flush, clock, rounds=5):
+    """K1 at B=1 against addmm + masked_fill_, interleaved round by round."""
+    u, v, mask, _ = score_inputs(1, 32, N_ITEMS, dev, gen)
+    fill, zero = mask.bool(), torch.zeros(N_ITEMS, device=dev)
+    launches = hk.masked_score_matmul.launches
+    out = []
+    for _ in range(rounds):
+        clock.reset()
+        k1 = time_cold(lambda: hk.masked_score_matmul(u, v, mask), flush, clock)
+        lib = time_cold(lambda: torch.addmm(zero, u, v.T).masked_fill_(fill, float("-inf")),
+                        flush, clock)
+        out.append({"k1_ms": k1, "library_ms": lib, "sm_clock": clock.summary()})
+    hk.masked_score_matmul.launches = launches
+    return out
+
+
+# -- phase 2: K2's instructions a cell, from SASS -----------------------------------
+
+# A kernel around K2's nonzero-cell function alone: its SASS, less the
+# probe's own loads, stores and index arithmetic, is the work of one nonzero
+# cell.
+LLR_PROBE = r"""
+#include "{source}"
+extern "C" __global__ void llr_cell_probe(const int32_t* c, const float* m, float* o) {{
+  const int t = threadIdx.x;
+  o[t] = llr_nonzero(c[t], m[0], m[2 + t], m[1], m[0] + m[1]);
+}}
+"""
+_PROBE_OVERHEAD = ("LDG", "STG", "S2R", "S2UR", "LDC", "ULDC", "EXIT", "NOP", "BRA", "RET")
+
+
+def parse_sass(text):
+    """{function: [(offset, opcode, operands)]} of ``cuobjdump --dump-sass``."""
+    import re
+
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and cur is not None:
+            body = re.sub(r"^@!?U?P[T0-9]+\s+", "", m.group(2))
+            op, _, rest = body.partition(" ")
+            cur.append((int(m.group(1), 16), op, rest))
+    return funcs
+
+
+def llr_sass_count(build) -> dict:
+    """SASS instructions on K2's nonzero-cell path, from a probe built from
+    the checkout's ``llr_masked.cu``: the probe's main path (out-of-line
+    division slow paths, reached by CALL, excluded) less its own overhead.
+    Also the instruction count of each K2 kernel in the built library."""
+    cuobjdump = str(Path(build.nvcc()).with_name("cuobjdump"))
+    lib = subprocess.run([cuobjdump, "--dump-sass", str(build.artifact("llr_masked"))],
+                         capture_output=True, text=True, timeout=120, check=True).stdout
+    kernels = {name: len(ins) for name, ins in parse_sass(lib).items()}
+    probe_dir = build.BUILD_DIR / "sass_probe"
+    probe_dir.mkdir(parents=True, exist_ok=True)
+    src, cubin = probe_dir / "llr_cell_probe.cu", probe_dir / "llr_cell_probe.cubin"
+    src.write_text(LLR_PROBE.format(source=build.source("llr_masked").resolve()))
+    subprocess.run([build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                    "-O3", "-cubin", "-o", str(cubin), str(src)],
+                   capture_output=True, text=True, timeout=300, check=True)
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(cubin)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    ins = parse_sass(sass)["llr_cell_probe"]
+    # the main path ends at its last EXIT before the first out-of-line
+    # subroutine (the division slow path, which ends in RET)
+    rets = [off for off, op, _ in ins if op.startswith("RET")]
+    end = max(off for off, op, _ in ins if op == "EXIT" and (not rets or off < rets[0]))
+    main = [op for off, op, _ in ins if off <= end]
+    sub = [op for off, op, _ in ins if off > end and op not in ("NOP", "BRA")]
+    cell = [op for op in main if op.split(".")[0] not in _PROBE_OVERHEAD
+            and not op.startswith("IMAD.WIDE")]
+    hist = {}
+    for op in cell:
+        hist[op.split(".")[0]] = hist.get(op.split(".")[0], 0) + 1
+    return {"instructions": len(cell), "ops": len(cell) + hist.get("FFMA", 0),
+            "by_opcode": dict(sorted(hist.items(), key=lambda kv: -kv[1])),
+            "probe_total": len(ins), "slow_path": len(sub), "kernels": kernels}
+
+
+def train_tiles(cco, hk, td, dev, tile, mark=lambda stage: None):
+    """The resident tiled loop of ``ops/cco.py:_cco_indicators_resident`` as
+    the deployed train runs it (LLR threshold 0, the primary's diagonal
+    masked), up to K3: yields (event name, first item of the tile, counts,
+    row marginals, column marginals, scores) for each item tile of each
+    event type.  ``mark(stage)`` is called as each stage is enqueued
+    (``None`` before the first), for CUDA events between the stages."""
+    primary = td.event_names[0]
+    p_user, p_item, p_dict, _ = td.interactions[primary]
+    n_users, n_items = len(td.user_dict), len(p_dict)
+    mark(None)
+    prim = cco._ResidentPrimary(p_user, p_item, n_users, n_items, dev)
+    mark("densify_p")
+    for name in td.event_names:
+        a_user, a_item, a_dict, _ = td.interactions[name]
+        n_tiles = -(-len(a_dict) // tile)
+        self_pair = name == primary
+        if not self_pair:
+            staged = cco._StagedCOO(a_user, a_item, dev, "item", tile, n_tiles)
+            mark("stage_events")
+        for t in range(n_tiles):
+            t0 = t * tile
+            if self_pair:
+                at = cco._tile_slab(prim.pt, t0, tile)
+            else:
+                u, i = staged.span(t)
+                at = cco._densify(i - t0, u, cco._round_up(tile, 8), prim.n_rows)
+            mark("densify_tile")
+            counts = cco._count_product(prim.pt, at)[:n_items, :tile]
+            mark("count_product")
+            cc = cco._marginal(at)[:tile]
+            scores = hk.llr_masked_scores(counts, prim.rc, cc, float(n_users), 0.0)
+            if self_pair:
+                scores.diagonal(offset=-t0).fill_(float("-inf"))
+            mark("llr_k2")
+            yield name, t0, counts, prim.rc, cc, scores
+            del at, counts, cc, scores
+
+
+def capture_train_tiles(cco, hk, td, dev, tile, t=12):
+    """One count tile and its score tile as the deployed train makes them:
+    tile ``t`` of the second event type against the resident primary."""
+    for name, t0, counts, rc, cc, scores in train_tiles(cco, hk, td, dev, tile):
+        if name == td.event_names[1] and t0 == t * tile:
+            return counts, rc, cc, float(len(td.user_dict)), scores
+    raise SmokeFailure(f"the deployed train has no tile {t} of {td.event_names[1]}")
 
 
 # -- phases 4-5: K2 and K3 against their plain versions -----------------------------
 
 
-def llr_inputs(r, c, dev, gen):
-    """Counts with ~30% nonzero cells and marginals that bound them."""
-    counts = torch.randint(0, 8, (r, c), generator=gen, device=dev, dtype=torch.int32)
-    counts *= torch.rand(r, c, generator=gen, device=dev) < 0.3
+def llr_inputs(r, c, dev, gen, kind="random"):
+    """Counts with ~30% nonzero cells ("random") or at the training tiles'
+    sparsity ("sparse": ~0.16% nonzero, every 50th row all zero), and
+    marginals that bound them."""
+    if kind == "random":
+        counts = torch.randint(0, 8, (r, c), generator=gen, device=dev, dtype=torch.int32)
+        counts *= torch.rand(r, c, generator=gen, device=dev) < 0.3
+    else:
+        counts = torch.randint(1, 40, (r, c), generator=gen, device=dev, dtype=torch.int32)
+        counts *= torch.rand(r, c, generator=gen, device=dev) < 0.0016
+        counts[::50] = 0
     row = counts.sum(1, dtype=torch.int32) + torch.randint(
         0, 60, (r,), generator=gen, device=dev, dtype=torch.int32)
     col = counts.sum(0, dtype=torch.int32) + torch.randint(
@@ -316,51 +565,117 @@ def llr_inputs(r, c, dev, gen):
     return counts, row, col, float(int(row.max()) + int(col.max()) + 100)
 
 
+def strided_view(counts):
+    """The same counts as a row-strided view whose row stride (C + 3) is no
+    multiple of 4 and whose base is one element into its allocation."""
+    r, c = counts.shape
+    wide = torch.zeros((r, c + 3), dtype=counts.dtype, device=counts.device)
+    wide[:, 1:c + 1] = counts
+    return wide[:, 1:c + 1]
+
+
+# (counts kind, R, C, row-strided view)
+LLR_CASES = [("random", 100_000, 4_096, False), ("random", 8_192, 8_192, False),
+             ("random", 37, 190, False), ("sparse", 100_000, 4_096, False),
+             ("sparse", 100_000, 4_096, True), ("sparse", 37, 190, True)]
+# (scores kind, R, W, b) without a carry
+TOPK_CASES = [("ties", 100_000, 4_096, 64), ("ties", 8_192, 8_192, 64),
+              ("ties", 1, 300_000, 64), ("ties", 37, 300, 8),
+              ("sparse", 100_000, 4_096, 64), ("ascending", 100_000, 4_096, 64),
+              ("sparse", 8_192, 4_096, 8), ("ascending", 8_192, 4_097, 8),
+              ("ties", 8_192, 4_096, 1024), ("sparse", 8_192, 4_096, 1024),
+              ("ascending", 2_048, 4_096, 1024)]
+# (b, R) of the carry form, each over CARRY_W columns of every scores kind
+CARRY_CASES = [(64, 100_000), (8, 8_192), (1024, 2_048)]
+CARRY_W = 4_096
+
+
 def compare_llr(hk, dev, gen) -> float:
     worst = 0.0
-    for r, c in ((100_000, 4_096), (8_192, 8_192), (37, 190)):
-        counts, row, col, n = llr_inputs(r, c, dev, gen)
+    for kind, r, c, strided in LLR_CASES:
+        counts, row, col, n = llr_inputs(r, c, dev, gen, kind)
+        if strided:
+            counts = strided_view(counts)
+        zeros = (counts == 0).float().mean().item()
         for thr in (0.0, 2.0):
             got = hk.llr_masked_scores(counts, row, col, n, thr)
             want = hk.llr_masked_scores_plain(counts, row, col, n, thr)
             torch.cuda.synchronize()
-            tag = f"K2 [{r} x {c}] threshold={thr}"
-            check(torch.equal(torch.isneginf(got), torch.isneginf(want)),
-                  f"-inf positions differ at {tag}")
+            tag = (f"K2 [{r} x {c}] {kind} zeros={zeros:.4f} "
+                   f"ld={counts.stride(0)} threshold={thr}")
             fin = torch.isfinite(want)
-            err = (got[fin] - want[fin]).abs()
-            check(bool((err <= LLR_ATOL + LLR_RTOL * want[fin].abs()).all()),
-                  f"{tag}: beyond rtol/atol 1e-4, max abs err {err.max().item()}")
-            worst = max(worst, err.max().item())
-            print(f"  ok {tag} finite={int(fin.sum())} max_abs_err={err.max().item():.3e} "
-                  f"bit_equal={torch.equal(got, want)}")
-            del got, want, fin, err
+            err = (got[fin] - want[fin]).abs().max().item() if bool(fin.any()) else 0.0
+            check(torch.equal(got, want), f"{tag}: kernel and plain differ (max abs err {err})")
+            worst = max(worst, err)
+            print(f"  ok {tag} finite={int(fin.sum())} bit_equal=True")
+            del got, want, fin
         del counts
     return worst
 
 
-def topk_inputs(r, w, dev, gen):
-    """Scores on a 1/8 grid (many exact ties), every ninth column -inf,
-    half of row 0 -inf and row 1 one constant."""
-    s = torch.round(torch.randn(r, w, generator=gen, device=dev) * 8) / 8
-    s[:, ::9] = float("-inf")
-    s[0, : w // 2] = float("-inf")
-    if r > 1:
-        s[1] = 0.5
+def topk_inputs(r, w, dev, gen, kind="ties"):
+    """"ties": scores on a 1/8 grid (many exact ties), every ninth column
+    -inf, half of row 0 -inf and row 1 one constant.  "sparse": the
+    training tiles, -inf but ~0.16% finite scores on a 1/8 grid, row 1 all
+    -inf.  "ascending": every row ascending (row 0 with ties), so every
+    score passes K3's pre-filter."""
+    if kind == "ties":
+        s = torch.round(torch.randn(r, w, generator=gen, device=dev) * 8) / 8
+        s[:, ::9] = float("-inf")
+        s[0, : w // 2] = float("-inf")
+        if r > 1:
+            s[1] = 0.5
+    elif kind == "sparse":
+        s = torch.full((r, w), float("-inf"), device=dev)
+        keep = torch.rand(r, w, generator=gen, device=dev) < 0.0016
+        s[keep] = torch.round(torch.rand(int(keep.sum()), generator=gen, device=dev) * 400) / 8
+        if r > 1:
+            s[1] = float("-inf")
+    else:
+        s = torch.arange(w, device=dev, dtype=torch.float32).repeat(r, 1) / 7
+        s[0] = torch.div(torch.arange(w, device=dev), 3, rounding_mode="floor").float()
     return s
 
 
+def topk_carry(r, b, dev, gen, kind):
+    """The tiled loop's initial carry (b x (-inf, 0)), or a random sorted
+    one with ties, -inf tails and arbitrary ids."""
+    if kind == "initial":
+        return (torch.full((r, b), float("-inf"), device=dev),
+                torch.zeros((r, b), dtype=torch.int32, device=dev))
+    cs = torch.round(torch.randn(r, b, generator=gen, device=dev) * 4) / 4
+    cs[:, (3 * b) // 4:] = float("-inf")
+    cs = torch.sort(cs, dim=1, descending=True).values
+    return cs, torch.randint(0, 2**30, (r, b), generator=gen, device=dev, dtype=torch.int32)
+
+
 def compare_topk(hk, dev, gen) -> float:
-    for r, w, b in ((100_000, 4_096, 64), (8_192, 8_192, 64), (1, 300_000, 64),
-                    (37, 300, 8)):
-        s = topk_inputs(r, w, dev, gen)
+    from predictionio_tpu_torch.ops.topk import merge_desc
+
+    for kind, r, w, b in TOPK_CASES:
+        s = topk_inputs(r, w, dev, gen, kind)
         got_v, got_i = hk.tile_topk_desc(s, b)
         want_v, want_i = hk.tile_topk_desc_plain(s, b)
         torch.cuda.synchronize()
-        tag = f"K3 [{r} x {w}] b={b}"
+        tag = f"K3 [{r} x {w}] {kind} b={b}"
         check(torch.equal(got_v, want_v), f"{tag}: values differ")
         check(torch.equal(got_i, want_i), f"{tag}: ids differ")
         print(f"  ok {tag} values and ids equal")
+        del s, got_v, got_i, want_v, want_i
+    for kind in ("ties", "sparse", "ascending"):
+        for b, r in CARRY_CASES:
+            s = topk_inputs(r, CARRY_W, dev, gen, kind)
+            for carry_kind in ("initial", "random"):
+                cs, ci = topk_carry(r, b, dev, gen, carry_kind)
+                got_v, got_i = hk.tile_topk_desc(s, b, id_offset=40_960, carry=(cs, ci))
+                want_v, want_i = merge_desc(cs, ci, *hk.tile_topk_desc_plain(
+                    s, b, id_offset=40_960))
+                torch.cuda.synchronize()
+                tag = f"K3 carry form [{r} x {CARRY_W}] {kind} b={b} carry={carry_kind}"
+                check(torch.equal(got_v, want_v), f"{tag}: values differ from merge_desc")
+                check(torch.equal(got_i, want_i), f"{tag}: ids differ from merge_desc")
+                print(f"  ok {tag} equals merge_desc(carry, tile_topk_desc(...))")
+            del s
     return 0.0
 
 
@@ -468,37 +783,91 @@ def train_bench_shape(cco, hk, dev):
             "resident_first_wall_s": res_walls[0]}
 
 
-def train_deployed(ur, hk, dev):
+def initial_carry(td, b, dev):
+    """The tiled loop's carry before its first tile, for each event type:
+    b x (-inf, id 0) for every primary item."""
+    n_items = len(td.interactions[td.event_names[0]][2])
+    return {name: (torch.full((n_items, b), float("-inf"), device=dev),
+                   torch.zeros((n_items, b), dtype=torch.int32, device=dev))
+            for name in td.event_names}
+
+
+def unfused_indicators(cco, hk, td, dev, top_k, tile):
+    """The deployed train's indicator tables rebuilt from the port's pieces
+    with K3 unfused: each tile's K3 top-b without a carry, then
+    ``merge_desc``."""
+    from predictionio_tpu_torch.ops.topk import block_width, merge_desc
+
+    b = block_width(top_k)
+    best = initial_carry(td, b, dev)
+    for name, t0, _, _, _, scores in train_tiles(cco, hk, td, dev, tile):
+        best[name] = merge_desc(*best[name], *hk.tile_topk_desc(scores, b, id_offset=t0))
+    out = {}
+    for name, (best_s, best_i) in best.items():
+        sc, idx = cco._finalize_topk(best_s, best_i, len(td.interactions[name][2]), top_k)
+        out[name] = (idx.astype(np.int32), np.where(np.isfinite(sc), sc, 0.0).astype(np.float32))
+    return out
+
+
+def train_deployed(ur, cco, hk, dev):
     """Phase 11: the deployed UR width through URAlgorithm.train."""
+    from predictionio_tpu_torch.ops import topk
+
     n_users, n_items, n_p, n_v, top_k, tile = DEPLOYED_UR
     td, arrays = deployed_training_data(ur)
     params = ur.URAlgorithmParams(app_name="smoke", max_correlators_per_item=top_k,
                                   item_tile=tile)
+    check(params.min_llr == 0.0, "the unfused rebuild assumes LLR threshold 0")
     algo = ur.URAlgorithm(params, device=dev)
     algo.train(td)   # warm-up: one-time set-up of the count product and kernels
+    merges_on_card = [0]
+    merge_desc = topk.merge_desc
+
+    def counting_merge(*args):
+        merges_on_card[0] += args[0].is_cuda
+        return merge_desc(*args)
+
+    # every module of the port that holds merge_desc gets the counting one
+    holders = [m for name, m in list(sys.modules.items())
+               if name.startswith("predictionio_tpu_torch")
+               and getattr(m, "merge_desc", None) is merge_desc]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
-    t0 = time.perf_counter()
-    model = algo.train(td)
-    wall = time.perf_counter() - t0
-    launches = (hk.llr_masked_scores.launches, hk.tile_topk_desc.launches)
+    for m in holders:
+        m.merge_desc = counting_merge
+    try:
+        hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+        t0 = time.perf_counter()
+        model = algo.train(td)
+        wall = time.perf_counter() - t0
+        launches = (hk.llr_masked_scores.launches, hk.tile_topk_desc.launches)
+    finally:
+        for m in holders:
+            m.merge_desc = merge_desc
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     tiles = 2 * -(-n_items // tile)
     check(launches == (tiles, tiles),
           f"K2/K3 launches {launches} on the 100k-item train, expected {tiles} each")
+    check(merges_on_card[0] == 0, f"merge_desc ran {merges_on_card[0]} times on the card")
+    rebuilt = unfused_indicators(cco, hk, td, dev, top_k, tile)
     for name in ("purchase", "view"):
         idx, llr = model.indicator_idx[name], model.indicator_llr[name]
         check(idx.shape == (n_items, top_k) and (idx >= 0).any(), f"{name}: bad table")
         check(bool(np.isfinite(llr).all()), f"{name}: non-finite LLR")
         if name == "purchase":
             check(not (idx == np.arange(n_items)[:, None]).any(), "self-pairs not excluded")
-        print(f"  {name}: [{n_items} x {top_k}] indicators, {int((idx >= 0).sum())} set")
+        want_idx, want_llr = rebuilt[name]
+        check(np.array_equal(idx, want_idx) and np.array_equal(llr.view(np.int32),
+                                                               want_llr.view(np.int32)),
+              f"{name}: fused tables differ from the unfused K3 + merge_desc rebuild")
+        print(f"  {name}: [{n_items} x {top_k}] indicators, {int((idx >= 0).sum())} set, "
+              "bit-identical to the unfused K3 + merge_desc rebuild")
     print(f"  users={n_users} items={n_items} events={n_p + n_v} tiles={tiles} "
           f"train wall_s={wall:.3f} events_per_s={(n_p + n_v) / wall:.0f} "
-          f"peak_device_gb={peak_gb:.2f} launches K2={launches[0]} K3={launches[1]}")
-    return model, arrays, {"wall_s": wall, "events": n_p + n_v, "peak_gb": peak_gb,
-                           "launches": launches}
+          f"peak_device_gb={peak_gb:.2f} launches K2={launches[0]} K3={launches[1]} "
+          f"merge_desc on the card={merges_on_card[0]}")
+    return model, td, arrays, {"wall_s": wall, "events": n_p + n_v, "peak_gb": peak_gb,
+                               "launches": launches}
 
 
 def ur_bodies():
@@ -684,6 +1053,12 @@ def run() -> None:
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    sass = llr_sass_count(build)
+    ops_per_cell = sass["ops"]
+    print(f"  llr_masked SASS: {sass['instructions']} instructions a nonzero cell "
+          f"({ops_per_cell} operations, an FFMA counted as two; division slow path "
+          f"{sass['slow_path']} more, out of line), by opcode {sass['by_opcode']}; "
+          f"kernels in the library: {sass['kernels']}")
 
     phase("3. K1 vs plain")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -755,7 +1130,7 @@ def run() -> None:
     torch.cuda.empty_cache()
 
     phase("11. UR train at the deployed width (URAlgorithm.train)")
-    ur_model, arrays, deployed = train_deployed(ur, hk, dev)
+    ur_model, td, arrays, deployed = train_deployed(ur, cco, hk, dev)
     torch.cuda.empty_cache()
 
     phase("12. UR HTTP /queries.json")
@@ -765,24 +1140,66 @@ def run() -> None:
 
     phase("13. timing")
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)   # > 50 MB L2
-    rows = {"masked_score": [time_masked_score(hk, dev, gen, b, k, N_ITEMS, flush)
+    clock = SMClock()
+    rows = {"masked_score": [time_masked_score(hk, dev, gen, b, k, N_ITEMS, flush, clock)
                              for b, k in ((1, 32), (64, 32), (256, 64))]}
     n_items, tile = DEPLOYED_UR[1], DEPLOYED_UR[5]
-    rows["llr_masked"] = [time_llr(hk, dev, gen, n_items, tile, flush)]
-    rows["tile_topk"] = [time_topk(hk, dev, gen, n_items, tile, 64, flush)]
+    counts, row, col, n = llr_inputs(n_items, tile, dev, gen)
+    rows["llr_masked"] = [time_llr(hk, counts, row, col, n, flush, clock, ops_per_cell,
+                                   "random")]
+    del counts
+    s = topk_inputs(n_items, tile, dev, gen)
+    rows["tile_topk"] = [time_topk(hk, s, 64, flush, clock, "random")]
+    del s
+    counts, rc, cc, n, scores = capture_train_tiles(cco, hk, td, dev, tile)
+    rows["llr_masked"].append(time_llr(hk, counts, rc, cc, n, flush, clock, ops_per_cell,
+                                       "deployed train tile 12 of view"))
+    del counts
+    rows["tile_topk"].append(time_topk(hk, scores, 64, flush, clock,
+                                       "deployed train tile 12 of view"))
+    rows["tile_topk"].append(time_topk(hk, scores, 64, flush, clock,
+                                       "deployed train tile 12 of view",
+                                       carry=topk_carry(n_items, 64, dev, gen, "initial")))
+    del scores
+    k1_rounds = retime_k1(hk, dev, gen, flush, clock)
     for r in rows["masked_score"]:
         print(f"  masked_score B={r['B']} K={r['K']} I={r['I']}: "
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"addmm+masked_fill_ {r['library_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | {smi}")
-    r = rows["llr_masked"][0]
-    print(f"  llr_masked [{r['R']} x {r['C']}] int32 counts: kernel {r['ms']:.4f} ms, "
-          f"plain {r['plain_ms']:.4f} ms, library: no single call, "
-          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | {smi}")
-    r = rows["tile_topk"][0]
-    print(f"  tile_topk [{r['R']} x {r['W']}] b={r['b']}: kernel {r['ms']:.4f} ms, "
-          f"plain {r['plain_ms']:.4f} ms, torch.topk {r['library_ms']:.4f} ms, "
-          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | {smi}")
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | "
+              f"{clock_text(r['sm_clock'])} | {smi}")
+    for j, r in enumerate(k1_rounds):
+        print(f"  K1 re-time round {j + 1} B=1 K=32 I={N_ITEMS}: kernel {r['k1_ms']:.4f} ms, "
+              f"addmm+masked_fill_ {r['library_ms']:.4f} ms | {clock_text(r['sm_clock'])} "
+              f"| {smi}")
+    k1s, libs = [r["k1_ms"] for r in k1_rounds], [r["library_ms"] for r in k1_rounds]
+    print(f"  K1 re-time over {len(k1_rounds)} rounds: kernel median "
+          f"{statistics.median(k1s):.4f} ms (range {min(k1s):.4f}-{max(k1s):.4f}), "
+          f"addmm+masked_fill_ median {statistics.median(libs):.4f} ms "
+          f"(range {min(libs):.4f}-{max(libs):.4f}) | {smi}")
+    sass["issue_slot_estimate_ms"] = {}
+    for r in rows["llr_masked"]:
+        print(f"  llr_masked [{r['R']} x {r['C']}] {r['input']}, nonzero share "
+              f"{r['nonzero_share']:.6f}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library: no single call, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+              f"{ops_per_cell} operations a nonzero cell) | {clock_text(r['sm_clock'])} "
+              f"| {smi}")
+        # an estimate, not a measurement: issue slots at one lane-instruction
+        # each, at the assumed PEAK_ISSUE_S
+        cells = r["R"] * r["C"]
+        est = {"nonzero_cells": cells * r["nonzero_share"] * sass["instructions"]
+               / PEAK_ISSUE_S * 1e3,
+               "every_cell": cells * sass["instructions"] / PEAK_ISSUE_S * 1e3}
+        sass["issue_slot_estimate_ms"][r["input"]] = est
+        print(f"    estimate: issue slots of {sass['instructions']} instructions a cell at "
+              f"{PEAK_ISSUE_S:.3g} a second take {est['nonzero_cells']:.4f} ms for the "
+              f"nonzero cells, {est['every_cell']:.4f} ms were every cell computed")
+    for r in rows["tile_topk"]:
+        print(f"  tile_topk [{r['R']} x {r['W']}] b={r['b']} {r['input']}"
+              f"{' with the initial carry' if r['carry'] else ''}, finite share "
+              f"{r['finite_share']:.6f}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"torch.topk {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}) | {clock_text(r['sm_clock'])} | {smi}")
     print(f"  UR train: bench shape {bench['events']} events in {bench['wall_s']:.3f} s; "
           f"deployed width {deployed['events']} events in {deployed['wall_s']:.3f} s, "
           f"peak {deployed['peak_gb']:.2f} GB; UR HTTP over {served[False]['n']} queries "
@@ -792,6 +1209,7 @@ def run() -> None:
                 "tile_topk": deployed["launches"][1]}
     print(json.dumps({"ur_train": {"bench_shape": bench, "deployed_width": deployed},
                       "ur_http": {str(k).lower(): v for k, v in served.items()},
+                      "k1_retime": k1_rounds, "llr_sass": sass,
                       "wall_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

@@ -37,8 +37,8 @@ SIGNATURES = {
                      [_P, _P, _P, _I, _L, _P, _I, _P, _I, _I, _I, _P]),
     # counts, ld, row_marg, col_marg, n_total, threshold, out, R, C, stream
     "llr_masked": ("pio_llr_masked", [_P, _L, _P, _P, _F, _F, _P, _I, _I, _P]),
-    # scores, ld, R, W, b, id_offset, out_s, out_i, stream
-    "tile_topk": ("pio_tile_topk", [_P, _L, _I, _I, _I, _I, _P, _P, _P]),
+    # scores, ld, R, W, b, id_offset, carry_s, carry_i, out_s, out_i, stream
+    "tile_topk": ("pio_tile_topk", [_P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
 }
 
 _lock = threading.Lock()

@@ -11,7 +11,8 @@ For each event type, against one primary event type:
 3. Dunning's G² of every cell, masked to -inf where the count is 0 or the
    score misses the threshold: the K2 kernel (``llr_masked_scores``);
 4. the exact per-row top-k in ``lax.top_k``'s order: the K3 kernel
-   (``tile_topk_desc``), merged across tiles with ``ops.topk.merge_desc``.
+   (``tile_topk_desc``), which in the tiled strategy also merges each tile
+   into the running carry (``ops.topk.merge_desc``, fused into the launch).
 
 Two strategies, chosen per event type by the reference's own budgets
 (copied as they are, so the port picks the strategy the JAX package picks):
@@ -48,7 +49,7 @@ from predictionio_tpu_torch.ops.hopper_kernels import (
     llr_masked_scores,
     tile_topk_desc,
 )
-from predictionio_tpu_torch.ops.topk import block_width, merge_desc
+from predictionio_tpu_torch.ops.topk import block_width
 
 #: the reference's clamp ``-1 + 1e-9``, which rounds to exactly -1.0 in f32
 _LOG1P_FLOOR = -1.0
@@ -348,8 +349,9 @@ def _cco_indicators_resident(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Item tiles of the other event type against the resident primary:
     densify the tile (a slice of P itself for the self-indicator), one
-    count product, K2, the diagonal mask, K3's top-b of the tile, and the
-    carry merge.  The carry is ``block_width(top_k)`` wide."""
+    count product, K2, the diagonal mask, and K3's top-b of the tile merged
+    into the carry in one launch.  The carry is ``block_width(top_k)``
+    wide."""
     pt, i_p = primary.pt, primary.n_items_p
     device = pt.device
     tile = min(item_tile, max(n_items_t, 1))
@@ -371,8 +373,8 @@ def _cco_indicators_resident(
                                   n_total_users, llr_threshold)
         if exclude_self:   # the items t0 + j of this tile's rows t0 + j
             scores.diagonal(offset=-t0).fill_(float("-inf"))
-        ts, ti = tile_topk_desc(scores, b, id_offset=t0)
-        best_s, best_i = merge_desc(best_s, best_i, ts, ti)
+        # K3 with the carry merged in: merge_desc(best, top-b of the tile)
+        best_s, best_i = tile_topk_desc(scores, b, id_offset=t0, carry=(best_s, best_i))
         # free this tile's [I_p, tile] counts and scores before the next
         # product allocates its own: one of each is live, not two
         del counts, scores

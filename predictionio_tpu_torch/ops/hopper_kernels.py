@@ -13,8 +13,9 @@ Counterpart of ``predictionio_tpu/ops/pallas_kernels.py``:
   reads the count product's int32 output directly.
 - ``tile_topk_desc`` (K3) — the exact top-b of every row of a score tile,
   in ``lax.top_k``'s total order (``ops/csrc/tile_topk.cu``, replacing
-  ``_topk_sort_kernel``): the row top-k of the dense CCO strategy and the
-  per-tile top-k of the tiled one.
+  ``_topk_sort_kernel``): the row top-k of the dense CCO strategy and, with
+  the running carry merged in the same launch, the per-tile top-k and carry
+  merge of the tiled one.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 only for tensors on the CPU (the CPU tests).  It checks device, dtype,
@@ -139,7 +140,7 @@ def recommend_batch_fused(
 
 # -- K2: fused LLR scoring + masking -------------------------------------------
 
-_MAX_LLR_COLS = 65535 * 1024      # grid.y limit x columns per block
+_MAX_LLR_COLS = 2**31 - 2 * 4096   # int column indices, one 4,096-column step spare
 
 
 def _check_llr_args(counts, row, col) -> None:
@@ -228,7 +229,7 @@ llr_masked_scores.launches = 0
 _MAX_TOPK_B = 1024
 
 
-def _check_topk_args(scores, b: int, id_offset: int) -> None:
+def _check_topk_args(scores, b: int, id_offset: int, carry=None) -> None:
     if scores.dim() != 2:
         raise ValueError(f"tile_topk_desc: scores [R, W] expected, got "
                          f"{tuple(scores.shape)}")
@@ -246,20 +247,37 @@ def _check_topk_args(scores, b: int, id_offset: int) -> None:
         raise ValueError(f"tile_topk_desc: id_offset={id_offset} out of range")
     if w > 1 and scores.stride(1) != 1 or r > 1 and scores.stride(0) < w:
         raise ValueError("tile_topk_desc: score rows must be contiguous")
+    if carry is not None:
+        cs, ci = carry
+        if tuple(cs.shape) != (r, b) or tuple(ci.shape) != (r, b):
+            raise ValueError(f"tile_topk_desc: carry must be two [{r}, {b}] tensors, "
+                             f"got {tuple(cs.shape)}, {tuple(ci.shape)}")
+        if cs.dtype != torch.float32 or ci.dtype != torch.int32:
+            raise TypeError("tile_topk_desc: carry must be (float32, int32)")
+        if cs.device != scores.device or ci.device != scores.device:
+            raise ValueError("tile_topk_desc: carry and scores on different devices")
+        if not (cs.is_contiguous() and ci.is_contiguous()):
+            raise ValueError("tile_topk_desc: carry must be contiguous")
 
 
 def tile_topk_desc(
     scores: torch.Tensor, b: int, id_offset: int = 0,
+    carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-``b`` of every row of f32 ``scores`` [R, W], in
     (score desc, column asc) order: (values [R, b] f32, int32 column ids +
     ``id_offset`` [R, b]).  A row narrower than ``b`` is padded with -inf.
 
+    With ``carry=(carry_s, carry_i)`` ([R, b] f32 and int32) the result is,
+    bit for bit, ``merge_desc(carry_s, carry_i, *tile_topk_desc(scores, b,
+    id_offset))``: the carry merge of the tiled CCO loop, fused into the
+    same launch.
+
     CUDA tensors launch ``ops/csrc/tile_topk.cu`` on the current stream
     (no synchronisation); CPU tensors take ``ops.topk.tile_topk_desc_plain``."""
-    _check_topk_args(scores, b, id_offset)
+    _check_topk_args(scores, b, id_offset, carry)
     if scores.device.type == "cpu":
-        return tile_topk_desc_plain(scores, b, id_offset)
+        return tile_topk_desc_plain(scores, b, id_offset, carry)
     r, w = scores.shape
     out_s = torch.empty((r, b), dtype=torch.float32, device=scores.device)
     out_i = torch.empty((r, b), dtype=torch.int32, device=scores.device)
@@ -268,7 +286,9 @@ def tile_topk_desc(
     fn = build.load("tile_topk").pio_tile_topk
     with torch.cuda.device(scores.device):
         err = fn(scores.data_ptr(), scores.stride(0) if r > 1 else w, r, w, b,
-                 id_offset, out_s.data_ptr(), out_i.data_ptr(),
+                 id_offset, carry[0].data_ptr() if carry is not None else None,
+                 carry[1].data_ptr() if carry is not None else None,
+                 out_s.data_ptr(), out_i.data_ptr(),
                  torch.cuda.current_stream(scores.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"tile_topk kernel launch failed: CUDA error {err}")

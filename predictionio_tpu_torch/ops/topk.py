@@ -13,7 +13,8 @@ descending index in the low word — and ``torch.topk`` of the keys is the
 Counterpart of ``predictionio_tpu/ops/topk.py`` as the tiled CCO merge uses
 it: ``block_width`` (the carry width), ``merge_desc`` (the carry merge) and
 ``tile_topk_desc_plain``, the plain version of the per-tile top-b kernel
-(K3, ``ops/csrc/tile_topk.cu``).  The JAX package's bitonic network
+(K3, ``ops/csrc/tile_topk.cu``), which with a carry is the per-tile top-b
+followed by ``merge_desc``.  The JAX package's bitonic network
 (``sort_topb_desc``/``bitonic_topk``) is exact on values only; here every
 top-k keeps the total order, so a tiled run equals one ``lax.top_k`` over
 the whole row, ties included.
@@ -21,7 +22,7 @@ the whole row, ties included.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -56,6 +57,7 @@ def block_width(k: int) -> int:
 
 def tile_topk_desc_plain(
     scores: torch.Tensor, b: int, id_offset: int = 0,
+    carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K3: the top-``b`` of every row of float32
     ``scores`` [R, W], sorted by (score desc, column asc), as
@@ -63,14 +65,21 @@ def tile_topk_desc_plain(
 
     A row narrower than ``b`` is padded with -inf at columns W, W+1, …,
     as the Pallas kernel pads its width: padding ranks below every real
-    entry, -inf included, and surfaces with its padded column id."""
+    entry, -inf included, and surfaces with its padded column id.
+
+    With ``carry=(carry_s, carry_i)`` ([R, b] each) the result is the carry
+    merge of the tiled CCO loop: ``merge_desc(carry_s, carry_i, top-b of
+    the tile)``."""
     r, w = scores.shape
     if w < b:
         pad = torch.full((r, b - w), float("-inf"), dtype=scores.dtype,
                          device=scores.device)
         scores = torch.cat([scores, pad], dim=1)
     vals, idx = topk_desc(scores, b)
-    return vals, idx.to(torch.int32) + id_offset
+    idx = idx.to(torch.int32) + id_offset
+    if carry is None:
+        return vals, idx
+    return merge_desc(carry[0], carry[1], vals, idx)
 
 
 def merge_desc(

@@ -22,7 +22,8 @@ UR training.  At ``chip_smoke.py``'s deployed width (20,000 users x
 4. ``URAlgorithm.train``'s wall time;
 5. one pass over every item tile of both event types with CUDA events
    between the stages (staging the events, densifying P once, then per
-   tile: densify, count product, K2, K3, carry merge): device ms per stage;
+   tile: densify, count product, K2, K3 with the carry merge fused in):
+   device ms per stage;
 6. a ``torch.profiler`` window over one train: device busy share and kernel
    time by kernel name.
 
@@ -72,11 +73,11 @@ def profile_ur_train(chip_smoke, smi: str) -> dict:
 
     from predictionio_tpu_torch.models import universal_recommender as ur
     from predictionio_tpu_torch.ops import cco
-    from predictionio_tpu_torch.ops.hopper_kernels import tile_topk_desc
-    from predictionio_tpu_torch.ops.topk import block_width, merge_desc
+    from predictionio_tpu_torch.ops import hopper_kernels as hk
+    from predictionio_tpu_torch.ops.topk import block_width
 
     n_users, n_items, _, _, top_k, tile = chip_smoke.DEPLOYED_UR
-    td, (pu, pi, vu, vi) = chip_smoke.deployed_training_data(ur)
+    td, (pu, _, vu, _) = chip_smoke.deployed_training_data(ur)
     algo = ur.URAlgorithm(ur.URAlgorithmParams(
         app_name="profile", max_correlators_per_item=top_k, item_tile=tile),
         device="cuda")
@@ -88,7 +89,7 @@ def profile_ur_train(chip_smoke, smi: str) -> dict:
 
     # 5. the resident tiled loop of ops/cco.py, a CUDA event after each stage
     stages = {k: 0.0 for k in ("stage_events", "densify_p", "densify_tile",
-                               "count_product", "llr_k2", "topk_k3", "merge")}
+                               "count_product", "llr_k2", "topk_k3_carry")}
     events = []
 
     def mark(name):
@@ -96,37 +97,13 @@ def profile_ur_train(chip_smoke, smi: str) -> dict:
         ev.record()
         events.append((name, ev))
 
+    dev = torch.device("cuda")
     b = block_width(top_k)
     n_tiles = -(-n_items // tile)
-    mark(None)
-    prim = cco._ResidentPrimary(pu, pi, n_users, n_items, torch.device("cuda"))
-    mark("densify_p")
-    for name, au, ai in (("purchase", pu, pi), ("view", vu, vi)):
-        self_pair = name == "purchase"
-        if not self_pair:
-            staged = cco._StagedCOO(au, ai, prim.pt.device, "item", tile, n_tiles)
-            mark("stage_events")
-        best_s = torch.full((n_items, b), float("-inf"), device="cuda")
-        best_i = torch.zeros((n_items, b), dtype=torch.int32, device="cuda")
-        for t in range(n_tiles):
-            t0_ = t * tile
-            if self_pair:
-                at = cco._tile_slab(prim.pt, t0_, tile)
-            else:
-                u, i = staged.span(t)
-                at = cco._densify(i - t0_, u, cco._round_up(tile, 8), prim.n_rows)
-            mark("densify_tile")
-            counts = cco._count_product(prim.pt, at)[:n_items, :tile]
-            mark("count_product")
-            scores = cco._llr_mask_scores(counts, prim.rc, cco._marginal(at)[:tile],
-                                          n_users, 0.0)
-            if self_pair:
-                scores.diagonal(offset=-t0_).fill_(float("-inf"))
-            mark("llr_k2")
-            ts, ti = tile_topk_desc(scores, b, id_offset=t0_)
-            mark("topk_k3")
-            best_s, best_i = merge_desc(best_s, best_i, ts, ti)
-            mark("merge")
+    best = chip_smoke.initial_carry(td, b, dev)
+    for name, t0_, _, _, _, scores in chip_smoke.train_tiles(cco, hk, td, dev, tile, mark):
+        best[name] = hk.tile_topk_desc(scores, b, id_offset=t0_, carry=best[name])
+        mark("topk_k3_carry")
     torch.cuda.synchronize()
     for (_, a), (name, e) in zip(events, events[1:]):
         stages[name] += a.elapsed_time(e)
@@ -134,7 +111,7 @@ def profile_ur_train(chip_smoke, smi: str) -> dict:
     for name, ms in stages.items():
         print(f"  ur train stage {name:14s} {ms:10.3f} ms device "
               f"({100 * ms / staged_total:5.1f}%) | {smi}")
-    del prim, best_s, best_i
+    del best
     torch.cuda.empty_cache()
 
     # 6. profiler window over one train

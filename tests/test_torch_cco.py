@@ -7,7 +7,10 @@ its plain XLA path) and through the port on CPU tensors, which take the
 kernels' plain PyTorch versions.  Tolerances: LLR scores within rtol/atol
 1e-4 (the reference's own Pallas-vs-XLA bar; f32 log1p differs across
 frameworks in the last bits) with -inf positions exact; top-k values and
-ids exact against ``lax.top_k``.  The op runs here on the reference
+ids exact against ``lax.top_k``; K3's carry form against the JAX package's
+Pallas top-b followed by its ``merge_desc``, as its tiled CCO step composes
+them (values exact, ids by what they point at where the JAX bitonic merge
+may reorder ties).  The op runs here on the reference
 corpora; tests/_torch_cco_cases.py holds the corpora and the indicator
 check.  The CUDA kernels themselves are held against their plain versions
 in tests/test_torch_cuda.py, on a card.
@@ -21,6 +24,7 @@ import torch
 
 from predictionio_tpu.ops import cco as jax_cco
 from predictionio_tpu.ops import pallas_kernels as jax_pk
+from predictionio_tpu.ops import topk as jax_topk
 from predictionio_tpu_torch.ops import cco as port_cco
 from predictionio_tpu_torch.ops import hopper_kernels as hk
 from predictionio_tpu_torch.ops.topk import block_width, merge_desc
@@ -112,6 +116,46 @@ def test_llr_rejects_bad_arguments(bad):
         hk.llr_masked_scores(counts, row, col, n)
 
 
+def _sparse_llr_inputs(r, c, seed):
+    """Counts at the deployed training tiles' sparsity: ~0.3% nonzero, every
+    fifth row all zero."""
+    rng = np.random.default_rng(seed)
+    counts = (rng.integers(1, 40, size=(r, c)) * (rng.random((r, c)) < 0.003)).astype(np.int32)
+    counts[::5] = 0
+    row = (counts.sum(1) + rng.integers(1, 50, r)).astype(np.int32)
+    col = (counts.sum(0) + rng.integers(1, 50, c)).astype(np.int32)
+    return counts, row, col, float(row.sum() + 1000)
+
+
+@pytest.mark.parametrize("thr", [0.0, 2.0])
+@pytest.mark.parametrize("path", ["pallas", "xla"])
+def test_llr_plain_matches_jax_on_sparse_counts(monkeypatch, path, thr):
+    """The zero-skipping K2 on training-sparse counts: its plain version
+    against the interpret-mode Pallas kernel and the XLA path."""
+    monkeypatch.setenv("PIO_PALLAS", "interpret")
+    counts, row, col, n = _sparse_llr_inputs(60, 1030, 11)
+    assert (counts == 0).mean() >= 0.99
+    jargs = (jnp.asarray(counts, jnp.float32), jnp.asarray(row, jnp.float32),
+             jnp.asarray(col, jnp.float32), n, thr)
+    want = (jax_pk.llr_masked_scores(*jargs) if path == "pallas"
+            else jax_cco._llr_mask_scores(*jargs, pallas="off"))
+    got = hk.llr_masked_scores(torch.from_numpy(counts), torch.from_numpy(row),
+                               torch.from_numpy(col), n, thr)
+    _assert_llr(got, want)
+
+
+@pytest.mark.parametrize("pad", [1, 3])
+def test_llr_takes_a_view_whose_stride_is_no_multiple_of_4(pad):
+    counts, row, col, n = (torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+                           for a in _sparse_llr_inputs(30, 257, 12))
+    wide = torch.zeros((30, 257 + pad + 1), dtype=torch.int32)
+    wide[:, 1:258] = counts
+    view = wide[:, 1:258]
+    assert view.stride(0) % 4 != 0
+    assert torch.equal(hk.llr_masked_scores(view, row, col, n, 1.0),
+                       hk.llr_masked_scores_plain(counts, row, col, n, 1.0))
+
+
 # -- K3: exact per-row top-b ---------------------------------------------------------
 
 
@@ -199,6 +243,119 @@ def test_tile_topk_rejects_bad_arguments(bad):
     before = hk.tile_topk_desc.launches
     with pytest.raises((TypeError, ValueError)):
         hk.tile_topk_desc(x, b)
+    assert hk.tile_topk_desc.launches == before
+
+
+# -- K3's carry form: the per-tile top-b with the carry merge fused in --------------
+
+
+def _carry(r, b, kind, seed):
+    """The tiled loop's (-inf, 0) initial carry, or a sorted one with ties
+    and a -inf tail whose ids (>= 10**6) cannot be tile columns."""
+    if kind == "initial":
+        return np.full((r, b), -np.inf, np.float32), np.zeros((r, b), np.int32)
+    rng = np.random.default_rng(seed)
+    cs = (rng.integers(-8, 8, size=(r, b)) / 2).astype(np.float32)
+    cs[:, (3 * b) // 4:] = -np.inf
+    cs = -np.sort(-cs, axis=1)
+    return cs, (10**6 + rng.permutation(r * b).reshape(r, b)).astype(np.int32)
+
+
+def _tile_scores(kind, r, w, seed):
+    if kind == "ties":
+        return _tie_corpus(r, w, seed)
+    rng = np.random.default_rng(seed)   # distinct finite scores, a -inf run
+    x = rng.permutation(r * w).reshape(r, w).astype(np.float32) / 7
+    x[0, 5:] = -np.inf
+    return x
+
+
+def _pointed(x, cs, ci, off, ids):
+    """The score each id points at: a carry entry (ids >= 10**6), a tile
+    column, or NaN for neither (padding)."""
+    out = np.full(ids.shape, np.nan, np.float32)
+    for r in range(ids.shape[0]):
+        carry = dict(zip(ci[r].tolist(), cs[r].tolist()))
+        for j, i in enumerate(ids[r].tolist()):
+            if i >= 10**6:
+                out[r, j] = carry[i]
+            elif 0 <= i - off < x.shape[1]:
+                out[r, j] = x[r, i - off]
+    return out
+
+
+@pytest.mark.parametrize("w", [300, 13])
+@pytest.mark.parametrize("carry_kind", ["initial", "random"])
+@pytest.mark.parametrize("kind", ["distinct", "ties"])
+@pytest.mark.parametrize("b", [8, 64])
+def test_tile_topk_carry_matches_pallas_then_jax_merge(monkeypatch, b, kind, carry_kind, w):
+    """The carry form's plain version against the JAX tiled CCO step with
+    its Pallas top-b (interpret mode): ``merge_desc(carry, tile_start +
+    tile_topk_desc(scores, b))``."""
+    monkeypatch.setenv("PIO_PALLAS", "interpret")
+    r, off = 21, 4096
+    x = _tile_scores(kind, r, w, b + w)
+    cs, ci = _carry(r, b, carry_kind, b)
+    ts, ti = jax_pk.tile_topk_desc(jnp.asarray(x), b)
+    want_v, want_i = (np.asarray(a) for a in jax_topk.merge_desc(
+        jnp.asarray(cs), jnp.asarray(ci), ts, off + ti))
+    got_v, got_i = (a.numpy() for a in hk.tile_topk_desc(
+        torch.from_numpy(x), b, id_offset=off,
+        carry=(torch.from_numpy(cs), torch.from_numpy(ci))))
+    if kind == "distinct":
+        np.testing.assert_array_equal(got_v.view(np.int32), want_v.view(np.int32))
+    else:   # the JAX bitonic network ranks -0.0 and +0.0 as equal
+        np.testing.assert_array_equal(got_v, want_v)
+    fin = np.isfinite(want_v)
+    np.testing.assert_array_equal(_pointed(x, cs, ci, off, got_i)[fin], got_v[fin])
+    np.testing.assert_array_equal(_pointed(x, cs, ci, off, want_i)[fin], want_v[fin])
+    if kind == "distinct" and carry_kind == "initial":
+        np.testing.assert_array_equal(got_i[fin], want_i[fin])
+
+
+@pytest.mark.parametrize("b", [1, 8, 64])
+def test_tile_topk_carry_cpu_is_merge_of_the_unfused_result(b):
+    x = torch.from_numpy(_tie_corpus(12, 200, b))
+    cs, ci = (torch.from_numpy(a) for a in _carry(12, b, "random", b + 1))
+    before = hk.tile_topk_desc.launches
+    got = hk.tile_topk_desc(x, b, id_offset=9, carry=(cs, ci))
+    assert hk.tile_topk_desc.launches == before   # no kernel launched
+    want = merge_desc(cs, ci, *hk.tile_topk_desc(x, b, id_offset=9))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("k, tile", [(12, 64), (12, 50), (50, 64), (50, 37)])
+def test_fused_carry_loop_across_tiles_equals_global_topk(k, tile):
+    """The tiled loop with K3's carry form, tile by tile from the (-inf, 0)
+    carry, is exactly one lax.top_k over the whole row."""
+    x = _tie_corpus(9, 64 * 5, k + tile)
+    b = block_width(k)
+    bs = torch.full((9, b), float("-inf"))
+    bi = torch.zeros((9, b), dtype=torch.int32)
+    for t0 in range(0, x.shape[1], tile):
+        part = torch.from_numpy(x[:, t0:t0 + tile].copy())
+        bs, bi = hk.tile_topk_desc(part, b, id_offset=t0, carry=(bs, bi))
+    want_v, want_i = (np.asarray(a) for a in jax.lax.top_k(jnp.asarray(x), b))
+    fin = np.isfinite(want_v)
+    np.testing.assert_array_equal(bs.numpy().view(np.int32), want_v.view(np.int32))
+    np.testing.assert_array_equal(bi.numpy()[fin], want_i[fin])
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "ids", "layout"])
+def test_tile_topk_rejects_bad_carry(bad):
+    x = torch.from_numpy(_tie_corpus(6, 40, 2))
+    cs, ci = (torch.from_numpy(a) for a in _carry(6, 8, "random", 3))
+    if bad == "shape":
+        cs, ci = cs[:, :4], ci[:, :4]
+    elif bad == "dtype":
+        cs = cs.double()
+    elif bad == "ids":
+        ci = ci.to(torch.int64)
+    elif bad == "layout":
+        cs = cs.T.contiguous().T
+    before = hk.tile_topk_desc.launches
+    with pytest.raises((TypeError, ValueError)):
+        hk.tile_topk_desc(x, 8, carry=(cs, ci))
     assert hk.tile_topk_desc.launches == before
 
 

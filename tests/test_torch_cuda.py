@@ -71,20 +71,110 @@ def test_llr_masked_kernel_matches_plain(dev, shape, thr):
     assert torch.equal(torch.isneginf(got), torch.isneginf(want))
     fin = torch.isfinite(want)
     torch.testing.assert_close(got[fin], want[fin], rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, want)                    # bit for bit
+
+
+def _sparse_llr_inputs(dev, r, c, seed):
+    """Counts at the training tiles' sparsity: ~0.3% nonzero, every fifth
+    row all zero."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    counts = torch.randint(1, 40, (r, c), generator=g, device=dev, dtype=torch.int32)
+    counts *= torch.rand(r, c, generator=g, device=dev) < 0.003
+    counts[::5] = 0
+    row = counts.sum(1, dtype=torch.int32) + torch.randint(
+        1, 60, (r,), generator=g, device=dev, dtype=torch.int32)
+    col = counts.sum(0, dtype=torch.int32) + torch.randint(
+        1, 60, (c,), generator=g, device=dev, dtype=torch.int32)
+    return counts, row, col, float(int(row.sum()) + 1000)
+
+
+@pytest.mark.parametrize("layout", ["packed", "strided"])
+@pytest.mark.parametrize("shape", [(37, 190), (2000, 4096), (300, 4099)])
+def test_llr_masked_kernel_sparse_counts_bit_equal(dev, shape, layout):
+    """The zero-skipping path on training-sparse counts, packed and as a
+    row-strided view whose stride is no multiple of 4 (rows that start off
+    16-byte alignment, each by its own shift)."""
+    r, c = shape
+    counts, row, col, n = _sparse_llr_inputs(dev, r, c, seed=r + c)
+    assert (counts == 0).float().mean().item() >= 0.99
+    if layout == "strided":
+        wide = torch.zeros((r, c + 3), dtype=torch.int32, device=dev)
+        wide[:, 1:c + 1] = counts
+        counts = wide[:, 1:c + 1]
+        assert counts.stride(0) % 4 != 0
+    for thr in (0.0, 2.0):
+        got = hk.llr_masked_scores(counts, row, col, n, thr)
+        want = hk.llr_masked_scores_plain(counts, row, col, n, thr)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def _topk_rows(dev, kind, r, w, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "ties":
+        s = torch.round(torch.randn(r, w, generator=g, device=dev) * 4) / 4
+        s[:, ::5] = float("-inf")
+        s[0, : w // 2] = float("-inf")
+        s[-1] = 0.5
+    elif kind == "sparse":      # the training tiles: -inf but a few finite
+        s = torch.full((r, w), float("-inf"), device=dev)
+        keep = torch.rand(r, w, generator=g, device=dev) < 0.002
+        s[keep] = torch.rand(int(keep.sum()), generator=g, device=dev) * 50
+        s[1] = float("-inf")                        # all -inf
+    else:                       # ascending: every key passes the pre-filter
+        s = torch.arange(w, device=dev, dtype=torch.float32).repeat(r, 1) / 7
+        s[0] = torch.arange(w, device=dev, dtype=torch.float32) // 3   # ties
+    return s
 
 
 @pytest.mark.parametrize("b", [1, 8, 64, 1024])
 @pytest.mark.parametrize("shape", [(37, 300), (1000, 4096), (3, 300_000), (5, 6)])
 def test_tile_topk_kernel_matches_plain(dev, shape, b):
     r, w = shape
-    g = torch.Generator(device=dev).manual_seed(r + w + b)
-    s = torch.round(torch.randn(r, w, generator=g, device=dev) * 4) / 4  # ties
-    s[:, ::5] = float("-inf")
-    s[0, : w // 2] = float("-inf")
-    s[-1] = 0.5
+    s = _topk_rows(dev, "ties", r, w, r + w + b)
     before = hk.tile_topk_desc.launches
     got_v, got_i = hk.tile_topk_desc(s, b, id_offset=7)
     want_v, want_i = hk.tile_topk_desc_plain(s, b, id_offset=7)
     torch.cuda.synchronize()
     assert hk.tile_topk_desc.launches == before + 1
+    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+
+
+@pytest.mark.parametrize("b", [8, 64, 1024])
+@pytest.mark.parametrize("kind", ["sparse", "ascending"])
+@pytest.mark.parametrize("shape", [(500, 4096), (7, 1031)])
+def test_tile_topk_kernel_adversarial_rows(dev, shape, kind, b):
+    r, w = shape
+    s = _topk_rows(dev, kind, r, w, r + w + b)
+    if kind == "ascending":
+        s = s[:, 1:]                       # rows that start off 16-byte alignment
+    got_v, got_i = hk.tile_topk_desc(s, b, id_offset=3)
+    want_v, want_i = hk.tile_topk_desc_plain(s, b, id_offset=3)
+    torch.cuda.synchronize()
+    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+
+
+@pytest.mark.parametrize("carry_kind", ["initial", "random"])
+@pytest.mark.parametrize("kind", ["ties", "sparse", "ascending"])
+@pytest.mark.parametrize("b", [8, 64, 1024])
+def test_tile_topk_kernel_carry_equals_merge(dev, b, kind, carry_kind):
+    """The fused carry form against merge_desc over the unfused result."""
+    from predictionio_tpu_torch.ops.topk import merge_desc
+
+    r, w = 300, 2500
+    s = _topk_rows(dev, kind, r, w, b + w)
+    if carry_kind == "initial":            # the tiled loop's starting carry
+        cs = torch.full((r, b), float("-inf"), device=dev)
+        ci = torch.zeros((r, b), dtype=torch.int32, device=dev)
+    else:                                  # a sorted carry with ties and -inf
+        g = torch.Generator(device=dev).manual_seed(b)
+        cs = torch.round(torch.randn(r, b, generator=g, device=dev) * 2) / 2
+        cs[:, b // 2:] = float("-inf")
+        cs = torch.sort(cs, dim=1, descending=True).values
+        ci = torch.randint(0, 10**6, (r, b), generator=g, device=dev, dtype=torch.int32)
+    before = hk.tile_topk_desc.launches
+    got_v, got_i = hk.tile_topk_desc(s, b, id_offset=5000, carry=(cs, ci))
+    assert hk.tile_topk_desc.launches == before + 1
+    want_v, want_i = merge_desc(cs, ci, *hk.tile_topk_desc_plain(s, b, id_offset=5000))
+    torch.cuda.synchronize()
     assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
