@@ -11,8 +11,12 @@ each of which fails the run (exit code != 0, no final ``ok`` line):
 2. build every CUDA kernel from the checkout's sources (K1, K2, K3: one
    ``nvcc`` each, started together) and print the build seconds and ptxas
    reports;
-3. hold K1 (masked score) against its plain PyTorch version at the serving
-   shapes (-inf positions exact, finite values within rtol/atol 1e-5);
+3. hold K1 (masked score) against its plain PyTorch version at every
+   ``K1_CASES`` shape: the serving shapes with packed masks and with the
+   row-strided mask ALS serving hands it (``exclusion_mask``, stride I + 1)
+   at B in {1, 17, 64} and K in {12, 32}, K = 33, and I no multiple of 4;
+   uint8, bool and f32 masks (-inf positions exact, finite values within
+   rtol/atol 1e-5);
 4. hold K2 (LLR + masking) against its plain version, bit for bit, at
    [100,000 x 4,096], [8,192 x 8,192] and [37 x 190] with ~30% nonzero
    counts, and at [100,000 x 4,096] and [37 x 190] at the training tiles'
@@ -60,8 +64,10 @@ UR training and serving (this slice's path):
     peaks) and the SM clock and clock-event reasons, sampled through NVML
     while the timed launches run: K2 and K3 on random inputs and on one count
     tile and one score tile captured from the deployed-width train (with
-    their measured share of nonzero counts and finite scores), and K1 at
-    B=1 against ``addmm`` + ``masked_fill_`` in 5 interleaved rounds.  K2's
+    their measured share of nonzero counts and finite scores); K1 at 1x32,
+    64x32 on the row-strided mask and 256x64, and at B=1 against ``addmm`` +
+    ``masked_fill_`` in 5 interleaved rounds; an empty kernel through the
+    same timer, the floor under every reading.  K2's
     operations a nonzero cell are counted from the SASS of its cell
     function (``cuobjdump``), built in phase 2.
 
@@ -121,29 +127,57 @@ def phase(name: str) -> None:
 # -- phase 3: K1 against its plain version --------------------------------------
 
 
-def score_inputs(b, k, n, dev, gen, mask_dtype=torch.uint8):
+def score_inputs(b, k, n, dev, gen, mask_dtype=torch.uint8, strided=False):
+    """Random u, v, bias and a ~10% mask; ``strided``: the mask in the layout
+    ALS serving hands K1, ``ops.als.exclusion_mask``'s row-strided view
+    (stride I + 1, so its rows start at every alignment)."""
+    from predictionio_tpu_torch.ops.als import exclusion_mask
+
     u = torch.randn(b, k, generator=gen, device=dev)
     v = torch.randn(n, k, generator=gen, device=dev)
-    mask = (torch.rand(b, n, generator=gen, device=dev) < 0.1).to(mask_dtype)
+    hit = torch.rand(b, n, generator=gen, device=dev) < 0.1
+    if strided:
+        ids = torch.where(hit, torch.arange(n, device=dev), -1)
+        mask = exclusion_mask(ids, n, dev)
+        check(b == 1 or mask.stride(0) == n + 1, "exclusion_mask's layout changed")
+        if mask_dtype == torch.bool:
+            mask = mask.view(torch.bool)
+        elif mask_dtype != torch.uint8:   # the same layout in another dtype
+            wide = torch.zeros((b, n + 1), dtype=mask_dtype, device=dev)
+            wide[:, :n] = mask
+            mask = wide[:, :n]
+    else:
+        mask = hit.to(mask_dtype)
     bias = torch.randn(n, generator=gen, device=dev)
     return u, v, mask, bias
 
 
+# (B, K, I, mask dtypes, strided): the serving shapes, packed and in
+# exclusion_mask's row-strided layout, on both sides of the streaming /
+# tiled cut (B <= 8 / B > 8), K no multiple of 4, I no multiple of 4
+K1_CASES = ([(b, k, N_ITEMS, (torch.uint8,), False) for b in (1, 8, 256) for k in (32, 64)]
+            + [(8, 32, N_ITEMS, (torch.float32,), False), (5, 12, 300, (torch.uint8,), False),
+               (64, 32, N_ITEMS, (torch.uint8,), False)]
+            + [(b, k, N_ITEMS, (torch.uint8,), True) for b in (1, 17, 64) for k in (12, 32)]
+            + [(1, 32, N_ITEMS, (torch.bool,), True),
+               (17, 33, N_ITEMS, (torch.uint8, torch.float32), True),
+               (3, 33, 4_099, (torch.uint8, torch.float32), True),
+               (64, 32, 99_999, (torch.uint8,), True), (9, 32, 100_003, (torch.bool,), True)])
+
+
 def compare_kernel(hk, dev, gen) -> float:
-    """Max |kernel - plain| over every finite score of every shape."""
-    shapes = [(b, k, N_ITEMS) for b in (1, 8, 256) for k in (32, 64)]
-    shapes += [(5, 12, 300), (64, 32, N_ITEMS)]
+    """Max |kernel - plain| over every finite score of every K1_CASES shape."""
     worst = 0.0
-    for b, k, n in shapes:
+    for b, k, n, mask_dtypes, strided in K1_CASES:
         for with_bias in (False, True):
-            for mask_dtype in ((torch.uint8, torch.float32) if (b, k) == (8, 32)
-                               else (torch.uint8,)):
-                u, v, mask, bias = score_inputs(b, k, n, dev, gen, mask_dtype)
+            for mask_dtype in mask_dtypes:
+                u, v, mask, bias = score_inputs(b, k, n, dev, gen, mask_dtype, strided)
                 bias = bias if with_bias else None
                 got = hk.masked_score_matmul(u, v, mask, bias)
                 want = hk.masked_score_matmul_plain(u, v, mask, bias)
                 torch.cuda.synchronize()
-                tag = f"B={b} K={k} I={n} bias={with_bias} mask={mask_dtype}"
+                tag = (f"B={b} K={k} I={n} bias={with_bias} mask={mask_dtype} "
+                       f"ld={mask.stride(0) if b > 1 else n}")
                 check(torch.equal(torch.isneginf(got), torch.isneginf(want)),
                       f"-inf positions differ at {tag}")
                 fin = torch.isfinite(want)
@@ -346,16 +380,19 @@ def bound_ms(b, k, n, with_bias=False, mask_bytes=1):
     return bound(bytes_, 2 * b * n * k + (b * n if with_bias else 0))
 
 
-def time_masked_score(hk, dev, gen, b, k, n, flush, clock):
-    u, v, mask, _ = score_inputs(b, k, n, dev, gen)
-    fill, zero = mask.bool(), torch.zeros(n, device=dev)
+def time_masked_score(hk, dev, gen, b, k, n, flush, clock, strided=False):
+    """K1, its plain version and ``addmm`` + ``masked_fill_`` on one input;
+    ``strided``: all three read the mask in exclusion_mask's layout."""
+    u, v, mask, _ = score_inputs(b, k, n, dev, gen, strided=strided)
+    # the uint8 mask's bytes as bool, strides kept
+    fill, zero = mask.view(torch.bool), torch.zeros(n, device=dev)
 
     def library():
         return torch.addmm(zero, u, v.T).masked_fill_(fill, float("-inf"))
 
     launches = hk.masked_score_matmul.launches
     clock.reset()
-    row = {"B": b, "K": k, "I": n,
+    row = {"B": b, "K": k, "I": n, "mask_ld": mask.stride(0) if b > 1 else n,
            "ms": time_cold(lambda: hk.masked_score_matmul(u, v, mask), flush, clock),
            "plain_ms": time_cold(lambda: hk.masked_score_matmul_plain(u, v, mask), flush, clock),
            "library_ms": time_cold(library, flush, clock)}
@@ -363,6 +400,39 @@ def time_masked_score(hk, dev, gen, b, k, n, flush, clock):
     row["bound_ms"], row["bound_by"] = bound_ms(b, k, n)
     row["sm_clock"] = clock.summary()
     return row
+
+
+# (B, K, strided mask) of K1's timing rows: the first is the kernels line's
+K1_TIMED = [(1, 32, False), (64, 32, True), (256, 64, False)]
+
+
+def time_empty(flush, clock) -> float:
+    """The floor of a ``time_cold`` reading: an empty kernel
+    (``torch.cuda._sleep(0)``, a spin of no cycles) timed the same way."""
+    return time_cold(lambda: torch.cuda._sleep(0), flush, clock)
+
+
+def k1_text(r, smi) -> str:
+    layout = f"mask ld {r['mask_ld']} (exclusion_mask's strided view)" if r["mask_ld"] != r["I"] \
+        else "packed mask"
+    return (f"  masked_score B={r['B']} K={r['K']} I={r['I']}, {layout}: "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"addmm+masked_fill_ {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{100 * r['bound_ms'] / r['ms']:.0f}% of it) | {clock_text(r['sm_clock'])} | {smi}")
+
+
+def k1_rounds_text(k1_rounds, smi) -> list:
+    lines = [f"  K1 re-time round {j + 1} B=1 K=32 I={N_ITEMS}: kernel {r['k1_ms']:.4f} ms, "
+             f"addmm+masked_fill_ {r['library_ms']:.4f} ms | {clock_text(r['sm_clock'])} "
+             f"| {smi}" for j, r in enumerate(k1_rounds)]
+    k1s, libs = [r["k1_ms"] for r in k1_rounds], [r["library_ms"] for r in k1_rounds]
+    lines.append(f"  K1 re-time over {len(k1_rounds)} rounds: kernel median "
+                 f"{statistics.median(k1s):.4f} ms (range {min(k1s):.4f}-{max(k1s):.4f}), "
+                 f"addmm+masked_fill_ median {statistics.median(libs):.4f} ms "
+                 f"(range {min(libs):.4f}-{max(libs):.4f}); kernel below the call in "
+                 f"{sum(a < b for a, b in zip(k1s, libs))} of {len(k1s)} rounds | {smi}")
+    return lines
 
 
 def time_llr(hk, counts, row, col, n, flush, clock, ops_per_cell, label):
@@ -1141,8 +1211,9 @@ def run() -> None:
     phase("13. timing")
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)   # > 50 MB L2
     clock = SMClock()
-    rows = {"masked_score": [time_masked_score(hk, dev, gen, b, k, N_ITEMS, flush, clock)
-                             for b, k in ((1, 32), (64, 32), (256, 64))]}
+    empty_ms = time_empty(flush, clock)
+    rows = {"masked_score": [time_masked_score(hk, dev, gen, b, k, N_ITEMS, flush, clock, st)
+                             for b, k, st in K1_TIMED]}
     n_items, tile = DEPLOYED_UR[1], DEPLOYED_UR[5]
     counts, row, col, n = llr_inputs(n_items, tile, dev, gen)
     rows["llr_masked"] = [time_llr(hk, counts, row, col, n, flush, clock, ops_per_cell,
@@ -1162,21 +1233,12 @@ def run() -> None:
                                        carry=topk_carry(n_items, 64, dev, gen, "initial")))
     del scores
     k1_rounds = retime_k1(hk, dev, gen, flush, clock)
+    print(f"  empty kernel (torch.cuda._sleep(0)) through time_cold: {empty_ms:.4f} ms, "
+          f"the event and launch floor of every reading below | {smi}")
     for r in rows["masked_score"]:
-        print(f"  masked_score B={r['B']} K={r['K']} I={r['I']}: "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"addmm+masked_fill_ {r['library_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | "
-              f"{clock_text(r['sm_clock'])} | {smi}")
-    for j, r in enumerate(k1_rounds):
-        print(f"  K1 re-time round {j + 1} B=1 K=32 I={N_ITEMS}: kernel {r['k1_ms']:.4f} ms, "
-              f"addmm+masked_fill_ {r['library_ms']:.4f} ms | {clock_text(r['sm_clock'])} "
-              f"| {smi}")
-    k1s, libs = [r["k1_ms"] for r in k1_rounds], [r["library_ms"] for r in k1_rounds]
-    print(f"  K1 re-time over {len(k1_rounds)} rounds: kernel median "
-          f"{statistics.median(k1s):.4f} ms (range {min(k1s):.4f}-{max(k1s):.4f}), "
-          f"addmm+masked_fill_ median {statistics.median(libs):.4f} ms "
-          f"(range {min(libs):.4f}-{max(libs):.4f}) | {smi}")
+        print(k1_text(r, smi))
+    for line in k1_rounds_text(k1_rounds, smi):
+        print(line)
     sass["issue_slot_estimate_ms"] = {}
     for r in rows["llr_masked"]:
         print(f"  llr_masked [{r['R']} x {r['C']}] {r['input']}, nonzero share "
@@ -1209,7 +1271,7 @@ def run() -> None:
                 "tile_topk": deployed["launches"][1]}
     print(json.dumps({"ur_train": {"bench_shape": bench, "deployed_width": deployed},
                       "ur_http": {str(k).lower(): v for k, v in served.items()},
-                      "k1_retime": k1_rounds, "llr_sass": sass,
+                      "k1_retime": k1_rounds, "empty_kernel_ms": empty_ms, "llr_sass": sass,
                       "wall_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

@@ -35,8 +35,12 @@ from predictionio_tpu_torch.ops import build
 from predictionio_tpu_torch.ops.topk import tile_topk_desc_plain, topk_desc
 
 _MASK_DTYPES = (torch.bool, torch.uint8, torch.float32)
-# grid.y limit (65535) x rows per block (64)
-_MAX_ROWS = 65535 * 64
+# K1's grid is one resident wave whatever the shape (a grid-stride loop over
+# 32-item groups, or over units of 32 or 64 rows x 128 items), so its only
+# limits are the C ABI's int B, I and K: row, item and k indices stay below
+# 2**31 after rounding B, I and K up to a unit (64 rows, 128 items, 32 k)
+_MAX_ROWS = 2**31 - 64
+_MAX_ITEMS = 2**31 - 128
 # the threaded query server launches from several threads at once
 _count_lock = threading.Lock()
 
@@ -72,8 +76,9 @@ def _check_masked_score_args(u, v, mask, bias) -> None:
     # the mask may be a row-strided view (its rows need not be packed)
     if n > 1 and mask.stride(1) != 1 or b > 1 and mask.stride(0) < n:
         raise ValueError("masked_score_matmul: mask rows must be contiguous")
-    if b > _MAX_ROWS:
-        raise ValueError(f"masked_score_matmul: B={b} exceeds {_MAX_ROWS}")
+    if b > _MAX_ROWS or n > _MAX_ITEMS or k > _MAX_ROWS:
+        raise ValueError(f"masked_score_matmul: B={b}, I={n}, K={k} exceed the "
+                         f"kernel's limits ({_MAX_ROWS}, {_MAX_ITEMS}, {_MAX_ROWS})")
 
 
 def masked_score_matmul_plain(
@@ -99,7 +104,9 @@ def masked_score_matmul(
     """Fused ``scores = u @ vᵀ + bias; scores[mask > 0] = -inf`` → [B, I] f32.
 
     CUDA tensors launch ``ops/csrc/masked_score.cu`` on the current stream
-    (no synchronisation); CPU tensors take ``masked_score_matmul_plain``.
+    (no synchronisation): its streaming pass over V for B <= 8, its
+    pipelined tile above.  The mask may be a row-strided view of any stride
+    >= I and any alignment.  CPU tensors take ``masked_score_matmul_plain``.
     """
     _check_masked_score_args(u, v, mask, bias)
     if u.device.type == "cpu":

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the PyTorch/H100 port's time goes: ALS serving and UR training.
 
-    python3 profile_torch.py [--queries N] [--only als|ur]
+    python3 profile_torch.py [--queries N] [--only als|ur|k1]
 
 ALS serving.  Builds the model ``chip_smoke.py`` serves (5,000 users x
 100,000 items x rank 32, random factors from a seed) on the CUDA card and
@@ -26,6 +26,16 @@ UR training.  At ``chip_smoke.py``'s deployed width (20,000 users x
    device ms per stage;
 6. a ``torch.profiler`` window over one train: device busy share and kernel
    time by kernel name.
+
+K1 alone (``--only k1``, the quick loop for work on the masked-score
+kernel; not part of the default run):
+
+7. build K1 only and hold it against its plain version at every
+   ``chip_smoke.K1_CASES`` shape (packed and row-strided masks);
+8. time it with ``chip_smoke.time_masked_score`` at ``chip_smoke.K1_TIMED``
+   and at B = 8 and 16 (either side of the streaming / tiled cut), an empty
+   kernel through the same ``time_cold``, and the 5 interleaved B = 1
+   rounds against ``addmm`` + ``masked_fill_`` (``chip_smoke.retime_k1``).
 
 Needs a CUDA card; imports neither JAX nor the JAX package.  Prints one
 JSON object as its last line.
@@ -131,10 +141,40 @@ def profile_ur_train(chip_smoke, smi: str) -> dict:
                          "kernels_us_per_train": top}}
 
 
+def profile_k1(chip_smoke, smi: str) -> dict:
+    """Steps 7-8: K1 built, checked and timed, nothing else."""
+    from predictionio_tpu_torch.device import resolve_device
+    from predictionio_tpu_torch.ops import build
+    from predictionio_tpu_torch.ops import hopper_kernels as hk
+
+    dev = resolve_device("cuda")
+    build_s = build.build_all(["masked_score"])
+    print(f"  build_s={build_s:.3f}")
+    for line in build.build_logs.get("masked_score", "").splitlines():
+        if "entry function" in line or "Used" in line or "spill" in line:
+            print(f"  {line.strip()}")
+    gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
+    worst = chip_smoke.compare_kernel(hk, dev, gen)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)   # > 50 MB L2
+    clock = chip_smoke.SMClock()
+    empty_ms = chip_smoke.time_empty(flush, clock)
+    rows = [chip_smoke.time_masked_score(hk, dev, gen, b, k, chip_smoke.N_ITEMS, flush,
+                                         clock, strided)
+            for b, k, strided in chip_smoke.K1_TIMED + [(8, 32, True), (16, 32, True)]]
+    rounds = chip_smoke.retime_k1(hk, dev, gen, flush, clock)
+    print(f"  empty kernel (torch.cuda._sleep(0)) through time_cold: {empty_ms:.4f} ms | {smi}")
+    for r in rows:
+        print(chip_smoke.k1_text(r, smi))
+    for line in chip_smoke.k1_rounds_text(rounds, smi):
+        print(line)
+    return {"max_abs_err": worst, "empty_kernel_ms": empty_ms, "rows": rows,
+            "rounds": rounds, "build_s": build_s}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--queries", type=int, default=200)
-    ap.add_argument("--only", choices=("als", "ur"), default=None)
+    ap.add_argument("--only", choices=("als", "ur", "k1"), default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: needs a CUDA card", file=sys.stderr)
@@ -146,10 +186,12 @@ def main() -> int:
         capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi)
     out = {"card": smi}
-    if args.only != "ur":
+    if args.only in (None, "als"):
         out["als_serving"] = profile_als_serving(chip_smoke, args.queries)
-    if args.only != "als":
+    if args.only in (None, "ur"):
         out["ur_train"] = profile_ur_train(chip_smoke, smi)
+    if args.only == "k1":
+        out["k1"] = profile_k1(chip_smoke, smi)
     print(json.dumps(out))
     return 0
 

@@ -48,6 +48,44 @@ def test_masked_score_kernel_matches_plain(dev, shape, with_bias, mask_dtype):
     torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-5)
 
 
+def _strided_mask(hit, dtype):
+    """``hit`` in the layout ALS serving hands K1: ``exclusion_mask``'s
+    row-strided view (stride I + 1), in ``dtype``."""
+    from predictionio_tpu_torch.ops.als import exclusion_mask
+
+    b, n = hit.shape
+    ids = torch.where(hit, torch.arange(n, device=hit.device), -1)
+    mask = exclusion_mask(ids, n, hit.device)
+    if dtype == torch.bool:
+        return mask.view(torch.bool)
+    if dtype == torch.uint8:
+        return mask
+    wide = torch.zeros((b, n + 1), dtype=dtype, device=hit.device)
+    wide[:, :n] = mask
+    return wide[:, :n]
+
+
+@pytest.mark.parametrize("mask_dtype", [torch.uint8, torch.bool, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 32, 100_000), (8, 33, 4099), (9, 32, 100_003),
+                                   (17, 12, 100_000), (32, 32, 257), (33, 1, 4099),
+                                   (64, 32, 100_000), (65, 33, 100_001)])
+def test_masked_score_kernel_strided_mask(dev, shape, mask_dtype):
+    """The streaming (B <= 8) and tiled paths on the main path's mask layout,
+    whose rows start at every alignment, K and I no multiple of 4."""
+    b, k, n = shape
+    g = torch.Generator(device=dev).manual_seed(b * k + n)
+    u = torch.randn(b, k, generator=g, device=dev)
+    v = torch.randn(n, k, generator=g, device=dev)
+    mask = _strided_mask(torch.rand(b, n, generator=g, device=dev) < 0.1, mask_dtype)
+    assert b == 1 or mask.stride(0) == n + 1
+    got = hk.masked_score_matmul(u, v, mask)
+    want = hk.masked_score_matmul_plain(u, v, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-5)
+
+
 def _llr_inputs(dev, r, c, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     counts = torch.randint(0, 8, (r, c), generator=g, device=dev, dtype=torch.int32)

@@ -89,6 +89,76 @@ def test_masked_score_rejects_bad_arguments(bad):
         hk.masked_score_matmul(u, v, seen, bias_arg)
 
 
+# (B, K, I, mask dtype, row-strided mask, bias): either side of K1's
+# streaming / tiled cut (B <= 8 / B > 8) and of its 32- and 64-row units,
+# K and I no multiple of 4, one-item and one-k edges.  "Row-strided" is the
+# layout ALS serving hands K1: ops.als.exclusion_mask's view of stride I + 1.
+K1_CASES = [
+    (1, 32, 4099, torch.uint8, True, False), (1, 1, 1, torch.bool, False, True),
+    (1, 12, 3, torch.float32, False, False), (8, 32, 257, torch.uint8, True, True),
+    (8, 33, 4099, torch.bool, True, False), (9, 32, 4099, torch.uint8, True, False),
+    (9, 12, 257, torch.float32, True, True), (17, 33, 257, torch.uint8, True, True),
+    (17, 1, 4099, torch.bool, True, False), (64, 32, 4099, torch.uint8, True, True),
+    (64, 12, 3, torch.float32, False, False), (65, 33, 257, torch.uint8, True, False),
+    (65, 32, 1, torch.bool, True, True),
+]
+
+
+def _k1_mask(seen, dtype, strided):
+    """``seen`` (numpy, >0 = excluded) as a torch mask of ``dtype``; strided:
+    in exclusion_mask's layout, built from id lists as serving builds it."""
+    b, n = seen.shape
+    if not strided:
+        return torch.from_numpy(seen > 0).to(dtype)
+    ids = np.where(seen > 0, np.arange(n), -1)
+    mask = torch_als.exclusion_mask(ids, n, torch.device("cpu"))
+    if dtype == torch.bool:
+        mask = mask.view(torch.bool)
+    elif dtype != torch.uint8:
+        wide = torch.zeros((b, n + 1), dtype=dtype)
+        wide[:, :n] = mask
+        mask = wide[:, :n]
+    assert b == 1 or mask.stride() == (n + 1, 1)
+    return mask
+
+
+_k1_pallas_cache = {}
+
+
+def _k1_pallas(case):
+    """The JAX interpret-mode Pallas K1 on the case's seeded inputs (once per
+    case: both of the port's functions are held against it)."""
+    if case not in _k1_pallas_cache:
+        b, k, n, _, _, with_bias = case
+        u, v, seen, bias = _inputs(sum((b, k, n)), b, k, n)
+        want = jax_pk.masked_score_matmul(
+            jnp.asarray(u), jnp.asarray(v), jnp.asarray(seen),
+            jnp.asarray(bias) if with_bias else None)
+        _k1_pallas_cache[case] = (u, v, seen, bias, np.asarray(want))
+    return _k1_pallas_cache[case]
+
+
+@pytest.mark.parametrize("fn", ["plain", "wrapper"])
+@pytest.mark.parametrize("case", K1_CASES, ids=lambda c: "B{}-K{}-I{}-{}-{}-{}".format(
+    c[0], c[1], c[2], str(c[3]).split(".")[-1], "strided" if c[4] else "packed",
+    "bias" if c[5] else "nobias"))
+def test_masked_score_contract_matches_pallas(case, fn):
+    """K1's contract at the shapes where the CUDA kernel's paths split or go
+    ragged, on every mask dtype and layout it takes: -inf exactly where the
+    mask is set, finite scores within rtol/atol 1e-5 of the Pallas kernel."""
+    b, k, n, dtype, strided, with_bias = case
+    u, v, seen, bias, want = _k1_pallas(case)
+    mask = _k1_mask(seen, dtype, strided)
+    args = (torch.from_numpy(u), torch.from_numpy(v), mask,
+            torch.from_numpy(bias) if with_bias else None)
+    before = hk.masked_score_matmul.launches
+    got = (hk.masked_score_matmul_plain if fn == "plain" else hk.masked_score_matmul)(*args)
+    assert hk.masked_score_matmul.launches == before   # CPU tensors launch nothing
+    assert got.shape == (b, n) and got.dtype == torch.float32
+    np.testing.assert_array_equal(np.isneginf(got.numpy()), seen > 0)
+    _assert_scores(got, want)
+
+
 def test_recommend_batch_matches_pallas_and_xla():
     b, k, n_items, top_k = 4, 16, 257, 10
     u, v, seen, _ = _inputs(3, b, k, n_items, mask_rate=0.2)
