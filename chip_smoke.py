@@ -45,19 +45,37 @@ UR training and serving (this slice's path):
     tables must be bit-identical, and both are timed; 64 sampled count
     rows against numpy;
 11. train the UR at the deployed width (20,000 users x 100,000 items, 400k
-    purchase + 800k view events, top_k 50, tile 4,096) through
-    ``URAlgorithm.train``: the resident tiled path, 25 tiles x 2 event
-    types, so K2 and K3 each launch 50 times (counters set to 0 just before
-    the run and read just after) and ``merge_desc`` never runs on the card
-    (K3 merges the carry); the indicator tables must equal, bit for bit,
-    tables rebuilt here from the port's pieces with K3 unfused (a tile loop
-    of K3 without a carry, then ``merge_desc``);
-12. serve that model over HTTP (``deploy_models``, two deployments: LLR
-    weights off and on): nine listed queries of every kind, then 300
-    timed ones (p50 and p99) drawn from 100 users with history, the items
-    and item sets; the listed answers and every tenth timed one are
-    checked against the port's own predict on a CPU copy of the model
-    (the plain path);
+    purchase + 800k view events, top_k 50, tile 4,096) from the store: the
+    events and 100,000 ``$set`` item events (category, tags, releaseDate,
+    availableDate, expireDate, from the seed) go into a memory ``Storage``;
+    ``read_training``'s ``URTrainingData`` must equal
+    ``ur_training_data_from_arrays`` on the same arrays; ``URAlgorithm.train``
+    is timed on it (the wall earlier runs timed), then ``run_train`` with
+    the engine params of an engine.json dict trains and saves the model:
+    the resident tiled path, 25 tiles x 2 event types, so K2 and K3 each
+    launch 50 times in each (counters set to 0 just before each run and
+    read just after) and ``merge_desc`` never runs on the card (K3 merges
+    the carry); the model comes back through ``load_latest_models`` and its
+    indicator tables must equal, bit for bit, tables rebuilt here from the
+    port's pieces with K3 unfused (a tile loop of K3 without a carry, then
+    ``merge_desc``); insert, read_training, run_train, save and load are
+    timed, the blob's size and run_train's peak device memory printed; the
+    events live on their own memory source and are dropped once trained
+    (the query server does not hold them);
+12. serve that model from the model store over HTTP (``deploy`` of an
+    engine.json, two deployments: LLR weights off and on): nine listed
+    queries of every kind, 300 timed plain ones drawn from 100 users with
+    history, the items and item sets, one rule query touching every
+    property (it builds the model's property indexes and date offsets;
+    timed on its own), and 200 timed rule queries over the same users
+    (hard filters on one and several values, boosts, a filter
+    on the multi-valued tags, an unknown field and value, dateRange after,
+    before and both, currentDate against availableDate/expireDate); the
+    listed answers and every tenth timed one of each kind are checked
+    against the port's own predict on a CPU copy of the model (the plain
+    path), every rule answer against a numpy oracle of the item
+    properties, and a malformed currentDate must answer 400; the rule
+    mask's build is timed on the card, first and LRU-warm;
 13. time each kernel, its plain version and a PyTorch yardstick where one
     exists, with CUDA events and the L2 flushed, beside its bound (bytes
     over 3.35 TB/s or operations over 67 TFLOP/s, the H100 SXM data sheet's
@@ -79,10 +97,12 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import datetime
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -108,7 +128,12 @@ HOST_COVER_CYCLES = 2_000_000       # ~1 ms of device spin before each timed cal
 BENCH_UR = (100_000, 8_192, 1_000_000, 3_000_000, 50, 4_096)
 DEPLOYED_UR = (20_000, 100_000, 400_000, 800_000, 50, 4_096)
 UR_POOL, UR_TIMED = 100, 300   # users with history in the store; timed UR queries
+RULE_TIMED = 200               # timed UR rule queries
+N_CATEGORIES, N_TAGS = 50, 200  # item property values of the store path
 T0 = 1_780_000_000.0
+T2015 = 1_420_070_400.0        # 2015-01-01T00:00:00Z
+QNOW = 1_772_323_200.0         # 2026-03-01T00:00:00Z: the rule queries' "now"
+ENGINE_ID = "smoke-ur"
 
 
 class SmokeFailure(Exception):
@@ -763,10 +788,10 @@ def synth_commerce(n_users, n_items, n_buy, n_view, seed=0):
             pop[n_buy:n_buy + n_view].astype(np.int32))
 
 
-def deployed_training_data(ur):
-    """The deployed UR width (bench.py:150's commerce events): both event
-    types cover the whole catalog (so each has 25 item tiles of 4,096),
-    then zipf-popular items; one event a second from T0."""
+def deployed_arrays():
+    """The deployed UR width's interactions (bench.py:150's commerce
+    events): both event types cover the whole catalog (so each has 25 item
+    tiles of 4,096), then zipf-popular items."""
     n_users, n_items, n_p, n_v, _, _ = DEPLOYED_UR
     rng = np.random.default_rng(SEED)
     cover = np.arange(n_items)
@@ -774,12 +799,124 @@ def deployed_training_data(ur):
     pi = np.concatenate([cover, rng.zipf(1.3, n_p - n_items) % n_items]).astype(np.int32)
     vu = rng.integers(0, n_users, n_v).astype(np.int32)
     vi = np.concatenate([cover, rng.zipf(1.2, n_v - n_items) % n_items]).astype(np.int32)
-    items = [f"i{j}" for j in range(n_items)]
-    td = ur.ur_training_data_from_arrays(
-        ["purchase", "view"], [f"u{j}" for j in range(n_users)],
-        {"purchase": (pu, pi, items, T0 + np.arange(n_p, dtype=np.float64)),
-         "view": (vu, vi, items, T0 + np.arange(n_v, dtype=np.float64))})
-    return td, (pu, pi, vu, vi)
+    return pu, pi, vu, vi
+
+
+def iso(epoch_s: float) -> str:
+    return datetime.datetime.fromtimestamp(epoch_s, datetime.timezone.utc).isoformat()
+
+
+def epoch(text: str) -> float:
+    return datetime.datetime.fromisoformat(text).timestamp()
+
+
+def item_columns(n_items):
+    """Every item's properties, from the seed, as columns: a category of 50
+    (zipf-skewed), 1-3 distinct tags of 200 (-1 pads), and epoch-second
+    dates (NaN where missing): releaseDate over 2015-2026 (missing on 5%),
+    availableDate and expireDate around QNOW (each missing on 10%; 1% of
+    items each have the bound at QNOW exactly)."""
+    rng = np.random.default_rng(SEED + 2)
+    cat = (rng.zipf(1.3, n_items) - 1) % N_CATEGORIES
+    base = rng.integers(0, N_TAGS, n_items)
+    tags = np.stack([base, (base + rng.integers(1, N_TAGS // 2, n_items)) % N_TAGS,
+                     (base + rng.integers(N_TAGS // 2, N_TAGS, n_items)) % N_TAGS], 1)
+    tags[np.arange(3)[None, :] >= rng.integers(1, 4, n_items)[:, None]] = -1
+    day = 86_400
+    dates = {"releaseDate": (T2015 + rng.integers(0, 12 * 365 * day, n_items)).astype(np.float64),
+             "availableDate": QNOW - rng.integers(-30 * day, 400 * day, n_items),
+             "expireDate": QNOW + rng.integers(-30 * day, 400 * day, n_items)}
+    for name, share in (("releaseDate", 0.05), ("availableDate", 0.1), ("expireDate", 0.1)):
+        d = dates[name].astype(np.float64)
+        if name != "releaseDate":
+            d[rng.choice(n_items, n_items // 100, replace=False)] = QNOW
+        d[rng.random(n_items) < share] = np.nan
+        dates[name] = d
+    return cat, tags, dates
+
+
+def item_properties(cols):
+    """The ``$set`` property map of every item, from its columns."""
+    cat, tags, dates = cols
+    props = {}
+    for j in range(len(cat)):
+        p = {"category": f"c{cat[j]}", "tags": [f"t{t}" for t in tags[j] if t >= 0]}
+        for name, d in dates.items():
+            if not np.isnan(d[j]):
+                p[name] = iso(float(d[j]))
+        props[f"i{j}"] = p
+    return props
+
+
+def store_events(Event, arrays, props):
+    """The events a deployment ingests: every purchase (one a second from
+    T0), then every view, and one ``$set`` per item before them."""
+    pu, pi, vu, vi = arrays
+    t_view = T0 + len(pu)
+    events = [Event("$set", "item", item, properties=p, event_time=T0 - 1, creation_time=T0 - 1)
+              for item, p in props.items()]
+    for name, users, items, t0 in (("purchase", pu, pi, T0), ("view", vu, vi, t_view)):
+        events.extend(Event(name, "user", f"u{u}", "item", f"i{i}", event_time=t0 + k,
+                            creation_time=t0 + k)
+                      for k, (u, i) in enumerate(zip(users.tolist(), items.tolist())))
+    return events
+
+
+def expected_training_data(ur, arrays, props):
+    """``ur_training_data_from_arrays`` on the store's arrays, in the order
+    ``URDataSource.read_training`` gives them: dictionary codes by first
+    appearance in the time-ordered events; users of the primary event
+    first, each type's items in code order."""
+    pu, pi, vu, vi = arrays
+    n_users, n_items = DEPLOYED_UR[:2]
+
+    def first_seen(seq):
+        uniq, idx = np.unique(seq, return_index=True)
+        return uniq[np.argsort(idx, kind="stable")]
+
+    def positions(ids, n):
+        pos = np.full(n, -1, np.int64)
+        pos[ids] = np.arange(len(ids))
+        return pos
+
+    user_of_code = first_seen(np.concatenate([pu, vu]))
+    code_of_user = positions(user_of_code, n_users)
+    p_codes = np.unique(code_of_user[pu])
+    users = user_of_code[np.concatenate([p_codes, np.setdiff1d(code_of_user[vu], p_codes)])]
+    user_pos = positions(users, n_users)
+    item_of_code = first_seen(np.concatenate([pi, vi]))
+    code_of_item = positions(item_of_code, n_items)
+    inter = {}
+    for name, u, i, t0 in (("purchase", pu, pi, T0), ("view", vu, vi, T0 + len(pu))):
+        items = item_of_code[np.unique(code_of_item[i])]
+        inter[name] = (user_pos[u], positions(items, n_items)[i], [f"i{x}" for x in items],
+                       t0 + np.arange(len(u), dtype=np.float64))
+    return ur.ur_training_data_from_arrays(
+        ["purchase", "view"], [f"u{x}" for x in users], inter, props)
+
+
+def same_training_data(got, want):
+    """The read_training check: users, every type's arrays and item
+    dictionary, and the item properties equal."""
+    check(got.event_names == want.event_names, "event names differ")
+    check(got.user_dict.to_state() == want.user_dict.to_state(), "user dictionaries differ")
+    for name, (wu, wi, wd, wt) in want.interactions.items():
+        gu, gi, gd, gt = got.interactions[name]
+        check(all(g.dtype == w.dtype and np.array_equal(g, w)
+                  for g, w in ((gu, wu), (gi, wi), (gt, wt))), f"{name}: arrays differ")
+        check(gd.to_state() == wd.to_state(), f"{name}: item dictionaries differ")
+    check(got.item_properties == want.item_properties, "item properties differ")
+
+
+def engine_variant(use_llr):
+    """The engine.json a deployment of the store path trains and serves."""
+    return {"id": ENGINE_ID, "engineFactory": "universal_recommender",
+            "datasource": {"params": {"appName": "smoke",
+                                      "eventNames": ["purchase", "view"]}},
+            "algorithms": [{"name": "ur", "params": {
+                "appName": "smoke", "maxCorrelatorsPerItem": DEPLOYED_UR[4],
+                "itemTile": DEPLOYED_UR[5], "useLlrWeights": use_llr,
+                "availableDateName": "availableDate", "expireDateName": "expireDate"}}]}
 
 
 def numpy_counts(pu, pi, au, ai, n_items_t, rows):
@@ -880,13 +1017,46 @@ def unfused_indicators(cco, hk, td, dev, top_k, tile):
 
 
 def train_deployed(ur, cco, hk, dev):
-    """Phase 11: the deployed UR width through URAlgorithm.train."""
+    """Phase 11: the deployed UR width from the store — events with $set
+    properties → a memory Storage → read_training (held against the arrays
+    path) → URAlgorithm.train (the wall earlier runs timed) → run_train (K2/K3
+    launches counted) → the model store → load_latest_models."""
+    from predictionio_tpu_torch.events.event import Event
     from predictionio_tpu_torch.ops import topk
+    from predictionio_tpu_torch.storage import App, Storage, StorageConfig, set_storage
+    from predictionio_tpu_torch.workflow.core_workflow import load_latest_models, run_train
+    from predictionio_tpu_torch.workflow.create_workflow import engine_from_variant
+    from predictionio_tpu_torch.workflow.persistence import save_models
 
     n_users, n_items, n_p, n_v, top_k, tile = DEPLOYED_UR
-    td, arrays = deployed_training_data(ur)
-    params = ur.URAlgorithmParams(app_name="smoke", max_correlators_per_item=top_k,
-                                  item_tile=tile)
+    arrays = deployed_arrays()
+    cols = item_columns(n_items)
+    props = item_properties(cols)
+    # events on one memory source, apps, instances and models on another
+    store = Storage(StorageConfig(
+        sources={"EVENTS": {"type": "memory"}, "MODELS": {"type": "memory"}},
+        repositories={"EVENTDATA": "EVENTS", "METADATA": "MODELS", "MODELDATA": "MODELS"}))
+    set_storage(store)   # the data source reads the process default, as in the reference
+    app = store.apps.insert(App(0, "smoke"))
+    t0 = time.perf_counter()
+    events = store_events(Event, arrays, props)
+    build_s = time.perf_counter() - t0
+    store.l_events.insert_batch(events, app)
+    insert_s = time.perf_counter() - t0
+    del events
+    variant = engine_variant(False)
+    _, engine, ep = engine_from_variant(variant)
+    t0 = time.perf_counter()
+    td_store = engine.make_components(ep)[0].read_training()
+    read_s = time.perf_counter() - t0
+    td = expected_training_data(ur, arrays, props)
+    same_training_data(td_store, td)
+    del td_store
+    print(f"  {n_p + n_v} interactions + {n_items} $set item events built and inserted in "
+          f"{insert_s:.3f} s (the Event objects {build_s:.3f} s of it); read_training "
+          f"{read_s:.3f} s, equal to "
+          "ur_training_data_from_arrays on the same arrays (interactions and item properties)")
+    params = ep.algorithm_params_list[0][1]
     check(params.min_llr == 0.0, "the unfused rebuild assumes LLR threshold 0")
     algo = ur.URAlgorithm(params, device=dev)
     algo.train(td)   # warm-up: one-time set-up of the count product and kernels
@@ -901,24 +1071,43 @@ def train_deployed(ur, cco, hk, dev):
     holders = [m for name, m in list(sys.modules.items())
                if name.startswith("predictionio_tpu_torch")
                and getattr(m, "merge_desc", None) is merge_desc]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
+    tiles = 2 * -(-n_items // tile)
     for m in holders:
         m.merge_desc = counting_merge
     try:
+        torch.cuda.synchronize()
         hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
         t0 = time.perf_counter()
-        model = algo.train(td)
+        algo.train(td)
         wall = time.perf_counter() - t0
+        train_launches = (hk.llr_masked_scores.launches, hk.tile_topk_desc.launches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+        t0 = time.perf_counter()
+        instance = run_train(engine, ep, ENGINE_ID, storage=store, device=dev)
+        run_train_s = time.perf_counter() - t0
         launches = (hk.llr_masked_scores.launches, hk.tile_topk_desc.launches)
     finally:
         for m in holders:
             m.merge_desc = merge_desc
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    tiles = 2 * -(-n_items // tile)
-    check(launches == (tiles, tiles),
-          f"K2/K3 launches {launches} on the 100k-item train, expected {tiles} each")
+    check(instance.status == "COMPLETED", f"run_train left its instance {instance.status}")
+    for what, got in (("URAlgorithm.train", train_launches), ("run_train", launches)):
+        check(got == (tiles, tiles),
+              f"K2/K3 launches {got} in {what} at 100k items, expected {tiles} each")
     check(merges_on_card[0] == 0, f"merge_desc ran {merges_on_card[0]} times on the card")
+    blob_mb = len(store.models.get(instance.id)) / 1e6
+    t0 = time.perf_counter()
+    found, (model,) = load_latest_models(ENGINE_ID, storage=store, device=dev)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_models(store, instance.id, [model])   # the same bytes again
+    save_s = time.perf_counter() - t0
+    check(found.id == instance.id and model.device == dev, "load_latest_models")
+    # the query server does not hold the training events: drop them from
+    # this process (1.3M Python objects would lengthen every GC pass)
+    check(store.l_events.remove(app), "the training events were not in the store")
     rebuilt = unfused_indicators(cco, hk, td, dev, top_k, tile)
     for name in ("purchase", "view"):
         idx, llr = model.indicator_idx[name], model.indicator_llr[name]
@@ -929,15 +1118,19 @@ def train_deployed(ur, cco, hk, dev):
         want_idx, want_llr = rebuilt[name]
         check(np.array_equal(idx, want_idx) and np.array_equal(llr.view(np.int32),
                                                                want_llr.view(np.int32)),
-              f"{name}: fused tables differ from the unfused K3 + merge_desc rebuild")
+              f"{name}: stored tables differ from the unfused K3 + merge_desc rebuild")
         print(f"  {name}: [{n_items} x {top_k}] indicators, {int((idx >= 0).sum())} set, "
-              "bit-identical to the unfused K3 + merge_desc rebuild")
+              "stored, loaded and bit-identical to the unfused K3 + merge_desc rebuild")
     print(f"  users={n_users} items={n_items} events={n_p + n_v} tiles={tiles} "
-          f"train wall_s={wall:.3f} events_per_s={(n_p + n_v) / wall:.0f} "
-          f"peak_device_gb={peak_gb:.2f} launches K2={launches[0]} K3={launches[1]} "
-          f"merge_desc on the card={merges_on_card[0]}")
-    return model, td, arrays, {"wall_s": wall, "events": n_p + n_v, "peak_gb": peak_gb,
-                               "launches": launches}
+          f"URAlgorithm.train wall_s={wall:.3f} events_per_s={(n_p + n_v) / wall:.0f} "
+          f"launches K2={train_launches[0]} K3={train_launches[1]}; run_train wall_s="
+          f"{run_train_s:.3f} peak_device_gb={peak_gb:.2f} launches K2={launches[0]} "
+          f"K3={launches[1]} merge_desc on the card={merges_on_card[0]}; model blob "
+          f"{blob_mb:.1f} MB, save_s={save_s:.3f} load_s={load_s:.3f}")
+    return store, model, td, arrays, cols, {
+        "wall_s": wall, "events": n_p + n_v, "peak_gb": peak_gb, "launches": launches,
+        "insert_s": insert_s, "event_build_s": build_s, "read_training_s": read_s, "run_train_s": run_train_s,
+        "blob_mb": blob_mb, "save_s": save_s, "load_s": load_s}
 
 
 def ur_bodies():
@@ -971,19 +1164,110 @@ def ur_queries(rng, n, users):
     return out
 
 
-def history_store(mem, hist_users, arrays):
+def rule_queries(rng, n, users):
+    """Rule query bodies over ``users``: hard filters on one and on
+    several categories, boosts (bias 0.5 and 2.0), a filter on the
+    multi-valued tags, an unknown field name and an unknown value (which
+    match nothing), dateRange with after only, before only and both, and
+    currentDate at QNOW (where 1% of items' bounds lie) and around it."""
+    year = 365 * 86_400
+    out = []
+    for j in range(n):
+        body = {"user": users[j % len(users)], "num": int(rng.choice([4, 10, 20]))}
+        cats = [f"c{int(c)}" for c in rng.integers(0, 8, 3)]
+        kind = j % 10
+        if kind == 0:
+            body["fields"] = [{"name": "category", "values": cats[:1], "bias": -1}]
+        elif kind == 1:
+            body["fields"] = [{"name": "category", "values": cats, "bias": -1}]
+        elif kind == 2:
+            body["fields"] = [{"name": "category", "values": cats[:1], "bias": 0.5},
+                              {"name": "tags", "values": [f"t{int(rng.integers(N_TAGS))}"],
+                               "bias": 2.0}]
+        elif kind == 3:
+            body["fields"] = [{"name": "tags", "bias": -1, "values": [
+                f"t{int(t)}" for t in rng.integers(0, N_TAGS, 12)]}]
+        elif kind == 4:
+            body["fields"] = [{"name": "no-such-field", "values": cats[:1], "bias": -1}]
+        elif kind == 5:
+            body["fields"] = [{"name": "category", "values": ["no-such-value"], "bias": -1}]
+        elif kind == 6:
+            body["dateRange"] = {"name": "releaseDate",
+                                 "after": iso(T2015 + float(rng.integers(0, 11 * year)))}
+        elif kind == 7:
+            body["dateRange"] = {"name": "releaseDate",
+                                 "before": iso(T2015 + float(rng.integers(1, 11 * year)))}
+        elif kind == 8:
+            a = T2015 + float(rng.integers(0, 8 * year))
+            body["dateRange"] = {"name": "releaseDate", "after": iso(a),
+                                 "before": iso(a + float(rng.integers(year, 3 * year)))}
+            body["fields"] = [{"name": "category", "values": cats, "bias": 2.0}]
+        else:
+            now = QNOW if j % 20 == 9 else QNOW + float(rng.integers(-60, 60)) * 86_400
+            body["currentDate"] = iso(now)
+        out.append(body)
+    return out
+
+
+def check_rule_oracle(body, got, cols) -> int:
+    """Every returned item passes every hard filter and date rule of its
+    query, read straight from the item property columns; returns the
+    items checked."""
+    cat, tags, dates = cols
+    for d in got["itemScores"]:
+        j = int(d["item"][1:])
+        for f in body.get("fields", []):
+            if f["bias"] >= 0:
+                continue
+            have = ({f"c{cat[j]}"} if f["name"] == "category" else
+                    {f"t{t}" for t in tags[j] if t >= 0} if f["name"] == "tags" else set())
+            check(bool(have & set(f["values"])), f"{body}: item {j} fails {f}")
+        dr = body.get("dateRange")
+        if dr:
+            ts = dates[dr["name"]][j]
+            check(not np.isnan(ts) and ts >= epoch(dr.get("after") or iso(0))
+                  and ("before" not in dr or ts <= epoch(dr["before"])),
+                  f"{body}: item {j} outside the date range")
+        if "currentDate" in body:
+            now = epoch(body["currentDate"])
+            check(dates["availableDate"][j] <= now <= dates["expireDate"][j],
+                  f"{body}: item {j} not available at {body['currentDate']}")
+    return len(got["itemScores"])
+
+
+def history_store(hist_users, arrays):
     """An event store holding the queried users' events only."""
+    from predictionio_tpu_torch.events.event import Event
+    from predictionio_tpu_torch.storage import App, Storage, StorageConfig
+
     pu, pi, vu, vi = arrays
-    store = mem.MemStorage()
-    app = store.apps.insert("smoke")
+    store = Storage(StorageConfig.memory())
+    app = store.apps.insert(App(0, "smoke"))
     for name, users, items in (("purchase", pu, pi), ("view", vu, vi)):
         for u in hist_users:
             uid = int(u[1:])
             for k, j in enumerate(np.flatnonzero(users == uid)):
-                store.l_events.insert(mem.Event(
+                store.l_events.insert(Event(
                     name, "user", u, target_entity_type="item",
                     target_entity_id=f"i{int(items[j])}", event_time=T0 + k), app)
     return store
+
+
+def mask_build_ms(ur, model, variant, body, reps=5):
+    """The composed rule mask's build on the card for one query: the first
+    build on a freshly loaded model (property indexes, value masks and
+    date offsets built), then the median of ``reps`` repeats (their LRUs
+    warm)."""
+    algo = ur.URAlgorithm(ur.URAlgorithmParams.from_json(variant["algorithms"][0]["params"]))
+    key = algo._mask_rule_key(ur.URQuery.from_json(body))
+    out = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        algo._mask_from_key(model, key)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out[0], float(np.median(out[1:]))
 
 
 def check_ur_answer(body, got, want, signal, item_dict):
@@ -1023,56 +1307,96 @@ def timed_posts(url, bodies):
     return answers, lat_ms
 
 
-def serve_ur(ur, mem, deploy_models, EngineParams, model, arrays):
-    """Phase 12: two HTTP deployments of the trained model.  The listed
-    bodies go first and are each checked against the CPU predict; then
-    UR_TIMED queries drawn from UR_POOL users with history, items and item
-    sets are timed, and every tenth of them is checked the same way."""
+def serve_ur(ur, store, model, arrays, cols, dev):
+    """Phase 12: two deployments from the model store (``deploy``: LLR
+    weights off and on, business rules on the $set properties).  The
+    listed bodies go first and are each checked against the CPU predict;
+    then UR_TIMED plain queries, one rule query over every property (the
+    first build of the model's rule state) and RULE_TIMED rule queries
+    drawn from UR_POOL users with history (plus items and item sets) are
+    timed, every tenth of each checked the same way, and every rule answer
+    against the numpy oracle of check_rule_oracle; a malformed currentDate
+    answers 400."""
+    from predictionio_tpu_torch.storage import set_storage
+    from predictionio_tpu_torch.workflow.create_server import deploy
+
     hist_users, bodies = ur_bodies()
     rng = np.random.default_rng(SEED + 1)
     pool = hist_users + [u for u in (f"u{int(j)}" for j in rng.choice(
         DEPLOYED_UR[0], UR_POOL, replace=False)) if u not in hist_users][: UR_POOL - 3]
     timed = ur_queries(rng, UR_TIMED, pool)
-    mem.set_storage(history_store(mem, pool, arrays))
+    rules = rule_queries(rng, RULE_TIMED, pool)
+    set_storage(history_store(pool, arrays))
     cpu_model = ur.ur_model_from_state(model.__getstate__(), device="cpu")
-    engine = ur.UniversalRecommenderEngine.apply()
-    out = {}
-    for use_llr in (False, True):
-        params = ur.URAlgorithmParams(app_name="smoke", use_llr_weights=use_llr)
-        ep = EngineParams(algorithm_params_list=[("ur", params)])
-        server = deploy_models(engine, ep, [model], port=0, query_class=ur.URQuery)
-        try:
-            url = f"http://127.0.0.1:{server.server_address[1]}/queries.json"
-            answers, lat_ms = timed_posts(url, bodies)
-            timed_answers, timed_ms = timed_posts(url, timed)
-            status = refused(url, {"user": hist_users[0], "fields": [
-                {"name": "category", "values": ["x"], "bias": -1}]})
-        finally:
-            server.shutdown()
-            server.server_close()
-        check(status == 400, f"a business-rule query answered {status}, not 400")
-        algo = ur.URAlgorithm(params)
-        checked = list(zip(bodies, answers)) + list(zip(timed, timed_answers))[::10]
-        swaps = 0
-        for body, got in checked:
-            q = ur.URQuery.from_json(body)
-            want = algo.predict(cpu_model, q).to_json()
-            hist = algo._query_hist(cpu_model, q)
-            sig = algo._score_history(cpu_model, hist) if hist is not None else None
-            swaps += check_ur_answer(body, got, want, None if sig is None else sig.numpy(),
-                                     cpu_model.item_dict)
-        for body, got in zip(bodies + timed, answers + timed_answers):
-            check(len(got["itemScores"]) == min(body["num"], len(cpu_model.item_dict))
-                  and all(np.isfinite(d["score"]) for d in got["itemScores"]),
-                  f"{body}: short answer or non-finite score")
-        p50, p99 = np.percentile(timed_ms, [50, 99])
-        print(f"  use_llr_weights={use_llr}: {len(checked)} answers equal the CPU predict "
-              f"({swaps} near-tie swaps), a rule query answered 400; latency_ms "
-              f"first={lat_ms[0]:.3f}, over {len(timed)} timed queries p50={p50:.3f} "
-              f"p99={p99:.3f} max={max(timed_ms):.3f} "
-              "(host clock, one client, a connection per request)")
-        out[use_llr] = {"first_ms": lat_ms[0], "p50_ms": float(p50), "p99_ms": float(p99),
-                        "max_ms": max(timed_ms), "n": len(timed), "checked": len(checked)}
+    probe = {"user": pool[0], "currentDate": iso(QNOW),
+             "fields": [{"name": "category", "values": ["c0", "c3"], "bias": -1},
+                        {"name": "tags", "values": ["t7"], "bias": 2.0}],
+             "dateRange": {"name": "releaseDate", "after": iso(T2015 + 3 * 365 * 86_400)}}
+    mask_ms = mask_build_ms(ur, model, engine_variant(False), probe)
+    print(f"  rule mask build on the card for {probe}: first {mask_ms[0]:.3f} ms on the "
+          f"loaded model, then {mask_ms[1]:.3f} ms (median of 5, its LRUs warm)")
+    out = {"mask_build_ms": {"first": mask_ms[0], "warm": mask_ms[1]}}
+    with tempfile.TemporaryDirectory() as workdir:
+        for use_llr in (False, True):
+            variant = engine_variant(use_llr)
+            path = Path(workdir) / f"engine-{use_llr}.json"
+            path.write_text(json.dumps(variant))
+            server = deploy(str(path), host="127.0.0.1", port=0, storage=store,
+                                 device=dev)
+            try:
+                check(server.state.models[0].device == dev, "deployed off the card")
+                url = f"http://127.0.0.1:{server.server_address[1]}/queries.json"
+                answers, lat_ms = timed_posts(url, bodies)
+                timed_answers, timed_ms = timed_posts(url, timed)
+                # the first rule query builds the model's property indexes and
+                # date offsets (each once a model): timed on its own
+                (probe_answer,), (probe_ms,) = timed_posts(url, [probe])
+                rule_answers, rule_ms = timed_posts(url, rules)
+                status = refused(url, {"user": hist_users[0], "currentDate": "01/03/2026"})
+            finally:
+                server.shutdown()
+                server.server_close()
+            check(status == 400, f"a malformed currentDate answered {status}, not 400")
+            algo = ur.URAlgorithm(ur.URAlgorithmParams.from_json(
+                variant["algorithms"][0]["params"]))
+            checked = (list(zip(bodies, answers)) + [(probe, probe_answer)]
+                       + list(zip(timed, timed_answers))[::10]
+                       + list(zip(rules, rule_answers))[::10])
+            swaps = 0
+            for body, got in checked:
+                q = ur.URQuery.from_json(body)
+                want = algo.predict(cpu_model, q).to_json()
+                hist = algo._query_hist(cpu_model, q)
+                sig = algo._score_history(cpu_model, hist) if hist is not None else None
+                key = algo._mask_rule_key(q)
+                if sig is not None and key is not None:
+                    sig = sig * algo._mask_from_key(cpu_model, key)
+                swaps += check_ur_answer(body, got, want, None if sig is None else sig.numpy(),
+                                         cpu_model.item_dict)
+            for body, got in zip(bodies + timed, answers + timed_answers):
+                check(len(got["itemScores"]) == min(body["num"], len(cpu_model.item_dict))
+                      and all(np.isfinite(d["score"]) for d in got["itemScores"]),
+                      f"{body}: short answer or non-finite score")
+            oracle_items = sum(check_rule_oracle(b, g, cols) for b, g in
+                               zip(rules + [probe], rule_answers + [probe_answer]))
+            empty = sum(not g["itemScores"] for g in rule_answers)
+            p50, p99 = np.percentile(timed_ms, [50, 99])
+            r50, r99 = np.percentile(rule_ms, [50, 99])
+            print(f"  use_llr_weights={use_llr}: {len(checked)} answers equal the CPU predict "
+                  f"({swaps} near-tie swaps); {len(rules)} rule answers, {oracle_items} items, "
+                  f"all pass the numpy oracle ({empty} empty: nothing matches); a malformed "
+                  f"currentDate answered 400; latency_ms first={lat_ms[0]:.3f}, over "
+                  f"{len(timed)} plain queries p50={p50:.3f} p99={p99:.3f} "
+                  f"max={max(timed_ms):.3f}, first rule query {probe_ms:.3f}, then over "
+                  f"{len(rules)} rule queries p50={r50:.3f} "
+                  f"p99={r99:.3f} max={max(rule_ms):.3f} "
+                  "(host clock, one client, a connection per request)")
+            out[use_llr] = {"first_ms": lat_ms[0], "p50_ms": float(p50), "p99_ms": float(p99),
+                            "max_ms": max(timed_ms), "n": len(timed), "checked": len(checked),
+                            "rule_first_ms": probe_ms,
+                            "rule_p50_ms": float(r50), "rule_p99_ms": float(r99),
+                            "rule_max_ms": max(rule_ms), "rule_n": len(rules),
+                            "rule_items_checked": oracle_items, "rule_empty": empty}
     return out
 
 
@@ -1101,7 +1425,6 @@ def run() -> None:
         from predictionio_tpu_torch.ops import build
         from predictionio_tpu_torch.ops import cco
         from predictionio_tpu_torch.ops import hopper_kernels as hk
-        from predictionio_tpu_torch.storage import memory as mem
         from predictionio_tpu_torch.workflow.create_server import deploy_models
     except ImportError as e:
         raise SmokeFailure(f"the port is not beside this script: {e}") from e
@@ -1199,13 +1522,13 @@ def run() -> None:
     bench = train_bench_shape(cco, hk, dev)
     torch.cuda.empty_cache()
 
-    phase("11. UR train at the deployed width (URAlgorithm.train)")
-    ur_model, td, arrays, deployed = train_deployed(ur, cco, hk, dev)
+    phase("11. UR train at the deployed width from the store (run_train)")
+    store, ur_model, td, arrays, cols, deployed = train_deployed(ur, cco, hk, dev)
     torch.cuda.empty_cache()
 
-    phase("12. UR HTTP /queries.json")
-    served = serve_ur(ur, mem, deploy_models, EngineParams, ur_model, arrays)
-    del ur_model
+    phase("12. UR HTTP /queries.json from the model store, with business rules")
+    served = serve_ur(ur, store, ur_model, arrays, cols, dev)
+    del ur_model, store
     torch.cuda.empty_cache()
 
     phase("13. timing")
@@ -1263,9 +1586,17 @@ def run() -> None:
               f"torch.topk {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}) | {clock_text(r['sm_clock'])} | {smi}")
     print(f"  UR train: bench shape {bench['events']} events in {bench['wall_s']:.3f} s; "
-          f"deployed width {deployed['events']} events in {deployed['wall_s']:.3f} s, "
-          f"peak {deployed['peak_gb']:.2f} GB; UR HTTP over {served[False]['n']} queries "
+          f"deployed width {deployed['events']} events in {deployed['wall_s']:.3f} s "
+          f"(URAlgorithm.train); UR HTTP over {served[False]['n']} queries "
           f"p50 {served[False]['p50_ms']:.3f} ms p99 {served[False]['p99_ms']:.3f} ms | {smi}")
+    print(f"  store path: insert {deployed['insert_s']:.3f} s, read_training "
+          f"{deployed['read_training_s']:.3f} s, run_train {deployed['run_train_s']:.3f} s "
+          f"(peak {deployed['peak_gb']:.2f} GB), model blob {deployed['blob_mb']:.1f} MB saved "
+          f"in {deployed['save_s']:.3f} s, loaded in {deployed['load_s']:.3f} s; rule mask "
+          f"build first {served['mask_build_ms']['first']:.3f} ms, warm "
+          f"{served['mask_build_ms']['warm']:.3f} ms; rule queries over HTTP p50 "
+          f"{served[False]['rule_p50_ms']:.3f} ms p99 {served[False]['rule_p99_ms']:.3f} ms "
+          f"| {smi}")
     launches = {"masked_score": http_launches + batch_launches,
                 "llr_masked": deployed["launches"][0],
                 "tile_topk": deployed["launches"][1]}

@@ -5,7 +5,12 @@ held against.  Module paths mirror ``predictionio_tpu`` so each counterpart
 is easy to find.  This package imports ``torch`` and numpy only: never
 ``jax`` and nothing of ``predictionio_tpu``.
 
-Ported so far: serving of the ``recommendation`` (ALS) template — the
-library predictor and a ``POST /queries.json`` server — with every query
-scored by a hand-written CUDA kernel (``ops/csrc/masked_score.cu``).
+Ported so far (ROADMAP.md, queue A): serving of the ``recommendation``
+(ALS) template, every query scored by a hand-written CUDA kernel
+(``ops/csrc/masked_score.cu``); the Universal Recommender's CCO training
+through the LLR and tile top-k kernels (``ops/csrc/llr_masked.cu``,
+``ops/csrc/tile_topk.cu``) and its serving with business rules; the event
+model, the memory storage backend, ``PEventStore``, the model store and
+the train → deploy workflow (``workflow/core_workflow.py``,
+``workflow/create_server.py:deploy``).
 """

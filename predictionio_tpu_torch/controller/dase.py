@@ -46,7 +46,8 @@ class PersistentModel:
     (reference: PersistentModel / PersistentModelLoader).
 
     The default pickles the whole object.  Device tensors cached on a model
-    are not part of its pickled state (see ``models.common``).
+    are not part of its pickled state (see ``models.common``).  ``load``
+    reads the JAX package's pickles too (``workflow.persistence.loads``).
     """
 
     def save(self) -> bytes:
@@ -54,7 +55,9 @@ class PersistentModel:
 
     @classmethod
     def load(cls, blob: bytes) -> "PersistentModel":
-        obj = pickle.loads(blob)
+        from predictionio_tpu_torch.workflow.persistence import loads
+
+        obj = loads(blob)
         if not isinstance(obj, cls):
             raise TypeError(f"model blob holds {type(obj).__name__}, expected {cls.__name__}")
         return obj

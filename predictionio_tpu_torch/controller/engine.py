@@ -5,12 +5,14 @@ wires one DataSource, one Preparator, a named set of Algorithms, and one
 Serving class.  ``EngineParams`` carries the per-component params (bound
 from engine.json); ``EngineFactory`` is the user entry point named in
 engine.json's ``engineFactory`` key.  Evaluation (``Engine.eval``) waits
-for the slice that ports the evaluation workflow.
+for the slice that ports the evaluation workflow.  ``train`` takes the
+device the algorithms build their models on.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Type
 
 from predictionio_tpu_torch.controller.params import EmptyParams, Params
@@ -60,7 +62,7 @@ class Engine(BaseEngine):
     # -- component instantiation --------------------------------------------
 
     def make_components(
-        self, engine_params: EngineParams
+        self, engine_params: EngineParams, device=None
     ) -> Tuple[BaseDataSource, BasePreparator, List[BaseAlgorithm], BaseServing]:
         data_source = self.data_source_class(engine_params.data_source_params)
         preparator = self.preparator_class(engine_params.preparator_params)
@@ -70,7 +72,7 @@ class Engine(BaseEngine):
                 raise ValueError(
                     f"unknown algorithm {name!r}; engine defines {sorted(self.algorithm_classes)}"
                 )
-            algorithms.append(self.algorithm_classes[name](params))
+            algorithms.append(self.algorithm_classes[name](params, device=device))
         serving = self.serving_class(engine_params.serving_params)
         return data_source, preparator, algorithms, serving
 
@@ -82,10 +84,12 @@ class Engine(BaseEngine):
 
     # -- train ---------------------------------------------------------------
 
-    def train(self, engine_params: EngineParams) -> List[Any]:
+    def train(self, engine_params: EngineParams, device=None) -> List[Any]:
         """Run D→P→A over all algorithms; returns the list of trained models
-        (reference: Engine.train)."""
-        data_source, preparator, algorithms, _ = self.make_components(engine_params)
+        (reference: Engine.train), built on ``device`` (None: the
+        algorithms' default, ``"cuda"``)."""
+        data_source, preparator, algorithms, _ = self.make_components(
+            engine_params, device=device)
         td = data_source.read_training()
         pd = preparator.prepare(td)
         return [algo.train(pd) for algo in algorithms]
@@ -210,6 +214,18 @@ def _params_block(block: Optional[Dict[str, Any]]) -> Dict[str, Any]:
     if "params" in block and isinstance(block["params"], dict):
         return block["params"]
     return block
+
+
+def serialize_engine_params(engine_params: EngineParams) -> Dict[str, str]:
+    """Stringify params for EngineInstance metadata records."""
+    return {
+        "data_source_params": json.dumps(engine_params.data_source_params.to_json()),
+        "preparator_params": json.dumps(engine_params.preparator_params.to_json()),
+        "algorithms_params": json.dumps(
+            [{"name": n, "params": p.to_json()} for n, p in engine_params.algorithm_params_list]
+        ),
+        "serving_params": json.dumps(engine_params.serving_params.to_json()),
+    }
 
 
 class EngineFactory:

@@ -49,6 +49,13 @@ class BasePreparator(Doer[P], Generic[P, TD, PD], abc.ABC):
 
 
 class BaseAlgorithm(Doer[P], Generic[P, PD, M, Q, PR], abc.ABC):
+    """``device`` is where ``train`` builds the model (None: the default,
+    ``"cuda"``); ``predict`` follows the model's own device."""
+
+    def __init__(self, params: Optional[Params] = None, device=None):
+        super().__init__(params)
+        self.device = device
+
     @abc.abstractmethod
     def train(self, prepared_data: PD) -> M: ...
 

@@ -4,9 +4,9 @@ Counterpart of ``predictionio_tpu/models/recommendation/engine.py``.
 predict = user-factor · item-factors top-K, scored on the device by the
 fused masked-score kernel (``ops.als``).  The model's state dict is the JAX
 package's, so a JAX-trained model carries across with
-``convert.als_model_from_state``.  Training and the event-store data source
-wait for later slices (ROADMAP.md, queue A: "ALS training" and "Storage and
-event store").
+``convert.als_model_from_state``.  The data source reads its rating events
+from the event store; training waits for a later slice (ROADMAP.md, queue
+A: "ALS training").
 
 Query/response wire format matches the reference template:
   query    {"user": "u1", "num": 4, "unseenOnly": false, "blackList": []}
@@ -31,10 +31,10 @@ from predictionio_tpu_torch.controller import (
     PersistentModel,
     Preparator,
 )
-from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.models.common import DeviceCacheMixin
 from predictionio_tpu_torch.ops import als as als_ops
-from predictionio_tpu_torch.store.columnar import CSRLookup, IdDict
+from predictionio_tpu_torch.store.columnar import CSRLookup, EventBatch, IdDict
+from predictionio_tpu_torch.store.event_store import PEventStore
 
 
 # -- query / result types (wire-compatible with the reference template) ------
@@ -92,10 +92,10 @@ class RecoDataSource(DataSource):
 
     params_class = DataSourceParams
 
-    def read_training(self):
-        raise NotImplementedError(
-            "the port has no event store yet: it comes with the storage "
-            "slice (ROADMAP.md, queue A, 'Storage and event store')")
+    def read_training(self) -> EventBatch:
+        return PEventStore.batch(
+            self.params.app_name, event_names=list(self.params.event_names)
+        )
 
 
 @dataclasses.dataclass
@@ -151,10 +151,11 @@ class ALSModel(DeviceCacheMixin, PersistentModel):
     """Factor matrices + id dictionaries (+ per-user seen items as a CSR
     lookup for unseen-only serving).
 
-    ``device`` is fixed here, where the model is built (default ``"cuda"``;
-    ``resolve_device`` raises when it is absent).  The pickled state is the
-    JAX ``ALSModel``'s dict and holds no device: a model restored with
-    ``__setstate__`` serves on the default device."""
+    ``device`` is resolved here, where the model is built (default
+    ``"cuda"``; ``resolve_device`` raises when it is absent).  The pickled
+    state is the JAX ``ALSModel``'s dict and holds no device: a model
+    restored with ``__setstate__`` resolves its device at first staging
+    (``to_device``, else the default)."""
 
     def __init__(
         self,
@@ -170,7 +171,7 @@ class ALSModel(DeviceCacheMixin, PersistentModel):
         self.user_dict = user_dict
         self.item_dict = item_dict
         self.seen = seen if seen is not None else CSRLookup.empty()
-        self.device = resolve_device(device)
+        self.to_device(device)
 
     def __getstate__(self):
         return {
@@ -180,9 +181,12 @@ class ALSModel(DeviceCacheMixin, PersistentModel):
         }
 
     def __setstate__(self, state):
-        self.__init__(state["X"], state["Y"], IdDict.from_state(state["users"]),
-                      IdDict.from_state(state["items"]),
-                      CSRLookup.from_state(state["seen"]))
+        # no device here: unpickling never touches one (see to_device)
+        self.user_factors = state["X"]
+        self.item_factors = state["Y"]
+        self.user_dict = IdDict.from_state(state["users"])
+        self.item_dict = IdDict.from_state(state["items"])
+        self.seen = CSRLookup.from_state(state["seen"])
 
     def _stage(self, attr: str, host: np.ndarray) -> torch.Tensor:
         # a copy: the host array may be read-only (a JAX model's factors)

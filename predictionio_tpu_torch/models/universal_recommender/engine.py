@@ -4,25 +4,30 @@ Counterpart of ``predictionio_tpu/models/universal_recommender/engine.py``.
 Training runs ``ops.cco.cco_train_indicators`` on the device (the count
 product, the K2 LLR kernel and the K3 top-k kernel) and builds a ``URModel``
 whose state dict is the JAX package's, so models carry across both ways
-(``convert.ur_model_from_state``).  Serving is the reference's device
-scorer and device tail: the user's recent history (read from the event
-store) becomes a multi-hot vector per event type, scored by one gather +
-reduce over the resident [n_items, top_k] indicator table; the blacklist,
-both top-ks (signal and popularity backfill) and one stacked [4, k]
-readback follow on the device, and the host assembles the answer.
+(``convert.ur_model_from_state``).  Training data comes
+from the event store (``URDataSource.read_training``: one ``PEventStore``
+batch of the interactions, item properties folded from ``$set`` events).
+Serving is the reference's device scorer and device tail: the user's
+recent history (read from the event store) becomes a multi-hot vector per
+event type, scored by one gather + reduce over the resident
+[n_items, top_k] indicator table; the business-rule mask (field filters
+and boosts, ``dateRange``, ``currentDate`` against the available/expire
+dates), the blacklist, both top-ks (signal and popularity backfill) and
+one stacked [4, k] readback follow on the device, and the host assembles
+the answer.
 
-Not ported yet, each named in ROADMAP.md: business rules (a query with
-``fields``, ``dateRange`` or a live ``currentDate`` raises ``ValueError``,
-which the query server answers with 400 — never with an unfiltered
-answer); the host scorer and tail, candidate pruning, the response and
-rule-mask caches and spans; the micro-batched serving path; checkpointed
-and multi-device training; ``read_training`` from the event store; eval.
+Not ported yet, each named in ROADMAP.md: the host scorer and tail,
+candidate pruning, the response, composed rule-mask and history caches and
+spans (the composed mask is built from its rule key on every query); the
+micro-batched serving path; checkpointed and multi-device training; eval.
 
 Wire format (UR):
   query    {"user": "u1", "num": 10}
            {"item": "i1"}                              (item-similarity)
            {"itemSet": ["i1", "i2"]}                   (cart)
-           {"user": "u1", "blacklistItems": ["i3"]}
+           {"user": "u1", "fields": [{"name": "category",
+             "values": ["phones"], "bias": -1}],        (-1 filter, >0 boost)
+            "blacklistItems": ["i3"]}
   response {"itemScores": [{"item": "i5", "score": 2.1}, ...]}
 """
 
@@ -45,7 +50,8 @@ from predictionio_tpu_torch.controller import (
     Preparator,
 )
 from predictionio_tpu_torch.device import resolve_device
-from predictionio_tpu_torch.models.common import DeviceCacheMixin
+from predictionio_tpu_torch.events.event import parse_time
+from predictionio_tpu_torch.models.common import DeviceCacheMixin, LRUCache
 from predictionio_tpu_torch.models.universal_recommender.popmodel import (
     backfill_scores,
     parse_duration,
@@ -53,15 +59,37 @@ from predictionio_tpu_torch.models.universal_recommender.popmodel import (
 from predictionio_tpu_torch.ops import cco as cco_ops
 from predictionio_tpu_torch.ops.als import bucket_width, check_f32_id_range, pad_ids
 from predictionio_tpu_torch.ops.topk import topk_desc
-from predictionio_tpu_torch.storage.memory import parse_time
 from predictionio_tpu_torch.store.columnar import CSRLookup, IdDict
-from predictionio_tpu_torch.store.event_store import LEventStore
-
-ROADMAP_RULES = "ROADMAP.md, queue A, 'UR business rules'"
-ROADMAP_STORAGE = "ROADMAP.md, queue A, 'Storage and event store'"
+from predictionio_tpu_torch.store.event_store import LEventStore, PEventStore
 
 
 # -- query / result ----------------------------------------------------------
+
+
+def _iso_ts(v) -> Optional[float]:
+    """Date value → epoch seconds via the event pipeline's own coercion
+    (events.event.parse_time: ISO-8601 string, numeric epoch, or datetime;
+    naive treated as UTC); None if unparseable.
+
+    Unlike raw parse_time, None and booleans return None here — parse_time
+    maps None to "now" and bool is an int subclass, either of which would
+    turn a malformed query date into a silently wrong hard filter."""
+    if v is None or isinstance(v, bool):
+        return None
+    try:
+        return parse_time(v).timestamp()
+    except (ValueError, OSError, OverflowError):
+        return None
+
+
+def _query_ts(v, field: str) -> float:
+    """Strict variant for query-supplied dates: malformed input rejects the
+    query (the server maps ValueError to HTTP 400) instead of silently
+    disabling a hard filter."""
+    ts = _iso_ts(v)
+    if ts is None:
+        raise ValueError(f"{field}: {v!r} is not an ISO-8601 date")
+    return ts
 
 
 @dataclasses.dataclass
@@ -177,10 +205,44 @@ class URDataSource(DataSource):
     params_class = URDataSourceParams
 
     def read_training(self) -> URTrainingData:
-        raise NotImplementedError(
-            f"the port has no bulk event read yet ({ROADMAP_STORAGE}); build "
-            "URTrainingData from arrays with models.universal_recommender."
-            "convert.ur_training_data_from_arrays")
+        """One columnar batch read for ALL event types, then vectorized
+        per-type dictionary translation; item properties are folded from
+        the ``$set``/``$unset``/``$delete`` events of the item entity type
+        (the JAX package's branch for a backend without a native scan)."""
+        user_dict = IdDict()
+        interactions: Dict[str, Tuple[np.ndarray, np.ndarray, IdDict, np.ndarray]] = {}
+        batch = PEventStore.batch(
+            self.params.app_name, event_names=list(self.params.event_names))
+        props = PEventStore.aggregate_properties(
+            self.params.app_name, self.params.item_entity_type)
+        # entity codes → one global user id space.  Only codes REFERENCED by
+        # interaction rows enroll (enrolling others would inflate n_users
+        # and corrupt the LLR population total).
+        user_of_code = np.full(max(len(batch.entity_dict), 1), -1, np.int32)
+        for name in self.params.event_names:
+            sel = batch.select_events([name])
+            has_t = sel.target_ids >= 0
+            for c in np.unique(sel.entity_ids[has_t]):
+                if user_of_code[c] < 0:
+                    user_of_code[c] = user_dict.add(batch.entity_dict.str(int(c)))
+            t_codes = sel.target_ids[has_t]
+            uniq = np.unique(t_codes)
+            item_dict = IdDict(
+                [batch.target_dict.str(int(c)) for c in uniq])
+            local_of_target = np.full(max(len(batch.target_dict), 1), -1, np.int32)
+            local_of_target[uniq] = np.arange(len(uniq), dtype=np.int32)
+            interactions[name] = (
+                user_of_code[sel.entity_ids[has_t]].astype(np.int32),
+                local_of_target[t_codes].astype(np.int32),
+                item_dict,
+                sel.times_us[has_t].astype(np.float64) / 1e6,
+            )
+        return URTrainingData(
+            event_names=list(self.params.event_names),
+            user_dict=user_dict,
+            interactions=interactions,
+            item_properties={k: dict(v) for k, v in props.items()},
+        )
 
 
 class URPreparator(Preparator):
@@ -200,7 +262,8 @@ class URModel(DeviceCacheMixin, PersistentModel):
     in t's item space (-1 padding), ``indicator_llr[t]`` the LLR strengths.
     ``user_seen`` is a CSR lookup (user → primary items).  The pickled
     state is the JAX ``URModel``'s dict and holds no device: a restored
-    model serves on the default device (``"cuda"``)."""
+    model resolves its device at first staging (``to_device``, else the
+    default ``"cuda"``)."""
 
     def __init__(
         self,
@@ -228,7 +291,7 @@ class URModel(DeviceCacheMixin, PersistentModel):
         # non-primary blacklist_events: user → seen items mapped into the
         # PRIMARY item space
         self.user_seen_by_event = user_seen_by_event or {}
-        self.device = resolve_device(device)
+        self.to_device(device)
 
     def __getstate__(self):
         return {
@@ -246,14 +309,19 @@ class URModel(DeviceCacheMixin, PersistentModel):
         }
 
     def __setstate__(self, s):
-        self.__init__(
-            s["primary_event"], IdDict.from_state(s["items"]),
-            IdDict.from_state(s["users"]), s["indicator_idx"], s["indicator_llr"],
-            {k: IdDict.from_state(v) for k, v in s["event_items"].items()},
-            s["popularity"], s["item_properties"],
-            CSRLookup.from_state(s["user_seen"]),
-            {k: CSRLookup.from_state(v)
-             for k, v in s.get("user_seen_by_event", {}).items()})
+        # no device here: unpickling never touches one (see to_device)
+        self.primary_event = s["primary_event"]
+        self.item_dict = IdDict.from_state(s["items"])
+        self.user_dict = IdDict.from_state(s["users"])
+        self.indicator_idx = s["indicator_idx"]
+        self.indicator_llr = s["indicator_llr"]
+        self.event_item_dicts = {k: IdDict.from_state(v) for k, v in s["event_items"].items()}
+        self.popularity = s["popularity"]
+        self.item_properties = s["item_properties"]
+        self.user_seen = CSRLookup.from_state(s["user_seen"])
+        self.user_seen_by_event = {
+            k: CSRLookup.from_state(v)
+            for k, v in s.get("user_seen_by_event", {}).items()}
 
     # -- device-resident serving state (staged once, never pickled) ---------
 
@@ -292,6 +360,125 @@ class URModel(DeviceCacheMixin, PersistentModel):
             float(np.abs(self.popularity).max()), 1.0)
             if len(self.popularity) else 1.0)
 
+    # -- business-rule state (built lazily, never pickled) ---------------------
+
+    _VALUE_MASK_CACHE_MAX = 512
+    _DATE_CACHE_MAX = 512
+
+    def _lru(self, attr: str, max_entries: int, on_device: bool) -> LRUCache:
+        """A bounded LRU in ``__dict__``; a cache of device tensors is
+        registered as staged, so ``to_device`` drops it."""
+        if on_device:
+            return self._device(attr, lambda: LRUCache(max_entries))
+        cache = self.__dict__.get(attr)
+        if cache is None:
+            # dict.setdefault is atomic under the GIL: racing creators
+            # both construct, one instance wins, both use it
+            cache = self.__dict__.setdefault(attr, LRUCache(max_entries))
+        return cache
+
+    def known_prop_names(self) -> frozenset:
+        """Property names that exist on at least one item — the gate that
+        keeps query-supplied field/date names from triggering O(n_items)
+        index builds or device-array caching for properties that cannot
+        match anything (ES semantics: a filter on a nonexistent field
+        matches no documents)."""
+        names = self.__dict__.get("_known_prop_names")
+        if names is None:
+            names = frozenset(
+                k for props in self.item_properties.values() for k in props)
+            self.__dict__["_known_prop_names"] = names
+        return names
+
+    def _value_mask_ids(self, name: str, value: str) -> Optional[np.ndarray]:
+        """Item ids holding (name, value); None for unknown names/values
+        (the match-nothing case — callers substitute their zero mask
+        WITHOUT caching: query fields are user input, caching unknowns
+        would let arbitrary queries pin unbounded memory)."""
+        if name not in self.known_prop_names():
+            return None
+        return self.prop_value_index(name).get(value)
+
+    def _ids_to_mask(self, ids: np.ndarray) -> np.ndarray:
+        m = np.zeros(len(self.item_dict), np.float32)
+        m[ids] = 1.0
+        return m
+
+    def device_value_mask(self, name: str, value: str) -> torch.Tensor:
+        """0/1 device mask of items whose property ``name`` holds ``value``
+        — the Elasticsearch-filter-bitset analogue, cached per (name, value)
+        in a bounded thread-safe LRU (touch-on-hit)."""
+        ids = self._value_mask_ids(name, value)
+        if ids is None:
+            return self.device_zeros()
+        cache = self._lru("_dev_value_mask", self._VALUE_MASK_CACHE_MAX, True)
+        return cache.get_or_build(
+            (name, value),
+            lambda: torch.as_tensor(self._ids_to_mask(ids), device=self.device))
+
+    def date_offsets(self, name: str) -> Optional[Tuple[float, np.ndarray]]:
+        """(base_epoch_s, int32 offsets) for a date property; -1 where
+        missing; None when NO item has the property (callers must treat
+        that as match-nothing — and it keeps query-supplied names from
+        growing the cache).  Integer seconds relative to the earliest
+        value keep boundary comparisons EXACT (f32 epoch offsets would
+        quantize to ~32 s over decade spans); sub-second precision is
+        rounded, matching the second-granularity date semantics of the
+        reference's ES range filters.  The device path stages exactly
+        these offsets."""
+        if name not in self.known_prop_names():
+            return None
+        cache = self._lru("_date_off", self._DATE_CACHE_MAX, False)
+
+        def build():
+            ts = self.prop_date_array(name)
+            missing = np.isnan(ts)
+            finite = ts[~missing]
+            base = float(finite.min()) if len(finite) else 0.0
+            off = np.where(missing, -1.0, np.rint(ts - base))
+            return base, np.clip(off, -1, 2**31 - 2).astype(np.int32)
+
+        return cache.get_or_build(name, build)
+
+    def device_date(self, name: str) -> Optional[Tuple[float, torch.Tensor]]:
+        """Device staging of date_offsets (same base, same int32 array)."""
+        d = self.date_offsets(name)
+        if d is None:
+            return None
+        cache = self._lru("_dev_date", self._DATE_CACHE_MAX, True)
+        return cache.get_or_build(
+            name, lambda: (d[0], torch.as_tensor(d[1], device=self.device)))
+
+    def prop_value_index(self, name: str) -> Dict[str, np.ndarray]:
+        """value -> item ids holding it, for one property — lets field rules
+        apply as a few array writes instead of a per-item Python loop."""
+        cache = self.__dict__.setdefault("_prop_value_index", {})
+        if name not in cache:
+            idx: Dict[str, list] = {}
+            for j in range(len(self.item_dict)):
+                v = self.item_properties.get(self.item_dict.str(j), {}).get(name)
+                if v is None:
+                    continue
+                for x in (v if isinstance(v, list) else [v]):
+                    idx.setdefault(str(x), []).append(j)
+            cache[name] = {k: np.asarray(v, np.int32) for k, v in idx.items()}
+        return cache[name]
+
+    def prop_date_array(self, name: str) -> np.ndarray:
+        """Per-item epoch seconds of a date property (NaN where missing)."""
+        cache = self.__dict__.setdefault("_prop_date_array", {})
+        if name not in cache:
+            out = np.full(len(self.item_dict), np.nan)
+            for j in range(len(self.item_dict)):
+                v = self.item_properties.get(self.item_dict.str(j), {}).get(name)
+                if v is None:
+                    continue
+                ts = _iso_ts(v)  # lenient: bad item data skips, query-side is strict
+                if ts is not None:
+                    out[j] = ts
+            cache[name] = out
+        return cache[name]
+
     def warm(self) -> None:
         """Stage the serving state and run one backfill query's device tail
         (called at deploy), so the first user pays neither the transfer nor
@@ -306,6 +493,38 @@ class URModel(DeviceCacheMixin, PersistentModel):
 
 
 # -- device serving ops --------------------------------------------------------
+
+
+# device mask composition: plain elementwise torch ops in the reference's
+# order of factors, so the composed f32 mask is the JAX one bit for bit
+
+
+def _m_or(a, b):
+    return torch.maximum(a, b)
+
+
+def _m_hard(mask, match):
+    return mask * match
+
+
+def _m_boost(mask, match, bias: float):
+    return mask * torch.where(match > 0, bias, 1.0)
+
+
+# date arrays are int32 second-offsets with -1 = property missing; every
+# check requires presence (ES range filters match only docs with the field)
+
+
+def _m_present(mask, ts):
+    return mask * (ts >= 0).to(torch.float32)
+
+
+def _m_ge(mask, ts, bound: int):
+    return mask * ((ts >= bound) & (ts >= 0)).to(torch.float32)
+
+
+def _m_le(mask, ts, bound: int):
+    return mask * ((ts <= bound) & (ts >= 0)).to(torch.float32)
 
 
 def _indicator_score_ids(
@@ -379,10 +598,6 @@ class URAlgorithm(Algorithm):
     is asked for); ``predict`` follows the model's own device."""
 
     params_class = URAlgorithmParams
-
-    def __init__(self, params: Optional[Params] = None, device=None):
-        super().__init__(params)
-        self.device = device
 
     @staticmethod
     def per_type_tuning(params: URAlgorithmParams,
@@ -543,25 +758,6 @@ class URAlgorithm(Algorithm):
             total = s if total is None else total + s
         return total
 
-    def _check_rules(self, query: URQuery) -> None:
-        """Business rules are not ported: a query that carries one is
-        refused (400), never answered unfiltered.  A ``currentDate`` is a
-        rule only when the engine names an available/expire date property;
-        otherwise it is inert, but must still parse, as in the reference."""
-        current = query.current_date
-        live_date = bool(current) and bool(
-            self.params.available_date_name or self.params.expire_date_name)
-        if query.fields or query.date_range is not None or live_date:
-            raise ValueError(
-                "business rules (fields, dateRange, currentDate) are not "
-                f"ported yet ({ROADMAP_RULES})")
-        if current:
-            try:
-                parse_time(current)
-            except (ValueError, TypeError) as e:
-                raise ValueError(f"currentDate: {current!r} is not an "
-                                 "ISO-8601 date") from e
-
     def batch_predict(self, model: URModel, queries) -> List[URResult]:
         """Eval-time predictions: user history comes from the MODEL's
         training interactions (user_seen), never the live event store."""
@@ -579,24 +775,26 @@ class URAlgorithm(Algorithm):
 
     def predict(self, model: URModel, query: URQuery,
                 hist_override: Optional[Dict[str, np.ndarray]] = None) -> URResult:
-        """Serve one query: history → device scorer → device tail (mask,
-        blacklist, both top-ks, one [4, k] readback) → host assembly."""
+        """Serve one query: history → device scorer → device tail (rule
+        mask, blacklist, both top-ks, one [4, k] readback) → host assembly."""
         n_items = len(model.item_dict)
         if n_items == 0:
             return URResult([])
-        self._check_rules(query)
         hist = self._query_hist(model, query, hist_override)
         signal = self._score_history(model, hist) if hist is not None else None
         return self._device_tail(model, query, signal, min(query.num, n_items))
 
     def _device_tail(self, model: URModel, query: URQuery,
                      signal: Optional[torch.Tensor], num: int) -> URResult:
+        key = self._mask_rule_key(query)
+        mask = (model.device_ones() if key is None
+                else self._mask_from_key(model, key))
         black_ids = self._blacklist_ids(model, query)
         sig = model.device_zeros() if signal is None else signal
         # k covers the worst case: every signal pick also occupying a
         # backfill slot; bucketed so distinct nums share shapes
         k = min(bucket_width(2 * num, 16), len(model.item_dict))
-        out = _serve_topk(sig, model.device_ones(), model.device_popularity(),
+        out = _serve_topk(sig, mask, model.device_popularity(),
                           pad_ids(black_ids), k).cpu().numpy()
         return self._assemble(model, num, signal is not None,
                               out[0], out[1].astype(np.int32),
@@ -676,6 +874,92 @@ class URAlgorithm(Algorithm):
             if bid is not None:
                 ids.append(bid)
         return ids
+
+    # -- business rules ------------------------------------------------------
+
+    def _mask_rule_key(self, query: URQuery) -> Optional[tuple]:
+        """Canonical business-rule key, or None when the query carries no
+        rules at all (the fast path: no mask work).
+
+        Canonical = field rules sorted (mask composition is a product, so
+        order never changes the value) and query dates parsed to epoch
+        seconds QUANTIZED to whole seconds — the mask only ever consumes
+        second-granularity offsets.  Strict date parsing happens HERE, so
+        a malformed date rejects the query with 400."""
+        def q_ts(raw, field):
+            # falsy (absent/empty) date fields stay unset
+            return None if not raw else int(np.rint(_query_ts(raw, field)))
+
+        fields = tuple(sorted(
+            (r.name, tuple(r.values), float(r.bias)) for r in query.fields))
+        dr = query.date_range
+        drk = None
+        if dr is not None:
+            drk = (dr.name,
+                   q_ts(dr.after, "dateRange.after"),
+                   q_ts(dr.before, "dateRange.before"))
+        # strict-parse currentDate even when no avail/expire property is
+        # configured (a malformed date is a 400 regardless), but an INERT
+        # currentDate adds no rule
+        now = q_ts(query.current_date, "currentDate")
+        if not (self.params.available_date_name
+                or self.params.expire_date_name):
+            now = None
+        if not fields and drk is None and now is None:
+            return None
+        return (fields, drk, now, self.params.available_date_name,
+                self.params.expire_date_name)
+
+    def _mask_from_key(self, model: URModel, key: tuple) -> torch.Tensor:
+        """Build the mask from the CANONICAL key (not the query object).
+
+        Semantics are the Elasticsearch filter/boost analogue (reference:
+        URAlgorithm field biases and date rules as ES bool-query
+        filters); items missing a checked date property fail the check,
+        like ES range filters."""
+        return self._mask_from_key_device(model, *key)
+
+    @staticmethod
+    def _date_bound(epoch_s: float, base: float) -> int:
+        # same rounding as the item offsets → exact boundary equality
+        return int(np.clip(np.rint(epoch_s - base), -1, 2**31 - 2))
+
+    def _mask_from_key_device(self, model, fields, drk, now, avail, expire
+                              ) -> torch.Tensor:
+        mask = model.device_ones()
+        for name, values, bias in fields:
+            match = None
+            for val in values:
+                m = model.device_value_mask(name, val)
+                match = m if match is None else _m_or(match, m)
+            if match is None:
+                match = model.device_zeros()
+            if bias < 0:
+                mask = _m_hard(mask, match)      # hard filter
+            else:
+                mask = _m_boost(mask, match, float(bias))
+        if drk is not None:
+            name, after_s, before_s = drk
+            dd = model.device_date(name)
+            if dd is None:           # no item has the property: match nothing
+                return model.device_zeros()
+            base, ts = dd
+            mask = _m_present(mask, ts)
+            if after_s is not None:
+                mask = _m_ge(mask, ts, self._date_bound(after_s, base))
+            if before_s is not None:
+                mask = _m_le(mask, ts, self._date_bound(before_s, base))
+        if now is not None:
+            for prop, op in ((avail, _m_le), (expire, _m_ge)):
+                # available <= now <= expire; boundary instants still valid
+                if not prop:
+                    continue
+                dd = model.device_date(prop)
+                if dd is None:
+                    return model.device_zeros()
+                base, ts = dd
+                mask = op(mask, ts, self._date_bound(now, base))
+        return mask
 
 
 class UniversalRecommenderEngine(EngineFactory):

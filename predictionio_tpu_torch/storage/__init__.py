@@ -1,7 +1,17 @@
-from predictionio_tpu_torch.storage.memory import (  # noqa: F401
+from predictionio_tpu_torch.storage.base import (  # noqa: F401
     App,
-    Event,
-    MemStorage,
+    Apps,
+    Channel,
+    Channels,
+    EngineInstance,
+    EngineInstances,
+    LEvents,
+    Models,
+    PEvents,
+)
+from predictionio_tpu_torch.storage.locator import (  # noqa: F401
+    Storage,
+    StorageConfig,
     get_storage,
     set_storage,
 )

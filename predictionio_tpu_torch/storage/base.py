@@ -1,0 +1,256 @@
+"""Storage interfaces (reference: data/src/main/scala/io/prediction/data/storage/).
+
+Counterpart of ``predictionio_tpu/storage/base.py`` (a copy: the port
+imports nothing of the JAX package).  The reference defines repository
+interfaces — ``LEvents``, ``PEvents``, ``Models``, ``EngineInstances``,
+``Apps``, ``Channels`` — each implemented by backends and located via
+``Storage.scala`` from ``PIO_STORAGE_*`` env config; here they are Python
+ABCs with the JAX package's signatures.
+
+Not ported yet: access keys, engine manifests and evaluation instances
+(the event server, ``pio build`` and ``pio eval`` use them: ROADMAP.md,
+queue A, 'Event-loop server and micro-batcher'), and the delta-tail
+protocol and columnar snapshots (ROADMAP.md, queue A, 'Streaming').
+"""
+
+from __future__ import annotations
+
+import abc
+import datetime as _dt
+from dataclasses import dataclass, field
+from typing import Dict, Iterator, List, Optional, Sequence
+
+from predictionio_tpu_torch.events.event import Event, PropertyMap, aggregate_properties
+
+
+# ---------------------------------------------------------------------------
+# Metadata records (reference: Apps.scala, Channels.scala, EngineInstances.scala)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class App:
+    id: int
+    name: str
+    description: str = ""
+
+
+@dataclass
+class Channel:
+    id: int
+    name: str
+    app_id: int
+
+
+@dataclass
+class EngineInstance:
+    id: str
+    status: str  # INIT | TRAINING | COMPLETED | FAILED
+    start_time: _dt.datetime
+    end_time: Optional[_dt.datetime]
+    engine_id: str
+    engine_version: str
+    engine_variant: str
+    engine_factory: str
+    env: Dict[str, str] = field(default_factory=dict)
+    spark_conf: Dict[str, str] = field(default_factory=dict)  # kept for config parity
+    data_source_params: str = "{}"
+    preparator_params: str = "{}"
+    algorithms_params: str = "[]"
+    serving_params: str = "{}"
+
+
+# ---------------------------------------------------------------------------
+# Repository interfaces
+# ---------------------------------------------------------------------------
+
+
+class Apps(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, app: App) -> Optional[int]: ...
+
+    @abc.abstractmethod
+    def get(self, app_id: int) -> Optional[App]: ...
+
+    @abc.abstractmethod
+    def get_by_name(self, name: str) -> Optional[App]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> List[App]: ...
+
+    @abc.abstractmethod
+    def update(self, app: App) -> bool: ...
+
+    @abc.abstractmethod
+    def delete(self, app_id: int) -> bool: ...
+
+
+class Channels(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, channel: Channel) -> Optional[int]: ...
+
+    @abc.abstractmethod
+    def get(self, channel_id: int) -> Optional[Channel]: ...
+
+    @abc.abstractmethod
+    def get_by_app_id(self, app_id: int) -> List[Channel]: ...
+
+    @abc.abstractmethod
+    def delete(self, channel_id: int) -> bool: ...
+
+
+class EngineInstances(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, instance: EngineInstance) -> str: ...
+
+    @abc.abstractmethod
+    def get(self, instance_id: str) -> Optional[EngineInstance]: ...
+
+    @abc.abstractmethod
+    def update(self, instance: EngineInstance) -> bool: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> List[EngineInstance]: ...
+
+    def get_latest_completed(
+        self, engine_id: str, engine_version: str, engine_variant: str
+    ) -> Optional[EngineInstance]:
+        """Latest COMPLETED instance for an engine triple (reference:
+        EngineInstances.getLatestCompleted) — what `pio deploy` binds to."""
+        candidates = [
+            i
+            for i in self.get_all()
+            if i.status == "COMPLETED"
+            and i.engine_id == engine_id
+            and i.engine_version == engine_version
+            and i.engine_variant == engine_variant
+        ]
+        if not candidates:
+            return None
+        return max(candidates, key=lambda i: i.start_time)
+
+    @abc.abstractmethod
+    def delete(self, instance_id: str) -> bool: ...
+
+
+class Models(abc.ABC):
+    """Serialized model blobs keyed by engine-instance id (reference: Models.scala)."""
+
+    @abc.abstractmethod
+    def insert(self, instance_id: str, blob: bytes) -> None: ...
+
+    @abc.abstractmethod
+    def get(self, instance_id: str) -> Optional[bytes]: ...
+
+    @abc.abstractmethod
+    def delete(self, instance_id: str) -> bool: ...
+
+
+# ---------------------------------------------------------------------------
+# Event repositories
+# ---------------------------------------------------------------------------
+
+
+class LEvents(abc.ABC):
+    """Serving/ingest-time event CRUD (reference: LEvents.scala), with
+    synchronous ops."""
+
+    @abc.abstractmethod
+    def init(self, app_id: int, channel_id: Optional[int] = None) -> bool: ...
+
+    @abc.abstractmethod
+    def remove(self, app_id: int, channel_id: Optional[int] = None) -> bool: ...
+
+    @abc.abstractmethod
+    def insert(self, event: Event, app_id: int, channel_id: Optional[int] = None) -> str: ...
+
+    def insert_batch(
+        self, events: Sequence[Event], app_id: int, channel_id: Optional[int] = None
+    ) -> List[str]:
+        return [self.insert(e, app_id, channel_id) for e in events]
+
+    @abc.abstractmethod
+    def get(self, event_id: str, app_id: int, channel_id: Optional[int] = None) -> Optional[Event]: ...
+
+    @abc.abstractmethod
+    def delete(self, event_id: str, app_id: int, channel_id: Optional[int] = None) -> bool: ...
+
+    @abc.abstractmethod
+    def find(
+        self,
+        app_id: int,
+        channel_id: Optional[int] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        entity_type: Optional[str] = None,
+        entity_id: Optional[str] = None,
+        event_names: Optional[Sequence[str]] = None,
+        target_entity_type: Optional[str] = None,
+        target_entity_id: Optional[str] = None,
+        limit: Optional[int] = None,
+        reversed_order: bool = False,
+    ) -> Iterator[Event]: ...
+
+    def aggregate_properties(
+        self,
+        app_id: int,
+        entity_type: str,
+        channel_id: Optional[int] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+    ) -> Dict[str, PropertyMap]:
+        evs = self.find(
+            app_id,
+            channel_id=channel_id,
+            start_time=start_time,
+            until_time=until_time,
+            entity_type=entity_type,
+        )
+        return aggregate_properties(evs)
+
+
+def match_filters(
+    e: Event,
+    start_time: Optional[_dt.datetime] = None,
+    until_time: Optional[_dt.datetime] = None,
+    entity_type: Optional[str] = None,
+    entity_id: Optional[str] = None,
+    event_names: Optional[Sequence[str]] = None,
+    target_entity_type: Optional[str] = None,
+    target_entity_id: Optional[str] = None,
+) -> bool:
+    """Shared event-filter predicate used by all backends (reference semantics
+    of HBEventsUtil.createScan's column filters)."""
+    if start_time is not None and e.event_time < start_time:
+        return False
+    if until_time is not None and e.event_time >= until_time:
+        return False
+    if entity_type is not None and e.entity_type != entity_type:
+        return False
+    if entity_id is not None and e.entity_id != entity_id:
+        return False
+    if event_names is not None and e.event not in event_names:
+        return False
+    if target_entity_type is not None and e.target_entity_type != target_entity_type:
+        return False
+    if target_entity_id is not None and e.target_entity_id != target_entity_id:
+        return False
+    return True
+
+
+class PEvents(abc.ABC):
+    """Bulk training-time reads (reference: PEvents.scala returns
+    RDD[Event]; here an event iterator that ``PEventStore.batch`` turns
+    into one columnar ``EventBatch``)."""
+
+    @abc.abstractmethod
+    def find(
+        self,
+        app_id: int,
+        channel_id: Optional[int] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        entity_type: Optional[str] = None,
+        event_names: Optional[Sequence[str]] = None,
+        target_entity_type: Optional[str] = None,
+    ) -> Iterator[Event]: ...

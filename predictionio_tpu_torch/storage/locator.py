@@ -1,0 +1,158 @@
+"""Storage locator (reference: data/.../storage/Storage.scala).
+
+Counterpart of ``predictionio_tpu/storage/locator.py``.  Repositories are
+resolved from ``PIO_STORAGE_REPOSITORIES_{METADATA,EVENTDATA,MODELDATA}_SOURCE``
++ ``PIO_STORAGE_SOURCES_<NAME>_{TYPE,...}`` env vars (set by
+conf/pio-env.sh), exactly as in the JAX package; each repository binds to a
+source.  With no repository configured, the default is the reference's: one
+``localfs`` source under ``PIO_FS_BASEDIR`` (or ``~/.pio_store``).
+
+Only the ``memory`` source type is ported.  ``localfs``, ``sharedfs``,
+``sharded`` and ``sql`` raise ``NotImplementedError`` naming their ROADMAP
+item when a repository on them is first used; none of them stands in as a
+memory store.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Dict, Optional
+
+from predictionio_tpu_torch.storage import base, memory
+
+_REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
+
+ROADMAP_LOCALFS = "ROADMAP.md, queue A, 'Storage and event store: localfs'"
+ROADMAP_STREAMING = "ROADMAP.md, queue A, 'Streaming'"
+#: source types of the JAX package that the port does not have yet
+NOT_PORTED = {"localfs": ROADMAP_LOCALFS, "sharedfs": ROADMAP_STREAMING,
+              "sharded": ROADMAP_STREAMING, "sql": ROADMAP_STREAMING}
+
+
+@dataclass
+class StorageConfig:
+    """Parsed PIO_STORAGE_* configuration."""
+
+    sources: Dict[str, Dict[str, str]]        # name -> {type, path, ...}
+    repositories: Dict[str, str]              # METADATA/EVENTDATA/MODELDATA -> source name
+
+    @classmethod
+    def from_env(cls, env: Optional[Dict[str, str]] = None) -> "StorageConfig":
+        env = dict(env if env is not None else os.environ)
+        sources: Dict[str, Dict[str, str]] = {}
+        repositories: Dict[str, str] = {}
+        for k, v in env.items():
+            if k.startswith("PIO_STORAGE_SOURCES_"):
+                rest = k[len("PIO_STORAGE_SOURCES_"):]
+                name, _, attr = rest.partition("_")
+                sources.setdefault(name, {})[attr.lower()] = v
+            elif k.startswith("PIO_STORAGE_REPOSITORIES_"):
+                rest = k[len("PIO_STORAGE_REPOSITORIES_"):]
+                repo, _, attr = rest.partition("_")
+                if attr == "SOURCE":
+                    repositories[repo] = v
+        if not repositories:
+            # Default single-node config: everything on localfs under ~/.pio_store
+            home = env.get("PIO_FS_BASEDIR", str(Path(env.get("HOME", ".")) / ".pio_store"))
+            sources = {"LOCALFS": {"type": "localfs", "path": home}}
+            repositories = {r: "LOCALFS" for r in _REPOSITORIES}
+        for r in _REPOSITORIES:
+            if r not in repositories:
+                raise ValueError(f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE is not configured")
+            if repositories[r] not in sources:
+                raise ValueError(
+                    f"repository {r} references undefined source {repositories[r]!r}"
+                )
+        return cls(sources, repositories)
+
+    @classmethod
+    def memory(cls) -> "StorageConfig":
+        """All three repositories on one ``memory`` source."""
+        return cls(sources={"MEM": {"type": "memory"}},
+                   repositories={r: "MEM" for r in _REPOSITORIES})
+
+
+class _MemorySource:
+    def __init__(self):
+        self.apps = memory.MemApps()
+        self.channels = memory.MemChannels()
+        self.engine_instances = memory.MemEngineInstances()
+        self.models = memory.MemModels()
+        self.events = memory.MemEvents()
+
+
+class Storage:
+    """Repository accessor bound to a StorageConfig (reference: Storage object)."""
+
+    def __init__(self, config: Optional[StorageConfig] = None):
+        self.config = config or StorageConfig.from_env()
+        self._clients: Dict[str, object] = {}
+        self._lock = threading.Lock()
+
+    def _client(self, repo: str):
+        name = self.config.repositories[repo]
+        with self._lock:
+            if name not in self._clients:
+                typ = self.config.sources[name].get("type", "localfs")
+                if typ in NOT_PORTED:
+                    raise NotImplementedError(
+                        f"storage source {name!r} has type {typ!r}, which the "
+                        f"port does not have yet ({NOT_PORTED[typ]}); use a "
+                        "'memory' source")
+                if typ != "memory":
+                    raise ValueError(
+                        f"unknown storage source type {typ!r} (have: "
+                        f"{sorted(['memory', *NOT_PORTED])})")
+                self._clients[name] = _MemorySource()
+            return self._clients[name]
+
+    # Metadata repositories
+    @property
+    def apps(self) -> base.Apps:
+        return self._client("METADATA").apps
+
+    @property
+    def channels(self) -> base.Channels:
+        return self._client("METADATA").channels
+
+    @property
+    def engine_instances(self) -> base.EngineInstances:
+        return self._client("METADATA").engine_instances
+
+    # Model repository
+    @property
+    def models(self) -> base.Models:
+        return self._client("MODELDATA").models
+
+    # Event repositories
+    @property
+    def l_events(self) -> base.LEvents:
+        return self._client("EVENTDATA").events
+
+    @property
+    def p_events(self) -> base.PEvents:
+        return self._client("EVENTDATA").events
+
+
+_default: Optional[Storage] = None
+_default_lock = threading.Lock()
+
+
+def get_storage(refresh: bool = False) -> Storage:
+    """The process-default storage, built from the environment at first
+    use (or anew with ``refresh``)."""
+    global _default
+    with _default_lock:
+        if _default is None or refresh:
+            _default = Storage()
+        return _default
+
+
+def set_storage(storage: Optional[Storage]) -> None:
+    """Override the process-default storage (used by tests and servers)."""
+    global _default
+    with _default_lock:
+        _default = storage

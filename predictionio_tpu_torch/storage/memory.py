@@ -1,154 +1,194 @@
-"""In-memory event store: the part UR serving reads.
+"""In-memory storage backend (test/dev analogue of the reference's embedded
+backends used by LEventsSpec/PEventsSpec).
 
-Counterpart of ``predictionio_tpu/storage/memory.py`` (``MemEvents``'
-``insert``/``insert_batch``/``find`` and the app registry) and of the
-``Event`` record of ``predictionio_tpu/events/event.py``, reduced to what a
-query's history read needs.  ``find`` keeps the reference's semantics:
-an app's events, filtered by entity and event name, sorted by (event time,
-creation time) — newest first when ``reversed_order`` — then cut to
-``limit``.  The file-backed stores, channels, time filters, deletes and the
-delta-tail protocol wait for the storage slice (ROADMAP.md, queue A,
-"Storage and event store").
+Counterpart of ``predictionio_tpu/storage/memory.py``: apps, channels,
+engine instances, model blobs and events, with the JAX package's API.
+``MemEvents.find`` keeps the reference's semantics: an app's (and
+channel's) events matching the filters, sorted by (event time, creation
+time) — newest first when ``reversed_order`` — then cut to ``limit``.  It
+filters before it sorts: a stable sort and a filter commute, so the order
+is the reference's and only the matching events are sorted.
+
+Not ported yet: access keys, engine manifests, evaluation instances
+(ROADMAP.md, queue A, 'Event-loop server and micro-batcher'), and the
+delta-tail protocol and TTL compaction (ROADMAP.md, queue A, 'Streaming').
 """
 
 from __future__ import annotations
 
-import dataclasses
 import datetime as _dt
 import threading
 import uuid
-from typing import Any, Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+from predictionio_tpu_torch.events.event import Event, parse_time  # noqa: F401
+from predictionio_tpu_torch.storage import base
+from predictionio_tpu_torch.storage.base import App, Channel, EngineInstance
 
 
-def _utcnow() -> _dt.datetime:
-    return _dt.datetime.now(_dt.timezone.utc)
-
-
-def parse_time(v) -> _dt.datetime:
-    """datetime (naive = UTC), epoch seconds, or ISO-8601 → aware UTC."""
-    if isinstance(v, _dt.datetime):
-        return v if v.tzinfo else v.replace(tzinfo=_dt.timezone.utc)
-    if isinstance(v, (int, float)) and not isinstance(v, bool):
-        return _dt.datetime.fromtimestamp(float(v), _dt.timezone.utc)
-    if isinstance(v, str):
-        return parse_time(_dt.datetime.fromisoformat(v.replace("Z", "+00:00")))
-    raise ValueError(f"not a time: {v!r}")
-
-
-@dataclasses.dataclass
-class Event:
-    """One event (reference: Event.scala), as the JAX package's ``Event``."""
-
-    event: str
-    entity_type: str
-    entity_id: str
-    target_entity_type: Optional[str] = None
-    target_entity_id: Optional[str] = None
-    properties: Dict[str, Any] = dataclasses.field(default_factory=dict)
-    event_time: _dt.datetime = dataclasses.field(default_factory=_utcnow)
-    event_id: Optional[str] = None
-    creation_time: _dt.datetime = dataclasses.field(default_factory=_utcnow)
-
-    def __post_init__(self):
-        self.event_time = parse_time(self.event_time)
-        self.creation_time = parse_time(self.creation_time)
-        if self.event_id is None:
-            self.event_id = uuid.uuid4().hex
-        if not self.event or not self.entity_type or not self.entity_id:
-            raise ValueError("event, entityType and entityId must be non-empty")
-
-
-@dataclasses.dataclass
-class App:
-    id: int
-    name: str
-
-
-class MemApps:
-    """App registry: name → id."""
-
+class MemApps(base.Apps):
     def __init__(self):
-        self._by_name: Dict[str, App] = {}
+        self._apps: Dict[int, App] = {}
+        self._next = 1
         self._lock = threading.Lock()
 
-    def insert(self, name: str) -> int:
+    def insert(self, app: App) -> Optional[int]:
         with self._lock:
-            if name in self._by_name:
-                raise ValueError(f"app {name!r} already exists")
-            app = App(len(self._by_name) + 1, name)
-            self._by_name[name] = app
+            if any(a.name == app.name for a in self._apps.values()):
+                return None
+            if app.id in self._apps or app.id <= 0:
+                app.id = self._next
+            self._next = max(self._next, app.id) + 1
+            self._apps[app.id] = app
             return app.id
 
+    def get(self, app_id: int) -> Optional[App]:
+        return self._apps.get(app_id)
+
     def get_by_name(self, name: str) -> Optional[App]:
-        return self._by_name.get(name)
+        return next((a for a in self._apps.values() if a.name == name), None)
+
+    def get_all(self) -> List[App]:
+        return list(self._apps.values())
+
+    def update(self, app: App) -> bool:
+        if app.id not in self._apps:
+            return False
+        self._apps[app.id] = app
+        return True
+
+    def delete(self, app_id: int) -> bool:
+        return self._apps.pop(app_id, None) is not None
 
 
-class MemEvents:
-    """Thread-safe in-memory events keyed by app id."""
+class MemChannels(base.Channels):
+    def __init__(self):
+        self._channels: Dict[int, Channel] = {}
+        self._next = 1
+
+    def insert(self, channel: Channel) -> Optional[int]:
+        if any(c.name == channel.name and c.app_id == channel.app_id
+               for c in self._channels.values()):
+            return None
+        channel.id = self._next
+        self._next += 1
+        self._channels[channel.id] = channel
+        return channel.id
+
+    def get(self, channel_id: int) -> Optional[Channel]:
+        return self._channels.get(channel_id)
+
+    def get_by_app_id(self, app_id: int) -> List[Channel]:
+        return [c for c in self._channels.values() if c.app_id == app_id]
+
+    def delete(self, channel_id: int) -> bool:
+        return self._channels.pop(channel_id, None) is not None
+
+
+class MemEngineInstances(base.EngineInstances):
+    def __init__(self):
+        self._instances: Dict[str, EngineInstance] = {}
+
+    def insert(self, instance: EngineInstance) -> str:
+        if not instance.id:
+            instance.id = uuid.uuid4().hex
+        self._instances[instance.id] = instance
+        return instance.id
+
+    def get(self, instance_id: str) -> Optional[EngineInstance]:
+        return self._instances.get(instance_id)
+
+    def update(self, instance: EngineInstance) -> bool:
+        if instance.id not in self._instances:
+            return False
+        self._instances[instance.id] = instance
+        return True
+
+    def get_all(self) -> List[EngineInstance]:
+        return list(self._instances.values())
+
+    def delete(self, instance_id: str) -> bool:
+        return self._instances.pop(instance_id, None) is not None
+
+
+class MemModels(base.Models):
+    def __init__(self):
+        self._blobs: Dict[str, bytes] = {}
+
+    def insert(self, instance_id: str, blob: bytes) -> None:
+        self._blobs[instance_id] = blob
+
+    def get(self, instance_id: str) -> Optional[bytes]:
+        return self._blobs.get(instance_id)
+
+    def delete(self, instance_id: str) -> bool:
+        return self._blobs.pop(instance_id, None) is not None
+
+
+class MemEvents(base.LEvents, base.PEvents):
+    """Thread-safe in-memory event store keyed by (app_id, channel_id)."""
 
     def __init__(self):
-        self._events: Dict[int, Dict[str, Event]] = {}
+        self._events: Dict[Tuple[int, Optional[int]], Dict[str, Event]] = {}
         self._lock = threading.Lock()
 
-    def insert(self, event: Event, app_id: int) -> str:
+    def _bucket(self, app_id: int, channel_id: Optional[int]) -> Dict[str, Event]:
         with self._lock:
-            self._events.setdefault(app_id, {})[event.event_id] = event
+            return self._events.setdefault((app_id, channel_id), {})
+
+    def init(self, app_id: int, channel_id: Optional[int] = None) -> bool:
+        self._bucket(app_id, channel_id)
+        return True
+
+    def remove(self, app_id: int, channel_id: Optional[int] = None) -> bool:
+        with self._lock:
+            return self._events.pop((app_id, channel_id), None) is not None
+
+    def insert(self, event: Event, app_id: int, channel_id: Optional[int] = None) -> str:
+        bucket = self._bucket(app_id, channel_id)
+        with self._lock:
+            bucket[event.event_id] = event
         return event.event_id
 
-    def insert_batch(self, events: Sequence[Event], app_id: int) -> List[str]:
-        return [self.insert(e, app_id) for e in events]
+    def insert_batch(self, events: Sequence[Event], app_id: int,
+                     channel_id: Optional[int] = None) -> List[str]:
+        """``insert`` of each event in order, under one lock acquisition."""
+        bucket = self._bucket(app_id, channel_id)
+        with self._lock:
+            for e in events:
+                bucket[e.event_id] = e
+        return [e.event_id for e in events]
+
+    def get(self, event_id: str, app_id: int, channel_id: Optional[int] = None) -> Optional[Event]:
+        return self._bucket(app_id, channel_id).get(event_id)
+
+    def delete(self, event_id: str, app_id: int, channel_id: Optional[int] = None) -> bool:
+        bucket = self._bucket(app_id, channel_id)
+        with self._lock:
+            return bucket.pop(event_id, None) is not None
 
     def find(
         self,
         app_id: int,
+        channel_id: Optional[int] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
         entity_type: Optional[str] = None,
         entity_id: Optional[str] = None,
         event_names: Optional[Sequence[str]] = None,
+        target_entity_type: Optional[str] = None,
+        target_entity_id: Optional[str] = None,
         limit: Optional[int] = None,
         reversed_order: bool = False,
     ) -> Iterator[Event]:
-        """The reference's filter (``storage/base.py:match_filters``) on
-        entity and event name, in time order, at most ``limit``."""
         with self._lock:
-            events = list(self._events.get(app_id, {}).values())
+            events = list(self._events.get((app_id, channel_id), {}).values())
+        events = [e for e in events if base.match_filters(
+            e, start_time, until_time, entity_type, entity_id,
+            event_names, target_entity_type, target_entity_id)]
         # a stable sort: equal times keep insertion order, also reversed
         events.sort(key=lambda e: (e.event_time, e.creation_time),
                     reverse=reversed_order)
-        n = 0
-        for e in events:
-            if ((entity_type is not None and e.entity_type != entity_type)
-                    or (entity_id is not None and e.entity_id != entity_id)
-                    or (event_names is not None and e.event not in event_names)):
-                continue
-            if limit is not None and 0 <= limit <= n:
-                return
-            yield e
-            n += 1
-
-
-class MemStorage:
-    """The apps and events repositories of one in-memory store."""
-
-    def __init__(self):
-        self.apps = MemApps()
-        self.l_events = MemEvents()
-
-
-_default: Optional[MemStorage] = None
-_default_lock = threading.Lock()
-
-
-def get_storage() -> MemStorage:
-    """The process-default store (an empty one at first use)."""
-    global _default
-    with _default_lock:
-        if _default is None:
-            _default = MemStorage()
-        return _default
-
-
-def set_storage(storage: Optional[MemStorage]) -> None:
-    """Bind ``storage`` as the process default (None: a fresh one next)."""
-    global _default
-    with _default_lock:
-        _default = storage
+        if limit is not None and limit >= 0:
+            events = events[:limit]
+        return iter(events)

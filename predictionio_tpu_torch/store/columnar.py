@@ -1,18 +1,25 @@
-"""Id dictionaries and CSR row lookups for serving.
+"""Columnar event batches, id dictionaries and CSR row lookups.
 
-Counterpart of ``predictionio_tpu/store/columnar.py`` (``IdDict`` and
-``CSRLookup`` only; ``EventBatch`` comes with the training slice).  The
-port keeps its own copies: it imports nothing of the JAX package.  The
-JAX ``IdDict``'s lazy blob plumbing serves its native scanner, which the
-port does not have yet, so this copy is the plain list + dict form with
-the same state format (``to_state``/``from_state``).
+Counterpart of ``predictionio_tpu/store/columnar.py`` (``IdDict``,
+``CSRLookup`` and ``EventBatch``'s ``from_events``/``select_events``/
+``subset``).  The port keeps its own copies: it imports nothing of the JAX
+package.  The JAX ``IdDict``'s lazy blob plumbing, the per-key property
+columns (``PropColumn``), ``BatchMerger``, ``EventIdColumn`` and the
+snapshot writers serve its native scanner and localfs snapshots, which the
+port does not have yet (ROADMAP.md, queue A, 'Storage and event store:
+localfs'), so this ``IdDict`` is the plain list + dict form with the same
+state format (``to_state``/``from_state``) and an ``EventBatch`` carries
+no property columns.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from predictionio_tpu_torch.events.event import Event
 
 
 class IdDict:
@@ -121,3 +128,72 @@ class CSRLookup:
     @classmethod
     def from_state(cls, state: Dict[str, np.ndarray]) -> "CSRLookup":
         return cls(state["indptr"], state["values"])
+
+
+@dataclass
+class EventBatch:
+    """Struct-of-arrays block of events.
+
+    Columns are parallel arrays of length N; string columns are dictionary
+    encoded.  ``target_ids`` rows with no target are -1.
+    """
+
+    event_codes: np.ndarray      # int32 [N] → event_dict
+    entity_type_codes: np.ndarray  # int32 [N] → entity_type_dict
+    entity_ids: np.ndarray       # int32 [N] → entity_dict
+    target_ids: np.ndarray       # int32 [N] → target_dict (or -1)
+    times_us: np.ndarray         # int64 [N] epoch microseconds
+    ratings: np.ndarray          # float32 [N] numeric 'rating' property (NaN if absent)
+    event_dict: IdDict
+    entity_type_dict: IdDict
+    entity_dict: IdDict
+    target_dict: IdDict
+
+    def __len__(self) -> int:
+        return int(self.event_codes.shape[0])
+
+    @classmethod
+    def from_events(
+        cls,
+        events: Sequence[Event],
+        entity_dict: Optional[IdDict] = None,
+        target_dict: Optional[IdDict] = None,
+        event_dict: Optional[IdDict] = None,
+    ) -> "EventBatch":
+        n = len(events)
+        event_dict = event_dict if event_dict is not None else IdDict()
+        entity_type_dict = IdDict()
+        entity_dict = entity_dict if entity_dict is not None else IdDict()
+        target_dict = target_dict if target_dict is not None else IdDict()
+        ev = np.empty(n, np.int32)
+        et = np.empty(n, np.int32)
+        ei = np.empty(n, np.int32)
+        ti = np.full(n, -1, np.int32)
+        ts = np.empty(n, np.int64)
+        rt = np.full(n, np.nan, np.float32)
+        for k, e in enumerate(events):
+            ev[k] = event_dict.add(e.event)
+            et[k] = entity_type_dict.add(e.entity_type)
+            ei[k] = entity_dict.add(e.entity_id)
+            if e.target_entity_id is not None:
+                ti[k] = target_dict.add(e.target_entity_id)
+            ts[k] = int(e.event_time.timestamp() * 1e6)
+            r = e.properties.get("rating")
+            if isinstance(r, (int, float)):
+                rt[k] = float(r)
+        return cls(ev, et, ei, ti, ts, rt, event_dict, entity_type_dict, entity_dict, target_dict)
+
+    def subset(self, mask: np.ndarray) -> "EventBatch":
+        """Row-filter by boolean mask; dictionaries are shared."""
+        return EventBatch(
+            self.event_codes[mask], self.entity_type_codes[mask], self.entity_ids[mask],
+            self.target_ids[mask], self.times_us[mask], self.ratings[mask],
+            self.event_dict, self.entity_type_dict, self.entity_dict, self.target_dict,
+        )
+
+    def select_events(self, names: Sequence[str]) -> "EventBatch":
+        """Filter to rows whose event verb is in ``names`` (dicts shared)."""
+        codes = [self.event_dict.id(n) for n in names]
+        codes = [c for c in codes if c is not None]
+        mask = np.isin(self.event_codes, np.asarray(codes, np.int32))
+        return self.subset(mask)

@@ -1,38 +1,166 @@
-"""Serving-time event reads.
+"""Template-facing event read API.
 
-Counterpart of ``LEventStore.find_by_entity`` in
-``predictionio_tpu/store/event_store.py`` (reference: LEventStore.scala),
-over the port's in-memory store.  Channels, time windows, target filters
-and the bulk ``PEventStore`` reads wait for the storage slice (ROADMAP.md,
-queue A, "Storage and event store").
+Counterpart of ``predictionio_tpu/store/event_store.py`` (reference:
+data/src/main/scala/io/prediction/data/store/{PEventStore,LEventStore,
+Common}.scala): ``PEventStore`` for training reads (columnar here) and
+``LEventStore`` for low-latency serving-time reads (the Universal
+Recommender fetching a user's recent history inside ``predict``).  App
+names are resolved to ids through the metadata store, exactly like the
+reference's ``Common.appNameToId``.
+
+The JAX package's native segment scan, columnar snapshots and the
+retained-batch delta staging serve its localfs backend; on every backend
+the port has (``memory``), ``native_batch`` is None and reads stream
+through the Python path — the JAX package's own branch for such a
+backend, not a fallback.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import datetime as _dt
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
-from predictionio_tpu_torch.storage.memory import Event, get_storage
+from predictionio_tpu_torch.events.event import Event, PropertyMap
+from predictionio_tpu_torch.storage.locator import Storage, get_storage
+from predictionio_tpu_torch.store.columnar import EventBatch
+
+
+def _app_channel_ids(
+    app_name: str, channel_name: Optional[str], storage: Storage
+) -> Tuple[int, Optional[int]]:
+    app = storage.apps.get_by_name(app_name)
+    if app is None:
+        raise ValueError(f"app {app_name!r} does not exist; create it first (pio app new)")
+    channel_id: Optional[int] = None
+    if channel_name is not None:
+        chan = next(
+            (c for c in storage.channels.get_by_app_id(app.id) if c.name == channel_name), None
+        )
+        if chan is None:
+            raise ValueError(f"channel {channel_name!r} does not exist for app {app_name!r}")
+        channel_id = chan.id
+    return app.id, channel_id
+
+
+class PEventStore:
+    """Bulk training-time reads (reference: PEventStore.scala)."""
+
+    @staticmethod
+    def find(
+        app_name: str,
+        channel_name: Optional[str] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        entity_type: Optional[str] = None,
+        event_names: Optional[Sequence[str]] = None,
+        target_entity_type: Optional[str] = None,
+        storage: Optional[Storage] = None,
+    ) -> Iterator[Event]:
+        storage = storage or get_storage()
+        app_id, channel_id = _app_channel_ids(app_name, channel_name, storage)
+        return storage.p_events.find(
+            app_id,
+            channel_id=channel_id,
+            start_time=start_time,
+            until_time=until_time,
+            entity_type=entity_type,
+            event_names=event_names,
+            target_entity_type=target_entity_type,
+        )
+
+    @staticmethod
+    def batch(
+        app_name: str,
+        channel_name: Optional[str] = None,
+        event_names: Optional[Sequence[str]] = None,
+        entity_type: Optional[str] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        storage: Optional[Storage] = None,
+    ) -> EventBatch:
+        """Read matching events as ONE columnar batch (the device-staging
+        format), in the backend's ``find`` order.  The JAX package's
+        ``local_shard`` (multi-host reads) waits for ROADMAP.md, queue A,
+        'parallel → torch.distributed'."""
+        return EventBatch.from_events(list(PEventStore.find(
+            app_name,
+            channel_name=channel_name,
+            event_names=event_names,
+            entity_type=entity_type,
+            start_time=start_time,
+            until_time=until_time,
+            storage=storage,
+        )))
+
+    @staticmethod
+    def native_batch(
+        app_name: str,
+        channel_name: Optional[str] = None,
+        event_names: Optional[Sequence[str]] = None,
+        entity_type: Optional[str] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        storage: Optional[Storage] = None,
+    ) -> Optional[EventBatch]:
+        """Columnar batch WITH full property columns from a segment-file
+        backend's native scan, or None when the backend has no segments.
+        Every backend the port has is one without (the JAX package returns
+        None for its memory backend the same way); the native scan comes
+        with the localfs backend (ROADMAP.md, queue A, 'Storage and event
+        store: localfs')."""
+        return None
+
+    @staticmethod
+    def aggregate_properties(
+        app_name: str,
+        entity_type: str,
+        channel_name: Optional[str] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        storage: Optional[Storage] = None,
+    ) -> Dict[str, PropertyMap]:
+        storage = storage or get_storage()
+        app_id, channel_id = _app_channel_ids(app_name, channel_name, storage)
+        return storage.l_events.aggregate_properties(
+            app_id,
+            entity_type,
+            channel_id=channel_id,
+            start_time=start_time,
+            until_time=until_time,
+        )
 
 
 class LEventStore:
-    """Low-latency serving-time reads."""
+    """Low-latency serving-time reads (reference: LEventStore.scala)."""
 
     @staticmethod
     def find_by_entity(
         app_name: str,
         entity_type: str,
         entity_id: str,
+        channel_name: Optional[str] = None,
         event_names: Optional[Sequence[str]] = None,
+        target_entity_type: Optional[str] = None,
         limit: Optional[int] = None,
         latest: bool = True,
+        time_window: Optional[_dt.timedelta] = None,
+        storage: Optional[Storage] = None,
     ) -> List[Event]:
-        """The entity's events in the process-default store, newest first
-        when ``latest``, at most ``limit``.  Raises ``ValueError`` for an
-        unknown app."""
-        storage = get_storage()
-        app = storage.apps.get_by_name(app_name)
-        if app is None:
-            raise ValueError(f"app {app_name!r} does not exist; create it first")
-        return list(storage.l_events.find(
-            app.id, entity_type=entity_type, entity_id=entity_id,
-            event_names=event_names, limit=limit, reversed_order=latest))
+        storage = storage or get_storage()
+        app_id, channel_id = _app_channel_ids(app_name, channel_name, storage)
+        start_time = None
+        if time_window is not None:
+            start_time = _dt.datetime.now(_dt.timezone.utc) - time_window
+        return list(
+            storage.l_events.find(
+                app_id,
+                channel_id=channel_id,
+                entity_type=entity_type,
+                entity_id=entity_id,
+                event_names=event_names,
+                target_entity_type=target_entity_type,
+                limit=limit,
+                reversed_order=latest,
+                start_time=start_time,
+            )
+        )

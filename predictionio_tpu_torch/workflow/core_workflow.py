@@ -1,0 +1,126 @@
+"""Training orchestration.
+
+Counterpart of ``predictionio_tpu/workflow/core_workflow.py`` (reference:
+core/.../workflow/CoreWorkflow.scala): ``run_train`` records an
+EngineInstance (INIT → TRAINING → COMPLETED, or FAILED with the exception
+re-raised), runs ``Engine.train`` on the named device and persists the
+models; ``load_latest_models`` is the deploy-time lookup.  The JAX
+package's span journals, metrics and staging counters wait for
+observability (ROADMAP.md, queue A, 'Event-loop server and
+micro-batcher'); ``run_eval`` waits for the evaluation workflow (ROADMAP.md,
+queue A, 'Remaining templates').
+"""
+
+from __future__ import annotations
+
+import datetime as _dt
+import logging
+import os
+import traceback
+from typing import Optional
+
+from predictionio_tpu_torch.controller.engine import (
+    Engine,
+    EngineParams,
+    serialize_engine_params,
+)
+from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.storage.base import EngineInstance
+from predictionio_tpu_torch.storage.locator import Storage, get_storage
+from predictionio_tpu_torch.workflow import persistence
+
+log = logging.getLogger("pio.workflow")
+
+
+def _now() -> _dt.datetime:
+    return _dt.datetime.now(_dt.timezone.utc)
+
+
+def run_train(
+    engine: Engine,
+    engine_params: EngineParams,
+    engine_id: str,
+    engine_version: str = "1",
+    engine_variant: str = "default",
+    engine_factory: str = "",
+    storage: Optional[Storage] = None,
+    retries: Optional[int] = None,
+    device="cuda",
+) -> EngineInstance:
+    """Train on ``device`` and persist: returns the COMPLETED
+    EngineInstance (or raises, leaving a FAILED instance recorded).  Raises
+    before recording anything when CUDA is asked for and absent.
+
+    ``retries`` (default: PIO_TRAIN_RETRIES env, 0) re-runs Engine.train
+    after a failure — the elastic-recovery analogue of Spark task retry in
+    the reference.
+    """
+    device = resolve_device(device)
+    storage = storage or get_storage()
+    if retries is None:
+        retries = int(os.environ.get("PIO_TRAIN_RETRIES", "0"))
+    params_json = serialize_engine_params(engine_params)
+    instance = EngineInstance(
+        id="",
+        status="INIT",
+        start_time=_now(),
+        end_time=None,
+        engine_id=engine_id,
+        engine_version=engine_version,
+        engine_variant=engine_variant,
+        engine_factory=engine_factory or engine_id,
+        data_source_params=params_json["data_source_params"],
+        preparator_params=params_json["preparator_params"],
+        algorithms_params=params_json["algorithms_params"],
+        serving_params=params_json["serving_params"],
+    )
+    instance_id = storage.engine_instances.insert(instance)
+    instance.status = "TRAINING"
+    storage.engine_instances.update(instance)
+    attempt = 0
+    while True:
+        try:
+            log.info("training engine %s (instance %s, attempt %d)",
+                     engine_id, instance_id, attempt + 1)
+            models = engine.train(engine_params, device=device)
+            persistence.save_models(storage, instance_id, models)
+            instance.status = "COMPLETED"
+            instance.end_time = _now()
+            storage.engine_instances.update(instance)
+            log.info("training done: instance %s COMPLETED", instance_id)
+            return instance
+        except Exception:
+            attempt += 1
+            if attempt <= retries:
+                log.warning(
+                    "training attempt %d failed, retrying (%d left):\n%s",
+                    attempt, retries - attempt + 1, traceback.format_exc())
+                continue
+            instance.status = "FAILED"
+            instance.end_time = _now()
+            storage.engine_instances.update(instance)
+            log.error("training FAILED: %s", traceback.format_exc())
+            raise
+
+
+def load_latest_models(
+    engine_id: str,
+    engine_version: str = "1",
+    engine_variant: str = "default",
+    storage: Optional[Storage] = None,
+    device="cuda",
+) -> tuple:
+    """(instance, models) for the latest COMPLETED engine instance, the
+    models serving on ``device`` — the deploy-time lookup (reference:
+    CreateServer resolving EngineInstance)."""
+    storage = storage or get_storage()
+    instance = storage.engine_instances.get_latest_completed(
+        engine_id, engine_version, engine_variant
+    )
+    if instance is None:
+        raise LookupError(
+            f"no COMPLETED engine instance for {engine_id} v{engine_version} ({engine_variant}); "
+            "run `pio train` first"
+        )
+    models = persistence.load_models(storage, instance.id, device)
+    return instance, models

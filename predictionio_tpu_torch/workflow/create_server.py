@@ -7,11 +7,12 @@ core/.../workflow/CreateServer.scala):
   POST /queries.json   query → predict → serve → JSON prediction
   GET  /               engine info
 
-It serves models already in memory on the stdlib
-``http.server.ThreadingHTTPServer``.  The event-loop front end, the
-micro-batcher, the caches, observability, the model plane and the
-storage-backed ``pio deploy --engine-json`` wait for later slices
-(ROADMAP.md, queue A).
+``deploy_models`` serves models already in memory on the stdlib
+``http.server.ThreadingHTTPServer``; ``deploy`` loads the latest COMPLETED
+engine instance of an engine.json from the model store and serves it the
+same way.  The event-loop front end, prefork workers, the micro-batcher,
+the caches, observability, hot reload, feedback, the follow-trainer and
+the model plane wait for later slices (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import os
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional, Sequence
+
+from predictionio_tpu_torch.storage.locator import Storage
 
 log = logging.getLogger("pio.queryserver")
 
@@ -140,4 +143,59 @@ def deploy_models(engine, engine_params, models: Sequence[Any],
     server.state = state
     threading.Thread(target=server.serve_forever, daemon=True,
                      name="pio-query-server").start()
+    return server
+
+
+ROADMAP_SERVER = "ROADMAP.md, queue A, 'Event-loop server and micro-batcher'"
+ROADMAP_STREAMING = "ROADMAP.md, queue A, 'Streaming'"
+
+
+def deploy(
+    engine_json: str = "engine.json",
+    variant: str = "default",
+    engine_id: Optional[str] = None,
+    engine_version: str = "1",
+    host: str = "0.0.0.0",
+    port: int = 8000,
+    storage: Optional[Storage] = None,
+    device="cuda",
+    feedback: bool = False,
+    auto_reload: float = 0.0,
+    workers: int = 1,
+    follow: float = 0.0,
+    plane_publish: Optional[str] = None,
+    plane_from: Optional[str] = None,
+) -> ThreadingHTTPServer:
+    """Serve the latest COMPLETED instance of ``engine_json``'s engine
+    (``variant`` is the engine variant it was trained under) from the
+    model store, its models on ``device``: the server runs in a daemon
+    thread, as ``deploy_models``'s does.  Raises when CUDA is asked for
+    and absent, and for every option the port cannot honour yet, naming
+    its ROADMAP item."""
+    from predictionio_tpu_torch.workflow import core_workflow
+    from predictionio_tpu_torch.workflow.create_workflow import (
+        engine_from_variant,
+        load_engine_variant,
+        resolve_engine_id,
+    )
+
+    for given, option, item in (
+            (workers != 1, "workers", ROADMAP_SERVER),
+            (auto_reload, "auto_reload", ROADMAP_SERVER),
+            (feedback, "feedback", ROADMAP_SERVER),
+            (follow, "follow", ROADMAP_STREAMING),
+            (plane_publish, "plane_publish", ROADMAP_STREAMING),
+            (plane_from, "plane_from", ROADMAP_STREAMING)):
+        if given:
+            raise NotImplementedError(
+                f"deploy {option}= is not ported yet ({item})")
+    doc = load_engine_variant(engine_json, variant)
+    factory, engine, engine_params = engine_from_variant(doc)
+    eid = resolve_engine_id(engine_id, doc, factory)
+    instance, models = core_workflow.load_latest_models(
+        eid, engine_version, variant, storage=storage, device=device)
+    log.info("deploying engine instance %s of %s", instance.id, eid)
+    server = deploy_models(engine, engine_params, models, host=host, port=port,
+                           query_class=getattr(factory, "query_class", None))
+    server.state.instance = instance
     return server

@@ -87,7 +87,10 @@ def profile_ur_train(chip_smoke, smi: str) -> dict:
     from predictionio_tpu_torch.ops.topk import block_width
 
     n_users, n_items, _, _, top_k, tile = chip_smoke.DEPLOYED_UR
-    td, (pu, _, vu, _) = chip_smoke.deployed_training_data(ur)
+    arrays = chip_smoke.deployed_arrays()
+    pu, _, vu, _ = arrays
+    # the training data the store path reads (chip_smoke.py phase 11), from its arrays
+    td = chip_smoke.expected_training_data(ur, arrays, {})
     algo = ur.URAlgorithm(ur.URAlgorithmParams(
         app_name="profile", max_correlators_per_item=top_k, item_tile=tile),
         device="cuda")

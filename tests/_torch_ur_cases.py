@@ -14,7 +14,11 @@ from predictionio_tpu.models.universal_recommender import engine as jax_ur
 from predictionio_tpu.storage import App as JaxApp
 from predictionio_tpu.store.columnar import IdDict as JaxIdDict
 from predictionio_tpu_torch.models import universal_recommender as ur
+from predictionio_tpu_torch.storage import App as PortApp
 from predictionio_tpu_torch.storage import memory as port_mem
+from predictionio_tpu_torch.storage import set_storage as port_set_storage
+
+from _torch_event_cases import port_memory_storage
 
 APP = "urapp"
 T0 = 1_780_000_000.0
@@ -113,11 +117,29 @@ def fill_stores(jax_store):
         [JaxEvent(event=ev, entity_type="user", entity_id=u, target_entity_type="item",
                   target_entity_id=it, event_time=t, creation_time=t)
          for ev, u, it, t in EVENTS], app_id)
-    port_store = port_mem.MemStorage()
-    port_app = port_store.apps.insert(APP)
+    port_store = port_memory_storage()
+    port_app = port_store.apps.insert(PortApp(0, APP))
     port_store.l_events.insert_batch(
         [port_mem.Event(ev, "user", u, target_entity_type="item", target_entity_id=it,
                         event_time=t, creation_time=t)
          for ev, u, it, t in EVENTS], port_app)
-    port_mem.set_storage(port_store)
+    port_set_storage(port_store)
     return port_store
+
+
+def assert_same_answer(got, want):
+    """Items equal in order, scores within rtol 1e-5; two items may trade
+    places only inside a run of scores within that tolerance."""
+    g = [(d["item"], d["score"]) for d in got["itemScores"]]
+    w = [(d["item"], d["score"]) for d in want["itemScores"]]
+    assert len(g) == len(w), (got, want)
+    for (_, gs), (_, ws) in zip(g, w):
+        assert close(gs, ws, SERVE_RTOL, 0.0), (got, want)
+    j = 0
+    while j < len(w):
+        e = j + 1
+        while e < len(w) and close(w[e][1], w[e - 1][1], SERVE_RTOL, 0.0):
+            e += 1
+        if e < len(w):
+            assert {x for x, _ in g[j:e]} == {x for x, _ in w[j:e]}, (got, want)
+        j = e

@@ -12,8 +12,9 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "predictionio_tpu_torch"
 
-# the port's ALS serving and UR train + serving paths on the CPU, in a
-# fresh interpreter
+# the port's ALS serving path, and the UR path from the store (events with
+# $set properties -> run_train -> load_latest_models -> deploy -> a rule
+# query) on the CPU, in a fresh interpreter
 _DRIVE = r"""
 import json, sys, urllib.request
 import numpy as np
@@ -39,26 +40,43 @@ req = urllib.request.Request(url, data=json.dumps({"user": "u2"}).encode())
 assert json.loads(urllib.request.urlopen(req, timeout=30).read())["itemScores"]
 server.shutdown(); server.server_close()
 
+import os, tempfile
+from predictionio_tpu_torch.events.event import Event
 from predictionio_tpu_torch.models import universal_recommender as ur
-from predictionio_tpu_torch.storage import memory as mem
-u = rng.integers(0, 30, 300)
-i = rng.integers(0, 12, 300)
-td = ur.ur_training_data_from_arrays(
-    ["buy"], [f"u{j}" for j in range(30)],
-    {"buy": (u, i, [f"i{j}" for j in range(12)], np.arange(300.0))})
-params = ur.URAlgorithmParams(app_name="a", max_correlators_per_item=4)
-ur_model = ur.URAlgorithm(params, device="cpu").train(td)
-store = mem.MemStorage()
-store.l_events.insert(mem.Event("buy", "user", "u1", target_entity_type="item",
-                                target_entity_id="i3"), store.apps.insert("a"))
-mem.set_storage(store)
-ur_engine = ur.UniversalRecommenderEngine.apply()
-ur_ep = EngineParams(algorithm_params_list=[("ur", params)])
+from predictionio_tpu_torch.storage import App, Storage, StorageConfig, set_storage
+from predictionio_tpu_torch.workflow.core_workflow import load_latest_models, run_train
+from predictionio_tpu_torch.workflow.create_server import deploy
+from predictionio_tpu_torch.workflow.create_workflow import engine_from_variant
+
+store = Storage(StorageConfig.memory())
+set_storage(store)
+app = store.apps.insert(App(0, "a"))
+u, i = rng.integers(0, 30, 300), rng.integers(0, 12, 300)
+store.l_events.insert_batch(
+    [Event("buy", "user", f"u{a}", "item", f"i{b}", event_time=1.7e9 + k,
+           creation_time=1.7e9 + k) for k, (a, b) in enumerate(zip(u, i))]
+    + [Event("$set", "item", f"i{j}", properties={"category": f"c{j % 3}"},
+             event_time=1.7e9, creation_time=1.7e9) for j in range(12)], app)
+variant = {"engineFactory": "universal_recommender",
+           "datasource": {"params": {"appName": "a", "eventNames": ["buy"]}},
+           "algorithms": [{"name": "ur", "params": {"appName": "a",
+                                                    "maxCorrelatorsPerItem": 4}}]}
+_, ur_engine, ur_ep = engine_from_variant(variant)
+assert run_train(ur_engine, ur_ep, "smoke", storage=store, device="cpu").status == "COMPLETED"
+_, (ur_model,) = load_latest_models("smoke", storage=store, device="cpu")
 assert ur_engine.predictor(ur_ep, [ur_model])(ur.URQuery(user="u1", num=3)).item_scores
-server = deploy_models(ur_engine, ur_ep, [ur_model], query_class=ur.URQuery)
+with tempfile.TemporaryDirectory() as d:
+    path = os.path.join(d, "engine.json")
+    with open(path, "w") as f:
+        json.dump(variant, f)
+    server = deploy(path, engine_id="smoke", host="127.0.0.1", port=0, storage=store,
+                    device="cpu")
 url = f"http://127.0.0.1:{server.server_address[1]}/queries.json"
-req = urllib.request.Request(url, data=json.dumps({"item": "i2"}).encode())
-assert json.loads(urllib.request.urlopen(req, timeout=30).read())["itemScores"]
+for body in ({"item": "i2"}, {"user": "u1", "num": 4, "fields": [
+        {"name": "category", "values": ["c1"], "bias": -1}]}):
+    req = urllib.request.Request(url, data=json.dumps(body).encode())
+    got = json.loads(urllib.request.urlopen(req, timeout=30).read())["itemScores"]
+    assert got and ("fields" not in body or all(int(d["item"][1:]) % 3 == 1 for d in got))
 server.shutdown(); server.server_close()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")

@@ -174,6 +174,29 @@ def test_http_queries_match_jax(jax_models, port):
 
 
 def test_training_is_not_ported_yet(port):
+    """The data source reads the rating events from the store; training
+    itself raises, naming its ROADMAP item."""
+    from predictionio_tpu_torch.events.event import Event as PortEvent
+    from predictionio_tpu_torch.models.recommendation.engine import DataSourceParams
+    from predictionio_tpu_torch.storage import App as PortApp
+    from predictionio_tpu_torch.storage import Storage as PortStorage
+    from predictionio_tpu_torch.storage import StorageConfig as PortStorageConfig
+    from predictionio_tpu_torch.storage import set_storage as port_set_storage
+
     engine, ep, _ = port
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.train(ep)
+    store = PortStorage(PortStorageConfig.memory())
+    app_id = store.apps.insert(PortApp(0, "torchreco"))
+    store.l_events.insert_batch(
+        [PortEvent("rate", "user", f"u{k % 3}", "item", f"i{k}", properties={"rating": 4.0},
+                   event_time=1.7e9 + k, creation_time=1.7e9 + k) for k in range(6)], app_id)
+    port_set_storage(store)
+    try:
+        ep = EngineParams(
+            data_source_params=DataSourceParams(app_name="torchreco"),
+            algorithm_params_list=ep.algorithm_params_list)
+        batch = engine.make_components(ep)[0].read_training()
+        assert len(batch) == 6 and batch.target_dict.strings() == [f"i{k}" for k in range(6)]
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            engine.train(ep, device="cpu")
+    finally:
+        port_set_storage(None)

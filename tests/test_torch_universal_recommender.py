@@ -1,6 +1,6 @@
 """The port's Universal Recommender serving against the JAX package:
-predict, batch predict, HTTP ``/queries.json``, and the query rules not
-ported yet.
+predict, batch predict, HTTP ``/queries.json`` and business rules on the
+corpus' ``category`` property.
 
 The corpus is the two-cluster one of tests/_torch_ur_cases.py, trained by
 the JAX package and carried across to the port.  Served answers agree item
@@ -11,7 +11,9 @@ log (the ``fs_storage`` fixture), through its host tail with the history
 and response caches and the native lane off (its exact oracles); the port
 from its in-memory store, through its device tail on CPU tensors.
 Training, the model state, the history store and the popularity backfill
-are in tests/test_torch_ur_model.py.
+are in tests/test_torch_ur_model.py; the rule tests of the JAX package's
+own suite, trained from events by each package, are in
+tests/test_torch_ur_rules.py.
 """
 
 import json
@@ -24,10 +26,10 @@ from predictionio_tpu.controller.engine import EngineParams as JaxEngineParams
 from predictionio_tpu.models.universal_recommender import engine as jax_ur
 from predictionio_tpu_torch.controller import EngineParams
 from predictionio_tpu_torch.models import universal_recommender as ur
-from predictionio_tpu_torch.storage import memory as port_mem
+from predictionio_tpu_torch.storage import set_storage as port_set_storage
 from predictionio_tpu_torch.workflow.create_server import deploy_models
 
-from _torch_ur_cases import SERVE_RTOL, close, fill_stores, params, train_jax_model
+from _torch_ur_cases import assert_same_answer, fill_stores, params, train_jax_model
 
 
 @pytest.fixture(scope="module")
@@ -49,7 +51,7 @@ def _stores(_oracles, fs_storage):
     """Both packages' history stores hold the corpus' events."""
     fill_stores(fs_storage)
     yield
-    port_mem.set_storage(None)
+    port_set_storage(None)
 
 
 QUERIES = {
@@ -73,24 +75,6 @@ def _engines(jax_model, use_llr):
     port_ep = EngineParams(algorithm_params_list=[
         ("ur", params(ur, "reference_ep", use_llr_weights=use_llr))])
     return (jax_engine, jax_ep), (port_engine, port_ep, port_model)
-
-
-def assert_same_answer(got, want):
-    """Items equal in order, scores within rtol 1e-5; two items may trade
-    places only inside a run of scores within that tolerance."""
-    g = [(d["item"], d["score"]) for d in got["itemScores"]]
-    w = [(d["item"], d["score"]) for d in want["itemScores"]]
-    assert len(g) == len(w), (got, want)
-    for (_, gs), (_, ws) in zip(g, w):
-        assert close(gs, ws, SERVE_RTOL, 0.0), (got, want)
-    j = 0
-    while j < len(w):
-        e = j + 1
-        while e < len(w) and close(w[e][1], w[e - 1][1], SERVE_RTOL, 0.0):
-            e += 1
-        if e < len(w):
-            assert {x for x, _ in g[j:e]} == {x for x, _ in w[j:e]}, (got, want)
-        j = e
 
 
 @pytest.mark.parametrize("use_llr", [False, True])
@@ -137,10 +121,16 @@ def test_http_queries_match_jax(jax_model, use_llr):
             status, got = _post(url, body)
             assert status == 200, got
             assert_same_answer(got, jax_predict(jax_ur.URQuery.from_json(body)).to_json())
-        # business rules are not ported: refused, never answered unfiltered
-        status, got = _post(url, {"user": "u2", "fields": [
-            {"name": "category", "values": ["books"], "bias": -1}]})
-        assert status == 400 and "ROADMAP" in got["message"]
+        # a business rule is answered as the JAX package answers it
+        body = {"user": "u2", "num": 4, "fields": [
+            {"name": "category", "values": ["books"], "bias": -1}]}
+        status, got = _post(url, body)
+        assert status == 200, got
+        assert got["itemScores"] and all(d["item"].startswith("b") for d in got["itemScores"])
+        assert_same_answer(got, jax_predict(jax_ur.URQuery.from_json(body)).to_json())
+        # a malformed rule date is a bad query
+        status, got = _post(url, {"user": "u2", "currentDate": "29/07/2026"})
+        assert status == 400 and "ISO-8601" in got["message"]
     finally:
         server.shutdown()
         server.server_close()
@@ -151,9 +141,14 @@ def test_http_queries_match_jax(jax_model, use_llr):
     {"user": "u2", "fields": [{"name": "category", "values": ["books"], "bias": 2.0}]},
 ])
 def test_rule_queries_raise_naming_the_roadmap(jax_model, body):
-    (_, _), (pe, pep, pm) = _engines(jax_model, False)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        pe.predictor(pep, [pm])(ur.URQuery.from_json(body))
+    """Rule queries the port once refused (naming its ROADMAP item) are
+    answered as the JAX package answers them: a date rule on a property
+    no item has matches nothing, a boost reorders."""
+    (je, jep), (pe, pep, pm) = _engines(jax_model, False)
+    want = je.predictor(jep, [jax_model])(jax_ur.URQuery.from_json(body)).to_json()
+    got = pe.predictor(pep, [pm])(ur.URQuery.from_json(body)).to_json()
+    assert bool(got["itemScores"]) == ("fields" in body)
+    assert_same_answer(got, want)
 
 
 def test_current_date_is_a_rule_only_with_date_properties(jax_model):
@@ -163,7 +158,15 @@ def test_current_date_is_a_rule_only_with_date_properties(jax_model):
     assert_same_answer(pe.predictor(pep, [pm])(ur.URQuery.from_json(body)).to_json(), want)
     with pytest.raises(ValueError, match="ISO-8601"):
         pe.predictor(pep, [pm])(ur.URQuery.from_json({**body, "currentDate": "nope"}))
+    with pytest.raises(ValueError, match="ISO-8601"):
+        je.predictor(jep, [jax_model])(jax_ur.URQuery.from_json({**body, "currentDate": "nope"}))
+    # with an availableDate property named, currentDate is a rule: no item
+    # of the corpus has the property, so it matches nothing in both
     live = EngineParams(algorithm_params_list=[
         ("ur", params(ur, "reference_ep", available_date_name="availableDate"))])
-    with pytest.raises(ValueError, match="ROADMAP"):
-        pe.predictor(live, [pm])(ur.URQuery.from_json(body))
+    jax_live = JaxEngineParams(algorithm_params_list=[
+        ("ur", params(jax_ur, "reference_ep", available_date_name="availableDate"))])
+    got = pe.predictor(live, [pm])(ur.URQuery.from_json(body)).to_json()
+    assert got == {"itemScores": []}
+    assert_same_answer(got, je.predictor(jax_live, [jax_model])(
+        jax_ur.URQuery.from_json(body)).to_json())

@@ -18,7 +18,7 @@ from predictionio_tpu.store.event_store import LEventStore as JaxLEventStore
 from predictionio_tpu_torch.models import universal_recommender as ur
 from predictionio_tpu_torch.models.universal_recommender import popmodel as port_pop
 from predictionio_tpu_torch.ops import hopper_kernels as hk
-from predictionio_tpu_torch.storage import memory as port_mem
+from predictionio_tpu_torch.storage import set_storage as port_set_storage
 from predictionio_tpu_torch.store.event_store import LEventStore
 
 from _torch_ur_cases import (APP, ATOL, NAMES, RTOL, T0, TRAIN_CONFIGS, arrays, close,
@@ -124,7 +124,7 @@ def stores(fs_storage, monkeypatch):
     monkeypatch.setenv("PIO_HISTORY_CACHE", "off")
     fill_stores(fs_storage)
     yield
-    port_mem.set_storage(None)
+    port_set_storage(None)
 
 
 @pytest.mark.parametrize("user,event,limit", [("u1", "view", 3), ("u16", "purchase", None),
