@@ -9,8 +9,9 @@ each of which fails the run (exit code != 0, no final ``ok`` line):
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from the checkout's sources (K1, K2, K3: one
-   ``nvcc`` each, started together) and print the build seconds and ptxas
-   reports;
+   ``nvcc`` each, started together) and, beside them, the native event-log
+   scanner (``g++``; phase 11b fails rather than read rows without it), and
+   print the build seconds and ptxas reports;
 3. hold K1 (masked score) against its plain PyTorch version at every
    ``K1_CASES`` shape: the serving shapes with packed masks and with the
    row-strided mask ALS serving hands it (``exclusion_mask``, stride I + 1)
@@ -44,38 +45,52 @@ UR training and serving (this slice's path):
     tiled strategy (item tile 1,024) called directly, whose indicator
     tables must be bit-identical, and both are timed; 64 sampled count
     rows against numpy;
-11. train the UR at the deployed width (20,000 users x 100,000 items, 400k
-    purchase + 800k view events, top_k 50, tile 4,096) from the store: the
-    events and 100,000 ``$set`` item events (category, tags, releaseDate,
-    availableDate, expireDate, from the seed) go into a memory ``Storage``;
-    ``read_training``'s ``URTrainingData`` must equal
+11. train the UR from the memory store at a cut depth (MEMORY_UR: 2,000
+    users x 10,000 items, 40k purchase + 80k view events, top_k 50, tile
+    4,096): the events and 10,000 ``$set`` item events (category, tags,
+    releaseDate, availableDate, expireDate, from the seed) go into a memory
+    ``Storage``; ``read_training``'s ``URTrainingData`` must equal
     ``ur_training_data_from_arrays`` on the same arrays; ``URAlgorithm.train``
-    is timed on it (the wall earlier runs timed), then ``run_train`` with
-    the engine params of an engine.json dict trains and saves the model:
-    the resident tiled path, 25 tiles x 2 event types, so K2 and K3 each
-    launch 50 times in each (counters set to 0 just before each run and
-    read just after) and ``merge_desc`` never runs on the card (K3 merges
-    the carry); the model comes back through ``load_latest_models`` and its
-    indicator tables must equal, bit for bit, tables rebuilt here from the
-    port's pieces with K3 unfused (a tile loop of K3 without a carry, then
-    ``merge_desc``); insert, read_training, run_train, save and load are
-    timed, the blob's size and run_train's peak device memory printed; the
-    events live on their own memory source and are dropped once trained
-    (the query server does not hold them);
-12. serve that model from the model store over HTTP (``deploy`` of an
-    engine.json, two deployments: LLR weights off and on): nine listed
-    queries of every kind, 300 timed plain ones drawn from 100 users with
-    history, the items and item sets, one rule query touching every
-    property (it builds the model's property indexes and date offsets;
-    timed on its own), and 200 timed rule queries over the same users
-    (hard filters on one and several values, boosts, a filter
-    on the multi-valued tags, an unknown field and value, dateRange after,
-    before and both, currentDate against availableDate/expireDate); the
-    listed answers and every tenth timed one of each kind are checked
-    against the port's own predict on a CPU copy of the model (the plain
-    path), every rule answer against a numpy oracle of the item
-    properties, and a malformed currentDate must answer 400; the rule
-    mask's build is timed on the card, first and LRU-warm;
+    and ``run_train`` of an engine.json's params take the dense strategy at
+    this size, so K2 and K3 each launch once an event type in each
+    (counters set to 0 just before each run and read just after), and
+    ``merge_desc`` never runs on the card; the model
+    comes back through ``load_latest_models`` and its indicator tables must
+    equal, bit for bit, tables rebuilt here from the port's pieces with K3
+    unfused (a tile loop of K3 without a carry, then ``merge_desc``);
+11b. the deployed width (20,000 users x 100,000 items, 400k purchase + 800k
+    view events and 100,000 ``$set`` item events, top_k 50, tile 4,096)
+    through a localfs store in a temporary directory and the ``pio`` entry
+    points, called in this process (``cli.main.main``) so the counters can
+    be read: the events are written as a JSON-lines file in bulk (no
+    ``Event`` objects), then ``pio app new`` and ``pio import``;
+    ``read_training`` through ``PEventStore.native_batch`` (one native
+    scan, counted) must equal ``ur_training_data_from_arrays``, interactions
+    and item properties; ``URAlgorithm.train`` is timed on it (the wall
+    earlier runs timed); ``pio build`` and ``pio train --engine-json`` of two
+    engine variants (LLR weights off and on) each launch K2 and K3 50 times
+    (25 tiles x 2 event types) and ``merge_desc`` never on the card; both
+    stored models' tables must equal the unfused rebuild bit for bit; the
+    JSON-lines write, import, read_training, train, save and load are timed,
+    the segments' bytes, the blob's size and the train's peak device memory
+    printed;
+12. serve each variant from ``pio deploy`` run as a subprocess on the card
+    (``python -m predictionio_tpu_torch.cli.main deploy``, the store's
+    ``PIO_STORAGE_*`` environment), its start to its first answer timed:
+    nine listed queries of every kind, 300 timed plain ones drawn from 100
+    users with history, the items and item sets, one rule query touching
+    every property (it builds the model's property indexes and date
+    offsets; timed on its own), and 200 timed rule queries over the same
+    users (hard filters on one and several values, boosts, a filter on the
+    multi-valued tags, an unknown field and value, dateRange after, before
+    and both, currentDate against availableDate/expireDate); the listed
+    answers and every tenth timed one of each kind are checked against the
+    port's own predict on a CPU copy of the model (the plain path, reading
+    the histories from the same store), every rule answer against a numpy
+    oracle of the item properties, and a malformed currentDate must answer
+    400; then ``pio undeploy`` stops the server, which must exit 0; the
+    rule mask's build is timed on the card in this process, first and
+    LRU-warm;
 13. time each kernel, its plain version and a PyTorch yardstick where one
     exists, with CUDA events and the L2 flushed, beside its bound (bytes
     over 3.35 TB/s or operations over 67 TFLOP/s, the H100 SXM data sheet's
@@ -99,6 +114,8 @@ import contextlib
 import ctypes
 import datetime
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -127,6 +144,7 @@ HOST_COVER_CYCLES = 2_000_000       # ~1 ms of device spin before each timed cal
 # (bench.py:150): users, items, primary events, other events, top_k, tile
 BENCH_UR = (100_000, 8_192, 1_000_000, 3_000_000, 50, 4_096)
 DEPLOYED_UR = (20_000, 100_000, 400_000, 800_000, 50, 4_096)
+MEMORY_UR = (2_000, 10_000, 40_000, 80_000, 50, 4_096)   # phase 11's cut depth
 UR_POOL, UR_TIMED = 100, 300   # users with history in the store; timed UR queries
 RULE_TIMED = 200               # timed UR rule queries
 N_CATEGORIES, N_TAGS = 50, 200  # item property values of the store path
@@ -134,6 +152,7 @@ T0 = 1_780_000_000.0
 T2015 = 1_420_070_400.0        # 2015-01-01T00:00:00Z
 QNOW = 1_772_323_200.0         # 2026-03-01T00:00:00Z: the rule queries' "now"
 ENGINE_ID = "smoke-ur"
+DEPLOY_TIMEOUT_S = 300   # a `pio deploy` subprocess: start to first answer, and its exit
 
 
 class SmokeFailure(Exception):
@@ -788,11 +807,11 @@ def synth_commerce(n_users, n_items, n_buy, n_view, seed=0):
             pop[n_buy:n_buy + n_view].astype(np.int32))
 
 
-def deployed_arrays():
-    """The deployed UR width's interactions (bench.py:150's commerce
-    events): both event types cover the whole catalog (so each has 25 item
-    tiles of 4,096), then zipf-popular items."""
-    n_users, n_items, n_p, n_v, _, _ = DEPLOYED_UR
+def deployed_arrays(shape=None):
+    """The interactions of a UR shape (the deployed width is bench.py:150's
+    commerce events): both event types cover the whole catalog (so each has
+    ceil(items / 4,096) item tiles), then zipf-popular items."""
+    n_users, n_items, n_p, n_v, _, _ = shape or DEPLOYED_UR
     rng = np.random.default_rng(SEED)
     cover = np.arange(n_items)
     pu = rng.integers(0, n_users, n_p).astype(np.int32)
@@ -848,6 +867,25 @@ def item_properties(cols):
     return props
 
 
+def write_jsonl(path, arrays, props):
+    """``store_events``'s events as a JSON-lines file for ``pio import``,
+    built in bulk from the arrays (times as ISO strings by numpy, lines by
+    one format string per event type; no ``Event`` objects)."""
+    pu, pi, vu, vi = arrays
+    t = iso(T0 - 1)
+    with open(path, "w") as f:
+        f.writelines(json.dumps({"event": "$set", "entityType": "item", "entityId": item,
+                                 "properties": p, "eventTime": t, "creationTime": t}) + "\n"
+                     for item, p in props.items())
+        for name, users, items, t0 in (("purchase", pu, pi, T0), ("view", vu, vi, T0 + len(pu))):
+            times = np.datetime_as_string(
+                (int(t0) + np.arange(len(users))).astype("datetime64[s]"), timezone="UTC").tolist()
+            line = ('{"event":"%s","entityType":"user","entityId":"u%%d","targetEntityType":'
+                    '"item","targetEntityId":"i%%d","eventTime":"%%s","creationTime":"%%s"}\n'
+                    % name)
+            f.writelines(map(line.__mod__, zip(users.tolist(), items.tolist(), times, times)))
+
+
 def store_events(Event, arrays, props):
     """The events a deployment ingests: every purchase (one a second from
     T0), then every view, and one ``$set`` per item before them."""
@@ -862,13 +900,13 @@ def store_events(Event, arrays, props):
     return events
 
 
-def expected_training_data(ur, arrays, props):
+def expected_training_data(ur, arrays, props, shape=None):
     """``ur_training_data_from_arrays`` on the store's arrays, in the order
     ``URDataSource.read_training`` gives them: dictionary codes by first
     appearance in the time-ordered events; users of the primary event
     first, each type's items in code order."""
     pu, pi, vu, vi = arrays
-    n_users, n_items = DEPLOYED_UR[:2]
+    n_users, n_items = (shape or DEPLOYED_UR)[:2]
 
     def first_seen(seq):
         uniq, idx = np.unique(seq, return_index=True)
@@ -908,14 +946,17 @@ def same_training_data(got, want):
     check(got.item_properties == want.item_properties, "item properties differ")
 
 
-def engine_variant(use_llr):
-    """The engine.json a deployment of the store path trains and serves."""
-    return {"id": ENGINE_ID, "engineFactory": "universal_recommender",
+def engine_variant(use_llr, shape=None):
+    """The engine.json a deployment of the store path trains and serves
+    (LLR weights on: its own engine id, so both deploy from one store)."""
+    shape = shape or DEPLOYED_UR
+    return {"id": ENGINE_ID + ("-llr" if use_llr else ""),
+            "engineFactory": "universal_recommender",
             "datasource": {"params": {"appName": "smoke",
                                       "eventNames": ["purchase", "view"]}},
             "algorithms": [{"name": "ur", "params": {
-                "appName": "smoke", "maxCorrelatorsPerItem": DEPLOYED_UR[4],
-                "itemTile": DEPLOYED_UR[5], "useLlrWeights": use_llr,
+                "appName": "smoke", "maxCorrelatorsPerItem": shape[4],
+                "itemTile": shape[5], "useLlrWeights": use_llr,
                 "availableDateName": "availableDate", "expireDateName": "expireDate"}}]}
 
 
@@ -1016,26 +1057,72 @@ def unfused_indicators(cco, hk, td, dev, top_k, tile):
     return out
 
 
-def train_deployed(ur, cco, hk, dev):
-    """Phase 11: the deployed UR width from the store — events with $set
-    properties → a memory Storage → read_training (held against the arrays
-    path) → URAlgorithm.train (the wall earlier runs timed) → run_train (K2/K3
+@contextlib.contextmanager
+def count_card_merges():
+    """Every module of the port that holds ``merge_desc`` gets one that
+    counts its calls on CUDA tensors; yields the one-element count."""
+    from predictionio_tpu_torch.ops import topk
+
+    merge_desc, count = topk.merge_desc, [0]
+
+    def counting_merge(*args):
+        count[0] += args[0].is_cuda
+        return merge_desc(*args)
+
+    holders = [m for name, m in list(sys.modules.items())
+               if name.startswith("predictionio_tpu_torch")
+               and getattr(m, "merge_desc", None) is merge_desc]
+    for m in holders:
+        m.merge_desc = counting_merge
+    try:
+        yield count
+    finally:
+        for m in holders:
+            m.merge_desc = merge_desc
+
+
+def timed_train(hk, algo, td):
+    """``URAlgorithm.train``'s wall after a warm-up train (one-time set-up
+    of the count product and kernels), and its K2/K3 launches."""
+    algo.train(td)
+    torch.cuda.synchronize()
+    hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+    t0 = time.perf_counter()
+    algo.train(td)
+    return time.perf_counter() - t0, (hk.llr_masked_scores.launches, hk.tile_topk_desc.launches)
+
+
+def check_tables(model, rebuilt, n_items, top_k, what):
+    """The stored model's indicator tables against the unfused rebuild,
+    bit for bit."""
+    for name in ("purchase", "view"):
+        idx, llr = model.indicator_idx[name], model.indicator_llr[name]
+        check(idx.shape == (n_items, top_k) and (idx >= 0).any(), f"{what} {name}: bad table")
+        check(bool(np.isfinite(llr).all()), f"{what} {name}: non-finite LLR")
+        if name == "purchase":
+            check(not (idx == np.arange(n_items)[:, None]).any(), "self-pairs not excluded")
+        want_idx, want_llr = rebuilt[name]
+        check(np.array_equal(idx, want_idx) and np.array_equal(llr.view(np.int32),
+                                                               want_llr.view(np.int32)),
+              f"{what} {name}: stored tables differ from the unfused K3 + merge_desc rebuild")
+        print(f"  {what} {name}: [{n_items} x {top_k}] indicators, {int((idx >= 0).sum())} set, "
+              "stored, loaded and bit-identical to the unfused K3 + merge_desc rebuild")
+
+
+def train_memory(ur, cco, hk, dev):
+    """Phase 11: the UR from the memory store at MEMORY_UR's cut depth —
+    events with $set properties → a memory Storage → read_training (held
+    against the arrays path) → URAlgorithm.train → run_train (K2/K3
     launches counted) → the model store → load_latest_models."""
     from predictionio_tpu_torch.events.event import Event
-    from predictionio_tpu_torch.ops import topk
     from predictionio_tpu_torch.storage import App, Storage, StorageConfig, set_storage
     from predictionio_tpu_torch.workflow.core_workflow import load_latest_models, run_train
     from predictionio_tpu_torch.workflow.create_workflow import engine_from_variant
-    from predictionio_tpu_torch.workflow.persistence import save_models
 
-    n_users, n_items, n_p, n_v, top_k, tile = DEPLOYED_UR
-    arrays = deployed_arrays()
-    cols = item_columns(n_items)
-    props = item_properties(cols)
-    # events on one memory source, apps, instances and models on another
-    store = Storage(StorageConfig(
-        sources={"EVENTS": {"type": "memory"}, "MODELS": {"type": "memory"}},
-        repositories={"EVENTDATA": "EVENTS", "METADATA": "MODELS", "MODELDATA": "MODELS"}))
+    n_users, n_items, n_p, n_v, top_k, tile = MEMORY_UR
+    arrays = deployed_arrays(MEMORY_UR)
+    props = item_properties(item_columns(n_items))
+    store = Storage(StorageConfig.memory())
     set_storage(store)   # the data source reads the process default, as in the reference
     app = store.apps.insert(App(0, "smoke"))
     t0 = time.perf_counter()
@@ -1044,12 +1131,11 @@ def train_deployed(ur, cco, hk, dev):
     store.l_events.insert_batch(events, app)
     insert_s = time.perf_counter() - t0
     del events
-    variant = engine_variant(False)
-    _, engine, ep = engine_from_variant(variant)
+    _, engine, ep = engine_from_variant(engine_variant(False, MEMORY_UR))
     t0 = time.perf_counter()
     td_store = engine.make_components(ep)[0].read_training()
     read_s = time.perf_counter() - t0
-    td = expected_training_data(ur, arrays, props)
+    td = expected_training_data(ur, arrays, props, MEMORY_UR)
     same_training_data(td_store, td)
     del td_store
     print(f"  {n_p + n_v} interactions + {n_items} $set item events built and inserted in "
@@ -1058,79 +1144,148 @@ def train_deployed(ur, cco, hk, dev):
           "ur_training_data_from_arrays on the same arrays (interactions and item properties)")
     params = ep.algorithm_params_list[0][1]
     check(params.min_llr == 0.0, "the unfused rebuild assumes LLR threshold 0")
-    algo = ur.URAlgorithm(params, device=dev)
-    algo.train(td)   # warm-up: one-time set-up of the count product and kernels
-    merges_on_card = [0]
-    merge_desc = topk.merge_desc
-
-    def counting_merge(*args):
-        merges_on_card[0] += args[0].is_cuda
-        return merge_desc(*args)
-
-    # every module of the port that holds merge_desc gets the counting one
-    holders = [m for name, m in list(sys.modules.items())
-               if name.startswith("predictionio_tpu_torch")
-               and getattr(m, "merge_desc", None) is merge_desc]
-    tiles = 2 * -(-n_items // tile)
-    for m in holders:
-        m.merge_desc = counting_merge
-    try:
-        torch.cuda.synchronize()
-        hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
-        t0 = time.perf_counter()
-        algo.train(td)
-        wall = time.perf_counter() - t0
-        train_launches = (hk.llr_masked_scores.launches, hk.tile_topk_desc.launches)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
+    # the dense strategy at this size: one K2 and one K3 an event type
+    check(cco._dense_path_ok(n_items, n_items), "the cut depth should take the dense path")
+    tiles = 2
+    with count_card_merges() as merges:
+        wall, train_launches = timed_train(hk, ur.URAlgorithm(params, device=dev), td)
         hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
         t0 = time.perf_counter()
         instance = run_train(engine, ep, ENGINE_ID, storage=store, device=dev)
         run_train_s = time.perf_counter() - t0
         launches = (hk.llr_masked_scores.launches, hk.tile_topk_desc.launches)
-    finally:
-        for m in holders:
-            m.merge_desc = merge_desc
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     check(instance.status == "COMPLETED", f"run_train left its instance {instance.status}")
     for what, got in (("URAlgorithm.train", train_launches), ("run_train", launches)):
         check(got == (tiles, tiles),
-              f"K2/K3 launches {got} in {what} at 100k items, expected {tiles} each")
-    check(merges_on_card[0] == 0, f"merge_desc ran {merges_on_card[0]} times on the card")
-    blob_mb = len(store.models.get(instance.id)) / 1e6
-    t0 = time.perf_counter()
+              f"K2/K3 launches {got} in {what} at {n_items} items, expected {tiles} each")
+    check(merges[0] == 0, f"merge_desc ran {merges[0]} times on the card")
     found, (model,) = load_latest_models(ENGINE_ID, storage=store, device=dev)
-    load_s = time.perf_counter() - t0
+    check(found.id == instance.id and model.device == dev, "load_latest_models")
+    check_tables(model, unfused_indicators(cco, hk, td, dev, top_k, tile), n_items, top_k,
+                 "memory store")
+    print(f"  users={n_users} items={n_items} events={n_p + n_v} (dense) "
+          f"URAlgorithm.train wall_s={wall:.3f} launches K2={train_launches[0]} "
+          f"K3={train_launches[1]}; run_train wall_s={run_train_s:.3f} launches "
+          f"K2={launches[0]} K3={launches[1]} merge_desc on the card={merges[0]}")
+    set_storage(None)
+    return {"shape": list(MEMORY_UR), "wall_s": wall, "launches": launches,
+            "insert_s": insert_s, "event_build_s": build_s, "read_training_s": read_s,
+            "run_train_s": run_train_s}
+
+
+def localfs_env(root):
+    """The ``PIO_STORAGE_*`` environment of one localfs store at ``root``."""
+    return {"PIO_STORAGE_SOURCES_FS_TYPE": "localfs", "PIO_STORAGE_SOURCES_FS_PATH": str(root),
+            **{f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": "FS"
+               for r in ("METADATA", "EVENTDATA", "MODELDATA")}}
+
+
+def pio(*argv):
+    """One ``pio`` command in this process (so the launch counters can be
+    read); fails the phase on a non-zero exit."""
+    from predictionio_tpu_torch.cli.main import main as pio_main
+
+    rc = pio_main(list(argv))
+    check(rc == 0, f"pio {' '.join(argv)} exited {rc}")
+
+
+def train_localfs(ur, cco, hk, dev, workdir):
+    """Phase 11b: the deployed UR width through the localfs store and the
+    ``pio`` entry points — a JSON-lines file → ``pio app new`` → ``pio
+    import`` → read_training through the native scan (held against the
+    arrays path) → ``pio build`` → ``pio train`` of both engine variants
+    (K2/K3 launches counted) → the model store."""
+    from predictionio_tpu_torch.native import scanner
+    from predictionio_tpu_torch.storage import get_storage, set_storage
+    from predictionio_tpu_torch.workflow.core_workflow import load_latest_models
+    from predictionio_tpu_torch.workflow.create_workflow import engine_from_variant
+    from predictionio_tpu_torch.workflow.persistence import save_models
+
+    n_users, n_items, n_p, n_v, top_k, tile = DEPLOYED_UR
+    arrays = deployed_arrays()
+    cols = item_columns(n_items)
+    props = item_properties(cols)
+    env = {**localfs_env(workdir / "store"), "PIO_TORCH_DEVICE": dev.type}
+    os.environ.update(env)
+    set_storage(None)    # the process default is built anew from the environment
+    jsonl = workdir / "events.jsonl"
+    t = {}
+    t0 = time.perf_counter()
+    write_jsonl(jsonl, arrays, props)
+    t["jsonl_write_s"] = time.perf_counter() - t0
+    pio("app", "new", "smoke")
+    t0 = time.perf_counter()
+    pio("import", "--app-name", "smoke", "--input", str(jsonl))
+    t["import_s"] = time.perf_counter() - t0
+    n_events = n_p + n_v + n_items
+    store = get_storage()
+    app = store.apps.get_by_name("smoke")
+    segs = store.l_events.segment_paths(app.id)
+    seg_bytes = sum(p.stat().st_size for p in segs)
+    print(f"  {n_events} events written as JSON lines in {t['jsonl_write_s']:.3f} s "
+          f"({jsonl.stat().st_size} bytes), imported in {t['import_s']:.3f} s "
+          f"({n_events / t['import_s']:.0f} events/s) into {len(segs)} segments of "
+          f"{seg_bytes} bytes")
+    jsonl.unlink()
+    variants = {}
+    for use_llr in (False, True):
+        variants[use_llr] = workdir / f"engine-{use_llr}.json"
+        variants[use_llr].write_text(json.dumps(engine_variant(use_llr)))
+    _, engine, ep = engine_from_variant(engine_variant(False))
+    served = scanner.scans_served
+    t0 = time.perf_counter()
+    td_store = engine.make_components(ep)[0].read_training()
+    t["read_training_s"] = time.perf_counter() - t0
+    check(scanner.scans_served == served + 1,
+          f"read_training made {scanner.scans_served - served} native scans, not 1")
+    td = expected_training_data(ur, arrays, props)
+    same_training_data(td_store, td)
+    del td_store
+    print(f"  read_training through PEventStore.native_batch (one native scan) "
+          f"{t['read_training_s']:.3f} s, equal to ur_training_data_from_arrays on the same "
+          "arrays (interactions and item properties)")
+    params = ep.algorithm_params_list[0][1]
+    check(params.min_llr == 0.0, "the unfused rebuild assumes LLR threshold 0")
+    tiles = 2 * -(-n_items // tile)
+    launches = {}
+    with count_card_merges() as merges:
+        t["train_wall_s"], train_launches = timed_train(hk, ur.URAlgorithm(params, device=dev), td)
+        for use_llr, path in variants.items():
+            pio("build", "--engine-json", str(path))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+            t0 = time.perf_counter()
+            pio("train", "--engine-json", str(path))
+            t[f"pio_train_s_llr_{use_llr}"] = time.perf_counter() - t0
+            launches[use_llr] = (hk.llr_masked_scores.launches, hk.tile_topk_desc.launches)
+    t["peak_device_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    for what, got in (("URAlgorithm.train", train_launches), *(
+            (f"pio train (useLlrWeights {k})", v) for k, v in launches.items())):
+        check(got == (tiles, tiles),
+              f"K2/K3 launches {got} in {what} at {n_items} items, expected {tiles} each")
+    check(merges[0] == 0, f"merge_desc ran {merges[0]} times on the card")
+    rebuilt = unfused_indicators(cco, hk, td, dev, top_k, tile)
+    for use_llr in (False, True):
+        t0 = time.perf_counter()
+        instance, (model,) = load_latest_models(engine_variant(use_llr)["id"], device=dev)
+        t["load_s"] = time.perf_counter() - t0
+        check(model.device == dev, "load_latest_models: the model is off the card")
+        check_tables(model, rebuilt, n_items, top_k, f"useLlrWeights {use_llr}")
+    t["blob_mb"] = len(store.models.get(instance.id)) / 1e6
     t0 = time.perf_counter()
     save_models(store, instance.id, [model])   # the same bytes again
-    save_s = time.perf_counter() - t0
-    check(found.id == instance.id and model.device == dev, "load_latest_models")
-    # the query server does not hold the training events: drop them from
-    # this process (1.3M Python objects would lengthen every GC pass)
-    check(store.l_events.remove(app), "the training events were not in the store")
-    rebuilt = unfused_indicators(cco, hk, td, dev, top_k, tile)
-    for name in ("purchase", "view"):
-        idx, llr = model.indicator_idx[name], model.indicator_llr[name]
-        check(idx.shape == (n_items, top_k) and (idx >= 0).any(), f"{name}: bad table")
-        check(bool(np.isfinite(llr).all()), f"{name}: non-finite LLR")
-        if name == "purchase":
-            check(not (idx == np.arange(n_items)[:, None]).any(), "self-pairs not excluded")
-        want_idx, want_llr = rebuilt[name]
-        check(np.array_equal(idx, want_idx) and np.array_equal(llr.view(np.int32),
-                                                               want_llr.view(np.int32)),
-              f"{name}: stored tables differ from the unfused K3 + merge_desc rebuild")
-        print(f"  {name}: [{n_items} x {top_k}] indicators, {int((idx >= 0).sum())} set, "
-              "stored, loaded and bit-identical to the unfused K3 + merge_desc rebuild")
+    t["save_s"] = time.perf_counter() - t0
     print(f"  users={n_users} items={n_items} events={n_p + n_v} tiles={tiles} "
-          f"URAlgorithm.train wall_s={wall:.3f} events_per_s={(n_p + n_v) / wall:.0f} "
-          f"launches K2={train_launches[0]} K3={train_launches[1]}; run_train wall_s="
-          f"{run_train_s:.3f} peak_device_gb={peak_gb:.2f} launches K2={launches[0]} "
-          f"K3={launches[1]} merge_desc on the card={merges_on_card[0]}; model blob "
-          f"{blob_mb:.1f} MB, save_s={save_s:.3f} load_s={load_s:.3f}")
-    return store, model, td, arrays, cols, {
-        "wall_s": wall, "events": n_p + n_v, "peak_gb": peak_gb, "launches": launches,
-        "insert_s": insert_s, "event_build_s": build_s, "read_training_s": read_s, "run_train_s": run_train_s,
-        "blob_mb": blob_mb, "save_s": save_s, "load_s": load_s}
+          f"URAlgorithm.train wall_s={t['train_wall_s']:.3f} launches K2={train_launches[0]} "
+          f"K3={train_launches[1]}; pio train wall_s LLR weights off "
+          f"{t['pio_train_s_llr_False']:.3f}, on {t['pio_train_s_llr_True']:.3f} "
+          f"(read, train, save), launches {launches}, peak_device_gb="
+          f"{t['peak_device_gb']:.2f}, merge_desc on the card={merges[0]}; model blob "
+          f"{t['blob_mb']:.1f} MB, save_s={t['save_s']:.3f} load_s={t['load_s']:.3f}")
+    return model, td, arrays, cols, env, variants, {
+        **t, "events": n_p + n_v, "set_events": n_items, "segments": len(segs),
+        "segment_bytes": seg_bytes, "launches": launches[False]}
 
 
 def ur_bodies():
@@ -1235,24 +1390,6 @@ def check_rule_oracle(body, got, cols) -> int:
     return len(got["itemScores"])
 
 
-def history_store(hist_users, arrays):
-    """An event store holding the queried users' events only."""
-    from predictionio_tpu_torch.events.event import Event
-    from predictionio_tpu_torch.storage import App, Storage, StorageConfig
-
-    pu, pi, vu, vi = arrays
-    store = Storage(StorageConfig.memory())
-    app = store.apps.insert(App(0, "smoke"))
-    for name, users, items in (("purchase", pu, pi), ("view", vu, vi)):
-        for u in hist_users:
-            uid = int(u[1:])
-            for k, j in enumerate(np.flatnonzero(users == uid)):
-                store.l_events.insert(Event(
-                    name, "user", u, target_entity_type="item",
-                    target_entity_id=f"i{int(items[j])}", event_time=T0 + k), app)
-    return store
-
-
 def mask_build_ms(ur, model, variant, body, reps=5):
     """The composed rule mask's build on the card for one query: the first
     build on a freshly loaded model (property indexes, value masks and
@@ -1307,18 +1444,71 @@ def timed_posts(url, bodies):
     return answers, lat_ms
 
 
-def serve_ur(ur, store, model, arrays, cols, dev):
-    """Phase 12: two deployments from the model store (``deploy``: LLR
-    weights off and on, business rules on the $set properties).  The
-    listed bodies go first and are each checked against the CPU predict;
-    then UR_TIMED plain queries, one rule query over every property (the
-    first build of the model's rule state) and RULE_TIMED rule queries
-    drawn from UR_POOL users with history (plus items and item sets) are
-    timed, every tenth of each checked the same way, and every rule answer
-    against the numpy oracle of check_rule_oracle; a malformed currentDate
-    answers 400."""
-    from predictionio_tpu_torch.storage import set_storage
-    from predictionio_tpu_torch.workflow.create_server import deploy
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def get_json(url, timeout=60):
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+@contextlib.contextmanager
+def pio_deploy(engine_json, env):
+    """``pio deploy`` of ``engine_json`` as a subprocess on the card (the
+    store's ``PIO_STORAGE_*`` environment, its output in a file beside the
+    engine.json); yields (base url, seconds from the start to its first
+    answer of ``GET /``).  On leaving, ``pio undeploy`` must stop it and it
+    must exit 0; it is killed in any case."""
+    port = free_port()
+    root = Path(__file__).resolve().parent
+    log_path = Path(engine_json).with_suffix(".deploy.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.cli.main", "deploy",
+             "--engine-json", str(engine_json), "--ip", "127.0.0.1", "--port", str(port)],
+            cwd=root, env={**os.environ, **env, "PYTHONPATH": str(root)},
+            stdout=log, stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        while True:
+            check(proc.poll() is None, f"pio deploy exited {proc.returncode}: "
+                  f"{log_path.read_text()[-4000:]}")
+            check(time.perf_counter() - t0 < DEPLOY_TIMEOUT_S, "pio deploy did not answer")
+            try:
+                get_json(base + "/", timeout=5)
+                break
+            except (urllib.error.URLError, ConnectionError):
+                time.sleep(0.2)
+        up_s = time.perf_counter() - t0
+        yield base, up_s
+        pio("undeploy", "--port", str(port), "--timeout", "60")
+        rc = proc.wait(timeout=DEPLOY_TIMEOUT_S)
+        out = log_path.read_text()
+        check(rc == 0, f"pio deploy exited {rc} after pio undeploy: {out[-4000:]}")
+        print(f"  pio deploy said: {out.strip()}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def serve_ur(ur, model, arrays, cols, dev, env, variants):
+    """Phase 12: ``pio deploy`` subprocesses of the two engine variants of
+    phase 11b's store (LLR weights off and on, business rules on the $set
+    properties), each stopped by ``pio undeploy``.  The listed bodies go
+    first and are each checked against the CPU predict; then UR_TIMED
+    plain queries, one rule query over every property (the first build of
+    the model's rule state) and RULE_TIMED rule queries drawn from UR_POOL
+    users with history (plus items and item sets) are timed, every tenth
+    of each checked the same way, and every rule answer against the numpy
+    oracle of check_rule_oracle; a malformed currentDate answers 400."""
+    from predictionio_tpu_torch.storage import get_storage
 
     hist_users, bodies = ur_bodies()
     rng = np.random.default_rng(SEED + 1)
@@ -1326,77 +1516,78 @@ def serve_ur(ur, store, model, arrays, cols, dev):
         DEPLOYED_UR[0], UR_POOL, replace=False)) if u not in hist_users][: UR_POOL - 3]
     timed = ur_queries(rng, UR_TIMED, pool)
     rules = rule_queries(rng, RULE_TIMED, pool)
-    set_storage(history_store(pool, arrays))
     cpu_model = ur.ur_model_from_state(model.__getstate__(), device="cpu")
+    store = get_storage()   # the CPU predict reads the histories from the same store
+    t0 = time.perf_counter()
+    store.l_events.warm_entity_index(store.apps.get_by_name("smoke").id)
+    index_s = time.perf_counter() - t0
     probe = {"user": pool[0], "currentDate": iso(QNOW),
              "fields": [{"name": "category", "values": ["c0", "c3"], "bias": -1},
                         {"name": "tags", "values": ["t7"], "bias": 2.0}],
              "dateRange": {"name": "releaseDate", "after": iso(T2015 + 3 * 365 * 86_400)}}
     mask_ms = mask_build_ms(ur, model, engine_variant(False), probe)
     print(f"  rule mask build on the card for {probe}: first {mask_ms[0]:.3f} ms on the "
-          f"loaded model, then {mask_ms[1]:.3f} ms (median of 5, its LRUs warm)")
-    out = {"mask_build_ms": {"first": mask_ms[0], "warm": mask_ms[1]}}
-    with tempfile.TemporaryDirectory() as workdir:
-        for use_llr in (False, True):
-            variant = engine_variant(use_llr)
-            path = Path(workdir) / f"engine-{use_llr}.json"
-            path.write_text(json.dumps(variant))
-            server = deploy(str(path), host="127.0.0.1", port=0, storage=store,
-                                 device=dev)
-            try:
-                check(server.state.models[0].device == dev, "deployed off the card")
-                url = f"http://127.0.0.1:{server.server_address[1]}/queries.json"
-                answers, lat_ms = timed_posts(url, bodies)
-                timed_answers, timed_ms = timed_posts(url, timed)
-                # the first rule query builds the model's property indexes and
-                # date offsets (each once a model): timed on its own
-                (probe_answer,), (probe_ms,) = timed_posts(url, [probe])
-                rule_answers, rule_ms = timed_posts(url, rules)
-                status = refused(url, {"user": hist_users[0], "currentDate": "01/03/2026"})
-            finally:
-                server.shutdown()
-                server.server_close()
-            check(status == 400, f"a malformed currentDate answered {status}, not 400")
-            algo = ur.URAlgorithm(ur.URAlgorithmParams.from_json(
-                variant["algorithms"][0]["params"]))
-            checked = (list(zip(bodies, answers)) + [(probe, probe_answer)]
-                       + list(zip(timed, timed_answers))[::10]
-                       + list(zip(rules, rule_answers))[::10])
-            swaps = 0
-            for body, got in checked:
-                q = ur.URQuery.from_json(body)
-                want = algo.predict(cpu_model, q).to_json()
-                hist = algo._query_hist(cpu_model, q)
-                sig = algo._score_history(cpu_model, hist) if hist is not None else None
-                key = algo._mask_rule_key(q)
-                if sig is not None and key is not None:
-                    sig = sig * algo._mask_from_key(cpu_model, key)
-                swaps += check_ur_answer(body, got, want, None if sig is None else sig.numpy(),
-                                         cpu_model.item_dict)
-            for body, got in zip(bodies + timed, answers + timed_answers):
-                check(len(got["itemScores"]) == min(body["num"], len(cpu_model.item_dict))
-                      and all(np.isfinite(d["score"]) for d in got["itemScores"]),
-                      f"{body}: short answer or non-finite score")
-            oracle_items = sum(check_rule_oracle(b, g, cols) for b, g in
-                               zip(rules + [probe], rule_answers + [probe_answer]))
-            empty = sum(not g["itemScores"] for g in rule_answers)
-            p50, p99 = np.percentile(timed_ms, [50, 99])
-            r50, r99 = np.percentile(rule_ms, [50, 99])
-            print(f"  use_llr_weights={use_llr}: {len(checked)} answers equal the CPU predict "
-                  f"({swaps} near-tie swaps); {len(rules)} rule answers, {oracle_items} items, "
-                  f"all pass the numpy oracle ({empty} empty: nothing matches); a malformed "
-                  f"currentDate answered 400; latency_ms first={lat_ms[0]:.3f}, over "
-                  f"{len(timed)} plain queries p50={p50:.3f} p99={p99:.3f} "
-                  f"max={max(timed_ms):.3f}, first rule query {probe_ms:.3f}, then over "
-                  f"{len(rules)} rule queries p50={r50:.3f} "
-                  f"p99={r99:.3f} max={max(rule_ms):.3f} "
-                  "(host clock, one client, a connection per request)")
-            out[use_llr] = {"first_ms": lat_ms[0], "p50_ms": float(p50), "p99_ms": float(p99),
-                            "max_ms": max(timed_ms), "n": len(timed), "checked": len(checked),
-                            "rule_first_ms": probe_ms,
-                            "rule_p50_ms": float(r50), "rule_p99_ms": float(r99),
-                            "rule_max_ms": max(rule_ms), "rule_n": len(rules),
-                            "rule_items_checked": oracle_items, "rule_empty": empty}
+          f"loaded model, then {mask_ms[1]:.3f} ms (median of 5, its LRUs warm); the "
+          f"serving history index of the store built in {index_s:.3f} s in this process")
+    out = {"mask_build_ms": {"first": mask_ms[0], "warm": mask_ms[1]},
+           "history_index_s": index_s}
+    for use_llr, path in variants.items():
+        variant = engine_variant(use_llr)
+        with pio_deploy(path, env) as (base, up_s):
+            info = get_json(base + "/")
+            check(info["devices"] == [str(dev)], f"deployed on {info['devices']}, not {dev}")
+            url = base + "/queries.json"
+            answers, lat_ms = timed_posts(url, bodies)
+            first_s = up_s + lat_ms[0] / 1e3
+            timed_answers, timed_ms = timed_posts(url, timed)
+            # the first rule query builds the model's property indexes and
+            # date offsets (each once a model): timed on its own
+            (probe_answer,), (probe_ms,) = timed_posts(url, [probe])
+            rule_answers, rule_ms = timed_posts(url, rules)
+            status = refused(url, {"user": hist_users[0], "currentDate": "01/03/2026"})
+        check(status == 400, f"a malformed currentDate answered {status}, not 400")
+        algo = ur.URAlgorithm(ur.URAlgorithmParams.from_json(
+            variant["algorithms"][0]["params"]))
+        checked = (list(zip(bodies, answers)) + [(probe, probe_answer)]
+                   + list(zip(timed, timed_answers))[::10]
+                   + list(zip(rules, rule_answers))[::10])
+        swaps = 0
+        for body, got in checked:
+            q = ur.URQuery.from_json(body)
+            want = algo.predict(cpu_model, q).to_json()
+            hist = algo._query_hist(cpu_model, q)
+            sig = algo._score_history(cpu_model, hist) if hist is not None else None
+            key = algo._mask_rule_key(q)
+            if sig is not None and key is not None:
+                sig = sig * algo._mask_from_key(cpu_model, key)
+            swaps += check_ur_answer(body, got, want, None if sig is None else sig.numpy(),
+                                     cpu_model.item_dict)
+        for body, got in zip(bodies + timed, answers + timed_answers):
+            check(len(got["itemScores"]) == min(body["num"], len(cpu_model.item_dict))
+                  and all(np.isfinite(d["score"]) for d in got["itemScores"]),
+                  f"{body}: short answer or non-finite score")
+        oracle_items = sum(check_rule_oracle(b, g, cols) for b, g in
+                           zip(rules + [probe], rule_answers + [probe_answer]))
+        empty = sum(not g["itemScores"] for g in rule_answers)
+        p50, p99 = np.percentile(timed_ms, [50, 99])
+        r50, r99 = np.percentile(rule_ms, [50, 99])
+        print(f"  use_llr_weights={use_llr}: pio deploy answered GET / {up_s:.3f} s after "
+              f"its start, its first query {first_s:.3f} s after; {len(checked)} answers "
+              f"equal the CPU predict ({swaps} near-tie swaps); {len(rules)} rule answers, "
+              f"{oracle_items} items, all pass the numpy oracle ({empty} empty: nothing "
+              f"matches); a malformed currentDate answered 400; latency_ms "
+              f"first={lat_ms[0]:.3f}, over {len(timed)} plain queries p50={p50:.3f} "
+              f"p99={p99:.3f} max={max(timed_ms):.3f}, first rule query {probe_ms:.3f}, then "
+              f"over {len(rules)} rule queries p50={r50:.3f} p99={r99:.3f} "
+              f"max={max(rule_ms):.3f} (host clock, one client, a connection per request); "
+              "pio undeploy stopped it, exit 0")
+        out[use_llr] = {"deploy_up_s": up_s, "deploy_to_first_answer_s": first_s,
+                        "first_ms": lat_ms[0], "p50_ms": float(p50), "p99_ms": float(p99),
+                        "max_ms": max(timed_ms), "n": len(timed), "checked": len(checked),
+                        "rule_first_ms": probe_ms,
+                        "rule_p50_ms": float(r50), "rule_p99_ms": float(r99),
+                        "rule_max_ms": max(rule_ms), "rule_n": len(rules),
+                        "rule_items_checked": oracle_items, "rule_empty": empty}
     return out
 
 
@@ -1422,6 +1613,7 @@ def run() -> None:
         from predictionio_tpu_torch.device import resolve_device
         from predictionio_tpu_torch.models import recommendation as reco
         from predictionio_tpu_torch.models import universal_recommender as ur
+        from predictionio_tpu_torch.native import scanner
         from predictionio_tpu_torch.ops import build
         from predictionio_tpu_torch.ops import cco
         from predictionio_tpu_torch.ops import hopper_kernels as hk
@@ -1440,8 +1632,15 @@ def run() -> None:
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     phase("2. build")
+    # the native event-log scanner (host code, g++) builds beside the kernels
+    native_ok = []
+    native = threading.Thread(target=lambda: native_ok.append(scanner.native_available()))
+    native.start()
     build_s = build.build_all()
-    print(f"build_s={build_s:.3f} kernels={sorted(build.SIGNATURES)}")
+    native.join()
+    check(native_ok == [True], "the native event-log scanner did not build")
+    print(f"build_s={build_s:.3f} kernels={sorted(build.SIGNATURES)}, and the native "
+          "event-log scanner (g++)")
     for name, log in build.build_logs.items():
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
@@ -1522,14 +1721,24 @@ def run() -> None:
     bench = train_bench_shape(cco, hk, dev)
     torch.cuda.empty_cache()
 
-    phase("11. UR train at the deployed width from the store (run_train)")
-    store, ur_model, td, arrays, cols, deployed = train_deployed(ur, cco, hk, dev)
+    phase("11. UR train from the memory store at a cut depth (run_train)")
+    memory = train_memory(ur, cco, hk, dev)
     torch.cuda.empty_cache()
 
-    phase("12. UR HTTP /queries.json from the model store, with business rules")
-    served = serve_ur(ur, store, ur_model, arrays, cols, dev)
-    del ur_model, store
-    torch.cuda.empty_cache()
+    workdir = Path(tempfile.mkdtemp(prefix="chip-smoke-"))
+    try:
+        phase("11b. UR at the deployed width through localfs and pio "
+              "(app new, import, build, train)")
+        ur_model, td, arrays, cols, env, variants, deployed = train_localfs(
+            ur, cco, hk, dev, workdir)
+        torch.cuda.empty_cache()
+
+        phase("12. UR HTTP /queries.json from pio deploy subprocesses, with business rules")
+        served = serve_ur(ur, ur_model, arrays, cols, dev, env, variants)
+        del ur_model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
     phase("13. timing")
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)   # > 50 MB L2
@@ -1586,13 +1795,16 @@ def run() -> None:
               f"torch.topk {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}) | {clock_text(r['sm_clock'])} | {smi}")
     print(f"  UR train: bench shape {bench['events']} events in {bench['wall_s']:.3f} s; "
-          f"deployed width {deployed['events']} events in {deployed['wall_s']:.3f} s "
+          f"deployed width {deployed['events']} events in {deployed['train_wall_s']:.3f} s "
           f"(URAlgorithm.train); UR HTTP over {served[False]['n']} queries "
           f"p50 {served[False]['p50_ms']:.3f} ms p99 {served[False]['p99_ms']:.3f} ms | {smi}")
-    print(f"  store path: insert {deployed['insert_s']:.3f} s, read_training "
-          f"{deployed['read_training_s']:.3f} s, run_train {deployed['run_train_s']:.3f} s "
-          f"(peak {deployed['peak_gb']:.2f} GB), model blob {deployed['blob_mb']:.1f} MB saved "
-          f"in {deployed['save_s']:.3f} s, loaded in {deployed['load_s']:.3f} s; rule mask "
+    print(f"  localfs path: JSONL write {deployed['jsonl_write_s']:.3f} s, pio import "
+          f"{deployed['import_s']:.3f} s ({deployed['segment_bytes']} segment bytes), "
+          f"read_training (native scan) {deployed['read_training_s']:.3f} s, pio train "
+          f"{deployed['pio_train_s_llr_False']:.3f} s (peak {deployed['peak_device_gb']:.2f} "
+          f"GB), model blob {deployed['blob_mb']:.1f} MB saved in {deployed['save_s']:.3f} s, "
+          f"loaded in {deployed['load_s']:.3f} s; pio deploy to first answer "
+          f"{served[False]['deploy_to_first_answer_s']:.3f} s; rule mask "
           f"build first {served['mask_build_ms']['first']:.3f} ms, warm "
           f"{served['mask_build_ms']['warm']:.3f} ms; rule queries over HTTP p50 "
           f"{served[False]['rule_p50_ms']:.3f} ms p99 {served[False]['rule_p99_ms']:.3f} ms "
@@ -1600,7 +1812,8 @@ def run() -> None:
     launches = {"masked_score": http_launches + batch_launches,
                 "llr_masked": deployed["launches"][0],
                 "tile_topk": deployed["launches"][1]}
-    print(json.dumps({"ur_train": {"bench_shape": bench, "deployed_width": deployed},
+    print(json.dumps({"ur_train": {"bench_shape": bench, "memory_store": memory,
+                                   "deployed_width_localfs": deployed},
                       "ur_http": {str(k).lower(): v for k, v in served.items()},
                       "k1_retime": k1_rounds, "empty_kernel_ms": empty_ms, "llr_sass": sass,
                       "wall_s": time.perf_counter() - t_start}))

@@ -10,7 +10,11 @@ Ported so far (ROADMAP.md, queue A): serving of the ``recommendation``
 (``ops/csrc/masked_score.cu``); the Universal Recommender's CCO training
 through the LLR and tile top-k kernels (``ops/csrc/llr_masked.cu``,
 ``ops/csrc/tile_topk.cu``) and its serving with business rules; the event
-model, the memory storage backend, ``PEventStore``, the model store and
-the train → deploy workflow (``workflow/core_workflow.py``,
-``workflow/create_server.py:deploy``).
+model, the memory and localfs storage backends with the native segment
+scanner (``native/eventlog_scanner.cpp``), ``PEventStore``, the model
+store, the train → deploy workflow (``workflow/core_workflow.py``,
+``workflow/create_server.py``) and the ``pio`` console
+(``python -m predictionio_tpu_torch.cli.main``).
 """
+
+__version__ = "0.1.0"

@@ -1,0 +1,453 @@
+"""`pio` command-line console of the port.
+
+    python -m predictionio_tpu_torch.cli.main <command> ...
+
+Counterpart of ``predictionio_tpu/cli/main.py`` (reference:
+tools/.../console/Console.scala and bin/pio):
+
+  app new|list|show|delete|data-delete|compact   applications, log compaction
+  accesskey new|list|delete                      access keys
+  channel new|delete                             channels
+  import / export                                JSON-lines event files
+  build                                          check engine.json, register its manifest
+  train / deploy / undeploy                      the DASE workflow
+  status / version
+
+The device is the counterpart of the JAX package's ``PIO_JAX_PLATFORM``:
+``PIO_TORCH_DEVICE=cpu|cuda`` (default ``cuda``), read here once and
+handed to ``train`` and ``deploy`` as their ``device``; ``cuda`` without a
+card raises, and nothing falls back to the CPU.  The other subcommands of
+the JAX console exist and exit non-zero naming the ROADMAP item that
+brings them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import socket
+import sys
+import time
+import urllib.error
+import urllib.request
+from typing import List, Optional
+
+from predictionio_tpu_torch import __version__
+from predictionio_tpu_torch.storage import AccessKey, App, Channel, get_storage
+
+ROADMAP = {
+    "snapshot": "ROADMAP.md, queue A, 'Columnar snapshots and the staged cache'",
+    "server": "ROADMAP.md, queue A, 'Event-loop server and micro-batcher'",
+    "streaming": "ROADMAP.md, queue A, 'Streaming'",
+    "templates": "ROADMAP.md, queue A, 'Remaining templates'",
+}
+#: subcommands of the JAX console the port does not have yet -> ROADMAP key
+NOT_PORTED = {
+    "snapshot": "snapshot",
+    "eventserver": "server", "adminserver": "server", "dashboard": "server",
+    "metrics": "server", "trace": "server", "lineage": "server", "top": "server",
+    "plane-subscribe": "streaming",
+    "eval": "templates", "template": "templates",
+}
+
+
+def _error(message: str) -> int:
+    print(f"Error: {message}", file=sys.stderr)
+    return 1
+
+
+def _cmd_version(args) -> int:
+    print(__version__)
+    return 0
+
+
+def _cmd_status(args) -> int:
+    import torch
+
+    st = get_storage()
+    print("PredictionIO (PyTorch port) status:")
+    print(f"  version: {__version__}")
+    for repo, source in st.config.repositories.items():
+        spec = st.config.sources[source]
+        print(f"  {repo.lower()}: source={source} type={spec.get('type')} "
+              f"path={spec.get('path', '-')}")
+    try:
+        print(f"  apps: {len(st.apps.get_all())}")
+    except Exception as e:
+        print(f"  storage ERROR: {e}")
+        return 1
+    print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if torch.cuda.is_available():
+        print(f"  cuda devices: {torch.cuda.device_count()} "
+              f"({torch.cuda.get_device_name(0)})")
+    else:
+        print("  cuda devices: none")
+    print(f"  PIO_TORCH_DEVICE={args.device}")
+    print("(sanity check: all storage repositories reachable)")
+    return 0
+
+
+def _resolve_app(st, name: str):
+    app = st.apps.get_by_name(name)
+    if app is None:
+        print(f"Error: app {name!r} does not exist.", file=sys.stderr)
+    return app
+
+
+def _resolve_channel(st, app, channel_name: Optional[str]):
+    """None → the default channel; an unknown name → (None, False), the
+    error printed."""
+    if not channel_name:
+        return None, True
+    chan = next((c for c in st.channels.get_by_app_id(app.id) if c.name == channel_name), None)
+    if chan is None:
+        print(f"Error: channel {channel_name!r} does not exist.", file=sys.stderr)
+        return None, False
+    return chan.id, True
+
+
+def _cmd_app(args) -> int:
+    st = get_storage()
+    if args.app_command == "new":
+        app_id = st.apps.insert(App(args.id or 0, args.name, args.description or ""))
+        if app_id is None:
+            return _error(f"app {args.name!r} already exists.")
+        st.l_events.init(app_id)
+        key = st.access_keys.insert(AccessKey("", app_id, []))
+        print(f"Created app {args.name!r} with id {app_id}.")
+        print(f"Access key: {key}")
+        return 0
+    if args.app_command == "list":
+        for a in sorted(st.apps.get_all(), key=lambda a: a.id):
+            print(f"  {a.id}  {a.name}  {a.description}")
+        return 0
+    app = _resolve_app(st, args.name)
+    if app is None:
+        return 1
+    if args.app_command == "show":
+        print(f"  id: {app.id}\n  name: {app.name}\n  description: {app.description}")
+        for k in st.access_keys.get_by_app_id(app.id):
+            events = ",".join(k.events) if k.events else "(all)"
+            print(f"  access key: {k.key}  events: {events}")
+        for c in st.channels.get_by_app_id(app.id):
+            print(f"  channel: {c.id} {c.name}")
+        return 0
+    if args.app_command == "delete":
+        for k in st.access_keys.get_by_app_id(app.id):
+            st.access_keys.delete(k.key)
+        for c in st.channels.get_by_app_id(app.id):
+            st.l_events.remove(app.id, c.id)
+            st.channels.delete(c.id)
+        st.l_events.remove(app.id)
+        st.apps.delete(app.id)
+        print(f"Deleted app {args.name!r}.")
+        return 0
+    if args.app_command == "data-delete":
+        st.l_events.remove(app.id)
+        st.l_events.init(app.id)
+        print(f"Deleted all events of app {args.name!r}.")
+        return 0
+    if args.app_command == "compact":
+        channel_id, ok = _resolve_channel(st, app, args.channel)
+        if not ok:
+            return 1
+        before = None
+        if args.before:
+            from predictionio_tpu_torch.events.event import parse_time
+
+            try:
+                before = parse_time(args.before)
+            except (ValueError, TypeError) as e:
+                return _error(f"invalid --before date: {e}")
+        stats = st.l_events.compact(app.id, channel_id, before=before)
+        print(f"Compacted app {args.name!r}: kept {stats['kept']} events, "
+              f"expired {stats['expired']}, {stats['segments']} segment(s).")
+        return 0
+    raise AssertionError(args.app_command)
+
+
+def _cmd_accesskey(args) -> int:
+    st = get_storage()
+    if args.ak_command == "delete":
+        ok = st.access_keys.delete(args.key)
+        print("Deleted." if ok else "Error: key not found.")
+        return 0 if ok else 1
+    app = _resolve_app(st, args.app_name)
+    if app is None:
+        return 1
+    if args.ak_command == "new":
+        key = st.access_keys.insert(AccessKey("", app.id, args.events or []))
+        print(f"Created access key: {key}")
+        return 0
+    if args.ak_command == "list":
+        for k in st.access_keys.get_by_app_id(app.id):
+            events = ",".join(k.events) if k.events else "(all)"
+            print(f"  {k.key}  events: {events}")
+        return 0
+    raise AssertionError(args.ak_command)
+
+
+def _cmd_channel(args) -> int:
+    st = get_storage()
+    app = _resolve_app(st, args.app_name)
+    if app is None:
+        return 1
+    if args.ch_command == "new":
+        cid = st.channels.insert(Channel(0, args.name, app.id))
+        if cid is None:
+            return _error(f"channel {args.name!r} already exists.")
+        st.l_events.init(app.id, cid)
+        print(f"Created channel {args.name!r} with id {cid}.")
+        return 0
+    if args.ch_command == "delete":
+        channel_id, ok = _resolve_channel(st, app, args.name)
+        if not ok:
+            return 1
+        st.l_events.remove(app.id, channel_id)
+        st.channels.delete(channel_id)
+        print(f"Deleted channel {args.name!r}.")
+        return 0
+    raise AssertionError(args.ch_command)
+
+
+def _app_from_args(st, args):
+    app = st.apps.get(args.appid) if args.appid else _resolve_app(st, args.app_name)
+    if app is None:
+        print("Error: app not found.", file=sys.stderr)
+    return app
+
+
+def _cmd_import(args) -> int:
+    """Bulk-load a JSON-lines event file (reference: tools Import) through
+    ``insert_json_batch`` in chunks of 10,000 lines.  A bad line stops the
+    import with its line number; earlier chunks (and, for a validation
+    error, the valid lines of its chunk) stay committed: re-run after
+    ``pio app data-delete`` for a clean slate."""
+    st = get_storage()
+    app = _app_from_args(st, args)
+    if app is None:
+        return 1
+    channel_id, ok = _resolve_channel(st, app, args.channel)
+    if not ok:
+        return 1
+    count = 0
+    batch = []          # [(line number, wire dict)]
+
+    def flush() -> bool:
+        nonlocal count
+        results = st.l_events.insert_json_batch([d for _, d in batch], app.id, channel_id)
+        for (lineno, _), r in zip(batch, results):
+            if r.get("status") != 201:
+                print(f"Error: line {lineno}: {r.get('message')}", file=sys.stderr)
+                return False
+        count += len(batch)
+        return True
+
+    with open(args.input) as f:
+        for lineno, line in enumerate(f, start=1):
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                batch.append((lineno, json.loads(line)))
+            except json.JSONDecodeError as e:
+                return _error(f"line {lineno}: invalid JSON: {e}")
+            if len(batch) >= 10000:
+                if not flush():
+                    return 1
+                batch = []
+    if batch and not flush():
+        return 1
+    where = f"app {app.id}" + (f" channel {args.channel}" if args.channel else "")
+    print(f"Imported {count} events to {where}.")
+    return 0
+
+
+def _cmd_export(args) -> int:
+    st = get_storage()
+    app = _app_from_args(st, args)
+    if app is None:
+        return 1
+    channel_id, ok = _resolve_channel(st, app, args.channel)
+    if not ok:
+        return 1
+    count = 0
+    with open(args.output, "w") as f:
+        for e in st.p_events.find(app.id, channel_id=channel_id):
+            f.write(e.to_json_line() + "\n")
+            count += 1
+    print(f"Exported {count} events from app {app.id} to {args.output}.")
+    return 0
+
+
+def _cmd_build(args) -> int:
+    from predictionio_tpu_torch.workflow.create_workflow import run_build_from_args
+
+    return run_build_from_args(args)
+
+
+def _cmd_train(args) -> int:
+    from predictionio_tpu_torch.workflow.create_workflow import run_train_from_args
+
+    return run_train_from_args(args)
+
+
+def _cmd_deploy(args) -> int:
+    from predictionio_tpu_torch.workflow.create_server import run_server_from_args
+
+    return run_server_from_args(args)
+
+
+def _port_state(ip: str, port: int, timeout: float) -> str:
+    """'live' when something accepts a TCP connection on the port, 'dead'
+    when it is refused, 'unknown' otherwise (filtered)."""
+    try:
+        with socket.create_connection((ip, port), timeout=timeout):
+            return "live"
+    except ConnectionRefusedError:
+        return "dead"
+    except OSError:
+        return "unknown"
+
+
+def _cmd_undeploy(args) -> int:
+    """Stop a deployed query server through its ``/stop`` (reference
+    Console.undeploy contacts the server rather than killing a pid), then
+    wait until its port refuses connections."""
+    url = f"http://{args.ip}:{args.port}/stop"
+    try:
+        with urllib.request.urlopen(url, timeout=args.timeout) as resp:
+            resp.read()
+    except urllib.error.HTTPError as e:
+        print(f"Server at {args.ip}:{args.port} rejected /stop (HTTP {e.code}) "
+              "— is this a query server?")
+        return 1
+    except urllib.error.URLError as e:
+        print(f"No deployment reachable at {args.ip}:{args.port}: {e.reason}")
+        return 1
+    except (ConnectionError, TimeoutError, OSError):
+        pass   # the server may close mid-answer to its own /stop: probe below
+    deadline = time.monotonic() + args.timeout
+    while time.monotonic() < deadline:
+        state = _port_state(args.ip, args.port, args.timeout)
+        if state == "dead":
+            print(f"Undeployed {args.ip}:{args.port}.")
+            return 0
+        if state == "unknown":
+            break
+        time.sleep(0.1)
+    print(f"Could not verify that {args.ip}:{args.port} stopped (within "
+          f"--timeout {args.timeout:g}s)")
+    return 1
+
+
+def _cmd_not_ported(args) -> int:
+    return _error(f"pio {args.command} is not ported yet ({ROADMAP[NOT_PORTED[args.command]]})")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="pio", description=__doc__.split("\n")[0])
+    sub = p.add_subparsers(dest="command", required=True)
+
+    sub.add_parser("version").set_defaults(func=_cmd_version)
+    sub.add_parser("status").set_defaults(func=_cmd_status)
+
+    app = sub.add_parser("app")
+    app_sub = app.add_subparsers(dest="app_command", required=True)
+    ap_new = app_sub.add_parser("new")
+    ap_new.add_argument("name")
+    ap_new.add_argument("--id", type=int, default=0)
+    ap_new.add_argument("--description", default="")
+    app_sub.add_parser("list")
+    for name in ("show", "delete", "data-delete"):
+        app_sub.add_parser(name).add_argument("name")
+    cp = app_sub.add_parser(
+        "compact", help="rewrite the event log without tombstoned (and, with --before, "
+                        "expired) events; run with ingest paused")
+    cp.add_argument("name")
+    cp.add_argument("--channel", default=None)
+    cp.add_argument("--before", default=None,
+                    help="also expire events older than this ISO-8601 instant")
+    app.set_defaults(func=_cmd_app)
+
+    ak = sub.add_parser("accesskey")
+    ak_sub = ak.add_subparsers(dest="ak_command", required=True)
+    ak_new = ak_sub.add_parser("new")
+    ak_new.add_argument("app_name")
+    ak_new.add_argument("events", nargs="*")
+    ak_sub.add_parser("list").add_argument("app_name")
+    ak_sub.add_parser("delete").add_argument("key")
+    ak.set_defaults(func=_cmd_accesskey)
+
+    ch = sub.add_parser("channel")
+    ch_sub = ch.add_subparsers(dest="ch_command", required=True)
+    for name in ("new", "delete"):
+        sp = ch_sub.add_parser(name)
+        sp.add_argument("app_name")
+        sp.add_argument("name")
+    ch.set_defaults(func=_cmd_channel)
+
+    for name, func, arg in (("import", _cmd_import, "--input"),
+                            ("export", _cmd_export, "--output")):
+        sp = sub.add_parser(name)
+        sp.add_argument("--appid", type=int, default=0)
+        sp.add_argument("--app-name", default=None)
+        sp.add_argument("--channel", default=None)
+        sp.add_argument(arg, required=True)
+        sp.set_defaults(func=func)
+
+    def engine_args(sp):
+        sp.add_argument("--engine-json", default="engine.json")
+        sp.add_argument("--engine-id", default=None)
+        sp.add_argument("--engine-version", default="1")
+        sp.add_argument("--variant", default="default")
+
+    bd = sub.add_parser("build")
+    engine_args(bd)
+    bd.set_defaults(func=_cmd_build)
+
+    tr = sub.add_parser("train")
+    engine_args(tr)
+    tr.add_argument("--stop-after-read", action="store_true",
+                    help="check the data source, then stop (reference stopAfterRead)")
+    tr.add_argument("--stop-after-prepare", action="store_true",
+                    help="run the data source and preparator, then stop")
+    tr.add_argument("--follow", action="store_true",
+                    help=f"not ported yet ({ROADMAP['streaming']})")
+    tr.set_defaults(func=_cmd_train)
+
+    dp = sub.add_parser("deploy")
+    engine_args(dp)
+    dp.add_argument("--ip", default="0.0.0.0")
+    dp.add_argument("--port", type=int, default=8000)
+    # the options below raise naming their ROADMAP item
+    dp.add_argument("--feedback", action="store_true")
+    dp.add_argument("--auto-reload", type=float, default=0.0, metavar="SECS")
+    dp.add_argument("--workers", type=int, default=1)
+    dp.add_argument("--follow", type=float, default=0.0, metavar="SECS")
+    dp.add_argument("--plane-publish", default=None, metavar="[HOST:]PORT")
+    dp.add_argument("--plane-from", default=None, metavar="HOST:PORT")
+    dp.set_defaults(func=_cmd_deploy)
+
+    ud = sub.add_parser("undeploy")
+    ud.add_argument("--ip", default="127.0.0.1")
+    ud.add_argument("--port", type=int, default=8000)
+    ud.add_argument("--timeout", type=float, default=10.0)
+    ud.set_defaults(func=_cmd_undeploy)
+
+    for name in NOT_PORTED:
+        sp = sub.add_parser(name, help=f"not ported yet ({ROADMAP[NOT_PORTED[name]]})")
+        sp.add_argument("rest", nargs=argparse.REMAINDER)
+        sp.set_defaults(func=_cmd_not_ported)
+    return p
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    args.device = os.environ.get("PIO_TORCH_DEVICE", "cuda")
+    return args.func(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,16 +13,20 @@ PropertyMap.scala and LEventAggregator.scala:
   creation time) order, ``$delete`` clears the entity, first-set time
   kept).
 
-The JAX package's pooled event ids, ``Event.from_json``/``to_json_line``
-and its wire-format fast path serve its event server and localfs logs,
-which the port does not have yet; ids here are ``uuid4().hex``, the same
-32 hex characters.
+Event ids come from a pool of random bytes (``_IdPool``), 32 hex
+characters as ``uuid4().hex``.  ``Event.to_json_line``/``from_json`` are
+the localfs segment line format, and ``canonical_event_json`` is the
+import fast path: a wire dict validated and canonicalised without an
+``Event``, whose line is byte-equal to the JAX package's for the same
+dict.
 """
 
 from __future__ import annotations
 
 import datetime as _dt
-import uuid
+import json
+import os as _os
+import threading as _threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterable, Mapping, Optional
 
@@ -32,9 +36,42 @@ DELETE_EVENT = "$delete"
 SPECIAL_EVENTS = frozenset({SET_EVENT, UNSET_EVENT, DELETE_EVENT})
 
 
+class _IdPool:
+    """Pooled 128-bit random event ids: one ``os.urandom`` call serves
+    4,096 ids (a getrandom syscall per id is the largest per-event cost of
+    ingest).  Lock-guarded, and discarded in a fork child, so two
+    processes never hand out slices of one buffer."""
+
+    _CHUNK = 16 * 4096
+
+    def __init__(self):
+        self._lock = _threading.Lock()
+        self._buf = b""
+        self._off = 0
+
+    def reset(self) -> None:
+        with self._lock:
+            self._buf = b""
+            self._off = 0
+
+    def next_hex(self) -> str:
+        with self._lock:
+            if self._off + 16 > len(self._buf):
+                self._buf = _os.urandom(self._CHUNK)
+                self._off = 0
+            out = self._buf[self._off:self._off + 16].hex()
+            self._off += 16
+            return out
+
+
+_id_pool = _IdPool()
+if hasattr(_os, "register_at_fork"):   # absent on non-POSIX
+    _os.register_at_fork(after_in_child=_id_pool.reset)
+
+
 def new_event_id() -> str:
-    """A fresh 32-hex-char event id."""
-    return uuid.uuid4().hex
+    """A fresh 32-hex-char event id (uuid4-strength randomness, pooled)."""
+    return _id_pool.next_hex()
 
 
 def _utcnow() -> _dt.datetime:
@@ -163,6 +200,42 @@ class Event:
             d["prId"] = self.pr_id
         return d
 
+    def to_json_line(self) -> str:
+        """The event's localfs segment line (no newline)."""
+        return json.dumps(self.to_json(), separators=(",", ":"), sort_keys=True)
+
+    _WIRE_FIELDS = frozenset({
+        "eventId", "event", "entityType", "entityId", "targetEntityType",
+        "targetEntityId", "properties", "eventTime", "creationTime",
+        "tags", "prId",
+    })
+
+    @classmethod
+    def from_json(cls, d: Mapping[str, Any]) -> "Event":
+        unknown = set(d) - cls._WIRE_FIELDS
+        if unknown:
+            raise ValueError(f"unknown event fields: {sorted(unknown)}")
+        if d.get("entityId") is None:
+            raise ValueError("entityType and entityId must be non-empty")
+        props = d.get("properties") or {}
+        if not isinstance(props, Mapping):
+            raise ValueError("properties must be a JSON object")
+        tei = d.get("targetEntityId")
+        return cls(
+            event=d["event"],
+            entity_type=d["entityType"],
+            entity_id=str(d["entityId"]),
+            target_entity_type=d.get("targetEntityType"),
+            target_entity_id=str(tei) if tei is not None else None,
+            properties=DataMap(props),
+            event_time=parse_time(d.get("eventTime")),
+            tags=tuple(d.get("tags") or ()),
+            pr_id=d.get("prId"),
+            event_id=d.get("eventId"),
+            creation_time=(parse_time(d["creationTime"]) if d.get("creationTime")
+                           else _utcnow()),
+        )
+
 
 def aggregate_properties(events: Iterable[Event]) -> Dict[str, PropertyMap]:
     """Fold $set/$unset/$delete events into per-entity property snapshots.
@@ -194,3 +267,70 @@ def aggregate_properties(events: Iterable[Event]) -> Dict[str, PropertyMap]:
                 cur.pop(k, None)
             cur.last_updated = max(cur.last_updated, e.event_time)
     return snap
+
+
+def canonical_event_json(d: Mapping[str, Any],
+                         now_iso: Optional[str] = None) -> Dict[str, Any]:
+    """Validate and canonicalise one wire-format event dict without building
+    an ``Event`` (the import fast path).  The same fields, coercions and
+    validation as ``Event.from_json`` followed by ``to_json``: for the same
+    eventId and creationTime, ``json.dumps(out, separators=(",", ":"),
+    sort_keys=True)`` equals ``Event.from_json(d).to_json_line()``.
+
+    ``now_iso`` (one ``isoformat()`` of now) fills a missing eventTime or
+    creationTime, so a batch shares one clock read.
+    """
+    unknown = set(d) - Event._WIRE_FIELDS
+    if unknown:
+        raise ValueError(f"unknown event fields: {sorted(unknown)}")
+    try:
+        event = d["event"]
+        entity_type = d["entityType"]
+        entity_id = d["entityId"]
+    except KeyError as e:
+        raise ValueError(f"missing required event field: {e}") from None
+    if not event or not isinstance(event, str):
+        raise ValueError("event must be a non-empty string")
+    if not entity_type or entity_id is None or entity_id == "":
+        raise ValueError("entityType and entityId must be non-empty")
+    props = d.get("properties") or {}
+    if type(props) is not dict and not isinstance(props, Mapping):
+        raise ValueError("properties must be a JSON object")
+    tet = d.get("targetEntityType")
+    tei = d.get("targetEntityId")
+    # coerced before the special-event check, as from_json does: a target
+    # id 0 becomes "0", which a $set must not carry
+    tei_s = str(tei) if tei is not None else None
+    if event in SPECIAL_EVENTS:
+        if tet or tei_s:
+            raise ValueError(f"{event} must not have a target entity")
+        if event == UNSET_EVENT and not props:
+            raise ValueError("$unset requires a non-empty properties map")
+    if event.startswith("$") and event not in SPECIAL_EVENTS:
+        raise ValueError(f"unsupported reserved event verb {event!r}")
+    eid = d.get("eventId")
+    if eid is not None and not isinstance(eid, str):
+        raise ValueError("eventId must be a string")
+    if now_iso is None:
+        now_iso = _utcnow().isoformat()
+    out: Dict[str, Any] = {
+        # `is None`, as Event.__post_init__: an empty-string id is kept
+        "eventId": eid if eid is not None else new_event_id(),
+        "event": event,
+        "entityType": entity_type,
+        "entityId": str(entity_id),
+        "properties": dict(props),
+        "eventTime": (parse_time(d["eventTime"]).isoformat()
+                      if d.get("eventTime") is not None else now_iso),
+        "creationTime": (parse_time(d["creationTime"]).isoformat()
+                         if d.get("creationTime") else now_iso),
+    }
+    if tet is not None:
+        out["targetEntityType"] = tet
+    if tei is not None:
+        out["targetEntityId"] = tei_s
+    if d.get("tags"):
+        out["tags"] = list(d["tags"])
+    if d.get("prId") is not None:
+        out["prId"] = d["prId"]
+    return out

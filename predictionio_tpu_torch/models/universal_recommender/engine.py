@@ -59,7 +59,7 @@ from predictionio_tpu_torch.models.universal_recommender.popmodel import (
 from predictionio_tpu_torch.ops import cco as cco_ops
 from predictionio_tpu_torch.ops.als import bucket_width, check_f32_id_range, pad_ids
 from predictionio_tpu_torch.ops.topk import topk_desc
-from predictionio_tpu_torch.store.columnar import CSRLookup, IdDict
+from predictionio_tpu_torch.store.columnar import CSRLookup, IdDict, fold_properties
 from predictionio_tpu_torch.store.event_store import LEventStore, PEventStore
 
 
@@ -206,18 +206,30 @@ class URDataSource(DataSource):
 
     def read_training(self) -> URTrainingData:
         """One columnar batch read for ALL event types, then vectorized
-        per-type dictionary translation; item properties are folded from
-        the ``$set``/``$unset``/``$delete`` events of the item entity type
-        (the JAX package's branch for a backend without a native scan)."""
+        per-type dictionary translation.  On a segment backend one native
+        scan serves both the interactions and the ``$set``/``$unset``/
+        ``$delete`` folds of the item entity type (``fold_properties``);
+        elsewhere the rows are read and the properties aggregated from the
+        store (the JAX package's two branches)."""
         user_dict = IdDict()
         interactions: Dict[str, Tuple[np.ndarray, np.ndarray, IdDict, np.ndarray]] = {}
-        batch = PEventStore.batch(
-            self.params.app_name, event_names=list(self.params.event_names))
-        props = PEventStore.aggregate_properties(
-            self.params.app_name, self.params.item_entity_type)
+        full = PEventStore.native_batch(self.params.app_name)
+        if full is not None and full.prop_columns is not None:
+            # interactions read no property column: dropping them first
+            # keeps select_events from remapping every column
+            batch = dataclasses.replace(full, prop_columns=None).select_events(
+                list(self.params.event_names))
+            props = fold_properties(full, self.params.item_entity_type)
+        else:
+            batch = dataclasses.replace(PEventStore.batch(
+                self.params.app_name, event_names=list(self.params.event_names)),
+                prop_columns=None)
+            props = PEventStore.aggregate_properties(
+                self.params.app_name, self.params.item_entity_type)
         # entity codes → one global user id space.  Only codes REFERENCED by
-        # interaction rows enroll (enrolling others would inflate n_users
-        # and corrupt the LLR population total).
+        # interaction rows enroll (the native scan's entity dictionary also
+        # holds $set item ids; enrolling those would inflate n_users and
+        # corrupt the LLR population total).
         user_of_code = np.full(max(len(batch.entity_dict), 1), -1, np.int32)
         for name in self.params.event_names:
             sel = batch.select_events([name])

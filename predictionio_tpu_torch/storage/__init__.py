@@ -1,10 +1,16 @@
 from predictionio_tpu_torch.storage.base import (  # noqa: F401
+    AccessKey,
+    AccessKeys,
     App,
     Apps,
     Channel,
     Channels,
     EngineInstance,
     EngineInstances,
+    EngineManifest,
+    EngineManifests,
+    EvaluationInstance,
+    EvaluationInstances,
     LEvents,
     Models,
     PEvents,

@@ -5,18 +5,21 @@ imports nothing of the JAX package).  The reference defines repository
 interfaces — ``LEvents``, ``PEvents``, ``Models``, ``EngineInstances``,
 ``Apps``, ``Channels`` — each implemented by backends and located via
 ``Storage.scala`` from ``PIO_STORAGE_*`` env config; here they are Python
-ABCs with the JAX package's signatures.
+ABCs with the JAX package's signatures, access keys, engine manifests
+and evaluation instances included (the ``pio`` CLI reads and writes them).
 
-Not ported yet: access keys, engine manifests and evaluation instances
-(the event server, ``pio build`` and ``pio eval`` use them: ROADMAP.md,
-queue A, 'Event-loop server and micro-batcher'), and the delta-tail
-protocol and columnar snapshots (ROADMAP.md, queue A, 'Streaming').
+Not ported yet: the append-listener bus (it serves the serving history
+cache, ROADMAP.md, queue A, 'The host tail, pruning and caches'), the
+delta-tail protocol (ROADMAP.md, queue A, 'Streaming') and columnar
+snapshots with ``find_batches`` (ROADMAP.md, queue A, 'Columnar snapshots
+and the staged cache').
 """
 
 from __future__ import annotations
 
 import abc
 import datetime as _dt
+import secrets
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional, Sequence
 
@@ -33,6 +36,17 @@ class App:
     id: int
     name: str
     description: str = ""
+
+
+@dataclass
+class AccessKey:
+    key: str
+    app_id: int
+    events: List[str] = field(default_factory=list)  # empty = all events allowed
+
+    @staticmethod
+    def generate() -> str:
+        return secrets.token_urlsafe(32)
 
 
 @dataclass
@@ -60,6 +74,35 @@ class EngineInstance:
     serving_params: str = "{}"
 
 
+@dataclass
+class EngineManifest:
+    """Registered engine build (reference: EngineManifest.scala), written by
+    ``pio build``; train and deploy resolve an engine.json through it when
+    the ``--engine-json`` path does not exist.  ``files`` holds the
+    engine.json path."""
+
+    id: str
+    version: str
+    name: str
+    description: str = ""
+    files: List[str] = field(default_factory=list)
+    engine_factory: str = ""
+
+
+@dataclass
+class EvaluationInstance:
+    id: str
+    status: str
+    start_time: _dt.datetime
+    end_time: Optional[_dt.datetime]
+    evaluation_class: str
+    engine_params_generator_class: str = ""
+    env: Dict[str, str] = field(default_factory=dict)
+    evaluator_results: str = ""
+    evaluator_results_html: str = ""
+    evaluator_results_json: str = ""
+
+
 # ---------------------------------------------------------------------------
 # Repository interfaces
 # ---------------------------------------------------------------------------
@@ -83,6 +126,20 @@ class Apps(abc.ABC):
 
     @abc.abstractmethod
     def delete(self, app_id: int) -> bool: ...
+
+
+class AccessKeys(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, access_key: AccessKey) -> Optional[str]: ...
+
+    @abc.abstractmethod
+    def get(self, key: str) -> Optional[AccessKey]: ...
+
+    @abc.abstractmethod
+    def get_by_app_id(self, app_id: int) -> List[AccessKey]: ...
+
+    @abc.abstractmethod
+    def delete(self, key: str) -> bool: ...
 
 
 class Channels(abc.ABC):
@@ -133,6 +190,40 @@ class EngineInstances(abc.ABC):
     def delete(self, instance_id: str) -> bool: ...
 
 
+class EngineManifests(abc.ABC):
+    """Engine manifests keyed by (id, version), upserted by ``pio build``
+    (reference: EngineManifests.scala)."""
+
+    @abc.abstractmethod
+    def insert(self, manifest: EngineManifest) -> None: ...
+
+    @abc.abstractmethod
+    def get(self, manifest_id: str, version: str) -> Optional[EngineManifest]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> List[EngineManifest]: ...
+
+    def update(self, manifest: EngineManifest) -> None:
+        self.insert(manifest)
+
+    @abc.abstractmethod
+    def delete(self, manifest_id: str, version: str) -> bool: ...
+
+
+class EvaluationInstances(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, instance: EvaluationInstance) -> str: ...
+
+    @abc.abstractmethod
+    def get(self, instance_id: str) -> Optional[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def update(self, instance: EvaluationInstance) -> bool: ...
+
+    @abc.abstractmethod
+    def get_completed(self) -> List[EvaluationInstance]: ...
+
+
 class Models(abc.ABC):
     """Serialized model blobs keyed by engine-instance id (reference: Models.scala)."""
 
@@ -168,6 +259,26 @@ class LEvents(abc.ABC):
         self, events: Sequence[Event], app_id: int, channel_id: Optional[int] = None
     ) -> List[str]:
         return [self.insert(e, app_id, channel_id) for e in events]
+
+    def insert_json_batch(
+        self, items: Sequence, app_id: int, channel_id: Optional[int] = None
+    ) -> List[dict]:
+        """Insert wire-format dicts with a status each, in order:
+        ``{"status": 201, "eventId": ...}`` or ``{"status": 400,
+        "message": ...}``.  The valid items go in as one backend batch even
+        when others fail validation.  A segment backend overrides this to
+        write lines without building ``Event`` objects (localfs)."""
+        results: List[Optional[dict]] = []
+        valid: List[Event] = []
+        for item in items:
+            try:
+                valid.append(Event.from_json(item))
+                results.append(None)   # the eventId is filled in below
+            except (ValueError, KeyError, TypeError) as e:
+                results.append({"status": 400, "message": str(e)})
+        ids = iter(self.insert_batch(valid, app_id, channel_id) if valid else [])
+        return [r if r is not None else {"status": 201, "eventId": next(ids)}
+                for r in results]
 
     @abc.abstractmethod
     def get(self, event_id: str, app_id: int, channel_id: Optional[int] = None) -> Optional[Event]: ...
@@ -241,7 +352,8 @@ def match_filters(
 class PEvents(abc.ABC):
     """Bulk training-time reads (reference: PEvents.scala returns
     RDD[Event]; here an event iterator that ``PEventStore.batch`` turns
-    into one columnar ``EventBatch``)."""
+    into one columnar ``EventBatch``, unless a segment backend's native
+    scan serves the batch)."""
 
     @abc.abstractmethod
     def find(

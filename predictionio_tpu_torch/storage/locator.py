@@ -7,10 +7,10 @@ conf/pio-env.sh), exactly as in the JAX package; each repository binds to a
 source.  With no repository configured, the default is the reference's: one
 ``localfs`` source under ``PIO_FS_BASEDIR`` (or ``~/.pio_store``).
 
-Only the ``memory`` source type is ported.  ``localfs``, ``sharedfs``,
+The ``memory`` and ``localfs`` source types are ported.  ``sharedfs``,
 ``sharded`` and ``sql`` raise ``NotImplementedError`` naming their ROADMAP
-item when a repository on them is first used; none of them stands in as a
-memory store.
+item when a repository on them is first used; none of them stands in as
+another store.
 """
 
 from __future__ import annotations
@@ -21,15 +21,14 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Optional
 
-from predictionio_tpu_torch.storage import base, memory
+from predictionio_tpu_torch.storage import base, localfs, memory
 
 _REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
 
-ROADMAP_LOCALFS = "ROADMAP.md, queue A, 'Storage and event store: localfs'"
 ROADMAP_STREAMING = "ROADMAP.md, queue A, 'Streaming'"
 #: source types of the JAX package that the port does not have yet
-NOT_PORTED = {"localfs": ROADMAP_LOCALFS, "sharedfs": ROADMAP_STREAMING,
-              "sharded": ROADMAP_STREAMING, "sql": ROADMAP_STREAMING}
+NOT_PORTED = {"sharedfs": ROADMAP_STREAMING, "sharded": ROADMAP_STREAMING,
+              "sql": ROADMAP_STREAMING}
 
 
 @dataclass
@@ -78,10 +77,26 @@ class StorageConfig:
 class _MemorySource:
     def __init__(self):
         self.apps = memory.MemApps()
+        self.access_keys = memory.MemAccessKeys()
         self.channels = memory.MemChannels()
         self.engine_instances = memory.MemEngineInstances()
+        self.engine_manifests = memory.MemEngineManifests()
+        self.evaluation_instances = memory.MemEvaluationInstances()
         self.models = memory.MemModels()
         self.events = memory.MemEvents()
+
+
+class _LocalFSSource:
+    def __init__(self, path: str):
+        root = Path(path)
+        self.apps = localfs.FSApps(root)
+        self.access_keys = localfs.FSAccessKeys(root)
+        self.channels = localfs.FSChannels(root)
+        self.engine_instances = localfs.FSEngineInstances(root)
+        self.engine_manifests = localfs.FSEngineManifests(root)
+        self.evaluation_instances = localfs.FSEvaluationInstances(root)
+        self.models = localfs.FSModels(root)
+        self.events = localfs.FSEvents(root)
 
 
 class Storage:
@@ -96,17 +111,21 @@ class Storage:
         name = self.config.repositories[repo]
         with self._lock:
             if name not in self._clients:
-                typ = self.config.sources[name].get("type", "localfs")
+                spec = self.config.sources[name]
+                typ = spec.get("type", "localfs")
                 if typ in NOT_PORTED:
                     raise NotImplementedError(
                         f"storage source {name!r} has type {typ!r}, which the "
                         f"port does not have yet ({NOT_PORTED[typ]}); use a "
-                        "'memory' source")
-                if typ != "memory":
+                        "'localfs' or 'memory' source")
+                if typ == "localfs":
+                    self._clients[name] = _LocalFSSource(spec.get("path", ".pio_store"))
+                elif typ == "memory":
+                    self._clients[name] = _MemorySource()
+                else:
                     raise ValueError(
                         f"unknown storage source type {typ!r} (have: "
-                        f"{sorted(['memory', *NOT_PORTED])})")
-                self._clients[name] = _MemorySource()
+                        f"{sorted(['localfs', 'memory', *NOT_PORTED])})")
             return self._clients[name]
 
     # Metadata repositories
@@ -115,12 +134,24 @@ class Storage:
         return self._client("METADATA").apps
 
     @property
+    def access_keys(self) -> base.AccessKeys:
+        return self._client("METADATA").access_keys
+
+    @property
     def channels(self) -> base.Channels:
         return self._client("METADATA").channels
 
     @property
     def engine_instances(self) -> base.EngineInstances:
         return self._client("METADATA").engine_instances
+
+    @property
+    def engine_manifests(self) -> base.EngineManifests:
+        return self._client("METADATA").engine_manifests
+
+    @property
+    def evaluation_instances(self) -> base.EvaluationInstances:
+        return self._client("METADATA").evaluation_instances
 
     # Model repository
     @property

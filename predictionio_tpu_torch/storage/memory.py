@@ -1,17 +1,17 @@
 """In-memory storage backend (test/dev analogue of the reference's embedded
 backends used by LEventsSpec/PEventsSpec).
 
-Counterpart of ``predictionio_tpu/storage/memory.py``: apps, channels,
-engine instances, model blobs and events, with the JAX package's API.
+Counterpart of ``predictionio_tpu/storage/memory.py``: apps, access keys,
+channels, engine instances and manifests, evaluation instances, model
+blobs and events, with the JAX package's API: a complete source.
 ``MemEvents.find`` keeps the reference's semantics: an app's (and
 channel's) events matching the filters, sorted by (event time, creation
 time) — newest first when ``reversed_order`` — then cut to ``limit``.  It
 filters before it sorts: a stable sort and a filter commute, so the order
 is the reference's and only the matching events are sorted.
 
-Not ported yet: access keys, engine manifests, evaluation instances
-(ROADMAP.md, queue A, 'Event-loop server and micro-batcher'), and the
-delta-tail protocol and TTL compaction (ROADMAP.md, queue A, 'Streaming').
+Deletes are in place, so ``compact`` is only the TTL trim.  Not ported
+yet: the delta-tail protocol (ROADMAP.md, queue A, 'Streaming').
 """
 
 from __future__ import annotations
@@ -23,7 +23,14 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 from predictionio_tpu_torch.events.event import Event, parse_time  # noqa: F401
 from predictionio_tpu_torch.storage import base
-from predictionio_tpu_torch.storage.base import App, Channel, EngineInstance
+from predictionio_tpu_torch.storage.base import (
+    AccessKey,
+    App,
+    Channel,
+    EngineInstance,
+    EngineManifest,
+    EvaluationInstance,
+)
 
 
 class MemApps(base.Apps):
@@ -59,6 +66,26 @@ class MemApps(base.Apps):
 
     def delete(self, app_id: int) -> bool:
         return self._apps.pop(app_id, None) is not None
+
+
+class MemAccessKeys(base.AccessKeys):
+    def __init__(self):
+        self._keys: Dict[str, AccessKey] = {}
+
+    def insert(self, access_key: AccessKey) -> Optional[str]:
+        if not access_key.key:
+            access_key.key = AccessKey.generate()
+        self._keys[access_key.key] = access_key
+        return access_key.key
+
+    def get(self, key: str) -> Optional[AccessKey]:
+        return self._keys.get(key)
+
+    def get_by_app_id(self, app_id: int) -> List[AccessKey]:
+        return [k for k in self._keys.values() if k.app_id == app_id]
+
+    def delete(self, key: str) -> bool:
+        return self._keys.pop(key, None) is not None
 
 
 class MemChannels(base.Channels):
@@ -111,6 +138,46 @@ class MemEngineInstances(base.EngineInstances):
         return self._instances.pop(instance_id, None) is not None
 
 
+class MemEngineManifests(base.EngineManifests):
+    def __init__(self):
+        self._manifests: Dict[Tuple[str, str], EngineManifest] = {}
+
+    def insert(self, manifest: EngineManifest) -> None:
+        self._manifests[(manifest.id, manifest.version)] = manifest
+
+    def get(self, manifest_id: str, version: str) -> Optional[EngineManifest]:
+        return self._manifests.get((manifest_id, version))
+
+    def get_all(self) -> List[EngineManifest]:
+        return list(self._manifests.values())
+
+    def delete(self, manifest_id: str, version: str) -> bool:
+        return self._manifests.pop((manifest_id, version), None) is not None
+
+
+class MemEvaluationInstances(base.EvaluationInstances):
+    def __init__(self):
+        self._instances: Dict[str, EvaluationInstance] = {}
+
+    def insert(self, instance: EvaluationInstance) -> str:
+        if not instance.id:
+            instance.id = uuid.uuid4().hex
+        self._instances[instance.id] = instance
+        return instance.id
+
+    def get(self, instance_id: str) -> Optional[EvaluationInstance]:
+        return self._instances.get(instance_id)
+
+    def update(self, instance: EvaluationInstance) -> bool:
+        if instance.id not in self._instances:
+            return False
+        self._instances[instance.id] = instance
+        return True
+
+    def get_completed(self) -> List[EvaluationInstance]:
+        return [i for i in self._instances.values() if i.status == "EVALCOMPLETED"]
+
+
 class MemModels(base.Models):
     def __init__(self):
         self._blobs: Dict[str, bytes] = {}
@@ -143,6 +210,20 @@ class MemEvents(base.LEvents, base.PEvents):
     def remove(self, app_id: int, channel_id: Optional[int] = None) -> bool:
         with self._lock:
             return self._events.pop((app_id, channel_id), None) is not None
+
+    def compact(self, app_id: int, channel_id: Optional[int] = None,
+                before=None) -> Dict[str, int]:
+        """The TTL trim: drop events older than ``before`` (deletes are
+        already in place); the same result keys as the segment backends'."""
+        bucket = self._bucket(app_id, channel_id)
+        with self._lock:
+            doomed = []
+            if before is not None:
+                before = parse_time(before)
+                doomed = [k for k, e in bucket.items() if e.event_time < before]
+            for k in doomed:
+                del bucket[k]
+            return {"kept": len(bucket), "expired": len(doomed), "segments": 0}
 
     def insert(self, event: Event, app_id: int, channel_id: Optional[int] = None) -> str:
         bucket = self._bucket(app_id, channel_id)

@@ -8,17 +8,22 @@ Recommender fetching a user's recent history inside ``predict``).  App
 names are resolved to ids through the metadata store, exactly like the
 reference's ``Common.appNameToId``.
 
-The JAX package's native segment scan, columnar snapshots and the
-retained-batch delta staging serve its localfs backend; on every backend
-the port has (``memory``), ``native_batch`` is None and reads stream
-through the Python path — the JAX package's own branch for such a
-backend, not a fallback.
+On a segment-file backend (localfs) ``PEventStore.batch`` and
+``native_batch`` parse the segments with the native scanner and filter the
+columns (``apply_filters``), as the JAX package does.  A backend without
+segments (``memory``), a log with tombstones, or a host without a C++
+compiler reads the rows in Python instead: the JAX package's own branch
+for such a store.  The JAX package's retained-batch cache and columnar
+snapshots wait for ROADMAP.md, queue A, 'Columnar snapshots and the staged
+cache'.
 """
 
 from __future__ import annotations
 
 import datetime as _dt
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from predictionio_tpu_torch.events.event import Event, PropertyMap
 from predictionio_tpu_torch.storage.locator import Storage, get_storage
@@ -40,6 +45,28 @@ def _app_channel_ids(
             raise ValueError(f"channel {channel_name!r} does not exist for app {app_name!r}")
         channel_id = chan.id
     return app.id, channel_id
+
+
+def apply_filters(batch: EventBatch,
+                  event_names: Optional[Sequence[str]] = None,
+                  entity_type: Optional[str] = None,
+                  start_time: Optional[_dt.datetime] = None,
+                  until_time: Optional[_dt.datetime] = None) -> EventBatch:
+    """The scan filters on columns (``storage.base.match_filters``'s
+    semantics for these four)."""
+    mask = np.ones(len(batch), bool)
+    if event_names is not None:
+        codes = [batch.event_dict.id(n) for n in event_names]
+        codes = [c for c in codes if c is not None]
+        mask &= np.isin(batch.event_codes, np.asarray(codes, np.int32))
+    if entity_type is not None:
+        c = batch.entity_type_dict.id(entity_type)
+        mask &= batch.entity_type_codes == (c if c is not None else -2)
+    if start_time is not None:
+        mask &= batch.times_us >= int(start_time.timestamp() * 1e6)
+    if until_time is not None:
+        mask &= batch.times_us < int(until_time.timestamp() * 1e6)
+    return batch.subset(mask) if not mask.all() else batch
 
 
 class PEventStore:
@@ -79,9 +106,16 @@ class PEventStore:
         storage: Optional[Storage] = None,
     ) -> EventBatch:
         """Read matching events as ONE columnar batch (the device-staging
-        format), in the backend's ``find`` order.  The JAX package's
+        format): the native scan's, in log order, on a segment backend,
+        else the backend's ``find`` order.  The JAX package's
         ``local_shard`` (multi-host reads) waits for ROADMAP.md, queue A,
         'parallel → torch.distributed'."""
+        storage = storage or get_storage()
+        native = PEventStore.native_batch(
+            app_name, channel_name, event_names, entity_type, start_time,
+            until_time, storage)
+        if native is not None:
+            return native
         return EventBatch.from_events(list(PEventStore.find(
             app_name,
             channel_name=channel_name,
@@ -102,13 +136,29 @@ class PEventStore:
         until_time: Optional[_dt.datetime] = None,
         storage: Optional[Storage] = None,
     ) -> Optional[EventBatch]:
-        """Columnar batch WITH full property columns from a segment-file
-        backend's native scan, or None when the backend has no segments.
-        Every backend the port has is one without (the JAX package returns
-        None for its memory backend the same way); the native scan comes
-        with the localfs backend (ROADMAP.md, queue A, 'Storage and event
-        store: localfs')."""
-        return None
+        """Columnar batch WITH full property columns from a segment
+        backend's native scan, or None where there is none: a backend
+        without segments, no C++ compiler, or a tombstone in the log (the
+        scanner cannot see deletes).  Callers that need properties pick
+        their read with it, before any row read."""
+        from predictionio_tpu_torch.native import native_available, scan_segments
+
+        storage = storage or get_storage()
+        backend = storage.p_events
+        if not hasattr(backend, "segment_paths"):
+            return None
+        app_id, channel_id = _app_channel_ids(app_name, channel_name, storage)
+        if not native_available():
+            return None
+        paths = backend.segment_paths(app_id, channel_id)
+        if not paths:
+            return EventBatch.from_events([])
+        if any(t.stat().st_size > 0 for parent in {p.parent for p in paths}
+               for t in parent.glob("tombstones*.txt")):
+            return None
+        return apply_filters(scan_segments(paths), event_names=event_names,
+                             entity_type=entity_type, start_time=start_time,
+                             until_time=until_time)
 
     @staticmethod
     def aggregate_properties(

@@ -6,13 +6,16 @@ core/.../workflow/CreateServer.scala):
 
   POST /queries.json   query → predict → serve → JSON prediction
   GET  /               engine info
+  GET  /stop           stop serving (``pio undeploy``)
 
 ``deploy_models`` serves models already in memory on the stdlib
 ``http.server.ThreadingHTTPServer``; ``deploy`` loads the latest COMPLETED
 engine instance of an engine.json from the model store and serves it the
-same way.  The event-loop front end, prefork workers, the micro-batcher,
-the caches, observability, hot reload, feedback, the follow-trainer and
-the model plane wait for later slices (ROADMAP.md, queue A).
+same way, and ``run_server_from_args`` is ``pio deploy``: it serves in the
+foreground until ``GET /stop`` or SIGINT.  The event-loop front end,
+prefork workers, the micro-batcher, the caches, observability, hot reload,
+feedback, the follow-trainer and the model plane wait for later slices
+(ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import datetime as _dt
 import json
 import logging
 import os
+import sys
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional, Sequence
@@ -73,6 +77,7 @@ class QueryServerState:
             "engine": type(self.engine).__name__,
             "algorithms": [name for name, _ in
                            self.engine_params.algorithm_params_list],
+            "devices": sorted({str(m.device) for m in self.models if hasattr(m, "device")}),
             "queryCount": self.query_count,
             "startedAt": self.started.isoformat(),
         }
@@ -97,8 +102,19 @@ def make_handler(state: QueryServerState):
             self._send_json(status, {"message": message})
 
         def do_GET(self):
-            if self.path.split("?", 1)[0] == "/":
+            path = self.path.split("?", 1)[0]
+            if path == "/":
                 self._send_json(200, state.info())
+            elif path == "/stop":
+                self._send_json(200, {"stopping": True})
+
+                def _stop(server):
+                    server.shutdown()
+                    # close the listening socket too: after shutdown() alone
+                    # connections would be accepted and never served
+                    server.server_close()
+
+                threading.Thread(target=_stop, args=(self.server,), daemon=True).start()
             else:
                 self._send_error_json(404, "not found")
 
@@ -134,15 +150,17 @@ def deploy_models(engine, engine_params, models: Sequence[Any],
                   host: str = "127.0.0.1", port: int = 0,
                   query_class: Optional[type] = None) -> ThreadingHTTPServer:
     """Serve ``models`` on ``host:port`` (0 = any free port) from a daemon
-    thread and return the server; ``server.server_address`` has the bound
-    port, ``server.state`` the ``QueryServerState``.  Stop it with
-    ``server.shutdown(); server.server_close()``."""
+    thread (``server.thread``) and return the server;
+    ``server.server_address`` has the bound port, ``server.state`` the
+    ``QueryServerState``.  Stop it with ``server.shutdown();
+    server.server_close()``, or ``GET /stop``."""
     state = QueryServerState(engine, engine_params, models, query_class)
     server = ThreadingHTTPServer((host, port), make_handler(state))
     server.daemon_threads = True
     server.state = state
-    threading.Thread(target=server.serve_forever, daemon=True,
-                     name="pio-query-server").start()
+    server.thread = threading.Thread(target=server.serve_forever, daemon=True,
+                                     name="pio-query-server")
+    server.thread.start()
     return server
 
 
@@ -195,7 +213,62 @@ def deploy(
     instance, models = core_workflow.load_latest_models(
         eid, engine_version, variant, storage=storage, device=device)
     log.info("deploying engine instance %s of %s", instance.id, eid)
+    _warm_entity_index(engine_params)
     server = deploy_models(engine, engine_params, models, host=host, port=port,
                            query_class=getattr(factory, "query_class", None))
     server.state.instance = instance
     return server
+
+
+def _warm_entity_index(engine_params) -> None:
+    """Build the serving history read's per-entity index (a localfs
+    store's; other backends lack the hook) before the server listens, so
+    the first query does not parse the whole log.  The JAX package builds
+    it off-thread once the server listens, and its first queries wait for
+    it."""
+    from predictionio_tpu_torch.storage.locator import get_storage
+
+    app_name = getattr(getattr(engine_params, "data_source_params", None), "app_name", None)
+    storage = get_storage()   # the history read's store, as in LEventStore
+    warm = getattr(storage.l_events, "warm_entity_index", None)
+    app = storage.apps.get_by_name(app_name) if app_name and warm else None
+    if app is not None:
+        warm(app.id)
+
+
+def run_server_from_args(args) -> int:
+    """``pio deploy``: serve in the foreground until ``GET /stop`` (``pio
+    undeploy``) or SIGINT, on ``args.device`` (the CLI's
+    ``PIO_TORCH_DEVICE``)."""
+    from predictionio_tpu_torch.workflow.create_workflow import resolve_variant_path
+
+    try:
+        server = deploy(
+            engine_json=resolve_variant_path(args),
+            variant=args.variant,
+            engine_id=args.engine_id,
+            engine_version=args.engine_version,
+            host=args.ip,
+            port=args.port,
+            device=args.device,
+            feedback=args.feedback,
+            auto_reload=args.auto_reload,
+            workers=args.workers,
+            follow=args.follow,
+            plane_publish=args.plane_publish,
+            plane_from=args.plane_from,
+        )
+    except Exception as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    host, port = server.server_address[:2]
+    print(f"Engine instance {server.state.instance.id} deployed at "
+          f"http://{host}:{port} (stop with pio undeploy --port {port})", flush=True)
+    try:
+        while server.thread.is_alive():
+            server.thread.join(0.5)   # a timed join lets SIGINT through
+    except KeyboardInterrupt:
+        server.shutdown()
+    finally:
+        server.server_close()
+    return 0

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the PyTorch/H100 port's time goes: ALS serving and UR training.
 
-    python3 profile_torch.py [--queries N] [--only als|ur|k1]
+    python3 profile_torch.py [--queries N] [--only als|ur|k1|store]
 
 ALS serving.  Builds the model ``chip_smoke.py`` serves (5,000 users x
 100,000 items x rank 32, random factors from a seed) on the CUDA card and
@@ -36,6 +36,16 @@ kernel; not part of the default run):
    and at B = 8 and 16 (either side of the streaming / tiled cut), an empty
    kernel through the same ``time_cold``, and the 5 interleaved B = 1
    rounds against ``addmm`` + ``masked_fill_`` (``chip_smoke.retime_k1``).
+
+The localfs store path alone (``--only store``, the quick loop for work on
+the event store; not part of the default run), at the deployed width (1.2M
+interactions + 100k ``$set`` item events, ``chip_smoke.py`` phase 11b's
+data) in a temporary directory:
+
+9. the JSON-lines write, ``pio import`` (events/s), the native scan of the
+   segments (3 runs, its read rate, and the C++ parse and merge alone),
+   ``fold_properties`` of the item ``$set`` events, and ``read_training``
+   (scan, fold and translation).
 
 Needs a CUDA card; imports neither JAX nor the JAX package.  Prints one
 JSON object as its last line.
@@ -174,10 +184,81 @@ def profile_k1(chip_smoke, smi: str) -> dict:
             "rounds": rounds, "build_s": build_s}
 
 
+def profile_store(chip_smoke, smi: str) -> dict:
+    """Step 9: import, native scan and $set fold at the deployed width."""
+    import os
+    import shutil
+    import tempfile
+
+    from predictionio_tpu_torch.models import universal_recommender as ur
+    from predictionio_tpu_torch.native import scanner
+    from predictionio_tpu_torch.storage import get_storage, set_storage
+    from predictionio_tpu_torch.store.columnar import fold_properties
+    from predictionio_tpu_torch.workflow.create_workflow import engine_from_variant
+
+    n_items = chip_smoke.DEPLOYED_UR[1]
+    arrays = chip_smoke.deployed_arrays()
+    props = chip_smoke.item_properties(chip_smoke.item_columns(n_items))
+    if not scanner.native_available():   # built here, outside the timings
+        raise RuntimeError("the native event-log scanner did not build")
+    workdir = Path(tempfile.mkdtemp(prefix="profile-store-"))
+    try:
+        os.environ.update(chip_smoke.localfs_env(workdir / "store"))
+        set_storage(None)
+        t = {}
+        t0 = time.perf_counter()
+        chip_smoke.write_jsonl(workdir / "events.jsonl", arrays, props)
+        t["jsonl_write_s"] = time.perf_counter() - t0
+        chip_smoke.pio("app", "new", "smoke")
+        t0 = time.perf_counter()
+        chip_smoke.pio("import", "--app-name", "smoke", "--input", str(workdir / "events.jsonl"))
+        t["import_s"] = time.perf_counter() - t0
+        store = get_storage()
+        paths = store.l_events.segment_paths(store.apps.get_by_name("smoke").id)
+        seg_bytes = sum(p.stat().st_size for p in paths)
+        n_events = sum(len(a) for a in arrays[::2]) + n_items
+        scans, parses = [], []
+        lib = scanner._build_and_load()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            batch = scanner.scan_segments(paths)
+            scans.append(time.perf_counter() - t0)
+            # the C++ parse and merge alone (scan_segments without the
+            # copies out and the dictionaries' decode)
+            handle = lib.scan_new()
+            for p in paths:
+                lib.scan_add_file(handle, str(p).encode())
+            t0 = time.perf_counter()
+            lib.scan_run(handle, min(os.cpu_count() or 4, 16))
+            parses.append(time.perf_counter() - t0)
+            lib.scan_free(handle)
+        t0 = time.perf_counter()
+        folded = fold_properties(batch, "item")
+        t["fold_s"] = time.perf_counter() - t0
+        _, _, ep = engine_from_variant(chip_smoke.engine_variant(False))
+        t0 = time.perf_counter()
+        ur.URDataSource(ep.data_source_params).read_training()
+        t["read_training_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        set_storage(None)
+    t.update(scan_s=scans, scan_run_s=parses, events=n_events, segments=len(paths), segment_bytes=seg_bytes,
+             import_events_per_s=n_events / t["import_s"],
+             scan_gb_per_s=seg_bytes / min(scans) / 1e9, folded_items=len(folded))
+    print(f"  store: {n_events} events, JSONL write {t['jsonl_write_s']:.3f} s, pio import "
+          f"{t['import_s']:.3f} s ({t['import_events_per_s']:.0f} events/s) into "
+          f"{len(paths)} segments of {seg_bytes} bytes; native scan "
+          f"{', '.join(f'{x:.3f}' for x in scans)} s ({t['scan_gb_per_s']:.3f} GB/s at the "
+          f"best; the C++ parse and merge alone {', '.join(f'{x:.3f}' for x in parses)} s), "
+          f"$set fold {t['fold_s']:.3f} s ({len(folded)} items), read_training "
+          f"{t['read_training_s']:.3f} s (host work; {os.cpu_count()} CPUs) | {smi}")
+    return t
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--queries", type=int, default=200)
-    ap.add_argument("--only", choices=("als", "ur", "k1"), default=None)
+    ap.add_argument("--only", choices=("als", "ur", "k1", "store"), default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: needs a CUDA card", file=sys.stderr)
@@ -195,6 +276,8 @@ def main() -> int:
         out["ur_train"] = profile_ur_train(chip_smoke, smi)
     if args.only == "k1":
         out["k1"] = profile_k1(chip_smoke, smi)
+    if args.only == "store":
+        out["store"] = profile_store(chip_smoke, smi)
     print(json.dumps(out))
     return 0
 

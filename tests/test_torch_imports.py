@@ -99,6 +99,89 @@ def test_port_path_loads_no_jax_module():
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+# the pio console's loop on a localfs store (native scan, train, export),
+# in a fresh interpreter
+_CLI = r"""
+import json, os, sys, tempfile
+d = tempfile.mkdtemp()
+os.environ.update(PIO_FS_BASEDIR=os.path.join(d, "store"), PIO_TORCH_DEVICE="cpu")
+from predictionio_tpu_torch.cli.main import main
+with open(os.path.join(d, "events.jsonl"), "w") as f:
+    for k in range(200):
+        f.write(json.dumps({"event": "buy", "entityType": "user", "entityId": f"u{k % 17}",
+                            "targetEntityType": "item", "targetEntityId": f"i{k % 11}"}) + "\n")
+    f.write(json.dumps({"event": "$set", "entityType": "item", "entityId": "i1",
+                        "properties": {"category": "c"}}) + "\n")
+with open(os.path.join(d, "engine.json"), "w") as f:
+    json.dump({"engineFactory": "universal_recommender",
+               "datasource": {"params": {"appName": "a", "eventNames": ["buy"]}},
+               "algorithms": [{"name": "ur", "params": {"appName": "a"}}]}, f)
+os.chdir(d)
+for argv in (["app", "new", "a"], ["import", "--app-name", "a", "--input", "events.jsonl"],
+             ["build"], ["train"], ["export", "--app-name", "a", "--output", "out.jsonl"],
+             ["status"]):
+    assert main(argv) == 0, argv
+from predictionio_tpu_torch.native import scanner
+assert scanner.scans_served == 1
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "predictionio_tpu" or m.startswith("predictionio_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def test_cli_loads_no_jax_module():
+    out = subprocess.run([sys.executable, "-c", _CLI], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+# a store the JAX package wrote, read by the port's console in a fresh
+# interpreter
+_READ_JAX_STORE = r"""
+import json, sys
+from predictionio_tpu_torch.cli.main import main
+from predictionio_tpu_torch.store.event_store import PEventStore
+assert main(["export", "--app-name", "jaxapp", "--output", sys.argv[1]]) == 0
+batch = PEventStore.native_batch("jaxapp")
+print(len(batch), sorted(batch.prop_columns))
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "predictionio_tpu" or m.startswith("predictionio_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def test_port_reads_a_jax_written_store_without_importing_it(tmp_path):
+    import os
+
+    from predictionio_tpu.events.event import Event as JaxEvent
+    from predictionio_tpu.storage import App as JaxApp
+    from predictionio_tpu.storage.locator import Storage as JaxStorage
+    from predictionio_tpu.storage.locator import StorageConfig as JaxStorageConfig
+
+    store = JaxStorage(JaxStorageConfig(
+        sources={"S": {"type": "localfs", "path": str(tmp_path / "store")}},
+        repositories={r: "S" for r in ("METADATA", "EVENTDATA", "MODELDATA")}))
+    app = store.apps.insert(JaxApp(0, "jaxapp"))
+    events = [JaxEvent("buy", "user", f"u{k % 5}", "item", f"i{k % 7}",
+                       event_time=1.7e9 + k, creation_time=1.7e9 + k) for k in range(30)]
+    events.append(JaxEvent("$set", "item", "i1", properties={"category": "c"},
+                           event_time=1.7e9, creation_time=1.7e9))
+    store.l_events.insert_batch(events, app)
+    env = {**{k: v for k, v in os.environ.items() if not k.startswith("PIO_")},
+           "PIO_FS_BASEDIR": str(tmp_path / "store")}
+    out = subprocess.run([sys.executable, "-c", _READ_JAX_STORE, str(tmp_path / "out.jsonl")],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "[]"
+    assert lines[-2] == "31 ['category']"
+    want = [e.to_json_line() for e in store.l_events.find(app)]
+    assert (tmp_path / "out.jsonl").read_text().splitlines() == want
+
+
 def test_forbidden_module_match_is_exact():
     assert _is_forbidden("jax") and _is_forbidden("jax.numpy")
     assert _is_forbidden("predictionio_tpu")

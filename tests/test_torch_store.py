@@ -21,7 +21,7 @@ from predictionio_tpu.store.event_store import PEventStore as JaxPEventStore
 from predictionio_tpu_torch.events import event as port_event
 from predictionio_tpu_torch.models import common as port_common
 from predictionio_tpu_torch.models import universal_recommender as ur
-from predictionio_tpu_torch.storage import StorageConfig, locator
+from predictionio_tpu_torch.storage import App, StorageConfig, locator
 from predictionio_tpu_torch.storage import set_storage as port_set_storage
 from predictionio_tpu_torch.store import columnar as port_columnar
 from predictionio_tpu_torch.store.event_store import PEventStore
@@ -167,12 +167,21 @@ def test_locator_reads_the_env_contract():
 
 
 @pytest.mark.parametrize("typ", ["localfs", "sharedfs", "sharded", "sql", None])
-def test_unported_sources_raise_naming_the_roadmap(typ):
-    env = ({} if typ is None else
-           {"PIO_STORAGE_SOURCES_X_TYPE": typ, "PIO_STORAGE_SOURCES_X_PATH": "/nowhere",
+def test_unported_sources_raise_naming_the_roadmap(typ, tmp_path):
+    """sharedfs, sharded and sql raise naming their ROADMAP item; localfs,
+    named or as the default configuration (None: ``$PIO_FS_BASEDIR``), is
+    ported and opens a store at its path."""
+    path = str(tmp_path / "store")
+    env = ({"PIO_FS_BASEDIR": path} if typ is None else
+           {"PIO_STORAGE_SOURCES_X_TYPE": typ, "PIO_STORAGE_SOURCES_X_PATH": path,
             **{f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": "X"
                for r in ("METADATA", "EVENTDATA", "MODELDATA")}})
     storage = locator.Storage(StorageConfig.from_env(env))   # the default is localfs
+    if typ in ("localfs", None):
+        assert storage.apps.insert(App(0, "a")) == 1
+        assert (tmp_path / "store" / "meta" / "apps.json").exists()
+        assert storage.l_events.init(1) and storage.l_events is storage.p_events
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         storage.apps
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -222,6 +231,35 @@ def test_pevent_store_batch_matches_jax(stores, kw):
     assert _ids(PEventStore.find(APP, **kw)) == _ids(JaxPEventStore.find(APP, **kw))
     with pytest.raises(ValueError, match="does not exist"):
         PEventStore.batch("no-such-app")
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_event_store_reads_a_jax_written_localfs_store(tmp_path, seed):
+    """``PEventStore`` and ``LEventStore`` of the port over a localfs store
+    the JAX package wrote read what the JAX package reads there."""
+    from predictionio_tpu.storage import App as JaxApp
+    from predictionio_tpu.storage.locator import Storage as JaxStorage
+    from predictionio_tpu.storage.locator import StorageConfig as JaxStorageConfig
+    from predictionio_tpu.store.event_store import LEventStore as JaxLEventStore
+    from predictionio_tpu_torch.store.event_store import LEventStore
+
+    cfg = dict(sources={"S": {"type": "localfs", "path": str(tmp_path)}},
+               repositories={r: "S" for r in ("METADATA", "EVENTDATA", "MODELDATA")})
+    jax_store = JaxStorage(JaxStorageConfig(**cfg))
+    port_store = locator.Storage(StorageConfig(**cfg))
+    jax_id = jax_store.apps.insert(JaxApp(0, APP))
+    jax_store.l_events.insert_batch(jax_events(seeded_corpus(seed)), jax_id)
+    for kw in ({}, dict(event_names=["view"]), dict(entity_type="item")):
+        assert _ids(PEventStore.find(APP, storage=port_store, **kw)) == _ids(
+            JaxPEventStore.find(APP, storage=jax_store, **kw))
+    for user in ("u0", "u3", "u11", "nobody"):
+        for kw in ({}, dict(limit=3), dict(latest=False, event_names=["purchase"])):
+            got = LEventStore.find_by_entity(APP, "user", user, storage=port_store, **kw)
+            want = JaxLEventStore.find_by_entity(APP, "user", user, storage=jax_store, **kw)
+            assert _ids(got) == _ids(want)
+    got = PEventStore.aggregate_properties(APP, "item", storage=port_store)
+    want = JaxPEventStore.aggregate_properties(APP, "item", storage=jax_store)
+    assert got and {k: dict(v) for k, v in got.items()} == {k: dict(v) for k, v in want.items()}
 
 
 @pytest.mark.parametrize("entity_type", ["item", "user"])
