@@ -10,8 +10,9 @@ each of which fails the run (exit code != 0, no final ``ok`` line):
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from the checkout's sources (K1, K2, K3: one
    ``nvcc`` each, started together) and, beside them, the native event-log
-   scanner (``g++``; phase 11b fails rather than read rows without it), and
-   print the build seconds and ptxas reports;
+   scanner and the scan core's header parse (``native/data_plane.cpp``;
+   ``g++``, each on a thread; phase 11b fails rather than read without
+   them), and print the build seconds and ptxas reports;
 3. hold K1 (masked score) against its plain PyTorch version at every
    ``K1_CASES`` shape: the serving shapes with packed masks and with the
    row-strided mask ALS serving hands it (``exclusion_mask``, stride I + 1)
@@ -73,8 +74,25 @@ UR training and serving (this slice's path):
     stored models' tables must equal the unfused rebuild bit for bit; the
     JSON-lines write, import, read_training, train, save and load are timed,
     the segments' bytes, the blob's size and the train's peak device memory
-    printed;
-12. serve each variant from ``pio deploy`` run as a subprocess on the card
+    printed.  Then the columnar snapshot and the staged cache on the same
+    store: ``pio snapshot smoke`` and ``pio snapshot smoke --status`` (build
+    seconds, events, file bytes; coverage 1.0, no tail); ``read_training``
+    cold (``_STAGED.invalidate()``), served by the snapshot (the staged
+    ``snapshot`` count rises by the event count, ``scanner.scans_served``
+    does not move, one native header parse), equal to the arrays path, and
+    the snapshot read alone timed; ``pio import`` of a SNAP_TAIL tail from
+    another seed, then ``read_training`` in this process served as a delta
+    of exactly the tail, and cold as the snapshot plus the tail, each equal
+    to the arrays path on the events and the tail; SNAP_DELETES view events
+    tombstoned through ``l_events.delete`` (events whose user and item
+    appeared earlier in the log), then ``read_training`` served by the
+    snapshot without them, equal to the arrays path on what remains;
+    ``pio train`` of both variants, each read cold from the snapshot and its
+    tail (50 K2 and 50 K3 launches each, ``merge_desc`` never on the card),
+    both stored models bit-identical to the unfused rebuild on the data read,
+    their walls printed beside the native-scan ``pio train``'s;
+12. serve each variant (the models trained from the snapshot) from
+    ``pio deploy`` run as a subprocess on the card
     (``python -m predictionio_tpu_torch.cli.main deploy``, the store's
     ``PIO_STORAGE_*`` environment), its start to its first answer timed:
     nine listed queries of every kind, 300 timed plain ones drawn from 100
@@ -145,6 +163,8 @@ HOST_COVER_CYCLES = 2_000_000       # ~1 ms of device spin before each timed cal
 BENCH_UR = (100_000, 8_192, 1_000_000, 3_000_000, 50, 4_096)
 DEPLOYED_UR = (20_000, 100_000, 400_000, 800_000, 50, 4_096)
 MEMORY_UR = (2_000, 10_000, 40_000, 80_000, 50, 4_096)   # phase 11's cut depth
+SNAP_TAIL = (2_000, 4_000)     # phase 11b's tail import: purchase, view events
+SNAP_DELETES = 200             # phase 11b's tombstoned view events
 UR_POOL, UR_TIMED = 100, 300   # users with history in the store; timed UR queries
 RULE_TIMED = 200               # timed UR rule queries
 N_CATEGORIES, N_TAGS = 50, 200  # item property values of the store path
@@ -871,19 +891,33 @@ def write_jsonl(path, arrays, props):
     """``store_events``'s events as a JSON-lines file for ``pio import``,
     built in bulk from the arrays (times as ISO strings by numpy, lines by
     one format string per event type; no ``Event`` objects)."""
-    pu, pi, vu, vi = arrays
     t = iso(T0 - 1)
     with open(path, "w") as f:
         f.writelines(json.dumps({"event": "$set", "entityType": "item", "entityId": item,
                                  "properties": p, "eventTime": t, "creationTime": t}) + "\n"
                      for item, p in props.items())
-        for name, users, items, t0 in (("purchase", pu, pi, T0), ("view", vu, vi, T0 + len(pu))):
-            times = np.datetime_as_string(
-                (int(t0) + np.arange(len(users))).astype("datetime64[s]"), timezone="UTC").tolist()
-            line = ('{"event":"%s","entityType":"user","entityId":"u%%d","targetEntityType":'
-                    '"item","targetEntityId":"i%%d","eventTime":"%%s","creationTime":"%%s"}\n'
-                    % name)
-            f.writelines(map(line.__mod__, zip(users.tolist(), items.tolist(), times, times)))
+        write_interactions(f, log_blocks(arrays))
+
+
+def log_blocks(arrays):
+    """The interactions of ``arrays`` as log blocks (event name, users,
+    items, event times in epoch seconds): every purchase, one a second from
+    T0, then every view."""
+    pu, pi, vu, vi = arrays
+    return [("purchase", pu, pi, T0 + np.arange(len(pu), dtype=np.float64)),
+            ("view", vu, vi, T0 + len(pu) + np.arange(len(vu), dtype=np.float64))]
+
+
+def write_interactions(f, blocks):
+    """Interaction lines of ``blocks``, in order, one format string an event
+    type (times as ISO strings by numpy)."""
+    for name, users, items, times in blocks:
+        iso_t = np.datetime_as_string(times.astype(np.int64).astype("datetime64[s]"),
+                                      timezone="UTC").tolist()
+        line = ('{"event":"%s","entityType":"user","entityId":"u%%d","targetEntityType":'
+                '"item","targetEntityId":"i%%d","eventTime":"%%s","creationTime":"%%s"}\n'
+                % name)
+        f.writelines(map(line.__mod__, zip(users.tolist(), items.tolist(), iso_t, iso_t)))
 
 
 def store_events(Event, arrays, props):
@@ -900,12 +934,13 @@ def store_events(Event, arrays, props):
     return events
 
 
-def expected_training_data(ur, arrays, props, shape=None):
-    """``ur_training_data_from_arrays`` on the store's arrays, in the order
+def expected_training_data(ur, arrays, props, shape=None, blocks=None):
+    """``ur_training_data_from_arrays`` on the store's arrays (or on log
+    ``blocks`` in log order, as ``log_blocks`` gives them), in the order
     ``URDataSource.read_training`` gives them: dictionary codes by first
-    appearance in the time-ordered events; users of the primary event
-    first, each type's items in code order."""
-    pu, pi, vu, vi = arrays
+    appearance in the log; users of the primary event first, each type's
+    items in code order."""
+    blocks = blocks or log_blocks(arrays)
     n_users, n_items = (shape or DEPLOYED_UR)[:2]
 
     def first_seen(seq):
@@ -917,18 +952,23 @@ def expected_training_data(ur, arrays, props, shape=None):
         pos[ids] = np.arange(len(ids))
         return pos
 
-    user_of_code = first_seen(np.concatenate([pu, vu]))
+    def of(name, k):
+        return np.concatenate([b[k] for b in blocks if b[0] == name])
+
+    user_of_code = first_seen(np.concatenate([b[1] for b in blocks]))
     code_of_user = positions(user_of_code, n_users)
-    p_codes = np.unique(code_of_user[pu])
-    users = user_of_code[np.concatenate([p_codes, np.setdiff1d(code_of_user[vu], p_codes)])]
+    p_codes = np.unique(code_of_user[of("purchase", 1)])
+    users = user_of_code[np.concatenate([p_codes, np.setdiff1d(code_of_user[of("view", 1)],
+                                                               p_codes)])]
     user_pos = positions(users, n_users)
-    item_of_code = first_seen(np.concatenate([pi, vi]))
+    item_of_code = first_seen(np.concatenate([b[2] for b in blocks]))
     code_of_item = positions(item_of_code, n_items)
     inter = {}
-    for name, u, i, t0 in (("purchase", pu, pi, T0), ("view", vu, vi, T0 + len(pu))):
+    for name in ("purchase", "view"):
+        u, i = of(name, 1), of(name, 2)
         items = item_of_code[np.unique(code_of_item[i])]
         inter[name] = (user_pos[u], positions(items, n_items)[i], [f"i{x}" for x in items],
-                       t0 + np.arange(len(u), dtype=np.float64))
+                       of(name, 3))
     return ur.ur_training_data_from_arrays(
         ["purchase", "view"], [f"u{x}" for x in users], inter, props)
 
@@ -1288,6 +1328,183 @@ def train_localfs(ur, cco, hk, dev, workdir):
         "segment_bytes": seg_bytes, "launches": launches[False]}
 
 
+def training_read(engine, ep, what, staged_want):
+    """One ``URDataSource.read_training`` in this process, timed, with the
+    staged-event counts it moved (which must be ``staged_want``), no native
+    scan, and native header parses only where the snapshot file is read."""
+    from predictionio_tpu_torch.native import core as ncore
+    from predictionio_tpu_torch.native import scanner
+    from predictionio_tpu_torch.storage import snapshot as snap
+
+    served, parses, before = scanner.scans_served, ncore.calls["scan"], snap.staged_counts()
+    t0 = time.perf_counter()
+    td = engine.make_components(ep)[0].read_training()
+    secs = time.perf_counter() - t0
+    moved = {k: v - before[k] for k, v in snap.staged_counts().items()}
+    check(moved == staged_want, f"{what}: staged events {moved}, expected {staged_want}")
+    check(scanner.scans_served == served, f"{what}: the native scan ran")
+    if staged_want["snapshot"]:
+        check(ncore.calls["scan"] == parses + 1,
+              f"{what}: {ncore.calls['scan'] - parses} native header parses, not 1")
+    return td, secs
+
+
+def snapshot_path(ur, cco, hk, dev, workdir, arrays, props, native_train_s):
+    """Phase 11b's snapshot steps on the store the native-scan trains read:
+    ``pio snapshot`` (and ``--status``) → read_training served by the
+    snapshot → ``pio import`` of a tail → the same read as a delta in this
+    process, then cold as snapshot plus tail → SNAP_DELETES view events
+    tombstoned → the read from the snapshot without them → ``pio train`` of
+    both variants from the snapshot plus tail (a cold read each, K2/K3
+    launches counted) → the model store.  Every read equals
+    ``ur_training_data_from_arrays`` on the events it should hold."""
+    from predictionio_tpu_torch.storage import get_storage
+    from predictionio_tpu_torch.storage import snapshot as snap
+    from predictionio_tpu_torch.store.columnar import read_batch
+    from predictionio_tpu_torch.store.event_store import _STAGED
+    from predictionio_tpu_torch.workflow.core_workflow import load_latest_models
+    from predictionio_tpu_torch.workflow.create_workflow import engine_from_variant
+
+    n_users, n_items, n_p, n_v, top_k, tile = DEPLOYED_UR
+    n_events = n_p + n_v + n_items
+    store = get_storage()
+    app = store.apps.get_by_name("smoke")
+    chan = store.l_events._chan_dir(app.id, None)
+    _, engine, ep = engine_from_variant(engine_variant(False))
+    t = {}
+
+    # 1. pio snapshot, then its status
+    t0 = time.perf_counter()
+    pio("snapshot", "smoke")
+    t["snapshot_build_wall_s"] = time.perf_counter() - t0
+    pio("snapshot", "smoke", "--status")
+    status = store.l_events.snapshot_status(app.id)
+    check(status["events"] == n_events and status["tailEvents"] == 0
+          and status["coverage"] == 1.0, f"snapshot status {status}")
+    t["snapshot_build_s"] = status["buildSeconds"]
+    t["snapshot_bytes"] = (chan / snap.SNAP_DIR / status["snapshot"]).stat().st_size
+    print(f"  pio snapshot: {status['events']} events of {status['segmentsCovered']} segments "
+          f"in {t['snapshot_build_s']:.3f} s (the command {t['snapshot_build_wall_s']:.3f} s), "
+          f"{t['snapshot_bytes']} bytes; --status: coverage {status['coverage']}, "
+          f"{status['tailEvents']} tail events")
+
+    # 2. read_training served by the snapshot, cold
+    _STAGED.invalidate()
+    td, t["read_training_snapshot_s"] = training_read(
+        engine, ep, "snapshot read", {"snapshot": n_events, "tail": 0, "delta": 0})
+    blocks = log_blocks(arrays)
+    same_training_data(td, expected_training_data(ur, arrays, props, blocks=blocks))
+    t0 = time.perf_counter()
+    store.l_events.snapshot_scan(app.id)
+    t["snapshot_scan_s"] = time.perf_counter() - t0
+    print(f"  read_training from the snapshot {t['read_training_snapshot_s']:.3f} s (the "
+          f"native-scan read {native_train_s['read_training_s']:.3f} s), the snapshot read "
+          f"alone (mapped columns, native header parse) {t['snapshot_scan_s']:.3f} s; equal "
+          "to ur_training_data_from_arrays")
+
+    # 3. a tail through pio import: a delta in this process, then cold
+    rng = np.random.default_rng(SEED + 7)
+    t_end = T0 + n_p + n_v
+    tail = []
+    for name, n in zip(("purchase", "view"), SNAP_TAIL):
+        tail.append((name, rng.integers(0, n_users, n).astype(np.int32),
+                     (rng.zipf(1.3, n) % n_items).astype(np.int32),
+                     t_end + np.arange(n, dtype=np.float64)))
+        t_end += n
+    n_tail = sum(SNAP_TAIL)
+    with open(workdir / "tail.jsonl", "w") as f:
+        write_interactions(f, tail)
+    pio("import", "--app-name", "smoke", "--input", str(workdir / "tail.jsonl"))
+    blocks += tail
+    want = expected_training_data(ur, arrays, props, blocks=blocks)
+    td, t["read_training_delta_s"] = training_read(
+        engine, ep, "delta read", {"snapshot": 0, "tail": 0, "delta": n_tail})
+    same_training_data(td, want)
+    _STAGED.invalidate()
+    td, t["read_training_snapshot_tail_s"] = training_read(
+        engine, ep, "snapshot and tail read", {"snapshot": n_events, "tail": n_tail, "delta": 0})
+    same_training_data(td, want)
+    print(f"  pio import of a {n_tail}-event tail; read_training as a delta in this process "
+          f"{t['read_training_delta_s']:.3f} s ({n_tail} events staged), cold from the "
+          f"snapshot and its tail {t['read_training_snapshot_tail_s']:.3f} s; both equal to "
+          "the arrays path on the events and the tail")
+
+    # 4. tombstones: view events whose user and item appeared earlier in the
+    # log (so no dictionary's first-appearance order changes)
+    log_u = np.concatenate([arrays[0], arrays[2]]).astype(np.int64)
+    log_i = np.concatenate([arrays[1], arrays[3]]).astype(np.int64)
+    pos = np.arange(len(log_u))
+    first_u = np.full(n_users, len(log_u))
+    first_i = np.full(n_items, len(log_i))
+    np.minimum.at(first_u, log_u, pos)
+    np.minimum.at(first_i, log_i, pos)
+    cand = pos[n_p + n_items:]
+    cand = cand[(first_u[log_u[cand]] < cand) & (first_i[log_i[cand]] < cand)]
+    gone = np.sort(rng.choice(cand, SNAP_DELETES, replace=False))
+    m = snap.load_manifest(chan)
+    batch, ids, _ = read_batch(chan / snap.SNAP_DIR / m["snapshot"])
+    rows = n_items + gone     # snapshot rows: the $set events, then the log
+    check(all(batch.entity_dict.str(int(batch.entity_ids[r])) == f"u{log_u[p]}"
+              and batch.target_dict.str(int(batch.target_ids[r])) == f"i{log_i[p]}"
+              for r, p in zip(rows.tolist(), gone.tolist())), "tombstone rows do not match")
+    victims = [bytes(ids.blob[ids.offs[r]:ids.offs[r + 1]]).decode() for r in rows.tolist()]
+    del batch, ids
+    t0 = time.perf_counter()
+    for eid in victims:
+        check(store.l_events.delete(eid, app.id), f"delete {eid}")
+    t["delete_s"] = time.perf_counter() - t0
+    keep = np.ones(n_v, bool)
+    keep[gone - n_p] = False
+    _, vu, vi = blocks[1][:3]
+    blocks[1] = ("view", vu[keep], vi[keep], blocks[1][3][keep])
+    want = expected_training_data(ur, arrays, props, blocks=blocks)
+    n_snap = n_events - SNAP_DELETES
+    td, t["read_training_tombstoned_s"] = training_read(
+        engine, ep, "tombstoned read", {"snapshot": n_snap, "tail": n_tail, "delta": 0})
+    same_training_data(td, want)
+    check(len(td.interactions["view"][0]) == n_v + SNAP_TAIL[1] - SNAP_DELETES,
+          "the tombstoned events were read")
+    print(f"  {SNAP_DELETES} view events tombstoned through l_events.delete in "
+          f"{t['delete_s']:.3f} s; read_training from the snapshot (no row path) "
+          f"{t['read_training_tombstoned_s']:.3f} s leaves them out and equals the arrays path "
+          "on what remains")
+
+    # 5. pio train of both variants from the snapshot and its tail
+    params = ep.algorithm_params_list[0][1]
+    tiles = 2 * -(-n_items // tile)
+    launches = {}
+    with count_card_merges() as merges:
+        for use_llr in (False, True):
+            path = workdir / f"engine-{use_llr}.json"
+            _STAGED.invalidate()    # a pio train process reads cold
+            before = snap.staged_counts()
+            hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+            t0 = time.perf_counter()
+            pio("train", "--engine-json", str(path))
+            t[f"pio_train_snapshot_s_llr_{use_llr}"] = time.perf_counter() - t0
+            launches[use_llr] = (hk.llr_masked_scores.launches, hk.tile_topk_desc.launches)
+            moved = {k: v - before[k] for k, v in snap.staged_counts().items()}
+            check(moved == {"snapshot": n_snap, "tail": n_tail, "delta": 0},
+                  f"pio train (useLlrWeights {use_llr}) staged {moved}")
+    for use_llr, got in launches.items():
+        check(got == (tiles, tiles), f"K2/K3 launches {got} in pio train from the snapshot "
+              f"(useLlrWeights {use_llr}), expected {tiles} each")
+    check(merges[0] == 0, f"merge_desc ran {merges[0]} times on the card")
+    check(params.min_llr == 0.0, "the unfused rebuild assumes LLR threshold 0")
+    rebuilt = unfused_indicators(cco, hk, td, dev, top_k, tile)
+    for use_llr in (False, True):
+        _, (model,) = load_latest_models(engine_variant(use_llr)["id"], device=dev)
+        check_tables(model, rebuilt, n_items, top_k, f"from the snapshot, useLlrWeights {use_llr}")
+    print(f"  pio train from the snapshot and its tail: LLR weights off "
+          f"{t['pio_train_snapshot_s_llr_False']:.3f} s, on "
+          f"{t['pio_train_snapshot_s_llr_True']:.3f} s (native scan, same run: "
+          f"{native_train_s['pio_train_s_llr_False']:.3f} s, "
+          f"{native_train_s['pio_train_s_llr_True']:.3f} s), launches {launches}, "
+          f"merge_desc on the card={merges[0]}")
+    return model, td, {**t, "tail_events": n_tail, "tombstoned": SNAP_DELETES,
+                       "launches": launches[False]}
+
+
 def ur_bodies():
     """The listed query of every kind phase 12 checks, and the users they
     ask for."""
@@ -1613,6 +1830,7 @@ def run() -> None:
         from predictionio_tpu_torch.device import resolve_device
         from predictionio_tpu_torch.models import recommendation as reco
         from predictionio_tpu_torch.models import universal_recommender as ur
+        from predictionio_tpu_torch.native import core as ncore
         from predictionio_tpu_torch.native import scanner
         from predictionio_tpu_torch.ops import build
         from predictionio_tpu_torch.ops import cco
@@ -1632,15 +1850,27 @@ def run() -> None:
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     phase("2. build")
-    # the native event-log scanner (host code, g++) builds beside the kernels
-    native_ok = []
-    native = threading.Thread(target=lambda: native_ok.append(scanner.native_available()))
-    native.start()
+    # the native event-log scanner and the scan core's header parse (host
+    # code, g++) build beside the kernels, each on a thread of its own
+    host_built = {}
+
+    def build_host(name, load):
+        t0 = time.perf_counter()
+        host_built[name] = (load(), time.perf_counter() - t0)
+
+    host = [threading.Thread(target=build_host, args=args) for args in (
+        ("event-log scanner", scanner.native_available),
+        ("scan core header parse", lambda: ncore.lib() is not None))]
+    for t in host:
+        t.start()
     build_s = build.build_all()
-    native.join()
-    check(native_ok == [True], "the native event-log scanner did not build")
-    print(f"build_s={build_s:.3f} kernels={sorted(build.SIGNATURES)}, and the native "
-          "event-log scanner (g++)")
+    for t in host:
+        t.join()
+    for name, (ok, secs) in host_built.items():
+        check(ok, f"the native {name} did not build")
+    print(f"build_s={build_s:.3f} kernels={sorted(build.SIGNATURES)}; native host code "
+          "(g++): " + ", ".join(f"{name} {secs:.3f} s" for name, (_, secs)
+                                 in sorted(host_built.items())))
     for name, log in build.build_logs.items():
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
@@ -1729,8 +1959,11 @@ def run() -> None:
     try:
         phase("11b. UR at the deployed width through localfs and pio "
               "(app new, import, build, train)")
-        ur_model, td, arrays, cols, env, variants, deployed = train_localfs(
-            ur, cco, hk, dev, workdir)
+        _, _, arrays, cols, env, variants, deployed = train_localfs(ur, cco, hk, dev, workdir)
+        torch.cuda.empty_cache()
+        print("  -- the columnar snapshot and the staged cache")
+        ur_model, td, snapshot = snapshot_path(ur, cco, hk, dev, workdir, arrays,
+                                               item_properties(cols), deployed)
         torch.cuda.empty_cache()
 
         phase("12. UR HTTP /queries.json from pio deploy subprocesses, with business rules")
@@ -1809,11 +2042,22 @@ def run() -> None:
           f"{served['mask_build_ms']['warm']:.3f} ms; rule queries over HTTP p50 "
           f"{served[False]['rule_p50_ms']:.3f} ms p99 {served[False]['rule_p99_ms']:.3f} ms "
           f"| {smi}")
+    print(f"  snapshot path: pio snapshot {snapshot['snapshot_build_s']:.3f} s "
+          f"({snapshot['snapshot_bytes']} bytes), read_training from it "
+          f"{snapshot['read_training_snapshot_s']:.3f} s (native scan "
+          f"{deployed['read_training_s']:.3f} s), the snapshot read alone "
+          f"{snapshot['snapshot_scan_s']:.3f} s, a {snapshot['tail_events']}-event delta "
+          f"{snapshot['read_training_delta_s']:.3f} s, snapshot and tail "
+          f"{snapshot['read_training_snapshot_tail_s']:.3f} s, tombstoned "
+          f"{snapshot['read_training_tombstoned_s']:.3f} s; pio train from it "
+          f"{snapshot['pio_train_snapshot_s_llr_False']:.3f} s (native scan "
+          f"{deployed['pio_train_s_llr_False']:.3f} s) | {smi}")
     launches = {"masked_score": http_launches + batch_launches,
                 "llr_masked": deployed["launches"][0],
                 "tile_topk": deployed["launches"][1]}
     print(json.dumps({"ur_train": {"bench_shape": bench, "memory_store": memory,
-                                   "deployed_width_localfs": deployed},
+                                   "deployed_width_localfs": deployed,
+                                   "deployed_width_snapshot": snapshot},
                       "ur_http": {str(k).lower(): v for k, v in served.items()},
                       "k1_retime": k1_rounds, "empty_kernel_ms": empty_ms, "llr_sass": sass,
                       "wall_s": time.perf_counter() - t_start}))

@@ -11,8 +11,10 @@ Ported so far (ROADMAP.md, queue A): serving of the ``recommendation``
 through the LLR and tile top-k kernels (``ops/csrc/llr_masked.cu``,
 ``ops/csrc/tile_topk.cu``) and its serving with business rules; the event
 model, the memory and localfs storage backends with the native segment
-scanner (``native/eventlog_scanner.cpp``), ``PEventStore``, the model
-store, the train → deploy workflow (``workflow/core_workflow.py``,
+scanner (``native/eventlog_scanner.cpp``), the columnar snapshots and the
+staged retrain cache (``storage/snapshot.py``, their header parse in
+``native/data_plane.cpp``), ``PEventStore``, the model store, the train →
+deploy workflow (``workflow/core_workflow.py``,
 ``workflow/create_server.py``) and the ``pio`` console
 (``python -m predictionio_tpu_torch.cli.main``).
 """

@@ -8,6 +8,7 @@ tools/.../console/Console.scala and bin/pio):
   app new|list|show|delete|data-delete|compact   applications, log compaction
   accesskey new|list|delete                      access keys
   channel new|delete                             channels
+  snapshot <app> [--channel] [--status]          columnar snapshot of the event log
   import / export                                JSON-lines event files
   build                                          check engine.json, register its manifest
   train / deploy / undeploy                      the DASE workflow
@@ -37,14 +38,12 @@ from predictionio_tpu_torch import __version__
 from predictionio_tpu_torch.storage import AccessKey, App, Channel, get_storage
 
 ROADMAP = {
-    "snapshot": "ROADMAP.md, queue A, 'Columnar snapshots and the staged cache'",
     "server": "ROADMAP.md, queue A, 'Event-loop server and micro-batcher'",
     "streaming": "ROADMAP.md, queue A, 'Streaming'",
     "templates": "ROADMAP.md, queue A, 'Remaining templates'",
 }
 #: subcommands of the JAX console the port does not have yet -> ROADMAP key
 NOT_PORTED = {
-    "snapshot": "snapshot",
     "eventserver": "server", "adminserver": "server", "dashboard": "server",
     "metrics": "server", "trace": "server", "lineage": "server", "top": "server",
     "plane-subscribe": "streaming",
@@ -342,6 +341,46 @@ def _cmd_undeploy(args) -> int:
     return 1
 
 
+def _cmd_snapshot(args) -> int:
+    """``pio snapshot <app>``: fold the event log into a columnar snapshot,
+    so a cold ``pio train`` maps columns instead of parsing every line;
+    ``--status`` reports the coverage without building.  Safe beside live
+    appends: only the lines complete at build time are covered, and the
+    tail is parsed at train time."""
+    st = get_storage()
+    app = _resolve_app(st, args.name)
+    if app is None:
+        return 1
+    channel_id, ok = _resolve_channel(st, app, args.channel)
+    if not ok:
+        return 1
+    backend = st.l_events
+    if not hasattr(backend, "build_snapshot"):
+        return _error("this event backend does not support columnar snapshots "
+                      "(localfs only).")
+    where = f"app {args.name!r}" + (f" channel {args.channel!r}" if args.channel else "")
+    if args.status:
+        status = backend.snapshot_status(app.id, channel_id)
+        if status is None:
+            print(f"No snapshot for {where}.")
+            return 0
+        print(f"Snapshot status for {where}:")
+        print(f"  file: {status['snapshot']}  (built {status['builtAt']}, "
+              f"{status['buildSeconds']:.3f}s, writer {status['writer']})")
+        print(f"  events: {status['events']} in snapshot, {status['tailEvents']} in JSONL "
+              f"tail ({status['tailBytes']} bytes)")
+        print(f"  coverage: {status['coverage']:.4f} over {status['segmentsCovered']} "
+              "segment(s)")
+        return 0
+    try:
+        stats = backend.build_snapshot(app.id, channel_id)
+    except RuntimeError as e:
+        return _error(str(e))
+    print(f"Built snapshot for {where}: {stats['events']} events from {stats['segments']} "
+          f"segment(s) in {stats['build_s']:.3f}s ({stats['snapshot']}).")
+    return 0
+
+
 def _cmd_not_ported(args) -> int:
     return _error(f"pio {args.command} is not ported yet ({ROADMAP[NOT_PORTED[args.command]]})")
 
@@ -387,6 +426,15 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("app_name")
         sp.add_argument("name")
     ch.set_defaults(func=_cmd_channel)
+
+    sn = sub.add_parser("snapshot", help="build a columnar event-store snapshot "
+                                         "(memory-mapped training reads); --status "
+                                         "reports its coverage")
+    sn.add_argument("name")
+    sn.add_argument("--channel", default=None)
+    sn.add_argument("--status", action="store_true",
+                    help="report the snapshot's coverage instead of building")
+    sn.set_defaults(func=_cmd_snapshot)
 
     for name, func, arg in (("import", _cmd_import, "--input"),
                             ("export", _cmd_export, "--output")):

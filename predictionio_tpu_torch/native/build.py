@@ -1,4 +1,5 @@
-"""Build the port's native host code (the event-log scanner) at first use.
+"""Build the port's native host code at first use: the event-log scanner
+(``scanner.py``) and the scan core's header parse (``core.py``).
 
 Counterpart of ``predictionio_tpu/native/build.py``.  ``<stem>-<key>.so``
 lands in ``native/_build/`` (ignored by git), keyed by a SHA-256 of the
@@ -11,12 +12,16 @@ while it is still being written).
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
 from pathlib import Path
 from typing import Optional
+
+log = logging.getLogger("pio.native")
 
 BUILD_DIR = Path(__file__).parent / "_build"
 
@@ -55,3 +60,13 @@ def build(src: Path, stem: str, timeout: int = 300) -> Path:
     finally:
         tmp.unlink(missing_ok=True)
     return so
+
+
+def load(src: Path, stem: str) -> Optional[ctypes.CDLL]:
+    """Build if needed and load; None when there is no compiler or the
+    build or the load fails (the caller then takes its Python path)."""
+    try:
+        return ctypes.CDLL(str(build(src, stem)))
+    except Exception as e:
+        log.warning("native %s unavailable (%s); using the Python path", stem, e)
+        return None

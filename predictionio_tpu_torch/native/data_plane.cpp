@@ -1,0 +1,478 @@
+// The scan core's columnar header parse, for the port's native/core.py
+// (ctypes C ABI, no Python.h).
+//
+// Counterpart of predictionio_tpu/native/data_plane.cpp, header-parse part
+// only: the PIOCOL01 snapshot header (JSON) -> column specs, the string
+// dictionaries as UTF-8 blobs with int64 offsets, the property columns and
+// the raw span of "meta".  Every entry point is called through
+// ctypes.CDLL, so the GIL is released for the call.  The JAX file's
+// dictionary-union handles and dp_take_i32 (its BatchMerger), its serve
+// core and its HTTP core are not here.
+//
+// Contract against the Python parse (json.loads): the same specs, the same
+// strings byte for byte (surrogate pairs combine; lone surrogates pass
+// through as their 3-byte encoding, as Python's "surrogatepass" codec
+// round-trips them); a header this parser declines returns NULL and
+// json.loads answers.  tests/test_torch_native.py holds it.
+
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <string>
+#include <vector>
+
+#if defined(_WIN32)
+#define EXPORT extern "C" __declspec(dllexport)
+#else
+#define EXPORT extern "C" __attribute__((visibility("default")))
+#endif
+
+namespace {
+
+// UTF-8 encode one code point (surrogate code points use the normal
+// 3-byte formula — exactly the bytes Python's "surrogatepass" codec
+// round-trips, which is how json.loads-compatible lone surrogates
+// survive the native path).
+inline void utf8_put(std::string &out, uint32_t cp) {
+    if (cp < 0x80) {
+        out.push_back((char)cp);
+    } else if (cp < 0x800) {
+        out.push_back((char)(0xC0 | (cp >> 6)));
+        out.push_back((char)(0x80 | (cp & 0x3F)));
+    } else if (cp < 0x10000) {
+        out.push_back((char)(0xE0 | (cp >> 12)));
+        out.push_back((char)(0x80 | ((cp >> 6) & 0x3F)));
+        out.push_back((char)(0x80 | (cp & 0x3F)));
+    } else {
+        out.push_back((char)(0xF0 | (cp >> 18)));
+        out.push_back((char)(0x80 | ((cp >> 12) & 0x3F)));
+        out.push_back((char)(0x80 | ((cp >> 6) & 0x3F)));
+        out.push_back((char)(0x80 | (cp & 0x3F)));
+    }
+}
+
+// -- minimal JSON parser (schema-directed, for the PIOCOL01 header) ---------
+
+struct Json {
+    const char *p, *end;
+    bool ok = true;
+
+    explicit Json(const char *buf, int64_t len) : p(buf), end(buf + len) {}
+
+    void ws() { while (p < end && (*p == ' ' || *p == '\t' || *p == '\n' || *p == '\r')) ++p; }
+    bool lit(char c) { ws(); if (p < end && *p == c) { ++p; return true; } ok = false; return false; }
+    bool peek(char c) { ws(); return p < end && *p == c; }
+
+    static int hex(char c) {
+        if (c >= '0' && c <= '9') return c - '0';
+        if (c >= 'a' && c <= 'f') return c - 'a' + 10;
+        if (c >= 'A' && c <= 'F') return c - 'A' + 10;
+        return -1;
+    }
+
+    bool u16(uint32_t &v) {
+        if (end - p < 4) return false;
+        v = 0;
+        for (int i = 0; i < 4; ++i) {
+            int h = hex(p[i]);
+            if (h < 0) return false;
+            v = (v << 4) | (uint32_t)h;
+        }
+        p += 4;
+        return true;
+    }
+
+    // JSON string → UTF-8 bytes appended to out (escape handling matches
+    // Python json.loads: surrogate pairs combine, lone surrogates pass
+    // through as their 3-byte encoding)
+    bool str(std::string &out) {
+        if (!lit('"')) return false;
+        while (p < end) {
+            unsigned char c = (unsigned char)*p;
+            if (c == '"') { ++p; return true; }
+            if (c == '\\') {
+                ++p;
+                if (p >= end) break;
+                char e = *p++;
+                switch (e) {
+                case '"': out.push_back('"'); break;
+                case '\\': out.push_back('\\'); break;
+                case '/': out.push_back('/'); break;
+                case 'b': out.push_back('\b'); break;
+                case 'f': out.push_back('\f'); break;
+                case 'n': out.push_back('\n'); break;
+                case 'r': out.push_back('\r'); break;
+                case 't': out.push_back('\t'); break;
+                case 'u': {
+                    uint32_t hi;
+                    if (!u16(hi)) { ok = false; return false; }
+                    if (hi >= 0xD800 && hi < 0xDC00 && end - p >= 6 &&
+                        p[0] == '\\' && p[1] == 'u') {
+                        const char *save = p;
+                        p += 2;
+                        uint32_t lo;
+                        if (u16(lo) && lo >= 0xDC00 && lo < 0xE000) {
+                            utf8_put(out, 0x10000 + ((hi - 0xD800) << 10) + (lo - 0xDC00));
+                            break;
+                        }
+                        p = save;  // not a low surrogate: leave for next loop
+                    }
+                    utf8_put(out, hi);
+                    break;
+                }
+                default: ok = false; return false;
+                }
+            } else {
+                out.push_back((char)c);
+                ++p;
+            }
+        }
+        ok = false;
+        return false;
+    }
+
+    bool num(double &d, int64_t &i, bool &is_int) {
+        ws();
+        const char *s = p;
+        if (p < end && (*p == '-' || *p == '+')) ++p;
+        is_int = true;
+        while (p < end && ((*p >= '0' && *p <= '9') || *p == '.' || *p == 'e' ||
+                           *p == 'E' || *p == '-' || *p == '+')) {
+            if (*p == '.' || *p == 'e' || *p == 'E') is_int = false;
+            ++p;
+        }
+        if (p == s) { ok = false; return false; }
+        char buf[64];
+        size_t n = (size_t)(p - s);
+        if (n >= sizeof(buf)) { ok = false; return false; }
+        memcpy(buf, s, n);
+        buf[n] = 0;
+        if (is_int) i = strtoll(buf, nullptr, 10);
+        d = strtod(buf, nullptr);
+        return true;
+    }
+
+    bool integer(int64_t &v) {
+        double d; bool ii;
+        if (!num(d, v, ii)) return false;
+        if (!ii) v = (int64_t)d;
+        return true;
+    }
+
+    bool skip() {  // skip any value
+        ws();
+        if (p >= end) { ok = false; return false; }
+        char c = *p;
+        if (c == '"') { std::string tmp; return str(tmp); }
+        if (c == '{') {
+            ++p;
+            if (peek('}')) { ++p; return true; }
+            while (ok) {
+                std::string k;
+                if (!str(k) || !lit(':') || !skip()) return false;
+                if (peek(',')) { ++p; continue; }
+                return lit('}');
+            }
+            return false;
+        }
+        if (c == '[') {
+            ++p;
+            if (peek(']')) { ++p; return true; }
+            while (ok) {
+                if (!skip()) return false;
+                if (peek(',')) { ++p; continue; }
+                return lit(']');
+            }
+            return false;
+        }
+        if (c == 't') { if (end - p >= 4 && !memcmp(p, "true", 4)) { p += 4; return true; } }
+        else if (c == 'f') { if (end - p >= 5 && !memcmp(p, "false", 5)) { p += 5; return true; } }
+        else if (c == 'n') { if (end - p >= 4 && !memcmp(p, "null", 4)) { p += 4; return true; } }
+        else { double d; int64_t i; bool ii; return num(d, i, ii); }
+        ok = false;
+        return false;
+    }
+};
+
+// -- columnar snapshot header ------------------------------------------------
+
+struct Spec {
+    int64_t n = -1, off = -1;
+    std::string dtype;
+    bool present = false;
+};
+
+struct StrTable {           // decoded JSON string array → blob + offsets
+    std::string blob;
+    std::vector<int64_t> offs{0};
+    int64_t n() const { return (int64_t)offs.size() - 1; }
+};
+
+struct PropEntry {
+    std::string key;
+    StrTable dict;
+    Spec rows, kind, num, str_offs, codes;
+};
+
+struct ColHeader {
+    int64_t rows = -1;
+    Spec cols[6];            // event,entity_type,entity,target,times,ratings
+    bool has_ids = false;
+    Spec ids_blob, ids_offs;
+    StrTable dicts[4];       // event, entity_type, entity, target
+    bool has_dict[4] = {false, false, false, false};
+    std::vector<PropEntry> props;
+    int64_t meta_off = -1, meta_len = 0;
+};
+
+const char *kColNames[6] = {"event_codes", "entity_type_codes", "entity_ids",
+                            "target_ids", "times_us", "ratings"};
+const char *kColDtypes[6] = {"<i4", "<i4", "<i4", "<i4", "<i8", "<f4"};
+const char *kDictNames[4] = {"event", "entity_type", "entity", "target"};
+
+bool parse_spec(Json &j, Spec &s, const char *want_dtype) {
+    if (!j.lit('{')) return false;
+    while (j.ok) {
+        std::string k;
+        if (!j.str(k) || !j.lit(':')) return false;
+        if (k == "dtype") {
+            s.dtype.clear();
+            if (!j.str(s.dtype)) return false;
+        } else if (k == "n") {
+            if (!j.integer(s.n)) return false;
+        } else if (k == "off") {
+            if (!j.integer(s.off)) return false;
+        } else if (!j.skip()) {
+            return false;
+        }
+        if (j.peek(',')) { ++j.p; continue; }
+        if (!j.lit('}')) return false;
+        break;
+    }
+    if (s.n < 0 || s.off < 0 || s.dtype != want_dtype) return false;
+    s.present = true;
+    return true;
+}
+
+bool parse_str_array(Json &j, StrTable &t) {
+    if (!j.lit('[')) return false;
+    if (j.peek(']')) { ++j.p; return true; }
+    while (j.ok) {
+        if (!j.str(t.blob)) return false;
+        t.offs.push_back((int64_t)t.blob.size());
+        if (j.peek(',')) { ++j.p; continue; }
+        return j.lit(']');
+    }
+    return false;
+}
+
+bool parse_prop_entry(Json &j, PropEntry &e) {
+    if (!j.lit('{')) return false;
+    bool have[5] = {false, false, false, false, false};
+    bool have_dict = false;
+    while (j.ok) {
+        std::string k;
+        if (!j.str(k) || !j.lit(':')) return false;
+        if (k == "dict") { if (!parse_str_array(j, e.dict)) return false; have_dict = true; }
+        else if (k == "rows") { if (!parse_spec(j, e.rows, "<i8")) return false; have[0] = true; }
+        else if (k == "kind") { if (!parse_spec(j, e.kind, "|i1")) return false; have[1] = true; }
+        else if (k == "num") { if (!parse_spec(j, e.num, "<f8")) return false; have[2] = true; }
+        else if (k == "str_offs") { if (!parse_spec(j, e.str_offs, "<i8")) return false; have[3] = true; }
+        else if (k == "codes") { if (!parse_spec(j, e.codes, "<i4")) return false; have[4] = true; }
+        else if (!j.skip()) return false;
+        if (j.peek(',')) { ++j.p; continue; }
+        if (!j.lit('}')) return false;
+        break;
+    }
+    return have_dict && have[0] && have[1] && have[2] && have[3] && have[4];
+}
+
+bool parse_header(Json &j, const char *base, ColHeader &h) {
+    if (!j.lit('{')) return false;
+    while (j.ok) {
+        std::string k;
+        if (!j.str(k) || !j.lit(':')) return false;
+        if (k == "rows") {
+            if (!j.integer(h.rows)) return false;
+        } else if (k == "cols") {
+            if (!j.lit('{')) return false;
+            while (j.ok) {
+                std::string name;
+                if (!j.str(name) || !j.lit(':')) return false;
+                int slot = -1;
+                for (int i = 0; i < 6; ++i)
+                    if (name == kColNames[i]) { slot = i; break; }
+                if (slot >= 0) {
+                    if (!parse_spec(j, h.cols[slot], kColDtypes[slot])) return false;
+                } else if (!j.skip()) return false;
+                if (j.peek(',')) { ++j.p; continue; }
+                if (!j.lit('}')) return false;
+                break;
+            }
+        } else if (k == "ids") {
+            j.ws();
+            if (j.peek('n')) { if (!j.skip()) return false; }
+            else {
+                if (!j.lit('{')) return false;
+                while (j.ok) {
+                    std::string name;
+                    if (!j.str(name) || !j.lit(':')) return false;
+                    if (name == "blob") { if (!parse_spec(j, h.ids_blob, "|u1")) return false; }
+                    else if (name == "offs") { if (!parse_spec(j, h.ids_offs, "<i8")) return false; }
+                    else if (!j.skip()) return false;
+                    if (j.peek(',')) { ++j.p; continue; }
+                    if (!j.lit('}')) return false;
+                    break;
+                }
+                h.has_ids = h.ids_blob.present && h.ids_offs.present;
+                if (!h.has_ids) return false;
+            }
+        } else if (k == "dicts") {
+            if (!j.lit('{')) return false;
+            while (j.ok) {
+                std::string name;
+                if (!j.str(name) || !j.lit(':')) return false;
+                int slot = -1;
+                for (int i = 0; i < 4; ++i)
+                    if (name == kDictNames[i]) { slot = i; break; }
+                if (slot >= 0) {
+                    if (!parse_str_array(j, h.dicts[slot])) return false;
+                    h.has_dict[slot] = true;
+                } else if (!j.skip()) return false;
+                if (j.peek(',')) { ++j.p; continue; }
+                if (!j.lit('}')) return false;
+                break;
+            }
+        } else if (k == "props") {
+            if (!j.lit('[')) return false;
+            if (j.peek(']')) { ++j.p; }
+            else while (j.ok) {
+                // each entry is [key, {...}]
+                if (!j.lit('[')) return false;
+                PropEntry e;
+                if (!j.str(e.key) || !j.lit(',') || !parse_prop_entry(j, e)) return false;
+                if (!j.lit(']')) return false;
+                h.props.push_back(std::move(e));
+                if (j.peek(',')) { ++j.p; continue; }
+                if (!j.lit(']')) return false;
+                break;
+            }
+        } else if (k == "meta") {
+            j.ws();
+            const char *s = j.p;
+            if (!j.skip()) return false;
+            h.meta_off = (int64_t)(s - base);
+            h.meta_len = (int64_t)(j.p - s);
+        } else if (!j.skip()) {
+            return false;
+        }
+        if (j.peek(',')) { ++j.p; continue; }
+        if (!j.lit('}')) return false;
+        break;
+    }
+    if (h.rows < 0) return false;
+    for (int i = 0; i < 6; ++i)
+        if (!h.cols[i].present) return false;
+    for (int i = 0; i < 4; ++i)
+        if (!h.has_dict[i]) return false;
+    return j.ok;
+}
+
+
+}  // namespace
+
+
+// ===========================================================================
+// C ABI
+// ===========================================================================
+
+EXPORT int64_t dp_abi_version() { return 1; }
+
+// -- scan core: snapshot header ---------------------------------------------
+
+EXPORT void *dp_col_parse(const char *buf, int64_t len) {
+    auto *h = new ColHeader();
+    Json j(buf, len);
+    if (!parse_header(j, buf, *h)) {
+        delete h;
+        return nullptr;
+    }
+    return h;
+}
+
+EXPORT void dp_col_free(void *p) { delete (ColHeader *)p; }
+
+EXPORT int64_t dp_col_rows(void *p) { return ((ColHeader *)p)->rows; }
+
+// which: 0..5 fixed columns, 6 ids blob, 7 ids offs.  out = [n, off].
+// returns 0, or -1 when absent (ids on an id-less snapshot).
+EXPORT int dp_col_spec(void *p, int which, int64_t *out) {
+    auto *h = (ColHeader *)p;
+    const Spec *s = nullptr;
+    if (which >= 0 && which < 6) s = &h->cols[which];
+    else if (which == 6) s = h->has_ids ? &h->ids_blob : nullptr;
+    else if (which == 7) s = h->has_ids ? &h->ids_offs : nullptr;
+    if (s == nullptr || !s->present) return -1;
+    out[0] = s->n;
+    out[1] = s->off;
+    return 0;
+}
+
+EXPORT int64_t dp_col_dict_n(void *p, int which) {
+    return ((ColHeader *)p)->dicts[which].n();
+}
+
+EXPORT int64_t dp_col_dict_bytes(void *p, int which) {
+    return (int64_t)((ColHeader *)p)->dicts[which].blob.size();
+}
+
+EXPORT void dp_col_dict_copy(void *p, int which, char *out_blob, int64_t *out_offs) {
+    auto &t = ((ColHeader *)p)->dicts[which];
+    if (!t.blob.empty()) memcpy(out_blob, t.blob.data(), t.blob.size());
+    memcpy(out_offs, t.offs.data(), t.offs.size() * sizeof(int64_t));
+}
+
+EXPORT int64_t dp_col_nprops(void *p) { return (int64_t)((ColHeader *)p)->props.size(); }
+
+EXPORT int64_t dp_col_prop_key_bytes(void *p, int64_t i) {
+    return (int64_t)((ColHeader *)p)->props[i].key.size();
+}
+
+EXPORT void dp_col_prop_key_copy(void *p, int64_t i, char *out) {
+    auto &k = ((ColHeader *)p)->props[i].key;
+    if (!k.empty()) memcpy(out, k.data(), k.size());
+}
+
+// which: 0 rows, 1 kind, 2 num, 3 str_offs, 4 codes.  out = [n, off].
+EXPORT int dp_col_prop_spec(void *p, int64_t i, int which, int64_t *out) {
+    auto &e = ((ColHeader *)p)->props[i];
+    const Spec *s = which == 0 ? &e.rows : which == 1 ? &e.kind
+                  : which == 2 ? &e.num : which == 3 ? &e.str_offs
+                  : which == 4 ? &e.codes : nullptr;
+    if (s == nullptr || !s->present) return -1;
+    out[0] = s->n;
+    out[1] = s->off;
+    return 0;
+}
+
+EXPORT int64_t dp_col_prop_dict_n(void *p, int64_t i) {
+    return ((ColHeader *)p)->props[i].dict.n();
+}
+
+EXPORT int64_t dp_col_prop_dict_bytes(void *p, int64_t i) {
+    return (int64_t)((ColHeader *)p)->props[i].dict.blob.size();
+}
+
+EXPORT void dp_col_prop_dict_copy(void *p, int64_t i, char *out_blob, int64_t *out_offs) {
+    auto &t = ((ColHeader *)p)->props[i].dict;
+    if (!t.blob.empty()) memcpy(out_blob, t.blob.data(), t.blob.size());
+    memcpy(out_offs, t.offs.data(), t.offs.size() * sizeof(int64_t));
+}
+
+// out = [off, len] of the raw "meta" JSON value inside the header bytes
+// (-1 length 0 when absent)
+EXPORT void dp_col_meta_span(void *p, int64_t *out) {
+    auto *h = (ColHeader *)p;
+    out[0] = h->meta_off;
+    out[1] = h->meta_len;
+}

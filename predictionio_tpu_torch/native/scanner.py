@@ -14,7 +14,6 @@ process (the JAX package's ``pio_native_calls_total{core="scan"}``).
 from __future__ import annotations
 
 import ctypes
-import logging
 import os
 import threading
 from pathlib import Path
@@ -23,8 +22,6 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from predictionio_tpu_torch.native import build as _native_build
-
-log = logging.getLogger("pio.native")
 
 _SRC = Path(__file__).parent / "eventlog_scanner.cpp"
 _lock = threading.Lock()
@@ -71,16 +68,15 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
     with _lock:
         if _lib is not None or _load_failed:
             return _lib
-        try:
-            lib = ctypes.CDLL(str(_native_build.build(_SRC, "libeventscan")))
-            for name, argtypes, restype in _SIGNATURES:
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = restype
-            _lib = lib
-        except Exception as e:  # no compiler, a failed build or load
-            log.warning("native scanner unavailable (%s); reading rows in Python", e)
+        lib = _native_build.load(_SRC, "libeventscan")   # None: no compiler, or it failed
+        if lib is None:
             _load_failed = True
+            return None
+        for name, argtypes, restype in _SIGNATURES:
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _lib = lib
         return _lib
 
 

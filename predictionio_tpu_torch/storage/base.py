@@ -8,11 +8,13 @@ interfaces — ``LEvents``, ``PEvents``, ``Models``, ``EngineInstances``,
 ABCs with the JAX package's signatures, access keys, engine manifests
 and evaluation instances included (the ``pio`` CLI reads and writes them).
 
-Not ported yet: the append-listener bus (it serves the serving history
-cache, ROADMAP.md, queue A, 'The host tail, pruning and caches'), the
-delta-tail protocol (ROADMAP.md, queue A, 'Streaming') and columnar
-snapshots with ``find_batches`` (ROADMAP.md, queue A, 'Columnar snapshots
-and the staged cache').
+``PEvents`` has the JAX package's columnar hooks: ``snapshot_scan`` and
+``snapshot_status`` (None: no snapshot, the default) and ``find_batches``,
+which a segment backend with snapshots overrides.  Not ported yet: the
+append-listener bus (it serves the serving history cache, ROADMAP.md,
+queue A, 'The host tail, pruning and caches') and the delta-tail
+capability check of the streaming trainer (ROADMAP.md, queue A,
+'Streaming').
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import abc
 import datetime as _dt
 import secrets
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 from predictionio_tpu_torch.events.event import Event, PropertyMap, aggregate_properties
 
@@ -366,3 +368,35 @@ class PEvents(abc.ABC):
         event_names: Optional[Sequence[str]] = None,
         target_entity_type: Optional[str] = None,
     ) -> Iterator[Event]: ...
+
+    def scan(self, app_id: int, **filters: Any) -> Iterator[Event]:
+        """Unordered bulk scan; the training read never needs time order."""
+        return self.find(app_id, **filters)
+
+    # -- columnar snapshots (optional per backend) -----------------------------
+    # A segment backend (localfs) persists columnar snapshots of its log and
+    # serves find_batches from them; these defaults say "no snapshot".
+
+    def snapshot_scan(self, app_id: int, channel_id: Optional[int] = None) -> Optional[Dict]:
+        """{"batch", "ids", "watermark", ...} from a columnar snapshot and
+        its tail, or None where the backend has none (the default)."""
+        return None
+
+    def snapshot_status(self, app_id: int, channel_id: Optional[int] = None) -> Optional[Dict]:
+        """Coverage summary, or None without snapshots."""
+        return None
+
+    def find_batches(self, app_id: int, batch_size: int = 1 << 20,
+                     **filters: Any) -> Iterator["EventBatch"]:  # noqa: F821
+        """Columnar batches for training reads, ``batch_size`` events each
+        through ``scan``; a backend with snapshots serves one batch."""
+        from predictionio_tpu_torch.store.columnar import EventBatch
+
+        buf: List[Event] = []
+        for e in self.scan(app_id, **filters):
+            buf.append(e)
+            if len(buf) >= batch_size:
+                yield EventBatch.from_events(buf)
+                buf = []
+        if buf:
+            yield EventBatch.from_events(buf)

@@ -16,15 +16,20 @@ in the other:
   manifests, evaluation instances): one JSON document each under
   ``meta/``, replaced atomically (write a temporary file, then rename).
 - **Models**: blobs under ``models/<instance_id>.bin``.
+- **Columnar snapshots** (``storage/snapshot.py``): ``build_snapshot``
+  (``pio snapshot``) folds the segments into one PIOCOL01 file under
+  ``snapshot/``; ``snapshot_scan`` and ``find_batches`` serve a training
+  read from it plus the JSON-lines tail written since, tombstones honoured;
+  ``scan_tail_from``/``scan_events_up_to``/``tombstone_state`` are the
+  delta-tail reads of the staged retrain cache.  With
+  ``PIO_SNAPSHOT_SEGMENTS=N`` a segment rotation starts a build in the
+  background once N segments are uncovered.
 
 Appends of one process are serialised by one lock per store; the JAX
 package's group commit (many request threads' buffers in one write) serves
 its event server, which the port does not have yet (ROADMAP.md, queue A,
-'Event-loop server and micro-batcher').  The columnar snapshots, the
-delta-tail reads and ``find_batches`` wait for ROADMAP.md, queue A,
-'Columnar snapshots and the staged cache': a training read they would
-only speed up scans the segments here (the same events), and an explicit
-request for a snapshot (``build_snapshot``, ``snapshot_status``) raises.
+'Event-loop server and micro-batcher').  This writer has no writer tag, so
+its snapshots are tagged ``local``, as the JAX package's are without one.
 """
 
 from __future__ import annotations
@@ -32,13 +37,16 @@ from __future__ import annotations
 import datetime as _dt
 import fcntl
 import json
+import logging
+import mmap
 import os
+import re
 import shutil
 import threading
 import time
 import uuid
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 from predictionio_tpu_torch.events.event import Event, canonical_event_json, parse_time
 from predictionio_tpu_torch.storage import base
@@ -51,11 +59,14 @@ from predictionio_tpu_torch.storage.base import (
     EvaluationInstance,
 )
 
+log = logging.getLogger("pio.storage")
+
 # rotate segments at 64 MiB; PIO_SEGMENT_MAX_BYTES overrides (tests rotate
 # early to exercise multi-segment layouts cheaply)
 SEGMENT_MAX_BYTES = int(os.environ.get("PIO_SEGMENT_MAX_BYTES", 64 << 20))
 DEFAULT_CHANNEL = "_default"
-ROADMAP_SNAPSHOTS = "ROADMAP.md, queue A, 'Columnar snapshots and the staged cache'"
+# event ids whose bytes are the same in every JSON encoding
+_PLAIN_ID = re.compile(r"[A-Za-z0-9_.-]+")
 
 
 def _fsync_policy() -> str:
@@ -83,6 +94,7 @@ class _SegmentWriter:
         self._f = None
         self._path: Optional[Path] = None
         self._last_sync = 0.0
+        self.rotations = 0   # new segment files opened (the snapshot auto-trigger)
 
     def append(self, text: str) -> None:
         if self._f is not None:
@@ -158,6 +170,7 @@ class _SegmentWriter:
         else:
             n = int(segs[-1].stem.rsplit("-", 1)[1]) + 1 if segs else 0
             path = self._dir / f"seg-{n:05d}.jsonl"
+            self.rotations += 1
         self._path = path
         self._f = open(path, "a")
 
@@ -636,6 +649,8 @@ class FSEvents(base.LEvents, base.PEvents):
         self._lock = threading.RLock()
         self._indexes: Dict[tuple, _EntityIndex] = {}
         self._writers: Dict[tuple, _SegmentWriter] = {}
+        self._rot_seen: Dict[tuple, int] = {}
+        self._snap_inflight: set = set()
 
     def _entity_index(self, app_id: int, channel_id: Optional[int]) -> _EntityIndex:
         key = (app_id, channel_id)
@@ -741,6 +756,11 @@ class FSEvents(base.LEvents, base.PEvents):
                     self._recover_compact(d)
                 w = self._writers[key] = _SegmentWriter(d)
             w.append(lines)
+            # the snapshot auto-trigger, checked only when this append
+            # opened a new segment
+            if w.rotations != self._rot_seen.get(key, 0):
+                self._rot_seen[key] = w.rotations
+                self._maybe_auto_snapshot(key)
 
     # -- compaction ------------------------------------------------------------
 
@@ -868,15 +888,110 @@ class FSEvents(base.LEvents, base.PEvents):
         self._indexes.pop(key, None)
         return {"kept": kept, "expired": expired, "segments": n_new}
 
-    # -- columnar snapshots (not ported yet) -----------------------------------
+    # -- columnar snapshots --------------------------------------------------------
 
     def build_snapshot(self, app_id: int, channel_id: Optional[int] = None) -> Dict:
-        raise NotImplementedError(
-            f"columnar snapshots are not ported yet ({ROADMAP_SNAPSHOTS})")
+        """Fold the (app, channel) log into a columnar snapshot
+        (``storage.snapshot``).  Safe beside live appends: segments are
+        append-only and only the lines complete at build time are covered."""
+        from predictionio_tpu_torch.storage import snapshot as _snap
 
-    def snapshot_status(self, app_id: int, channel_id: Optional[int] = None) -> Dict:
-        raise NotImplementedError(
-            f"columnar snapshots are not ported yet ({ROADMAP_SNAPSHOTS})")
+        self.segment_paths(app_id, channel_id)   # recover a crashed compaction
+        d = self._chan_dir(app_id, channel_id)
+        d.mkdir(parents=True, exist_ok=True)
+        return _snap.build_snapshot(d, self._tombstones(d), "local")
+
+    def snapshot_scan(self, app_id: int, channel_id: Optional[int] = None) -> Optional[Dict]:
+        """{"batch", "ids", "watermark", ...} from the mapped snapshot and
+        a parse of only the uncovered tail, or None (a miss: the caller
+        scans the log)."""
+        from predictionio_tpu_torch.storage import snapshot as _snap
+
+        if not _snap.enabled():
+            return None
+        self.segment_paths(app_id, channel_id)   # recover a crashed compaction
+        d = self._chan_dir(app_id, channel_id)
+        res = _snap.scan_snapshot(d, self._tombstones(d))
+        if res is None:
+            _snap.record_miss()
+        else:
+            _snap.record_hit()
+        return res
+
+    def scan_tail_from(self, app_id: int, channel_id: Optional[int],
+                       watermark: Dict[str, int], base=None,
+                       heads: Optional[Dict] = None) -> Optional[Dict]:
+        """Delta staging: parse only the events past ``watermark`` (a
+        previous read's per-segment offsets, ``heads`` its fingerprints);
+        None when the watermark no longer matches the log."""
+        from predictionio_tpu_torch.storage import snapshot as _snap
+
+        d = self._chan_dir(app_id, channel_id)
+        return _snap.scan_tail(d, watermark, self._tombstones(d), base=base, heads=heads)
+
+    def scan_events_up_to(self, app_id: int, channel_id: Optional[int],
+                          watermark: Dict[str, int],
+                          heads: Optional[Dict] = None) -> Optional[Dict]:
+        """The events up to ``watermark`` exactly (a restarted follower's
+        read); None when the watermark no longer matches the log."""
+        from predictionio_tpu_torch.storage import snapshot as _snap
+
+        d = self._chan_dir(app_id, channel_id)
+        return _snap.scan_bounded(d, watermark, self._tombstones(d), heads=heads)
+
+    def snapshot_status(self, app_id: int, channel_id: Optional[int] = None) -> Optional[Dict]:
+        from predictionio_tpu_torch.storage import snapshot as _snap
+
+        return _snap.snapshot_status(self._chan_dir(app_id, channel_id))
+
+    def tombstone_state(self, app_id: int, channel_id: Optional[int] = None) -> frozenset:
+        """The tombstoned ids (a staging cache is valid while they do not
+        change)."""
+        return frozenset(self._tombstones(self._chan_dir(app_id, channel_id)))
+
+    def _maybe_auto_snapshot(self, key: tuple) -> None:
+        """A background build once PIO_SNAPSHOT_SEGMENTS segments are
+        uncovered; called with the lock held, on a segment rotation."""
+        from predictionio_tpu_torch.storage import snapshot as _snap
+
+        thr = _snap.auto_threshold()
+        if thr <= 0 or not _snap.enabled() or key in self._snap_inflight:
+            return
+        if _snap.uncovered_segments(self._chan_dir(*key)) < thr:
+            return
+        self._snap_inflight.add(key)
+
+        def run():
+            try:
+                self.build_snapshot(*key)
+            except RuntimeError:
+                pass     # another process's build is in flight
+            except Exception:
+                log.warning("automatic snapshot build failed for %s", key, exc_info=True)
+            finally:
+                with self._lock:
+                    self._snap_inflight.discard(key)
+
+        threading.Thread(target=run, daemon=True, name="pio-snapshot-build").start()
+
+    def find_batches(self, app_id: int, batch_size: int = 1 << 20,
+                     **filters: Any) -> Iterator["EventBatch"]:  # noqa: F821
+        """Columnar batches, snapshot first: a valid snapshot and its tail
+        are ONE batch (filters applied on columns); a miss, or a filter the
+        columns do not hold, reads through the base scan."""
+        from predictionio_tpu_torch.storage import snapshot as _snap
+
+        plain = {"channel_id", "start_time", "until_time", "entity_type", "event_names"}
+        if set(filters) <= plain:
+            res = self.snapshot_scan(app_id, filters.get("channel_id"))
+            if res is not None:
+                yield _snap.apply_filters(
+                    res["batch"], event_names=filters.get("event_names"),
+                    entity_type=filters.get("entity_type"),
+                    start_time=filters.get("start_time"),
+                    until_time=filters.get("until_time"))
+                return
+        yield from super().find_batches(app_id, batch_size=batch_size, **filters)
 
     # -- reads -------------------------------------------------------------------
 
@@ -905,11 +1020,41 @@ class FSEvents(base.LEvents, base.PEvents):
         return next((e for e in self._iter_raw(app_id, channel_id) if e.event_id == event_id),
                     None)
 
+    def _is_live(self, event_id: str, app_id: int, channel_id: Optional[int]) -> bool:
+        """Whether a complete, untombstoned line holds the event ``event_id``.
+
+        An id of plain ASCII (letters, digits, ``-``, ``_``, ``.``: every
+        id the writers mint) has the same bytes in any JSON encoding, so the
+        segments are searched for them and only the lines that hold them
+        are parsed; any other id is looked for by parsing every line.
+        Either way the answer is the one a parse of the whole log gives."""
+        dead = self._tombstones(self._chan_dir(app_id, channel_id))
+        if event_id in dead:
+            return False
+        segs = self.segment_paths(app_id, channel_id)
+        if not _PLAIN_ID.fullmatch(event_id):
+            return any(e.event_id == event_id for e in self._iter_segments(segs, dead))
+        needle = event_id.encode()
+        for seg in segs:
+            with open(seg, "rb") as f:
+                if os.fstat(f.fileno()).st_size == 0:
+                    continue
+                with mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as data:
+                    end = data.rfind(b"\n") + 1   # a torn last line is not an event
+                    pos = data.find(needle, 0, end)
+                    while pos >= 0:
+                        a, b = data.rfind(b"\n", 0, pos) + 1, data.find(b"\n", pos)
+                        line = data[a:b].strip()
+                        if line and Event.from_json(json.loads(line)).event_id == event_id:
+                            return True
+                        pos = data.find(needle, b, end)
+        return False
+
     def delete(self, event_id: str, app_id: int, channel_id: Optional[int] = None) -> bool:
         d = self._chan_dir(app_id, channel_id)
         with self._lock:
             # under the lock: confirm the id is live, then tombstone it
-            if not any(e.event_id == event_id for e in self._iter_raw(app_id, channel_id)):
+            if not self._is_live(event_id, app_id, channel_id):
                 return False
             with open(d / "tombstones.txt", "a") as f:
                 f.write(event_id + "\n")

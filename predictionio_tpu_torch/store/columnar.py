@@ -1,23 +1,25 @@
 """Columnar event batches, id dictionaries and CSR row lookups.
 
-Counterpart of ``predictionio_tpu/store/columnar.py``: ``IdDict``,
-``CSRLookup``, the per-key property columns of the native scan
-(``PropColumn``), ``EventBatch`` (``from_events``, ``concat``, ``subset``,
-``select_events``) and ``fold_properties``.  The port keeps its own
-copies: it imports nothing of the JAX package.  The JAX ``IdDict``'s lazy
-blob plumbing, ``BatchMerger``, ``EventIdColumn`` and the snapshot
-writers serve its columnar snapshots (ROADMAP.md, queue A, 'Columnar
-snapshots and the staged cache'), so this ``IdDict`` is the plain list +
-dict form with the same state format (``to_state``/``from_state``).
+Counterpart of ``predictionio_tpu/store/columnar.py``: ``IdDict`` (with
+its lazy blob form), ``CSRLookup``, the per-key property columns of the
+native scan (``PropColumn``), ``EventBatch`` (``from_events``,
+``concat``, ``subset``, ``select_events``), ``EventIdColumn``, the PIOCOL01
+snapshot container (``write_batch``, ``read_batch``: byte-equal files and
+the same reads in both packages) and ``fold_properties``.  The port keeps
+its own copies: it imports nothing of the JAX package.  The JAX
+``BatchMerger`` (the sharded store's k-way merge) and
+``write_arrays``/``read_arrays`` (the model plane's container) wait for
+ROADMAP.md, queue A, 'Streaming'.
 """
-
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import datetime as _dt
 import json
+import mmap as _mmap
+import os
 
 import numpy as np
 
@@ -35,21 +37,51 @@ class IdDict:
     """Bidirectional string ↔ dense-int dictionary.
 
     Maps external ids ("u123", item SKUs) to dense int32 codes suitable
-    for device-side gathers.  The string→id index is built lazily, so a
-    model loaded from its state pays the dictcomp only at first lookup.
+    for device-side gathers.  Lazily materialised, as the JAX package's:
+    a dictionary read from a columnar snapshot by the native header parse
+    holds its strings as an undecoded UTF-8 blob with int64 offsets
+    (``from_blob``) until an accessor needs Python strings, and the
+    string→id index is built at the first lookup.
     """
 
-    __slots__ = ("_to_id", "_to_str")
+    __slots__ = ("_to_id", "_to_str", "_pending")
 
     def __init__(self, items: Optional[Sequence[str]] = None):
         self._to_id: Optional[Dict[str, int]] = {}
         self._to_str: List[str] = []
+        self._pending: Optional[List[Tuple[bytes, np.ndarray]]] = None
         for s in items or ():
             self.add(s)
 
+    @classmethod
+    def from_blob(cls, blob: bytes, offs: np.ndarray) -> "IdDict":
+        """The ``len(offs) - 1`` strings packed as ``blob`` + offsets;
+        nothing is decoded until an accessor needs it."""
+        d = cls.__new__(cls)
+        d._to_str = []
+        d._pending = [(blob, offs)] if len(offs) > 1 else None
+        d._to_id = None if d._pending is not None else {}
+        return d
+
+    def _strings(self) -> List[str]:
+        """The live string list, any pending blob decoded in: one decode
+        and one split of the NUL-joined blob, or a decode a string where a
+        string holds a NUL."""
+        if self._pending is not None:
+            for blob, offs in self._pending:
+                joined = _nul_joined(blob, offs)
+                if joined is not None:
+                    self._to_str.extend(joined.decode("utf-8", "surrogatepass").split("\0"))
+                else:
+                    o = offs.tolist()
+                    self._to_str.extend(blob[o[j]:o[j + 1]].decode("utf-8", "surrogatepass")
+                                        for j in range(len(o) - 1))
+            self._pending = None
+        return self._to_str
+
     def _index(self) -> Dict[str, int]:
         if self._to_id is None:
-            self._to_id = {s: i for i, s in enumerate(self._to_str)}
+            self._to_id = {s: i for i, s in enumerate(self._strings())}
         return self._to_id
 
     def add(self, s: str) -> int:
@@ -65,13 +97,26 @@ class IdDict:
         return self._index().get(s)
 
     def str(self, i: int) -> str:
-        return self._to_str[i]
+        return self._strings()[i]
 
     def __len__(self) -> int:
-        return len(self._to_str)
+        n = len(self._to_str)
+        for _blob, offs in self._pending or ():
+            n += len(offs) - 1
+        return n
+
+    def __contains__(self, s: str) -> bool:
+        return s in self._index()
 
     def strings(self) -> List[str]:
-        return list(self._to_str)
+        return list(self._strings())
+
+    def encode(self, values: Sequence[str]) -> np.ndarray:
+        """int32 codes of ``values``, adding the unknown ones in order."""
+        get = self._index().get
+        add = self.add
+        codes = [c if (c := get(v)) is not None else add(v) for v in values]
+        return np.fromiter(codes, dtype=np.int32, count=len(codes))
 
     def lookup_many(self, values: Sequence[str]) -> np.ndarray:
         """int32 ids of ``values``, -1 for unknown strings."""
@@ -80,14 +125,39 @@ class IdDict:
                            count=len(values))
 
     def to_state(self) -> List[str]:
-        return self._to_str
+        return self._strings()
 
     @classmethod
     def from_state(cls, strings: Sequence[str]) -> "IdDict":
         d = cls.__new__(cls)
         d._to_str = list(strings)
         d._to_id = None
+        d._pending = None
         return d
+
+    # the JAX package's pickle state: the string list in a 1-tuple
+    def __getstate__(self):
+        return (list(self._strings()),)
+
+    def __setstate__(self, state) -> None:
+        if len(state) == 2 and isinstance(state[1], dict):   # a slots pickle
+            state = (state[1]["_to_str"],)
+        self._to_str = list(state[0])
+        self._to_id = None
+        self._pending = None
+
+
+def _nul_joined(blob: bytes, offs: np.ndarray) -> Optional[bytes]:
+    """The ``len(offs) - 1`` strings packed as ``blob`` + offsets, joined
+    by NUL bytes in one ``np.insert``, so one ``split("\\0")`` gives them
+    all; None when there are none or a string holds a NUL itself."""
+    if len(offs) < 2:
+        return None
+    a, b = int(offs[0]), int(offs[-1])
+    part = blob[a:b]
+    if b"\0" in part:
+        return None
+    return np.insert(np.frombuffer(part, np.uint8), np.asarray(offs[1:-1]) - a, 0).tobytes()
 
 
 class CSRLookup:
@@ -353,6 +423,299 @@ class EventBatch:
         codes = [c for c in codes if c is not None]
         mask = np.isin(self.event_codes, np.asarray(codes, np.int32))
         return self.subset(mask)
+
+
+# ``EventIdColumn.rows_of`` looks ids up in one pass from this many on:
+# where the pass costs as much as an ``index_of`` scan an id.  Both grow
+# with the column's bytes, so the break-even does not; at 1.3M ids of 32
+# hex digits on an 8-core H100 host the pass took 0.426 s and
+# ``index_of`` 13.9 ms an id (``profile_torch.py --only store``, step 10).
+ROWS_OF_ONE_PASS = 31
+
+
+class EventIdColumn:
+    """Per-row event ids as a flat byte blob + int64 offsets: the
+    mmap-able companion of an ``EventBatch`` in a snapshot (for tombstones
+    after the build and integrity checks).  Row j is
+    ``blob[offs[j]:offs[j + 1]]``."""
+
+    __slots__ = ("blob", "offs", "_bytes")
+
+    def __init__(self, blob: np.ndarray, offs: np.ndarray):
+        self.blob = np.asarray(blob, np.uint8)
+        self.offs = np.asarray(offs, np.int64)
+        self._bytes: Optional[bytes] = None
+
+    @classmethod
+    def from_ids(cls, ids: Sequence[str]) -> "EventIdColumn":
+        encoded = [s.encode("utf-8", "surrogatepass") for s in ids]
+        offs = np.zeros(len(encoded) + 1, np.int64)
+        np.cumsum([len(b) for b in encoded], out=offs[1:])
+        return cls(np.frombuffer(b"".join(encoded), np.uint8).copy(), offs)
+
+    def __len__(self) -> int:
+        return len(self.offs) - 1
+
+    def _materialize(self) -> bytes:
+        if self._bytes is None:
+            self._bytes = self.blob.tobytes()
+        return self._bytes
+
+    def tolist(self) -> List[str]:
+        b, offs = self._materialize(), self.offs
+        return [b[offs[j]:offs[j + 1]].decode("utf-8", "surrogatepass")
+                for j in range(len(self))]
+
+    def index_of(self, event_id: str) -> int:
+        """Row of ``event_id`` or -1: a substring scan of the blob checked
+        against the offsets (a hit inside a longer id is skipped)."""
+        needle = event_id.encode("utf-8", "surrogatepass")
+        if not needle:
+            return -1
+        blob = self._materialize()
+        start = 0
+        while True:
+            p = blob.find(needle, start)
+            if p < 0:
+                return -1
+            row = int(np.searchsorted(self.offs, p, side="left"))
+            if (row < len(self) and self.offs[row] == p
+                    and self.offs[row + 1] - p == len(needle)):
+                return row
+            start = p + 1
+
+    def rows_of(self, event_ids) -> List[int]:
+        """The row ``index_of`` finds for each of ``event_ids`` that is in
+        the column: for ``ROWS_OF_ONE_PASS`` ids or more, one pass over the
+        column (its ids split out of the NUL-joined blob and looked up in a
+        set) instead of a blob scan an id."""
+        event_ids = list(event_ids)
+        joined = (_nul_joined(self._materialize(), self.offs)
+                  if len(event_ids) >= ROWS_OF_ONE_PASS else None)
+        if joined is None:
+            return [r for r in map(self.index_of, event_ids) if r >= 0]
+        needles = {e.encode("utf-8", "surrogatepass") for e in event_ids}
+        found: Dict[bytes, int] = {}
+        for j, x in enumerate(joined.split(b"\0")):
+            if x in needles and x not in found:
+                found[x] = j
+        return list(found.values())
+
+    @classmethod
+    def concat(cls, columns: Sequence["EventIdColumn"]) -> "EventIdColumn":
+        if len(columns) == 1:
+            return columns[0]
+        offs = [np.zeros(1, np.int64)]
+        base = 0
+        for c in columns:
+            offs.append(c.offs[1:] + base)
+            base += int(c.offs[-1])
+        return cls(np.concatenate([c.blob for c in columns]), np.concatenate(offs))
+
+    def subset(self, mask: np.ndarray) -> "EventIdColumn":
+        idx = np.flatnonzero(mask)
+        lens = np.diff(self.offs)[idx]
+        offs = np.zeros(len(idx) + 1, np.int64)
+        np.cumsum(lens, out=offs[1:])
+        total = int(offs[-1])
+        if total == 0:
+            return EventIdColumn(np.empty(0, np.uint8), offs)
+        gather = np.arange(total, dtype=np.int64) + np.repeat(self.offs[idx] - offs[:-1], lens)
+        return EventIdColumn(self.blob[gather], offs)
+
+
+# -- the PIOCOL01 container (snapshot files) -------------------------------------
+#
+# Layout, little-endian, as the JAX package writes it:
+#   bytes 0..7      magic b"PIOCOL01"
+#   bytes 8..15     uint64 header length H
+#   bytes 16..16+H  JSON header (column dtypes and offsets, the string
+#                   dictionaries, per-key property columns, opaque meta)
+#   data blobs, each 64-byte aligned, at offsets relative to 16 + H
+#
+# Loads are read-only views into a memory map: no parse, no copy.
+
+_COLUMNAR_MAGIC = b"PIOCOL01"
+_ALIGN = 64
+_COLS = (("event_codes", "<i4"), ("entity_type_codes", "<i4"), ("entity_ids", "<i4"),
+         ("target_ids", "<i4"), ("times_us", "<i8"), ("ratings", "<f4"))
+_PROP_COLS = (("rows", "<i8"), ("kind", "|i1"), ("num", "<f8"), ("str_offs", "<i8"),
+              ("codes", "<i4"))
+
+
+def _spec(arrays: List[np.ndarray], pos: int, arr: np.ndarray,
+          dtype: str) -> Tuple[Dict, int]:
+    arr = np.ascontiguousarray(arr)
+    pos = (pos + _ALIGN - 1) // _ALIGN * _ALIGN
+    arrays.append(arr)
+    return {"dtype": dtype, "n": int(arr.shape[0]), "off": pos}, pos + arr.nbytes
+
+
+def write_batch(path, batch: EventBatch, event_ids: Optional[EventIdColumn] = None,
+                meta: Optional[Dict] = None) -> None:
+    """Serialise ``batch`` (and its id column) into one PIOCOL01 file,
+    byte for byte as the JAX package's ``write_batch`` does.  Flushed and
+    fsync'd but not atomic: the caller owns the temporary name and the
+    rename (``storage.snapshot``)."""
+    arrays: List[np.ndarray] = []
+    pos = 0
+    cols = {}
+    for name, dt in _COLS:
+        cols[name], pos = _spec(arrays, pos, np.asarray(getattr(batch, name)).astype(dt), dt)
+    ids_entry = None
+    if event_ids is not None:
+        blob_spec, pos = _spec(arrays, pos, np.asarray(event_ids.blob, np.uint8), "|u1")
+        offs_spec, pos = _spec(arrays, pos, np.asarray(event_ids.offs).astype("<i8"), "<i8")
+        ids_entry = {"blob": blob_spec, "offs": offs_spec}
+    props_entry = []
+    for key, col in (batch.prop_columns or {}).items():
+        entry: Dict = {"dict": col.dict.to_state()}
+        for name, dt in _PROP_COLS:
+            entry[name], pos = _spec(arrays, pos, np.asarray(getattr(col, name)).astype(dt), dt)
+        props_entry.append([key, entry])
+    header = {
+        "rows": len(batch),
+        "cols": cols,
+        "ids": ids_entry,
+        "dicts": {"event": batch.event_dict.to_state(),
+                  "entity_type": batch.entity_type_dict.to_state(),
+                  "entity": batch.entity_dict.to_state(),
+                  "target": batch.target_dict.to_state()},
+        "props": props_entry,
+        "meta": meta or {},
+    }
+    hdr = json.dumps(header, separators=(",", ":")).encode()
+    data_base = 16 + len(hdr)
+    with open(path, "wb") as f:
+        f.write(_COLUMNAR_MAGIC)
+        f.write(len(hdr).to_bytes(8, "little"))
+        f.write(hdr)
+        at = data_base
+        for arr in arrays:
+            off = (at - data_base + _ALIGN - 1) // _ALIGN * _ALIGN
+            f.write(b"\0" * (data_base + off - at))
+            f.write(arr.data)
+            at = data_base + off + arr.nbytes
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def read_batch(path, mmap: bool = True
+               ) -> Tuple[EventBatch, Optional[EventIdColumn], Dict]:
+    """Load a PIOCOL01 file → (batch, ids or None, meta).
+
+    With ``mmap`` the columns are read-only views of the mapped file:
+    nothing may write into them, and a column handed to torch is copied
+    first.  The header is parsed by the native scan core
+    (``native/core.py``) where it is built and enabled, else by
+    ``json.loads``; both give the same batch.  Raises ValueError on a torn
+    or corrupt file (callers quarantine and rebuild)."""
+    from predictionio_tpu_torch.native import core as ncore
+
+    with open(path, "rb") as f:
+        try:
+            raw = _mmap.mmap(f.fileno(), 0, access=_mmap.ACCESS_READ)
+        except ValueError as e:   # an empty file: a torn write
+            raise ValueError(f"{path}: not a columnar snapshot: {e}") from None
+    mm = np.frombuffer(raw, dtype=np.uint8)
+    if mm.shape[0] < 16 or bytes(mm[:8]) != _COLUMNAR_MAGIC:
+        raise ValueError(f"{path}: not a columnar snapshot (bad magic)")
+    hlen = int.from_bytes(bytes(mm[8:16]), "little")
+    if 16 + hlen > mm.shape[0]:
+        raise ValueError(f"{path}: truncated header")
+    hdr_bytes = bytes(mm[16:16 + hlen])
+    if ncore.scan_enabled():
+        # a declined header (an unknown layout, or corrupt) falls through
+        # to json.loads, which reads it or raises the same ValueError
+        nh = ncore.ColumnarHeader.parse(hdr_bytes)
+        if nh is not None:
+            try:
+                out = _read_batch_native(path, mm, nh, hdr_bytes, 16 + hlen, mmap)
+                ncore.note_call("scan")
+                return out
+            except ValueError:
+                raise
+            except Exception:
+                ncore.note_fallback("error")
+        else:
+            ncore.note_fallback("unsupported")
+    try:
+        header = json.loads(hdr_bytes)
+    except (UnicodeDecodeError, json.JSONDecodeError) as e:
+        raise ValueError(f"{path}: corrupt header: {e}") from None
+    data_base = 16 + hlen
+
+    def view(spec) -> np.ndarray:
+        return _view(path, mm, data_base, (spec["n"], spec["off"]), spec["dtype"], mmap)
+
+    c, d = header["cols"], header["dicts"]
+    props = {key: PropColumn(**{name: view(entry[name]) for name, _ in _PROP_COLS},
+                             dict=IdDict.from_state(entry["dict"]))
+             for key, entry in header.get("props", [])}
+    batch = EventBatch(
+        **{name: view(c[name]) for name, _ in _COLS},
+        event_dict=IdDict.from_state(d["event"]),
+        entity_type_dict=IdDict.from_state(d["entity_type"]),
+        entity_dict=IdDict.from_state(d["entity"]),
+        target_dict=IdDict.from_state(d["target"]),
+        prop_columns=props,
+    )
+    if len(batch) != header["rows"]:
+        raise ValueError(f"{path}: row-count mismatch")
+    ids = None
+    if header.get("ids"):
+        ids = EventIdColumn(view(header["ids"]["blob"]), view(header["ids"]["offs"]))
+        if len(ids) != len(batch):
+            raise ValueError(f"{path}: id column length mismatch")
+    return batch, ids, header.get("meta", {})
+
+
+def _view(path, mm: np.ndarray, data_base: int, spec, dtype: str, want_mmap: bool) -> np.ndarray:
+    """Column ``spec`` = (n, off) of the mapped file as ``dtype``: a
+    read-only view, or a copy without ``want_mmap``."""
+    dt = np.dtype(dtype)
+    n, off = spec
+    a = data_base + off
+    b = a + n * dt.itemsize
+    if b > mm.shape[0]:
+        raise ValueError(f"{path}: truncated column data")
+    arr = mm[a:b].view(dt)
+    return arr if want_mmap else np.array(arr)
+
+
+def _read_batch_native(path, mm: np.ndarray, nh, hdr_bytes: bytes, data_base: int,
+                       want_mmap: bool):
+    """``read_batch``'s body from the native header parse ``nh``: the same
+    views, the dictionaries left as undecoded blobs.  Raises the same
+    ValueErrors for truncated data and length mismatches."""
+
+    def view(spec, dtype) -> np.ndarray:
+        return _view(path, mm, data_base, spec, dtype, want_mmap)
+
+    cols = {name: view(nh.spec(i), dt) for i, (name, dt) in enumerate(_COLS)}
+    props = {}
+    for i in range(nh.nprops):
+        arrs = {name: view(nh.prop_spec(i, w), dt) for w, (name, dt) in enumerate(_PROP_COLS)}
+        props[nh.prop_key(i)] = PropColumn(**arrs, dict=IdDict.from_blob(*nh.prop_dict_blob(i)))
+    batch = EventBatch(
+        **cols,
+        event_dict=IdDict.from_blob(*nh.dict_blob(0)),
+        entity_type_dict=IdDict.from_blob(*nh.dict_blob(1)),
+        entity_dict=IdDict.from_blob(*nh.dict_blob(2)),
+        target_dict=IdDict.from_blob(*nh.dict_blob(3)),
+        prop_columns=props,
+    )
+    if len(batch) != nh.rows:
+        raise ValueError(f"{path}: row-count mismatch")
+    ids = None
+    blob_spec = nh.spec(6)
+    if blob_spec is not None:
+        ids = EventIdColumn(view(blob_spec, "|u1"), view(nh.spec(7), "<i8"))
+        if len(ids) != len(batch):
+            raise ValueError(f"{path}: id column length mismatch")
+    span = nh.meta_span()
+    meta = json.loads(hdr_bytes[span[0]:span[0] + span[1]]) if span is not None else {}
+    return batch, ids, meta
 
 
 def fold_properties(batch: EventBatch, entity_type: Optional[str] = None

@@ -9,21 +9,33 @@ names are resolved to ids through the metadata store, exactly like the
 reference's ``Common.appNameToId``.
 
 On a segment-file backend (localfs) ``PEventStore.batch`` and
-``native_batch`` parse the segments with the native scanner and filter the
-columns (``apply_filters``), as the JAX package does.  A backend without
-segments (``memory``), a log with tombstones, or a host without a C++
-compiler reads the rows in Python instead: the JAX package's own branch
-for such a store.  The JAX package's retained-batch cache and columnar
-snapshots wait for ROADMAP.md, queue A, 'Columnar snapshots and the staged
-cache'.
+``native_batch`` read, in this order, as the JAX package does:
+
+1. the staged cache (``_StagedCache``): a batch this process retained for
+   the channel, extended by only the events appended past its watermark (a
+   retrain in one process parses just the delta), or else the channel's
+   columnar snapshot plus its JSON-lines tail (``snapshot_scan``), which
+   it then retains.  Tombstones are honoured: a changed tombstone set
+   drops the retained batch, and the snapshot read drops deleted rows by
+   their event id.  ``PIO_DELTA_STAGING=off`` retains nothing;
+   ``PIO_SNAPSHOT=off`` skips the snapshot;
+2. without a snapshot, the native scanner over the segments, the filters
+   applied on the columns (``storage.snapshot.apply_filters``);
+3. a backend without segments (``memory``), a log with tombstones and no
+   snapshot, or a host without a C++ compiler reads the rows in Python
+   instead: the JAX package's own branch for such a store.
+
+The cache is process-wide: ``invalidate_staging_cache()`` (or
+``_STAGED.invalidate()``) forces a cold read.
 """
 
 from __future__ import annotations
 
 import datetime as _dt
+import os
+import threading
+from collections import OrderedDict
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
-
-import numpy as np
 
 from predictionio_tpu_torch.events.event import Event, PropertyMap
 from predictionio_tpu_torch.storage.locator import Storage, get_storage
@@ -47,26 +59,90 @@ def _app_channel_ids(
     return app.id, channel_id
 
 
-def apply_filters(batch: EventBatch,
-                  event_names: Optional[Sequence[str]] = None,
-                  entity_type: Optional[str] = None,
-                  start_time: Optional[_dt.datetime] = None,
-                  until_time: Optional[_dt.datetime] = None) -> EventBatch:
-    """The scan filters on columns (``storage.base.match_filters``'s
-    semantics for these four)."""
-    mask = np.ones(len(batch), bool)
-    if event_names is not None:
-        codes = [batch.event_dict.id(n) for n in event_names]
-        codes = [c for c in codes if c is not None]
-        mask &= np.isin(batch.event_codes, np.asarray(codes, np.int32))
-    if entity_type is not None:
-        c = batch.entity_type_dict.id(entity_type)
-        mask &= batch.entity_type_codes == (c if c is not None else -2)
-    if start_time is not None:
-        mask &= batch.times_us >= int(start_time.timestamp() * 1e6)
-    if until_time is not None:
-        mask &= batch.times_us < int(until_time.timestamp() * 1e6)
-    return batch.subset(mask) if not mask.all() else batch
+def _delta_staging_enabled() -> bool:
+    """``PIO_DELTA_STAGING=off`` turns the retained-batch cache off."""
+    return os.environ.get("PIO_DELTA_STAGING", "").lower() not in ("off", "0", "false")
+
+
+class _StagedCache:
+    """Retained staging batches of this process, for delta retrains.
+
+    Keyed by the channel's directory, each entry holds the UNFILTERED
+    columnar batch of the whole log with the per-segment byte watermark,
+    segment fingerprints and tombstone set it reflects.  A retrain in the
+    same process stages ONLY the events past the watermark and splices
+    them in on the shared-dictionary concat path; a changed tombstone set
+    or log shape drops the entry (a full restage).  Entries exist only for
+    stores with a snapshot layer, which supplies the watermark.
+    """
+
+    MAX_ENTRIES = 4
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._entries: "OrderedDict[str, dict]" = OrderedDict()
+
+    def staged_batch(self, backend, app_id: int,
+                     channel_id: Optional[int]) -> Optional[EventBatch]:
+        """The whole (app, channel) batch from the retained entry plus the
+        delta, else from the backend's ``snapshot_scan`` (then retained),
+        else None.  The delta splice runs under the lock, so an entry
+        changes atomically; a cold read runs outside it."""
+        from predictionio_tpu_torch.storage import snapshot as _snap
+
+        key = (str(backend._chan_dir(app_id, channel_id)) if hasattr(backend, "_chan_dir")
+               else f"{id(backend)}/{app_id}/{channel_id}")
+        use_cache = _delta_staging_enabled()
+        with self._lock:
+            ent = self._entries.get(key) if use_cache else None
+            if ent is not None:
+                if backend.tombstone_state(app_id, channel_id) == ent["tombstones"]:
+                    tail = backend.scan_tail_from(app_id, channel_id, ent["watermark"],
+                                                  base=ent["batch"], heads=ent["heads"])
+                    if tail is not None:
+                        if tail["events"]:
+                            ent["batch"] = EventBatch.concat([ent["batch"], tail["batch"]])
+                            _snap.record_delta(tail["events"])
+                        ent["watermark"] = tail["watermark"]
+                        ent["heads"] = tail["heads"]
+                        self._entries.move_to_end(key)
+                        _snap.record_hit()
+                        return ent["batch"]
+                self._entries.pop(key, None)   # stale: a full restage below
+        tomb = (backend.tombstone_state(app_id, channel_id)
+                if hasattr(backend, "tombstone_state") else frozenset())
+        res = backend.snapshot_scan(app_id, channel_id)
+        if res is None:
+            return None
+        if use_cache:
+            with self._lock:
+                self._entries[key] = {"batch": res["batch"], "watermark": res["watermark"],
+                                      "heads": res.get("heads", {}), "tombstones": tomb}
+                self._entries.move_to_end(key)
+                while len(self._entries) > self.MAX_ENTRIES:
+                    self._entries.popitem(last=False)
+        return res["batch"]
+
+    def invalidate(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+
+_STAGED = _StagedCache()
+
+
+def invalidate_staging_cache() -> None:
+    """Drop every retained staging batch (tests; releasing memory)."""
+    _STAGED.invalidate()
+
+
+def staging_counts() -> Dict[str, int]:
+    """The cumulative staged-event counts by source (snapshot, tail,
+    delta): a (re)train's reads, diffed around it, say how many events it
+    staged from where."""
+    from predictionio_tpu_torch.storage import snapshot as _snap
+
+    return _snap.staged_counts()
 
 
 class PEventStore:
@@ -106,8 +182,9 @@ class PEventStore:
         storage: Optional[Storage] = None,
     ) -> EventBatch:
         """Read matching events as ONE columnar batch (the device-staging
-        format): the native scan's, in log order, on a segment backend,
-        else the backend's ``find`` order.  The JAX package's
+        format): ``native_batch``'s (the staged cache's, the snapshot's or
+        the native scan's, in log order) on a segment backend, else the
+        backend's ``find`` order.  The JAX package's
         ``local_shard`` (multi-host reads) waits for ROADMAP.md, queue A,
         'parallel → torch.distributed'."""
         storage = storage or get_storage()
@@ -137,17 +214,25 @@ class PEventStore:
         storage: Optional[Storage] = None,
     ) -> Optional[EventBatch]:
         """Columnar batch WITH full property columns from a segment
-        backend's native scan, or None where there is none: a backend
-        without segments, no C++ compiler, or a tombstone in the log (the
-        scanner cannot see deletes).  Callers that need properties pick
-        their read with it, before any row read."""
+        backend, or None where there is none: a backend without segments,
+        or, without a snapshot, no C++ compiler or a tombstone in the log
+        (the scanner cannot see deletes).  A retained batch or a snapshot
+        and its tail serve first (tombstones honoured); only a miss reaches
+        the native scan.  Callers that need properties pick their read with
+        it, before any row read."""
         from predictionio_tpu_torch.native import native_available, scan_segments
+        from predictionio_tpu_torch.storage import snapshot as _snap
 
         storage = storage or get_storage()
         backend = storage.p_events
         if not hasattr(backend, "segment_paths"):
             return None
         app_id, channel_id = _app_channel_ids(app_name, channel_name, storage)
+        filters = dict(event_names=event_names, entity_type=entity_type,
+                       start_time=start_time, until_time=until_time)
+        staged = _STAGED.staged_batch(backend, app_id, channel_id)
+        if staged is not None:
+            return _snap.apply_filters(staged, **filters)
         if not native_available():
             return None
         paths = backend.segment_paths(app_id, channel_id)
@@ -156,9 +241,7 @@ class PEventStore:
         if any(t.stat().st_size > 0 for parent in {p.parent for p in paths}
                for t in parent.glob("tombstones*.txt")):
             return None
-        return apply_filters(scan_segments(paths), event_names=event_names,
-                             entity_type=entity_type, start_time=start_time,
-                             until_time=until_time)
+        return _snap.apply_filters(scan_segments(paths), **filters)
 
     @staticmethod
     def aggregate_properties(

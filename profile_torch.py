@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the PyTorch/H100 port's time goes: ALS serving and UR training.
 
-    python3 profile_torch.py [--queries N] [--only als|ur|k1|store]
+    python3 profile_torch.py [--queries N] [--only als|ur|k1|store] [--ab-parent DIR]
 
 ALS serving.  Builds the model ``chip_smoke.py`` serves (5,000 users x
 100,000 items x rank 32, random factors from a seed) on the CUDA card and
@@ -45,7 +45,26 @@ data) in a temporary directory:
 9. the JSON-lines write, ``pio import`` (events/s), the native scan of the
    segments (3 runs, its read rate, and the C++ parse and merge alone),
    ``fold_properties`` of the item ``$set`` events, and ``read_training``
-   (scan, fold and translation).
+   (scan, fold and translation);
+10. the columnar snapshot of the same store: its build (``pio snapshot``'s
+   work), ``read_batch`` of the snapshot file with the native header parse
+   and with the Python one (``PIO_NATIVE=on|off``, 3 runs each; the read
+   alone, and with the dictionaries decoded and every column paged in),
+   ``scan_tail`` of a ``chip_smoke.SNAP_TAIL`` tail imported after the
+   build, the lookup of ``chip_smoke.SNAP_DELETES`` tombstoned ids in the
+   snapshot's id column (an ``index_of`` an id, as the JAX package's
+   ``drop_tombstoned`` does, against ``rows_of``'s one pass), the ``$set``
+   fold of the snapshot's batch, ``read_training`` served by the snapshot
+   and its tail, and ``delete``'s liveness check for three view events
+   (the first, the middle and the last one of the log): the byte search
+   of the segments (``FSEvents._is_live``) against the full parse of the
+   log that the JAX package's ``delete`` runs.
+
+With ``--ab-parent DIR`` (``--only store``; DIR a checkout of another
+commit, e.g. ``git archive`` of the parent unpacked into ``_archive/``),
+step 9's store is also read by ``read_training`` through the native scan
+in fresh processes, 3 reads each, in the order DIR, this checkout, this
+checkout, DIR: the two commits' native-scan reads on one store and host.
 
 Needs a CUDA card; imports neither JAX nor the JAX package.  Prints one
 JSON object as its last line.
@@ -60,6 +79,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -184,7 +204,7 @@ def profile_k1(chip_smoke, smi: str) -> dict:
             "rounds": rounds, "build_s": build_s}
 
 
-def profile_store(chip_smoke, smi: str) -> dict:
+def profile_store(chip_smoke, smi: str, ab_parent: Optional[Path] = None) -> dict:
     """Step 9: import, native scan and $set fold at the deployed width."""
     import os
     import shutil
@@ -239,6 +259,9 @@ def profile_store(chip_smoke, smi: str) -> dict:
         t0 = time.perf_counter()
         ur.URDataSource(ep.data_source_params).read_training()
         t["read_training_s"] = time.perf_counter() - t0
+        if ab_parent is not None:
+            t["read_training_ab"] = read_training_ab(chip_smoke, ab_parent, workdir / "store")
+        t["snapshot"] = profile_snapshot(chip_smoke, store, ep, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
         set_storage(None)
@@ -255,10 +278,182 @@ def profile_store(chip_smoke, smi: str) -> dict:
     return t
 
 
+# one process's native-scan reads: argv = engine variant (JSON), reads
+AB_READ = r"""
+import json, sys, time
+from predictionio_tpu_torch.native import scanner
+from predictionio_tpu_torch.workflow.create_workflow import engine_from_variant
+assert scanner.native_available(), "the native scanner did not build"
+_, engine, ep = engine_from_variant(json.loads(sys.argv[1]))
+out = []
+for _ in range(int(sys.argv[2])):
+    n = scanner.scans_served
+    t0 = time.perf_counter()
+    td = engine.make_components(ep)[0].read_training()
+    out.append(time.perf_counter() - t0)
+    assert scanner.scans_served == n + 1, "read_training made no native scan"
+    del td
+print(json.dumps(out))
+"""
+
+
+def read_training_ab(chip_smoke, parent: Path, store_root: Path, reads: int = 3) -> dict:
+    """``read_training`` through the native scan of step 9's store (no
+    snapshot yet) by ``parent``'s package and by this checkout's, each in
+    fresh processes, in the order parent, this, this, parent."""
+    import os
+
+    here = Path(__file__).resolve().parent
+    env = {**os.environ, **chip_smoke.localfs_env(store_root)}
+    variant = json.dumps(chip_smoke.engine_variant(False))
+    out = {"parent": [], "change": []}
+    for who, root in (("parent", parent), ("change", here), ("change", here),
+                      ("parent", parent)):
+        r = subprocess.run([sys.executable, "-c", AB_READ, variant, str(reads)],
+                           cwd=root, env={**env, "PYTHONPATH": str(root)},
+                           capture_output=True, text=True, timeout=900)
+        if r.returncode != 0:
+            raise RuntimeError(f"{who} read failed: {r.stderr[-2000:]}")
+        out[who].append(json.loads(r.stdout.strip().splitlines()[-1]))
+    fmt = lambda runs: " | ".join(", ".join(f"{x:.3f}" for x in xs) for xs in runs)  # noqa: E731
+    print(f"  read_training through the native scan, fresh processes in the order parent, "
+          f"change, change, parent: parent {fmt(out['parent'])} s; change "
+          f"{fmt(out['change'])} s")
+    return out
+
+
+def delete_liveness(store, app_id, ids, n_items, n_p, n_v) -> dict:
+    """``delete``'s check that an id is live, for the first, the middle
+    and the last view event of the log: the byte search against the full
+    parse (the JAX package's ``delete``: every line parsed up to the id)."""
+    fs = store.l_events
+    out = {}
+    for name, row in (("first", n_items + n_p), ("middle", n_items + n_p + n_v // 2),
+                      ("last", n_items + n_p + n_v - 1)):
+        eid = bytes(ids.blob[ids.offs[row]:ids.offs[row + 1]]).decode()
+        t0 = time.perf_counter()
+        live = fs._is_live(eid, app_id, None)
+        search = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        parsed = any(e.event_id == eid for e in fs._iter_raw(app_id, None))
+        full = time.perf_counter() - t0
+        if not (live and parsed):
+            raise RuntimeError(f"event {eid} (row {row}) not found live")
+        out[name] = {"row": row, "byte_search_s": search, "full_parse_s": full}
+    return out
+
+
+def profile_snapshot(chip_smoke, store, ep, workdir) -> dict:
+    """Step 10: the snapshot's build, its read with either header parse,
+    the tail scan, the $set fold and read_training from it."""
+    import os
+
+    from predictionio_tpu_torch.models import universal_recommender as ur
+    from predictionio_tpu_torch.native import core as ncore
+    from predictionio_tpu_torch.storage import snapshot as snap
+    from predictionio_tpu_torch.store.columnar import fold_properties, read_batch
+    from predictionio_tpu_torch.store.event_store import invalidate_staging_cache
+
+    if ncore.lib() is None:   # built here, outside the timings
+        raise RuntimeError("the native scan core did not build")
+    app_id = store.apps.get_by_name("smoke").id
+    chan = store.l_events._chan_dir(app_id, None)
+    t = {}
+    t0 = time.perf_counter()
+    stats = store.l_events.build_snapshot(app_id)
+    t["build_s"] = time.perf_counter() - t0
+    path = chan / snap.SNAP_DIR / stats["snapshot"]
+    t["bytes"] = path.stat().st_size
+
+    def touch(batch):
+        # decode every dictionary and page every column in
+        total = sum(int(getattr(batch, c).sum()) for c in ("entity_ids", "target_ids", "times_us"))
+        for d in (batch.event_dict, batch.entity_type_dict, batch.entity_dict, batch.target_dict):
+            d.strings()
+        for col in (batch.prop_columns or {}).values():
+            col.dict.strings()
+            total += int(col.rows.sum()) + int(col.codes.sum())
+        return total
+
+    for native in ("on", "off"):
+        os.environ["PIO_NATIVE"] = native
+        alone, touched = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            batch, ids, _meta = read_batch(path)
+            alone.append(time.perf_counter() - t0)
+            touch(batch)
+            touched.append(time.perf_counter() - t0)
+        t[f"read_batch_native_{native}_s"] = alone
+        t[f"read_batch_native_{native}_touched_s"] = touched
+    os.environ.pop("PIO_NATIVE")
+    m = snap.load_manifest(chan)
+    n_tail = sum(chip_smoke.SNAP_TAIL)
+    rng = np.random.default_rng(chip_smoke.SEED + 7)
+    n_users, n_items = chip_smoke.DEPLOYED_UR[:2]
+    tail = [(name, rng.integers(0, n_users, n).astype(np.int32),
+             (rng.zipf(1.3, n) % n_items).astype(np.int32),
+             chip_smoke.T0 + 2e6 + np.arange(n, dtype=np.float64))
+            for name, n in zip(("purchase", "view"), chip_smoke.SNAP_TAIL)]
+    with open(workdir / "tail.jsonl", "w") as f:
+        chip_smoke.write_interactions(f, tail)
+    chip_smoke.pio("import", "--app-name", "smoke", "--input", str(workdir / "tail.jsonl"))
+    tails = []
+    for _ in range(3):
+        base, _ids, _meta = read_batch(path)
+        t0 = time.perf_counter()
+        res = snap.scan_tail(chan, m["covered"], set(), base=base, heads=m["heads"])
+        tails.append(time.perf_counter() - t0)
+        if res["events"] != n_tail:
+            raise RuntimeError(f"scan_tail read {res['events']} events, not {n_tail}")
+    t["scan_tail_s"] = tails
+    _batch, ids, _meta = read_batch(path)
+    picks = rng.choice(np.arange(len(ids) // 2, len(ids)), chip_smoke.SNAP_DELETES, replace=False)
+    dead = {bytes(ids.blob[ids.offs[r]:ids.offs[r + 1]]).decode() for r in picks.tolist()}
+    ids.tolist()   # the blob paged in before either lookup
+    t0 = time.perf_counter()
+    by_index_of = sorted(ids.index_of(e) for e in dead)
+    t["tombstone_index_of_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    by_rows_of = sorted(ids.rows_of(dead))
+    t["tombstone_rows_of_s"] = time.perf_counter() - t0
+    if by_index_of != by_rows_of or by_rows_of != sorted(picks.tolist()):
+        raise RuntimeError("rows_of and index_of disagree")
+    n_p, n_v = chip_smoke.DEPLOYED_UR[2:4]
+    t["delete_liveness"] = delete_liveness(store, app_id, ids, n_items, n_p, n_v)
+    res = store.l_events.snapshot_scan(app_id)
+    t0 = time.perf_counter()
+    folded = fold_properties(res["batch"], "item")
+    t["fold_s"] = time.perf_counter() - t0
+    invalidate_staging_cache()
+    t0 = time.perf_counter()
+    ur.URDataSource(ep.data_source_params).read_training()
+    t["read_training_s"] = time.perf_counter() - t0
+    invalidate_staging_cache()
+    t.update(events=stats["events"], tail_events=n_tail, folded_items=len(folded))
+    fmt = lambda xs: ", ".join(f"{x:.4f}" for x in xs)  # noqa: E731
+    print(f"  snapshot: build {t['build_s']:.3f} s ({stats['events']} events, {t['bytes']} "
+          f"bytes); read_batch with the native header parse {fmt(t['read_batch_native_on_s'])} "
+          f"s (decoded and paged in {fmt(t['read_batch_native_on_touched_s'])}), with the "
+          f"Python one {fmt(t['read_batch_native_off_s'])} s (decoded and paged in "
+          f"{fmt(t['read_batch_native_off_touched_s'])}); scan_tail of {n_tail} events "
+          f"{fmt(tails)} s; {len(dead)} tombstoned ids found by index_of "
+          f"{t['tombstone_index_of_s']:.3f} s, by rows_of {t['tombstone_rows_of_s']:.3f} s; "
+          f"$set fold {t['fold_s']:.3f} s; read_training from the snapshot "
+          f"and its tail {t['read_training_s']:.3f} s (host work; {os.cpu_count()} CPUs)")
+    print("  delete's liveness check, byte search against the full parse: " + "; ".join(
+        f"{k} view event (row {v['row']}) {v['byte_search_s']:.4f} s against "
+        f"{v['full_parse_s']:.3f} s" for k, v in t["delete_liveness"].items()))
+    return t
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--queries", type=int, default=200)
     ap.add_argument("--only", choices=("als", "ur", "k1", "store"), default=None)
+    ap.add_argument("--ab-parent", type=Path, default=None,
+                    help="with --only store: a checkout of another commit whose "
+                         "native-scan read_training runs beside this one's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: needs a CUDA card", file=sys.stderr)
@@ -277,7 +472,7 @@ def main() -> int:
     if args.only == "k1":
         out["k1"] = profile_k1(chip_smoke, smi)
     if args.only == "store":
-        out["store"] = profile_store(chip_smoke, smi)
+        out["store"] = profile_store(chip_smoke, smi, args.ab_parent)
     print(json.dumps(out))
     return 0
 

@@ -1,6 +1,7 @@
-"""Seeded event corpora written into both packages' memory stores, shared by
-tests/test_torch_store.py, tests/test_torch_workflow.py and
-tests/test_torch_ur_rules.py.
+"""Seeded event corpora written into both packages' stores, shared by the
+port's store, workflow, rule, localfs, native and snapshot tests, and
+``assert_same_batch``, which holds two columnar batches (either package's)
+equal.
 
 A corpus is a list of specs ``(event, entity_type, entity_id, target_type,
 target_id, properties, event_time, creation_time)`` in insertion order, so
@@ -132,3 +133,27 @@ def fill_both(jax_store, port_store, app, specs):
     jax_store.l_events.insert_batch(jax_events(specs), jax_id)
     port_store.l_events.insert_batch(port_events(specs), port_id)
     return jax_id, port_id
+
+
+def assert_same_batch(got, want):
+    """Two columnar batches (either package's) equal: columns with their
+    dtypes, dictionaries, property columns and their values."""
+    for col in ("event_codes", "entity_type_codes", "entity_ids", "target_ids",
+                "times_us", "ratings"):
+        g, w = getattr(got, col), getattr(want, col)
+        assert g.dtype == w.dtype, col
+        np.testing.assert_array_equal(g, w, err_msg=col)
+    for d in ("event_dict", "entity_type_dict", "entity_dict", "target_dict"):
+        assert getattr(got, d).strings() == getattr(want, d).strings(), d
+    assert (got.prop_columns is None) == (want.prop_columns is None)
+    if want.prop_columns is None:
+        return
+    assert list(got.prop_columns) == list(want.prop_columns)
+    for key, w in want.prop_columns.items():
+        g = got.prop_columns[key]
+        for f in ("rows", "kind", "num", "str_offs", "codes"):
+            a, b = getattr(g, f), getattr(w, f)
+            assert a.dtype == b.dtype, (key, f)
+            np.testing.assert_array_equal(a, b, err_msg=f"{key}.{f}")
+        assert g.dict.strings() == w.dict.strings(), key
+        assert [g.value_at(j) for j in range(len(g))] == [w.value_at(j) for j in range(len(w))]

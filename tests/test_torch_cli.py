@@ -2,14 +2,17 @@
 
 The whole loop runs in subprocesses on the CPU (``PIO_TORCH_DEVICE=cpu``)
 over one localfs store: ``app new`` → ``import`` of a JSON-lines corpus of a
-few hundred events (interactions and ``$set`` item properties) → ``build``
-→ ``train`` → ``deploy`` → ``POST /queries.json`` → ``undeploy`` →
+few hundred events (interactions and ``$set`` item properties) →
+``snapshot`` (and ``snapshot --status``) → ``build`` → ``train``, which
+reads the snapshot → ``deploy`` → ``POST /queries.json`` → ``undeploy`` →
 ``export``.  The served answers equal, under the UR bar of
 ``_torch_ur_cases.assert_same_answer`` (scores within rtol 1e-5), the JAX
 package's UR trained on the same events; the import writes the segment
 bytes the JAX ``pio import`` writes; the export equals the JAX ``pio
-export`` of the same store byte for byte.  Every subcommand the port does
-not have yet exits non-zero naming its ROADMAP item.
+export`` of the same store byte for byte; the JAX ``pio snapshot
+--status`` reads the port-built snapshot and prints what the port's does,
+and the port's reads a JAX-built one.  Every subcommand the port does not
+have yet exits non-zero naming its ROADMAP item.
 """
 
 import json
@@ -100,6 +103,8 @@ def loop(tmp_path_factory):
     out = {"root": root, "corpus": corpus}
     out["new"] = _pio(root, "app", "new", APP).stdout
     out["import"] = _pio(root, "import", "--app-name", APP, "--input", str(corpus)).stdout
+    out["snapshot"] = _pio(root, "snapshot", APP).stdout
+    out["status"] = _pio(root, "snapshot", APP, "--status").stdout
     out["build"] = _pio(root, "build").stdout
     out["train"] = _pio(root, "train").stdout
     out["show"] = _pio(root, "app", "show", APP).stdout
@@ -165,6 +170,26 @@ def test_app_new_import_build_train(loop):
     assert "Registered engine cli-ur 1" in loop["build"]
     assert loop["train"].startswith("Training completed. Engine instance id: ")
     assert "access key: " in loop["show"]
+
+
+def test_snapshot_before_train_and_the_jax_status_of_it(loop, capsys):
+    n = len(rule_corpus(STAMPS))
+    assert loop["snapshot"].startswith(f"Built snapshot for app '{APP}': {n} events from 1 "
+                                       "segment(s) in ")
+    lines = loop["status"].splitlines()
+    assert lines[0] == f"Snapshot status for app '{APP}':"
+    assert lines[2:] == [f"  events: {n} in snapshot, 0 in JSONL tail (0 bytes)",
+                         "  coverage: 1.0000 over 1 segment(s)"]
+    assert "writer local)" in lines[1]
+    jax_set_storage(JaxStorage(JaxStorageConfig(
+        sources={"S": {"type": "localfs", "path": str(loop["root"] / "store-at-train")}},
+        repositories={r: "S" for r in ("METADATA", "EVENTDATA", "MODELDATA")})))
+    try:
+        capsys.readouterr()
+        assert jax_cli._cmd_snapshot(_jax_args(["snapshot", APP, "--status"])) == 0
+    finally:
+        jax_set_storage(None)
+    assert capsys.readouterr().out == loop["status"]
 
 
 def test_deploy_serves_on_the_asked_device_and_undeploy_ends_it(loop):
@@ -273,6 +298,42 @@ def test_cuda_without_a_card_fails_and_cpu_trains(port_store, tmp_path, monkeypa
     assert "read_training -> URTrainingData" in capsys.readouterr().out
     assert cli.main(["train"]) == 0
     assert [i.status for i in port_store.engine_instances.get_all()] == ["COMPLETED"]
+
+
+def test_snapshot_of_a_jax_built_store_and_its_tail(port_store, tmp_path, capsys):
+    """The JAX ``pio snapshot`` builds; the port's ``--status`` reports it
+    and the tail the port imports after it, as the JAX one does; errors
+    exit 1."""
+    events = port_events(rule_corpus(STAMPS))
+    (tmp_path / "a.jsonl").write_text("".join(json.dumps(e.to_json()) + "\n"
+                                              for e in events[:40]))
+    (tmp_path / "b.jsonl").write_text("".join(json.dumps(e.to_json()) + "\n"
+                                              for e in events[40:]))
+    assert cli.main(["app", "new", APP]) == 0
+    assert cli.main(["snapshot", APP, "--status"]) == 0
+    assert capsys.readouterr().out.endswith(f"No snapshot for app '{APP}'.\n")
+    assert cli.main(["import", "--app-name", APP, "--input", str(tmp_path / "a.jsonl")]) == 0
+    jax_set_storage(JaxStorage(JaxStorageConfig(
+        sources={"S": {"type": "localfs", "path": str(tmp_path / "store")}},
+        repositories={r: "S" for r in ("METADATA", "EVENTDATA", "MODELDATA")})))
+    try:
+        assert jax_cli._cmd_snapshot(_jax_args(["snapshot", APP])) == 0
+        assert cli.main(["import", "--app-name", APP, "--input", str(tmp_path / "b.jsonl")]) == 0
+        capsys.readouterr()
+        assert jax_cli._cmd_snapshot(_jax_args(["snapshot", APP, "--status"])) == 0
+        want = capsys.readouterr().out
+    finally:
+        jax_set_storage(None)
+    assert cli.main(["snapshot", APP, "--status"]) == 0
+    got = capsys.readouterr().out
+    assert got == want
+    assert f"  events: 40 in snapshot, {len(events) - 40} in JSONL tail" in got
+    assert cli.main(["snapshot", "nope"]) == 1
+    assert cli.main(["snapshot", APP, "--channel", "nope"]) == 1
+    assert "does not exist" in capsys.readouterr().err
+    assert cli.main(["snapshot", APP]) == 0
+    assert cli.main(["snapshot", APP, "--status"]) == 0
+    assert f"  events: {len(events)} in snapshot, 0 in JSONL tail" in capsys.readouterr().out
 
 
 def test_app_and_key_management(port_store, capsys):

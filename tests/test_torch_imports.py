@@ -137,6 +137,49 @@ def test_cli_loads_no_jax_module():
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+# the snapshot path in a fresh interpreter: pio import -> pio snapshot -> a
+# tail import -> pio train from the mapped snapshot and its tail (the
+# native header parse counted), then the staged cache's delta read
+_SNAPSHOT = r"""
+import json, os, sys, tempfile
+d = tempfile.mkdtemp()
+os.environ.update(PIO_FS_BASEDIR=os.path.join(d, "store"), PIO_TORCH_DEVICE="cpu",
+                  PIO_NATIVE="on")
+from predictionio_tpu_torch.cli.main import main
+from predictionio_tpu_torch.native import core, scanner
+from predictionio_tpu_torch.storage import snapshot
+from predictionio_tpu_torch.store.event_store import PEventStore
+for name, lo, hi in (("a.jsonl", 0, 150), ("b.jsonl", 150, 200)):
+    with open(os.path.join(d, name), "w") as f:
+        for k in range(lo, hi):
+            f.write(json.dumps({"event": "buy", "entityType": "user", "entityId": f"u{k % 17}",
+                                "targetEntityType": "item", "targetEntityId": f"i{k % 11}"}) + "\n")
+with open(os.path.join(d, "engine.json"), "w") as f:
+    json.dump({"engineFactory": "universal_recommender",
+               "datasource": {"params": {"appName": "a", "eventNames": ["buy"]}},
+               "algorithms": [{"name": "ur", "params": {"appName": "a"}}]}, f)
+os.chdir(d)
+for argv in (["app", "new", "a"], ["import", "--app-name", "a", "--input", "a.jsonl"],
+             ["snapshot", "a"], ["import", "--app-name", "a", "--input", "b.jsonl"],
+             ["snapshot", "a", "--status"], ["build"], ["train"]):
+    assert main(argv) == 0, argv
+assert snapshot.staged_counts() == {"snapshot": 150, "tail": 50, "delta": 0}
+assert scanner.scans_served == 0 and core.calls["scan"] == 1
+assert len(PEventStore.batch("a")) == 200
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "predictionio_tpu" or m.startswith("predictionio_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def test_snapshot_path_loads_no_jax_module():
+    out = subprocess.run([sys.executable, "-c", _SNAPSHOT], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 # a store the JAX package wrote, read by the port's console in a fresh
 # interpreter
 _READ_JAX_STORE = r"""

@@ -464,11 +464,43 @@ def test_insert_after_crashed_commit_recovers_first(tmp_path):
     assert "POSTCRASH" in got and len(got) == 6
 
 
+def test_delete_finds_events_as_the_jax_delete_does(tmp_path, monkeypatch):
+    """The port's delete looks a plain id up by its bytes; its answers are
+    the JAX delete's (a full parse): ids inside longer ids and property
+    values, escaped and non-ASCII ids, a torn last line, tombstoned ids."""
+    monkeypatch.setattr(lfs, "SEGMENT_MAX_BYTES", 600)
+    monkeypatch.setattr(jax_localfs, "SEGMENT_MAX_BYTES", 600)
+    ids = ["ab", "abc", "x.y-z_1", "é/1", 'q"uote', "in-prop", "torn"]
+    specs = [("buy", "user", f"u{k}", "item", "i1", {"note": "in-prop-not" if k == 0 else k},
+              ts(k), ts(k)) for k in range(len(ids))]
+    stores = {}
+    for name, mod, make in (("port", lfs, port_events), ("jax", jax_localfs, jax_events)):
+        ev = mod.FSEvents(tmp_path / name)
+        evs = make(specs)
+        for e, eid in zip(evs, ids):
+            e.event_id = eid
+        for k in range(0, len(evs) - 1, 2):
+            ev.insert_batch(evs[k:k + 2], 1)
+        seg = sorted(ev._chan_dir(1, None).glob("seg-*.jsonl"))[-1]
+        with open(seg, "a") as f:   # a writer killed mid-append
+            f.write(evs[-1].to_json_line()[:50])
+        stores[name] = ev
+    for eid in ["ab", "b", "abc", "x.y-z_1", "é/1", 'q"uote', "in-prop", "torn", "nope", "ab"]:
+        assert stores["port"].delete(eid, 1) == stores["jax"].delete(eid, 1), eid
+    assert ([e.event_id for e in stores["port"].find(1)]
+            == [e.event_id for e in stores["jax"].find(1)] == [])
+
+
 def test_snapshot_requests_raise_naming_the_roadmap(tmp_path):
+    """Snapshot requests raised naming ROADMAP's item until the snapshots
+    were ported; now they build and report (tests/test_torch_snapshot.py
+    holds them against the JAX package)."""
     ev = FSEvents(tmp_path)
-    for call in (lambda: ev.build_snapshot(1), lambda: ev.snapshot_status(1)):
-        with pytest.raises(NotImplementedError, match="Columnar snapshots"):
-            call()
+    assert ev.snapshot_status(1) is None
+    assert ev.build_snapshot(1)["events"] == 0
+    ev.insert(Event(event="buy", entity_type="user", entity_id="u1"), 1)
+    status = ev.snapshot_status(1)
+    assert (status["events"], status["tailEvents"], status["coverage"]) == (0, 1, 0.0)
 
 
 # -- one store directory, both packages -----------------------------------------------

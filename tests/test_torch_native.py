@@ -10,8 +10,12 @@ tombstone both return None and read rows.  Two processes building the
 scanner at once both load it.  Without a C++ compiler the port reads rows.
 The UR's ``read_training`` through the native branch equals its row branch
 (up to the order of dictionary codes, which follows the log there and the
-time order here) and the JAX package's native branch exactly.  Everything
-compares exactly.
+time order here) and the JAX package's native branch exactly.  The scan
+core's header parse (``native/core.py``, ``data_plane.cpp``) reads a
+PIOCOL01 file to the batch ``json.loads`` reads under ``PIO_NATIVE=on``
+and ``off``, and the JAX ``read_batch``'s, lone surrogates included; with
+the build simulated away the Python parse answers and the denial counts
+once.  Everything compares exactly.
 """
 
 import dataclasses
@@ -34,21 +38,32 @@ from predictionio_tpu.store.event_store import PEventStore as JaxPEventStore
 from predictionio_tpu.storage.snapshot import apply_filters as jax_apply_filters
 from predictionio_tpu_torch.models.universal_recommender import engine as ur
 from predictionio_tpu_torch.native import build as port_build
+from predictionio_tpu_torch.native import core as ncore
 from predictionio_tpu_torch.native import scanner
 from predictionio_tpu_torch.storage import App, Storage, StorageConfig, set_storage
 from predictionio_tpu_torch.store import columnar
-from predictionio_tpu_torch.store.event_store import PEventStore, apply_filters
+from predictionio_tpu_torch.storage.snapshot import apply_filters
+from predictionio_tpu_torch.store.event_store import PEventStore
 
-from _torch_event_cases import T0, jax_events, port_events, seeded_corpus
+from _torch_event_cases import T0, assert_same_batch, jax_events, port_events, seeded_corpus
 
 REPO = Path(__file__).resolve().parents[1]
 SEEDS = [0, 1, 2]
 
 
+def _port_only(test):
+    """A test of the port's own header-parse core: it runs whether or not
+    the JAX package's scanner built."""
+    test.port_only = True
+    return test
+
+
 @pytest.fixture(autouse=True)
-def _scanners():
+def _scanners(request):
     if port_build.compiler() is None:
         pytest.skip("no C++ compiler")
+    if getattr(request.function, "port_only", False):
+        return
     if not jax_scanner.native_available():
         # the JAX build writes one shared temporary file and may lose a race
         # to another process's build, whose library is in place by now
@@ -94,35 +109,13 @@ def _write_segments(d: Path, torn: bool) -> list:
     return paths
 
 
-def _assert_same_batch(got, want):
-    for col in ("event_codes", "entity_type_codes", "entity_ids", "target_ids",
-                "times_us", "ratings"):
-        g, w = getattr(got, col), getattr(want, col)
-        assert g.dtype == w.dtype, col
-        np.testing.assert_array_equal(g, w, err_msg=col)
-    for d in ("event_dict", "entity_type_dict", "entity_dict", "target_dict"):
-        assert getattr(got, d).strings() == getattr(want, d).strings(), d
-    assert (got.prop_columns is None) == (want.prop_columns is None)
-    if want.prop_columns is None:
-        return
-    assert list(got.prop_columns) == list(want.prop_columns)
-    for key, w in want.prop_columns.items():
-        g = got.prop_columns[key]
-        for f in ("rows", "kind", "num", "str_offs", "codes"):
-            a, b = getattr(g, f), getattr(w, f)
-            assert a.dtype == b.dtype, (key, f)
-            np.testing.assert_array_equal(a, b, err_msg=f"{key}.{f}")
-        assert g.dict.strings() == w.dict.strings(), key
-        assert [g.value_at(j) for j in range(len(g))] == [w.value_at(j) for j in range(len(w))]
-
-
 @pytest.mark.parametrize("torn", [False, True])
 def test_scan_segments_matches_jax(tmp_path, torn):
     paths = _write_segments(tmp_path, torn)
     served = scanner.scans_served
     got = scanner.scan_segments(paths)
     assert scanner.scans_served == served + 1
-    _assert_same_batch(got, jax_scanner.scan_segments(paths))
+    assert_same_batch(got, jax_scanner.scan_segments(paths))
     assert len(got) == 7
     assert got.target_ids[2] == -1   # no targetEntityId
 
@@ -130,7 +123,7 @@ def test_scan_segments_matches_jax(tmp_path, torn):
 @pytest.mark.parametrize("threads", [1, 2, 8])
 def test_scan_segments_thread_count_changes_nothing(tmp_path, threads):
     paths = _write_segments(tmp_path, torn=True)
-    _assert_same_batch(scanner.scan_segments(paths, n_threads=threads),
+    assert_same_batch(scanner.scan_segments(paths, n_threads=threads),
                        jax_scanner.scan_segments(paths, n_threads=1))
 
 
@@ -184,8 +177,8 @@ def test_native_batch_matches_jax_on_one_store(tmp_path, seed, writer):
     for f in NATIVE_FILTERS:
         got = PEventStore.native_batch("nat", storage=port_store, **_filters(f))
         want = JaxPEventStore.native_batch("nat", storage=jax_store, **_filters(f))
-        _assert_same_batch(got, want)
-        _assert_same_batch(PEventStore.batch("nat", storage=port_store, **_filters(f)), want)
+        assert_same_batch(got, want)
+        assert_same_batch(PEventStore.batch("nat", storage=port_store, **_filters(f)), want)
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -198,7 +191,7 @@ def test_a_tombstone_sends_both_packages_to_the_row_path(tmp_path, seed):
         got = PEventStore.batch("nat", storage=port_store, **_filters(f))
         want = JaxPEventStore.batch("nat", storage=jax_store, **_filters(f))
         assert got.prop_columns is None
-        _assert_same_batch(got, dataclasses.replace(want, prop_columns=None))
+        assert_same_batch(got, dataclasses.replace(want, prop_columns=None))
 
 
 def test_memory_store_has_no_native_batch():
@@ -266,7 +259,7 @@ def test_fold_properties_and_filters_match_jax(tmp_path, seed):
     assert columnar.fold_properties(got, "item") == port_store.l_events.aggregate_properties(
         1, "item")
     for f in NATIVE_FILTERS:
-        _assert_same_batch(apply_filters(got, **_filters(f)),
+        assert_same_batch(apply_filters(got, **_filters(f)),
                            jax_apply_filters(want, **_filters(f)))
 
 
@@ -279,12 +272,12 @@ def test_concat_matches_jax(tmp_path, seed):
     paths = port_store.l_events.segment_paths(1)
     ports = [scanner.scan_segments([p]) for p in paths]
     jaxs = [jax_scanner.scan_segments([p]) for p in paths]
-    _assert_same_batch(columnar.EventBatch.concat(ports), jax_columnar.EventBatch.concat(jaxs))
+    assert_same_batch(columnar.EventBatch.concat(ports), jax_columnar.EventBatch.concat(jaxs))
     whole = scanner.scan_segments(paths)
     mask = np.arange(len(whole)) % 3 == 0
     parts = [whole.subset(mask), whole.subset(~mask)]
     jwhole = jax_scanner.scan_segments(paths)
-    _assert_same_batch(columnar.EventBatch.concat(parts),
+    assert_same_batch(columnar.EventBatch.concat(parts),
                        jax_columnar.EventBatch.concat([jwhole.subset(mask),
                                                        jwhole.subset(~mask)]))
 
@@ -333,3 +326,99 @@ def test_ur_read_training_native_matches_rows_and_jax(tmp_path, monkeypatch, see
     finally:
         set_storage(None)
         jax_set_storage(None)
+
+
+# -- the scan core's header parse ------------------------------------------------------
+
+
+def _rand_str(rng):
+    if rng.random() < 0.2:
+        return "".join(rng.choice(list("héllo😀日本 ñ\"\\" + "abcXYZ"))
+                       for _ in range(rng.integers(1, 8)))
+    return "".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"))
+                   for _ in range(rng.integers(1, 10)))
+
+
+def _random_container(path, n, seed):
+    """A port-written PIOCOL01 file of ``n`` random events with property
+    columns, event ids and meta; returns the batch written."""
+    from predictionio_tpu_torch.storage.snapshot import ColumnarBuilder
+
+    rng = np.random.default_rng(seed)
+    b = ColumnarBuilder()
+    for k in range(n):
+        name = str(rng.choice(["buy", "view", "$set"]))
+        d = {"event": name, "entityType": str(rng.choice(["user", "item"])),
+             "entityId": f"u{rng.integers(0, max(n // 2, 1))}", "eventId": f"ev-{k}-{_rand_str(rng)}",
+             "eventTime": f"2024-01-01T00:00:{k % 60:02d}+00:00"}
+        if name != "$set" and rng.random() < 0.7:
+            d["targetEntityId"] = f"i{rng.integers(0, 50)}"
+        if rng.random() < 0.5:
+            d["properties"] = {"rating": float(rng.random() * 5), "tag": _rand_str(rng),
+                               "tags": [_rand_str(rng)], "on": bool(rng.random() < 0.5)}
+        b.add(d)
+    batch, ids = b.finish()
+    columnar.write_batch(path, batch, ids, meta={"watermark": {"s": 12}, "é": [1.5]})
+    return batch, ids
+
+
+@_port_only
+@pytest.mark.parametrize("seed", [3, 4])
+def test_read_batch_native_and_python_parse_agree(tmp_path, monkeypatch, seed):
+    p = tmp_path / "batch.pioc"
+    batch, ids = _random_container(p, 400, seed)
+    monkeypatch.setenv("PIO_NATIVE", "off")
+    b0, i0, m0 = columnar.read_batch(p)
+    monkeypatch.setenv("PIO_NATIVE", "on")
+    calls = ncore.calls["scan"]
+    b1, i1, m1 = columnar.read_batch(p)
+    assert ncore.calls["scan"] == calls + 1
+    jb, ji, jm = jax_columnar.read_batch(p)
+    for got in (b0, b1):
+        assert_same_batch(got, jb)
+        assert_same_batch(got, batch)
+    assert i0.tolist() == i1.tolist() == ji.tolist() == ids.tolist()
+    assert m0 == m1 == jm == {"watermark": {"s": 12}, "é": [1.5]}
+
+
+@_port_only
+def test_read_batch_lone_surrogate_strings(tmp_path, monkeypatch):
+    """JSON carries lone surrogates (Python's own json writes them); the
+    native parse decodes them as ``surrogatepass`` does."""
+    batch, _ = _random_container(tmp_path / "x.pioc", 8, 2)
+    strings = ["ok", "bad\ud800end", "café", "\udfff", "\U0001f600\udc00"]
+    batch = dataclasses.replace(batch, entity_dict=columnar.IdDict(strings))
+    p = tmp_path / "surr.pioc"
+    columnar.write_batch(p, batch)
+    monkeypatch.setenv("PIO_NATIVE", "off")
+    b0, _, _ = columnar.read_batch(p)
+    monkeypatch.setenv("PIO_NATIVE", "on")
+    calls = ncore.calls["scan"]
+    b1, _, _ = columnar.read_batch(p)
+    assert ncore.calls["scan"] == calls + 1
+    jb, _, _ = jax_columnar.read_batch(p)
+    assert b0.entity_dict.strings() == b1.entity_dict.strings() == jb.entity_dict.strings() \
+        == strings
+
+
+@_port_only
+def test_no_toolchain_simulation(tmp_path, monkeypatch):
+    """With the build gone, ``PIO_NATIVE=on`` reads through the Python parse
+    with no change in the answer, and counts the denial once."""
+    p = tmp_path / "x.pioc"
+    _random_container(p, 60, 9)
+    monkeypatch.setenv("PIO_NATIVE", "off")
+    b0, i0, m0 = columnar.read_batch(p)
+    monkeypatch.setattr(port_build, "load", lambda *a, **k: None)
+    ncore.reset_for_tests()
+    try:
+        monkeypatch.setenv("PIO_NATIVE", "on")
+        calls, denied = ncore.calls["scan"], ncore.fallbacks["no_build"]
+        b1, i1, m1 = columnar.read_batch(p)
+        columnar.read_batch(p)
+        assert_same_batch(b1, b0)
+        assert i1.tolist() == i0.tolist() and m1 == m0
+        assert ncore.fallbacks["no_build"] == denied + 1   # once a core, not a call
+        assert ncore.calls["scan"] == calls and ncore.active is False
+    finally:
+        ncore.reset_for_tests()
