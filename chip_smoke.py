@@ -31,7 +31,7 @@ each of which fails the run (exit code != 0, no final ``ok`` line):
    (the pre-filter's worst case), b in {8, 64, 1024}; and the carry form
    against ``merge_desc(carry, tile_topk_desc(...))`` from the tiled loop's
    (-inf, 0) initial carry and from a random sorted carry;
-ALS serving (the first slice's path):
+ALS serving (slice 1):
 6. build the full-width ALS model — 5,000 users x 100,000 items x rank 32,
    random factors from a seed — through ``als_model_from_state``;
 7. serve it with ``deploy_models`` and POST ``/queries.json`` over HTTP;
@@ -39,7 +39,7 @@ ALS serving (the first slice's path):
    every answer of 7 and 8 is checked against the same query scored by the
    plain version on the card and ranked on the host;
 9. show from K1's launch counter that 7 and 8 went through it;
-UR training and serving (this slice's path):
+UR training and serving, the store and the CLI (slices 2-8):
 10. train CCO at ``bench_ur``'s full shape (100,000 users x 8,192 items,
     1M buy + 3M view events from ``synth_commerce(seed=0)``, top_k 50):
     the dense strategy through ``cco_train_indicators``, and the resident
@@ -109,6 +109,41 @@ UR training and serving (this slice's path):
     400; then ``pio undeploy`` stops the server, which must exit 0; the
     rule mask's build is timed on the card in this process, first and
     LRU-warm;
+ALS training and the e-commerce template (slice 9):
+12b. the deployed ALS width (bench.py:151: 5,000 users x 100,000 items,
+    270k ``rate`` events covering the catalog + 30k ``buy``, rank 32, 4
+    sweeps) in a ``shop`` app of the same localfs store, which also holds
+    270k ``view`` events covering the catalog and a ``$set`` of 1-2 of 50
+    ``categories`` on every item: ``pio app new``, ``pio import``, ``pio
+    build`` and ``pio train`` in this process (the train's wall and peak
+    device memory printed); the stored factors must be finite and equal
+    the same port train on the CPU from the same generator within rtol
+    1e-3, atol 2e-4 (f32 sums in another order); one half-step of each side
+    on the card, from the trained factors, against float64 direct solves
+    of 64 sampled rows (the widest among them) within 1e-3 of a row's
+    largest entry; a second card train of the same data, reported
+    bit-identical or not; then ``pio deploy`` on a thread of this process
+    and 50 ``/queries.json`` (unseenOnly, blackList, an unknown user), each
+    answer held against float64 scoring on the host (swaps only at ties
+    within rtol/atol 1e-5), K1's counter (set to 0 before the deploy) at
+    least one launch a known user's query, ``pio undeploy``;
+12c. ``pio train`` of the same engine with ``checkpointEvery`` 2 under
+    ``PIO_CHECKPOINT_DIR``, ``PIO_TRAIN_RETRIES=1`` and
+    ``PIO_FAULT_INJECT=als.sweep:2`` (a fault after the first snapshot):
+    the fault must fire, the retry resume, the run's snapshots be gone at
+    the end, and the factors equal 12b's within rtol 2e-4, atol 2e-5 (the
+    JAX bar, tests/test_checkpoint.py:56-57), bit-identity reported;
+12d. the e-commerce template on the same shop (view and buy, implicit ALS,
+    rank 32, alpha 1.0, 4 sweeps, unseenOnly): ``pio train`` (wall, peak
+    memory), finite factors, the category masks and the popularity counts
+    equal to the events'; a live ``$set`` of ``unavailableItems`` (the 50
+    most popular items) and three live views of a user unknown at train
+    time; ``pio deploy`` on a thread and 200 rule queries (categories,
+    unknown categories, whiteList, empty whiteList, blackList, the
+    recent-views user, cold users with and without categories), each
+    answer held against a numpy oracle built from the trained factors and
+    the generated events (float64 scores, ties within rtol/atol 1e-5;
+    popularity answers by their scores, each item checked to qualify);
 13. time each kernel, its plain version and a PyTorch yardstick where one
     exists, with CUDA events and the L2 flushed, beside its bound (bytes
     over 3.35 TB/s or operations over 67 TFLOP/s, the H100 SXM data sheet's
@@ -120,7 +155,14 @@ UR training and serving (this slice's path):
     ``masked_fill_`` in 5 interleaved rounds; an empty kernel through the
     same timer, the floor under every reading.  K2's
     operations a nonzero cell are counted from the SASS of its cell
-    function (``cuobjdump``), built in phase 2.
+    function (``cuobjdump``), built in phase 2.  Then ALS training:
+    ``als_train`` end to end after a one-sweep warm-up, three times, at
+    ``bench_als``'s shape (bench.py:363-380: 943 x 1,682, 100k ratings,
+    rank 10, 10 sweeps) and at 12b's deployed width (explicit and
+    implicit), with ratings x iterations a second; and a half-step's
+    device ms split into the normal equations' build, the Cholesky
+    factorisations and the solves (CUDA events at ``solve_half``'s stage
+    marks, the mean of three sweeps), with the sweeps' peak device memory.
 
 The line before the last is one JSON object with a row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -172,6 +214,18 @@ T0 = 1_780_000_000.0
 T2015 = 1_420_070_400.0        # 2015-01-01T00:00:00Z
 QNOW = 1_772_323_200.0         # 2026-03-01T00:00:00Z: the rule queries' "now"
 ENGINE_ID = "smoke-ur"
+# the deployed ALS width (bench.py:151): users, items, rate events (covering
+# the catalog), buy events, rank, iterations; the e-commerce template trains
+# on ECOMM_VIEWS view events (covering the catalog) and the same buys
+DEPLOYED_ALS = (N_USERS, N_ITEMS, 270_000, 30_000, RANK, 4)
+ECOMM_VIEWS = 270_000
+BENCH_ALS = (943, 1_682, 100_000, 10, 10)   # bench.py:363-380, MovieLens-100K's shape
+ALS_LAMBDA = 0.05
+ALS_RTOL, ALS_ATOL = 1e-3, 2e-4   # card factors vs the CPU port's: f32 sums in another order
+HALF_STEP_RTOL = 1e-3             # a row's solve vs float64, over its largest entry
+CK_RTOL, CK_ATOL = 2e-4, 2e-5     # resumed vs straight (tests/test_checkpoint.py:56-57)
+ECOMM_RULE_QUERIES = 200
+N_UNAVAILABLE = 50
 DEPLOY_TIMEOUT_S = 300   # a `pio deploy` subprocess: start to first answer, and its exit
 
 
@@ -312,11 +366,16 @@ def reference(model, hk, body):
 
 
 def check_answer(model, hk, body, got) -> int:
-    """Same items as the reference, in its order, scores within tolerance.
-    Two items may trade places only where their plain scores tie within the
-    tolerance (the kernel and cuBLAS sum in different orders); returns how
-    many such positions there were."""
+    """``check_ranked`` against the plain version's answer on the card."""
     want, s = reference(model, hk, body)
+    return check_ranked(model, body, got, want, s)
+
+
+def check_ranked(model, body, got, want, s) -> int:
+    """Same items as ``want``, in its order, scores within tolerance.  Two
+    items may trade places only where their reference scores ``s`` tie
+    within the tolerance (the kernel and the reference sum in different
+    orders); returns how many such positions there were."""
     got = [(d["item"], d["score"]) for d in got["itemScores"]]
     check(len(got) == len(want), f"{body}: {len(got)} items, want {len(want)}")
     swaps = 0
@@ -1818,6 +1877,535 @@ def refused(url, body) -> int:
         return e.code
 
 
+# -- phases 12b-12d: ALS training, its checkpoint/resume, the e-commerce template --
+
+
+def shop_arrays():
+    """The shop both ALS templates train on, from the seed: DEPLOYED_ALS's
+    ``rate`` events (ratings 1-5) covering the catalog then uniform items,
+    its ``buy`` events on zipf-popular items, ECOMM_VIEWS ``view`` events
+    covering the catalog then zipf items, and one or two of N_CATEGORIES
+    categories an item (zipf-skewed)."""
+    n_users, n_items, n_rate, n_buy, _, _ = DEPLOYED_ALS
+    rng = np.random.default_rng(SEED + 5)
+    cover = np.arange(n_items)
+    shop = {
+        "rate": (rng.integers(0, n_users, n_rate),
+                 np.concatenate([cover, rng.integers(0, n_items, n_rate - n_items)]),
+                 rng.integers(1, 6, n_rate)),
+        "buy": (rng.integers(0, n_users, n_buy), rng.zipf(1.3, n_buy) % n_items, None),
+        "view": (rng.integers(0, n_users, ECOMM_VIEWS),
+                 np.concatenate([cover, rng.zipf(1.2, ECOMM_VIEWS - n_items) % n_items]),
+                 None),
+    }
+    first = (rng.zipf(1.3, n_items) - 1) % N_CATEGORIES
+    second = np.where(rng.random(n_items) < 0.4,
+                      (first + rng.integers(1, N_CATEGORIES, n_items)) % N_CATEGORIES, -1)
+    shop["categories"] = np.stack([first, second], 1)
+    return shop
+
+
+def write_shop_jsonl(path, shop):
+    """``shop`` as a JSON-lines file for ``pio import``: one ``$set`` of
+    ``categories`` an item, then the rate, buy and view events one a
+    second from T0 (lines by one format string an event type)."""
+    t = iso(T0 - 1)
+    t_next = T0
+    with open(path, "w") as f:
+        f.writelines(json.dumps({"event": "$set", "entityType": "item", "entityId": f"i{j}",
+                                 "properties": {"categories": [f"c{c}" for c in cs if c >= 0]},
+                                 "eventTime": t, "creationTime": t}) + "\n"
+                     for j, cs in enumerate(shop["categories"].tolist()))
+        for name in ("rate", "buy", "view"):
+            users, items, ratings = shop[name]
+            times = t_next + np.arange(len(users), dtype=np.float64)
+            t_next += len(users)
+            iso_t = np.datetime_as_string(times.astype(np.int64).astype("datetime64[s]"),
+                                          timezone="UTC").tolist()
+            props = "" if ratings is None else ',"properties":{"rating":%d}'
+            line = ('{"event":"%s","entityType":"user","entityId":"u%%d","targetEntityType":'
+                    '"item","targetEntityId":"i%%d"%s,"eventTime":"%%s","creationTime":"%%s"}\n'
+                    % (name, props))
+            cols = [users.tolist(), items.tolist()] + (
+                [] if ratings is None else [ratings.tolist()]) + [iso_t, iso_t]
+            f.writelines(map(line.__mod__, zip(*cols)))
+
+
+def als_variant(engine_id="smoke-als", **extra):
+    _, _, _, _, rank, iters = DEPLOYED_ALS
+    return {"id": engine_id, "engineFactory": "recommendation",
+            "datasource": {"params": {"appName": "shop", "eventNames": ["rate", "buy"]}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": rank, "numIterations": iters, "lambda": ALS_LAMBDA, "seed": 7,
+                **extra}}]}
+
+
+def ecomm_variant():
+    _, _, _, _, rank, iters = DEPLOYED_ALS
+    return {"id": "smoke-ecomm", "engineFactory": "ecommerce",
+            "datasource": {"params": {"appName": "shop", "eventNames": ["view", "buy"]}},
+            "algorithms": [{"name": "ecomm", "params": {
+                "appName": "shop", "rank": rank, "numIterations": iters,
+                "lambda": ALS_LAMBDA, "alpha": 1.0, "seed": 7, "unseenOnly": True}}]}
+
+
+@contextlib.contextmanager
+def pio_deploy_here(engine_json):
+    """``pio deploy`` of ``engine_json`` on a thread of this process (so
+    the launch counters can be read); yields (base url, seconds to its
+    first answer of ``GET /``).  On leaving, ``pio undeploy`` must stop it
+    and its command must return 0."""
+    from predictionio_tpu_torch.cli.main import main as pio_main
+
+    port = free_port()
+    rc = []
+    thread = threading.Thread(target=lambda: rc.append(pio_main(
+        ["deploy", "--engine-json", str(engine_json), "--ip", "127.0.0.1",
+         "--port", str(port)])), daemon=True)
+    t0 = time.perf_counter()
+    thread.start()
+    base = f"http://127.0.0.1:{port}"
+    try:
+        while True:
+            check(thread.is_alive(), f"pio deploy returned {rc}")
+            check(time.perf_counter() - t0 < DEPLOY_TIMEOUT_S, "pio deploy did not answer")
+            try:
+                get_json(base + "/", timeout=5)
+                break
+            except (urllib.error.URLError, ConnectionError):
+                time.sleep(0.1)
+        yield base, time.perf_counter() - t0
+    finally:
+        if thread.is_alive():
+            pio("undeploy", "--port", str(port), "--timeout", "60")
+            thread.join(DEPLOY_TIMEOUT_S)
+    check(not thread.is_alive() and rc == [0], f"pio deploy returned {rc}")
+
+
+def host_half_step(events, fixed, reg, rows):
+    """Float64 direct solves of the explicit normal equations of ``rows``:
+    ``events`` is (owner, other, rating) of one side, ``fixed`` the other
+    side's factors."""
+    owner, other, rating = events
+    out = {}
+    for r in rows:
+        sel = owner == r
+        y = fixed[other[sel]].astype(np.float64)
+        a = y.T @ y + (reg * max(int(sel.sum()), 1) + 1e-6) * np.eye(fixed.shape[1])
+        out[r] = np.linalg.solve(a, y.T @ rating[sel].astype(np.float64))
+    return out
+
+
+def check_half_step(als_ops, pd, model, dev):
+    """One half-step of each side on the card, from the trained factors,
+    against float64 direct solves on 64 sampled rows (the widest row
+    among them); returns the largest error over a row's largest entry."""
+    n_users, n_items = len(pd.user_dict), len(pd.item_dict)
+    data = als_ops.prepare_als_data(pd.user_idx, pd.item_idx, pd.rating, n_users,
+                                    n_items, dp=1)
+    user_plan, item_plan = als_ops._als_device_args(data, model.item_factors.shape[1], dev)
+    rng = np.random.default_rng(SEED + 6)
+    worst = 0.0
+    for plan, fixed, owner, other, n in (
+            (user_plan, model.item_factors, pd.user_idx, pd.item_idx, n_users),
+            (item_plan, model.user_factors, pd.item_idx, pd.user_idx, n_items)):
+        got = als_ops.solve_half(plan, torch.tensor(fixed, device=dev), ALS_LAMBDA).cpu().numpy()
+        rows = np.unique(np.concatenate([rng.choice(n, 63, replace=False),
+                                         [np.bincount(owner, minlength=n).argmax()]]))
+        want = host_half_step((owner, other, pd.rating), fixed, ALS_LAMBDA, rows)
+        for r, x in want.items():
+            err = float(np.abs(got[r] - x).max() / max(np.abs(x).max(), 1e-30))
+            check(err <= HALF_STEP_RTOL, f"half-step row {r}: error {err:.3g} of its largest "
+                  f"entry against the float64 solve (bar {HALF_STEP_RTOL})")
+            worst = max(worst, err)
+    return worst
+
+
+def als_reference_host(model, body):
+    """The query scored on the host in float64 from the model's factors and
+    seen lists, ranked by (score desc, item id asc)."""
+    uid = model.user_dict.id(str(body["user"]))
+    if uid is None:
+        return [], None
+    s = model.item_factors.astype(np.float64) @ model.user_factors[uid].astype(np.float64)
+    if body.get("unseenOnly"):
+        s[model.seen.row(uid)] = -np.inf
+    for b in body.get("blackList", []):
+        if model.item_dict.id(b) is not None:
+            s[model.item_dict.id(b)] = -np.inf
+    order = np.lexsort((np.arange(len(s)), -s))[: min(int(body.get("num", 10)), len(s))]
+    return [(model.item_dict.str(int(i)), float(s[i])) for i in order if np.isfinite(s[i])], s
+
+
+def als_path(reco, als_ops, hk, dev, workdir):
+    """Phase 12b: the deployed ALS width through localfs and ``pio``."""
+    from predictionio_tpu_torch.storage import get_storage
+    from predictionio_tpu_torch.workflow.core_workflow import load_latest_models
+    from predictionio_tpu_torch.workflow.create_workflow import engine_from_variant
+
+    n_users, n_items, n_rate, n_buy, rank, iters = DEPLOYED_ALS
+    shop = shop_arrays()
+    t = {}
+    jsonl = workdir / "shop.jsonl"
+    write_shop_jsonl(jsonl, shop)
+    pio("app", "new", "shop")
+    t0 = time.perf_counter()
+    pio("import", "--app-name", "shop", "--input", str(jsonl))
+    t["import_s"] = time.perf_counter() - t0
+    n_events = n_rate + n_buy + ECOMM_VIEWS + n_items
+    print(f"  shop: {n_events} events ({n_rate} rate, {n_buy} buy, {ECOMM_VIEWS} view, "
+          f"{n_items} $set categories) imported in {t['import_s']:.3f} s")
+    jsonl.unlink()
+    path = workdir / "als.json"
+    path.write_text(json.dumps(als_variant()))
+    pio("build", "--engine-json", str(path))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    pio("train", "--engine-json", str(path))
+    t["pio_train_s"] = time.perf_counter() - t0
+    t["pio_train_peak_device_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    _, (model,) = load_latest_models("smoke-als", device=dev)
+    check(model.device == dev, "load_latest_models: the ALS model is off the card")
+
+    # the same port train on the CPU, from the same generator
+    _, engine, ep = engine_from_variant(als_variant())
+    data_source, preparator, _, _ = engine.make_components(ep)
+    pd = preparator.prepare(data_source.read_training())
+    # the localfs read keeps the whole scan's dictionaries (as the JAX
+    # package's does), so the user ids include the app's other entities:
+    # their rows have no ratings and solve to zero
+    raters = len(np.unique(pd.user_idx))
+    check(raters == n_users and len(pd.item_dict) == n_items,
+          f"{raters} users with ratings x {len(pd.item_dict)} items, want "
+          f"{n_users} x {n_items}")
+    t["ratings"] = len(pd.rating)
+    params = ep.algorithm_params_list[0][1]
+    t0 = time.perf_counter()
+    cpu_model = reco.ALSAlgorithm(params, device="cpu").train(pd)
+    t["cpu_train_s"] = time.perf_counter() - t0
+    check(cpu_model.item_dict.strings() == model.item_dict.strings(), "item ids differ")
+    check(cpu_model.user_dict.strings() == model.user_dict.strings(), "user ids differ")
+    diffs = {}
+    for side in ("user_factors", "item_factors"):
+        card, cpu = getattr(model, side), getattr(cpu_model, side)
+        check(np.isfinite(card).all(), f"non-finite {side} from the card")
+        diffs[side] = float(np.abs(card - cpu).max())
+        bad = np.abs(card - cpu) > ALS_ATOL + ALS_RTOL * np.abs(cpu)
+        check(not bad.any(), f"{side}: {int(bad.sum())} entries off the CPU port's beyond "
+              f"rtol {ALS_RTOL} atol {ALS_ATOL} (max abs diff {diffs[side]:.3g})")
+    t["card_vs_cpu_max_abs_diff"] = diffs
+    t["half_step_max_rel_err"] = check_half_step(als_ops, pd, model, dev)
+
+    # a second card train of the same data: the same bits?
+    again = reco.ALSAlgorithm(params, device=dev).train(pd)
+    t["two_card_trains_bit_identical"] = bool(
+        np.array_equal(again.user_factors, model.user_factors)
+        and np.array_equal(again.item_factors, model.item_factors))
+    print(f"  pio train {t['pio_train_s']:.3f} s (read, prepare, {iters} sweeps at rank "
+          f"{rank} over {t['ratings']} ratings, save), peak device "
+          f"{t['pio_train_peak_device_gb']:.3f} GB; the CPU port's train "
+          f"{t['cpu_train_s']:.3f} s; card vs CPU factors max abs diff {diffs} (bar rtol "
+          f"{ALS_RTOL} atol {ALS_ATOL}); half-step vs float64 solve, 64 rows a side: max "
+          f"{t['half_step_max_rel_err']:.3g} of a row's largest entry; two card trains "
+          f"bit-identical: {t['two_card_trains_bit_identical']}")
+    del again, cpu_model
+
+    # serve it: pio deploy -> /queries.json, through K1
+    rng = np.random.default_rng(SEED + 7)
+    bodies = [{"user": "u1", "num": 10}, {"user": "u2", "num": 10, "unseenOnly": True},
+              {"user": "u3", "num": 5, "blackList": ["i0", "i1", "nope"]},
+              {"user": "no-such-user", "num": 10}] + queries(rng, 46)
+    known = sum(model.user_dict.id(b["user"]) is not None for b in bodies)
+    hk.masked_score_matmul.launches = 0
+    with pio_deploy_here(path) as (base, up_s):
+        answers, lat_ms = timed_posts(base + "/queries.json", bodies)
+    launches = hk.masked_score_matmul.launches
+    check(launches >= known, f"{launches} masked_score launches for {known} queries")
+    swaps = 0
+    for body, got in zip(bodies, answers):
+        want, s = als_reference_host(model, body)
+        swaps += check_ranked(model, body, got, want, s)
+    check(answers[3] == {"itemScores": []}, f"unknown user answered {answers[3]}")
+    rest = sorted(lat_ms[1:])
+    t.update({"deploy_to_first_answer_s": up_s, "queries": len(bodies),
+              "k1_launches": launches, "near_tie_swaps": swaps,
+              "http_p50_ms": rest[len(rest) // 2]})
+    print(f"  pio deploy (this process) to first answer {up_s:.3f} s; {len(bodies)} "
+          f"queries, every answer held against float64 host scoring ({swaps} near-tie "
+          f"swaps), masked_score launches {launches} (warm-up included); latency p50 "
+          f"{t['http_p50_ms']:.3f} ms")
+    app = get_storage().apps.get_by_name("shop")
+    return model, pd, shop, app.id, path, t
+
+
+def als_checkpointed(dev, workdir, straight):
+    """Phase 12c: ``pio train`` checkpointing every 2 sweeps, a fault
+    injected once after the first snapshot, one retry: the retry resumes
+    from the snapshot and its factors equal the straight run's."""
+    from predictionio_tpu_torch.workflow.core_workflow import load_latest_models
+
+    path = workdir / "als-ck.json"
+    path.write_text(json.dumps(als_variant("smoke-als-ck", checkpointEvery=2)))
+    ck = workdir / "ck"
+    env = {"PIO_TRAIN_RETRIES": "1", "PIO_FAULT_INJECT": "als.sweep:2",
+           "PIO_CHECKPOINT_DIR": str(ck)}
+    os.environ.update(env)
+    try:
+        pio("build", "--engine-json", str(path))
+        t0 = time.perf_counter()
+        pio("train", "--engine-json", str(path))
+        train_s = time.perf_counter() - t0
+        check("PIO_FAULT_INJECT" not in os.environ, "the injected fault never fired")
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+    check(ck.is_dir() and not any((ck / "als").iterdir()),
+          "the completed run left its snapshots behind")
+    _, (model,) = load_latest_models("smoke-als-ck", device=dev)
+    diffs = {}
+    for side in ("user_factors", "item_factors"):
+        got, want = getattr(model, side), getattr(straight, side)
+        diffs[side] = float(np.abs(got - want).max())
+        check(np.allclose(got, want, rtol=CK_RTOL, atol=CK_ATOL),
+              f"resumed {side} off the straight run's (max abs diff {diffs[side]:.3g})")
+    same = all(np.array_equal(getattr(model, s), getattr(straight, s))
+               for s in ("user_factors", "item_factors"))
+    print(f"  pio train with checkpointEvery=2, PIO_TRAIN_RETRIES=1 and a fault after the "
+          f"first snapshot: {train_s:.3f} s, resumed factors vs the straight run max abs "
+          f"diff {diffs} (bar rtol {CK_RTOL} atol {CK_ATOL}), bit-identical {same}")
+    return {"pio_train_s": train_s, "vs_straight_max_abs_diff": diffs,
+            "bit_identical": same}
+
+
+def ecomm_queries(rng, n, users, unavailable):
+    """``n`` e-commerce rule queries over ``users``: categories (one or two,
+    and unknown ones), whiteList, blackList (with unavailable items), the
+    two together, an empty whiteList, the recent-views user and cold
+    users (with and without categories)."""
+    out = []
+    for j in range(n):
+        kind = j % 10
+        body = {"user": f"u{int(rng.choice(users))}", "num": int(rng.choice([1, 4, 10, 20]))}
+        if kind in (1, 5):
+            body["categories"] = [f"c{int(c)}" for c in rng.choice(
+                N_CATEGORIES, int(rng.integers(1, 3)), replace=False)]
+        if kind == 2:
+            body["whiteList"] = [f"i{int(i)}" for i in rng.integers(0, 2_000, 40)] + [
+                f"i{int(unavailable[0])}"]
+        if kind in (3, 5):
+            body["blackList"] = [f"i{int(i)}" for i in rng.integers(0, 200, 5)]
+        if kind == 4:
+            body["categories"] = ["no-such-category"]
+        if kind == 6:
+            body["whiteList"] = []
+        if kind == 7:
+            body["user"] = "newbie"
+        if kind in (8, 9):
+            body["user"] = f"cold{j}"
+            if kind == 9:
+                body["categories"] = [f"c{int(rng.integers(N_CATEGORIES))}"]
+        out.append(body)
+    return out
+
+
+def ecomm_oracle(model, shop, live, body):
+    """The answer to ``body`` from the trained factors and the shop's
+    events, in float64 on the host (the reference template's three tiers
+    and rules): [(item, score)], the score row, and whether the answer is
+    the popularity tier (ranked with ties in no fixed order)."""
+    n_items = len(model.item_dict)
+    uid = model.user_dict.id(body["user"])
+    ids, index = live["ids"], live["index"]   # item index -> number, and back
+    allow = np.ones(n_items, bool)
+    cats = body.get("categories")
+    if cats is not None:
+        names = {int(c[1:]) for c in cats if c[1:].isdigit()}
+        have = shop["categories"][ids]
+        allow &= np.isin(have, list(names)).any(axis=1) if names else False
+    white = body.get("whiteList")
+    if white is not None:
+        w = np.zeros(n_items, bool)
+        known = [int(i[1:]) for i in white if int(i[1:]) < n_items]
+        w[index[known]] = True
+        allow &= w
+    excl = [int(i[1:]) for i in body.get("blackList", []) if int(i[1:]) < n_items]
+    excl += list(live["unavailable"])
+    seen = live["seen"].get(body["user"], set())
+    excl += list(seen)            # unseenOnly: the user's view and buy events
+    popular = uid is None or not model.user_factors[uid].any()
+    if not popular:
+        vec = model.user_factors[uid].astype(np.float64)
+    elif body["user"] in live["recent"]:
+        recent = np.asarray(sorted(index[live["recent"][body["user"]]]))
+        vec = model.item_factors[recent].mean(axis=0).astype(np.float64)
+        excl += ids[recent].tolist()
+        popular = False
+    if popular:
+        s = live["popular"].astype(np.float64).copy()
+    else:
+        s = model.item_factors.astype(np.float64) @ vec
+    s[~allow] = -np.inf
+    s[index[excl]] = -np.inf
+    order = np.lexsort((np.arange(n_items), -s))[: min(body["num"], n_items)]
+    return [(model.item_dict.str(int(i)), float(s[i])) for i in order
+            if np.isfinite(s[i])], s, popular
+
+
+def check_ecomm(model, shop, live, body, got) -> int:
+    want, s, popular = ecomm_oracle(model, shop, live, body)
+    if not popular:
+        return check_ranked(model, body, got, want, s)
+    got = [(d["item"], d["score"]) for d in got["itemScores"]]
+    check([g[1] for g in got] == [w[1] for w in want],
+          f"{body}: popularity scores {got} want {want}")
+    for item, score in got:   # ties in argsort's order: each item must qualify
+        check(s[model.item_dict.id(item)] == score, f"{body}: {item} does not qualify")
+    return 0
+
+
+def ecomm_path(dev, workdir, shop, app_id):
+    """Phase 12d: the e-commerce template on the same shop: ``pio train``
+    (implicit ALS) → live constraint and view events → ``pio deploy`` →
+    ECOMM_RULE_QUERIES rule queries, each held against ``ecomm_oracle``."""
+    from predictionio_tpu_torch.events.event import Event
+    from predictionio_tpu_torch.storage import get_storage
+    from predictionio_tpu_torch.workflow.core_workflow import load_latest_models
+
+    n_users, n_items, _, n_buy, rank, iters = DEPLOYED_ALS
+    path = workdir / "ecomm.json"
+    path.write_text(json.dumps(ecomm_variant()))
+    pio("build", "--engine-json", str(path))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    pio("train", "--engine-json", str(path))
+    t = {"pio_train_s": time.perf_counter() - t0,
+         "pio_train_peak_device_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    _, (model,) = load_latest_models("smoke-ecomm", device=dev)
+    check(np.isfinite(model.user_factors).all() and np.isfinite(model.item_factors).all(),
+          "non-finite e-commerce factors")
+    check(model.cat_masks.shape == (N_CATEGORIES, n_items),
+          f"category masks {model.cat_masks.shape}")
+    # the live state the queries meet: the popular items made unavailable,
+    # and a user unknown at train time who viewed three items since
+    bu, bi, _ = shop["buy"]
+    vu, vi, _ = shop["view"]
+    popular = np.bincount(vi, minlength=n_items) + 4.0 * np.bincount(bi, minlength=n_items)
+    unavailable = np.argsort(-popular, kind="stable")[:N_UNAVAILABLE]
+    store = get_storage()
+    t_live = T0 + 10_000_000
+    store.l_events.insert(Event("$set", "constraint", "unavailableItems",
+                                properties={"items": [f"i{i}" for i in unavailable]},
+                                event_time=t_live, creation_time=t_live), app_id)
+    newbie = [7, n_items * 7 // 10, n_items - 1]
+    for k, it in enumerate(newbie):
+        store.l_events.insert(Event("view", "user", "newbie", "item", f"i{it}",
+                                    event_time=t_live + 1 + k, creation_time=t_live + 1 + k),
+                              app_id)
+    seen = {}
+    for users, items in ((vu, vi), (bu, bi)):
+        for u, i in zip(users.tolist(), items.tolist()):
+            seen.setdefault(f"u{u}", set()).add(i)
+    seen["newbie"] = set(newbie)
+    ids = np.asarray([int(s[1:]) for s in model.item_dict.strings()])
+    index = np.empty(n_items, np.int64)
+    index[ids] = np.arange(n_items)
+    live = {"unavailable": unavailable.tolist(), "seen": seen, "ids": ids, "index": index,
+            "recent": {"newbie": newbie}, "popular": model.popular}
+    check(np.array_equal(model.popular[[model.item_dict.id(f"i{j}") for j in range(n_items)]],
+                         popular.astype(np.float32)), "popularity differs from the events'")
+    rng = np.random.default_rng(SEED + 8)
+    bodies = ecomm_queries(rng, ECOMM_RULE_QUERIES, rng.choice(n_users, 100, replace=False),
+                           unavailable)
+    with pio_deploy_here(path) as (base, up_s):
+        answers, lat_ms = timed_posts(base + "/queries.json", bodies)
+    swaps = kinds = 0
+    for body, got in zip(bodies, answers):
+        swaps += check_ecomm(model, shop, live, body, got)
+        kinds += bool(got["itemScores"])
+    for j, body in enumerate(bodies):
+        if body.get("categories") == ["no-such-category"] or body.get("whiteList") == []:
+            check(answers[j] == {"itemScores": []}, f"{body} answered {answers[j]}")
+    rest = sorted(lat_ms[1:])
+    t.update({"deploy_to_first_answer_s": up_s, "rule_queries": len(bodies),
+              "answered": kinds, "near_tie_swaps": swaps,
+              "http_p50_ms": rest[len(rest) // 2],
+              "http_p99_ms": rest[min(len(rest) - 1, int(0.99 * len(rest)))]})
+    print(f"  e-commerce pio train {t['pio_train_s']:.3f} s (implicit, rank {rank}, {iters} "
+          f"sweeps; peak device {t['pio_train_peak_device_gb']:.3f} GB); pio deploy to first "
+          f"answer {up_s:.3f} s; {len(bodies)} rule queries ({kinds} non-empty) held against "
+          f"the numpy oracle, {swaps} near-tie swaps; latency p50 {t['http_p50_ms']:.3f} ms "
+          f"p99 {t['http_p99_ms']:.3f} ms (live seen and unavailable reads included)")
+    return t
+
+
+# -- phase 13: ALS train timing ----------------------------------------------------
+
+
+def bench_als_data(als_ops):
+    """bench.py:bench_als's MovieLens-100K-shaped ratings (seed 0)."""
+    n_users, n_items, n_ratings, _, _ = BENCH_ALS
+    rng = np.random.default_rng(0)
+    u = rng.integers(0, n_users, n_ratings).astype(np.int32)
+    i = rng.integers(0, n_items, n_ratings).astype(np.int32)
+    r = rng.integers(1, 6, n_ratings).astype(np.float32)
+    return als_ops.prepare_als_data(u, i, r, n_users, n_items, dp=1), n_ratings
+
+
+def time_als_train(als_ops, data, n_ratings, rank, iters, dev, implicit=False, reps=3):
+    """``als_train`` end to end (plans, sweeps, readback) after a one-sweep
+    warm-up: seconds of each rep and ratings x iterations a second of the
+    fastest."""
+    als_ops.als_train(data, k=rank, reg=ALS_LAMBDA, iterations=1, implicit=implicit,
+                      device=dev)
+    secs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, _ = als_ops.als_train(data, k=rank, reg=ALS_LAMBDA, iterations=iters,
+                                 implicit=implicit, device=dev)
+        secs.append(time.perf_counter() - t0)
+    check(np.isfinite(x).all(), "non-finite factors in the timed train")
+    return {"train_s": secs, "ratings_x_iters_per_s": n_ratings * iters / min(secs)}
+
+
+def half_step_stages(als_ops, data, rank, dev, implicit=False, sweeps=3):
+    """Device ms of one half-step of each side, split into the normal
+    equations' build, the Cholesky factorisations and the solves (CUDA
+    events at the stage marks of ``solve_half``), the mean of ``sweeps``
+    sweeps after one warm-up sweep; and the peak device memory of the
+    sweeps."""
+    args = als_ops._als_device_args(data, rank, dev)
+    x0, y0 = als_ops._als_init(data, rank, 7)
+    x0, y0 = x0.to(dev), y0.to(dev)
+    als_ops._als_sweeps(data, x0, y0, 1, ALS_LAMBDA, args=args, implicit=implicit)
+    marks = []
+
+    def mark(stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((stage, ev))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    als_ops._als_sweeps(data, x0, y0, sweeps, ALS_LAMBDA, args=args, implicit=implicit,
+                        mark=mark)
+    torch.cuda.synchronize()
+    out = {"user": {"build": 0.0, "cholesky": 0.0, "solve": 0.0},
+           "item": {"build": 0.0, "cholesky": 0.0, "solve": 0.0}}
+    side = "user"
+    for (stage, a), (_, b) in zip(marks, marks[1:]):
+        if stage == "end":
+            side = "item" if side == "user" else "user"
+            continue
+        out[side][stage] += a.elapsed_time(b) / sweeps
+    out["peak_gb_above_inputs"] = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
 # -- the run ---------------------------------------------------------------------
 
 
@@ -1832,6 +2420,7 @@ def run() -> None:
         from predictionio_tpu_torch.models import universal_recommender as ur
         from predictionio_tpu_torch.native import core as ncore
         from predictionio_tpu_torch.native import scanner
+        from predictionio_tpu_torch.ops import als as als_ops
         from predictionio_tpu_torch.ops import build
         from predictionio_tpu_torch.ops import cco
         from predictionio_tpu_torch.ops import hopper_kernels as hk
@@ -1970,6 +2559,21 @@ def run() -> None:
         served = serve_ur(ur, ur_model, arrays, cols, dev, env, variants)
         del ur_model
         torch.cuda.empty_cache()
+
+        phase("12b. ALS at the deployed width through localfs and pio "
+              "(import, train, deploy, /queries.json)")
+        als_model, als_pd, shop, shop_app, _, als_run = als_path(reco, als_ops, hk, dev,
+                                                                 workdir)
+        torch.cuda.empty_cache()
+        phase("12c. ALS pio train checkpointed, a fault injected, resumed on retry")
+        als_run["checkpointed"] = als_checkpointed(dev, workdir, als_model)
+        del als_model
+        torch.cuda.empty_cache()
+        phase("12d. the e-commerce template on the same shop: pio train, pio deploy, "
+              "rule queries")
+        ecomm_run = ecomm_path(dev, workdir, shop, shop_app)
+        del shop
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1998,6 +2602,20 @@ def run() -> None:
                                        carry=topk_carry(n_items, 64, dev, gen, "initial")))
     del scores
     k1_rounds = retime_k1(hk, dev, gen, flush, clock)
+    del flush
+    torch.cuda.empty_cache()
+    data, n_ratings = bench_als_data(als_ops)
+    _, _, _, rank, iters = BENCH_ALS
+    als_timing = {"bench_als": {**time_als_train(als_ops, data, n_ratings, rank, iters, dev),
+                                "half_step_ms": half_step_stages(als_ops, data, rank, dev)}}
+    data = als_ops.prepare_als_data(als_pd.user_idx, als_pd.item_idx, als_pd.rating,
+                                    len(als_pd.user_dict), len(als_pd.item_dict), dp=1)
+    _, _, _, _, rank, iters = DEPLOYED_ALS
+    for implicit in (False, True):
+        als_timing[f"deployed{'_implicit' if implicit else ''}"] = {
+            **time_als_train(als_ops, data, len(als_pd.rating), rank, iters, dev, implicit),
+            "half_step_ms": half_step_stages(als_ops, data, rank, dev, implicit)}
+    del data, als_pd
     print(f"  empty kernel (torch.cuda._sleep(0)) through time_cold: {empty_ms:.4f} ms, "
           f"the event and launch floor of every reading below | {smi}")
     for r in rows["masked_score"]:
@@ -2052,13 +2670,29 @@ def run() -> None:
           f"{snapshot['read_training_tombstoned_s']:.3f} s; pio train from it "
           f"{snapshot['pio_train_snapshot_s_llr_False']:.3f} s (native scan "
           f"{deployed['pio_train_s_llr_False']:.3f} s) | {smi}")
-    launches = {"masked_score": http_launches + batch_launches,
+    for name, r in als_timing.items():
+        hs = r["half_step_ms"]
+        print(f"  ALS train {name}: {[round(s, 4) for s in r['train_s']]} s (als_train end to "
+              f"end after a warm-up), {r['ratings_x_iters_per_s']:.4g} ratings x iterations "
+              f"a second; a half-step's device ms, user side: build {hs['user']['build']:.3f}, "
+              f"Cholesky {hs['user']['cholesky']:.3f}, solve {hs['user']['solve']:.3f}; item "
+              f"side: build {hs['item']['build']:.3f}, Cholesky {hs['item']['cholesky']:.3f}, "
+              f"solve {hs['item']['solve']:.3f}; peak device {hs['peak_gb']:.4f} GB "
+              f"({hs['peak_gb_above_inputs']:.4f} above the resident inputs) | {smi}")
+    print(f"  ALS path: pio import {als_run['import_s']:.3f} s, pio train "
+          f"{als_run['pio_train_s']:.3f} s (peak {als_run['pio_train_peak_device_gb']:.3f} GB), "
+          f"checkpointed and resumed {als_run['checkpointed']['pio_train_s']:.3f} s; "
+          f"e-commerce pio train {ecomm_run['pio_train_s']:.3f} s, rule queries p50 "
+          f"{ecomm_run['http_p50_ms']:.3f} ms p99 {ecomm_run['http_p99_ms']:.3f} ms | {smi}")
+    launches = {"masked_score": http_launches + batch_launches + als_run["k1_launches"],
                 "llr_masked": deployed["launches"][0],
                 "tile_topk": deployed["launches"][1]}
     print(json.dumps({"ur_train": {"bench_shape": bench, "memory_store": memory,
                                    "deployed_width_localfs": deployed,
                                    "deployed_width_snapshot": snapshot},
                       "ur_http": {str(k).lower(): v for k, v in served.items()},
+                      "als": {"deployed_path": als_run, "ecommerce": ecomm_run,
+                              "timing": als_timing},
                       "k1_retime": k1_rounds, "empty_kernel_ms": empty_ms, "llr_sass": sass,
                       "wall_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": [{

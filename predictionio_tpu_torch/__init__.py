@@ -5,9 +5,12 @@ held against.  Module paths mirror ``predictionio_tpu`` so each counterpart
 is easy to find.  This package imports ``torch`` and numpy only: never
 ``jax`` and nothing of ``predictionio_tpu``.
 
-Ported so far (ROADMAP.md, queue A): serving of the ``recommendation``
-(ALS) template, every query scored by a hand-written CUDA kernel
-(``ops/csrc/masked_score.cu``); the Universal Recommender's CCO training
+Ported so far (ROADMAP.md, queue A): the ``recommendation`` (ALS)
+template, trained on the card (``ops/als.py``: explicit and implicit ALS,
+checkpoint/resume in ``utils/checkpoint.py``) and every query scored by a
+hand-written CUDA kernel (``ops/csrc/masked_score.cu``); the
+``ecommerce`` template (implicit ALS, category and list rules, live
+constraints); the Universal Recommender's CCO training
 through the LLR and tile top-k kernels (``ops/csrc/llr_masked.cu``,
 ``ops/csrc/tile_topk.cu``) and its serving with business rules; the event
 model, the memory and localfs storage backends with the native segment

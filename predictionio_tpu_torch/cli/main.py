@@ -299,11 +299,14 @@ def _cmd_deploy(args) -> int:
 
 
 def _port_state(ip: str, port: int, timeout: float) -> str:
-    """'live' when something accepts a TCP connection on the port, 'dead'
-    when it is refused, 'unknown' otherwise (filtered)."""
+    """'live' when something accepts a TCP connection on the port, or
+    resets it (a listener closing under the handshake: probe again),
+    'dead' when it is refused, 'unknown' otherwise (filtered)."""
     try:
         with socket.create_connection((ip, port), timeout=timeout):
             return "live"
+    except ConnectionResetError:
+        return "live"
     except ConnectionRefusedError:
         return "dead"
     except OSError:

@@ -1,19 +1,29 @@
 """Serving-side helpers shared by the engine templates.
 
-Counterpart of ``predictionio_tpu/models/common.py`` (``LRUCache``, less
-the ``peek`` that only the JAX package's candidate-pruned tail uses; the
-device staging of ``DeviceCacheMixin`` is the port's own).
+Counterpart of ``predictionio_tpu/models/common.py``: ``opt_str_list``,
+``LRUCache`` (less the ``peek`` that only the JAX package's
+candidate-pruned tail uses), ``CategoryRulesMixin`` and
+``reindex_interactions``; the device staging of ``DeviceCacheMixin`` is
+the port's own.
 """
 
 from __future__ import annotations
 
 import collections
 import threading
-from typing import Callable, Optional
+from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import resolve_device
+
+
+def opt_str_list(d: Dict, key: str) -> Optional[List[str]]:
+    """Wire contract for optional list fields: a present-but-empty list
+    stays ``[]`` (an explicitly empty whiteList means "nothing qualifies")
+    while an absent or null key is ``None`` ("unconstrained")."""
+    return [str(v) for v in d[key]] if key in d and d[key] is not None else None
 
 
 class LRUCache:
@@ -120,3 +130,51 @@ class DeviceCacheMixin:
             self.__dict__[attr] = dev
             self.__dict__.setdefault("_staged", set()).add(attr)
         return dev
+
+
+class CategoryRulesMixin(DeviceCacheMixin):
+    """For models carrying category business rules: requires
+    ``self.cat_masks`` ([C, n_items] bool) and ``self.item_dict``."""
+
+    def cat_masks_device(self) -> torch.Tensor:
+        """The [C, n_items] category bitmask matrix on the model's device.
+        A model with no categories stages a 1-row all-False dummy so the
+        rules scorer keeps one shape."""
+
+        def build():
+            m = self.cat_masks
+            if m.shape[0] == 0:
+                m = np.zeros((1, max(len(self.item_dict), 1)), bool)
+            return torch.tensor(np.asarray(m, bool), device=self.device)
+
+        return self._device("_cat_dev", build)
+
+
+def reindex_interactions(batch, return_rows=False):
+    """Compact (user, item) interaction encoding from a columnar batch.
+
+    The batch's entity/target dictionaries cover EVERY id the scan saw
+    ($set item ids, other event types, ...); training wants a dense id
+    space of only the entities that actually interact.  Returns
+    (user_idx, item_idx, user_dict, item_dict) with rows lacking a target
+    dropped; ``return_rows`` appends the kept row indices so callers can
+    subset sibling columns like event_codes consistently.
+    """
+    from predictionio_tpu_torch.store.columnar import IdDict
+
+    has_t = batch.target_ids >= 0
+    u_codes = batch.entity_ids[has_t]
+    t_codes = batch.target_ids[has_t]
+    uu = np.unique(u_codes)
+    user_dict = IdDict([batch.entity_dict.str(int(c)) for c in uu])
+    u_map = np.full(max(len(batch.entity_dict), 1), -1, np.int32)
+    u_map[uu] = np.arange(len(uu), dtype=np.int32)
+    ti = np.unique(t_codes)
+    item_dict = IdDict([batch.target_dict.str(int(c)) for c in ti])
+    t_map = np.full(max(len(batch.target_dict), 1), -1, np.int32)
+    t_map[ti] = np.arange(len(ti), dtype=np.int32)
+    out = (u_map[u_codes].astype(np.int32), t_map[t_codes].astype(np.int32),
+           user_dict, item_dict)
+    if return_rows:
+        return out + (np.nonzero(has_t)[0],)
+    return out

@@ -1,12 +1,13 @@
 """Recommendation engine template (ALS matrix factorization): serving.
 
 Counterpart of ``predictionio_tpu/models/recommendation/engine.py``.
-predict = user-factor · item-factors top-K, scored on the device by the
-fused masked-score kernel (``ops.als``).  The model's state dict is the JAX
+train = ALS on the model's device (``ops.als.als_train``: batched normal
+equations and Cholesky solves, optionally checkpointed); predict =
+user-factor · item-factors top-K, scored on the device by the fused
+masked-score kernel (``ops.als``).  The model's state dict is the JAX
 package's, so a JAX-trained model carries across with
-``convert.als_model_from_state``.  The data source reads its rating events
-from the event store; training waits for a later slice (ROADMAP.md, queue
-A: "ALS training").
+``convert.als_model_from_state`` (or the model store's blob).  The data
+source reads its rating events from the event store.
 
 Query/response wire format matches the reference template:
   query    {"user": "u1", "num": 4, "unseenOnly": false, "blackList": []}
@@ -16,6 +17,7 @@ Query/response wire format matches the reference template:
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -31,8 +33,10 @@ from predictionio_tpu_torch.controller import (
     PersistentModel,
     Preparator,
 )
+from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.models.common import DeviceCacheMixin
 from predictionio_tpu_torch.ops import als as als_ops
+from predictionio_tpu_torch.ops.cco import ROADMAP_MESH
 from predictionio_tpu_torch.store.columnar import CSRLookup, EventBatch, IdDict
 from predictionio_tpu_torch.store.event_store import PEventStore
 
@@ -142,7 +146,7 @@ class ALSAlgorithmParams(Params):
     num_iterations: int = 10
     lambda_: float = 0.01
     seed: int = 7
-    mesh_dp: int = 0        # 0 = use all devices
+    mesh_dp: int = 0        # 0 or 1: the one card; above 1 is not ported
     checkpoint_every: int = 0
     checkpoint_dir: str = ""
 
@@ -218,10 +222,53 @@ class ALSAlgorithm(Algorithm):
     serving_batchable = True   # batch_predict reads only model state
 
     def train(self, pd: PreparedRatings) -> ALSModel:
-        raise NotImplementedError(
-            "ALS training is not ported yet (ROADMAP.md, queue A, 'ALS "
-            "training'); train with the JAX package and carry the model "
-            "across with models.recommendation.convert.als_model_from_state")
+        device = resolve_device(self.device)
+        n_users, n_items = len(pd.user_dict), len(pd.item_dict)
+        if n_users == 0 or n_items == 0:
+            return ALSModel(
+                np.zeros((0, self.params.rank), np.float32),
+                np.zeros((0, self.params.rank), np.float32),
+                pd.user_dict, pd.item_dict, device=device,
+            )
+        if self.params.mesh_dp > 1:
+            raise NotImplementedError(
+                f"mesh_dp={self.params.mesh_dp}: {ROADMAP_MESH}")
+        data = als_ops.prepare_als_data(
+            pd.user_idx, pd.item_idx, pd.rating, n_users, n_items, dp=1
+        )
+        checkpoint = None
+        if self.params.checkpoint_every > 0:
+            from predictionio_tpu_torch.utils.checkpoint import (
+                CheckpointStore,
+                prune_stale_runs,
+            )
+
+            base_dir = self.params.checkpoint_dir or os.path.join(
+                os.environ.get("PIO_CHECKPOINT_DIR", ".pio_checkpoints"), "als"
+            )
+            # keyed by run fingerprint: trainings of other data or params
+            # never share a snapshot dir; dirs of crashed runs whose
+            # fingerprint never recurs age out (TTL)
+            prune_stale_runs(base_dir)
+            fp = als_ops.als_fingerprint(
+                data, self.params.rank, self.params.lambda_, self.params.seed
+            )
+            checkpoint = CheckpointStore(os.path.join(base_dir, fp))
+        X, Y = als_ops.als_train(
+            data,
+            k=self.params.rank,
+            reg=self.params.lambda_,
+            iterations=self.params.num_iterations,
+            seed=self.params.seed,
+            checkpoint=checkpoint,
+            checkpoint_every=self.params.checkpoint_every,
+            device=device,
+        )
+        if checkpoint is not None:
+            # completed: remove this run's snapshot dir entirely
+            checkpoint.clear(remove_dir=True)
+        seen = CSRLookup.from_pairs(pd.user_idx, pd.item_idx, n_users)
+        return ALSModel(X, Y, pd.user_dict, pd.item_dict, seen, device=device)
 
     def warm(self, model: ALSModel) -> None:
         model.warm()

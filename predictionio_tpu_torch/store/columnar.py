@@ -5,9 +5,9 @@ its lazy blob form), ``CSRLookup``, the per-key property columns of the
 native scan (``PropColumn``), ``EventBatch`` (``from_events``,
 ``concat``, ``subset``, ``select_events``), ``EventIdColumn``, the PIOCOL01
 snapshot container (``write_batch``, ``read_batch``: byte-equal files and
-the same reads in both packages) and ``fold_properties``.  The port keeps
-its own copies: it imports nothing of the JAX package.  The JAX
-``BatchMerger`` (the sharded store's k-way merge) and
+the same reads in both packages), ``fold_properties`` and
+``category_masks``.  The port keeps its own copies: it imports nothing of
+the JAX package.  The JAX ``BatchMerger`` (the sharded store's k-way merge) and
 ``write_arrays``/``read_arrays`` (the model plane's container) wait for
 ROADMAP.md, queue A, 'Streaming'.
 """
@@ -772,3 +772,19 @@ def fold_properties(batch: EventBatch, entity_type: Optional[str] = None
                 cur.pop(key, None)
             cur.last_updated = max(cur.last_updated, when)
     return snap
+
+
+def category_masks(item_categories, item_dict: "IdDict"):
+    """(category IdDict, [C, n_items] bool matrix) from per-item category
+    lists — the device-resident form of an engine's category business
+    rules (items are columns so a query ORs a few mask ROWS on device)."""
+    names = sorted({c for cats in item_categories.values() for c in cats})
+    cat_dict = IdDict(names)
+    masks = np.zeros((len(names), len(item_dict)), bool)
+    for item, cats in item_categories.items():
+        iid = item_dict.id(item)
+        if iid is None:
+            continue
+        for c in cats:
+            masks[cat_dict.id(c), iid] = True
+    return cat_dict, masks

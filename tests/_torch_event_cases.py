@@ -105,6 +105,41 @@ def rule_corpus(props_of):
     return specs
 
 
+def ecommerce_corpus():
+    """tests/test_ecommerce.py's ``ecomm_app`` events (two taste clusters of
+    view/buy, ``$set`` categories) with explicit event times."""
+    rng = np.random.default_rng(11)
+    specs = []
+    for u in range(40):
+        items = [f"a{i}" for i in range(6)] if u % 2 == 0 else [f"z{i}" for i in range(6)]
+        for it in items:
+            t = T0 + len(specs)
+            if rng.random() < 0.8:
+                specs.append(("view", "user", f"u{u}", "item", it, {}, t, t))
+            if rng.random() < 0.3:
+                specs.append(("buy", "user", f"u{u}", "item", it, {}, t + 0.5, t + 0.5))
+    for i in range(6):
+        t = T0 + 10_000 + i
+        specs.append(("$set", "item", f"a{i}", None, None, {"categories": ["alpha"]}, t, t))
+        specs.append(("$set", "item", f"z{i}", None, None, {"categories": ["zeta"]}, t, t))
+    return specs
+
+
+def rating_corpus(n_users=24, n_items=40, seed=5):
+    """Two taste groups of ``rate`` events (tests/test_recommendation.py's
+    style): even users rate even items 5 and odd ones 1, odd users the
+    reverse."""
+    rng = np.random.default_rng(seed)
+    specs = []
+    for u in range(n_users):
+        for i in range(n_items):
+            if rng.random() < 0.5:
+                t = T0 + len(specs)
+                specs.append(("rate", "user", f"u{u}", "item", f"i{i}",
+                              {"rating": 5.0 if (i % 2) == u % 2 else 1.0}, t, t))
+    return specs
+
+
 def _build(cls, spec, k):
     ev, et, eid, tt, tid, props, t, ct = spec
     return cls(event=ev, entity_type=et, entity_id=eid, target_entity_type=tt,

@@ -37,7 +37,7 @@ from predictionio_tpu.workflow.create_workflow import engine_from_variant as jax
 from predictionio_tpu_torch.cli import main as cli
 from predictionio_tpu_torch.storage import Storage, StorageConfig, set_storage
 
-from _torch_event_cases import port_events, rule_corpus
+from _torch_event_cases import ecommerce_corpus, port_events, rating_corpus, rule_corpus
 from _torch_ur_cases import assert_same_answer
 
 REPO = Path(__file__).resolve().parents[1]
@@ -92,6 +92,41 @@ def _jax_args(argv):
     return jax_cli.build_parser().parse_args(argv)
 
 
+def _served(root: Path, bodies, env=None) -> dict:
+    """``pio deploy`` in a subprocess: its ``GET /`` info, its answers to
+    ``bodies``, then ``pio undeploy`` (twice: the second finds nothing) and
+    the deploy's exit code and output."""
+    out = {}
+    port = _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "predictionio_tpu_torch.cli.main", "deploy",
+         "--ip", "127.0.0.1", "--port", str(port)],
+        cwd=root, env=env or _env(root), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        base = f"http://127.0.0.1:{port}"
+        deadline = time.monotonic() + 120
+        while True:
+            assert proc.poll() is None, proc.stdout.read()
+            assert time.monotonic() < deadline, "pio deploy did not answer"
+            try:
+                with urllib.request.urlopen(base + "/", timeout=5) as resp:
+                    out["info"] = json.loads(resp.read())
+                break
+            except (urllib.error.URLError, ConnectionError):
+                time.sleep(0.2)
+        out["answers"] = [_post(base + "/queries.json", q) for q in bodies]
+        out["undeploy"] = _pio(root, "undeploy", "--port", str(port))
+        out["deploy_rc"] = proc.wait(timeout=60)
+        out["deploy_out"] = proc.stdout.read()
+        out["undeploy_again"] = _pio(root, "undeploy", "--port", str(port), check=False)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return out
+
+
 @pytest.fixture(scope="module")
 def loop(tmp_path_factory):
     """The port's CLI loop, run once: what it printed and served."""
@@ -109,32 +144,7 @@ def loop(tmp_path_factory):
     out["train"] = _pio(root, "train").stdout
     out["show"] = _pio(root, "app", "show", APP).stdout
     shutil.copytree(root / "store", root / "store-at-train")
-    port = _free_port()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "predictionio_tpu_torch.cli.main", "deploy",
-         "--ip", "127.0.0.1", "--port", str(port)],
-        cwd=root, env=_env(root), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    try:
-        base = f"http://127.0.0.1:{port}"
-        deadline = time.monotonic() + 120
-        while True:
-            assert proc.poll() is None, proc.stdout.read()
-            assert time.monotonic() < deadline, "pio deploy did not answer"
-            try:
-                with urllib.request.urlopen(base + "/", timeout=5) as resp:
-                    out["info"] = json.loads(resp.read())
-                break
-            except (urllib.error.URLError, ConnectionError):
-                time.sleep(0.2)
-        out["answers"] = [_post(base + "/queries.json", q) for q in QUERIES]
-        out["undeploy"] = _pio(root, "undeploy", "--port", str(port))
-        out["deploy_rc"] = proc.wait(timeout=60)
-        out["deploy_out"] = proc.stdout.read()
-        out["undeploy_again"] = _pio(root, "undeploy", "--port", str(port), check=False)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+    out.update(_served(root, QUERIES))
     out["export"] = _pio(root, "export", "--app-name", APP, "--output",
                          str(root / "export.jsonl")).stdout
     return out
@@ -202,6 +212,38 @@ def test_deploy_serves_on_the_asked_device_and_undeploy_ends_it(loop):
     assert "No deployment reachable" in loop["undeploy_again"].stdout
 
 
+def test_undeploy_probes_again_when_the_closing_listener_resets_it(monkeypatch, capsys):
+    """A probe connect that the closing listener resets (ECONNRESET) is
+    not a verdict: undeploy probes again, sees the port refuse, exits 0."""
+    from types import SimpleNamespace
+
+    from predictionio_tpu_torch.workflow.create_server import deploy_models
+
+    class Engine:
+        def predictor(self, engine_params, models):
+            return lambda query: {"itemScores": []}
+
+    server = deploy_models(Engine(), SimpleNamespace(algorithm_params_list=[]), [])
+    port = server.server_address[1]
+    real, calls = socket.create_connection, []
+
+    def reset_once(address, *a, **kw):
+        # the first connect is the /stop request's, the second the first probe's
+        calls.append(address)
+        if len(calls) == 2:
+            raise ConnectionResetError(104, "Connection reset by peer")
+        return real(address, *a, **kw)
+
+    monkeypatch.setattr(cli.socket, "create_connection", reset_once)
+    try:
+        assert cli.main(["undeploy", "--port", str(port), "--timeout", "10"]) == 0
+    finally:
+        server.shutdown()
+        server.server_close()
+    assert len(calls) >= 3 and set(calls) == {("127.0.0.1", port)}
+    assert capsys.readouterr().out == f"Undeployed 127.0.0.1:{port}.\n"
+
+
 @pytest.mark.parametrize("k", range(len(QUERIES)))
 def test_served_answers_equal_the_jax_ur(loop, jax_answers, k):
     got, want = loop["answers"][k], jax_answers[k]
@@ -241,6 +283,87 @@ def test_export_equals_the_jax_export(loop, tmp_path):
     n = len(rule_corpus(STAMPS))
     assert loop["export"].strip() == f"Exported {n} events from app 1 to {root / 'export.jsonl'}."
     assert (root / "export.jsonl").read_bytes() == (tmp_path / "jax.jsonl").read_bytes()
+
+
+TEMPLATES = {
+    "recommendation": (rating_corpus, {
+        "id": "cli-reco", "engineFactory": "recommendation",
+        "datasource": {"params": {"appName": "clireco"}},
+        "algorithms": [{"name": "als", "params": {
+            "rank": 6, "numIterations": 6, "lambda": 0.05, "checkpointEvery": 2}}]},
+        [{"user": "u0", "num": 5}, {"user": "u1", "num": 5, "unseenOnly": True},
+         {"user": "u2", "num": 3, "blackList": ["i0", "i2"]}, {"user": "ghost"}]),
+    "ecommerce": (ecommerce_corpus, {
+        "id": "cli-ecomm", "engineFactory": "ecommerce",
+        "datasource": {"params": {"appName": "cliecomm"}},
+        "algorithms": [{"name": "ecomm", "params": {
+            "appName": "cliecomm", "rank": 8, "numIterations": 10, "alpha": 2.0,
+            "unseenOnly": True}}]},
+        [{"user": "u0", "num": 4}, {"user": "u1", "num": 4, "categories": ["alpha"]},
+         {"user": "u2", "num": 6, "blackList": ["a0"]}, {"user": "nobody", "num": 3}]),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(TEMPLATES))
+def template_loop(request, tmp_path_factory):
+    """``pio app new`` → ``import`` → ``train`` → ``deploy`` of one ALS
+    template in subprocesses on the CPU.  The recommendation train
+    checkpoints every 2 sweeps under ``PIO_CHECKPOINT_DIR`` with a fault
+    injected after its second chunk and ``PIO_TRAIN_RETRIES=1``; then the
+    port's own predictor, loading the trained model in this process,
+    answers the same queries."""
+    name = request.param
+    corpus, variant, bodies = TEMPLATES[name]
+    app = variant["datasource"]["params"]["appName"]
+    root = tmp_path_factory.mktemp(name)
+    (root / "events.jsonl").write_text("".join(
+        json.dumps(e.to_json()) + "\n" for e in port_events(corpus())))
+    (root / "engine.json").write_text(json.dumps(variant))
+    env = {**_env(root), "PIO_CHECKPOINT_DIR": str(root / "ck"),
+           "PIO_TRAIN_RETRIES": "1", "PIO_FAULT_INJECT": "als.sweep:2"}
+    _pio(root, "app", "new", app)
+    _pio(root, "import", "--app-name", app, "--input", str(root / "events.jsonl"))
+    train = subprocess.run([sys.executable, "-m", "predictionio_tpu_torch.cli.main", "train"],
+                           cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    out = {"name": name, "root": root, "bodies": bodies, "train": train}
+    out.update(_served(root, bodies))
+    store = Storage(StorageConfig(
+        sources={"S": {"type": "localfs", "path": str(root / "store")}},
+        repositories={r: "S" for r in ("METADATA", "EVENTDATA", "MODELDATA")}))
+    set_storage(store)
+    try:
+        from predictionio_tpu_torch.workflow.core_workflow import load_latest_models
+        from predictionio_tpu_torch.workflow.create_workflow import engine_from_variant
+
+        factory, engine, ep = engine_from_variant(variant)
+        _, models = load_latest_models(variant["id"], storage=store, device="cpu")
+        predict = engine.predictor(ep, models)
+        out["in_process"] = [predict(factory.query_class.from_json(b)).to_json()
+                             for b in bodies]
+    finally:
+        set_storage(None)
+    return out
+
+
+def test_pio_train_and_deploy_serve_the_template(template_loop):
+    t = template_loop
+    assert t["train"].returncode == 0, t["train"].stderr
+    assert t["train"].stdout.startswith("Training completed. Engine instance id: ")
+    if t["name"] == "recommendation":   # the retry resumed, then cleared its snapshots
+        assert "injected fault at 'als.sweep'" in t["train"].stderr
+        assert list((t["root"] / "ck" / "als").iterdir()) == []
+    assert t["info"]["devices"] == ["cpu"]
+    assert t["deploy_rc"] == 0, t["deploy_out"]
+    assert t["answers"] == t["in_process"]
+    first = [s["item"] for s in t["answers"][0]["itemScores"]]
+    if t["name"] == "recommendation":
+        assert first and all(int(i[1:]) % 2 == 0 for i in first), first
+        assert t["answers"][-1] == {"itemScores": []}
+    else:   # unseenOnly: none of u0's own items, live from the store
+        seen = {s[4] for s in ecommerce_corpus() if s[2] == "u0"}
+        assert first and not seen & set(first), first
+        assert all(s["item"].startswith("a") for s in t["answers"][1]["itemScores"])
+        assert t["answers"][-1]["itemScores"]     # the popularity tier
 
 
 @pytest.fixture()

@@ -12,9 +12,10 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "predictionio_tpu_torch"
 
-# the port's ALS serving path, and the UR path from the store (events with
+# the port's ALS serving path, the UR path from the store (events with
 # $set properties -> run_train -> load_latest_models -> deploy -> a rule
-# query) on the CPU, in a fresh interpreter
+# query), and ALS training of the recommendation and e-commerce templates
+# on the CPU, in a fresh interpreter
 _DRIVE = r"""
 import json, sys, urllib.request
 import numpy as np
@@ -78,6 +79,27 @@ for body in ({"item": "i2"}, {"user": "u1", "num": 4, "fields": [
     got = json.loads(urllib.request.urlopen(req, timeout=30).read())["itemScores"]
     assert got and ("fields" not in body or all(int(d["item"][1:]) % 3 == 1 for d in got))
 server.shutdown(); server.server_close()
+
+# ALS training (explicit, checkpointed) and the e-commerce template from the store
+store.l_events.insert_batch(
+    [Event("rate", "user", f"u{a}", "item", f"i{b}", properties={"rating": float(b % 5)},
+           event_time=1.8e9 + k, creation_time=1.8e9 + k) for k, (a, b) in enumerate(zip(u, i))]
+    + [Event("view", "user", f"u{a}", "item", f"i{b}", event_time=1.8e9 + k,
+             creation_time=1.8e9 + k) for k, (a, b) in enumerate(zip(u, i))]
+    + [Event("$set", "item", f"i{j}", properties={"categories": [f"c{j % 3}"]},
+             event_time=1.8e9, creation_time=1.8e9) for j in range(12)], app)
+for variant in (
+        {"engineFactory": "recommendation", "datasource": {"params": {"appName": "a"}},
+         "algorithms": [{"name": "als", "params": {"rank": 3, "numIterations": 2,
+                                                   "checkpointEvery": 1}}]},
+        {"engineFactory": "ecommerce", "datasource": {"params": {"appName": "a"}},
+         "algorithms": [{"name": "ecomm", "params": {"appName": "a", "rank": 3,
+                                                     "numIterations": 2}}]}):
+    os.environ["PIO_CHECKPOINT_DIR"] = tempfile.mkdtemp()
+    factory, engine, ep = engine_from_variant(variant)
+    (model,) = engine.train(ep, device="cpu")
+    assert engine.predictor(ep, [model])(factory.query_class.from_json(
+        {"user": "u1", "num": 3})).item_scores
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "predictionio_tpu" or m.startswith("predictionio_tpu."))

@@ -4,7 +4,9 @@ A tiny ALS model is trained with the JAX package, its state is carried
 across with ``als_model_from_state(..., device="cpu")``, and the port's
 predict, batch predict and HTTP ``/queries.json`` are held against the JAX
 predictor on the same queries: item lists exact, scores within rtol 1e-5,
-atol 1e-6 (the CPU matmuls of XLA and torch sum in different orders).
+atol 1e-6 (the CPU matmuls of XLA and torch sum in different orders).  The
+port's own training from its store (``run_train`` on CPU tensors, from
+JAX's initial factors) is held against the JAX model too.
 """
 
 import json
@@ -173,30 +175,74 @@ def test_http_queries_match_jax(jax_models, port):
         server.server_close()
 
 
-def test_training_is_not_ported_yet(port):
-    """The data source reads the rating events from the store; training
-    itself raises, naming its ROADMAP item."""
+def test_train_from_the_store_matches_jax(jax_models, monkeypatch):
+    """The port trains from its own store: the fixture's rating events go
+    into a port memory store, ``run_train`` trains on CPU tensors from the
+    JAX package's initial factors (the port's ``_als_init`` monkeypatched to
+    JAX's arrays; the port's own generator draws others), the model comes
+    back through ``load_latest_models``, and its factors equal the JAX
+    model's within rtol 1e-4, atol 1e-5 (f32 sums in another order through
+    eight sweeps); every query's answer equals the JAX answer (items away
+    from ties, scores within that bar)."""
+    from predictionio_tpu.ops import als as jax_als
     from predictionio_tpu_torch.events.event import Event as PortEvent
     from predictionio_tpu_torch.models.recommendation.engine import DataSourceParams
+    from predictionio_tpu_torch.ops import als as port_als
     from predictionio_tpu_torch.storage import App as PortApp
     from predictionio_tpu_torch.storage import Storage as PortStorage
     from predictionio_tpu_torch.storage import StorageConfig as PortStorageConfig
     from predictionio_tpu_torch.storage import set_storage as port_set_storage
+    from predictionio_tpu_torch.workflow import core_workflow
 
-    engine, ep, _ = port
+    import torch
+
+    def jax_init(data, k, seed):
+        x0, y0 = jax_als._als_init(data, k, seed)
+        return torch.as_tensor(np.array(x0)), torch.as_tensor(np.array(y0))
+
+    monkeypatch.setattr(port_als, "_als_init", jax_init)
+    j_engine, j_ep, j_models = jax_models
     store = PortStorage(PortStorageConfig.memory())
     app_id = store.apps.insert(PortApp(0, "torchreco"))
-    store.l_events.insert_batch(
-        [PortEvent("rate", "user", f"u{k % 3}", "item", f"i{k}", properties={"rating": 4.0},
-                   event_time=1.7e9 + k, creation_time=1.7e9 + k) for k in range(6)], app_id)
+    rng = np.random.default_rng(5)   # the fixture's corpus, event for event
+    events = []
+    for u in range(24):
+        for i in range(40):
+            if rng.random() < 0.5:
+                t = 1.7e9 + len(events)
+                events.append(PortEvent(
+                    "rate", "user", f"u{u}", "item", f"i{i}",
+                    properties={"rating": 5.0 if (i % 2) == u % 2 else 1.0},
+                    event_time=t, creation_time=t))
+    store.l_events.insert_batch(events, app_id)
     port_set_storage(store)
     try:
+        engine = reco.RecommendationEngine.apply()
         ep = EngineParams(
             data_source_params=DataSourceParams(app_name="torchreco"),
-            algorithm_params_list=ep.algorithm_params_list)
+            algorithm_params_list=[("als", reco.ALSAlgorithmParams(
+                rank=6, num_iterations=8, lambda_=0.05))])
         batch = engine.make_components(ep)[0].read_training()
-        assert len(batch) == 6 and batch.target_dict.strings() == [f"i{k}" for k in range(6)]
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            engine.train(ep, device="cpu")
+        assert len(batch) == len(events)
+        instance = core_workflow.run_train(engine, ep, "reco", storage=store, device="cpu")
+        assert instance.status == "COMPLETED"
+        (model,) = core_workflow.load_latest_models("reco", storage=store, device="cpu")[1]
     finally:
         port_set_storage(None)
+    want = j_models[0]
+    assert model.user_dict.strings() == list(want.user_dict.strings())
+    assert model.item_dict.strings() == list(want.item_dict.strings())
+    np.testing.assert_allclose(model.user_factors, want.user_factors, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(model.item_factors, want.item_factors, rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(model.seen.to_state()["values"], want.seen.to_state()["values"])
+    predict = engine.predictor(ep, [model])
+    jax_predict = j_engine.predictor(j_ep, j_models)
+    for body in QUERIES:
+        got = predict(reco.RecoQuery.from_json(body)).to_json()
+        exp = jax_predict(jax_reco.RecoQuery.from_json(body)).to_json()
+        np.testing.assert_allclose([s["score"] for s in got["itemScores"]],
+                                   [s["score"] for s in exp["itemScores"]],
+                                   rtol=1e-4, atol=1e-5)
+        scores = dict((s["item"], s["score"]) for s in exp["itemScores"])
+        for g, w in zip(got["itemScores"], exp["itemScores"]):
+            assert g["item"] == w["item"] or abs(scores[g["item"]] - w["score"]) <= 1e-4

@@ -26,6 +26,7 @@ from predictionio_tpu.models.recommendation import engine as jax_reco
 from predictionio_tpu.models.universal_recommender import engine as jax_ur
 from predictionio_tpu.workflow import core_workflow as jax_workflow
 from predictionio_tpu_torch.controller.engine import serialize_engine_params
+from predictionio_tpu_torch.models.ecommerce import ECommerceEngine
 from predictionio_tpu_torch.models import recommendation as reco
 from predictionio_tpu_torch.models import universal_recommender as ur
 from predictionio_tpu_torch.models.universal_recommender import engine as port_ur
@@ -209,6 +210,8 @@ def test_deploy_refuses_options_it_cannot_honour(tmp_path, option, value):
     ("recommendation", reco.RecommendationEngine),
     ("predictionio_tpu.models.recommendation.engine.RecommendationEngine",
      reco.RecommendationEngine),
+    ("ecommerce", ECommerceEngine),
+    ("predictionio_tpu.models.ecommerce.ECommerceEngine", ECommerceEngine),
 ])
 def test_engine_factories_resolve_to_the_port(name, want):
     assert resolve_engine_factory(name) is want
