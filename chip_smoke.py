@@ -34,7 +34,8 @@ each of which fails the run (exit code != 0, no final ``ok`` line):
 ALS serving (slice 1):
 6. build the full-width ALS model — 5,000 users x 100,000 items x rank 32,
    random factors from a seed — through ``als_model_from_state``;
-7. serve it with ``deploy_models`` and POST ``/queries.json`` over HTTP;
+7. serve it with ``deploy_models`` (the event-loop front end; models on
+   the card turn the micro-batcher on) and POST ``/queries.json`` over HTTP;
 8. score 256 queries through ``batch_predictor``;
    every answer of 7 and 8 is checked against the same query scored by the
    plain version on the card and ranked on the host;
@@ -106,9 +107,13 @@ UR training and serving, the store and the CLI (slices 2-8):
     port's own predict on a CPU copy of the model (the plain path, reading
     the histories from the same store), every rule answer against a numpy
     oracle of the item properties, and a malformed currentDate must answer
-    400; then ``pio undeploy`` stops the server, which must exit 0; the
-    rule mask's build is timed on the card in this process, first and
-    LRU-warm;
+    400; the first variant then takes UR_LOAD's round: 500 queries from 32
+    closed-loop keep-alive clients (a process of their own), micro-batched
+    through the UR's ``serve_batch_predict``, every answer checked against
+    the CPU predict, the mean batch size read from ``/metrics`` and no
+    serial re-run; then ``pio undeploy`` stops the server, which must exit
+    0; the rule mask's build is timed on the card in this process, first
+    and LRU-warm;
 ALS training and the e-commerce template (slice 9):
 12b. the deployed ALS width (bench.py:151: 5,000 users x 100,000 items,
     270k ``rate`` events covering the catalog + 30k ``buy``, rank 32, 4
@@ -144,6 +149,31 @@ ALS training and the e-commerce template (slice 9):
     answer held against a numpy oracle built from the trained factors and
     the generated events (float64 scores, ties within rtol/atol 1e-5;
     popularity answers by their scores, each item checked to qualify);
+the event server, the front end and the micro-batcher (slice 10):
+14. a ``shop14`` app in the same store: ``pio eventserver --workers 2`` as
+    a subprocess takes 12b's 270k ``rate`` + 30k ``buy`` events over HTTP
+    with its access key, in batches of 50 from 8 keep-alive clients (a
+    process of their own; events/s and a batch's p50/p99): every
+    acknowledged event must be in the store once, the segments per writer
+    (``seg-w0-<pid>``, ``seg-w1-<pid>``), and six scrapes of ``/metrics``
+    over fresh connections must each read ``pio_events_ingested_total`` =
+    300,000; ``pio train`` on the card; then ``deploy(auto_reload=1.0)`` on
+    the card in this process under closed-loop keep-alive clients at 1, 8
+    and 32, 2,000 queries a level, with the default handler pool, with
+    ``PIO_HTTP_POOL=32`` (the only way past K1's streaming pass on an
+    8-core host: the pool caps a micro-batch) and with
+    ``PIO_SERVE_BATCH=off`` at 32: p50, p99, q/s, the
+    ``pio_serve_batch_size`` histogram, K1's launches by route (counts set
+    to 0 just before each level, read just after; the tiled route must
+    launch in the pool-32 round) and 0 serial re-runs, every answer held
+    against float64 host scoring; a hot reload (20k ``rate`` events of 500
+    new users over HTTP, ``pio train``): ``GET /`` names the new instance
+    within the poll interval plus 5 s, the new users' answers equal the new
+    factors, ``torch.cuda.memory_allocated`` after the swap and a
+    ``gc.collect()`` within 2 MiB of the models' own difference (the old
+    generation released); a feedback round of 200 queries leaves 200
+    ``predict`` events equal to the answers; ``pio undeploy`` stops every
+    server and the event server group (exit 0), no child left;
 13. time each kernel, its plain version and a PyTorch yardstick where one
     exists, with CUDA events and the L2 flushed, beside its bound (bytes
     over 3.35 TB/s or operations over 67 TFLOP/s, the H100 SXM data sheet's
@@ -1821,23 +1851,45 @@ def serve_ur(ur, model, arrays, cols, dev, env, variants):
             (probe_answer,), (probe_ms,) = timed_posts(url, [probe])
             rule_answers, rule_ms = timed_posts(url, rules)
             status = refused(url, {"user": hist_users[0], "currentDate": "01/03/2026"})
+            if not use_llr:   # one round under concurrent load, micro-batched
+                n_load, conc, distinct = UR_LOAD
+                load_bodies = level_bodies(ur_queries(rng, distinct, pool), n_load, SEED + 12)
+                m0 = metrics_text(base)
+                statuses, load_ms, load_answers, load_wall = run_clients(
+                    Path(path).parent, int(base.rsplit(":", 1)[1]), "/queries.json",
+                    load_bodies, conc)
+                m1 = metrics_text(base)
+                check(set(statuses) == {200}, f"UR under load: statuses {set(statuses)}")
+                n_b, q_b, reruns = (
+                    family_value(m1, name) - family_value(m0, name)
+                    for name in ("pio_serve_batch_size_count", "pio_serve_batch_size_sum",
+                                 "pio_serve_batch_serial_reruns_total"))
+                check(n_b > 0 and q_b == n_load, f"UR under load: {q_b} of {n_load} queries "
+                      f"in {n_b} micro-batches")
+                check(reruns == 0, f"UR under load: {reruns} serial re-runs")
         check(status == 400, f"a malformed currentDate answered {status}, not 400")
         algo = ur.URAlgorithm(ur.URAlgorithmParams.from_json(
             variant["algorithms"][0]["params"]))
         checked = (list(zip(bodies, answers)) + [(probe, probe_answer)]
                    + list(zip(timed, timed_answers))[::10]
                    + list(zip(rules, rule_answers))[::10])
+        if not use_llr:   # every loaded answer too
+            checked += list(zip(load_bodies, load_answers))
         swaps = 0
+        refs = {}   # the CPU predict and signal of each distinct body
         for body, got in checked:
-            q = ur.URQuery.from_json(body)
-            want = algo.predict(cpu_model, q).to_json()
-            hist = algo._query_hist(cpu_model, q)
-            sig = algo._score_history(cpu_model, hist) if hist is not None else None
-            key = algo._mask_rule_key(q)
-            if sig is not None and key is not None:
-                sig = sig * algo._mask_from_key(cpu_model, key)
-            swaps += check_ur_answer(body, got, want, None if sig is None else sig.numpy(),
-                                     cpu_model.item_dict)
+            ref_key = json.dumps(body, sort_keys=True)
+            if ref_key not in refs:
+                q = ur.URQuery.from_json(body)
+                want = algo.predict(cpu_model, q).to_json()
+                hist = algo._query_hist(cpu_model, q)
+                sig = algo._score_history(cpu_model, hist) if hist is not None else None
+                key = algo._mask_rule_key(q)
+                if sig is not None and key is not None:
+                    sig = sig * algo._mask_from_key(cpu_model, key)
+                refs[ref_key] = (want, None if sig is None else sig.numpy())
+            want, sig = refs[ref_key]
+            swaps += check_ur_answer(body, got, want, sig, cpu_model.item_dict)
         for body, got in zip(bodies + timed, answers + timed_answers):
             check(len(got["itemScores"]) == min(body["num"], len(cpu_model.item_dict))
                   and all(np.isfinite(d["score"]) for d in got["itemScores"]),
@@ -1857,6 +1909,15 @@ def serve_ur(ur, model, arrays, cols, dev, env, variants):
               f"over {len(rules)} rule queries p50={r50:.3f} p99={r99:.3f} "
               f"max={max(rule_ms):.3f} (host clock, one client, a connection per request); "
               "pio undeploy stopped it, exit 0")
+        if not use_llr:
+            lp50, lp99 = np.percentile(load_ms, [50, 99])
+            out["load"] = {"queries": n_load, "clients": conc, "p50_ms": float(lp50),
+                           "p99_ms": float(lp99), "qps": n_load / load_wall,
+                           "batches": n_b, "batch_mean": q_b / n_b, "serial_reruns": reruns}
+            print(f"  UR under load: {n_load} queries from {conc} keep-alive clients p50 "
+                  f"{lp50:.3f} ms p99 {lp99:.3f} ms {n_load / load_wall:.1f} q/s, "
+                  f"{int(n_b)} micro-batches (mean {q_b / n_b:.2f} queries) through "
+                  "serve_batch_predict, every answer equal to the CPU predict")
         out[use_llr] = {"deploy_up_s": up_s, "deploy_to_first_answer_s": first_s,
                         "first_ms": lat_ms[0], "p50_ms": float(p50), "p99_ms": float(p99),
                         "max_ms": max(timed_ms), "n": len(timed), "checked": len(checked),
@@ -2033,7 +2094,13 @@ def als_reference_host(model, body):
     for b in body.get("blackList", []):
         if model.item_dict.id(b) is not None:
             s[model.item_dict.id(b)] = -np.inf
-    order = np.lexsort((np.arange(len(s)), -s))[: min(int(body.get("num", 10)), len(s))]
+    n = min(int(body.get("num", 10)), len(s))
+    if n == 0:
+        return [], s
+    # the n-th largest score, then (score desc, id asc) among the items at
+    # or above it: the full order's first n, ties included
+    cand = np.flatnonzero(s >= np.partition(s, len(s) - n)[len(s) - n])
+    order = cand[np.lexsort((cand, -s[cand]))][:n]
     return [(model.item_dict.str(int(i)), float(s[i])) for i in order if np.isfinite(s[i])], s
 
 
@@ -2340,6 +2407,587 @@ def ecomm_path(dev, workdir, shop, app_id):
     return t
 
 
+# -- phase 14: the event server, the event-loop front end and the micro-batcher --
+
+FRONTEND_LEVELS = (1, 8, 32)     # closed-loop keep-alive clients
+FRONTEND_QUERIES = 2_000         # queries at each level
+FRONTEND_POOL = 500              # distinct query bodies the levels draw from
+INGEST_CLIENTS, INGEST_BATCH = 8, 50
+RELOAD_USERS, RELOAD_EVENTS = 500, 20_000
+RELOAD_INTERVAL_S = 1.0          # the deploy's auto-reload poll
+RELOAD_SLACK_S = 5.0             # the install's bound beyond the poll interval
+SWAP_SLACK_BYTES = 2 << 20       # device memory after the swap, beyond the models' own
+FEEDBACK_QUERIES = 200
+UR_LOAD = (500, 32, 100)         # UR queries, clients, distinct bodies
+PROFILED_QUERIES = 500           # a profiled 32-client window after each setting's levels
+
+LOAD_CLIENT = r"""
+import http.client, json, sys, threading, time
+url_host, port, path, conc, src, dst = sys.argv[1:7]
+with open(src) as f:
+    bodies = [json.dumps(b) for b in json.load(f)]
+out = [None] * len(bodies)
+nxt, lock = [0], threading.Lock()
+gate = threading.Barrier(int(conc) + 1)
+
+def work():
+    conn = http.client.HTTPConnection(url_host, int(port), timeout=120)
+    gate.wait()
+    while True:
+        with lock:
+            k = nxt[0]
+            nxt[0] += 1
+        if k >= len(bodies):
+            break
+        t0 = time.perf_counter()
+        conn.request("POST", path, bodies[k], {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        data = r.read()
+        out[k] = (r.status, (time.perf_counter() - t0) * 1e3, json.loads(data))
+    conn.close()
+
+ts = [threading.Thread(target=work) for _ in range(int(conc))]
+[t.start() for t in ts]
+gate.wait()
+t0 = time.perf_counter()
+[t.join() for t in ts]
+wall = time.perf_counter() - t0
+with open(dst, "w") as f:
+    json.dump({"wall_s": wall, "results": out}, f)
+"""
+
+
+def run_clients(workdir, port, path, bodies, concurrency, timeout=600):
+    """``concurrency`` closed-loop keep-alive clients in a process of their
+    own (the server's GIL is not theirs) POST ``bodies`` to ``path``:
+    (statuses, host-clock ms of each request, parsed answers, wall s)."""
+    script = workdir / "load_client.py"
+    if not script.exists():
+        script.write_text(LOAD_CLIENT)
+    src, dst = workdir / "load_in.json", workdir / "load_out.json"
+    src.write_text(json.dumps(bodies))
+    out = subprocess.run([sys.executable, str(script), "127.0.0.1", str(port), path,
+                          str(concurrency), str(src), str(dst)],
+                         capture_output=True, text=True, timeout=timeout)
+    check(out.returncode == 0, f"the load clients failed: {out.stderr[-2000:]}")
+    doc = json.loads(dst.read_text())
+    src.unlink()
+    dst.unlink()
+    res = doc["results"]
+    return [r[0] for r in res], [r[1] for r in res], [r[2] for r in res], doc["wall_s"]
+
+
+def time_calls(obj, attr):
+    """Wrap ``obj.attr`` (a micro-batcher's batch run, or the predictor
+    of a server without one) with the host clock: the returned list gets
+    (queries, ms) of every call, the readback included."""
+    calls, fn = [], getattr(obj, attr)
+
+    def timed(q):
+        t0 = time.perf_counter()
+        try:
+            return fn(q)
+        finally:
+            calls.append((len(q) if isinstance(q, list) else 1,
+                          (time.perf_counter() - t0) * 1e3))
+
+    setattr(obj, attr, timed)
+    return calls
+
+
+def calls_summary(calls, wall_s):
+    """Host ms of the timed calls: p50, p99, mean, and the share of the
+    round's wall they cover (above 1 when calls overlap)."""
+    ms = [c[1] for c in calls]
+    p50, p99 = np.percentile(ms, [50, 99])
+    return {"calls": len(ms), "p50_ms": float(p50), "p99_ms": float(p99),
+            "mean_ms": float(np.mean(ms)), "share_of_wall": sum(ms) / 1e3 / wall_s}
+
+
+def profiled_round(workdir, port, bodies, conc):
+    """One load round under ``torch.profiler`` (CPU and CUDA activity):
+    the clients' results and wall, the device's busy µs in the window
+    (every kernel and copy, from any thread), the largest kernels, and
+    the host's self µs in torch operators with the largest of them."""
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    try:   # the handler threads' operators, not only this thread's
+        config = _ExperimentalConfig(profile_all_threads=True)
+    except TypeError:   # an older torch: the operators go unmeasured (None)
+        config = None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 experimental_config=config) as prof:
+        statuses, _, answers, wall = run_clients(workdir, port, "/queries.json", bodies, conc)
+        torch.cuda.synchronize()
+    kernels, ops = {}, {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0) or 0
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.key] = {"us": us, "calls": ev.count}
+        elif ev.device_type == torch.autograd.DeviceType.CPU and ev.self_cpu_time_total > 0:
+            ops[ev.key] = {"us": ev.self_cpu_time_total, "calls": ev.count}
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["us"])[:6])
+    top_ops = dict(sorted(ops.items(), key=lambda kv: -kv[1]["us"])[:6])
+    op_us = sum(o["us"] for o in ops.values()) if config is not None else None
+    return statuses, answers, wall, sum(k["us"] for k in kernels.values()), top, op_us, top_ops
+
+
+def batch_hist_snapshot():
+    """The in-process ``pio_serve_batch_size`` histogram: (bucket bounds,
+    counts by bucket, sum, count)."""
+    from predictionio_tpu_torch.obs import metrics as obs_metrics
+
+    h = obs_metrics.get_registry().histogram("pio_serve_batch_size", "x")
+    s = h._snapshot_series().get("", {"counts": [0] * (len(h.buckets) + 1), "sum": 0.0,
+                                      "count": 0})
+    return list(h.buckets) + ["+Inf"], s["counts"], s["sum"], s["count"]
+
+
+def batch_hist_delta(before, after):
+    bounds, c0, s0, n0 = before
+    _, c1, s1, n1 = after
+    hist = {str(b): c1[j] - c0[j] for j, b in enumerate(bounds) if c1[j] - c0[j]}
+    return {"histogram_le": hist, "batches": n1 - n0,
+            "mean": (s1 - s0) / (n1 - n0) if n1 > n0 else 0.0}
+
+
+def check_als_answers(model, bodies, answers, refs=None):
+    """Every answer held against float64 host scoring of its body (one
+    reference a distinct body, kept in ``refs`` for later rounds on the
+    same factors); near-tie swaps counted."""
+    refs = {} if refs is None else refs
+    swaps = 0
+    for body, got in zip(bodies, answers):
+        key = json.dumps(body, sort_keys=True)
+        if key not in refs:
+            refs[key] = als_reference_host(model, body)
+        want, s = refs[key]
+        swaps += check_ranked(model, body, got, want, s)
+    return swaps
+
+
+def segment_lines(store, app_id, needle):
+    """The lines of an app's event log holding ``needle`` (bytes), read
+    from its segment files."""
+    out = []
+    for seg in store.l_events.segment_paths(app_id):
+        data = seg.read_bytes()
+        pos = data.find(needle)
+        while pos >= 0:
+            a, b = data.rfind(b"\n", 0, pos) + 1, data.find(b"\n", pos)
+            out.append(data[a:b])
+            pos = data.find(needle, b)
+    return out
+
+
+def metrics_text(base):
+    with urllib.request.urlopen(base + "/metrics", timeout=60) as resp:
+        return resp.read().decode()
+
+
+def family_value(text, name, **labels):
+    from predictionio_tpu_torch.obs.exposition import family_total, parse_prometheus_text
+
+    return family_total(parse_prometheus_text(text)[0], name, **labels)
+
+
+def worker_pids(base, n, timeout=120):
+    """Poll ``GET /`` over fresh connections until ``n`` distinct pids
+    answered (the prefork readiness probe)."""
+    pids, t0 = set(), time.perf_counter()
+    while len(pids) < n:
+        check(time.perf_counter() - t0 < timeout, f"only {len(pids)} of {n} workers answered")
+        try:
+            pids.add(get_json(base + "/", timeout=5)["pid"])
+        except (urllib.error.URLError, ConnectionError):
+            time.sleep(0.2)
+    return pids
+
+
+def cli_processes(marker):
+    """Processes whose command line runs the port's console with
+    ``marker`` in it (the prefork leftovers check)."""
+    found = []
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            cmd = (d / "cmdline").read_bytes().replace(b"\0", b" ").decode()
+        except OSError:
+            continue
+        if "predictionio_tpu_torch.cli.main" in cmd and marker in cmd:
+            found.append((int(d.name), cmd))
+    return found
+
+
+def device_bytes(model):
+    """Bytes of the CUDA tensors a model has staged."""
+    total = 0
+    for v in list(model.__dict__.values()):
+        for t in (v.values() if isinstance(v, dict) else
+                  v if isinstance(v, (list, tuple)) else [v]):
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                total += t.numel() * t.element_size()
+    return total
+
+
+def restore_env(saved):
+    """Put back the environment variables ``saved`` holds (None: unset)."""
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+def level_bodies(pool, n, seed):
+    rng = np.random.default_rng(seed)
+    return [pool[int(j)] for j in rng.integers(0, len(pool), n)]
+
+
+def frontend_path(hk, dev, workdir, shop):
+    """Phase 14: ``pio eventserver --workers 2`` ingest over HTTP → ``pio
+    train`` → ``deploy(auto_reload=..., device="cuda")`` in this process
+    under concurrent load (K1's launches by route, the batch sizes, every
+    answer checked) → a hot reload of new users' events → a feedback round
+    → both servers stopped, no child left."""
+    import contextlib as _ctx
+    import gc
+    import io
+
+    from predictionio_tpu_torch.storage import get_storage
+    from predictionio_tpu_torch.workflow import create_server as cs
+
+    n_users, n_items, n_rate, n_buy, rank, iters = DEPLOYED_ALS
+    out = {}
+    buf = io.StringIO()
+    with _ctx.redirect_stdout(buf):
+        pio("app", "new", "shop14")
+    key = buf.getvalue().split("Access key: ")[1].split()[0]
+    app_id = get_storage().apps.get_by_name("shop14").id
+    root = Path(__file__).resolve().parent
+    es_port = free_port()
+    es_log = workdir / "eventserver.log"
+    env = {**os.environ, "PYTHONPATH": str(root)}
+    t0 = time.perf_counter()
+    with open(es_log, "w") as log:
+        es = subprocess.Popen([sys.executable, "-m", "predictionio_tpu_torch.cli.main",
+                               "eventserver", "--ip", "127.0.0.1", "--port", str(es_port),
+                               "--workers", "2"], cwd=root, env=env, stdout=log,
+                              stderr=subprocess.STDOUT)
+    es_base = f"http://127.0.0.1:{es_port}"
+    servers, profiled, saved_env = [], [], {}
+    try:
+        pids = worker_pids(es_base, 2)
+        out["eventserver_up_s"] = time.perf_counter() - t0
+        # the shop's rate and buy events, one a second from T0, in batches of 50
+        events = []
+        t_ev = T0
+        for name in ("rate", "buy"):
+            users, items, ratings = shop[name]
+            for j, (u, i) in enumerate(zip(users.tolist(), items.tolist())):
+                e = {"event": name, "entityType": "user", "entityId": f"u{u}",
+                     "targetEntityType": "item", "targetEntityId": f"i{i}",
+                     "eventTime": iso(t_ev)}
+                if ratings is not None:
+                    e["properties"] = {"rating": int(ratings[j])}
+                events.append(e)
+                t_ev += 1
+        batches = [events[k:k + INGEST_BATCH] for k in range(0, len(events), INGEST_BATCH)]
+        statuses, lat_ms, answers, wall = run_clients(
+            workdir, es_port, f"/batch/events.json?accessKey={key}", batches, INGEST_CLIENTS)
+        check(set(statuses) == {200}, f"batch statuses {sorted(set(statuses))}")
+        acked = [r["eventId"] for a in answers for r in a if r["status"] == 201]
+        check(len(acked) == len(events) == n_rate + n_buy,
+              f"{len(acked)} of {len(events)} events acknowledged 201")
+        store = get_storage()
+        chan = Path(store.l_events.segment_paths(app_id)[0]).parent
+        segs = sorted(p.name for p in chan.glob("seg-*.jsonl"))
+        tags = {n.rsplit("-", 1)[0] for n in segs}
+        check(tags == {f"seg-w0-{es.pid}", f"seg-w1-{es.pid}"},
+              f"segments not per writer: {segs[:6]}")
+        t0 = time.perf_counter()
+        # the log's lines are canonical JSON (sorted keys): every line
+        # holds one "eventId" (the store's JSON parse of 300k lines costs
+        # ~6 s; this reads the same bytes)
+        stored = [ln.split(b'"eventId":"', 1)[1].split(b'"', 1)[0].decode()
+                  for ln in segment_lines(store, app_id, b'"eventId":"')]
+        n_lines = sum(seg.read_bytes().count(b"\n") for seg in store.l_events.segment_paths(app_id))
+        check(n_lines == len(stored), f"{n_lines} lines, {len(stored)} event ids")
+        check(len(stored) == len(set(stored)) and set(stored) == set(acked),
+              f"{len(stored)} events in the store, {len(set(acked) - set(stored))} acked "
+              "ones missing")
+        read_s = time.perf_counter() - t0
+        scraped = []
+        t0 = time.perf_counter()
+        while len(scraped) < 6:   # fresh connections: the kernel picks the worker
+            check(time.perf_counter() - t0 < 60, f"/metrics never converged: {scraped}")
+            v = family_value(metrics_text(es_base), "pio_events_ingested_total")
+            if v == len(events):
+                scraped.append(v)
+            else:
+                scraped.clear()
+                time.sleep(0.3)
+        p50, p99 = np.percentile(lat_ms, [50, 99])
+        out["ingest"] = {"events": len(events), "requests": len(batches), "wall_s": wall,
+                         "events_per_s": len(events) / wall, "batch_p50_ms": float(p50),
+                         "batch_p99_ms": float(p99), "segments": len(segs),
+                         "store_read_s": read_s, "workers": sorted(pids)}
+        print(f"  pio eventserver --workers 2 up in {out['eventserver_up_s']:.3f} s; "
+              f"{len(events)} events in {len(batches)} batches of {INGEST_BATCH} from "
+              f"{INGEST_CLIENTS} keep-alive clients in {wall:.3f} s = "
+              f"{out['ingest']['events_per_s']:.0f} events/s, a batch p50 {p50:.3f} ms p99 "
+              f"{p99:.3f} ms (host clock); all {len(acked)} acknowledged events in the store "
+              f"once, in {len(segs)} per-writer segments; /metrics of either worker: "
+              f"pio_events_ingested_total = {int(scraped[0])}")
+
+        # pio train on the card, then deploy in this process (K1's counter reads)
+        path = workdir / "als14.json"
+        variant = als_variant("smoke-als14")
+        variant["datasource"]["params"]["appName"] = "shop14"
+        path.write_text(json.dumps(variant))
+        pio("build", "--engine-json", str(path))
+        t0 = time.perf_counter()
+        pio("train", "--engine-json", str(path))
+        out["pio_train_s"] = time.perf_counter() - t0
+
+        rng = np.random.default_rng(SEED + 14)
+        pool = queries(rng, FRONTEND_POOL)
+        rounds, refs = [], {}   # one trained instance serves every round
+        # the PIO_HTTP_POOL=32 server, batching as a CUDA deploy does by
+        # default, stays up for the hot reload below
+        settings = [("default pool", {}, FRONTEND_LEVELS),
+                    ("PIO_SERVE_BATCH=off", {"PIO_SERVE_BATCH": "off"}, (32,)),
+                    ("PIO_HTTP_POOL=32", {"PIO_HTTP_POOL": "32"}, FRONTEND_LEVELS)]
+        httpd = None
+        for name, setting, levels in settings:
+            # set for the server's whole life: every install (a reload's
+            # too) reads PIO_SERVE_BATCH again
+            saved_env = {k: os.environ.get(k) for k in setting}
+            os.environ.update(setting)
+            httpd = cs.deploy(str(path), host="127.0.0.1", port=0, device=dev.type,
+                              auto_reload=RELOAD_INTERVAL_S)
+            servers.append(httpd)
+            state = httpd.pio_state
+            check((state.batcher is not None) == ("PIO_SERVE_BATCH" not in setting),
+                  f"{name}: micro-batcher {'on' if state.batcher else 'off'}")
+            model = state.models[0]
+            check(model.device == dev, f"{name}: the deployed model is off the card")
+            port = httpd.server_address[1]
+            # host time of each batch run (or each predict, batcher off)
+            calls = (time_calls(state.batcher, "_run") if state.batcher is not None
+                     else time_calls(state, "predictor"))
+            for conc in levels:
+                bodies = level_bodies(pool, FRONTEND_QUERIES, SEED + conc)
+                hist0 = batch_hist_snapshot()
+                reruns0 = cs._M_SERIAL_RERUNS.value()
+                hk.reset_k1_counts()
+                calls.clear()
+                statuses, lat_ms, answers, wall = run_clients(
+                    workdir, port, "/queries.json", bodies, conc)
+                launches = (hk.masked_score_matmul.launches,
+                            dict(hk.masked_score_matmul.launches_by_route))
+                hist = batch_hist_delta(hist0, batch_hist_snapshot())
+                reruns = cs._M_SERIAL_RERUNS.value() - reruns0
+                run_ms = calls_summary(calls, wall)
+                check(set(statuses) == {200}, f"{name} c={conc}: statuses {set(statuses)}")
+                swaps = check_als_answers(model, bodies, answers, refs)
+                check(reruns == 0, f"{name} c={conc}: {reruns} serial re-runs on a clean load")
+                check(launches[0] > 0, f"{name} c={conc}: no masked_score launch")
+                p50, p99 = np.percentile(lat_ms, [50, 99])
+                r = {"setting": name, "clients": conc, "queries": len(bodies),
+                     "p50_ms": float(p50), "p99_ms": float(p99), "qps": len(bodies) / wall,
+                     "k1_launches": launches[0], "k1_by_route": launches[1],
+                     "k1_launches_per_query": launches[0] / len(bodies),
+                     "batch": hist, "serial_reruns": reruns, "near_tie_swaps": swaps,
+                     "pool": httpd._pool_size,
+                     ("batch_run" if state.batcher is not None else "predict"): run_ms}
+                rounds.append(r)
+                print(f"  {name} (pool {httpd._pool_size}), {conc} clients: {len(bodies)} "
+                      f"queries p50 {p50:.3f} ms p99 {p99:.3f} ms {r['qps']:.1f} q/s (host "
+                      f"clock); K1 launches {launches[0]} {launches[1]}; batches "
+                      f"{hist['batches']} mean {hist['mean']:.2f} by le {hist['histogram_le']}; "
+                      f"{'a batch run' if state.batcher is not None else 'a predict'} "
+                      f"{run_ms['calls']} calls p50 {run_ms['p50_ms']:.3f} ms p99 "
+                      f"{run_ms['p99_ms']:.3f} ms mean {run_ms['mean_ms']:.3f} ms, their sum "
+                      f"{run_ms['share_of_wall']:.3f} of the wall; serial re-runs {reruns}; "
+                      f"every answer against float64 host scoring ({swaps} near-tie swaps)")
+            # where a concurrent query's time goes: the device's busy share
+            # of a 32-client window, beside the host time of its batch runs
+            bodies = level_bodies(pool, PROFILED_QUERIES, SEED + 17)
+            hist0 = batch_hist_snapshot()
+            calls.clear()
+            statuses, answers, wall, busy_us, top, op_us, top_ops = profiled_round(
+                workdir, port, bodies, 32)
+            hist = batch_hist_delta(hist0, batch_hist_snapshot())
+            check(set(statuses) == {200}, f"{name} profiled round: statuses {set(statuses)}")
+            swaps = check_als_answers(model, bodies, answers, refs)
+            run_ms = calls_summary(calls, wall)
+            prof_r = {"setting": name, "clients": 32, "queries": len(bodies), "wall_s": wall,
+                      "device_busy_us": busy_us, "device_busy_share": busy_us / 1e6 / wall,
+                      "device_us_per_call": busy_us / run_ms["calls"],
+                      "host_calls": run_ms, "batches": hist["batches"],
+                      "kernels_us": top, "host_op_us": op_us,
+                      "host_op_share": None if op_us is None else op_us / 1e6 / wall,
+                      "host_ops_us": top_ops,
+                      "near_tie_swaps": swaps}
+            profiled.append(prof_r)
+            print(f"  {name}, profiled window of {len(bodies)} queries from 32 clients in "
+                  f"{wall:.3f} s: the device busy {busy_us:.1f} us = "
+                  f"{prof_r['device_busy_share']:.4f} of the wall, "
+                  f"{prof_r['device_us_per_call']:.1f} us a "
+                  f"{'batch' if state.batcher is not None else 'predict'} against its host "
+                  f"time p50 {run_ms['p50_ms']:.3f} ms mean {run_ms['mean_ms']:.3f} ms "
+                  f"({run_ms['calls']} calls, their sum {run_ms['share_of_wall']:.3f} of the "
+                  f"wall); kernels by device us: "
+                  + "; ".join(f"{k[:60]} {v['us']:.1f} us x{v['calls']}"
+                              for k, v in top.items())
+                  + ("; host self time in torch operators not measured (the profiler "
+                     "records one thread)" if op_us is None else
+                     f"; host self time in torch operators {op_us:.1f} us = "
+                     f"{prof_r['host_op_share']:.4f} of the wall: "
+                     + "; ".join(f"{k[:40]} {v['us']:.1f} us x{v['calls']}"
+                                 for k, v in top_ops.items())))
+            del model, state
+            if name != settings[-1][0]:
+                pio("undeploy", "--port", str(port), "--timeout", "60")
+                httpd.thread.join(DEPLOY_TIMEOUT_S)
+                check(not httpd.thread.is_alive(), f"{name}: the server did not stop")
+                restore_env(saved_env)
+                saved_env = {}
+        out["load"] = rounds
+        out["profiled"] = profiled
+        pool32 = [r for r in rounds if r["setting"] == "PIO_HTTP_POOL=32"]
+        check(sum(r["k1_by_route"]["tiled"] for r in pool32) > 0,
+              "PIO_HTTP_POOL=32: K1's tiled path never launched")
+
+        # hot reload: 500 new users' events through the event server, pio train again
+        state = httpd.pio_state
+        port = httpd.server_address[1]
+        check(state.batcher is not None, "the reloading server does not micro-batch")
+        first = state.instance.id
+        warm = [{"user": f"u{j}", "num": 10} for j in range(8)]
+        run_clients(workdir, port, "/queries.json", warm, 8)
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated(dev)
+        old_bytes = device_bytes(state.models[0])
+        rr = np.random.default_rng(SEED + 15)
+        new_users = rr.integers(0, RELOAD_USERS, RELOAD_EVENTS)
+        new_events = [{"event": "rate", "entityType": "user", "entityId": f"n{u}",
+                       "targetEntityType": "item", "targetEntityId": f"i{int(i)}",
+                       "properties": {"rating": int(r)}, "eventTime": iso(t_ev + k)}
+                      for k, (u, i, r) in enumerate(zip(
+                          new_users.tolist(), rr.integers(0, n_items, RELOAD_EVENTS),
+                          rr.integers(1, 6, RELOAD_EVENTS)))]
+        statuses, _, answers, _ = run_clients(
+            workdir, es_port, f"/batch/events.json?accessKey={key}",
+            [new_events[k:k + INGEST_BATCH] for k in range(0, RELOAD_EVENTS, INGEST_BATCH)],
+            INGEST_CLIENTS)
+        check(set(statuses) == {200} and all(r["status"] == 201 for a in answers for r in a),
+              "the new users' events were not all acknowledged")
+        probe = {"user": "n0", "num": 10}
+        check(post(f"http://127.0.0.1:{port}/queries.json", probe) == {"itemScores": []},
+              "a new user was known before the retrain")
+        torch.cuda.reset_peak_memory_stats(dev)
+        pio("train", "--engine-json", str(path))
+        t_end = time.perf_counter()
+        named = answered = None
+        while named is None or answered is None:
+            now = time.perf_counter() - t_end
+            check(now < RELOAD_INTERVAL_S + RELOAD_SLACK_S + 30,
+                  "the retrained instance never served")
+            if named is None and get_json(f"http://127.0.0.1:{port}/")[
+                    "engineInstanceId"] != first:
+                named = time.perf_counter() - t_end
+            if answered is None and post(f"http://127.0.0.1:{port}/queries.json",
+                                         probe)["itemScores"]:
+                answered = time.perf_counter() - t_end
+            time.sleep(0.01)
+        check(named <= RELOAD_INTERVAL_S + RELOAD_SLACK_S,
+              f"GET / named the new instance {named:.3f} s after pio train, over the poll "
+              f"interval {RELOAD_INTERVAL_S} s plus {RELOAD_SLACK_S} s")
+        peak = torch.cuda.max_memory_allocated(dev)
+        new_model = state.models[0]
+        check(state.generation == 2 and new_model.user_dict.id("n0") is not None,
+              f"generation {state.generation} after the reload")
+        check(state.batcher is not None, "the reload turned the micro-batcher off")
+        new_bodies = [{"user": f"n{j}", "num": 10} for j in range(RELOAD_USERS)]
+        statuses, _, answers, _ = run_clients(workdir, port, "/queries.json", new_bodies, 8)
+        check(set(statuses) == {200}, "new users' queries failed")
+        swaps = check_als_answers(new_model, new_bodies, answers)
+        new_bytes = device_bytes(new_model)
+        del new_model
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated(dev)
+        check(mem_after - mem_before <= new_bytes - old_bytes + SWAP_SLACK_BYTES,
+              f"device memory {mem_before} B before the swap, {mem_after} B after: more than "
+              f"the new model's {new_bytes - old_bytes} B and {SWAP_SLACK_BYTES} B (the old "
+              "generation was not released)")
+        out["reload"] = {"events": RELOAD_EVENTS, "users": RELOAD_USERS,
+                         "get_names_new_s": named, "first_new_answer_s": answered,
+                         "memory_allocated_before": mem_before,
+                         "memory_allocated_after": mem_after, "peak_during_swap": peak,
+                         "old_model_device_bytes": old_bytes,
+                         "new_model_device_bytes": new_bytes, "near_tie_swaps": swaps}
+        print(f"  hot reload: {RELOAD_EVENTS} rate events of {RELOAD_USERS} new users over "
+              f"HTTP, pio train, then GET / named the new instance {named:.3f} s and its "
+              f"first new-user answer came {answered:.3f} s after pio train returned (poll "
+              f"{RELOAD_INTERVAL_S} s); {len(new_bodies)} new users' answers equal float64 "
+              f"scoring of the new factors ({swaps} near-tie swaps); "
+              f"torch.cuda.memory_allocated {mem_before} B before, {mem_after} B after the swap "
+              f"and gc (models {old_bytes} -> {new_bytes} B), peak {peak} B during it")
+        pio("undeploy", "--port", str(port), "--timeout", "60")
+        httpd.thread.join(DEPLOY_TIMEOUT_S)
+        check(not httpd.thread.is_alive(), "the reloaded server did not stop")
+        restore_env(saved_env)
+        saved_env = {}
+
+        # feedback: 200 queries, 200 predict events equal to the answers
+        httpd = cs.deploy(str(path), host="127.0.0.1", port=0, device=dev.type, feedback=True)
+        servers.append(httpd)
+        fb_bodies = level_bodies(pool, FEEDBACK_QUERIES, SEED + 16)
+        statuses, _, answers, _ = run_clients(workdir, httpd.server_address[1],
+                                              "/queries.json", fb_bodies, 8)
+        check(set(statuses) == {200}, "feedback round failed")
+        pio("undeploy", "--port", str(httpd.server_address[1]), "--timeout", "60")
+        httpd.thread.join(DEPLOY_TIMEOUT_S)
+        predicts = [json.loads(ln) for ln in segment_lines(get_storage(), app_id,
+                                                          b'"event":"predict"')]
+        got = sorted(json.dumps([e["properties"]["query"], e["properties"]["prediction"]],
+                                sort_keys=True) for e in predicts)
+        want = sorted(json.dumps([b, a], sort_keys=True) for b, a in zip(fb_bodies, answers))
+        check(len(predicts) == FEEDBACK_QUERIES and got == want,
+              f"{len(predicts)} predict events, equal to the answers: {got == want}")
+        out["feedback_events"] = len(predicts)
+        print(f"  feedback: {FEEDBACK_QUERIES} queries, {len(predicts)} predict events whose "
+              "query and prediction equal what was served")
+
+        # shutdown: pio undeploy stops the event server group; no child left
+        pio("undeploy", "--port", str(es_port), "--timeout", "60")
+        rc = es.wait(timeout=DEPLOY_TIMEOUT_S)
+        check(rc == 0, f"pio eventserver exited {rc}: {es_log.read_text()[-3000:]}")
+        left = cli_processes(f"--port {es_port}")
+        check(not left, f"event server children left behind: {left}")
+        print(f"  pio undeploy stopped the event server group (exit 0) and every query "
+              f"server; no child process left")
+    finally:
+        restore_env(saved_env)
+        for h in servers:
+            if h.thread is not None and h.thread.is_alive():
+                h.shutdown()
+                h.server_close()
+        if es.poll() is None:
+            es.kill()
+            es.wait()
+        for pid, _ in cli_processes(f"--port {es_port}"):
+            with _ctx.suppress(OSError):
+                os.kill(pid, 9)
+    return out
+
+
 # -- phase 13: ALS train timing ----------------------------------------------------
 
 
@@ -2572,6 +3220,10 @@ def run() -> None:
         phase("12d. the e-commerce template on the same shop: pio train, pio deploy, "
               "rule queries")
         ecomm_run = ecomm_path(dev, workdir, shop, shop_app)
+        torch.cuda.empty_cache()
+        phase("14. pio eventserver --workers 2 -> HTTP ingest -> pio train -> deploy with "
+              "auto-reload under concurrent load (micro-batched K1) -> hot reload -> feedback")
+        frontend = frontend_path(hk, dev, workdir, shop)
         del shop
         torch.cuda.empty_cache()
     finally:
@@ -2684,7 +3336,31 @@ def run() -> None:
           f"checkpointed and resumed {als_run['checkpointed']['pio_train_s']:.3f} s; "
           f"e-commerce pio train {ecomm_run['pio_train_s']:.3f} s, rule queries p50 "
           f"{ecomm_run['http_p50_ms']:.3f} ms p99 {ecomm_run['http_p99_ms']:.3f} ms | {smi}")
-    launches = {"masked_score": http_launches + batch_launches + als_run["k1_launches"],
+    load_launches = sum(r["k1_launches"] for r in frontend["load"])
+    by_route = {route: sum(r["k1_by_route"][route] for r in frontend["load"])
+                for route in ("streaming", "tiled")}
+    for r in frontend["load"]:
+        print(f"  front end, {r['setting']} ({r['pool']} handler threads), {r['clients']} "
+              f"clients: p50 {r['p50_ms']:.3f} ms p99 {r['p99_ms']:.3f} ms {r['qps']:.1f} q/s; "
+              f"mean batch {r['batch']['mean']:.2f}; K1 {r['k1_launches_per_query']:.3f} "
+              f"launches a query {r['k1_by_route']} | {smi}")
+    for r in frontend["profiled"]:
+        h = r["host_calls"]
+        print(f"  front end profiled, {r['setting']}, 32 clients: device busy "
+              f"{r['device_busy_share']:.4f} of the wall, {r['device_us_per_call']:.1f} us a "
+              f"call against a host p50 {h['p50_ms']:.3f} ms ({h['calls']} calls, their sum "
+              f"{h['share_of_wall']:.3f} of the wall); torch operators' host self time "
+              f"{'not measured' if r['host_op_share'] is None else round(r['host_op_share'], 4)}"
+              f" of the wall | {smi}")
+    fi, fr = frontend["ingest"], frontend["reload"]
+    print(f"  ingest over HTTP {fi['events_per_s']:.0f} events/s (batch p50 "
+          f"{fi['batch_p50_ms']:.3f} ms p99 {fi['batch_p99_ms']:.3f} ms); hot reload: new "
+          f"instance named {fr['get_names_new_s']:.3f} s, first new answer "
+          f"{fr['first_new_answer_s']:.3f} s after pio train; memory_allocated "
+          f"{fr['memory_allocated_before']} -> {fr['memory_allocated_after']} B; UR under "
+          f"{UR_LOAD[1]} clients mean batch {served['load']['batch_mean']:.2f} | {smi}")
+    launches = {"masked_score": (http_launches + batch_launches + als_run["k1_launches"]
+                                 + load_launches),
                 "llr_masked": deployed["launches"][0],
                 "tile_topk": deployed["launches"][1]}
     print(json.dumps({"ur_train": {"bench_shape": bench, "memory_store": memory,
@@ -2693,6 +3369,7 @@ def run() -> None:
                       "ur_http": {str(k).lower(): v for k, v in served.items()},
                       "als": {"deployed_path": als_run, "ecommerce": ecomm_run,
                               "timing": als_timing},
+                      "frontend": frontend,
                       "k1_retime": k1_rounds, "empty_kernel_ms": empty_ms, "llr_sass": sass,
                       "wall_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": [{
@@ -2702,7 +3379,9 @@ def run() -> None:
         "max_abs_err": errs[name], "ms": rows[name][0]["ms"],
         "plain_ms": rows[name][0]["plain_ms"], "bound_ms": rows[name][0]["bound_ms"],
         "bound_by": rows[name][0]["bound_by"], "library_ms": rows[name][0]["library_ms"],
-        "shapes": rows[name], "card": smi} for name in REPLACES]}))
+        "shapes": rows[name], "card": smi,
+        **({"launches_by_route_phase14": by_route} if name == "masked_score" else {})}
+        for name in REPLACES]}))
 
 
 def main() -> int:

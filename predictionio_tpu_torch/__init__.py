@@ -19,7 +19,10 @@ staged retrain cache (``storage/snapshot.py``, their header parse in
 ``native/data_plane.cpp``), ``PEventStore``, the model store, the train →
 deploy workflow (``workflow/core_workflow.py``,
 ``workflow/create_server.py``) and the ``pio`` console
-(``python -m predictionio_tpu_torch.cli.main``).
+(``python -m predictionio_tpu_torch.cli.main``); the event server, the
+event-loop HTTP front end with prefork workers, the query server's
+micro-batcher, hot reload and feedback (``api/``), and the metrics
+registry behind ``/metrics`` (``obs/``).
 """
 
 __version__ = "0.1.0"

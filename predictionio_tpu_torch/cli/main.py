@@ -12,6 +12,8 @@ tools/.../console/Console.scala and bin/pio):
   import / export                                JSON-lines event files
   build                                          check engine.json, register its manifest
   train / deploy / undeploy                      the DASE workflow
+  eventserver / adminserver                      REST ingestion / admin API
+  metrics <url>                                  pretty-print a server's /metrics
   status / version
 
 The device is the counterpart of the JAX package's ``PIO_JAX_PLATFORM``:
@@ -25,6 +27,7 @@ brings them.
 from __future__ import annotations
 
 import argparse
+import http.client
 import json
 import os
 import socket
@@ -38,14 +41,14 @@ from predictionio_tpu_torch import __version__
 from predictionio_tpu_torch.storage import AccessKey, App, Channel, get_storage
 
 ROADMAP = {
-    "server": "ROADMAP.md, queue A, 'Event-loop server and micro-batcher'",
+    "observability": "ROADMAP.md, queue A, 'Observability and the rest of the front end'",
     "streaming": "ROADMAP.md, queue A, 'Streaming'",
     "templates": "ROADMAP.md, queue A, 'Remaining templates'",
 }
 #: subcommands of the JAX console the port does not have yet -> ROADMAP key
 NOT_PORTED = {
-    "eventserver": "server", "adminserver": "server", "dashboard": "server",
-    "metrics": "server", "trace": "server", "lineage": "server", "top": "server",
+    "dashboard": "observability", "trace": "observability",
+    "lineage": "observability", "top": "observability",
     "plane-subscribe": "streaming",
     "eval": "templates", "template": "templates",
 }
@@ -298,6 +301,43 @@ def _cmd_deploy(args) -> int:
     return run_server_from_args(args)
 
 
+def _cmd_eventserver(args) -> int:
+    from predictionio_tpu_torch.api.event_server import run_event_server
+
+    try:
+        return run_event_server(host=args.ip, port=args.port, workers=args.workers,
+                                reuse_port=args.reuse_port)
+    except Exception as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+
+
+def _cmd_adminserver(args) -> int:
+    from predictionio_tpu_torch.api.admin import run_admin_server
+
+    return run_admin_server(host=args.ip, port=args.port)
+
+
+def _cmd_metrics(args) -> int:
+    """``pio metrics <url>``: scrape a server's /metrics and pretty-print
+    it (counters and gauges per series, histograms as count/sum/avg with
+    bucket-interpolated p50/p95/p99).  Any pio server works; one worker of
+    a prefork group reports the whole group."""
+    from predictionio_tpu_torch.obs.exposition import summarize_prometheus
+
+    url = args.url if "://" in args.url else f"http://{args.url}"
+    if not url.endswith("/metrics"):
+        url = url.rstrip("/") + "/metrics"
+    try:
+        with urllib.request.urlopen(url, timeout=args.timeout) as resp:
+            text = resp.read().decode("utf-8", "replace")
+    except (urllib.error.URLError, OSError) as e:
+        print(f"Error: cannot scrape {url}: {e}", file=sys.stderr)
+        return 1
+    sys.stdout.write(text if args.raw else summarize_prometheus(text))
+    return 0
+
+
 def _port_state(ip: str, port: int, timeout: float) -> str:
     """'live' when something accepts a TCP connection on the port, or
     resets it (a listener closing under the handshake: probe again),
@@ -313,34 +353,57 @@ def _port_state(ip: str, port: int, timeout: float) -> str:
         return "unknown"
 
 
+#: seconds a stopped listener gets to close before ``pio undeploy`` takes
+#: the port's next answer for another worker of a prefork group
+_UNDEPLOY_SETTLE_S = 1.0
+
+
 def _cmd_undeploy(args) -> int:
-    """Stop a deployed query server through its ``/stop`` (reference
-    Console.undeploy contacts the server rather than killing a pid), then
-    wait until its port refuses connections."""
+    """Stop a deployed query server (or event server) through its
+    ``/stop`` (reference Console.undeploy contacts the server rather than
+    killing a pid), then wait until its port refuses connections.
+
+    With ``--workers N`` several processes share the port and the kernel
+    routes each /stop to ONE of them (the parent stops its children when
+    it stops), so while the port still answers after a listener had time
+    to close, it stops again, up to 34 times."""
     url = f"http://{args.ip}:{args.port}/stop"
-    try:
-        with urllib.request.urlopen(url, timeout=args.timeout) as resp:
-            resp.read()
-    except urllib.error.HTTPError as e:
-        print(f"Server at {args.ip}:{args.port} rejected /stop (HTTP {e.code}) "
-              "— is this a query server?")
-        return 1
-    except urllib.error.URLError as e:
-        print(f"No deployment reachable at {args.ip}:{args.port}: {e.reason}")
-        return 1
-    except (ConnectionError, TimeoutError, OSError):
-        pass   # the server may close mid-answer to its own /stop: probe below
     deadline = time.monotonic() + args.timeout
-    while time.monotonic() < deadline:
-        state = _port_state(args.ip, args.port, args.timeout)
-        if state == "dead":
-            print(f"Undeployed {args.ip}:{args.port}.")
-            return 0
-        if state == "unknown":
-            break
-        time.sleep(0.1)
-    print(f"Could not verify that {args.ip}:{args.port} stopped (within "
-          f"--timeout {args.timeout:g}s)")
+    for attempt in range(34):   # far above any sane --workers count
+        try:
+            with urllib.request.urlopen(url, timeout=args.timeout) as resp:
+                resp.read()
+        except urllib.error.HTTPError as e:
+            print(f"Server at {args.ip}:{args.port} rejected /stop (HTTP {e.code}) "
+                  "— is this a query server?")
+            return 1
+        except urllib.error.URLError as e:
+            if attempt == 0:
+                print(f"No deployment reachable at {args.ip}:{args.port}: {e.reason}")
+                return 1
+            # a later /stop met the group closing: the probe below decides
+        except (ConnectionError, TimeoutError, OSError, http.client.HTTPException):
+            pass   # the server may close mid-answer to its own /stop
+        settle = time.monotonic() + _UNDEPLOY_SETTLE_S
+        while True:
+            state = _port_state(args.ip, args.port, args.timeout)
+            if state == "dead":
+                print(f"Undeployed {args.ip}:{args.port}.")
+                return 0
+            if state == "unknown":
+                print(f"Could not verify that {args.ip}:{args.port} stopped "
+                      "(the port is unreachable)")
+                return 1
+            now = time.monotonic()
+            if now >= settle:
+                break   # another worker of the group answers: stop it too
+            if now >= deadline:
+                print(f"Could not verify that {args.ip}:{args.port} stopped (within "
+                      f"--timeout {args.timeout:g}s)")
+                return 1
+            time.sleep(0.1)
+        deadline = time.monotonic() + args.timeout
+    print(f"Could not verify that {args.ip}:{args.port} stopped (after 34 stops)")
     return 1
 
 
@@ -472,10 +535,16 @@ def build_parser() -> argparse.ArgumentParser:
     engine_args(dp)
     dp.add_argument("--ip", default="0.0.0.0")
     dp.add_argument("--port", type=int, default=8000)
+    dp.add_argument("--feedback", action="store_true",
+                    help="write every answered query back as a predict event")
+    dp.add_argument("--auto-reload", type=float, default=0.0, metavar="SECS",
+                    help="poll for a newer COMPLETED instance every SECS and "
+                         "hot-swap it in")
+    dp.add_argument("--workers", type=int, default=1,
+                    help="prefork N processes serving this port (CPU only)")
+    dp.add_argument("--reuse-port", action="store_true",
+                    help=argparse.SUPPRESS)   # a prefork child
     # the options below raise naming their ROADMAP item
-    dp.add_argument("--feedback", action="store_true")
-    dp.add_argument("--auto-reload", type=float, default=0.0, metavar="SECS")
-    dp.add_argument("--workers", type=int, default=1)
     dp.add_argument("--follow", type=float, default=0.0, metavar="SECS")
     dp.add_argument("--plane-publish", default=None, metavar="[HOST:]PORT")
     dp.add_argument("--plane-from", default=None, metavar="HOST:PORT")
@@ -486,6 +555,28 @@ def build_parser() -> argparse.ArgumentParser:
     ud.add_argument("--port", type=int, default=8000)
     ud.add_argument("--timeout", type=float, default=10.0)
     ud.set_defaults(func=_cmd_undeploy)
+
+    es = sub.add_parser("eventserver")
+    es.add_argument("--ip", default="0.0.0.0")
+    es.add_argument("--port", type=int, default=7070)
+    es.add_argument("--workers", type=int, default=1,
+                    help="prefork N processes ingesting on this port; each "
+                         "appends to its own seg-<tag>-NNNNN.jsonl segments")
+    es.add_argument("--reuse-port", action="store_true",
+                    help=argparse.SUPPRESS)   # a prefork child
+    es.set_defaults(func=_cmd_eventserver)
+
+    adm = sub.add_parser("adminserver")
+    adm.add_argument("--ip", default="127.0.0.1")
+    adm.add_argument("--port", type=int, default=7071)
+    adm.set_defaults(func=_cmd_adminserver)
+
+    mt = sub.add_parser("metrics", help="scrape a server's /metrics and pretty-print it")
+    mt.add_argument("url", help="server base URL or host:port")
+    mt.add_argument("--timeout", type=float, default=10.0)
+    mt.add_argument("--raw", action="store_true",
+                    help="print the raw Prometheus text instead")
+    mt.set_defaults(func=_cmd_metrics)
 
     for name in NOT_PORTED:
         sp = sub.add_parser(name, help=f"not ported yet ({ROADMAP[NOT_PORTED[name]]})")

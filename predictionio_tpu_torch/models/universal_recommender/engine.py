@@ -16,10 +16,15 @@ dates), the blacklist, both top-ks (signal and popularity backfill) and
 one stacked [4, k] readback follow on the device, and the host assembles
 the answer.
 
+The query server's micro-batcher serves through ``serve_batch_predict``:
+a batch's histories score against the resident tables in one gather a
+event type, and both top-ks for the whole batch come back in one
+[B, 4, k] readback.
+
 Not ported yet, each named in ROADMAP.md: the host scorer and tail,
 candidate pruning, the response, composed rule-mask and history caches and
-spans (the composed mask is built from its rule key on every query); the
-micro-batched serving path; checkpointed and multi-device training; eval.
+spans (the composed mask is built from its rule key on every query);
+checkpointed and multi-device training; eval.
 
 Wire format (UR):
   query    {"user": "u1", "num": 10}
@@ -556,6 +561,27 @@ def _indicator_score_ids(
     return (hvec[idx] * weight).sum(-1)
 
 
+def _indicator_score_ids_batch(
+    idx: torch.Tensor,       # [I_p, K] int64, padding = n_items_t
+    weight: torch.Tensor,    # [I_p, K] f32: validity or LLR weights
+    hist_ids,                # [B, W] per-query history ids, -1 padding
+    n_items_t: int,
+) -> torch.Tensor:           # [B, I_p]
+    """Batched ``_indicator_score_ids``: one gather scores a whole
+    micro-batch's histories against the resident table.  A row whose
+    history is all padding scores 0 everywhere, so event types missing for
+    some queries need no regrouping on the host.  The [B, I_p, K] gather
+    is the transient (multiplied in place): 16 x 100,000 x 50 x 4 B = 320
+    MB at the UR's batch cap and the deployed width."""
+    ids = torch.as_tensor(hist_ids).to(device=idx.device, dtype=torch.int64)
+    ids = torch.where((ids >= 0) & (ids < n_items_t), ids, n_items_t)
+    hvec = torch.zeros((ids.shape[0], n_items_t + 1), dtype=torch.float32,
+                       device=idx.device)
+    hvec.scatter_(1, ids, 1.0)
+    hvec[:, n_items_t] = 0.0
+    return hvec[:, idx].mul_(weight).sum(-1)
+
+
 def _serve_topk(signal, mask, bf, black_ids, k: int) -> torch.Tensor:
     """The device tail: apply the rule mask and the blacklist, take the
     top-k of the signal and the top-k of the backfill eligibility, and
@@ -573,6 +599,23 @@ def _serve_topk(signal, mask, bf, black_ids, k: int) -> torch.Tensor:
     # backfill ranks by bf * mask; mask > 0 is the eligibility cut
     bt, bi = topk_desc(torch.where((mask > 0) & ~excl, bf * mask, neg_inf), k)
     return torch.stack([st, si.to(torch.float32), bt, bi.to(torch.float32)])
+
+
+def _serve_topk_batch(signal, mask, bf, black_ids, k: int) -> torch.Tensor:
+    """Batched ``_serve_topk``: both top-ks of B queries ([B, I] signal and
+    mask, [B, W] blacklist ids) as one [B, 4, k] f32 tensor, one copy
+    back to the host for the whole micro-batch."""
+    b, n = signal.shape
+    check_f32_id_range(n)
+    ids = torch.as_tensor(black_ids).to(device=signal.device, dtype=torch.int64)
+    ids = torch.where((ids >= 0) & (ids < n), ids, n)
+    excl = torch.zeros((b, n + 1), dtype=torch.bool, device=signal.device)
+    excl.scatter_(1, ids, True)
+    excl = excl[:, :n]
+    neg_inf = torch.tensor(float("-inf"), device=signal.device)
+    st, si = topk_desc(torch.where(excl, neg_inf, signal * mask), k)
+    bt, bi = topk_desc(torch.where((mask > 0) & ~excl, bf[None, :] * mask, neg_inf), k)
+    return torch.stack([st, si.to(torch.float32), bt, bi.to(torch.float32)], dim=1)
 
 
 # -- algorithm ---------------------------------------------------------------
@@ -610,6 +653,9 @@ class URAlgorithm(Algorithm):
     is asked for); ``predict`` follows the model's own device."""
 
     params_class = URAlgorithmParams
+    # the serving micro-batch's cap: the batched scorer's [B, I_p, K]
+    # gather is the transient (320 MB at 16 x 100k items x 50)
+    serve_batch_max = 16
 
     @staticmethod
     def per_type_tuning(params: URAlgorithmParams,
@@ -811,6 +857,65 @@ class URAlgorithm(Algorithm):
         return self._assemble(model, num, signal is not None,
                               out[0], out[1].astype(np.int32),
                               out[2], out[3].astype(np.int32))
+
+    def serve_batch_predict(self, model: URModel,
+                            queries: Sequence[URQuery]) -> List[URResult]:
+        """Deploy-time micro-batch: every query's history (read from the
+        live store, as ``predict`` reads it) scores against the resident
+        tables in one gather an event type, and the rule masks, the
+        blacklists and both top-ks of the batch come back in one [B, 4, k]
+        readback.  Answers equal ``predict``'s.  The batch is padded to a
+        power of two (zero masks), so batch sizes share shapes."""
+        n_items = len(model.item_dict)
+        if not queries or n_items == 0:
+            return [URResult([]) for _ in queries]
+        hists = [self._query_hist(model, q) for q in queries]
+        b = len(queries)
+        bp = bucket_width(b, min_width=1)
+        have_signal = [h is not None and any(len(v) for v in h.values()) for h in hists]
+        total = self._score_batch_device(model, hists, bp)
+        if total is None:
+            total = torch.zeros((bp, n_items), dtype=torch.float32, device=model.device)
+        masks = []
+        for q in queries:
+            key = self._mask_rule_key(q)
+            masks.append(model.device_ones() if key is None
+                         else self._mask_from_key(model, key))
+        masks = torch.stack(masks + [model.device_zeros()] * (bp - b))
+        blacks = [self._blacklist_ids(model, q) for q in queries]
+        bm = np.full((bp, bucket_width(max((len(x) for x in blacks), default=1))),
+                     -1, np.int32)
+        for r, ids in enumerate(blacks):
+            bm[r, :len(ids)] = ids
+        nums = [min(q.num, n_items) for q in queries]
+        k = min(bucket_width(2 * max(nums), 16), n_items)
+        out = _serve_topk_batch(total, masks, model.device_popularity(), bm, k).cpu().numpy()
+        return [self._assemble(model, nums[r], have_signal[r],
+                               out[r, 0], out[r, 1].astype(np.int32),
+                               out[r, 2], out[r, 3].astype(np.int32))
+                for r in range(b)]
+
+    def _score_batch_device(self, model: URModel, hists, bp: int
+                            ) -> Optional[torch.Tensor]:
+        """The batched device scorer: every event type's histories against
+        its resident table in one [B, I_p, K] gather; None when no query
+        carries any history."""
+        total = None
+        for name, (idx, valid, llr) in model.device_indicators().items():
+            lens = [len(h[name]) if h and name in h else 0 for h in hists]
+            if not any(lens):
+                continue
+            hm = np.full((bp, bucket_width(max(lens))), -1, np.int32)
+            for r, h in enumerate(hists):
+                if lens[r]:
+                    hm[r, :lens[r]] = h[name]
+            n_t = max(len(model.event_item_dicts[name]), 1)
+            s = _indicator_score_ids_batch(
+                idx, llr if self.params.use_llr_weights else valid, hm, n_t)
+            weight = float(self.params.indicator_weights.get(name, 1.0))
+            s = s * weight if weight != 1.0 else s
+            total = s if total is None else total + s
+        return total
 
     def _query_hist(self, model: URModel, query: URQuery,
                     hist_override: Optional[Dict[str, np.ndarray]] = None,

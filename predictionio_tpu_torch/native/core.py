@@ -1,11 +1,13 @@
-"""``PIO_NATIVE`` and the ctypes bindings of the scan core's header parse.
+"""``PIO_NATIVE`` and the ctypes bindings of the scan core's header parse
+and the HTTP core.
 
-Counterpart of ``predictionio_tpu/native/core.py``, its scan core's
-columnar header parse only (``data_plane.cpp``): ``read_batch`` of a
-PIOCOL01 snapshot hands the JSON header to C, which returns the column
-specs, the dictionaries as undecoded UTF-8 blobs and the span of ``meta``;
-the GIL is released for the call.  The knob keeps the JAX package's
-meaning, re-read on every call:
+Counterpart of ``predictionio_tpu/native/core.py``, two of its cores
+(``data_plane.cpp``): ``read_batch`` of a PIOCOL01 snapshot hands the JSON
+header to C, which returns the column specs, the dictionaries as
+undecoded UTF-8 blobs and the span of ``meta``; the event-loop front end
+(``api/http_util.py``) parses request heads and assembles large
+responses in C.  The GIL is released for every call.  The knob keeps the
+JAX package's meaning, re-read on every call:
 
 - ``PIO_NATIVE=auto`` (default): the native parse where the library builds
   and loads, else the Python parse (``json.loads``), silently;
@@ -15,13 +17,14 @@ meaning, re-read on every call:
 
 The library builds with the host's C++ compiler at first use
 (``native/build.py``, into ``native/_build/``); with no compiler
-``scan_enabled()`` is False and the Python parse answers.  The JAX
-package's metrics registry is not ported yet (ROADMAP.md, queue A,
-'Event-loop server and micro-batcher'), so the counts are module-level:
-``calls`` (operations a native core served, by core), ``fallbacks`` (by
-reason: ``no_build``, ``error``, ``unsupported``) and ``active``.  Its
-dictionary-union handles (``BatchMerger``), serve core and HTTP core are
-not here.
+``scan_enabled()``/``http_enabled()`` are False and the Python paths
+answer.  Metrics, the JAX package's families:
+``pio_native_calls_total{core}`` (operations a native core served),
+``pio_native_fallback_total{reason}`` (``no_build``, ``error``,
+``unsupported``) and ``pio_native_active``; ``calls`` and ``fallbacks``
+read them as dicts, and ``active`` is the last answer of the gate.  The
+dictionary-union handles (``BatchMerger``) and the serve core are not
+here.
 """
 
 from __future__ import annotations
@@ -30,20 +33,33 @@ import ctypes
 import os
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
 from predictionio_tpu_torch.native import build as _build
+from predictionio_tpu_torch.obs import metrics as obs_metrics
 
 _SRC = Path(__file__).parent / "data_plane.cpp"
 _STEM = "libdataplane"
-_ABI_VERSION = 1
+_ABI_VERSION = 2
 
-#: logical operations served by a native core, by core
-calls: Dict[str, int] = {"scan": 0}
-#: operations the Python path answered instead, by reason
-fallbacks: Dict[str, int] = {"no_build": 0, "error": 0, "unsupported": 0}
+_M_ACTIVE = obs_metrics.get_registry().gauge(
+    "pio_native_active",
+    "1 while the native data-plane cores are loaded and engaged")
+_M_CALLS = obs_metrics.get_registry().counter(
+    "pio_native_calls_total",
+    "Logical operations served by a native core, by core (scan/serve/http)")
+_M_FALLBACK = obs_metrics.get_registry().counter(
+    "pio_native_fallback_total",
+    "Data-plane operations answered by the Python oracle instead of a "
+    "native core, by reason (no_build/error/unsupported)")
+
+#: logical operations served by a native core, by core (registry view)
+calls = obs_metrics.SeriesView({c: (_M_CALLS, {"core": c}) for c in ("scan", "http")})
+#: operations the Python path answered instead, by reason (registry view)
+fallbacks = obs_metrics.SeriesView(
+    {r: (_M_FALLBACK, {"reason": r}) for r in ("no_build", "error", "unsupported")})
 #: True while the native library is loaded and enabled (None: not asked yet)
 active: Optional[bool] = None
 
@@ -73,6 +89,9 @@ _SIGNATURES = [
     ("dp_col_prop_dict_bytes", [_P, _I64], _I64),
     ("dp_col_prop_dict_copy", [_P, _I64, _P, _P], None),
     ("dp_col_meta_span", [_P, _P], None),
+    ("dp_http_parse", [ctypes.c_char_p, _I64, _I64, _P, _P], _INT),
+    ("dp_http_assemble", [ctypes.c_char_p, _I64, ctypes.c_char_p, _I64,
+                          ctypes.c_char_p, _I64, ctypes.c_char_p, _I64, _P, _I64], _I64),
 ]
 
 
@@ -127,13 +146,17 @@ def reset_for_tests() -> None:
 def _enabled(core: str) -> bool:
     global active
     if mode() == "off":
+        if active is not False:
+            _M_ACTIVE.set(0.0)
         active = False
         return False
     ok = lib() is not None
     if not ok and core not in _no_build_counted:
         # wanted (auto or on) but never loaded: one mark a core a process
         _no_build_counted.add(core)
-        fallbacks["no_build"] += 1
+        _M_FALLBACK.inc(reason="no_build")
+    if active is not ok:
+        _M_ACTIVE.set(1.0 if ok else 0.0)
     active = ok
     return ok
 
@@ -142,12 +165,16 @@ def scan_enabled() -> bool:
     return _enabled("scan")
 
 
+def http_enabled() -> bool:
+    return _enabled("http")
+
+
 def note_call(core: str) -> None:
-    calls[core] = calls.get(core, 0) + 1
+    _M_CALLS.inc(core=core)
 
 
 def note_fallback(reason: str) -> None:
-    fallbacks[reason] = fallbacks.get(reason, 0) + 1
+    _M_FALLBACK.inc(reason=reason)
 
 
 def _ptr(arr: np.ndarray):
@@ -233,3 +260,48 @@ class ColumnarHeader:
         if out[0] < 0:
             return None
         return int(out[0]), int(out[1])
+
+
+# ---------------------------------------------------------------------------
+# http core wrappers
+# ---------------------------------------------------------------------------
+
+_HTTP_MAX_HEADERS = 100
+
+
+def http_parse_head(head: bytes) -> Tuple[int, np.ndarray, np.ndarray]:
+    """Parse one request head (bytes before the CRLFCRLF) natively.
+
+    → (rc, out int64[9], spans int32[4 per header]); rc numbers the
+    oracle's refusals in its exact first-error-wins order (see
+    data_plane.cpp); rc 0 is a parsed request."""
+    L = lib()
+    out = np.empty(9, np.int64)
+    # worst case one header per 3 bytes ("a:\r\n" is 4); +2 slots for the
+    # request line edge and the trailing-empty-line edge
+    max_spans = (len(head) // 3 + 2) * 4
+    spans = np.empty(max(max_spans, 8), np.int32)
+    rc = L.dp_http_parse(head, len(head), _HTTP_MAX_HEADERS,
+                         _ptr(out), _ptr(spans))
+    return int(rc), out, spans
+
+
+def http_assemble(prefix: bytes, request_id: Optional[bytes], tail: bytes,
+                  body: bytes) -> Optional[bytearray]:
+    """Native response assembly: prefix + optional X-Request-ID line +
+    Content-Length line + tail + body, one pre-sized buffer, GIL
+    dropped.  Value-equal to the oracle's ``bytes`` join (a bytearray
+    compares and sends identically)."""
+    L = lib()
+    rid = request_id or b""
+    cap = len(prefix) + len(rid) + len(tail) + len(body) + 64
+    buf = bytearray(cap)
+    cbuf = (ctypes.c_char * cap).from_buffer(buf)
+    n = L.dp_http_assemble(prefix, len(prefix), rid, len(rid),
+                           tail, len(tail), body, len(body),
+                           ctypes.addressof(cbuf), cap)
+    del cbuf
+    if n < 0:
+        return None
+    del buf[n:]
+    return buf

@@ -1,13 +1,14 @@
-// The scan core's columnar header parse, for the port's native/core.py
-// (ctypes C ABI, no Python.h).
+// The scan core's columnar header parse and the HTTP core, for the port's
+// native/core.py (ctypes C ABI, no Python.h).
 //
-// Counterpart of predictionio_tpu/native/data_plane.cpp, header-parse part
-// only: the PIOCOL01 snapshot header (JSON) -> column specs, the string
+// Counterpart of predictionio_tpu/native/data_plane.cpp, two parts of it:
+// the PIOCOL01 snapshot header (JSON) -> column specs, the string
 // dictionaries as UTF-8 blobs with int64 offsets, the property columns and
-// the raw span of "meta".  Every entry point is called through
-// ctypes.CDLL, so the GIL is released for the call.  The JAX file's
-// dictionary-union handles and dp_take_i32 (its BatchMerger), its serve
-// core and its HTTP core are not here.
+// the raw span of "meta"; and the HTTP request-head parse and response
+// assembly of the event-loop front end (api/http_util.py).  Every entry
+// point is called through ctypes.CDLL, so the GIL is released for the
+// call.  The JAX file's dictionary-union handles and dp_take_i32 (its
+// BatchMerger) and its serve core are not here.
 //
 // Contract against the Python parse (json.loads): the same specs, the same
 // strings byte for byte (surrogate pairs combine; lone surrogates pass
@@ -16,6 +17,7 @@
 // json.loads answers.  tests/test_torch_native.py holds it.
 
 #include <cstdint>
+#include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <string>
@@ -386,7 +388,8 @@ bool parse_header(Json &j, const char *base, ColHeader &h) {
 // C ABI
 // ===========================================================================
 
-EXPORT int64_t dp_abi_version() { return 1; }
+// 2: the HTTP core (dp_http_parse, dp_http_assemble) joined the ABI
+EXPORT int64_t dp_abi_version() { return 2; }
 
 // -- scan core: snapshot header ---------------------------------------------
 
@@ -475,4 +478,189 @@ EXPORT void dp_col_meta_span(void *p, int64_t *out) {
     auto *h = (ColHeader *)p;
     out[0] = h->meta_off;
     out[1] = h->meta_len;
+}
+
+// -- HTTP core: request-head parse / response assembly -----------------
+
+namespace {
+
+// Python str.strip()'s whitespace set restricted to latin-1: the exact
+// byte values `.decode("latin-1").strip()` removes — parity with the
+// oracle parser requires this set, not isspace().
+inline bool py_space(unsigned char c) {
+    return (c >= 0x09 && c <= 0x0D) || (c >= 0x1C && c <= 0x1F) || c == 0x20 ||
+           c == 0x85 || c == 0xA0;
+}
+
+inline unsigned char ascii_lower(unsigned char c) {
+    return (c >= 'A' && c <= 'Z') ? (unsigned char)(c + 32) : c;
+}
+
+// ascii-case-insensitive equality vs a lowercase ascii literal.  A name
+// equals "content-length" after Python's latin-1 .lower() iff it equals
+// it after ascii-lower (non-ascii letters can never map into ascii).
+inline bool name_is(const unsigned char *s, int64_t n, const char *lit) {
+    for (int64_t i = 0; i < n; ++i) {
+        if (lit[i] == 0 || ascii_lower(s[i]) != (unsigned char)lit[i]) return false;
+    }
+    return lit[n] == 0;
+}
+
+}  // namespace
+
+// Parse one HTTP/1.1 request head (the bytes BEFORE the \r\n\r\n
+// terminator, stray leading CRLFs already stripped by the caller).
+//
+// Returns 0 ok, or the refusal case — numbered to match the Python
+// parser's refusals exactly, first-error-wins in the same order:
+//   1 malformed request line          (400)
+//   2 too many headers                (400)
+//   3 obsolete header line folding    (400)
+//   4 conflicting Content-Length      (400)
+//   5 Transfer-Encoding present       (501)
+//   6 bad Content-Length              (400)
+//
+// out[0] = n_headers
+// out[1..6] = cmd_off, cmd_len, path_off, path_len, ver_off, ver_len
+// out[7] = content-length state: 0 absent, 1 valid (value in out[8])
+// out[8] = content-length value (saturated ~4.6e18)
+// spans: 4 int32 per header — name_off, name_len, value_off, value_len
+//        (strip bounds applied; name NOT lowercased — the wrapper's
+//        latin-1 .lower() matches the oracle exactly)
+EXPORT int dp_http_parse(const unsigned char *buf, int64_t len,
+                         int64_t max_headers, int64_t *out, int32_t *spans) {
+    // split on exact CRLF pairs (bytes.split(b"\r\n") parity)
+    // request line: first CRLF (or end)
+    int64_t l0_end = len;
+    for (int64_t i = 0; i + 1 < len; ++i) {
+        if (buf[i] == '\r' && buf[i + 1] == '\n') { l0_end = i; break; }
+    }
+    // command/path/version: need >= 2 spaces (split(" ", 2) into 3)
+    int64_t sp1 = -1, sp2 = -1;
+    for (int64_t i = 0; i < l0_end; ++i) {
+        if (buf[i] == ' ') {
+            if (sp1 < 0) sp1 = i;
+            else { sp2 = i; break; }
+        }
+    }
+    if (sp1 < 0 || sp2 < 0) return 1;
+    out[1] = 0; out[2] = sp1;
+    out[3] = sp1 + 1; out[4] = sp2 - sp1 - 1;
+    out[5] = sp2 + 1; out[6] = l0_end - sp2 - 1;
+
+    // count header lines first (the Python parser checks the cap before
+    // walking the headers)
+    int64_t count = 0;
+    for (int64_t i = l0_end; i + 1 < len; ++i) {
+        if (buf[i] == '\r' && buf[i + 1] == '\n') { ++count; ++i; }
+    }
+    if (count > max_headers) return 2;
+
+    int64_t n_headers = 0;
+    int64_t cl_off = -1, cl_len = -1;   // last content-length value span
+    bool te_seen = false;
+    int64_t pos = l0_end + 2;
+    if (pos == len) {
+        // the request line alone, ended on a CRLF: split() yields a
+        // trailing "" line, an empty-name header to the oracle (the JAX
+        // copy of this parser returns no header here)
+        spans[0] = (int32_t)len;
+        spans[1] = 0;
+        spans[2] = (int32_t)len;
+        spans[3] = 0;
+        n_headers = 1;
+    }
+    while (pos < len) {
+        int64_t lend = len;
+        for (int64_t i = pos; i + 1 < len; ++i) {
+            if (buf[i] == '\r' && buf[i + 1] == '\n') { lend = i; break; }
+        }
+        int64_t llen = lend - pos;
+        if (llen > 0 && (buf[pos] == ' ' || buf[pos] == '\t')) return 3;
+        // partition at first ':'
+        int64_t colon = lend;
+        for (int64_t i = pos; i < lend; ++i) {
+            if (buf[i] == ':') { colon = i; break; }
+        }
+        int64_t ns = pos, ne = colon;
+        while (ns < ne && py_space(buf[ns])) ++ns;
+        while (ne > ns && py_space(buf[ne - 1])) --ne;
+        int64_t vs = colon < lend ? colon + 1 : lend, ve = lend;
+        while (vs < ve && py_space(buf[vs])) ++vs;
+        while (ve > vs && py_space(buf[ve - 1])) --ve;
+        if (name_is(buf + ns, ne - ns, "content-length")) {
+            if (cl_off >= 0) {
+                // repeated differing Content-Length (bytewise compare of
+                // the stripped latin-1 values == the oracle's str compare)
+                if (cl_len != ve - vs ||
+                    memcmp(buf + cl_off, buf + vs, (size_t)cl_len) != 0)
+                    return 4;
+            }
+            cl_off = vs;
+            cl_len = ve - vs;
+        } else if (name_is(buf + ns, ne - ns, "transfer-encoding")) {
+            te_seen = true;
+        }
+        spans[n_headers * 4 + 0] = (int32_t)ns;
+        spans[n_headers * 4 + 1] = (int32_t)(ne - ns);
+        spans[n_headers * 4 + 2] = (int32_t)vs;
+        spans[n_headers * 4 + 3] = (int32_t)(ve - vs);
+        ++n_headers;
+        if (lend >= len) break;
+        pos = lend + 2;
+        if (pos == len) {
+            // head ended exactly on a CRLF: split() yields a trailing ""
+            // line, which the oracle records as an empty-name header
+            spans[n_headers * 4 + 0] = (int32_t)len;
+            spans[n_headers * 4 + 1] = 0;
+            spans[n_headers * 4 + 2] = (int32_t)len;
+            spans[n_headers * 4 + 3] = 0;
+            ++n_headers;
+            break;
+        }
+    }
+    out[0] = n_headers;
+    if (te_seen) return 5;
+    if (cl_off < 0) {
+        out[7] = 0;
+        out[8] = 0;
+    } else {
+        if (cl_len <= 0) return 6;
+        int64_t v = 0;
+        for (int64_t i = 0; i < cl_len; ++i) {
+            unsigned char c = buf[cl_off + i];
+            if (c < '0' || c > '9') return 6;
+            if (v < (int64_t)460000000000000000LL) v = v * 10 + (c - '0');
+        }
+        out[7] = 1;
+        out[8] = v;
+    }
+    return 0;
+}
+
+// Assemble one response into a caller-sized buffer:
+//   prefix | "X-Request-ID: " rid "\r\n" (when ridlen) |
+//   "Content-Length: <blen>\r\n" | tail | body
+// Returns bytes written, or -1 when cap is too small.
+EXPORT int64_t dp_http_assemble(const unsigned char *prefix, int64_t plen,
+                                const unsigned char *rid, int64_t ridlen,
+                                const unsigned char *tail, int64_t tlen,
+                                const unsigned char *body, int64_t blen,
+                                unsigned char *outbuf, int64_t cap) {
+    char clbuf[40];
+    int cln = snprintf(clbuf, sizeof(clbuf), "Content-Length: %lld\r\n",
+                       (long long)blen);
+    int64_t total = plen + (ridlen > 0 ? 14 + ridlen + 2 : 0) + cln + tlen + blen;
+    if (total > cap) return -1;
+    unsigned char *o = outbuf;
+    memcpy(o, prefix, (size_t)plen); o += plen;
+    if (ridlen > 0) {
+        memcpy(o, "X-Request-ID: ", 14); o += 14;
+        memcpy(o, rid, (size_t)ridlen); o += ridlen;
+        memcpy(o, "\r\n", 2); o += 2;
+    }
+    memcpy(o, clbuf, (size_t)cln); o += cln;
+    memcpy(o, tail, (size_t)tlen); o += tlen;
+    if (blen > 0) memcpy(o, body, (size_t)blen);
+    return total;
 }

@@ -32,9 +32,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: c_void_p (an int argtype would cut a 64-bit pointer to 32 bits)
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
-    # u, v, mask, mask_is_f32, mask_ld, bias, has_bias, out, B, I, K, stream
+    # u, v, mask, mask_is_f32, mask_ld, bias, has_bias, out, B, I, K, route, stream
     "masked_score": ("pio_masked_score",
-                     [_P, _P, _P, _I, _L, _P, _I, _P, _I, _I, _I, _P]),
+                     [_P, _P, _P, _I, _L, _P, _I, _P, _I, _I, _I, _P, _P]),
     # counts, ld, row_marg, col_marg, n_total, threshold, out, R, C, stream
     "llr_masked": ("pio_llr_masked", [_P, _L, _P, _P, _F, _F, _P, _I, _I, _P]),
     # scores, ld, R, W, b, id_offset, carry_s, carry_i, out_s, out_i, stream

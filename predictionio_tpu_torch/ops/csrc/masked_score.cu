@@ -498,10 +498,14 @@ void launch_tiled(const float* u, const float* v, const MaskT* mask, long long m
                                             b_tiles, units);
 }
 
+// route of a launch, reported to the caller: the streaming pass or the tile
+constexpr int kRouteStream = 0;
+constexpr int kRouteTiled = 1;
+
 template <bool VEC, typename MaskT>
-void launch(const float* u, const float* v, const MaskT* mask, long long mask_ld,
-            const float* bias, int has_bias, float* out, int B, int I, int K,
-            cudaStream_t s) {
+int launch(const float* u, const float* v, const MaskT* mask, long long mask_ld,
+           const float* bias, int has_bias, float* out, int B, int I, int K,
+           cudaStream_t s) {
   if (B == 1) {
     launch_stream<1, VEC>(u, v, mask, mask_ld, bias, has_bias, out, B, I, K, s);
   } else if (B == 2) {
@@ -512,21 +516,23 @@ void launch(const float* u, const float* v, const MaskT* mask, long long mask_ld
     launch_stream<kStreamMaxRows, VEC>(u, v, mask, mask_ld, bias, has_bias, out, B, I, K, s);
   } else if (B <= 32) {   // a 32-row unit: no idle rows at B = 17..32
     launch_tiled<4, 128, VEC>(u, v, mask, mask_ld, bias, has_bias, out, B, I, K, s);
+    return kRouteTiled;
   } else {
     launch_tiled<4, 256, VEC>(u, v, mask, mask_ld, bias, has_bias, out, B, I, K, s);
+    return kRouteTiled;
   }
+  return kRouteStream;
 }
 
 template <typename MaskT>
-void dispatch(const float* u, const float* v, const MaskT* mask, long long mask_ld,
-              const float* bias, int has_bias, float* out, int B, int I, int K,
-              cudaStream_t s) {
+int dispatch(const float* u, const float* v, const MaskT* mask, long long mask_ld,
+             const float* bias, int has_bias, float* out, int B, int I, int K,
+             cudaStream_t s) {
   // 16-byte operand loads need every row of U and V on a 16-byte boundary
   if (K % 4 == 0 && aligned(u, 16) && aligned(v, 16)) {
-    launch<true>(u, v, mask, mask_ld, bias, has_bias, out, B, I, K, s);
-  } else {
-    launch<false>(u, v, mask, mask_ld, bias, has_bias, out, B, I, K, s);
+    return launch<true>(u, v, mask, mask_ld, bias, has_bias, out, B, I, K, s);
   }
+  return launch<false>(u, v, mask, mask_ld, bias, has_bias, out, B, I, K, s);
 }
 
 }  // namespace
@@ -535,20 +541,23 @@ void dispatch(const float* u, const float* v, const MaskT* mask, long long mask_
 // [B, I] with row stride mask_ld >= I elements (any alignment), uint8 or bool
 // (mask_is_f32 = 0) or f32 (mask_is_f32 = 1); bias: [I] f32, read only when
 // has_bias != 0; out: [B, I] f32 contiguous.  B, I >= 1, K >= 0.  Launches on
-// `stream` without synchronising and returns cudaGetLastError() (0 = launched).
+// `stream` without synchronising, writes the route it took to *route (0 the
+// streaming pass, 1 the tile) and returns cudaGetLastError() (0 = launched).
 extern "C" int pio_masked_score(const void* u, const void* v, const void* mask,
                                 int mask_is_f32, long long mask_ld,
                                 const void* bias, int has_bias, void* out,
-                                int B, int I, int K, void* stream) {
+                                int B, int I, int K, int* route, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* fu = static_cast<const float*>(u);
   const float* fv = static_cast<const float*>(v);
   const float* fb = static_cast<const float*>(bias);
   float* fo = static_cast<float*>(out);
   if (mask_is_f32) {
-    dispatch(fu, fv, static_cast<const float*>(mask), mask_ld, fb, has_bias, fo, B, I, K, s);
+    *route = dispatch(fu, fv, static_cast<const float*>(mask), mask_ld, fb, has_bias, fo, B, I,
+                      K, s);
   } else {
-    dispatch(fu, fv, static_cast<const uint8_t*>(mask), mask_ld, fb, has_bias, fo, B, I, K, s);
+    *route = dispatch(fu, fv, static_cast<const uint8_t*>(mask), mask_ld, fb, has_bias, fo, B,
+                      I, K, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

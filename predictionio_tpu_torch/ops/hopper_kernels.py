@@ -21,11 +21,15 @@ A wrapper launches its kernel for CUDA tensors and runs the plain version
 only for tensors on the CPU (the CPU tests).  It checks device, dtype,
 shape and layout and raises on anything else; nothing falls back.  Each
 wrapper counts its launches in a plain integer attribute (``.launches``),
-so a run can show that its path went through the kernel.
+so a run can show that its path went through the kernel; K1 also counts
+them by the route the kernel reports it took
+(``masked_score_matmul.launches_by_route``: ``streaming`` for B <= 8,
+``tiled`` above).
 """
 
 from __future__ import annotations
 
+import ctypes
 import threading
 from typing import Optional, Tuple
 
@@ -41,8 +45,10 @@ _MASK_DTYPES = (torch.bool, torch.uint8, torch.float32)
 # 2**31 after rounding B, I and K up to a unit (64 rows, 128 items, 32 k)
 _MAX_ROWS = 2**31 - 64
 _MAX_ITEMS = 2**31 - 128
-# the threaded query server launches from several threads at once
+# the query server's handler pool launches from several threads at once
 _count_lock = threading.Lock()
+# the route codes pio_masked_score writes back (kRouteStream, kRouteTiled)
+_K1_ROUTES = ("streaming", "tiled")
 
 
 def _check_masked_score_args(u, v, mask, bias) -> None:
@@ -117,20 +123,31 @@ def masked_score_matmul(
     if b == 0 or n == 0:
         return out
     fn = build.load("masked_score").pio_masked_score
+    route = ctypes.c_int(-1)
     with torch.cuda.device(u.device):
         err = fn(u.data_ptr(), v.data_ptr(), mask.data_ptr(),
                  int(mask.dtype == torch.float32), mask.stride(0) if b > 1 else n,
                  bias.data_ptr() if bias is not None else None,
                  int(bias is not None), out.data_ptr(), b, n, k,
+                 ctypes.addressof(route),
                  torch.cuda.current_stream(u.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"masked_score kernel launch failed: CUDA error {err}")
     with _count_lock:
         masked_score_matmul.launches += 1
+        masked_score_matmul.launches_by_route[_K1_ROUTES[route.value]] += 1
     return out
 
 
 masked_score_matmul.launches = 0
+masked_score_matmul.launches_by_route = {"streaming": 0, "tiled": 0}
+
+
+def reset_k1_counts() -> None:
+    """Set K1's launch counts, the total and each route's, to 0."""
+    with _count_lock:
+        masked_score_matmul.launches = 0
+        masked_score_matmul.launches_by_route.update(streaming=0, tiled=0)
 
 
 def recommend_batch_fused(

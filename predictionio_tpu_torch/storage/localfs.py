@@ -25,11 +25,16 @@ in the other:
   ``PIO_SNAPSHOT_SEGMENTS=N`` a segment rotation starts a build in the
   background once N segments are uncovered.
 
-Appends of one process are serialised by one lock per store; the JAX
-package's group commit (many request threads' buffers in one write) serves
-its event server, which the port does not have yet (ROADMAP.md, queue A,
-'Event-loop server and micro-batcher').  This writer has no writer tag, so
-its snapshots are tagged ``local``, as the JAX package's are without one.
+Appends to one (app, channel) are group-committed within a process, as
+in the JAX package: concurrent request threads queue their lines and the
+first one in writes every queued buffer with one ``write`` (one fsync by
+the PIO_FSYNC policy).  Across processes each writer appends only to its
+own segments: with a writer tag (``PIO_WRITER_TAG``, which the event
+server's prefork workers get) they are ``seg-<tag>-NNNNN.jsonl`` and its
+tombstones ``tombstones-<tag>.txt``; without one ``seg-NNNNN.jsonl`` and
+``tombstones.txt``, and its snapshots are tagged ``local``.  Readers glob
+``seg-*.jsonl`` and ``tombstones*.txt`` and see the union.  The write
+path's instruments are the JAX package's ``pio_storage_*`` families.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from pathlib import Path
 from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 from predictionio_tpu_torch.events.event import Event, canonical_event_json, parse_time
+from predictionio_tpu_torch.obs.metrics import LATENCY_BUCKETS, SIZE_BUCKETS, get_registry
 from predictionio_tpu_torch.storage import base
 from predictionio_tpu_torch.storage.base import (
     AccessKey,
@@ -68,6 +74,35 @@ DEFAULT_CHANNEL = "_default"
 # event ids whose bytes are the same in every JSON encoding
 _PLAIN_ID = re.compile(r"[A-Za-z0-9_.-]+")
 
+# -- write-path instruments, recorded at group-commit granularity (one
+# observation per physical write or fsync, not per event)
+_REG = get_registry()
+_M_APPEND = _REG.histogram(
+    "pio_storage_append_duration_seconds",
+    "Segment append latency (write+flush, excluding fsync); count = "
+    "physical appends", buckets=LATENCY_BUCKETS)
+_M_APPEND_BYTES = _REG.counter(
+    "pio_storage_append_bytes_total", "Bytes appended to event segments")
+_M_EVENTS = _REG.counter(
+    "pio_storage_events_appended_total",
+    "Event lines appended to the log (exactly the on-disk line count)")
+_M_FSYNC = _REG.histogram(
+    "pio_storage_fsync_duration_seconds",
+    "fsync latency on event segments; count = fsyncs issued",
+    buckets=LATENCY_BUCKETS)
+_M_GROUP = _REG.histogram(
+    "pio_storage_group_commit_batch_size",
+    "Request buffers coalesced per group commit (occupancy = sum/count)",
+    buckets=SIZE_BUCKETS)
+_M_HEALS = _REG.counter(
+    "pio_storage_torn_tail_heals_total",
+    "Torn segment tails truncated on writer reopen")
+_M_ROTATE = _REG.counter(
+    "pio_storage_segment_rotations_total", "New segment files opened")
+_M_SEGS = _REG.gauge(
+    "pio_storage_live_segments",
+    "Segments in the writer's channel directory at last open, by channel")
+
 
 def _fsync_policy() -> str:
     """Ingest durability policy (PIO_FSYNC):
@@ -85,12 +120,14 @@ def _fsync_policy() -> str:
 class _SegmentWriter:
     """Kept-open appender for one (app, channel) log: one ``write`` per
     append under the PIO_FSYNC policy, rotating to a new segment at
-    ``SEGMENT_MAX_BYTES``.  It appends only to segments of the plain
-    ``seg-NNNNN.jsonl`` naming; readers glob ``seg-*.jsonl`` and so also
-    see the JAX package's per-writer ``seg-<tag>-NNNNN.jsonl`` segments."""
+    ``SEGMENT_MAX_BYTES``.  Without a ``tag`` it appends only to segments
+    of the plain ``seg-NNNNN.jsonl`` naming; with one, only to its own
+    ``seg-<tag>-NNNNN.jsonl``, so writer processes never share an active
+    file.  Readers glob ``seg-*.jsonl`` and see the union."""
 
-    def __init__(self, d: Path):
+    def __init__(self, d: Path, tag: Optional[str] = None):
         self._dir = d
+        self._tag = tag
         self._f = None
         self._path: Optional[Path] = None
         self._last_sync = 0.0
@@ -115,11 +152,14 @@ class _SegmentWriter:
                 self._f = None
         if self._f is None or self._f.tell() >= SEGMENT_MAX_BYTES:
             self._open_next()
+        t0 = time.perf_counter()
         self._f.write(text)
         self._f.flush()
+        _M_APPEND.observe(time.perf_counter() - t0)
+        _M_APPEND_BYTES.inc(len(text))
         policy = _fsync_policy()
         if policy == "always":
-            os.fsync(self._f.fileno())
+            self._timed_fsync()
         elif policy.startswith("interval:"):
             try:
                 every = float(policy.split(":", 1)[1]) / 1e3
@@ -127,8 +167,13 @@ class _SegmentWriter:
                 every = 0.1
             now = time.monotonic()
             if now - self._last_sync >= every:
-                os.fsync(self._f.fileno())
+                self._timed_fsync()
                 self._last_sync = now
+
+    def _timed_fsync(self) -> None:
+        t0 = time.perf_counter()
+        os.fsync(self._f.fileno())
+        _M_FSYNC.observe(time.perf_counter() - t0)
 
     @staticmethod
     def _heal_torn_tail(path: Path) -> None:
@@ -156,23 +201,38 @@ class _SegmentWriter:
                     break
                 pos -= step
             f.truncate(keep)
+            _M_HEALS.inc()
 
     def _open_next(self) -> None:
         self.close()
         self._dir.mkdir(parents=True, exist_ok=True)
-        # only the plain numeric naming: never append into another
-        # writer's segment that may share the directory
-        segs = sorted(p for p in self._dir.glob("seg-*.jsonl")
-                      if p.stem.split("-", 1)[1].isdigit())
+        if self._tag is None:
+            # only the plain numeric naming: never append into a
+            # per-writer segment that may share the directory
+            segs = sorted(p for p in self._dir.glob("seg-*.jsonl")
+                          if p.stem.split("-", 1)[1].isdigit())
+        else:
+            # the exact tag, not the glob alone: tag 'bulk' must never
+            # claim (and heal) the live segments of a tag 'bulk-2'
+            def _own(p: Path) -> bool:
+                n = p.stem.rsplit("-", 1)[1]
+                return n.isdigit() and p.stem == f"seg-{self._tag}-{n}"
+
+            segs = sorted(p for p in self._dir.glob(f"seg-{self._tag}-*.jsonl") if _own(p))
         if segs and segs[-1].stat().st_size < SEGMENT_MAX_BYTES:
             path = segs[-1]
             self._heal_torn_tail(path)
         else:
             n = int(segs[-1].stem.rsplit("-", 1)[1]) + 1 if segs else 0
-            path = self._dir / f"seg-{n:05d}.jsonl"
+            path = (self._dir / f"seg-{n:05d}.jsonl" if self._tag is None
+                    else self._dir / f"seg-{self._tag}-{n:05d}.jsonl")
+            _M_ROTATE.inc()
             self.rotations += 1
         self._path = path
         self._f = open(path, "a")
+        # this writer's view of its own series; readers union all writers
+        _M_SEGS.set(len(segs) + (1 if path not in segs else 0),
+                    channel=f"{self._dir.parent.name}/{self._dir.name}")
 
     def close(self) -> None:
         if self._f is not None:
@@ -185,7 +245,7 @@ class _SegmentWriter:
                     unlinked = True
                 self._f.flush()
                 if _fsync_policy() != "never" and not unlinked:
-                    os.fsync(self._f.fileno())
+                    self._timed_fsync()
             finally:
                 f, self._f = self._f, None
                 f.close()
@@ -636,19 +696,46 @@ class _EntityIndex:
         return out
 
 
+def _env_writer_tag() -> Optional[str]:
+    """This process's writer tag from PIO_WRITER_TAG (set by the event
+    server's prefork spawn), kept to filesystem-safe characters.  '-' is
+    kept: tags like ``w1-<parent pid>`` must stay distinct."""
+    tag = os.environ.get("PIO_WRITER_TAG", "")
+    tag = "".join(c for c in tag if c.isalnum() or c in "_-")
+    return tag.strip("-") or None
+
+
+class _CommitGroup:
+    """Pending group-commit appends of one (app, channel) log."""
+
+    __slots__ = ("cond", "pending", "active")
+
+    def __init__(self):
+        self.cond = threading.Condition()
+        self.pending: List[dict] = []
+        self.active = False
+
+
 class FSEvents(base.LEvents, base.PEvents):
-    """Append-only segmented JSON-lines event log."""
+    """Append-only segmented JSON-lines event log.
+
+    Within one process, appends to one (app, channel) are group-committed
+    (``_append_lines``); across processes each writer appends only to its
+    own segments (``writer_tag``, else PIO_WRITER_TAG, else the plain
+    naming), and every read path globs ``seg-*.jsonl``."""
 
     _COMPACT_INTENT = "compact-intent.json"
     _COMPACT_LOCK = "compact.lock"
 
-    def __init__(self, root: Path):
+    def __init__(self, root: Path, writer_tag: Optional[str] = None):
         self._root = Path(root) / "events"
         # re-entrant: delete and compact re-enter through segment_paths'
         # crashed-compaction recovery
         self._lock = threading.RLock()
         self._indexes: Dict[tuple, _EntityIndex] = {}
         self._writers: Dict[tuple, _SegmentWriter] = {}
+        self._groups: Dict[tuple, _CommitGroup] = {}
+        self._writer_tag = writer_tag if writer_tag is not None else _env_writer_tag()
         self._rot_seen: Dict[tuple, int] = {}
         self._snap_inflight: set = set()
 
@@ -715,6 +802,17 @@ class FSEvents(base.LEvents, base.PEvents):
     def insert(self, event: Event, app_id: int, channel_id: Optional[int] = None) -> str:
         return self.insert_batch([event], app_id, channel_id)[0]
 
+    def _new_writer(self, d: Path) -> _SegmentWriter:
+        """This store's segment writer: per-writer naming with a tag."""
+        return _SegmentWriter(d, self._writer_tag)
+
+    def _tombstone_path(self, d: Path) -> Path:
+        """This store's tombstone file: per-writer with a tag (readers
+        union every ``tombstones*.txt``)."""
+        if self._writer_tag:
+            return d / f"tombstones-{self._writer_tag}.txt"
+        return d / "tombstones.txt"
+
     def insert_batch(
         self, events: Sequence[Event], app_id: int, channel_id: Optional[int] = None
     ) -> List[str]:
@@ -744,23 +842,66 @@ class FSEvents(base.LEvents, base.PEvents):
         return results
 
     def _append_lines(self, lines: str, app_id: int, channel_id: Optional[int]) -> None:
+        """Group-commit append: this call's buffer joins the (app,
+        channel)'s queue; the first thread into an idle group becomes the
+        commit leader and writes EVERY queued buffer with one ``write``
+        (one fsync by the policy), while buffers arriving meanwhile queue
+        for the next leader.  Leadership is released, never handed on: any
+        waiter woken without its buffer written claims the vacancy.  A
+        failed write raises in every thread whose lines it held."""
         key = (app_id, channel_id)
         with self._lock:
-            w = self._writers.get(key)
-            if w is None:
-                d = self._chan_dir(*key)
-                if (d / self._COMPACT_INTENT).exists():
-                    # finish a crashed compaction before picking a segment:
-                    # an append to a superseded segment would acknowledge
-                    # events that the roll-forward then unlinks
-                    self._recover_compact(d)
-                w = self._writers[key] = _SegmentWriter(d)
-            w.append(lines)
-            # the snapshot auto-trigger, checked only when this append
-            # opened a new segment
-            if w.rotations != self._rot_seen.get(key, 0):
-                self._rot_seen[key] = w.rotations
-                self._maybe_auto_snapshot(key)
+            g = self._groups.get(key)
+            if g is None:
+                g = self._groups[key] = _CommitGroup()
+        item: dict = {"lines": lines}
+        with g.cond:
+            g.pending.append(item)
+            while "done" not in item and g.active:
+                g.cond.wait()
+            if "done" not in item:
+                # leadership vacancy: commit everything queued, ours too
+                g.active = True
+                batch = g.pending[:]
+                del g.pending[:]
+            else:
+                batch = None
+        if batch is not None:
+            err: Optional[BaseException] = None
+            try:
+                with self._lock:
+                    w = self._writers.get(key)
+                    if w is None:
+                        d = self._chan_dir(*key)
+                        if (d / self._COMPACT_INTENT).exists():
+                            # finish a crashed compaction before picking a
+                            # segment: an append to a superseded segment
+                            # would acknowledge events that the
+                            # roll-forward then unlinks
+                            self._recover_compact(d)
+                        w = self._writers[key] = self._new_writer(d)
+                    payload = "".join(i["lines"] for i in batch)
+                    w.append(payload)
+                    _M_GROUP.observe(len(batch))
+                    _M_EVENTS.inc(payload.count("\n"))
+                    # the snapshot auto-trigger, checked only when this
+                    # commit opened a new segment
+                    if w.rotations != self._rot_seen.get(key, 0):
+                        self._rot_seen[key] = w.rotations
+                        self._maybe_auto_snapshot(key)
+            except BaseException as e:
+                # a failed write (ENOSPC, EIO) NACKs every event in the group
+                err = e
+            with g.cond:
+                for i in batch:
+                    if err is not None:
+                        i["err"] = err
+                    i["done"] = True
+                g.active = False
+                g.cond.notify_all()
+        err2 = item.get("err")
+        if err2 is not None:
+            raise err2
 
     # -- compaction ------------------------------------------------------------
 
@@ -899,7 +1040,7 @@ class FSEvents(base.LEvents, base.PEvents):
         self.segment_paths(app_id, channel_id)   # recover a crashed compaction
         d = self._chan_dir(app_id, channel_id)
         d.mkdir(parents=True, exist_ok=True)
-        return _snap.build_snapshot(d, self._tombstones(d), "local")
+        return _snap.build_snapshot(d, self._tombstones(d), self._writer_tag or "local")
 
     def snapshot_scan(self, app_id: int, channel_id: Optional[int] = None) -> Optional[Dict]:
         """{"batch", "ids", "watermark", ...} from the mapped snapshot and
@@ -1056,7 +1197,7 @@ class FSEvents(base.LEvents, base.PEvents):
             # under the lock: confirm the id is live, then tombstone it
             if not self._is_live(event_id, app_id, channel_id):
                 return False
-            with open(d / "tombstones.txt", "a") as f:
+            with open(self._tombstone_path(d), "a") as f:
                 f.write(event_id + "\n")
         return True
 

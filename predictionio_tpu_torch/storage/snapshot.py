@@ -26,11 +26,13 @@ Settings, the JAX package's: ``PIO_SNAPSHOT=off`` turns the read path and
 the automatic build off (``pio snapshot`` still builds);
 ``PIO_SNAPSHOT_SEGMENTS=N`` starts a build in the background once N
 segments exist that the snapshot does not cover (0, the default: never).
-The JAX package's metrics registry is not ported yet (ROADMAP.md, queue A,
-'Event-loop server and micro-batcher'), so the counts are module-level:
-``counts`` (hits, misses, quarantines, builds) and ``staged`` (events
-staged by source: ``snapshot`` from the mapped file, ``tail`` parsed from
-the uncovered tail, ``delta`` parsed past a retained batch's watermark).
+Metrics are the JAX package's ``pio_snapshot_*`` families (builds, their
+seconds, hits, misses, quarantines, the built events by channel) and
+``pio_stage_events_total{mode}`` (events staged by source: ``snapshot``
+from the mapped file, ``tail`` parsed from the uncovered tail, ``delta``
+parsed past a retained batch's watermark); ``counts`` and ``staged`` read
+them as dicts, and ``publish_status_gauges`` mirrors a status onto the
+coverage gauges.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from predictionio_tpu_torch.events.event import parse_time
+from predictionio_tpu_torch.obs.metrics import LATENCY_BUCKETS, SeriesView, get_registry
 from predictionio_tpu_torch.store.columnar import (
     EventBatch,
     EventIdColumn,
@@ -65,17 +68,41 @@ SNAP_DIR = "snapshot"
 MANIFEST = "manifest.json"
 LOCK = ".lock"
 
-_count_lock = threading.Lock()
+_REG = get_registry()
+_M_BUILD_S = _REG.histogram(
+    "pio_snapshot_build_duration_seconds",
+    "Wall-clock duration of snapshot builds", buckets=LATENCY_BUCKETS)
+_M_BUILDS = _REG.counter(
+    "pio_snapshot_builds_total", "Snapshot builds by final status")
+_M_EVENTS = _REG.gauge(
+    "pio_snapshot_events",
+    "Events in the last-built snapshot, by channel")
+_M_HITS = _REG.counter(
+    "pio_snapshot_scan_hits_total",
+    "Training scans served from a snapshot (+ tail)")
+_M_MISSES = _REG.counter(
+    "pio_snapshot_scan_misses_total",
+    "Training scans that fell back to a full JSONL parse")
+_M_QUAR = _REG.counter(
+    "pio_snapshot_quarantined_total",
+    "Torn/corrupt snapshot files set aside for rebuild")
+_M_STAGED = _REG.counter(
+    "pio_stage_events_total",
+    "Events staged into columnar batches by source: snapshot = served "
+    "from the mmap'd file, tail = parsed from the uncovered JSONL tail, "
+    "delta = parsed past a retained batch's watermark on retrain")
+
 #: snapshot reads served (hits) and missed, files quarantined, builds by outcome
-counts: Dict[str, int] = {"hits": 0, "misses": 0, "quarantined": 0,
-                          "builds_ok": 0, "builds_failed": 0}
+counts = SeriesView({"hits": (_M_HITS, {}), "misses": (_M_MISSES, {}),
+                     "quarantined": (_M_QUAR, {}),
+                     "builds_ok": (_M_BUILDS, {"status": "ok"}),
+                     "builds_failed": (_M_BUILDS, {"status": "failed"})})
 #: events staged into columnar batches, by source
-staged: Dict[str, int] = {"snapshot": 0, "tail": 0, "delta": 0}
+staged = SeriesView({m: (_M_STAGED, {"mode": m}) for m in ("snapshot", "tail", "delta")})
 
 
-def _bump(table: Dict[str, int], key: str, n: int = 1) -> None:
-    with _count_lock:
-        table[key] += n
+def _chan_label(d: Path) -> str:
+    return f"{d.parent.name}/{d.name}"
 
 
 def enabled() -> bool:
@@ -343,7 +370,7 @@ def build_snapshot(d: Path, tombstones: set, writer: str) -> dict:
             }
             _fsync_write(snap_dir / MANIFEST, json.dumps(manifest, indent=1, sort_keys=True))
         except Exception:
-            _bump(counts, "builds_failed")
+            _M_BUILDS.inc(1, status="failed")
             raise
         # superseded files go after the manifest flip, so a reader holding
         # the old manifest races at worst into a miss
@@ -351,7 +378,9 @@ def build_snapshot(d: Path, tombstones: set, writer: str) -> dict:
             if p.name != name:
                 p.unlink(missing_ok=True)
         build_s = time.perf_counter() - t0
-        _bump(counts, "builds_ok")
+        _M_BUILD_S.observe(build_s)
+        _M_BUILDS.inc(1, status="ok")
+        _M_EVENTS.set(n, channel=_chan_label(d))
         log.info("snapshot built: %s/%s %d events / %d segments in %.3fs",
                  d.parent.name, d.name, n, len(covered), build_s)
         return {"events": n, "segments": len(covered), "build_s": build_s, "snapshot": name}
@@ -367,7 +396,7 @@ def _quarantine(snap_dir: Path, name: str) -> None:
     except OSError:
         pass
     (snap_dir / MANIFEST).unlink(missing_ok=True)
-    _bump(counts, "quarantined")
+    _M_QUAR.inc()
     log.warning("quarantined torn snapshot %s", snap_dir / name)
 
 
@@ -612,11 +641,11 @@ def apply_filters(batch: EventBatch,
 
 
 def record_hit() -> None:
-    _bump(counts, "hits")
+    _M_HITS.inc()
 
 
 def record_miss() -> None:
-    _bump(counts, "misses")
+    _M_MISSES.inc()
 
 
 def record_delta(n: int) -> None:
@@ -625,11 +654,38 @@ def record_delta(n: int) -> None:
 
 def record_staged(n: int, mode: str) -> None:
     if n:
-        _bump(staged, mode, n)
+        _M_STAGED.inc(n, mode=mode)
 
 
 def staged_counts() -> Dict[str, int]:
     """The staged-event counts by source (snapshot, tail, delta): a
     retrain's exactness check reads them before and after."""
-    with _count_lock:
-        return dict(staged)
+    return {mode: int(_M_STAGED.value(mode=mode)) for mode in ("snapshot", "tail", "delta")}
+
+
+def publish_status_gauges(status: dict, channel: str) -> None:
+    """Mirror a ``snapshot_status`` dict onto the ``pio_snapshot_*`` gauges
+    (dashboard scrapes)."""
+    _M_EVENTS.set(status["events"], channel=channel)
+    _REG.gauge(
+        "pio_snapshot_tail_events",
+        "Events in the uncovered JSONL tail, by channel",
+    ).set(status["tailEvents"], channel=channel)
+    _REG.gauge(
+        "pio_snapshot_coverage_ratio",
+        "Events in snapshot / total events, by channel",
+    ).set(status["coverage"], channel=channel)
+    if status.get("builtAt"):
+        try:
+            ts = _dt.datetime.fromisoformat(status["builtAt"]).timestamp()
+        except ValueError:
+            ts = 0.0
+        _REG.gauge(
+            "pio_snapshot_last_build_timestamp_seconds",
+            "Unix time of the last snapshot build, by channel",
+        ).set(ts, channel=channel)
+    if status.get("buildSeconds") is not None:
+        _REG.gauge(
+            "pio_snapshot_last_build_seconds",
+            "Duration of the last snapshot build, by channel",
+        ).set(float(status["buildSeconds"]), channel=channel)

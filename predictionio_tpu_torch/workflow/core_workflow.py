@@ -5,10 +5,9 @@ core/.../workflow/CoreWorkflow.scala): ``run_train`` records an
 EngineInstance (INIT → TRAINING → COMPLETED, or FAILED with the exception
 re-raised), runs ``Engine.train`` on the named device and persists the
 models; ``load_latest_models`` is the deploy-time lookup.  The JAX
-package's span journals, metrics and staging counters wait for
-observability (ROADMAP.md, queue A, 'Event-loop server and
-micro-batcher'); ``run_eval`` waits for the evaluation workflow (ROADMAP.md,
-queue A, 'Remaining templates').
+package's span journals and train metrics wait for ROADMAP.md, queue A,
+'Observability and the rest of the front end'; ``run_eval`` waits for the
+evaluation workflow (ROADMAP.md, queue A, 'Remaining templates').
 """
 
 from __future__ import annotations

@@ -1,21 +1,30 @@
-"""Query server: the serving core of ``pio deploy``.
+"""Query server — ``pio deploy``.
 
-Counterpart of the query-serving core of
+Counterpart of the serving half of
 ``predictionio_tpu/workflow/create_server.py`` (reference:
 core/.../workflow/CreateServer.scala):
 
   POST /queries.json   query → predict → serve → JSON prediction
-  GET  /               engine info
-  GET  /stop           stop serving (``pio undeploy``)
+  GET  /               engine-instance info (HTML for a browser)
+  GET  /reload         hot-swap to the newest COMPLETED instance
+  GET  /stop           shut down (``pio undeploy``)
+  GET  /metrics        Prometheus text (cross-worker aggregate)
+  GET  /stats.json     per-(route, status) request windows
 
-``deploy_models`` serves models already in memory on the stdlib
-``http.server.ThreadingHTTPServer``; ``deploy`` loads the latest COMPLETED
-engine instance of an engine.json from the model store and serves it the
-same way, and ``run_server_from_args`` is ``pio deploy``: it serves in the
-foreground until ``GET /stop`` or SIGINT.  The event-loop front end,
-prefork workers, the micro-batcher, the caches, observability, hot reload,
-feedback, the follow-trainer and the model plane wait for later slices
-(ROADMAP.md, queue A).
+The server is the event-loop front end of ``api/http_util.py``.  With
+``PIO_SERVE_BATCH`` on (``auto``, the default, turns it on when the
+deployed models live on a CUDA device) the queries in flight at the same
+time meet in ``_MicroBatcher`` and leave as one ``serve_batch_predict``
+pass, so the card scores them in one launch.  ``--feedback`` writes every
+answered query back as a ``predict`` event; ``--auto-reload SECS`` polls
+the model store and installs a newer instance without dropping the port;
+``--workers N`` preforks N−1 more processes on the same port (CPU only).
+
+Not here, each named in ROADMAP.md, queue A: the model plane, the
+follow-trainer and plane replication ('Streaming'); the response cache
+('The host tail, pruning and caches'); the trace, lineage, history,
+cluster and healthz routes ('Observability and the rest of the front
+end'), which answer 404.
 """
 
 from __future__ import annotations
@@ -26,12 +35,33 @@ import logging
 import os
 import sys
 import threading
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Optional, Sequence
+import time
+import uuid
+from typing import Any, Callable, Dict, Optional, Sequence
 
-from predictionio_tpu_torch.storage.locator import Storage
+from predictionio_tpu_torch.api import prefork
+from predictionio_tpu_torch.api.http_util import JsonHandler, start_server
+from predictionio_tpu_torch.obs import metrics as obs_metrics
+from predictionio_tpu_torch.obs.exposition import StatsCollector, metrics_payload
+from predictionio_tpu_torch.obs.metrics import SIZE_BUCKETS
+from predictionio_tpu_torch.storage.locator import Storage, get_storage
 
 log = logging.getLogger("pio.queryserver")
+
+_M_SERVE_BATCH = obs_metrics.get_registry().histogram(
+    "pio_serve_batch_size",
+    "Queries coalesced per micro-batch device dispatch",
+    buckets=SIZE_BUCKETS)
+_M_SERIAL_RERUNS = obs_metrics.get_registry().counter(
+    "pio_serve_batch_serial_reruns_total",
+    "Micro-batches whose batched pass raised and that were re-run one "
+    "query at a time to isolate the failing query")
+_M_GENERATION = obs_metrics.get_registry().gauge(
+    "pio_model_generation",
+    "Monotonic generation counter of the live model: bumped by every "
+    "hot-swap (auto-reload, manual /reload)")
+
+ROADMAP_STREAMING = "ROADMAP.md, queue A, 'Streaming'"
 
 
 def _to_jsonable(obj: Any) -> Any:
@@ -44,20 +74,344 @@ def _to_jsonable(obj: Any) -> Any:
     return str(obj)
 
 
-class QueryServerState:
-    """The deployed engine, its params and models, and the predictor built
-    from them (one component construction + warm pass)."""
+# How long a queued query waits for its result before giving up; only a
+# dead leader should trip it.  Module-level so tests can shrink it.
+_WAIT_TIMEOUT_S = 600.0
 
-    def __init__(self, engine, engine_params, models: Sequence[Any],
-                 query_class: Optional[type] = None):
+
+class _MicroBatcher:
+    """Group-commit micro-batching of concurrent queries, across
+    requests, handler threads and connections.
+
+    The first thread into an idle batcher becomes the leader and at once
+    runs whatever is queued (usually just itself); queries arriving while
+    a batch runs coalesce into the next batch, which the same leader runs
+    before it releases leadership.  No timer and no added latency for a
+    lone query: the batch size follows the load, as a storage group
+    commit does.  On the card a batch of B queries is one K1 launch and
+    one readback instead of B.
+
+    A handler thread blocks here until its query is served, so at most
+    ``PIO_HTTP_POOL`` queries of one server can be queued at once: the
+    handler pool caps the batch.
+
+    ``PIO_SERVE_BATCH_WINDOW_MS`` (default 0) makes the leader dwell that
+    long before its first batch, trading a bounded p50 cost for larger
+    batches; 0 keeps the pure group commit.
+    """
+
+    def __init__(self, run_batch: Callable, run_one: Callable,
+                 max_batch: Optional[int] = None,
+                 window_s: Optional[float] = None):
+        from predictionio_tpu_torch.controller.engine import DEFAULT_SERVE_BATCH
+
+        if max_batch is None:
+            max_batch = DEFAULT_SERVE_BATCH
+        if window_s is None:
+            try:
+                window_s = float(os.environ.get("PIO_SERVE_BATCH_WINDOW_MS", "0")) / 1e3
+            except ValueError:
+                window_s = 0.0
+        self._run = run_batch
+        self._run_one = run_one
+        self._max = max_batch
+        self._window = max(0.0, window_s)
+        self._lock = threading.Lock()
+        self._queue: list = []
+        self._leader_active = False
+
+    def predict(self, query: Any) -> Any:
+        item = {"q": query, "ev": threading.Event()}
+        with self._lock:
+            self._queue.append(item)
+            lead = not self._leader_active
+            if lead:
+                self._leader_active = True
+        while True:
+            if lead:
+                self._lead_until_served(item)
+                lead = False  # leading guarantees our item was served
+            if "r" in item or "e" in item:
+                break
+            # re-arm, then re-check BOTH wake sources under ONE lock hold.
+            # Result writers assign r/e before set(), so a set() racing
+            # our clear() is caught by the r/e re-check.  Leadership
+            # nudges set() WITHOUT writing a result (a clear() could
+            # swallow one), so the vacancy itself is probed too: with no
+            # leader active we claim the lead.  The r/e check shares the
+            # claim's lock hold: results are written before leadership is
+            # released, so a served waiter can never become a leader that
+            # withholds its own finished result.
+            item["ev"].clear()
+            with self._lock:
+                if "r" in item or "e" in item:
+                    break
+                lead = not self._leader_active
+                if lead:
+                    self._leader_active = True
+            if lead:
+                continue
+            if not item["ev"].wait(timeout=_WAIT_TIMEOUT_S):
+                with self._lock:
+                    if item in self._queue:
+                        self._queue.remove(item)
+                    served = "r" in item or "e" in item
+                    # about to inherit leadership: pass the wake on so the
+                    # remaining waiters are not stranded
+                    nxt = (self._queue[0]
+                           if not served and not self._leader_active
+                           and self._queue else None)
+                if nxt is not None:
+                    nxt["ev"].set()
+                if not served:
+                    raise TimeoutError(
+                        "micro-batch not served within %.0f s (leader died?)"
+                        % _WAIT_TIMEOUT_S)
+                continue
+            # woken: the loop re-checks the result and the vacancy
+        if "e" in item:
+            raise item["e"]
+        return item["r"]
+
+    def _lead_until_served(self, own: dict) -> None:
+        """Run batches until ``own`` is served, then RELEASE leadership
+        and nudge the head waiter to re-claim it under the lock.
+        Leadership rotates (draining the queue to empty would starve the
+        leader's own client under sustained load) and is never handed to
+        a given thread: the nudged waiter may have timed out and left,
+        and ``_leader_active`` would then stay True forever."""
+        if self._window:
+            time.sleep(self._window)
+        while True:
+            with self._lock:
+                batch = self._queue[: self._max]
+                del self._queue[: self._max]
+                if not batch:
+                    self._leader_active = False
+                    return
+            _M_SERVE_BATCH.observe(len(batch))
+            try:
+                try:
+                    results = self._run([i["q"] for i in batch])
+                    # strict: a predictor returning the wrong count falls
+                    # into the serial re-run, never leaves an item unserved
+                    for i, r in zip(batch, results, strict=True):
+                        i["r"] = r
+                except Exception:
+                    # one poisoned query must not fail its batchmates:
+                    # re-run the batch serially so only the offender errors
+                    _M_SERIAL_RERUNS.inc()
+                    for i in batch:
+                        try:
+                            i["r"] = self._run_one(i["q"])
+                        except Exception as e:
+                            i["e"] = e
+            except BaseException as exc:
+                # SystemExit/KeyboardInterrupt escape the clauses above;
+                # leadership and the batch's waiters must not leak with them
+                err = RuntimeError(f"batch leader aborted: {exc!r}")
+                for i in batch:
+                    if "r" not in i and "e" not in i:
+                        i["e"] = err
+                with self._lock:
+                    self._leader_active = False
+                    nxt = self._queue[0] if self._queue else None
+                if nxt is not None:
+                    nxt["ev"].set()
+                for i in batch:
+                    i["ev"].set()
+                raise
+            served_self = own in batch
+            if served_self:
+                with self._lock:
+                    self._leader_active = False
+                    nxt = self._queue[0] if self._queue else None
+                if nxt is not None:
+                    nxt["ev"].set()  # wake to re-claim the released lead
+            for i in batch:
+                i["ev"].set()
+            if served_self:
+                return
+
+
+def _batch_wanted(models: Sequence[Any]) -> bool:
+    """``PIO_SERVE_BATCH``: on | off | auto (default).  Auto turns the
+    micro-batcher on when the deployed models live on a CUDA device (a
+    batch is one launch and one readback for B queries); on the CPU the
+    batcher's coordination costs more than it saves.  ``off`` never looks
+    at the models' device."""
+    conf = os.environ.get("PIO_SERVE_BATCH", "auto").lower()
+    if conf in ("1", "on", "true"):
+        return True
+    if conf != "auto":
+        return False
+    return any(getattr(getattr(m, "device", None), "type", None) == "cuda" for m in models)
+
+
+class QueryServerState:
+    """The deployed engine, its models and predictor; hot reload
+    (reference: MasterActor hot-swapping engine instances).
+
+    Models are loaded onto ``device`` (``reload`` and the auto-reload
+    poller load onto the deploy's own device, never a default).  Given
+    ``models``, the state serves them as they are and ``reload`` reads
+    the model store."""
+
+    def __init__(
+        self,
+        engine,
+        engine_params,
+        query_class,
+        engine_id: str,
+        engine_version: str = "1",
+        engine_variant: str = "default",
+        storage: Optional[Storage] = None,
+        feedback: bool = False,
+        feedback_app_name: str = "",
+        plugins=None,
+        auto_reload: float = 0.0,
+        device="cuda",
+        models: Optional[Sequence[Any]] = None,
+    ):
+        from predictionio_tpu_torch.api.plugins import PluginRegistry
+
+        self.plugins = PluginRegistry()
         self.engine = engine
         self.engine_params = engine_params
-        self.models = list(models)
         self.query_class = query_class
-        self.predictor = engine.predictor(engine_params, self.models)
+        self.engine_id = engine_id
+        self.engine_version = engine_version
+        self.engine_variant = engine_variant
+        self.storage = storage or get_storage()
+        self.device = device
+        self.feedback = feedback
+        self.feedback_app_name = feedback_app_name
         self._lock = threading.Lock()
+        self.instance = None
+        self.models: list = []
+        self.predictor: Optional[Callable] = None
+        self.batcher: Optional[_MicroBatcher] = None
         self.query_count = 0
         self.started = _dt.datetime.now(_dt.timezone.utc)
+        # every hot-swap installs NEW model objects and bumps this; the
+        # serving caches live on the model objects, so the swap is their
+        # invalidation
+        self.generation = 0
+        self.swapped_at: Optional[_dt.datetime] = None
+        self._build_seq = 0           # install-order tickets (see _install)
+        self._installed_seq = 0
+        self._tune_gil_switch()
+        if models is not None:
+            self._install(list(models))
+        else:
+            self.reload()
+        # plugins start once the state is whole (a live predictor)
+        for p in plugins or []:
+            self.plugins.register(p)
+            p.start(self)
+        # auto hot-swap (reference: MasterActor watching for retrained
+        # instances): poll the engine instances and install a newer
+        # COMPLETED one without dropping the port
+        self._auto_stop = threading.Event()
+        self._auto_thread: Optional[threading.Thread] = None
+        if auto_reload > 0:
+            self._auto_thread = threading.Thread(
+                target=self._auto_reload_loop, args=(float(auto_reload),),
+                daemon=True, name="pio-auto-reload")
+            self._auto_thread.start()
+
+    @staticmethod
+    def _tune_gil_switch() -> None:
+        """Shorten the interpreter's GIL switch interval (default 5 ms) in
+        a query server: a Python-heavy background thread (the auto-reload
+        install) holding the GIL a whole interval stalls colliding
+        queries.  PIO_GIL_SWITCH_S overrides; <= 0 keeps the default."""
+        try:
+            s = float(os.environ.get("PIO_GIL_SWITCH_S", "0.001"))
+            if s > 0:
+                sys.setswitchinterval(s)
+        except (ValueError, OSError):
+            pass
+
+    def _auto_reload_loop(self, interval: float) -> None:
+        while not self._auto_stop.wait(interval):
+            try:
+                latest = self.storage.engine_instances.get_latest_completed(
+                    self.engine_id, self.engine_version, self.engine_variant)
+            except Exception:
+                log.exception("auto-reload: instance lookup failed")
+                continue
+            current = self.instance
+            if latest is not None and (current is None or latest.id != current.id):
+                try:
+                    if self.reload() is not None:
+                        log.info("auto-reload: hot-swapped to instance %s", latest.id)
+                    else:
+                        log.info("auto-reload: instance %s dropped as stale (a newer "
+                                 "generation installed first)", latest.id)
+                except Exception:
+                    # the newer instance's models may still be mid-write:
+                    # keep serving the current model, retry next tick
+                    log.exception("auto-reload: reload failed; keeping current instance")
+
+    def stop_auto_reload(self) -> None:
+        """Stop the auto-reload poller (wired into server shutdown)."""
+        self._auto_stop.set()
+        t = self._auto_thread
+        if t is not None and t is not threading.current_thread():
+            t.join(timeout=5.0)
+
+    def reload(self) -> Optional[str]:
+        """Load and install the latest persisted instance onto the
+        deploy's device.  Its id, or None when the bundle was dropped as
+        stale (a build that started later installed first)."""
+        from predictionio_tpu_torch.workflow import core_workflow
+
+        instance, models = core_workflow.load_latest_models(
+            self.engine_id, self.engine_version, self.engine_variant,
+            storage=self.storage, device=self.device)
+        if self._install(models, instance=instance):
+            return instance.id
+        return None
+
+    def _install(self, models, instance=None) -> bool:
+        """The one model-installation path (deploy, reload, auto-reload):
+        build and warm the serving bundle OUTSIDE the lock (on the card
+        that stages the new tensors while the old model still serves, so
+        for a moment the peak holds both), then swap the predictor,
+        batcher and generation in one lock hold.  Builds are ordered by a
+        ticket taken at build START: a bundle whose build began before a
+        later build installed is dropped, so a slow stale build never
+        replaces a newer generation.  False when dropped as stale."""
+        with self._lock:
+            self._build_seq += 1
+            ticket = self._build_seq
+        enable = _batch_wanted(models)
+        predictor, bp = self.engine.serving_bundle(self.engine_params, models)
+        batcher = (_MicroBatcher(bp, predictor, max_batch=getattr(bp, "max_batch", None))
+                   if enable and bp is not None else None)
+        with self._lock:
+            if ticket <= self._installed_seq:
+                return False   # a build that started later already installed
+            self._installed_seq = ticket
+            self.predictor = predictor
+            self.batcher = batcher
+            self.models = list(models)
+            if instance is not None:
+                self.instance = instance
+            self.generation += 1
+            self.swapped_at = _dt.datetime.now(_dt.timezone.utc)
+        _M_GENERATION.set(self.generation)
+        return True
+
+    def freshness(self) -> Dict:
+        """How current the live model is (``/stats.json``'s and ``GET /``'s
+        ``freshness``)."""
+        return {
+            "generation": self.generation,
+            "swappedAt": self.swapped_at.isoformat() if self.swapped_at else None,
+            "engineInstanceId": self.instance.id if self.instance else None,
+        }
 
     def parse_query(self, body: Dict) -> Any:
         if self.query_class is not None and hasattr(self.query_class, "from_json"):
@@ -65,50 +419,124 @@ class QueryServerState:
         return body
 
     def predict(self, body: Dict) -> Any:
-        prediction = self.predictor(self.parse_query(body))
+        query = self.parse_query(body)
+        with self._lock:
+            predictor = self.predictor
+            batcher = self.batcher
+        prediction = batcher.predict(query) if batcher else predictor(query)
+        prediction = self.plugins.apply(query, prediction)
         with self._lock:
             self.query_count += 1
+        if self.feedback and self.feedback_app_name:
+            self._log_feedback(body, prediction)
         return prediction
+
+    def _log_feedback(self, query_body: Dict, prediction: Any) -> None:
+        """Write the served prediction back as a ``predict`` event (its
+        prId links follow-up reward events to it, as in the reference)."""
+        from predictionio_tpu_torch.events.event import DataMap, Event
+
+        app = self.storage.apps.get_by_name(self.feedback_app_name)
+        if app is None:
+            return
+        self.storage.l_events.insert(
+            Event(
+                event="predict",
+                entity_type="pio_pr",
+                entity_id=uuid.uuid4().hex,
+                properties=DataMap(
+                    {"query": query_body, "prediction": _to_jsonable(prediction)}),
+                pr_id=uuid.uuid4().hex,
+            ),
+            app.id,
+        )
 
     def info(self) -> Dict:
         return {
             "status": "alive",
+            # which prefork worker answered: the readiness probe of
+            # `deploy --workers N` polls fresh connections for N pids
             "pid": os.getpid(),
-            "engine": type(self.engine).__name__,
-            "algorithms": [name for name, _ in
-                           self.engine_params.algorithm_params_list],
-            "devices": sorted({str(m.device) for m in self.models if hasattr(m, "device")}),
+            "workerTag": obs_metrics.worker_tag(),
+            "engineId": self.engine_id,
+            "engineVersion": self.engine_version,
+            "variant": self.engine_variant,
+            "engineInstanceId": self.instance.id if self.instance else None,
+            "trainedAt": self.instance.start_time.isoformat() if self.instance else None,
             "queryCount": self.query_count,
             "startedAt": self.started.isoformat(),
+            "modelGeneration": self.generation,
+            "planeGeneration": None,
+            "freshness": self.freshness(),
+            "engine": type(self.engine).__name__,
+            "algorithms": [name for name, _ in self.engine_params.algorithm_params_list],
+            "devices": sorted({str(m.device) for m in self.models if hasattr(m, "device")}),
+            "microBatching": self.batcher is not None,
         }
 
 
+def _render_info_html(state: QueryServerState) -> str:
+    """Deploy web UI (reference: CreateServer's engine-instance page)."""
+    import html as _html
+
+    info = state.info()
+    rows = "".join(
+        f"<tr><th>{_html.escape(str(k))}</th><td>{_html.escape(str(v))}</td></tr>"
+        for k, v in info.items()
+    )
+    plugins = ", ".join(p.name for p in state.plugins.all()) or "(none)"
+    return f"""<!DOCTYPE html>
+<html><head><title>PredictionIO engine server</title>
+<style>body{{font-family:sans-serif;margin:2em}}table{{border-collapse:collapse}}
+th,td{{border:1px solid #ccc;padding:4px 10px;text-align:left}}</style></head>
+<body><h1>Engine server: {_html.escape(state.engine_id)}</h1>
+<table>{rows}</table>
+<p>plugins: {_html.escape(plugins)}</p>
+<p>POST /queries.json &middot; GET /reload &middot; GET /stop &middot;
+GET /metrics &middot; GET /stats.json</p>
+</body></html>"""
+
+
 def make_handler(state: QueryServerState):
-    class QueryHandler(BaseHTTPRequestHandler):
-        protocol_version = "HTTP/1.1"   # keep-alive: every reply has a length
-
-        def log_message(self, fmt, *args):   # no per-request stderr line
-            pass
-
-        def _send_json(self, status: int, doc: Any) -> None:
-            body = json.dumps(doc).encode()
-            self.send_response(status)
-            self.send_header("Content-Type", "application/json; charset=utf-8")
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
-
-        def _send_error_json(self, status: int, message: str) -> None:
-            self._send_json(status, {"message": message})
+    class QueryHandler(JsonHandler):
+        # per-(route, status) windows for /stats.json; None under
+        # PIO_METRICS=off (then /stats.json answers 503)
+        stats_collector = (StatsCollector()
+                           if obs_metrics.get_registry().enabled else None)
 
         def do_GET(self):
-            path = self.path.split("?", 1)[0]
+            path, _query = self.route
             if path == "/":
-                self._send_json(200, state.info())
+                if "text/html" in self.headers.get("Accept", ""):
+                    self.send_html(_render_info_html(state))
+                else:
+                    self.send_json(state.info())
+            elif path == "/metrics":
+                self._send_raw(200, metrics_payload(),
+                               ctype="text/plain; version=0.0.4; charset=utf-8")
+            elif path == "/stats.json":
+                if self.stats_collector is None:
+                    self.send_error_json(503, "stats disabled (PIO_METRICS=off)")
+                    return
+                doc = self.stats_collector.to_json()
+                doc["engineId"] = state.engine_id
+                doc["queryCount"] = state.query_count
+                doc["startedAt"] = state.started.isoformat()
+                doc["freshness"] = state.freshness()
+                self.send_json(doc)
+            elif path == "/reload":
+                try:
+                    iid = state.reload()
+                    live = state.instance.id if state.instance else None
+                    self.send_json({"reloaded": iid is not None,
+                                    "engineInstanceId": iid or live})
+                except Exception as e:
+                    self.send_error_json(500, f"reload failed: {e}")
             elif path == "/stop":
-                self._send_json(200, {"stopping": True})
+                self.send_json({"stopping": True})
 
                 def _stop(server):
+                    state.stop_auto_reload()
                     server.shutdown()
                     # close the listening socket too: after shutdown() alone
                     # connections would be accepted and never served
@@ -116,56 +544,58 @@ def make_handler(state: QueryServerState):
 
                 threading.Thread(target=_stop, args=(self.server,), daemon=True).start()
             else:
-                self._send_error_json(404, "not found")
+                self.send_error_json(404, "not found")
 
         def do_POST(self):
-            length = int(self.headers.get("Content-Length") or 0)
-            raw = self.rfile.read(length)
-            if self.path.split("?", 1)[0] != "/queries.json":
-                self._send_error_json(404, "not found")
+            path, _query = self.route
+            if path != "/queries.json":
+                self.send_error_json(404, "not found")
                 return
             try:
-                body = json.loads(raw or b"null")
+                body = self.read_json()
             except json.JSONDecodeError as e:
-                self._send_error_json(400, f"invalid JSON: {e}")
+                self.send_error_json(400, f"invalid JSON: {e}")
                 return
             if not isinstance(body, dict):
-                self._send_error_json(400, "query must be a JSON object")
+                self.send_error_json(400, "query must be a JSON object")
                 return
             try:
                 prediction = state.predict(body)
             except (KeyError, ValueError, TypeError) as e:
-                self._send_error_json(400, f"bad query: {e}")
+                self.send_error_json(400, f"bad query: {e}")
                 return
             except Exception as e:  # engine failure: report, keep serving
                 log.exception("prediction failed")
-                self._send_error_json(500, f"prediction failed: {e}")
+                self.send_error_json(500, f"prediction failed: {e}")
                 return
-            self._send_json(200, _to_jsonable(prediction))
+            self.send_json(_to_jsonable(prediction))
 
     return QueryHandler
 
 
+def _serve(state: QueryServerState, host: str, port: int, background: bool,
+           reuse_port: bool = False):
+    httpd = start_server(make_handler(state), host, port, background=background,
+                         reuse_port=reuse_port)
+    httpd.pio_state = httpd.state = state   # handles for tests and tools
+    httpd.pio_workers = []
+    return httpd
+
+
 def deploy_models(engine, engine_params, models: Sequence[Any],
                   host: str = "127.0.0.1", port: int = 0,
-                  query_class: Optional[type] = None) -> ThreadingHTTPServer:
-    """Serve ``models`` on ``host:port`` (0 = any free port) from a daemon
-    thread (``server.thread``) and return the server;
-    ``server.server_address`` has the bound port, ``server.state`` the
+                  query_class: Optional[type] = None):
+    """Serve ``models`` (already on their device) on ``host:port`` (0 =
+    any free port) through the event-loop front end, from a daemon thread
+    (``server.thread``); returns the server: ``server.server_address``
+    has the bound port, ``server.state`` (also ``server.pio_state``) the
     ``QueryServerState``.  Stop it with ``server.shutdown();
     server.server_close()``, or ``GET /stop``."""
-    state = QueryServerState(engine, engine_params, models, query_class)
-    server = ThreadingHTTPServer((host, port), make_handler(state))
-    server.daemon_threads = True
-    server.state = state
-    server.thread = threading.Thread(target=server.serve_forever, daemon=True,
-                                     name="pio-query-server")
-    server.thread.start()
-    return server
-
-
-ROADMAP_SERVER = "ROADMAP.md, queue A, 'Event-loop server and micro-batcher'"
-ROADMAP_STREAMING = "ROADMAP.md, queue A, 'Streaming'"
+    state = QueryServerState(engine, engine_params, query_class, type(engine).__name__,
+                             models=models)
+    httpd = _serve(state, host, port, background=True)
+    prefork.wire_shutdown(httpd, [], before=state.stop_auto_reload)
+    return httpd
 
 
 def deploy(
@@ -178,46 +608,114 @@ def deploy(
     storage: Optional[Storage] = None,
     device="cuda",
     feedback: bool = False,
+    background: bool = True,
+    plugins=None,
     auto_reload: float = 0.0,
     workers: int = 1,
+    reuse_port: bool = False,
     follow: float = 0.0,
     plane_publish: Optional[str] = None,
     plane_from: Optional[str] = None,
-) -> ThreadingHTTPServer:
+):
     """Serve the latest COMPLETED instance of ``engine_json``'s engine
     (``variant`` is the engine variant it was trained under) from the
-    model store, its models on ``device``: the server runs in a daemon
-    thread, as ``deploy_models``'s does.  Raises when CUDA is asked for
-    and absent, and for every option the port cannot honour yet, naming
-    its ROADMAP item."""
-    from predictionio_tpu_torch.workflow import core_workflow
+    model store, its models on ``device`` (raises when CUDA is asked for
+    and absent).  Returns the server, serving from a daemon thread
+    (``background``, the default; the JAX package's default blocks), else
+    serves in the foreground until stopped and returns 0.
+
+    ``feedback`` writes each answer back as a ``predict`` event of the data
+    source's app; ``auto_reload`` (seconds) polls for a newer instance and
+    hot-swaps it in; ``plugins`` are ``api.plugins`` engine-server plugins.
+
+    ``workers > 1`` preforks N−1 more processes on the same port
+    (SO_REUSEPORT; the kernel balances accepts), which resolve storage
+    from ``PIO_STORAGE_*`` (a ``storage`` object cannot cross the process
+    boundary) and serve on ``device`` too.  It raises on a CUDA device, as
+    the JAX package raises on an accelerator.  A manual ``/reload``
+    reaches one worker: pair workers with ``auto_reload``.  ``follow``,
+    ``plane_publish`` and ``plane_from`` raise naming ROADMAP's
+    'Streaming'."""
     from predictionio_tpu_torch.workflow.create_workflow import (
         engine_from_variant,
         load_engine_variant,
         resolve_engine_id,
     )
 
-    for given, option, item in (
-            (workers != 1, "workers", ROADMAP_SERVER),
-            (auto_reload, "auto_reload", ROADMAP_SERVER),
-            (feedback, "feedback", ROADMAP_SERVER),
-            (follow, "follow", ROADMAP_STREAMING),
-            (plane_publish, "plane_publish", ROADMAP_STREAMING),
-            (plane_from, "plane_from", ROADMAP_STREAMING)):
+    for given, option in ((follow, "follow"), (plane_publish, "plane_publish"),
+                          (plane_from, "plane_from")):
         if given:
             raise NotImplementedError(
-                f"deploy {option}= is not ported yet ({item})")
+                f"deploy {option}= is not ported yet ({ROADMAP_STREAMING})")
+    if workers > 1:
+        import torch
+
+        if torch.device(str(device)).type == "cuda":
+            raise ValueError(
+                "deploy --workers requires the CPU: the port serves a CUDA "
+                "device from one process (scale card serving with the "
+                "micro-batcher, not prefork workers)")
+        if storage is not None:
+            raise ValueError(
+                "deploy --workers resolves storage from PIO_STORAGE_* env in "
+                "each worker; a programmatic storage object cannot cross the "
+                "process boundary")
+    if workers == 1:
+        prefork.maybe_watch_parent(log)   # prefork child: die when orphaned
+        obs_metrics.start_worker_flusher()
+        obs_metrics.mark_worker_up()
     doc = load_engine_variant(engine_json, variant)
     factory, engine, engine_params = engine_from_variant(doc)
     eid = resolve_engine_id(engine_id, doc, factory)
-    instance, models = core_workflow.load_latest_models(
-        eid, engine_version, variant, storage=storage, device=device)
-    log.info("deploying engine instance %s of %s", instance.id, eid)
+    feedback_app = (getattr(engine_params.data_source_params, "app_name", "") or ""
+                    if feedback else "")
+    metrics_dir: Optional[str] = None
+    if workers > 1:
+        import tempfile
+
+        metrics_dir = tempfile.mkdtemp(prefix="pio-metrics-")
+        obs_metrics.start_worker_flusher(metrics_dir, f"w0-{os.getpid()}")
+    state = QueryServerState(
+        engine, engine_params, getattr(factory, "query_class", None), eid,
+        engine_version, variant, storage=storage, feedback=feedback,
+        feedback_app_name=feedback_app, plugins=plugins, auto_reload=auto_reload,
+        device=device)
+    log.info("deploying engine instance %s of %s", state.instance.id, eid)
     _warm_entity_index(engine_params)
-    server = deploy_models(engine, engine_params, models, host=host, port=port,
-                           query_class=getattr(factory, "query_class", None))
-    server.state.instance = instance
-    return server
+    httpd = _serve(state, host, port, background, reuse_port=workers > 1 or reuse_port)
+    bound_port = httpd.server_address[1]
+    children: list = []
+    if workers > 1:
+        children = prefork.spawn_workers(
+            workers - 1,
+            lambda w: (
+                [sys.executable, "-m", "predictionio_tpu_torch.cli.main",
+                 "deploy", "--engine-json", str(engine_json),
+                 "--variant", variant, "--engine-version", engine_version,
+                 "--ip", host, "--port", str(bound_port), "--reuse-port"]
+                + (["--engine-id", engine_id] if engine_id else [])
+                + (["--feedback"] if feedback else [])
+                + (["--auto-reload", str(auto_reload)] if auto_reload else [])),
+            build_env=lambda w: {
+                "PIO_METRICS_TAG": f"w{w + 1}-{os.getpid()}",
+                "PIO_METRICS_DIR": metrics_dir,
+                "PIO_TORCH_DEVICE": str(device)},
+            log=log,
+        )
+    log.info("Query server for %s listening on %s:%d", eid, host, bound_port)
+    httpd.pio_workers = children
+    prefork.wire_shutdown(httpd, children, before=state.stop_auto_reload)
+    if metrics_dir is not None:
+        prefork.wire_metrics_cleanup(httpd, metrics_dir)
+    if background:
+        return httpd
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+    return 0
 
 
 def _warm_entity_index(engine_params) -> None:
@@ -226,8 +724,6 @@ def _warm_entity_index(engine_params) -> None:
     the first query does not parse the whole log.  The JAX package builds
     it off-thread once the server listens, and its first queries wait for
     it."""
-    from predictionio_tpu_torch.storage.locator import get_storage
-
     app_name = getattr(getattr(engine_params, "data_source_params", None), "app_name", None)
     storage = get_storage()   # the history read's store, as in LEventStore
     warm = getattr(storage.l_events, "warm_entity_index", None)
@@ -254,6 +750,7 @@ def run_server_from_args(args) -> int:
             feedback=args.feedback,
             auto_reload=args.auto_reload,
             workers=args.workers,
+            reuse_port=getattr(args, "reuse_port", False),
             follow=args.follow,
             plane_publish=args.plane_publish,
             plane_from=args.plane_from,

@@ -17,6 +17,7 @@ have yet exits non-zero naming its ROADMAP item.
 
 import json
 import os
+import re
 import shutil
 import socket
 import subprocess
@@ -220,8 +221,8 @@ def test_undeploy_probes_again_when_the_closing_listener_resets_it(monkeypatch, 
     from predictionio_tpu_torch.workflow.create_server import deploy_models
 
     class Engine:
-        def predictor(self, engine_params, models):
-            return lambda query: {"itemScores": []}
+        def serving_bundle(self, engine_params, models):
+            return (lambda query: {"itemScores": []}), None
 
     server = deploy_models(Engine(), SimpleNamespace(algorithm_params_list=[]), [])
     port = server.server_address[1]
@@ -384,9 +385,6 @@ def test_unported_subcommands_exit_naming_their_item(argv, capsys):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["deploy", "--workers", "2"], "Event-loop server"),
-    (["deploy", "--auto-reload", "5"], "Event-loop server"),
-    (["deploy", "--feedback"], "Event-loop server"),
     (["deploy", "--follow", "2"], "Streaming"),
     (["deploy", "--plane-publish", "9000"], "Streaming"),
     (["deploy", "--plane-from", "h:9000"], "Streaming"),
@@ -494,3 +492,91 @@ def test_train_resolves_the_engine_through_its_manifest(port_store, tmp_path, mo
     assert f"app {APP!r} does not exist" in capsys.readouterr().err
     assert cli.main(["train", "--engine-id", "nope", "--stop-after-read"]) == 1
     assert "engine.json" in capsys.readouterr().err
+
+
+def _wait_json(url, timeout=120):
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            with urllib.request.urlopen(url, timeout=5) as resp:
+                return json.loads(resp.read())
+        except (urllib.error.URLError, ConnectionError):
+            assert time.monotonic() < deadline, f"{url} did not answer"
+            time.sleep(0.2)
+
+
+def test_eventserver_ingest_train_and_auto_reloading_deploy(tmp_path):
+    """``pio eventserver --workers 2`` takes the ratings over HTTP with an
+    access key (per-writer segments), ``pio train`` trains from them,
+    ``pio deploy --auto-reload --feedback`` serves; new events and a second
+    ``pio train`` reach the running server without a restart, each answer
+    is then the new model's, the fed-back predictions are in the store,
+    and ``pio undeploy`` stops both servers (exit 0)."""
+    corpus, variant, bodies = TEMPLATES["recommendation"]
+    variant = {**variant, "algorithms": [{"name": "als", "params": {
+        "rank": 6, "numIterations": 6, "lambda": 0.05}}]}
+    app = variant["datasource"]["params"]["appName"]
+    (tmp_path / "engine.json").write_text(json.dumps(variant))
+    key = re.search(r"Access key: (\S+)", _pio(tmp_path, "app", "new", app).stdout).group(1)
+    es_port, q_port = _free_port(), _free_port()
+    es = subprocess.Popen([sys.executable, "-m", "predictionio_tpu_torch.cli.main",
+                           "eventserver", "--ip", "127.0.0.1", "--port", str(es_port),
+                           "--workers", "2"], cwd=tmp_path, env=_env(tmp_path))
+    deploy = None
+    try:
+        es_base = f"http://127.0.0.1:{es_port}"
+        _wait_json(es_base + "/")
+        wire = [e.to_json() for e in port_events(corpus())]
+        for k in range(0, len(wire), 50):
+            res = _post(f"{es_base}/batch/events.json?accessKey={key}", wire[k:k + 50])
+            assert {r["status"] for r in res} == {201}
+        chan = tmp_path / "store" / "events" / "app_1" / "_default"
+        assert all(p.name.startswith("seg-w") for p in chan.glob("seg-*.jsonl"))
+        _pio(tmp_path, "train")
+        deploy = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.cli.main", "deploy", "--ip",
+             "127.0.0.1", "--port", str(q_port), "--auto-reload", "0.2", "--feedback"],
+            cwd=tmp_path, env=_env(tmp_path), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        base = f"http://127.0.0.1:{q_port}"
+        first = _wait_json(base + "/")["engineInstanceId"]
+        before = [_post(base + "/queries.json", q) for q in bodies]
+        flipped = [{**e, "properties": {"rating": 6.0 - e["properties"]["rating"]},
+                    "eventTime": e["eventTime"].replace("2026", "2027")} for e in wire]
+        for k in range(0, len(flipped), 50):
+            _post(f"{es_base}/batch/events.json?accessKey={key}", flipped[k:k + 50])
+        _pio(tmp_path, "train")
+        deadline = time.monotonic() + 60
+        while _wait_json(base + "/")["engineInstanceId"] == first:
+            assert time.monotonic() < deadline, "the new instance was never installed"
+            time.sleep(0.1)
+        after = [_post(base + "/queries.json", q) for q in bodies]
+        assert after != before
+        assert _pio(tmp_path, "undeploy", "--port", str(q_port)).returncode == 0
+        assert deploy.wait(timeout=60) == 0
+        assert _pio(tmp_path, "undeploy", "--port", str(es_port)).returncode == 0
+        assert es.wait(timeout=60) == 0
+    finally:
+        for p in (es, deploy):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    store = Storage(StorageConfig(
+        sources={"S": {"type": "localfs", "path": str(tmp_path / "store")}},
+        repositories={r: "S" for r in ("METADATA", "EVENTDATA", "MODELDATA")}))
+    predicts = list(store.l_events.find(1, event_names=["predict"]))
+    assert len(predicts) == 2 * len(bodies)
+    served = sorted(json.dumps(e.properties["prediction"], sort_keys=True) for e in predicts)
+    assert served == sorted(json.dumps(a, sort_keys=True) for a in before + after)
+    # the second model is the one a fresh load answers with
+    set_storage(store)
+    try:
+        from predictionio_tpu_torch.workflow.core_workflow import load_latest_models
+        from predictionio_tpu_torch.workflow.create_workflow import engine_from_variant
+
+        factory, engine, ep = engine_from_variant(variant)
+        _, models = load_latest_models(variant["id"], storage=store, device="cpu")
+        predict = engine.predictor(ep, models)
+        assert after == [predict(factory.query_class.from_json(b)).to_json() for b in bodies]
+    finally:
+        set_storage(None)

@@ -247,6 +247,69 @@ def test_port_reads_a_jax_written_store_without_importing_it(tmp_path):
     assert (tmp_path / "out.jsonl").read_text().splitlines() == want
 
 
+# the front end in a fresh interpreter: the event server (HTTP ingest,
+# the native head parse), a micro-batched query server with feedback and
+# auto-reload, /metrics through `pio metrics`, the admin server
+_SERVERS = r"""
+import json, os, sys, tempfile, threading, urllib.request
+d = tempfile.mkdtemp()
+os.environ.update(PIO_FS_BASEDIR=os.path.join(d, "store"), PIO_TORCH_DEVICE="cpu",
+                  PIO_NATIVE="on", PIO_SERVE_BATCH="on")
+from predictionio_tpu_torch.api.admin import run_admin_server
+from predictionio_tpu_torch.api.event_server import run_event_server
+from predictionio_tpu_torch.cli.main import main
+from predictionio_tpu_torch.native import core
+from predictionio_tpu_torch.storage import get_storage
+from predictionio_tpu_torch.workflow.create_server import deploy
+
+def call(method, url, body=None):
+    req = urllib.request.Request(url, method=method, data=None if body is None
+                                 else json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return json.loads(r.read())
+
+adm = run_admin_server(port=0, background=True)
+key = call("POST", f"http://127.0.0.1:{adm.server_address[1]}/cmd/app", {"name": "a"})["accessKey"]
+adm.shutdown(); adm.server_close()
+es = run_event_server(host="127.0.0.1", port=0, background=True)
+url = f"http://127.0.0.1:{es.server_address[1]}/batch/events.json?accessKey={key}"
+for k in range(0, 300, 50):
+    res = call("POST", url, [{"event": "rate", "entityType": "user", "entityId": f"u{j % 13}",
+                              "targetEntityType": "item", "targetEntityId": f"i{j % 17}",
+                              "properties": {"rating": float(j % 5 + 1)}}
+                             for j in range(k, k + 50)])
+    assert {r["status"] for r in res} == {201}
+assert core.calls["http"] > 0
+with open(os.path.join(d, "engine.json"), "w") as f:
+    json.dump({"id": "e", "engineFactory": "recommendation",
+               "datasource": {"params": {"appName": "a"}},
+               "algorithms": [{"name": "als", "params": {"rank": 3, "numIterations": 2}}]}, f)
+os.chdir(d)
+assert main(["train"]) == 0
+srv = deploy("engine.json", host="127.0.0.1", port=0, device="cpu", feedback=True,
+             auto_reload=0.05)
+assert srv.pio_state.batcher is not None
+q = f"http://127.0.0.1:{srv.server_address[1]}/queries.json"
+ts = [threading.Thread(target=call, args=("POST", q, {"user": f"u{u}", "num": 3}))
+      for u in range(8)]
+[t.start() for t in ts]; [t.join(30) for t in ts]
+assert main(["metrics", f"127.0.0.1:{srv.server_address[1]}"]) == 0
+srv.shutdown(); srv.server_close(); es.shutdown(); es.server_close()
+assert len(list(get_storage().l_events.find(1, event_names=["predict"]))) == 8
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "predictionio_tpu" or m.startswith("predictionio_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def test_servers_load_no_jax_module():
+    out = subprocess.run([sys.executable, "-c", _SERVERS], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 def test_forbidden_module_match_is_exact():
     assert _is_forbidden("jax") and _is_forbidden("jax.numpy")
     assert _is_forbidden("predictionio_tpu")

@@ -597,3 +597,154 @@ def test_canonical_event_json_matches_jax(seed):
         line = Event.from_json(got).to_json_line()
         assert line == JaxEvent.from_json(want).to_json_line()
         assert line == json.dumps(got, separators=(",", ":"), sort_keys=True)
+
+
+# -- writer tags and the group commit --------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_tagged_writers_name_their_segments_as_the_jax_package(tmp_path, monkeypatch, seed):
+    """With a writer tag each package appends only to its own
+    ``seg-<tag>-NNNNN.jsonl`` and tombstones into ``tombstones-<tag>.txt``;
+    the port's tagged files are byte-equal to the JAX package's, and
+    either package reads the union of both writers' files."""
+    import threading
+
+    monkeypatch.setattr(lfs, "SEGMENT_MAX_BYTES", 4096)
+    monkeypatch.setattr(jax_localfs, "SEGMENT_MAX_BYTES", 4096)
+    corpus = seeded_corpus(seed)
+    half = len(corpus) // 2
+    for root, mod, evs in ((tmp_path / "port", lfs, port_events(corpus)),
+                           (tmp_path / "jax", jax_localfs, jax_events(corpus))):
+        w = mod.FSEvents(root, writer_tag="w1-77")
+        for k in range(0, half, 10):
+            w.insert_batch(evs[k:min(k + 10, half)], 1)
+        other = mod.FSEvents(root, writer_tag="w2-77")
+        threads = [threading.Thread(target=other.insert_batch, args=([e], 1))
+                   for e in evs[half:]]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert w.delete(evs[0].event_id, 1)
+        assert other.delete(evs[-1].event_id, 1)
+        for wr in (w, other):
+            for seg_writer in wr._writers.values():
+                seg_writer.close()
+    chan = ("events", "app_1", "_default")
+    port_dir, jax_dir = tmp_path.joinpath("port", *chan), tmp_path.joinpath("jax", *chan)
+    names = sorted(p.name for p in port_dir.glob("seg-*.jsonl"))
+    assert {n.rsplit("-", 1)[0] for n in names} == {"seg-w1-77", "seg-w2-77"}
+    # the first writer's sequential batches: the same files, byte for byte
+    # (the second's concurrent appends rotate where their commits fall)
+    w1 = [n for n in names if n.startswith("seg-w1-77")]
+    assert len(w1) > 1 and w1 == sorted(p.name for p in jax_dir.glob("seg-w1-77-*.jsonl"))
+    assert [(port_dir / n).read_bytes() for n in w1] == [(jax_dir / n).read_bytes() for n in w1]
+    for tag in ("w1-77", "w2-77"):
+        assert (port_dir / f"tombstones-{tag}.txt").read_text() == (
+            jax_dir / f"tombstones-{tag}.txt").read_text()
+    # concurrent appends of the second writer land in either order
+    want = sorted(e.to_json_line() for e in jax_localfs.FSEvents(tmp_path / "jax").find(1))
+    assert len(want) == len(corpus) - 2
+    assert sorted(e.to_json_line() for e in FSEvents(tmp_path / "jax").find(1)) == want
+    assert sorted(e.to_json_line() for e in jax_localfs.FSEvents(tmp_path / "port").find(1)) \
+        == want
+    assert sorted(e.to_json_line() for e in FSEvents(tmp_path / "port").find(1)) == want
+
+
+def test_writer_tag_from_the_environment(tmp_path, monkeypatch):
+    monkeypatch.setenv("PIO_WRITER_TAG", "w0-12/../x y")
+    assert lfs._env_writer_tag() == jax_localfs._env_writer_tag() == "w0-12xy"
+    ev = FSEvents(tmp_path)
+    ev.insert(Event(event="buy", entity_type="user", entity_id="u"), 1)
+    assert [p.name for p in (tmp_path / "events/app_1/_default").glob("seg-*")] == [
+        "seg-w0-12xy-00000.jsonl"]
+    assert ev.build_snapshot(1)["events"] == 1
+    from predictionio_tpu_torch.storage import snapshot as snap
+
+    assert snap.snapshot_status(tmp_path / "events/app_1/_default")["writer"] == "w0-12xy"
+    monkeypatch.setenv("PIO_WRITER_TAG", "--")
+    assert lfs._env_writer_tag() is None
+
+
+def test_a_tag_never_claims_a_dash_extended_tags_segments(tmp_path):
+    """Tag ``bulk`` must not resume (and heal) the live segment of tag
+    ``bulk-2``: it opens its own series."""
+    a = FSEvents(tmp_path, writer_tag="bulk-2")
+    a.insert(Event(event="buy", entity_type="user", entity_id="u", event_id="x1"), 1)
+    b = FSEvents(tmp_path, writer_tag="bulk")
+    b.insert(Event(event="buy", entity_type="user", entity_id="v", event_id="x2"), 1)
+    d = tmp_path / "events/app_1/_default"
+    assert sorted(p.name for p in d.glob("seg-*")) == [
+        "seg-bulk-00000.jsonl", "seg-bulk-2-00000.jsonl"]
+
+
+def test_group_commit_many_threads_exactly_once_across_rotation(tmp_path, monkeypatch):
+    import threading
+
+    from predictionio_tpu_torch.obs import metrics as obs_metrics
+
+    monkeypatch.setenv("PIO_FSYNC", "always")
+    monkeypatch.setattr(lfs, "SEGMENT_MAX_BYTES", 8192)
+    group = obs_metrics.get_registry().histogram("pio_storage_group_commit_batch_size", "x")
+    before = group._snapshot_series().get("", {"count": 0, "sum": 0})
+    ev = FSEvents(tmp_path)
+    errs = []
+
+    def work(t):
+        try:
+            for k in range(40):
+                r = ev.insert_json_batch([{"event": "buy", "entityType": "user",
+                                           "entityId": f"u{t}", "eventId": f"t{t}-{k}"}], 1)
+                assert r[0]["status"] == 201
+        except Exception as e:   # noqa: BLE001
+            errs.append(e)
+
+    ts = [threading.Thread(target=work, args=(t,)) for t in range(8)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=120)
+    assert not errs and not any(t.is_alive() for t in ts)
+    ids = [e.event_id for e in ev._iter_raw(1, None)]
+    assert len(ids) == len(set(ids)) == 320
+    assert len(list((tmp_path / "events/app_1/_default").glob("seg-*.jsonl"))) > 1
+    after = group._snapshot_series()[""]
+    assert after["sum"] - before["sum"] == 320            # every buffer committed once
+    assert after["count"] - before["count"] <= 320         # some commits held several
+
+
+def test_append_error_nacks_the_whole_group(tmp_path, monkeypatch):
+    """A failed write raises in every thread whose lines it held, and the
+    group commits again once the fault clears."""
+    import threading
+
+    ev = FSEvents(tmp_path)
+    boom = {"on": True}
+    orig = lfs._SegmentWriter.append
+    gate = threading.Barrier(4)
+
+    def flaky(self, text):
+        if boom["on"]:
+            raise OSError(28, "No space left on device")
+        return orig(self, text)
+
+    monkeypatch.setattr(lfs._SegmentWriter, "append", flaky)
+    errs = []
+
+    def work(k):
+        gate.wait(timeout=30)
+        try:
+            ev.insert(Event(event="buy", entity_type="user", entity_id=f"u{k}"), 1)
+        except OSError as e:
+            errs.append(e)
+
+    ts = [threading.Thread(target=work, args=(k,)) for k in range(4)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=30)
+    assert len(errs) == 4
+    boom["on"] = False
+    ev.insert(Event(event="buy", entity_type="user", entity_id="ok", event_id="recovered"), 1)
+    assert {e.event_id for e in ev._iter_raw(1, None)} == {"recovered"}

@@ -170,3 +170,29 @@ def test_current_date_is_a_rule_only_with_date_properties(jax_model):
     assert got == {"itemScores": []}
     assert_same_answer(got, je.predictor(jax_live, [jax_model])(
         jax_ur.URQuery.from_json(body)).to_json())
+
+
+@pytest.mark.parametrize("use_llr", [False, True])
+def test_serve_batch_predict_matches_serial_and_jax(jax_model, use_llr):
+    """The micro-batcher's path: the port's ``serve_batch_predict`` over
+    every listed query and a category rule answers as its own serial
+    predict does, and as the JAX ``serve_batch_predict`` (its response
+    cache off) does, within the UR bar."""
+    jax_algo = jax_ur.URAlgorithm(params(jax_ur, "reference_ep", use_llr_weights=use_llr))
+    port_algo = ur.URAlgorithm(params(ur, "reference_ep", use_llr_weights=use_llr))
+    port_model = ur.ur_model_from_state(jax_model.__getstate__(), device="cpu")
+    bodies = [QUERIES[k] for k in sorted(QUERIES)] + [
+        {"user": "u2", "num": 4, "fields": [
+            {"name": "category", "values": ["books"], "bias": -1}]},
+        {"user": "u20", "num": 6, "fields": [
+            {"name": "category", "values": ["electronics"], "bias": 3.0}]}]
+    got = port_algo.serve_batch_predict(port_model, [ur.URQuery.from_json(b) for b in bodies])
+    want = jax_algo.serve_batch_predict(jax_model, [jax_ur.URQuery.from_json(b)
+                                                    for b in bodies])
+    assert ur.URAlgorithm.serve_batch_max == jax_ur.URAlgorithm.serve_batch_max == 16
+    assert len(got) == len(bodies)
+    for body, g, w in zip(bodies, got, want):
+        serial = port_algo.predict(port_model, ur.URQuery.from_json(body)).to_json()
+        assert_same_answer(g.to_json(), serial)
+        assert_same_answer(g.to_json(), w.to_json())
+    assert port_algo.serve_batch_predict(port_model, []) == []

@@ -194,13 +194,22 @@ def test_entry_points_raise_without_a_card(stores, monkeypatch, tmp_path, entry)
 
 
 @pytest.mark.parametrize("option,value", [
-    ("workers", 2), ("auto_reload", 5.0), ("feedback", True), ("follow", 1.0),
-    ("plane_publish", "7000"), ("plane_from", "host:7000")])
+    ("follow", 1.0), ("plane_publish", "7000"), ("plane_from", "host:7000")])
 def test_deploy_refuses_options_it_cannot_honour(tmp_path, option, value):
     path = tmp_path / "engine.json"
     path.write_text(json.dumps(VARIANT))
     with pytest.raises(NotImplementedError, match=f"{option}=.*ROADMAP"):
         deploy(str(path), device="cpu", **{option: value})
+
+
+def test_deploy_workers_on_cuda_raises(tmp_path):
+    """Prefork workers serve the CPU only: a CUDA deploy with workers > 1
+    raises before it touches the card, as the JAX package raises on an
+    accelerator."""
+    path = tmp_path / "engine.json"
+    path.write_text(json.dumps(VARIANT))
+    with pytest.raises(ValueError, match="--workers requires the CPU"):
+        deploy(str(path), device="cuda", workers=2)
 
 
 @pytest.mark.parametrize("name,want", [
