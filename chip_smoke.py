@@ -174,6 +174,39 @@ the event server, the front end and the micro-batcher (slice 10):
     generation released); a feedback round of 200 queries leaves 200
     ``predict`` events equal to the answers; ``pio undeploy`` stops every
     server and the event server group (exit 0), no child left;
+CCO at every scale and the similar-product template (slice 11; run after
+phase 14, 16 before 15):
+16. phase 11b's app takes a ``$set`` of one or two of 50 ``categories`` on
+    every item (``pio import``); ``pio build`` and ``pio train`` of
+    ``examples/similar_product/engine.json`` on that app (its cooccurrence
+    algorithm as the file has it: ``maxCorrelatorsPerItem`` 50, ``minLlr``
+    1; the catalog is past the dense budget, so the P-resident strategy:
+    25 K2 and 25 K3 launches), 64 sampled rows of the stored table held
+    against a float64 numpy oracle on the training read (ids up to ties,
+    scores within rtol/atol 1e-4), and of its ALS variant (rank 10, 10
+    sweeps, implicit); each ``pio deploy``-ed on a thread and asked 200
+    queries (1-5 items, num 1, 10 or 50, categories and an unknown one,
+    whiteList, blackList, an unknown item), every answer held against the
+    CPU predict of the same stored model (scores within rtol/atol 1e-5,
+    swaps only at ties within that), p50/p99 printed;
+15. ``bench.py:bench_scale``'s parity corpus (30,000 users x 3,000 items,
+    1M zipf events from its seed, top_k 20, ``exclude_self``) through
+    ``cco_indicators_coo`` dense, resident, chunked (the resident budget at
+    0) and with the sparse runner on (``PIO_CCO_SPARSE=on``, host and
+    device tails), item tile 1,024 and user block 4,096: the five tables
+    bit-identical, K2/K3 launches 1, 3, 3, 0 and 1 each; then its full
+    shape, 100,000 users x 131,072 items, 50M events from
+    ``_gen_scale_batches(7, ...)``'s distribution streamed through
+    ``block_interactions_stream`` (user block 4,096), into
+    ``cco_indicators(blocked, blocked, n_total_users=100_000, top_k=50,
+    item_tile=4096, exclude_self=True)``: resident (the auto rule's pick on
+    the card) and chunked (the resident budget at 0), 32 K2 and 32 K3
+    launches each, the two tables bit-identical, the peak device memory
+    within 80 GB; staging s, train s, events/s and peak printed.  Between
+    the legs, the native chunk layout (``layout_chunks``) must have loaded
+    and lay the parity corpus out as the numpy layout does, and K2 on the
+    card is read against its plain chain on the CPU (cells whose bits
+    differ: why the sparse host tail scores on the training's device);
 13. time each kernel, its plain version and a PyTorch yardstick where one
     exists, with CUDA events and the L2 flushed, beside its bound (bytes
     over 3.35 TB/s or operations over 67 TFLOP/s, the H100 SXM data sheet's
@@ -2988,6 +3021,413 @@ def frontend_path(hk, dev, workdir, shop):
     return out
 
 
+# -- phase 15: CCO at bench_scale's shape, every strategy ---------------------------
+
+# bench.py:bench_scale's parity corpus (users, items, events, top_k) and the
+# item tile of its tiled legs here (three tiles, so the carry merges)
+SCALE_PARITY = (30_000, 3_000, 1_000_000, 20, 1_024)
+# bench.py:bench_scale's full shape: users, items, events, host batch, user
+# block, item tile, top_k
+SCALE_FULL = (100_000, 131_072, 50_000_000, 2_000_000, 4_096, 4_096, 50)
+CARD_BYTES = 80e9   # the card's memory, which the full leg's peak must stay within
+
+
+def gen_scale_batches(seed, n_users, n_items, n_events, batch):
+    """bench.py:_gen_scale_batches, copied: uniform users, zipf(1.25)
+    items, streamed in batches."""
+    g = np.random.default_rng(seed)
+    done = 0
+    while done < n_events:
+        n = min(batch, n_events - done)
+        yield (g.integers(0, n_users, n).astype(np.int32),
+               (g.zipf(1.25, n) % n_items).astype(np.int32))
+        done += n
+
+
+@contextlib.contextmanager
+def cco_setting(cco, env, attrs):
+    """The CCO switches (``PIO_CCO_*``) and module budgets of one strategy,
+    restored on leaving."""
+    keys = ("PIO_CCO_DENSE", "PIO_CCO_SPARSE", "PIO_CCO_SPARSE_TAIL")
+    saved_env = {k: os.environ.pop(k, None) for k in keys}
+    saved = {k: getattr(cco, k) for k in attrs}
+    os.environ.update(env)
+    for k, v in attrs.items():
+        setattr(cco, k, v)
+    try:
+        yield
+    finally:
+        for k in keys:
+            os.environ.pop(k, None)
+        os.environ.update({k: v for k, v in saved_env.items() if v is not None})
+        for k, v in saved.items():
+            setattr(cco, k, v)
+
+
+def timed_cco(hk, dev, fn):
+    """``fn()``'s indicator table, wall seconds, peak device memory and
+    K2/K3 launches (counts set to 0 just before, read just after)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"wall_s": time.perf_counter() - t0,
+                 "peak_device_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                 "launches": [hk.llr_masked_scores.launches, hk.tile_topk_desc.launches]}
+
+
+def check_self_table(s, i, n_items, top_k, what):
+    check(s.shape == (n_items, top_k) and i.shape == (n_items, top_k), f"{what}: shape")
+    check(bool(np.isfinite(s[i >= 0]).all()) and bool((s[i < 0] == -np.inf).all()),
+          f"{what}: scores not finite where set")
+    check(int((i >= 0).sum()) > 0 and int(i.max()) < n_items, f"{what}: ids")
+    check(not (i == np.arange(n_items)[:, None]).any(), f"{what}: self-pairs not excluded")
+
+
+def same_table(a, b) -> bool:
+    return (np.array_equal(a[1], b[1])
+            and np.array_equal(a[0].view(np.int32), b[0].view(np.int32)))
+
+
+def check_native_layout(cco, pu, pi, n_users, n_items) -> None:
+    """The native chunk layout (``native.layout_chunks``, in the scanner's
+    library) loaded, and ``block_interactions`` through it gives the numpy
+    layout's arrays on the parity corpus."""
+    from predictionio_tpu_torch import native
+
+    check(native.layout_chunks(pu[:8], pi[:8], 4_096, -(-n_users // 4_096)) is not None,
+          "the native chunk layout did not load")
+    t0 = time.perf_counter()
+    got = cco.block_interactions(pu, pi, n_users, n_items, user_block=4_096)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = cco.block_interactions_stream([(pu, pi)], n_users, n_items, user_block=4_096)
+    numpy_s = time.perf_counter() - t0
+    for name in ("local_u", "item", "mask"):
+        check(np.array_equal(getattr(got, name), getattr(want, name)),
+              f"native layout: {name} differs from the numpy layout")
+    print(f"  native chunk layout of the parity corpus {native_s:.3f} s, equal to the numpy "
+          f"layout's arrays ({numpy_s:.3f} s)")
+
+
+def cpu_plain_vs_card(cco, hk, dev, pu, pi, n_users, n_items) -> dict:
+    """Why the sparse runner's host tail scores its cells on the training's
+    device: K2 on the card against its plain chain on the CPU, on the
+    parity corpus's whole count matrix (from the host cross-join), cells
+    whose f32 bits differ.  A reading, not a check."""
+    p = cco._SparseHostCSR(pu, pi, n_items, n_users)
+    C = cco._sparse_counts(p, p)
+    args = [torch.from_numpy(C), torch.from_numpy(p.col_counts), torch.from_numpy(p.col_counts)]
+    card = hk.llr_masked_scores(*[a.to(dev) for a in args], float(n_users), 0.0).cpu().numpy()
+    host = hk.llr_masked_scores_plain(*args, float(n_users), 0.0).numpy()
+    nz = C > 0
+    r = {"nonzero_cells": int(nz.sum()),
+         "bits_differ": int((card[nz].view(np.int32) != host[nz].view(np.int32)).sum()),
+         "max_abs": float(np.abs(card[nz] - host[nz]).max())}
+    print(f"  K2 on the card against its plain chain on the CPU, the parity corpus's "
+          f"{r['nonzero_cells']} nonzero counts: {r['bits_differ']} scores differ in their f32 "
+          f"bits (max abs {r['max_abs']:.3g}); the host tail therefore scores on the card")
+    return r
+
+
+def scale_path(cco, hk, dev):
+    """Phase 15: bench_scale's parity corpus through the four strategies
+    (dense, resident, chunked, sparse with its host and device tails),
+    bit-identical; then its full shape (50M events streamed through
+    ``block_interactions_stream``) through ``cco_indicators`` resident
+    (the auto rule's pick) and chunked (the resident budget at 0),
+    bit-identical, each under the card's memory."""
+    out = {"parity": {}, "full": {}}
+    n_users, n_items, n_events, top_k, tile = SCALE_PARITY
+    rng = np.random.default_rng(5)
+    pu = rng.integers(0, n_users, n_events).astype(np.int32)
+    pi = (rng.zipf(1.25, n_events) % n_items).astype(np.int32)
+    n_tiles = -(-n_items // tile)
+    settings = {   # name: (environment, module budgets, K2/K3 launches each)
+        "dense": ({"PIO_CCO_DENSE": "1", "PIO_CCO_SPARSE": "0"}, {}, 1),
+        "resident": ({"PIO_CCO_DENSE": "0", "PIO_CCO_SPARSE": "0"}, {}, n_tiles),
+        "chunked": ({"PIO_CCO_DENSE": "0", "PIO_CCO_SPARSE": "0"},
+                    {"_RESIDENT_CARD_SHARE": 0.0}, n_tiles),
+        "sparse_host": ({"PIO_CCO_SPARSE": "1", "PIO_CCO_SPARSE_TAIL": "host"}, {}, 0),
+        "sparse_device": ({"PIO_CCO_SPARSE": "1", "PIO_CCO_SPARSE_TAIL": "device"}, {}, 1),
+    }
+    tables = {}
+    for name, (env, attrs, want) in settings.items():
+        with cco_setting(cco, env, attrs):
+            tables[name], r = timed_cco(hk, dev, lambda: cco.cco_indicators_coo(
+                pu, pi, pu, pi, n_users, n_items, n_items, top_k=top_k, user_block=4_096,
+                item_tile=tile, exclude_self=True, device=dev))
+        check_self_table(*tables[name], n_items, top_k, f"parity leg, {name}")
+        check(r["launches"] == [want, want],
+              f"parity leg, {name}: K2/K3 launches {r['launches']}, expected {want} each")
+        check(same_table(tables[name], tables["dense"]),
+              f"parity leg: the {name} table differs from the dense one")
+        out["parity"][name] = {**r, "events_per_s": n_events / r["wall_s"]}
+        print(f"  parity leg ({n_users} users x {n_items} items, {n_events} zipf events, "
+              f"top_k {top_k}, tile {tile}) {name}: {r['wall_s']:.3f} s, "
+              f"{n_events / r['wall_s']:.4g} events/s, peak {r['peak_device_gb']:.3f} GB, "
+              f"K2/K3 launches {r['launches']}; bit-identical to dense")
+    del tables
+    out["parity"]["cpu_log1p"] = cpu_plain_vs_card(cco, hk, dev, pu, pi, n_users, n_items)
+    check_native_layout(cco, pu, pi, n_users, n_items)
+    n_users, n_items, n_events, batch, user_block, tile, top_k = SCALE_FULL
+    check(cco._resident_p_ok(n_users, n_items, tile, dev),
+          "the auto rule should keep the full shape's primary resident on this card")
+    t0 = time.perf_counter()
+    blocked = cco.block_interactions_stream(
+        gen_scale_batches(7, n_users, n_items, n_events, batch), n_users, n_items,
+        user_block=user_block)
+    out["full"]["staging_s"] = stage_s = time.perf_counter() - t0
+    print(f"  full leg: {n_events} events streamed in batches of {batch} through "
+          f"block_interactions_stream in {stage_s:.3f} s ({n_events / stage_s:.4g} events/s; "
+          f"{blocked.n_blocks} blocks x {blocked.local_u.shape[1]} wide)")
+    n_tiles = -(-n_items // tile)
+    tables = {}
+    for name, attrs in (("resident", {}), ("chunked", {"_RESIDENT_CARD_SHARE": 0.0})):
+        with cco_setting(cco, {}, attrs):
+            tables[name], r = timed_cco(hk, dev, lambda: cco.cco_indicators(
+                blocked, blocked, n_total_users=n_users, top_k=top_k, item_tile=tile,
+                exclude_self=True, device=dev))
+        torch.cuda.empty_cache()
+        check_self_table(*tables[name], n_items, top_k, f"full leg, {name}")
+        check(r["launches"] == [n_tiles, n_tiles],
+              f"full leg, {name}: K2/K3 launches {r['launches']}, expected {n_tiles} each")
+        check(r["peak_device_gb"] * 1e9 <= CARD_BYTES,
+              f"full leg, {name}: peak {r['peak_device_gb']:.3f} GB")
+        out["full"][name] = {**r, "events_per_s": n_events / r["wall_s"]}
+        print(f"  full leg ({n_users} users x {n_items} items, top_k {top_k}, tile {tile}, "
+              f"user block {user_block}) {name}: train {r['wall_s']:.3f} s, "
+              f"{n_events / r['wall_s']:.4g} events/s, peak {r['peak_device_gb']:.3f} GB, "
+              f"K2/K3 launches {r['launches']}, {int((tables[name][1] >= 0).sum())} "
+              "indicators set")
+    check(same_table(tables["resident"], tables["chunked"]),
+          "full leg: the resident and chunked tables differ")
+    print("  full leg: resident and chunked tables bit-identical")
+    launches = [sum(r["launches"][k] for leg in out.values() for r in leg.values()
+                    if isinstance(r, dict) and "launches" in r) for k in (0, 1)]
+    out["launches"] = launches
+    return out
+
+
+# -- phase 16: the similar-product template at the deployed width -------------------
+
+SP_QUERIES = 200
+SP_COOC_ID, SP_ALS_ID = "smoke-sp-cooc", "smoke-sp-als"
+
+
+def sp_categories(n_items):
+    """One or two of N_CATEGORIES categories an item (zipf-skewed), from
+    the seed."""
+    rng = np.random.default_rng(SEED + 16)
+    first = (rng.zipf(1.3, n_items) - 1) % N_CATEGORIES
+    second = np.where(rng.random(n_items) < 0.4,
+                      (first + rng.integers(1, N_CATEGORIES, n_items)) % N_CATEGORIES, -1)
+    return np.stack([first, second], 1)
+
+
+def sp_variants(workdir):
+    """examples/similar_product/engine.json on phase 11b's app (its
+    cooccurrence algorithm as it is), and the same with the ALS algorithm
+    (rank 10, 10 sweeps)."""
+    base = json.loads((Path(__file__).resolve().parent / "examples/similar_product/"
+                       "engine.json").read_text())
+    base["datasource"]["params"]["appName"] = "smoke"
+    cooc = {**base, "id": SP_COOC_ID}
+    als = {**base, "id": SP_ALS_ID, "algorithms": [
+        {"name": "als", "params": {"rank": 10, "numIterations": 10}}]}
+    paths = {}
+    for name, v in (("cooccurrence", cooc), ("als", als)):
+        paths[name] = workdir / f"sp-{name}.json"
+        paths[name].write_text(json.dumps(v))
+    return paths, base["algorithms"][0]["params"]
+
+
+def sp_queries(rng, n, n_items):
+    """``n`` similar-product queries: 1-5 items, num of 1, 10 or 50, and on
+    a share of them categories (and an unknown one), a whiteList, a
+    blackList and items unknown to the model."""
+    out = []
+    for j in range(n):
+        kind = j % 8
+        body = {"items": [f"i{int(i)}" for i in rng.integers(0, n_items, int(rng.integers(1, 6)))],
+                "num": int(rng.choice([1, 10, 50]))}
+        if kind in (1, 5):
+            body["categories"] = [f"c{int(c)}" for c in rng.choice(
+                N_CATEGORIES, int(rng.integers(1, 3)), replace=False)]
+        if kind == 2:
+            body["whiteList"] = [f"i{int(i)}" for i in rng.integers(0, n_items, 2_000)]
+        if kind in (3, 5):
+            body["blackList"] = [f"i{int(i)}" for i in rng.integers(0, n_items, 20)]
+        if kind == 4:
+            body["categories"] = ["no-such-category"]
+        if kind == 6:
+            body["items"].append("no-such-item")
+        out.append(body)
+    return out
+
+
+def llr64(k11, rc, cc, n):
+    """Dunning's G² in float64, in Mahout's entropy form (independent of
+    the port's determinant form in f32)."""
+    def xlogx(x):
+        return np.where(x > 0, x * np.log(np.maximum(x, 1e-300)), 0.0)
+
+    k12, k21 = rc - k11, cc - k11
+    k22 = n - k11 - k12 - k21
+    row = xlogx(k11 + k12 + k21 + k22) - xlogx(k11 + k12) - xlogx(k21 + k22)
+    col = xlogx(k11 + k12 + k21 + k22) - xlogx(k11 + k21) - xlogx(k12 + k22)
+    mat = xlogx(k11 + k12 + k21 + k22) - xlogx(k11) - xlogx(k12) - xlogx(k21) - xlogx(k22)
+    return np.maximum(2.0 * (row + col - mat), 0.0)
+
+
+def check_sp_rows(model, td, min_llr, top_k, rows):
+    """Sampled rows of the trained cooccurrence table against a float64
+    numpy oracle on the training data: distinct (user, item) pairs, counts
+    by bincount, G² by ``llr64``, the self-pair and scores under
+    ``min_llr`` dropped, the top ``top_k`` by (score desc, id asc).  Scores
+    within rtol/atol 1e-4; an id may differ only where the oracle's scores
+    tie within that; the number set may differ only by cells within it of
+    the threshold."""
+    n_items, n_users = len(td.item_dict), len(td.user_dict)
+    flat = np.unique(td.user_idx.astype(np.int64) * n_items + td.item_idx)
+    du, di = flat // n_items, flat % n_items            # sorted by user
+    cc = np.bincount(di, minlength=n_items).astype(np.float64)
+    starts = np.searchsorted(du, np.arange(n_users + 1))
+    for r in rows:
+        co = np.concatenate([di[starts[u]:starts[u + 1]] for u in du[di == r]])
+        k11 = np.bincount(co, minlength=n_items).astype(np.float64)
+        s = np.where(k11 > 0, llr64(k11, cc[r], cc, float(n_users)), -np.inf)
+        s[r] = -np.inf
+        tol = 1e-4 + 1e-4 * np.abs(s)
+        lo = int(min((s >= min_llr + tol).sum(), top_k))
+        hi = int(min((s >= min_llr - tol).sum(), top_k))
+        s[s < min_llr] = -np.inf
+        want = np.lexsort((np.arange(n_items), -s))[:top_k]
+        got_i, got_s = model.indicator_idx[r], model.indicator_llr[r]
+        n_set = int((got_i >= 0).sum())
+        check(lo <= n_set <= hi, f"row {r}: {n_set} indicators set, want {lo}..{hi}")
+        for j in range(min(n_set, lo)):
+            ws = s[want[j]]
+            check(abs(got_s[j] - ws) <= tol[want[j]], f"row {r}: score {got_s[j]} vs {ws}")
+            check(got_i[j] == want[j] or abs(s[got_i[j]] - ws) <= tol[want[j]],
+                  f"row {r}: id {got_i[j]} where {want[j]} belongs")
+
+
+def similar_product_path(hk, dev, workdir):
+    """Phase 16: the similar-product template on phase 11b's app: ``$set``
+    categories imported, ``pio train`` of examples/similar_product/
+    engine.json (cooccurrence: resident, 25 K2 and 25 K3 launches) and of
+    its ALS variant, each ``pio deploy``-ed on a thread and SP_QUERIES
+    answers held against the CPU predict of the same model."""
+    from predictionio_tpu_torch.models import similar_product as sp
+    from predictionio_tpu_torch.workflow.core_workflow import load_latest_models
+    from predictionio_tpu_torch.workflow.create_workflow import engine_from_variant
+
+    _, n_items, _, _, _, tile = DEPLOYED_UR
+    cats = sp_categories(n_items)
+    jsonl = workdir / "sp-categories.jsonl"
+    t = iso(T0 - 1)
+    with open(jsonl, "w") as f:
+        f.writelines(json.dumps({"event": "$set", "entityType": "item", "entityId": f"i{j}",
+                                 "properties": {"categories": [f"c{c}" for c in cs if c >= 0]},
+                                 "eventTime": t, "creationTime": t}) + "\n"
+                     for j, cs in enumerate(cats.tolist()))
+    pio("import", "--app-name", "smoke", "--input", str(jsonl))
+    jsonl.unlink()
+    paths, cooc_params = sp_variants(workdir)
+    out = {}
+    rng = np.random.default_rng(SEED + 17)
+    bodies = sp_queries(rng, SP_QUERIES, n_items)
+    n_tiles = -(-n_items // tile)
+    for name, engine_id in (("cooccurrence", SP_COOC_ID), ("als", SP_ALS_ID)):
+        pio("build", "--engine-json", str(paths[name]))
+        r = {}
+        _, r["pio_train"] = timed_cco(hk, dev, lambda: pio(
+            "train", "--engine-json", str(paths[name])))
+        want = n_tiles if name == "cooccurrence" else 0
+        check(r["pio_train"]["launches"] == [want, want],
+              f"similar-product {name}: K2/K3 launches {r['pio_train']['launches']}, "
+              f"expected {want} each")
+        factory, engine, ep = engine_from_variant(json.loads(paths[name].read_text()))
+        if name == "cooccurrence":
+            td = engine.make_components(ep)[0].read_training()
+        _, (model,) = load_latest_models(engine_id, device=dev)
+        check(type(model) is sp.SPModel and model.kind == name and model.device == dev,
+              f"similar-product {name}: loaded {type(model).__name__}")
+        check(len(model.item_dict) == n_items, f"similar-product {name}: {len(model.item_dict)} "
+              "items")
+        check(model.cat_masks.shape == (N_CATEGORIES, n_items), "category masks")
+        if name == "cooccurrence":
+            top_k = cooc_params["maxCorrelatorsPerItem"]
+            check_self_table(np.where(model.indicator_idx >= 0, model.indicator_llr, -np.inf),
+                             model.indicator_idx, n_items, top_k, "similar-product table")
+            rows = np.random.default_rng(SEED + 18).choice(n_items, 64, replace=False)
+            check_sp_rows(model, td, cooc_params["minLlr"], top_k, rows)
+            print(f"  similar-product cooccurrence table [{n_items} x {top_k}], "
+                  f"{int((model.indicator_idx >= 0).sum())} set; 64 sampled rows equal a "
+                  "float64 numpy oracle from the view events")
+        else:
+            check(bool(np.isfinite(model.item_factors).all()), "non-finite SP factors")
+        _, (cpu_model,) = load_latest_models(engine_id, device="cpu")
+        cpu_predict = engine.predictor(ep, [cpu_model])
+        with pio_deploy_here(paths[name]) as (base, up_s):
+            answers, lat_ms = timed_posts(base + "/queries.json", bodies)
+        swaps = answered = 0
+        for body, got in zip(bodies, answers):
+            q = factory.query_class.from_json(body)
+            want_ans = cpu_predict(q).to_json()
+
+            def full(q=q):
+                q.num = n_items
+                return {d.item: d.score for d in cpu_predict(q).item_scores}
+
+            swaps += check_same_answer(body, got, want_ans, full)
+            answered += bool(got["itemScores"])
+        for body, got in zip(bodies, answers):
+            if body.get("categories") == ["no-such-category"]:
+                check(got == {"itemScores": []}, f"{body} answered {got}")
+        rest = sorted(lat_ms[1:])
+        r.update({"deploy_to_first_answer_s": up_s, "queries": len(bodies),
+                  "answered": answered, "near_tie_swaps": swaps,
+                  "http_p50_ms": rest[len(rest) // 2],
+                  "http_p99_ms": rest[min(len(rest) - 1, int(0.99 * len(rest)))]})
+        out[name] = r
+        p = r["pio_train"]
+        print(f"  similar-product {name}: pio train {p['wall_s']:.3f} s (peak "
+              f"{p['peak_device_gb']:.3f} GB, K2/K3 launches {p['launches']}); pio deploy to "
+              f"first answer {up_s:.3f} s; {len(bodies)} queries ({answered} non-empty) equal "
+              f"to the CPU predict, {swaps} near-tie swaps; p50 {r['http_p50_ms']:.3f} ms "
+              f"p99 {r['http_p99_ms']:.3f} ms")
+        del model, cpu_model
+        torch.cuda.empty_cache()
+    del td
+    out["launches"] = [out["cooccurrence"]["pio_train"]["launches"][k] for k in (0, 1)]
+    return out
+
+
+def check_same_answer(body, got, want, full) -> int:
+    """The served answer against the CPU predict of the same model: the
+    same length, scores within rtol/atol 1e-5, items in the same order
+    except swaps between scores that tie within the bar (the card's float
+    scatter-add and matmul sum in another order); ``full()`` is the CPU
+    predict of every eligible item, read only at a swap.  Returns the
+    swaps."""
+    g = [(d["item"], d["score"]) for d in got["itemScores"]]
+    w = [(d["item"], d["score"]) for d in want["itemScores"]]
+    check(len(g) == len(w), f"{body}: {len(g)} items, want {len(w)}")
+    swaps, every = 0, None
+    for (gi, gs), (wi, ws) in zip(g, w):
+        tol = ATOL + RTOL * abs(ws)
+        check(abs(gs - ws) <= tol, f"{body}: score {gs} vs {ws}")
+        if gi != wi:
+            every = every or full()
+            check(gi in every and abs(every[gi] - ws) <= tol,
+                  f"{body}: item {gi} where {wi} belongs")
+            swaps += 1
+    return swaps
+
 # -- phase 13: ALS train timing ----------------------------------------------------
 
 
@@ -3226,8 +3666,17 @@ def run() -> None:
         frontend = frontend_path(hk, dev, workdir, shop)
         del shop
         torch.cuda.empty_cache()
+        phase("16. the similar-product template on 11b's app: pio train (cooccurrence, "
+              "ALS), pio deploy, /queries.json against the CPU predict")
+        similar = similar_product_path(hk, dev, workdir)
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+    phase("15. CCO at bench_scale's shape: the parity corpus through every strategy, "
+          "then 100,000 x 131,072 with 50M events resident and chunked")
+    scale = scale_path(cco, hk, dev)
+    torch.cuda.empty_cache()
 
     phase("13. timing")
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)   # > 50 MB L2
@@ -3359,17 +3808,32 @@ def run() -> None:
           f"{fr['first_new_answer_s']:.3f} s after pio train; memory_allocated "
           f"{fr['memory_allocated_before']} -> {fr['memory_allocated_after']} B; UR under "
           f"{UR_LOAD[1]} clients mean batch {served['load']['batch_mean']:.2f} | {smi}")
+    for leg in ("parity", "full"):
+        for name, r in scale[leg].items():
+            if isinstance(r, dict) and "wall_s" in r:
+                print(f"  CCO {leg} leg, {name}: {r['wall_s']:.3f} s, {r['events_per_s']:.4g} "
+                      f"events/s, peak {r['peak_device_gb']:.3f} GB, K2/K3 launches "
+                      f"{r['launches']} | {smi}")
+    print(f"  CCO full leg staging (block_interactions_stream, host) "
+          f"{scale['full']['staging_s']:.3f} s | {smi}")
+    for name in ("cooccurrence", "als"):
+        r = similar[name]
+        print(f"  similar-product {name}: pio train {r['pio_train']['wall_s']:.3f} s, "
+              f"/queries.json p50 {r['http_p50_ms']:.3f} ms p99 {r['http_p99_ms']:.3f} ms | {smi}")
     launches = {"masked_score": (http_launches + batch_launches + als_run["k1_launches"]
                                  + load_launches),
-                "llr_masked": deployed["launches"][0],
-                "tile_topk": deployed["launches"][1]}
+                "llr_masked": (deployed["launches"][0] + scale["launches"][0]
+                               + similar["launches"][0]),
+                "tile_topk": (deployed["launches"][1] + scale["launches"][1]
+                              + similar["launches"][1])}
     print(json.dumps({"ur_train": {"bench_shape": bench, "memory_store": memory,
                                    "deployed_width_localfs": deployed,
                                    "deployed_width_snapshot": snapshot},
                       "ur_http": {str(k).lower(): v for k, v in served.items()},
                       "als": {"deployed_path": als_run, "ecommerce": ecomm_run,
                               "timing": als_timing},
-                      "frontend": frontend,
+                      "frontend": frontend, "cco_scale": scale,
+                      "similar_product": similar,
                       "k1_retime": k1_rounds, "empty_kernel_ms": empty_ms, "llr_sass": sass,
                       "wall_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": [{

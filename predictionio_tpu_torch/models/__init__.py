@@ -9,9 +9,10 @@ package's other templates, which wait for ROADMAP.md, queue A,
 ENGINE_FACTORIES = {
     "recommendation": "predictionio_tpu_torch.models.recommendation.RecommendationEngine",
     "ecommerce": "predictionio_tpu_torch.models.ecommerce.ECommerceEngine",
+    "similar_product": "predictionio_tpu_torch.models.similar_product.SimilarProductEngine",
     "universal_recommender":
         "predictionio_tpu_torch.models.universal_recommender.UniversalRecommenderEngine",
 }
 
-NOT_PORTED = ("classification", "similar_product", "text",
-              "complementary_purchase", "product_ranking", "lead_scoring")
+NOT_PORTED = ("classification", "text", "complementary_purchase", "product_ranking",
+              "lead_scoring")

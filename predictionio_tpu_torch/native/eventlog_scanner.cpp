@@ -1,8 +1,8 @@
 // Native event-log scanner: JSON-lines segments -> columnar arrays.
 //
 // Copy of predictionio_tpu/native/eventlog_scanner.cpp for the PyTorch port
-// (host code; the port imports nothing of the JAX package), without the
-// chunked COO layout functions, which the port's training does not use.
+// (host code; the port imports nothing of the JAX package), with the
+// chunk-grouped COO layout of CCO training at its end.
 // The training read of a localfs store (the reference's HBase scan into a
 // Spark RDD) becomes a parallel parse of the immutable segment files
 // straight into dictionary-encoded columns.
@@ -676,6 +676,56 @@ int64_t scan_prop_dict_export(void* h, int k) {
     s->offsets.push_back((int64_t)s->blob.size());
   }
   return (int64_t)s->blob.size();
+}
+
+// --------------------------------------------- chunked COO layout (training)
+//
+// The device CCO path wants (user, item) pairs grouped into fixed-size user
+// chunks, padded to a common width (ops/cco.block_interactions).  numpy does
+// argsort + fancy-indexing + a Python fill loop; this is the O(n) two-pass
+// counting layout, beside the scanner because it too is host staging.
+//
+//   layout_width(user, n, chunk, n_chunks, pad_multiple) -> padded width
+//   layout_fill(user, item, n, chunk, n_chunks, width,
+//               out_lu, out_it, out_cnt) -> 0 on success
+//
+// out_lu/out_it are [n_chunks * width] int32 (caller-zeroed), out_cnt is
+// [n_chunks] int32.
+
+int64_t layout_width(const int32_t* user, int64_t n, int32_t chunk,
+                     int32_t n_chunks, int32_t pad_multiple) {
+  if (chunk <= 0 || n_chunks <= 0) return -1;
+  std::vector<int64_t> counts(n_chunks, 0);
+  for (int64_t i = 0; i < n; i++) {
+    int32_t u = user[i];
+    int32_t b = u / chunk;
+    // explicit u < 0: truncating division maps [-(chunk-1), -1] to b == 0
+    if (u < 0 || b >= n_chunks) return -1;  // user id out of range
+    counts[b]++;
+  }
+  int64_t width = 1;
+  for (int64_t c : counts) width = c > width ? c : width;
+  if (pad_multiple > 1) width = (width + pad_multiple - 1) / pad_multiple * pad_multiple;
+  return width;
+}
+
+int32_t layout_fill(const int32_t* user, const int32_t* item, int64_t n,
+                    int32_t chunk, int32_t n_chunks, int64_t width,
+                    int32_t* out_lu, int32_t* out_it, int32_t* out_cnt) {
+  if (chunk <= 0 || n_chunks <= 0 || width <= 0) return -1;
+  std::vector<int64_t> cursor(n_chunks, 0);
+  for (int64_t i = 0; i < n; i++) {
+    int32_t u = user[i];
+    int32_t b = u / chunk;
+    if (u < 0 || b >= n_chunks) return -1;
+    int64_t pos = (int64_t)b * width + cursor[b];
+    if (cursor[b] >= width) return -2;  // width too small for this chunk
+    out_lu[pos] = u % chunk;
+    out_it[pos] = item[i];
+    cursor[b]++;
+  }
+  for (int32_t b = 0; b < n_chunks; b++) out_cnt[b] = (int32_t)cursor[b];
+  return 0;
 }
 
 }  // extern "C"

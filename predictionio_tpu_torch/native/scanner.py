@@ -2,10 +2,12 @@
 
 Counterpart of ``predictionio_tpu/native/scanner.py``: ``scan_segments``
 parses JSON-lines segments into one ``EventBatch`` with its property
-columns, one thread per segment, from ``eventlog_scanner.cpp`` built at
-first use (``native/build.py``).  Without a C++ compiler
-``native_available()`` is False, and ``PEventStore`` reads the rows in
-Python, as the JAX package does.
+columns, one thread per segment, and ``layout_chunks`` groups CCO
+training's (user, item) pairs into user blocks in one O(n) counting pass,
+both from ``eventlog_scanner.cpp`` built at first use (``native/build.py``).
+Without a C++ compiler ``native_available()`` is False: ``PEventStore``
+reads the rows in Python and ``ops.cco.block_interactions`` lays the
+blocks out with numpy, as the JAX package does.
 
 ``scans_served`` counts the batches ``scan_segments`` returned in this
 process (the JAX package's ``pio_native_calls_total{core="scan"}``).
@@ -60,6 +62,9 @@ _SIGNATURES = [
     ("scan_prop_codes_len", [_P, ctypes.c_int], _I64),
     ("scan_prop_dict_size", [_P, ctypes.c_int], _I64),
     ("scan_prop_dict_export", [_P, ctypes.c_int], _I64),
+    ("layout_width", [_P, _I64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32], _I64),
+    ("layout_fill", [_P, _P, _I64, ctypes.c_int32, ctypes.c_int32, _I64, _P, _P, _P],
+     ctypes.c_int32),
 ]
 
 
@@ -164,3 +169,30 @@ def scan_segments(paths: Sequence[os.PathLike], n_threads: int = 0):
         lib.scan_free(handle)
     scans_served += 1
     return batch
+
+
+def layout_chunks(user, item, chunk: int, n_chunks: int, pad_multiple: int = 8):
+    """Chunk-grouped COO layout through the native O(n) counting pass:
+    (lu [n_chunks, width], it [n_chunks, width], cnt [n_chunks]), int32, a
+    chunk's pairs in input order, zeros past its count.  None only when the
+    native library is unavailable (the caller lays out with numpy); a
+    length mismatch or a user id outside [0, chunk * n_chunks) raises."""
+    lib = _build_and_load()
+    if lib is None:
+        return None
+    user = np.ascontiguousarray(user, np.int32)
+    item = np.ascontiguousarray(item, np.int32)
+    if len(user) != len(item):
+        raise ValueError(f"user/item length mismatch: {len(user)} vs {len(item)}")
+    n = len(user)
+    width = lib.layout_width(user.ctypes.data, n, chunk, n_chunks, pad_multiple)
+    if width < 0:
+        raise ValueError(f"user ids outside [0, {chunk * n_chunks}) in layout_chunks")
+    lu = np.zeros((n_chunks, int(width)), np.int32)
+    it = np.zeros((n_chunks, int(width)), np.int32)
+    cnt = np.zeros(n_chunks, np.int32)
+    rc = lib.layout_fill(user.ctypes.data, item.ctypes.data, n, chunk, n_chunks, width,
+                         lu.ctypes.data, it.ctypes.data, cnt.ctypes.data)
+    if rc != 0:
+        raise ValueError(f"native layout_fill failed (rc={rc})")
+    return lu, it, cnt

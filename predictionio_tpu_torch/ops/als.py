@@ -653,3 +653,32 @@ def scores_rules_topk_batch(scores: torch.Tensor, cat_masks: torch.Tensor, cat_i
                             white_idx, excl_idx, top_k: int) -> torch.Tensor:
     """Batched scores_rules_topk over [B, n_items] scores."""
     return _rules_topk_batch(scores, cat_masks, cat_ids, white_idx, excl_idx, top_k)
+
+
+def indicator_scatter_scores(idx: torch.Tensor, llr: torch.Tensor, q_ids) -> torch.Tensor:
+    """score[j] = Σ_{q ∈ query items} Σ_k 1[idx[q,k] = j] · llr[q,k] over an
+    [n_items, C] indicator table (-1 = padding) and -1-padded query ids: a
+    gather of the query rows and one scatter-add, on the table's device
+    (``predictionio_tpu/ops/als.py:indicator_scatter_scores``).  Padding
+    lands in a sink entry past the last item.  On the card the float
+    scatter-add sums in no fixed order (within f32 rounding of the CPU's)."""
+    return indicator_scatter_scores_batch(idx, llr, torch.as_tensor(q_ids)[None])[0]
+
+
+def indicator_scatter_scores_batch(idx: torch.Tensor, llr: torch.Tensor,
+                                   q_ids) -> torch.Tensor:
+    """Batched ``indicator_scatter_scores``: [B, Wq] query rows → [B, n_items]
+    scores in one gather and one scatter-add (all-(-1) rows score 0)."""
+    n = idx.shape[0]
+    q = torch.as_tensor(q_ids).to(device=idx.device, dtype=torch.int64)
+    b = q.shape[0]
+    qv = q >= 0
+    safe = torch.where(qv, q, 0)
+    rows = idx[safe].to(torch.int64)                      # [B, Wq, C]
+    vals = llr[safe] * qv[:, :, None]
+    valid = rows >= 0
+    base = (torch.arange(b, device=idx.device, dtype=torch.int64) * (n + 1))[:, None, None]
+    out = torch.zeros(b * (n + 1), dtype=torch.float32, device=idx.device)
+    out.index_add_(0, (base + torch.where(valid, rows, n)).reshape(-1),
+                   torch.where(valid, vals, 0.0).reshape(-1))
+    return out.view(b, n + 1)[:, :n]

@@ -200,15 +200,10 @@ def llr_masked_scores_plain(
     """Plain PyTorch version of K2 (``_llr_mask_scores(..., pallas="off")``
     of the JAX package): G² in f32, -inf where the count is 0 or G² <
     ``threshold``."""
-    from predictionio_tpu_torch.ops.cco import llr_score
+    from predictionio_tpu_torch.ops.cco import llr_masked_cells
 
-    c = counts.to(torch.float32)
-    k11 = c
-    k12 = row.to(torch.float32)[:, None] - c
-    k21 = col.to(torch.float32)[None, :] - c
-    k22 = n_total - k11 - k12 - k21
-    scores = torch.where(c > 0, llr_score(k11, k12, k21, k22), float("-inf"))
-    return torch.where(scores >= threshold, scores, float("-inf"))
+    return llr_masked_cells(counts.to(torch.float32), row.to(torch.float32)[:, None],
+                            col.to(torch.float32)[None, :], n_total, threshold)
 
 
 def llr_masked_scores(

@@ -252,7 +252,21 @@ class PEventStore:
         until_time: Optional[_dt.datetime] = None,
         storage: Optional[Storage] = None,
     ) -> Dict[str, PropertyMap]:
+        """Each entity's properties folded from its ``$set``/``$unset``/
+        ``$delete`` events.  On a segment backend, as in the reference: the
+        special events' columnar batch (``native_batch``: property columns
+        parsed in C++, or the snapshot's) folded by
+        ``store.columnar.fold_properties``, so no other event is parsed in
+        Python; else the backend's per-event fold."""
+        from predictionio_tpu_torch.events.event import SPECIAL_EVENTS
+        from predictionio_tpu_torch.store.columnar import fold_properties
+
         storage = storage or get_storage()
+        native = PEventStore.native_batch(
+            app_name, channel_name, list(SPECIAL_EVENTS), entity_type, start_time,
+            until_time, storage)
+        if native is not None and native.prop_columns is not None:
+            return fold_properties(native)
         app_id, channel_id = _app_channel_ids(app_name, channel_name, storage)
         return storage.l_events.aggregate_properties(
             app_id,

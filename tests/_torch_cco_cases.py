@@ -119,7 +119,10 @@ JAX_ENVS = {
 
 
 @functools.lru_cache(maxsize=None)
-def jax_result(name, ref):
+def jax_result(name, ref, chunked=False):
+    """The JAX package's indicators under one of ``JAX_ENVS``; ``chunked``
+    shrinks its P-resident budget to 0, so its tiled setting takes the
+    chunked tiled path (tests/test_cco.py:317)."""
     c = corpus(name)
     mp = pytest.MonkeyPatch()
     try:
@@ -127,20 +130,38 @@ def jax_result(name, ref):
             mp.delenv(k, raising=False)
         for k, v in JAX_ENVS[ref].items():
             mp.setenv(k, v)
+        if chunked:
+            mp.setattr(jax_cco, "_TILED_P_BYTES", 0)
         return jax_cco.cco_train_indicators(
             c["pu"], c["pi"], others(c), c["n_users"], c["n_ip"], **_kwargs(c))
     finally:
         mp.undo()
 
 
+#: the port's strategies, each forced at these toy sizes: the budgets
+#: grown or shrunk, and the sparse runner off but where it is tested
+#: (``auto`` would take it on the CPU)
+STRATEGIES = {
+    "dense": ({"_DENSE_C_BYTES": 1 << 40}, {"PIO_CCO_SPARSE": "0"}),
+    "resident": ({"_DENSE_C_BYTES": 0}, {"PIO_CCO_SPARSE": "0"}),
+    "chunked": ({"_DENSE_C_BYTES": 0, "_TILED_P_BYTES": 0}, {"PIO_CCO_SPARSE": "0"}),
+    "sparse_host": ({}, {"PIO_CCO_SPARSE": "1", "PIO_CCO_SPARSE_TAIL": "host"}),
+    "sparse_device": ({}, {"PIO_CCO_SPARSE": "1", "PIO_CCO_SPARSE_TAIL": "device"}),
+}
+
+
 @functools.lru_cache(maxsize=None)
 def port_result(name, strategy):
     c = corpus(name)
+    attrs, env = STRATEGIES[strategy]
     mp = pytest.MonkeyPatch()
     try:
-        # the port picks its strategy by the reference's budgets; shrink or
-        # grow the dense one to force a strategy at these toy sizes
-        mp.setattr(port_cco, "_DENSE_C_BYTES", 0 if strategy == "resident" else 1 << 40)
+        for k in ("PIO_CCO_SPARSE", "PIO_CCO_SPARSE_TAIL", "PIO_CCO_DENSE"):
+            mp.delenv(k, raising=False)
+        for k, v in env.items():
+            mp.setenv(k, v)
+        for k, v in attrs.items():
+            mp.setattr(port_cco, k, v)
         return port_cco.cco_train_indicators(
             c["pu"], c["pi"], others(c), c["n_users"], c["n_ip"], device="cpu",
             **_kwargs(c))
@@ -203,9 +224,12 @@ def assert_indicators_match(got, want, full):
 
 def check_cco_matches_jax(name, strategy, ref):
     """The port's indicators for one corpus, strategy and JAX reference
-    path agree with the JAX package's, and no item indicates itself."""
+    path agree with the JAX package's, and no item indicates itself.  The
+    port's chunked strategy is held against the JAX tiled setting's
+    chunked path."""
     c = corpus(name)
-    got, want = port_result(name, strategy), jax_result(name, ref)
+    got = port_result(name, strategy)
+    want = jax_result(name, ref, chunked=strategy == "chunked" and ref == "pallas_tiled")
     assert list(got) == ["buy", "view"]
     for event in got:
         assert_indicators_match(got[event], want[event], exact_llr(c, event))

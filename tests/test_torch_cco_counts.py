@@ -1,8 +1,8 @@
 """The port's CCO training op on the edge cases of its counts: indicators
 against the JAX package on duplicated events, per-type thresholds and
 counts past bf16's exact range; the dense and P-resident strategies bit
-for bit; the exact int32 count product and marginals; and the strategies
-not ported yet.
+for bit; the exact int32 count product and marginals; and the mesh
+variants, not ported yet.
 
 Inputs, tolerances and the indicator check are those of
 tests/test_torch_cco.py (tests/_torch_cco_cases.py); counts and marginals
@@ -15,8 +15,8 @@ import torch
 
 from predictionio_tpu_torch.ops import cco as port_cco
 
-from _torch_cco_cases import (CORPORA, EDGE_CORPORA, JAX_ENVS, check_cco_matches_jax,
-                              corpus, others, port_result)
+from _torch_cco_cases import (CORPORA, EDGE_CORPORA, JAX_ENVS, _kwargs,
+                              check_cco_matches_jax, corpus, others, port_result)
 
 
 @pytest.mark.parametrize("ref", sorted(JAX_ENVS))
@@ -70,16 +70,31 @@ def test_resident_count_product_is_exact_past_bf16():
 
 
 def test_unported_strategies_raise_naming_the_roadmap():
+    """Only the mesh variants are still to port: with both device budgets
+    at 0 the chunked strategy trains (equal to the dense one), and a mesh
+    raises in every entry."""
     c = corpus("train")
     mp = pytest.MonkeyPatch()
     try:
+        mp.setenv("PIO_CCO_SPARSE", "0")
         mp.setattr(port_cco, "_DENSE_C_BYTES", 0)
         mp.setattr(port_cco, "_TILED_P_BYTES", 0)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_cco.cco_train_indicators(c["pu"], c["pi"], others(c), c["n_users"],
-                                          c["n_ip"], device="cpu")
+        got = port_cco.cco_train_indicators(c["pu"], c["pi"], others(c), c["n_users"],
+                                            c["n_ip"], device="cpu", **_kwargs(c))
     finally:
         mp.undo()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_cco.cco_train_indicators(c["pu"], c["pi"], others(c), c["n_users"],
-                                      c["n_ip"], device="cpu", mesh=object())
+    dense = port_result("train", "dense")
+    for event in dense:
+        np.testing.assert_array_equal(got[event][0], dense[event][0])
+        np.testing.assert_array_equal(got[event][1], dense[event][1])
+    blocked = port_cco.block_interactions(c["pu"], c["pi"], c["n_users"], c["n_ip"])
+    for call in (
+            lambda: port_cco.cco_train_indicators(c["pu"], c["pi"], others(c), c["n_users"],
+                                                  c["n_ip"], device="cpu", mesh=object()),
+            lambda: port_cco.cco_indicators_coo(c["pu"], c["pi"], c["pu"], c["pi"],
+                                                c["n_users"], c["n_ip"], c["n_ip"],
+                                                device="cpu", mesh=object()),
+            lambda: port_cco.cco_indicators(blocked, blocked, n_total_users=c["n_users"],
+                                            device="cpu", mesh=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()

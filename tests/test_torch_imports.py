@@ -14,8 +14,9 @@ PORT = REPO / "predictionio_tpu_torch"
 
 # the port's ALS serving path, the UR path from the store (events with
 # $set properties -> run_train -> load_latest_models -> deploy -> a rule
-# query), and ALS training of the recommendation and e-commerce templates
-# on the CPU, in a fresh interpreter
+# query), ALS training of the recommendation and e-commerce templates, CCO's
+# blocked layout and its chunked and sparse strategies, and the
+# similar-product template on the CPU, in a fresh interpreter
 _DRIVE = r"""
 import json, sys, urllib.request
 import numpy as np
@@ -100,6 +101,26 @@ for variant in (
     (model,) = engine.train(ep, device="cpu")
     assert engine.predictor(ep, [model])(factory.query_class.from_json(
         {"user": "u1", "num": 3})).item_scores
+
+# CCO at every scale (the native blocked layout, the chunked and sparse
+# strategies) and both algorithms of the similar-product template
+from predictionio_tpu_torch.ops import cco
+blocked = cco.block_interactions(u, i, 30, 12, user_block=8)
+os.environ["PIO_CCO_SPARSE"], os.environ["PIO_CCO_DENSE"] = "0", "0"
+cco._TILED_P_BYTES = 0
+chunked = cco.cco_indicators(blocked, blocked, n_total_users=30, top_k=3, item_tile=4,
+                             exclude_self=True, device="cpu")
+os.environ["PIO_CCO_SPARSE"], os.environ["PIO_CCO_DENSE"] = "1", "auto"
+sparse = cco.cco_indicators_coo(u, i, u, i, 30, 12, 12, top_k=3, exclude_self=True,
+                                device="cpu")
+assert (chunked[1] == sparse[1]).all() and (chunked[0] == sparse[0]).all()
+for algo, params in (("cooccurrence", {"minLlr": 0.0}), ("als", {"rank": 3})):
+    factory, engine, ep = engine_from_variant({
+        "engineFactory": "similar_product", "datasource": {"params": {"appName": "a"}},
+        "algorithms": [{"name": algo, "params": params}]})
+    (model,) = engine.train(ep, device="cpu")
+    assert engine.predictor(ep, [model])(factory.query_class.from_json(
+        {"items": ["i1"], "num": 3, "categories": ["c1"]})).item_scores is not None
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "predictionio_tpu" or m.startswith("predictionio_tpu."))

@@ -264,6 +264,26 @@ def test_fold_properties_and_filters_match_jax(tmp_path, seed):
 
 
 @pytest.mark.parametrize("seed", SEEDS)
+def test_pevent_store_aggregate_properties_folds_the_native_batch(tmp_path, monkeypatch,
+                                                                  seed):
+    """``PEventStore.aggregate_properties`` on localfs folds the special
+    events' native batch, as the JAX package's does: the same maps as the
+    per-event fold and as JAX, without parsing the log in Python."""
+    jax_store, port_store, app_id = _jax_store(tmp_path, seed)
+    for et in ("item", "user", "nobody"):
+        want = JaxPEventStore.aggregate_properties("nat", et, storage=jax_store)
+        rows = port_store.l_events.aggregate_properties(app_id, et)
+        monkeypatch.setattr(type(port_store.l_events), "aggregate_properties",
+                            lambda *a, **k: pytest.fail("the per-event fold ran"))
+        got = PEventStore.aggregate_properties("nat", et, storage=port_store)
+        monkeypatch.undo()
+        assert got == rows == want
+        for k in want:
+            assert (got[k].first_updated, got[k].last_updated) == (
+                want[k].first_updated, want[k].last_updated)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
 def test_concat_matches_jax(tmp_path, seed):
     """Batches with their own dictionaries are re-coded (the JAX package's
     ``BatchMerger`` order); batches that share them concatenate as they
