@@ -114,6 +114,34 @@ UR training and serving, the store and the CLI (slices 2-8):
     serial re-run; then ``pio undeploy`` stops the server, which must exit
     0; the rule mask's build is timed on the card in this process, first
     and LRU-warm;
+the UR's host scorer and tails, candidate pruning, the caches and
+checkpointed UR training (run right after 12, on its store):
+17. ``deploy`` of 12's stored model (LLR weights off) on a thread of this
+    process, on the card (the micro-batcher on): (a) 400 queries drawn zipf
+    from 100 distinct (user, rules, num) bodies, from 1 client and from 32
+    keep-alive clients, first with ``PIO_SERVE_CACHE_AUDIT_N=1`` (every hit
+    recomputed on the card and compared; no audit mismatch) and then
+    without, the cache emptied before each round: hits > 0 in every round,
+    every answer held against the CPU predict, the distinct answers
+    byte-equal to ``PIO_SERVE_CACHE=off``, ``pio_serve_cache_total`` by
+    outcome and the hits' and misses' p50/p99 printed; (b) 5 rule sets x 10
+    users with the response cache off: each set's first query against the
+    rest, ``pio_ur_rule_mask_cache_total``, and each set's device mask bit
+    for bit ``_mask_from_key(..., host=True)``; (d) 200 plain and rule
+    queries through the device halves and then the host scorer and the
+    candidate-pruned host tail (``PIO_UR_SERVE_SCORER``/``_TAIL=host``):
+    items equal to the device tail's (swaps only at ties within rtol/atol
+    1e-5; bit-equal answers counted), native serve-core calls > 0 with no
+    fallback, ``pio_ur_serve_candidate_total``, the postings inversion's
+    build seconds and bytes, p50/p99 of both; (e) ``pio train`` of the
+    engine with ``checkpoint: true``, ``PIO_TRAIN_RETRIES=1`` and
+    ``PIO_FAULT_INJECT=ur.indicators:2``: the fault fires, the retry trains
+    only the second event type (25 K2 and 25 K3 launches a call), the
+    snapshots are gone and the tables bit-identical to 11b's; (c) 3
+    ``purchase`` events for each of 20 users through ``run_event_server`` in
+    this process: ``pio_history_cache_total{outcome="stale"}`` rises by >=
+    20, their answers equal the CPU predict on the new histories and the
+    answers under ``PIO_HISTORY_CACHE=off``;
 ALS training and the e-commerce template (slice 9):
 12b. the deployed ALS width (bench.py:151: 5,000 users x 100,000 items,
     270k ``rate`` events covering the catalog + 30k ``buy``, rank 32, 4
@@ -1913,14 +1941,7 @@ def serve_ur(ur, model, arrays, cols, dev, env, variants):
         for body, got in checked:
             ref_key = json.dumps(body, sort_keys=True)
             if ref_key not in refs:
-                q = ur.URQuery.from_json(body)
-                want = algo.predict(cpu_model, q).to_json()
-                hist = algo._query_hist(cpu_model, q)
-                sig = algo._score_history(cpu_model, hist) if hist is not None else None
-                key = algo._mask_rule_key(q)
-                if sig is not None and key is not None:
-                    sig = sig * algo._mask_from_key(cpu_model, key)
-                refs[ref_key] = (want, None if sig is None else sig.numpy())
+                refs[ref_key] = cpu_reference(ur, algo, cpu_model, body)
             want, sig = refs[ref_key]
             swaps += check_ur_answer(body, got, want, sig, cpu_model.item_dict)
         for body, got in zip(bodies + timed, answers + timed_answers):
@@ -1958,6 +1979,367 @@ def serve_ur(ur, model, arrays, cols, dev, env, variants):
                         "rule_p50_ms": float(r50), "rule_p99_ms": float(r99),
                         "rule_max_ms": max(rule_ms), "rule_n": len(rules),
                         "rule_items_checked": oracle_items, "rule_empty": empty}
+    return out
+
+
+def cpu_reference(ur, algo, cpu_model, body):
+    """The CPU predict of ``body`` on the stored model (the port's plain
+    path, reading the histories from this process's store) and its masked
+    signal as a host vector (None for a pure backfill query): what every
+    answer on the card is held against."""
+    q = ur.URQuery.from_json(body)
+    want = algo.predict(cpu_model, q).to_json()
+    hist = algo._query_hist(cpu_model, q)
+    sig = algo._score_history(cpu_model, hist) if hist is not None else None
+    if sig is not None:
+        sig = sig.numpy() if isinstance(sig, torch.Tensor) else np.asarray(sig)
+        key = algo._mask_rule_key(q)
+        if key is not None:
+            sig = sig * algo._mask_from_key(cpu_model, key, host=True)
+    return want, sig
+
+
+# -- phase 17: the UR's caches, the host tail and checkpointed training -----------
+
+CACHE_TRIPLES, CACHE_QUERIES = 100, 400   # distinct (user, rules, num); zipf-drawn queries
+RULE_SETS, RULE_SET_QUERIES = 5, 10       # phase 17b
+HISTORY_USERS, HISTORY_BUYS = 20, 3       # phase 17c
+
+
+def post_raw(url, body) -> bytes:
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        check(resp.status == 200, f"HTTP {resp.status} for {body}")
+        return resp.read()
+
+
+def cache_triples(rng, users):
+    """CACHE_TRIPLES distinct (user, rules, num) bodies: plain queries and
+    the rule kinds of ``rule_queries``, num 4, 10 or 20."""
+    rules = rule_queries(rng, CACHE_TRIPLES, users)
+    out = []
+    for j, body in enumerate(rules):
+        if j % 2:
+            body = {"user": body["user"], "num": body["num"]}
+        out.append(body)
+    return out
+
+
+def outcome_values(counter, outcomes, **labels):
+    return {o: counter.value(outcome=o, **labels) for o in outcomes}
+
+
+def split_ms(bodies, ms):
+    """Host-clock ms of each query split by whether its body came before
+    (the first occurrence: a miss after a flush) or after (a hit)."""
+    seen, hits, misses = set(), [], []
+    for body, t in zip(bodies, ms):
+        key = json.dumps(body, sort_keys=True)
+        (hits if key in seen else misses).append(t)
+        seen.add(key)
+    return hits, misses
+
+
+def pct(ms):
+    if not ms:
+        return {"n": 0}
+    p50, p99 = np.percentile(ms, [50, 99])
+    return {"n": len(ms), "p50_ms": float(p50), "p99_ms": float(p99)}
+
+
+def ur_caches_path(ur, cco, hk, ncore, dev, workdir, variants, stored, plain_train_s):
+    """Phase 17: ``deploy`` of phase 11b's stored UR (LLR weights off) on a
+    thread of this process, so the process-wide caches, the registry and
+    the launch counters can be read.  (a) the response cache under 1 and
+    32 clients, audited then timed, every answer byte-equal to the cache
+    off and held against the CPU predict; (b) the composed rule-mask
+    cache, its device masks bit for bit the host ones; (d) the host scorer
+    and the candidate-pruned host tail on the card's host against the
+    device tail; (e) a checkpointed ``pio train`` with a fault after the
+    first event type, resumed on retry; (c) appends through the event
+    server in this process and the history cache's invalidation.  The
+    knobs switch between rounds: the serving path re-reads them per call."""
+    from predictionio_tpu_torch.api.event_server import run_event_server
+    from predictionio_tpu_torch.models.universal_recommender import engine as ur_engine
+    from predictionio_tpu_torch.serve import history_cache, response_cache
+    from predictionio_tpu_torch.storage import get_storage
+    from predictionio_tpu_torch.workflow.core_workflow import load_latest_models
+    from predictionio_tpu_torch.workflow.create_server import deploy
+
+    t_phase = time.perf_counter()
+    knobs = ("PIO_SERVE_CACHE", "PIO_SERVE_CACHE_AUDIT_N", "PIO_HISTORY_CACHE",
+             "PIO_UR_SERVE_SCORER", "PIO_UR_SERVE_TAIL", "PIO_UR_SERVE_CANDIDATES",
+             "PIO_CHECKPOINT_DIR", "PIO_TRAIN_RETRIES", "PIO_FAULT_INJECT")
+    saved = {k: os.environ.get(k) for k in knobs}
+    rng = np.random.default_rng(SEED + 17)
+    users = [f"u{int(j)}" for j in rng.choice(DEPLOYED_UR[0], CACHE_TRIPLES, replace=False)]
+    variant = engine_variant(False)
+    algo = ur.URAlgorithm(ur.URAlgorithmParams.from_json(variant["algorithms"][0]["params"]))
+    cpu_model = ur.ur_model_from_state(stored.__getstate__(), device="cpu")
+    cache = response_cache.get_cache()
+    out = {}
+    server = deploy(str(variants[False]), host="127.0.0.1", port=0, device=dev)
+    try:
+        state = server.pio_state
+        (model,) = state.models
+        check(model.device == dev and cache.armed_for(model),
+              "deploy: the UR model is off the card or the response cache is not armed on it")
+        check(state.batcher is not None, "deploy on the card: no micro-batcher")
+        port = server.server_address[1]
+        url = f"http://127.0.0.1:{port}/queries.json"
+
+        # -- (a) the response cache on the device tail
+        triples = cache_triples(rng, users)
+        draws = (rng.zipf(1.3, CACHE_QUERIES) - 1) % CACHE_TRIPLES
+        bodies = [triples[int(j)] for j in draws]
+        refs = {}
+        for body in triples:
+            refs[json.dumps(body, sort_keys=True)] = cpu_reference(ur, algo, cpu_model, body)
+        os.environ.pop("PIO_SERVE_CACHE", None)
+        rounds = {}
+        for audit in ("1", "0"):
+            os.environ["PIO_SERVE_CACHE_AUDIT_N"] = audit
+            for conc in (1, 32):
+                cache.clear()
+                cache.on_swap([model])           # re-armed, empty: misses first
+                c0 = outcome_values(response_cache._M_CACHE, ("hit", "miss", "bypass"))
+                a0 = response_cache._M_AUDIT.value()
+                t0 = time.perf_counter()
+                if conc == 1:
+                    raws, ms = [], []
+                    for body in bodies:
+                        q0 = time.perf_counter()
+                        raws.append(post_raw(url, body))
+                        ms.append((time.perf_counter() - q0) * 1e3)
+                    answers = [json.loads(r) for r in raws]
+                else:
+                    statuses, ms, answers, _ = run_clients(workdir, port, "/queries.json",
+                                                           bodies, conc)
+                    check(set(statuses) == {200}, f"17a: statuses {set(statuses)}")
+                wall = time.perf_counter() - t0
+                c1 = outcome_values(response_cache._M_CACHE, ("hit", "miss", "bypass"))
+                outcomes = {o: c1[o] - c0[o] for o in c1}
+                mismatches = response_cache._M_AUDIT.value() - a0
+                check(outcomes["hit"] > 0, f"17a: no response-cache hit in {outcomes}")
+                check(mismatches == 0, f"17a: {mismatches} audit mismatches")
+                swaps = 0
+                for body, got in zip(bodies, answers):
+                    want, sig = refs[json.dumps(body, sort_keys=True)]
+                    swaps += check_ur_answer(body, got, want, sig, cpu_model.item_dict)
+                hits, misses = split_ms(bodies, ms)
+                rounds[f"audit{audit}_c{conc}"] = {
+                    "outcomes": outcomes, "audit_mismatches": mismatches,
+                    "hits": pct(hits), "misses": pct(misses), "qps": len(bodies) / wall,
+                    "near_tie_swaps": swaps}
+                if conc == 1 and audit == "1":
+                    first_raw = dict(zip((json.dumps(b, sort_keys=True) for b in bodies), raws))
+        os.environ["PIO_SERVE_CACHE"] = "off"
+        off = {json.dumps(b, sort_keys=True): post_raw(url, b) for b in triples}
+        os.environ.pop("PIO_SERVE_CACHE")
+        unequal = [k for k, raw in first_raw.items() if off[k] != raw]
+        check(not unequal, f"17a: {len(unequal)} answers differ from PIO_SERVE_CACHE=off, "
+              f"e.g. {unequal[:1]}")
+        out["response_cache"] = rounds
+        for name, r in rounds.items():
+            print(f"  17a {name}: {r['outcomes']} (pio_serve_cache_total), audit mismatches "
+                  f"{r['audit_mismatches']}; hits {r['hits']}, misses {r['misses']}, "
+                  f"{r['qps']:.1f} q/s; every answer held against the CPU predict "
+                  f"({r['near_tie_swaps']} near-tie swaps)")
+        print(f"  17a: the {len(first_raw)} distinct answers byte-equal to "
+              "PIO_SERVE_CACHE=off")
+
+        # -- (b) the composed rule-mask cache (response cache off)
+        os.environ["PIO_SERVE_CACHE"] = "off"
+        sets = [
+            [{"name": "category", "values": ["c1", "c4", "c7"], "bias": -1}],
+            [{"name": "category", "values": ["c2"], "bias": 0.5},
+             {"name": "tags", "values": ["t11"], "bias": 2.0}],
+            [{"name": "tags", "bias": -1, "values": [f"t{t}" for t in range(0, 120, 10)]}],
+            {"dateRange": {"name": "releaseDate", "after": iso(T2015 + 2 * 365 * 86_400),
+                           "before": iso(T2015 + 6 * 365 * 86_400)},
+             "fields": [{"name": "category", "values": ["c0", "c3"], "bias": 2.0}]},
+            {"currentDate": iso(QNOW)}]
+        m0 = outcome_values(ur_engine._M_MASK_CACHE, ("hit", "miss", "evict"))
+        first_ms, rest_ms = [], []
+        for j, rules in enumerate(sets):
+            extra = {"fields": rules} if isinstance(rules, list) else rules
+            for r in range(RULE_SET_QUERIES):
+                body = {"user": users[(j * RULE_SET_QUERIES + r) % len(users)], "num": 10,
+                        **extra}
+                q0 = time.perf_counter()
+                got = post(url, body)
+                (first_ms if r == 0 else rest_ms).append((time.perf_counter() - q0) * 1e3)
+                if r < 2:
+                    want, sig = cpu_reference(ur, algo, cpu_model, body)
+                    check_ur_answer(body, got, want, sig, cpu_model.item_dict)
+            key = algo._mask_rule_key(ur.URQuery.from_json(body))
+            dmask = model.rule_mask_cache("device").peek(key)
+            check(dmask is not None, f"17b: rule set {j} not in the device mask cache")
+            hmask = algo._mask_from_key(model, key, host=True)
+            check(np.array_equal(dmask.cpu().numpy().view(np.int32), hmask.view(np.int32)),
+                  f"17b: rule set {j}: the device mask differs from the host mask")
+        m1 = outcome_values(ur_engine._M_MASK_CACHE, ("hit", "miss", "evict"))
+        mask_outcomes = {o: m1[o] - m0[o] for o in m1}
+        check(mask_outcomes["hit"] >= RULE_SETS * (RULE_SET_QUERIES - 1),
+              f"17b: pio_ur_rule_mask_cache_total {mask_outcomes}")
+        out["rule_mask_cache"] = {"first_ms": first_ms, "rest": pct(rest_ms),
+                                  "outcomes": mask_outcomes}
+        print(f"  17b: {RULE_SETS} rule sets x {RULE_SET_QUERIES} users: first query of each "
+              f"set {[round(x, 3) for x in first_ms]} ms, the rest {pct(rest_ms)}; "
+              f"pio_ur_rule_mask_cache_total {mask_outcomes}; each set's device mask equals "
+              "_mask_from_key(host=True) bit for bit")
+
+        # -- (d) the host scorer and the pruned host tail on the card's host
+        pool = users
+        plain = ur_queries(rng, 100, pool) + rule_queries(rng, 100, pool)
+        t0 = time.perf_counter()
+        model.ensure_host_serving_state()
+        host_state_s = time.perf_counter() - t0
+        inv = {n: {"build_s": ur_engine._M_INV_BUILD.value(event=n),
+                   "bytes": ur_engine._M_INV_BYTES.value(event=n)}
+               for n in model.indicator_idx}
+        tails = {}
+        for tail in ("device", "host"):
+            os.environ["PIO_UR_SERVE_SCORER"] = os.environ["PIO_UR_SERVE_TAIL"] = tail
+            n0, f0 = ncore.calls["serve"], sum(v for _, v in ncore.fallbacks.items())
+            k0 = outcome_values(ur_engine._M_CAND, (
+                "pruned", "fallback_no_candidates", "fallback_backfill_reorder",
+                "fallback_backfill_scan"))
+            ur_engine._M_CAND_FRAC.clear_series()
+            answers, ms = timed_posts(url, plain)
+            k1 = outcome_values(ur_engine._M_CAND, tuple(k0))
+            frac = list(ur_engine._M_CAND_FRAC._snapshot_series().values())
+            tails[tail] = {"answers": answers, "ms": ms,
+                           "candidate_frac_mean": (frac[0]["sum"] / frac[0]["count"]
+                                                   if frac and frac[0]["count"] else None),
+                           "native_serve_calls": ncore.calls["serve"] - n0,
+                           "native_fallbacks": sum(v for _, v in ncore.fallbacks.items()) - f0,
+                           "candidates": {o: k1[o] - k0[o] for o in k1}}
+        for k in ("PIO_UR_SERVE_SCORER", "PIO_UR_SERVE_TAIL"):
+            os.environ.pop(k)
+        bit_equal, swaps = 0, 0
+        for body, got, want in zip(plain, tails["host"]["answers"], tails["device"]["answers"]):
+            swaps += check_ur_answer(body, got, want, None, cpu_model.item_dict)
+            bit_equal += got == want
+        h = tails["host"]
+        check(h["native_serve_calls"] > 0 and h["native_fallbacks"] == 0,
+              f"17d: native serve calls {h['native_serve_calls']}, fallbacks "
+              f"{h['native_fallbacks']}")
+        check(h["candidates"]["pruned"] > 0, f"17d: candidates {h['candidates']}")
+        out["host_tail"] = {
+            "queries": len(plain), "bit_equal": bit_equal, "near_tie_swaps": swaps,
+            "host_serving_state_s": host_state_s, "inverted": inv,
+            "candidates": h["candidates"], "native_serve_calls": h["native_serve_calls"],
+            "candidate_frac_mean": h["candidate_frac_mean"],
+            "host": pct(h["ms"]), "device": pct(tails["device"]["ms"])}
+        print(f"  17d: {len(plain)} plain and rule queries, host scorer and pruned host tail "
+              f"against the device tail: items equal, {bit_equal} of {len(plain)} answers "
+              f"bit-equal ({swaps} near-tie swaps); native serve calls "
+              f"{h['native_serve_calls']}, fallbacks 0; pio_ur_serve_candidate_total "
+              f"{h['candidates']}, a pruned query's candidates "
+              f"{h['candidate_frac_mean']} of the catalog on average "
+              f"(pio_ur_serve_candidate_frac); host_inverted {inv} (ensure_host_serving_state "
+              f"{host_state_s:.3f} s); host {out['host_tail']['host']} vs device "
+              f"{out['host_tail']['device']} (host clock, one client)")
+        os.environ.pop("PIO_SERVE_CACHE", None)
+
+        # -- (e) checkpointed UR training, a fault after the first type
+        ck_variant = dict(variant, id=ENGINE_ID + "-ck")
+        ck_variant["algorithms"] = [{"name": "ur", "params": {
+            **variant["algorithms"][0]["params"], "checkpoint": True}}]
+        ck_path = workdir / "engine-ck.json"
+        ck_path.write_text(json.dumps(ck_variant))
+        ck_dir = workdir / "checkpoints"
+        os.environ.update({"PIO_CHECKPOINT_DIR": str(ck_dir), "PIO_TRAIN_RETRIES": "1",
+                           "PIO_FAULT_INJECT": "ur.indicators:2"})
+        calls, real = [], cco.cco_train_indicators
+
+        def counted(p_user, p_item, others, *a, **kw):
+            k2, k3 = hk.llr_masked_scores.launches, hk.tile_topk_desc.launches
+            try:
+                return real(p_user, p_item, others, *a, **kw)
+            finally:
+                calls.append(([o[0] for o in others], hk.llr_masked_scores.launches - k2,
+                              hk.tile_topk_desc.launches - k3))
+
+        cco.cco_train_indicators = counted
+        try:
+            pio("build", "--engine-json", str(ck_path))
+            t0 = time.perf_counter()
+            pio("train", "--engine-json", str(ck_path))
+            ck_s = time.perf_counter() - t0
+        finally:
+            cco.cco_train_indicators = real
+        fired = "PIO_FAULT_INJECT" not in os.environ
+        tiles = -(-DEPLOYED_UR[1] // DEPLOYED_UR[5])
+        check(fired, "17e: the injected fault did not fire")
+        check([c[0] for c in calls] == [["purchase"], ["view"]]
+              and all(c[1:] == (tiles, tiles) for c in calls),
+              f"17e: training calls {calls}: the retry did not resume past the first type")
+        left = [p for p in (ck_dir / "ur").iterdir()] if (ck_dir / "ur").exists() else []
+        check(not left, f"17e: snapshots left behind: {left}")
+        _, (ck_model,) = load_latest_models(ck_variant["id"], device="cpu")
+        for name in stored.indicator_idx:
+            check(np.array_equal(ck_model.indicator_idx[name], stored.indicator_idx[name])
+                  and np.array_equal(ck_model.indicator_llr[name].view(np.int32),
+                                     stored.indicator_llr[name].view(np.int32)),
+                  f"17e: the resumed {name} table differs from phase 11b's train")
+        out["checkpointed_train"] = {"wall_s": ck_s, "plain_wall_s": plain_train_s,
+                                     "calls": calls}
+        print(f"  17e: pio train checkpointed, PIO_FAULT_INJECT=ur.indicators:2 fired, the "
+              f"retry trained {calls[-1][0]} only (K2/K3 {calls[-1][1:]}; the faulted attempt "
+              f"{calls[0][0]} {calls[0][1:]}), snapshots removed, tables bit-identical to "
+              f"phase 11b's; wall {ck_s:.3f} s against the plain pio train "
+              f"{plain_train_s:.3f} s")
+        for k in ("PIO_CHECKPOINT_DIR", "PIO_TRAIN_RETRIES", "PIO_FAULT_INJECT"):
+            os.environ.pop(k, None)
+
+        # -- (c) appends through the event server and the history cache
+        store = get_storage()
+        app_id = store.apps.get_by_name("smoke").id
+        key = store.access_keys.get_by_app_id(app_id)[0].key
+        es = run_event_server(host="127.0.0.1", port=0, background=True)
+        buyers = users[:HISTORY_USERS]
+        plain_bodies = [{"user": u, "num": 10} for u in buyers]
+        for body in plain_bodies:
+            post(url, body)                         # cached: histories and answers
+        s0 = history_cache._M_LOOKUP.value(outcome="stale")
+        try:
+            es_url = (f"http://127.0.0.1:{es.server_address[1]}/batch/events.json"
+                      f"?accessKey={key}")
+            batch = [{"event": "purchase", "entityType": "user", "entityId": u,
+                      "targetEntityType": "item",
+                      "targetEntityId": f"i{int(rng.integers(DEPLOYED_UR[1]))}"}
+                     for u in buyers for _ in range(HISTORY_BUYS)]
+            for j in range(0, len(batch), 50):
+                res = post(es_url, batch[j:j + 50])
+                check(all(r["status"] == 201 for r in res), f"17c: ingest {res}")
+        finally:
+            es.shutdown()
+            es.server_close()
+        after = [post(url, b) for b in plain_bodies]
+        stale = history_cache._M_LOOKUP.value(outcome="stale") - s0
+        check(stale >= HISTORY_USERS, f"17c: pio_history_cache_total stale +{stale}")
+        for body, got in zip(plain_bodies, after):
+            want, sig = cpu_reference(ur, algo, cpu_model, body)
+            check_ur_answer(body, got, want, sig, cpu_model.item_dict)
+        os.environ["PIO_HISTORY_CACHE"] = "off"
+        uncached = [post(url, b) for b in plain_bodies]
+        os.environ.pop("PIO_HISTORY_CACHE")
+        check(uncached == after, "17c: answers differ with PIO_HISTORY_CACHE=off")
+        out["history_cache"] = {"users": HISTORY_USERS, "events": len(batch),
+                                "stale": stale}
+        print(f"  17c: {len(batch)} purchase events of {HISTORY_USERS} users through the "
+              f"event server; pio_history_cache_total stale +{stale}; their answers equal the "
+              "CPU predict on the new histories and PIO_HISTORY_CACHE=off")
+    finally:
+        server.shutdown()
+        server.server_close()
+        cache.disarm()
+        restore_env(saved)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  phase 17 wall {out['wall_s']:.3f} s")
     return out
 
 
@@ -3645,6 +4027,12 @@ def run() -> None:
 
         phase("12. UR HTTP /queries.json from pio deploy subprocesses, with business rules")
         served = serve_ur(ur, ur_model, arrays, cols, dev, env, variants)
+        torch.cuda.empty_cache()
+
+        phase("17. the UR's response, rule-mask and history caches, the host tail and "
+              "checkpointed training, on deploy in this process")
+        caches = ur_caches_path(ur, cco, hk, ncore, dev, workdir, variants, ur_model,
+                                snapshot["pio_train_snapshot_s_llr_False"])
         del ur_model
         torch.cuda.empty_cache()
 
@@ -3820,12 +4208,25 @@ def run() -> None:
         r = similar[name]
         print(f"  similar-product {name}: pio train {r['pio_train']['wall_s']:.3f} s, "
               f"/queries.json p50 {r['http_p50_ms']:.3f} ms p99 {r['http_p99_ms']:.3f} ms | {smi}")
+    ra, rh = caches["response_cache"]["audit0_c1"], caches["host_tail"]
+    print(f"  UR caches (phase 17): response-cache hits p50 {ra['hits'].get('p50_ms', 0):.3f} "
+          f"ms p99 {ra['hits'].get('p99_ms', 0):.3f} ms, misses p50 "
+          f"{ra['misses'].get('p50_ms', 0):.3f} ms p99 {ra['misses'].get('p99_ms', 0):.3f} ms "
+          f"(one client); host tail p50 {rh['host']['p50_ms']:.3f} ms p99 "
+          f"{rh['host']['p99_ms']:.3f} ms against the device tail's p50 "
+          f"{rh['device']['p50_ms']:.3f} ms p99 {rh['device']['p99_ms']:.3f} ms; "
+          f"checkpointed pio train {caches['checkpointed_train']['wall_s']:.3f} s "
+          f"(plain {caches['checkpointed_train']['plain_wall_s']:.3f} s); phase 17 "
+          f"{caches['wall_s']:.3f} s | {smi}")
+    print(f"  chip_smoke wall {time.perf_counter() - t_start:.3f} s | {smi}")
     launches = {"masked_score": (http_launches + batch_launches + als_run["k1_launches"]
                                  + load_launches),
                 "llr_masked": (deployed["launches"][0] + scale["launches"][0]
-                               + similar["launches"][0]),
+                               + similar["launches"][0]
+                               + sum(c[1] for c in caches["checkpointed_train"]["calls"])),
                 "tile_topk": (deployed["launches"][1] + scale["launches"][1]
-                              + similar["launches"][1])}
+                              + similar["launches"][1]
+                              + sum(c[2] for c in caches["checkpointed_train"]["calls"]))}
     print(json.dumps({"ur_train": {"bench_shape": bench, "memory_store": memory,
                                    "deployed_width_localfs": deployed,
                                    "deployed_width_snapshot": snapshot},
@@ -3833,7 +4234,7 @@ def run() -> None:
                       "als": {"deployed_path": als_run, "ecommerce": ecomm_run,
                               "timing": als_timing},
                       "frontend": frontend, "cco_scale": scale,
-                      "similar_product": similar,
+                      "similar_product": similar, "ur_caches": caches,
                       "k1_retime": k1_rounds, "empty_kernel_ms": empty_ms, "llr_sass": sass,
                       "wall_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": [{

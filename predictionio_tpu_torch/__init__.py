@@ -12,7 +12,10 @@ hand-written CUDA kernel (``ops/csrc/masked_score.cu``); the
 ``ecommerce`` template (implicit ALS, category and list rules, live
 constraints); the Universal Recommender's CCO training
 through the LLR and tile top-k kernels (``ops/csrc/llr_masked.cu``,
-``ops/csrc/tile_topk.cu``) and its serving with business rules; the event
+``ops/csrc/tile_topk.cu``), checkpointed per event type, and its serving
+with business rules through the device or the host scorer and tail
+(candidate pruning, the native serve core) behind the response, rule-mask
+and history caches (``serve/``); the event
 model, the memory and localfs storage backends with the native segment
 scanner (``native/eventlog_scanner.cpp``), the columnar snapshots and the
 staged retrain cache (``storage/snapshot.py``, their header parse in

@@ -6,25 +6,39 @@ product, the K2 LLR kernel and the K3 top-k kernel) and builds a ``URModel``
 whose state dict is the JAX package's, so models carry across both ways
 (``convert.ur_model_from_state``).  Training data comes
 from the event store (``URDataSource.read_training``: one ``PEventStore``
-batch of the interactions, item properties folded from ``$set`` events).
-Serving is the reference's device scorer and device tail: the user's
-recent history (read from the event store) becomes a multi-hot vector per
-event type, scored by one gather + reduce over the resident
-[n_items, top_k] indicator table; the business-rule mask (field filters
-and boosts, ``dateRange``, ``currentDate`` against the available/expire
-dates), the blacklist, both top-ks (signal and popularity backfill) and
-one stacked [4, k] readback follow on the device, and the host assembles
-the answer.
+batch of the interactions, item properties folded from ``$set`` events);
+``checkpoint: true`` trains one event type at a time and snapshots each, so
+a retried ``pio train`` resumes past the types it finished.
+
+Serving is the reference's two switchable halves.  The scorer turns the
+user's recent history (read from the event store through the
+append-invalidated history cache, ``serve/history_cache.py``) into a
+signal: on the device, a multi-hot vector per event type gathered against
+the resident [n_items, top_k] indicator table; on the host, posting-list
+slices of the table's inversion (``URModel.host_inverted``) summed over the
+compacted candidate union, through the native serve core where it loads.
+The tail applies the composed business-rule mask (field filters and
+boosts, ``dateRange``, ``currentDate`` against the available/expire dates;
+one LRU a model generation and tail kind), the blacklist and both top-ks
+(signal and popularity backfill): on the device with one stacked [4, k]
+readback, or in numpy (``host_topk_desc`` keeps ``lax.top_k``'s order),
+pruned to the candidate rows when both halves are on the host.
+``PIO_UR_SERVE_SCORER``, ``PIO_UR_SERVE_TAIL`` and
+``PIO_UR_SERVE_CANDIDATES`` force a pick; ``auto`` resolves on the
+model's device: the host halves for a model on the CPU (the reference's
+pick under ``JAX_PLATFORMS=cpu``), the device halves for one on CUDA.
+Before any scoring the response cache (``serve/response_cache.py``,
+armed by the query server's install on the served model) answers repeats
+whole.
 
 The query server's micro-batcher serves through ``serve_batch_predict``:
-a batch's histories score against the resident tables in one gather a
-event type, and both top-ks for the whole batch come back in one
-[B, 4, k] readback.
+cache hits peel off first, then the misses' histories score against the
+resident tables in one gather an event type, and both top-ks for the whole
+batch come back in one [B, 4, k] readback.
 
-Not ported yet, each named in ROADMAP.md: the host scorer and tail,
-candidate pruning, the response, composed rule-mask and history caches and
-spans (the composed mask is built from its rule key on every query);
-checkpointed and multi-device training; eval.
+Not ported yet, each named in ROADMAP.md: the per-query ``ur_predict``
+spans and trace laps (queue A, 'Observability and the rest of the front
+end'); multi-device training; eval.
 
 Wire format (UR):
   query    {"user": "u1", "num": 10}
@@ -39,6 +53,9 @@ Wire format (UR):
 from __future__ import annotations
 
 import dataclasses
+import os as _os
+import threading as _threading
+import time as _time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -56,16 +73,81 @@ from predictionio_tpu_torch.controller import (
 )
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.events.event import parse_time
-from predictionio_tpu_torch.models.common import DeviceCacheMixin, LRUCache
+from predictionio_tpu_torch.models.common import (
+    DeviceCacheMixin,
+    LRUCache,
+    gather_csr_rows,
+    host_topk_desc,
+)
 from predictionio_tpu_torch.models.universal_recommender.popmodel import (
     backfill_scores,
     parse_duration,
 )
+from predictionio_tpu_torch.native import core as _ncore
+from predictionio_tpu_torch.obs import metrics as _obs_metrics
 from predictionio_tpu_torch.ops import cco as cco_ops
 from predictionio_tpu_torch.ops.als import bucket_width, check_f32_id_range, pad_ids
 from predictionio_tpu_torch.ops.topk import topk_desc
+from predictionio_tpu_torch.serve import history_cache as _history_cache
+from predictionio_tpu_torch.serve import response_cache as _resp_cache
 from predictionio_tpu_torch.store.columnar import CSRLookup, IdDict, fold_properties
-from predictionio_tpu_torch.store.event_store import LEventStore, PEventStore
+from predictionio_tpu_torch.store.event_store import PEventStore
+
+# -- serving instruments (the JAX package's families) ------------------------
+
+_REG = _obs_metrics.get_registry()
+_M_STAGE = _REG.histogram(
+    "pio_ur_serve_stage_duration_seconds",
+    "UR serve-tail stage wall time by stage (history/cache/score/mask/topk/"
+    "assemble), resolved tail (host/device) and candidates (on/off/cache)")
+_M_MASK_CACHE = _REG.counter(
+    "pio_ur_rule_mask_cache_total",
+    "Composed business-rule mask cache lookups by outcome "
+    "(hit/miss/evict, carried/dropped at a swap); one entry per (model "
+    "generation, canonical rule set, tail)")
+_M_SERVE_CACHE = _REG.counter(
+    "pio_ur_serve_cache_total",
+    "Serving lookup-cache events by cache (value_mask/value_mask_dev/date/"
+    "date_dev) and outcome (hit/miss/evict)")
+_M_INV_BUILD = _REG.gauge(
+    "pio_ur_host_inverted_build_seconds",
+    "Wall seconds spent building the host inverted postings index, by "
+    "event type (set once per model load)")
+_M_INV_BYTES = _REG.gauge(
+    "pio_ur_host_inverted_bytes",
+    "Resident bytes of the host inverted postings index (CSR indptr + "
+    "rows + weights), by event type (set once per build)")
+_M_CAND = _REG.counter(
+    "pio_ur_serve_candidate_total",
+    "Candidate-pruned host-tail decisions by outcome: pruned (served "
+    "from the posting-union candidate set), fallback_no_candidates "
+    "(cold user / empty postings -> dense tail), "
+    "fallback_backfill_reorder (boost mask + backfill shortfall -> "
+    "dense tail), fallback_backfill_scan (rare-match rule blew the "
+    "backfill scan budget -> dense tail)")
+_M_CAND_FRAC = _REG.histogram(
+    "pio_ur_serve_candidate_frac",
+    "Fraction of the catalog a candidate-pruned query touched "
+    "(|candidates| / n_items)",
+    buckets=(1e-5, 3e-5, 1e-4, 3e-4, 1e-3, 3e-3, 0.01, 0.03,
+             0.1, 0.3, 1.0))
+
+
+def _cache_event(cache: str):
+    def on_event(outcome: str) -> None:
+        _M_SERVE_CACHE.inc(1, cache=cache, outcome=outcome)
+    return on_event
+
+
+def _mask_cache_event(outcome: str) -> None:
+    _M_MASK_CACHE.inc(1, outcome=outcome)
+
+
+# guards creation of the PER-EVENT-TYPE build locks only (never held
+# across a build): inversions of different event types proceed in
+# parallel — warm() builds them on one thread each — while two concurrent
+# first queries of the SAME type share one argsort
+_HOST_INV_LOCK = _threading.Lock()
 
 
 # -- query / result ----------------------------------------------------------
@@ -373,26 +455,210 @@ class URModel(DeviceCacheMixin, PersistentModel):
             len(self.item_dict), dtype=torch.float32, device=self.device))
 
     def pop_norm(self) -> float:
-        return self._device("_pop_norm", lambda: max(
-            float(np.abs(self.popularity).max()), 1.0)
-            if len(self.popularity) else 1.0)
+        norm = self.__dict__.get("_pop_norm")
+        if norm is None:
+            norm = max(float(np.abs(self.popularity).max()), 1.0) \
+                if len(self.popularity) else 1.0
+            self.__dict__["_pop_norm"] = norm
+        return norm
+
+    # -- host-resident serving state (built lazily, never pickled) -----------
+
+    def host_inverted(self, name: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """CSR inversion of one event type's indicator table, keyed by
+        TARGET item id: ``(indptr [n_t+1] int64, rows [nnz] int32, weights
+        [nnz] f32)``, where rows are the primary items listing the target as
+        a correlator.  Built once under a per-name lock (two concurrent
+        first queries of one type share the build; different types build
+        concurrently) and cached.  A query then costs |hist| posting-list
+        slices instead of a gather at every [I_p, K] table cell."""
+        cache = self.__dict__.setdefault("_host_inv", {})
+        hit = cache.get(name)
+        if hit is not None:
+            return hit
+        with _HOST_INV_LOCK:
+            locks = self.__dict__.setdefault("_host_inv_locks", {})
+            lock = locks.get(name)
+            if lock is None:
+                lock = locks[name] = _threading.Lock()
+        with lock:
+            hit = cache.get(name)
+            if hit is not None:
+                return hit
+            t0 = _time.perf_counter()
+            idx, llr = self.indicator_idx[name], self.indicator_llr[name]
+            n_t = max(len(self.event_item_dicts[name]), 1)
+            if idx.ndim != 2:
+                # no [I_p, K] shape to invert: every posting list empty
+                built = (np.zeros(n_t + 1, dtype=np.int64),
+                         np.zeros(0, dtype=np.int32),
+                         np.zeros(0, dtype=np.float32))
+            else:
+                i_p, k = idx.shape
+                valid = idx >= 0
+                rows = np.repeat(np.arange(i_p, dtype=np.int32), k)[valid.ravel()]
+                tgt = idx[valid]
+                w = llr[valid].astype(np.float32)
+                order = np.argsort(tgt, kind="stable")
+                tgt, rows, w = tgt[order], rows[order], w[order]
+                indptr = np.concatenate(
+                    [[0], np.cumsum(np.bincount(tgt, minlength=n_t))]).astype(np.int64)
+                built = (indptr, rows, w)
+            cache[name] = built
+            _M_INV_BUILD.set(_time.perf_counter() - t0, event=name)
+            _M_INV_BYTES.set(sum(int(a.nbytes) for a in built), event=name)
+            return built
+
+    def host_popularity(self) -> np.ndarray:
+        """float32 backfill scores on the host — the values
+        device_popularity stages, so both tails rank the fallback alike."""
+        pop = self.__dict__.get("_host_pop")
+        if pop is None:
+            pop = np.asarray(self.popularity, np.float32)
+            self.__dict__["_host_pop"] = pop
+        return pop
+
+    def host_zeros(self) -> np.ndarray:
+        """Shared read-only zero signal (callers never mutate it)."""
+        z = self.__dict__.get("_host_zeros")
+        if z is None:
+            z = np.zeros(len(self.item_dict), np.float32)
+            self.__dict__["_host_zeros"] = z
+        return z
+
+    def host_pop_order(self) -> np.ndarray:
+        """Every item id in the backfill tail's total order — popularity
+        descending, id ascending on ties (``host_topk_desc``'s order) —
+        computed once a model generation.  The candidate-pruned tail merges
+        backfill by walking it, O(num) a query."""
+        order = self.__dict__.get("_host_pop_order")
+        if order is None:
+            _, order = host_topk_desc(self.host_popularity(), len(self.item_dict))
+            self.__dict__["_host_pop_order"] = order
+        return order
+
+    def warm(self) -> None:
+        """Stage only what the resolved scorer AND tail read (called at
+        deploy): the device tables for the device scorer, the CSR
+        inversions (one thread an event type) for the host scorer; the
+        device tail's vectors and one backfill query's device tail, or the
+        host tail's popularity, zeros and (with candidates) popularity
+        order.  The other halves stay lazy, so a runtime switch still
+        works and pays its build on first use."""
+        if _serve_scorer(self) == "host":
+            names = list(self.indicator_idx)
+            errors: List[BaseException] = []
+
+            def build(n: str) -> None:
+                try:
+                    self.host_inverted(n)
+                except BaseException as e:
+                    errors.append(e)
+
+            extra = [_threading.Thread(target=build, args=(n,), daemon=True)
+                     for n in names[1:]]
+            for t in extra:
+                t.start()
+            # the first build runs here through the same collector, so a
+            # failure still joins the siblings before it re-raises
+            if names:
+                build(names[0])
+            for t in extra:
+                t.join()
+            if errors:
+                raise errors[0]
+        else:
+            self.device_indicators()
+        if _serve_tail(self) == "host":
+            self.host_popularity()
+            self.host_zeros()
+            if _serve_candidates(self) == "on":
+                self.host_pop_order()
+        else:
+            n = len(self.item_dict)
+            if n:
+                _serve_topk(self.device_zeros(), self.device_ones(),
+                            self.device_popularity(), pad_ids([]),
+                            min(bucket_width(1), n)).cpu()
+        self.pop_norm()
+
+    def ensure_host_serving_state(self) -> None:
+        """Build every host-side derived serving structure — the CSR
+        postings inversions, the popularity order, the f32 popularity and
+        its norm — however the scorer and tail resolve in this process."""
+        for name in self.indicator_idx:
+            self.host_inverted(name)
+        self.host_popularity()
+        self.host_pop_order()
+        self.pop_norm()
 
     # -- business-rule state (built lazily, never pickled) ---------------------
 
     _VALUE_MASK_CACHE_MAX = 512
     _DATE_CACHE_MAX = 512
 
-    def _lru(self, attr: str, max_entries: int, on_device: bool) -> LRUCache:
-        """A bounded LRU in ``__dict__``; a cache of device tensors is
-        registered as staged, so ``to_device`` drops it."""
-        if on_device:
-            return self._device(attr, lambda: LRUCache(max_entries))
+    def _lru(self, attr: str, max_entries: int, metric_cache: str,
+             on_device: bool = False) -> LRUCache:
+        """A bounded LRU in ``__dict__`` counted under ``metric_cache``'s
+        label (``rule_mask`` counts into pio_ur_rule_mask_cache_total); a
+        cache of device tensors is registered as staged, so ``to_device``
+        drops it."""
         cache = self.__dict__.get(attr)
         if cache is None:
+            on_event = (_mask_cache_event if metric_cache == "rule_mask"
+                        else _cache_event(metric_cache))
             # dict.setdefault is atomic under the GIL: racing creators
             # both construct, one instance wins, both use it
-            cache = self.__dict__.setdefault(attr, LRUCache(max_entries))
+            cache = self.__dict__.setdefault(attr, LRUCache(max_entries, on_event=on_event))
+            if on_device:
+                self.__dict__.setdefault("_staged", set()).add(attr)
         return cache
+
+    def rule_mask_cache(self, kind: str) -> LRUCache:
+        """Composed business-rule masks, one LRU a (model generation, tail
+        kind: "host" | "device"), bounded by ``PIO_UR_RULE_MASK_CACHE``.
+        Living in ``__dict__`` (never pickled), a reload — a NEW model
+        object — starts empty unless ``adopt_rule_caches`` carries it."""
+        return self._lru(f"_rule_mask_{kind}", _rule_mask_cache_max(), "rule_mask",
+                         on_device=kind == "device")
+
+    # pure functions of (item_dict, item_properties): a swap that proves
+    # both unchanged carries the LRU objects to the new generation
+    _SWAP_CARRY_ATTRS = ("_rule_mask_host", "_rule_mask_device",
+                         "_host_value_mask", "_dev_value_mask",
+                         "_date_off", "_dev_date")
+    _DEVICE_ATTRS = ("_rule_mask_device", "_dev_value_mask", "_dev_date")
+
+    def adopt_rule_caches(self, prev: "URModel", carry: bool) -> None:
+        """Swap survival of the rule caches: composed masks, value-mask
+        bitsets and date offsets depend ONLY on the item dictionary and the
+        item properties, so a swap whose provenance proves both untouched
+        keeps every entry hot.  ``carry=False`` counts the flush; carried
+        and dropped entries land in pio_ur_rule_mask_cache_total.  Device
+        caches carry only between models on the same device."""
+        n_rules = 0
+        for attr in ("_rule_mask_host", "_rule_mask_device"):
+            c = prev.__dict__.get(attr)
+            if c is not None:
+                n_rules += len(c)
+        if not carry:
+            if n_rules:
+                _M_MASK_CACHE.inc(n_rules, outcome="dropped")
+            return
+        same_device = (prev.__dict__.get("_torch_device") is not None
+                       and prev.__dict__.get("_torch_device")
+                       == self.__dict__.get("_torch_device"))
+        for attr in self._SWAP_CARRY_ATTRS:
+            on_device = attr in self._DEVICE_ATTRS
+            if on_device and not same_device:
+                continue
+            c = prev.__dict__.get(attr)
+            if c is not None:
+                self.__dict__.setdefault(attr, c)
+                if on_device:
+                    self.__dict__.setdefault("_staged", set()).add(attr)
+        if n_rules:
+            _M_MASK_CACHE.inc(n_rules, outcome="carried")
 
     def known_prop_names(self) -> frozenset:
         """Property names that exist on at least one item — the gate that
@@ -408,10 +674,10 @@ class URModel(DeviceCacheMixin, PersistentModel):
         return names
 
     def _value_mask_ids(self, name: str, value: str) -> Optional[np.ndarray]:
-        """Item ids holding (name, value); None for unknown names/values
-        (the match-nothing case — callers substitute their zero mask
-        WITHOUT caching: query fields are user input, caching unknowns
-        would let arbitrary queries pin unbounded memory)."""
+        """Item ids holding (name, value), ascending; None for unknown
+        names/values (the match-nothing case — callers substitute their
+        zero mask WITHOUT caching: query fields are user input, caching
+        unknowns would let arbitrary queries pin unbounded memory)."""
         if name not in self.known_prop_names():
             return None
         return self.prop_value_index(name).get(value)
@@ -421,6 +687,15 @@ class URModel(DeviceCacheMixin, PersistentModel):
         m[ids] = 1.0
         return m
 
+    def host_value_mask(self, name: str, value: str) -> np.ndarray:
+        """Host twin of device_value_mask; both derive their bitsets from
+        the same _ids_to_mask build, so they match bit for bit."""
+        ids = self._value_mask_ids(name, value)
+        if ids is None:
+            return self.host_zeros()
+        cache = self._lru("_host_value_mask", self._VALUE_MASK_CACHE_MAX, "value_mask")
+        return cache.get_or_build((name, value), lambda: self._ids_to_mask(ids))
+
     def device_value_mask(self, name: str, value: str) -> torch.Tensor:
         """0/1 device mask of items whose property ``name`` holds ``value``
         — the Elasticsearch-filter-bitset analogue, cached per (name, value)
@@ -428,7 +703,8 @@ class URModel(DeviceCacheMixin, PersistentModel):
         ids = self._value_mask_ids(name, value)
         if ids is None:
             return self.device_zeros()
-        cache = self._lru("_dev_value_mask", self._VALUE_MASK_CACHE_MAX, True)
+        cache = self._lru("_dev_value_mask", self._VALUE_MASK_CACHE_MAX,
+                          "value_mask_dev", on_device=True)
         return cache.get_or_build(
             (name, value),
             lambda: torch.as_tensor(self._ids_to_mask(ids), device=self.device))
@@ -441,11 +717,11 @@ class URModel(DeviceCacheMixin, PersistentModel):
         value keep boundary comparisons EXACT (f32 epoch offsets would
         quantize to ~32 s over decade spans); sub-second precision is
         rounded, matching the second-granularity date semantics of the
-        reference's ES range filters.  The device path stages exactly
-        these offsets."""
+        reference's ES range filters.  Both tails read exactly these
+        offsets."""
         if name not in self.known_prop_names():
             return None
-        cache = self._lru("_date_off", self._DATE_CACHE_MAX, False)
+        cache = self._lru("_date_off", self._DATE_CACHE_MAX, "date")
 
         def build():
             ts = self.prop_date_array(name)
@@ -462,13 +738,14 @@ class URModel(DeviceCacheMixin, PersistentModel):
         d = self.date_offsets(name)
         if d is None:
             return None
-        cache = self._lru("_dev_date", self._DATE_CACHE_MAX, True)
+        cache = self._lru("_dev_date", self._DATE_CACHE_MAX, "date_dev", on_device=True)
         return cache.get_or_build(
             name, lambda: (d[0], torch.as_tensor(d[1], device=self.device)))
 
     def prop_value_index(self, name: str) -> Dict[str, np.ndarray]:
-        """value -> item ids holding it, for one property — lets field rules
-        apply as a few array writes instead of a per-item Python loop."""
+        """value -> item ids holding it (ascending), for one property — lets
+        field rules apply as a few array writes instead of a per-item
+        Python loop."""
         cache = self.__dict__.setdefault("_prop_value_index", {})
         if name not in cache:
             idx: Dict[str, list] = {}
@@ -496,17 +773,75 @@ class URModel(DeviceCacheMixin, PersistentModel):
             cache[name] = out
         return cache[name]
 
-    def warm(self) -> None:
-        """Stage the serving state and run one backfill query's device tail
-        (called at deploy), so the first user pays neither the transfer nor
-        the first use of the device ops."""
-        self.device_indicators()
-        self.pop_norm()
-        n = len(self.item_dict)
-        if n:
-            _serve_topk(self.device_zeros(), self.device_ones(),
-                        self.device_popularity(), pad_ids([]),
-                        min(bucket_width(1), n)).cpu()
+
+def _rule_mask_cache_max() -> int:
+    """PIO_UR_RULE_MASK_CACHE bounds the composed rule-mask LRU a model
+    generation and tail kind (default 128 canonical rule sets; each mask is
+    an n_items f32 vector, 400 KB at a 100k catalog)."""
+    try:
+        return max(int(_os.environ.get("PIO_UR_RULE_MASK_CACHE", "128")), 1)
+    except ValueError:
+        return 128
+
+
+def _auto_half(model) -> str:
+    """``auto``'s pick for a model: the host halves for a model on the CPU
+    (the reference's pick on its CPU backend), the device halves for one
+    on CUDA.  Resolving the device raises for an unplaced model without a
+    card, as staging would."""
+    return "host" if model.device.type == "cpu" else "device"
+
+
+def _serve_scorer(model) -> str:
+    """'device' | 'host' — which history scorer serves ``model``'s queries.
+    ``PIO_UR_SERVE_SCORER`` forces (re-read every query), else ``auto``."""
+    conf = _os.environ.get("PIO_UR_SERVE_SCORER", "auto").lower()
+    if conf in ("host", "device"):
+        return conf
+    return _auto_half(model)
+
+
+def _serve_tail(model) -> str:
+    """'device' | 'host' — which tail finishes ``model``'s queries (rule
+    mask, blacklist, both top-ks, readback).  ``PIO_UR_SERVE_TAIL`` forces,
+    else ``auto``.  The tails are twins: the same items, the same tie order
+    (``host_topk_desc`` is ``topk_desc``'s order)."""
+    conf = _os.environ.get("PIO_UR_SERVE_TAIL", "auto").lower()
+    if conf in ("host", "device"):
+        return conf
+    return _auto_half(model)
+
+
+def _serve_candidates(model) -> str:
+    """'on' | 'off' — whether the host tail serves from the pruned
+    posting-union candidate set.  auto and on: candidates whenever BOTH
+    halves resolve to host; ``PIO_UR_SERVE_CANDIDATES=off`` forces the
+    dense tail.  A query the pruned path cannot answer exactly falls back
+    to dense, so the knob never changes answers, only cost."""
+    conf = _os.environ.get("PIO_UR_SERVE_CANDIDATES", "auto").lower()
+    if conf == "off":
+        return "off"
+    if _serve_scorer(model) == "host" and _serve_tail(model) == "host":
+        return "on"
+    return "off"
+
+
+def _sorted_member(ids: np.ndarray, sorted_ids: Optional[np.ndarray]) -> np.ndarray:
+    """Boolean membership of ``ids`` in an ASCENDING id array by
+    searchsorted (np.isin re-sorts its second argument every call)."""
+    if sorted_ids is None or len(sorted_ids) == 0:
+        return np.zeros(len(ids), bool)
+    pos = np.searchsorted(sorted_ids, ids)
+    np.minimum(pos, len(sorted_ids) - 1, out=pos)
+    return sorted_ids[pos] == ids
+
+
+def _to_host(signal) -> Optional[np.ndarray]:
+    """A scorer's signal as a host f32 vector (the device scorer's tensor
+    is copied back)."""
+    if signal is None or isinstance(signal, np.ndarray):
+        return signal
+    return signal.cpu().numpy()
 
 
 # -- device serving ops --------------------------------------------------------
@@ -700,10 +1035,6 @@ class URAlgorithm(Algorithm):
         if self.params.mesh_dp > 1:
             raise NotImplementedError(
                 f"mesh_dp={self.params.mesh_dp}: {cco_ops.ROADMAP_MESH}")
-        if self.params.checkpoint:
-            raise NotImplementedError(
-                "checkpointed UR training is not ported yet (ROADMAP.md, "
-                "queue A, 'the host tail, pruning and caches')")
         others = []
         event_item_dicts: Dict[str, IdDict] = {}
         for name in td.event_names:
@@ -714,8 +1045,7 @@ class URAlgorithm(Algorithm):
                 u, i = p_user, p_item  # identity → the self-indicator reuses P
             others.append((name, u, i, len(item_dict)))
             event_item_dicts[name] = item_dict
-        results = cco_ops.cco_train_indicators(
-            p_user, p_item, others, n_users, n_items,
+        common = dict(
             top_k=self.params.max_correlators_per_item,
             llr_threshold=self.params.min_llr,
             exclude_self_for=primary,
@@ -723,6 +1053,12 @@ class URAlgorithm(Algorithm):
             item_tile=self.params.item_tile,
             per_type=self.per_type_tuning(self.params, td.event_names),
             device=device)
+        if self.params.checkpoint:
+            results = self._train_checkpointed(
+                p_user, p_item, others, n_users, n_items, common)
+        else:
+            results = cco_ops.cco_train_indicators(
+                p_user, p_item, others, n_users, n_items, **common)
         indicator_idx: Dict[str, np.ndarray] = {}
         indicator_llr: Dict[str, np.ndarray] = {}
         for name, (scores, idx) in results.items():
@@ -776,6 +1112,52 @@ class URAlgorithm(Algorithm):
             device=device,
         )
 
+    def _train_checkpointed(self, p_user, p_item, others, n_users, n_items, common):
+        """One ``cco_train_indicators`` call an event type, each type's
+        indicators snapshotted: a retried train (``run_train`` with
+        ``PIO_TRAIN_RETRIES``) resumes past the types it finished.  The run
+        key hashes the sizes, the tuning and every type's full arrays as
+        the JAX package does, and the layout is ``utils/checkpoint``'s, so
+        either package resumes the other's run
+        (``PIO_CHECKPOINT_DIR``/ur/<key>, or ``checkpoint_dir``)."""
+        import hashlib
+
+        from predictionio_tpu_torch.utils.checkpoint import (
+            CheckpointStore,
+            maybe_inject,
+            prune_stale_runs,
+        )
+
+        h = hashlib.sha1()
+        h.update(repr((n_users, n_items, common["top_k"],
+                       common["llr_threshold"], common["per_type"])).encode())
+        for name, u, i, n_t in others:
+            # the FULL arrays: a sample could collide with changed data and
+            # resume stale snapshots
+            h.update(name.encode())
+            h.update(np.asarray([len(u), n_t], np.int64).tobytes())
+            h.update(np.ascontiguousarray(u).tobytes())
+            h.update(np.ascontiguousarray(i).tobytes())
+        base = self.params.checkpoint_dir or _os.path.join(
+            _os.environ.get("PIO_CHECKPOINT_DIR", ".pio_checkpoints"), "ur")
+        prune_stale_runs(base)
+        # keep=0: every type's snapshot lives until the run completes
+        store = CheckpointStore(_os.path.join(base, h.hexdigest()[:16]), keep=0)
+        done_steps = set(store.steps())
+        results = {}
+        for step, (name, u, i, n_t) in enumerate(others):
+            if step in done_steps:
+                state = store.restore(step)
+                results[name] = (state["scores"], state["idx"])
+                continue
+            maybe_inject("ur.indicators")
+            out = cco_ops.cco_train_indicators(
+                p_user, p_item, [(name, u, i, n_t)], n_users, n_items, **common)
+            results[name] = out[name]
+            store.save(step, {"scores": results[name][0], "idx": results[name][1]})
+        store.clear(remove_dir=True)   # the run is complete; its key never recurs
+        return results
+
     def warm(self, model: URModel) -> None:
         model.warm()
 
@@ -783,26 +1165,30 @@ class URAlgorithm(Algorithm):
 
     def _user_history(self, model: URModel, user: str) -> Dict[str, np.ndarray]:
         """Recent item ids per event type, from the live event store
-        (reference: URAlgorithm.predict reading LEventStore)."""
+        (reference: URAlgorithm.predict reading LEventStore), through the
+        append-invalidated history cache: the cached value is the raw target
+        id strings (model-independent, so it survives swaps) and the
+        model's ``item_dict`` maps them per query.  ``PIO_HISTORY_CACHE=off``
+        reads the store every time."""
         hist: Dict[str, np.ndarray] = {}
         for name, item_dict in model.event_item_dicts.items():
-            try:
-                events = LEventStore.find_by_entity(
-                    self.params.app_name, "user", user, event_names=[name],
-                    limit=self.params.max_query_events)
-            except ValueError:   # the app does not exist: no history
-                events = []
-            ids = {item_dict.id(e.target_entity_id) for e in events
-                   if e.target_entity_id is not None}
+            raw = _history_cache.user_history_targets(
+                self.params.app_name, "user", user, name,
+                self.params.max_query_events)
+            ids = {item_dict.id(t) for t in raw}
             ids.discard(None)
             hist[name] = np.asarray(sorted(ids), np.int32)
         return hist
 
-    def _score_history(self, model: URModel, hist: Dict[str, np.ndarray]
-                       ) -> Optional[torch.Tensor]:
-        """The device scorer over every event type's history: a query ships
-        a few hundred bytes of ids and the [I_p] signal stays on the
-        device.  None when no event type carries history."""
+    def _score_history(self, model: URModel, hist: Dict[str, np.ndarray]):
+        """The resolved scorer over every event type's history.  device: the
+        resident-table gather, a query ships a few hundred bytes of ids and
+        the [I_p] signal stays on the device (a tensor).  host: posting-list
+        sums over the inverted index, scattered into a dense f32 numpy
+        vector.  None when no event type carries history."""
+        if _serve_scorer(model) == "host":
+            return self._sparse_signal_dense(
+                len(model.item_dict), self._score_history_host(model, hist))
         total = None
         for name, (idx, valid, llr) in model.device_indicators().items():
             h_ids = hist.get(name)
@@ -815,6 +1201,73 @@ class URAlgorithm(Algorithm):
             s = s * weight if weight != 1.0 else s
             total = s if total is None else total + s
         return total
+
+    def _score_history_host(self, model: URModel, hist: Dict[str, np.ndarray]
+                            ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """Inverted-index twin of the device scorer, SPARSE: ``(candidate
+        ids, f32 scores)`` — the ascending unique union of posting-list rows
+        over every event type's history and the signal at exactly those
+        rows (every other row scores 0.0) — or None when no event type
+        carries history.  Scores accumulate per type in float64 in posting
+        order over the compacted candidates, cast to f32, times the type's
+        weight in f32, and add across types in f32: the native serve core
+        first, this numpy path its oracle, bit for bit.  Against the device
+        scorer, LLR-weighted sums may differ in the last ulp."""
+        per_type: List[Tuple[str, np.ndarray, Optional[np.ndarray]]] = []
+        for name in model.indicator_idx:
+            h_ids = hist.get(name)
+            if h_ids is None or len(h_ids) == 0:
+                continue
+            indptr, rows, w = model.host_inverted(name)
+            if self.params.use_llr_weights:
+                cat_rows, cat_w = gather_csr_rows(indptr, h_ids, rows, w)
+            else:
+                (cat_rows,), cat_w = gather_csr_rows(indptr, h_ids, rows), None
+            per_type.append((name, cat_rows, cat_w))
+        if not per_type:
+            return None
+        if _ncore.serve_enabled():
+            try:
+                cand = _ncore.unique_i32(np.concatenate([r for _, r, _ in per_type]))
+                scratch = np.empty(len(cand), np.float64)
+                ntotal = np.empty(len(cand), np.float32)
+                first = True
+                for name, cat_rows, cat_w in per_type:
+                    weight = float(self.params.indicator_weights.get(name, 1.0))
+                    _ncore.score_accum(cand, cat_rows, cat_w, weight, scratch,
+                                       ntotal, first)
+                    first = False
+                _ncore.note_call("serve")
+                return cand, ntotal
+            except Exception:
+                _ncore.note_fallback("error")
+        cand = np.unique(np.concatenate([r for _, r, _ in per_type])).astype(np.int32)
+        total: Optional[np.ndarray] = None
+        for name, cat_rows, cat_w in per_type:
+            rel = np.searchsorted(cand, cat_rows)
+            if cat_w is not None:
+                score = np.bincount(rel, weights=cat_w,
+                                    minlength=len(cand)).astype(np.float32)
+            else:
+                score = np.bincount(rel, minlength=len(cand)).astype(np.float32)
+            weight = float(self.params.indicator_weights.get(name, 1.0))
+            if weight != 1.0:
+                score *= weight
+            total = score if total is None else total + score
+        return cand, total
+
+    @staticmethod
+    def _sparse_signal_dense(n_items: int,
+                             sparse: Optional[Tuple[np.ndarray, np.ndarray]]
+                             ) -> Optional[np.ndarray]:
+        """Dense [n_items] f32 signal from the sparse scorer's result — an
+        exact scatter (rows outside the candidates are exactly 0.0)."""
+        if sparse is None:
+            return None
+        ids, sc = sparse
+        out = np.zeros(n_items, np.float32)
+        out[ids] = sc
+        return out
 
     def batch_predict(self, model: URModel, queries) -> List[URResult]:
         """Eval-time predictions: user history comes from the MODEL's
@@ -833,55 +1286,423 @@ class URAlgorithm(Algorithm):
 
     def predict(self, model: URModel, query: URQuery,
                 hist_override: Optional[Dict[str, np.ndarray]] = None) -> URResult:
-        """Serve one query: history → device scorer → device tail (rule
-        mask, blacklist, both top-ks, one [4, k] readback) → host assembly."""
+        """Serve one query: history → response cache → the resolved scorer
+        → the resolved tail (device: rule mask, blacklist, both top-ks, one
+        [4, k] readback; host: the same in numpy, candidate-pruned when
+        both halves are host) → host assembly.  Stage wall times land in
+        pio_ur_serve_stage_duration_seconds."""
+        return self._predict_staged(model, query, hist_override)
+
+    def _predict_staged(self, model: URModel, query: URQuery,
+                        hist_override) -> URResult:
         n_items = len(model.item_dict)
         if n_items == 0:
             return URResult([])
-        hist = self._query_hist(model, query, hist_override)
-        signal = self._score_history(model, hist) if hist is not None else None
-        return self._device_tail(model, query, signal, min(query.num, n_items))
+        tail = _serve_tail(model)
+        stages: List[Tuple[str, float]] = []
+        t = [_time.perf_counter()]
 
-    def _device_tail(self, model: URModel, query: URQuery,
-                     signal: Optional[torch.Tensor], num: int) -> URResult:
-        key = self._mask_rule_key(query)
-        mask = (model.device_ones() if key is None
-                else self._mask_from_key(model, key))
+        def lap(name: str) -> None:
+            now = _time.perf_counter()
+            stages.append((name, now - t[0]))
+            t[0] = now
+
+        hist = self._query_hist(model, query, hist_override)
+        lap("history")
+        num = min(query.num, n_items)
+        cand_label = "off"
+        # the response cache, consulted before any scoring: the key covers
+        # every input of the answer (k, canonical rules, history ids and
+        # blacklist ids, the last two recomputed fresh); hist_override
+        # (eval's anti-leakage path) always bypasses
+        cache = _resp_cache.get_cache()
+        ckey = rkey = cached_items = None
+        audit = False
+        if cache.armed_for(model):
+            if hist_override is not None:
+                cache.count_bypass()
+            else:
+                # strict date parsing (400 on malformed) runs in the key
+                # builder, exactly as the uncached mask path would
+                rkey = self._mask_rule_key(query)
+                ckey = _resp_cache.make_key(
+                    num, rkey, hist, self._blacklist_ids(model, query))
+                cached_items, audit = cache.lookup(model, ckey)
+                lap("cache")
+                if cached_items is not None and not audit:
+                    for name, dt in stages:
+                        _M_STAGE.observe(dt, stage=name, tail=tail, candidates="cache")
+                    return URResult([ItemScore(n, s) for n, s in cached_items])
+        fill: Optional[dict] = {} if ckey is not None else None
+        if tail == "host" and _serve_candidates(model) == "on":
+            # the candidate-pruned tail; a per-query fallback (None) re-runs
+            # the dense tail on the scattered signal with fresh laps
+            sparse = (self._score_history_host(model, hist)
+                      if hist is not None else None)
+            lap("score")
+            sub: List[Tuple[str, float]] = []
+
+            def sub_lap(name: str) -> None:
+                now = _time.perf_counter()
+                sub.append((name, now - t[0]))
+                t[0] = now
+
+            res = self._host_tail_pruned(model, query, sparse, num, sub_lap, fill=fill)
+            if res is not None:
+                stages.extend(sub)
+                cand_label = "on"
+            else:
+                t[0] = _time.perf_counter()   # discard the aborted laps
+                res = self._host_tail(model, query,
+                                      self._sparse_signal_dense(n_items, sparse),
+                                      num, lap, fill=fill)
+        else:
+            signal = self._score_history(model, hist) if hist is not None else None
+            lap("score")
+            if tail == "host":
+                res = self._host_tail(model, query, _to_host(signal), num, lap, fill=fill)
+            else:
+                res = self._device_tail(model, query, signal, signal is not None,
+                                        num, lap, fill=fill)
+        if ckey is not None:
+            self._cache_settle(cache, model, ckey, rkey, res, cached_items, hist,
+                               fill, num)
+        for name, dt in stages:
+            _M_STAGE.observe(dt, stage=name, tail=tail, candidates=cand_label)
+        return res
+
+    def _cache_settle(self, cache, model: URModel, ckey: tuple,
+                      rkey: Optional[tuple], res: URResult, cached_items, hist,
+                      fill: Optional[dict], num: int) -> None:
+        """Response-cache bookkeeping after the tail: fill after a miss, or
+        — on an audited hit — compare the fresh answer bit for bit with the
+        cached one (a mismatch is counted and full-flushes; the caller
+        serves the FRESH result)."""
+        items = tuple((r.item, float(r.score)) for r in res.item_scores)
+        if cached_items is not None:
+            if items != cached_items:
+                cache.audit_mismatch(ckey)
+            return
+        used_backfill = bool((fill or {}).get("backfill")) or (
+            len(items) < num and self.params.backfill_type != "none")
+        cache.put(model, ckey, items, hist, (fill or {}).get("ids", ()),
+                  used_backfill, rkey is not None, bool(self.params.use_llr_weights))
+
+    def _device_tail(self, model: URModel, query: URQuery, signal,
+                     have_signal: bool, num: int, lap=None,
+                     fill: Optional[dict] = None) -> URResult:
+        mask = self._mask_for(model, query, host=False)
         black_ids = self._blacklist_ids(model, query)
-        sig = model.device_zeros() if signal is None else signal
+        if lap is not None:
+            lap("mask")
+        if signal is None:
+            sig = model.device_zeros()
+        else:
+            sig = torch.as_tensor(signal, device=model.device)
         # k covers the worst case: every signal pick also occupying a
         # backfill slot; bucketed so distinct nums share shapes
         k = min(bucket_width(2 * num, 16), len(model.item_dict))
-        out = _serve_topk(sig, mask, model.device_popularity(),
-                          pad_ids(black_ids), k).cpu().numpy()
-        return self._assemble(model, num, signal is not None,
-                              out[0], out[1].astype(np.int32),
-                              out[2], out[3].astype(np.int32))
+        out = _serve_topk(sig, mask if mask is not None else model.device_ones(),
+                          model.device_popularity(), pad_ids(black_ids),
+                          k).cpu().numpy()     # ONE [4, k] readback
+        if lap is not None:
+            lap("topk")
+        res = self._assemble(model, num, have_signal, out[0], out[1].astype(np.int32),
+                             out[2], out[3].astype(np.int32), fill=fill)
+        if lap is not None:
+            lap("assemble")
+        return res
+
+    def _host_tail(self, model: URModel, query: URQuery,
+                   signal: Optional[np.ndarray], num: int,
+                   lap=None, fill: Optional[dict] = None) -> URResult:
+        """The zero-dispatch tail: the device tail's math in numpy, with the
+        composed rule mask cached per canonical rule set.  Elementwise f32
+        products are the device's bit for bit and host_topk_desc keeps its
+        tie order, so the answers are the device tail's."""
+        n_items = len(model.item_dict)
+        mask = self._mask_for(model, query, host=True)
+        black = self._blacklist_ids(model, query)
+        if lap is not None:
+            lap("mask")
+        k = min(bucket_width(2 * num, 16), n_items)
+        bidx = np.asarray(black, np.int32) if black else None
+        # signal top-k over the POSITIVE entries only (_assemble takes a
+        # signal pick only when finite and > 0); the subset keeps index
+        # order, so its (value desc, index asc) order is the device's
+        st = si = None
+        if signal is not None:
+            s = signal * mask if mask is not None else signal
+            pos = np.flatnonzero(s > 0)
+            if bidx is not None and len(pos):
+                pos = pos[np.isin(pos, bidx, invert=True)]
+            if len(pos):
+                vals, oi = host_topk_desc(s[pos], min(k, len(pos)))
+                st, si = vals, pos[oi].astype(np.int32)
+        n_signal = min(len(st) if st is not None else 0, num)
+        # the backfill ranking matters only when the signal leaves slots
+        bt = bi = None
+        if n_signal < num and self.params.backfill_type != "none":
+            bf = model.host_popularity()
+            bfm = bf * mask if mask is not None else bf.copy()
+            if mask is not None:
+                bfm[mask <= 0] = -np.inf
+            if bidx is not None:
+                bfm[bidx] = -np.inf
+            bt, bi = host_topk_desc(bfm, k)
+        if lap is not None:
+            lap("topk")
+        empty_f = np.zeros(0, np.float32)
+        empty_i = np.zeros(0, np.int32)
+        res = self._assemble(
+            model, num, st is not None,
+            st if st is not None else empty_f, si if si is not None else empty_i,
+            bt if bt is not None else empty_f, bi if bi is not None else empty_i,
+            fill=fill)
+        if lap is not None:
+            lap("assemble")
+        return res
+
+    def _host_tail_pruned(self, model: URModel, query: URQuery,
+                          sparse: Optional[Tuple[np.ndarray, np.ndarray]],
+                          num: int, lap=None, fill: Optional[dict] = None
+                          ) -> Optional[URResult]:
+        """Candidate-pruned host tail: the mask, the blacklist and the
+        signal top-k touch ONLY the sparse scorer's candidate rows, and the
+        popularity backfill walks the precomputed popularity order — no
+        [I_p] temporary, so a query's cost is flat in the catalog's size.
+
+        The answers are _host_tail's by construction: the dense positive
+        set lies in the candidates; the sliced mask is the full mask
+        gathered (elementwise factors commute with the gather); candidates
+        ascend, so the subset top-k keeps the dense tie order; and the
+        backfill walk IS the dense ``host_topk_desc(bf * mask)`` order
+        whenever the mask is binary.
+
+        None when the query must fall back to the dense tail: no candidates
+        (cold user or empty postings), a boosted (non-binary) mask with a
+        backfill shortfall, or a backfill walk past its scan budget.  Each
+        outcome counts in pio_ur_serve_candidate_total."""
+        if sparse is None or len(sparse[0]) == 0:
+            _M_CAND.inc(1, outcome="fallback_no_candidates")
+            return None
+        cand, sc = sparse
+        n_items = len(model.item_dict)
+        # strict date parsing in the key builder: malformed dates 400
+        # exactly as the dense tail's
+        key = self._mask_rule_key(query)
+        mask_at = None
+        mask_c = None
+        if key is not None:
+            # peek, not get: this probe never fills, so counting it would
+            # flatline the dense cache's hit ratio under pruned traffic
+            full = model.rule_mask_cache("host").peek(key)
+            if full is not None:
+                def mask_at(ids, _full=full):
+                    return _full[ids]
+            else:
+                def mask_at(ids):
+                    return self._mask_from_key_host_sliced(model, key, ids)
+            mask_c = mask_at(cand)
+        black = self._blacklist_ids(model, query)
+        if lap is not None:
+            lap("mask")
+        k = min(bucket_width(2 * num, 16), n_items)
+        s = sc * mask_c if mask_c is not None else sc
+        pos = np.flatnonzero(s > 0)
+        # the blacklist sorted ONCE: the signal filter and the backfill
+        # walk both probe it through _sorted_member
+        sb = np.sort(np.asarray(black, np.int32)) if black else None
+        if sb is not None and len(pos):
+            pos = pos[~_sorted_member(cand[pos], sb)]
+        st = si = None
+        if len(pos):
+            vals, oi = host_topk_desc(s[pos], min(k, len(pos)))
+            st, si = vals, cand[pos][oi].astype(np.int32)
+        n_signal = min(len(st) if st is not None else 0, num)
+        bt = bi = None
+        if n_signal < num and self.params.backfill_type != "none":
+            if key is not None and not self._mask_key_is_binary(key):
+                # a boost scales backfill scores, so eligible-item order is
+                # no longer the popularity order: only the dense top-k ranks
+                _M_CAND.inc(1, outcome="fallback_backfill_reorder")
+                return None
+            merged = self._backfill_merge(model, mask_at, sb, k)
+            if merged is None:
+                _M_CAND.inc(1, outcome="fallback_backfill_scan")
+                return None
+            bt, bi = merged
+        if lap is not None:
+            lap("topk")
+        _M_CAND.inc(1, outcome="pruned")
+        _M_CAND_FRAC.observe(len(cand) / max(n_items, 1))
+        empty_f = np.zeros(0, np.float32)
+        empty_i = np.zeros(0, np.int32)
+        res = self._assemble(
+            model, num, st is not None,
+            st if st is not None else empty_f, si if si is not None else empty_i,
+            bt if bt is not None else empty_f, bi if bi is not None else empty_i,
+            fill=fill)
+        if lap is not None:
+            lap("assemble")
+        return res
+
+    @staticmethod
+    def _mask_key_is_binary(key: tuple) -> bool:
+        """True when the composed mask only takes values in {0, 1}: every
+        field bias a hard filter (< 0), 0.0 or 1.0; date factors are
+        always 0/1.  A binary mask never REORDERS backfill scores."""
+        return all(bias < 0.0 or bias in (0.0, 1.0) for _name, _values, bias in key[0])
+
+    # ids a pruned-tail backfill walk may scan before it gives up and the
+    # query serves dense: a catalog-independent bound on the sliced rule
+    # work for a rule that matches almost nothing
+    _BACKFILL_SCAN_BUDGET = 1 << 16
+
+    def _backfill_merge(self, model: URModel, mask_at, sb, k: int
+                        ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """Backfill picks of the pruned tail: walk the precomputed
+        (popularity desc, id asc) order in doubling chunks, dropping
+        blacklisted (``sb``: a sorted id array or None) and masked-out ids,
+        until k survive.  Called only under a binary mask, where the
+        survivors' order IS the dense ``host_topk_desc(bf * mask)`` order
+        and their scores are exactly ``bf``.  None when the walk passes
+        _BACKFILL_SCAN_BUDGET ids still owing survivors."""
+        order = model.host_pop_order()
+        bf = model.host_popularity()
+        n = len(order)
+        picks: List[np.ndarray] = []
+        taken = 0
+        start, chunk = 0, max(4 * k, 64)
+        while taken < k and start < n:
+            if start >= self._BACKFILL_SCAN_BUDGET:
+                return None
+            ids = order[start:start + chunk]
+            start += len(ids)
+            chunk = min(chunk * 2, 1 << 16)
+            keep = np.ones(len(ids), bool)
+            if sb is not None:
+                keep &= ~_sorted_member(ids, sb)
+            if mask_at is not None:
+                keep &= mask_at(ids) > 0
+            sel = ids[keep]
+            if len(sel):
+                picks.append(sel[: k - taken])
+                taken += len(picks[-1])
+        if not picks:
+            return np.zeros(0, np.float32), np.zeros(0, np.int32)
+        bi = np.concatenate(picks).astype(np.int32)
+        return bf[bi], bi
+
+    def _mask_from_key_host_sliced(self, model: URModel, key: tuple,
+                                   ids: np.ndarray) -> np.ndarray:
+        """The canonical rule key's mask at ``ids`` only — exactly
+        ``_mask_from_key_host(...)[ids]`` without the [I_p] build and
+        without a cache entry.  The same factor composition
+        (_compose_mask_host) with other accessors: a sorted-membership
+        probe for a value match, a gather of the date offsets."""
+        zeros = np.zeros(len(ids), np.float32)
+        return self._compose_mask_host(
+            model, key,
+            value_match=lambda name, val: _sorted_member(
+                ids, model._value_mask_ids(name, val)).astype(np.float32),
+            date_ts=lambda ts: ts[ids],
+            zeros=lambda: zeros,
+            n=len(ids))
 
     def serve_batch_predict(self, model: URModel,
                             queries: Sequence[URQuery]) -> List[URResult]:
-        """Deploy-time micro-batch: every query's history (read from the
-        live store, as ``predict`` reads it) scores against the resident
-        tables in one gather an event type, and the rule masks, the
-        blacklists and both top-ks of the batch come back in one [B, 4, k]
-        readback.  Answers equal ``predict``'s.  The batch is padded to a
-        power of two (zero masks), so batch sizes share shapes."""
+        """Deploy-time micro-batch, with the serial path's response cache:
+        cached rows peel off before any device work, only the misses run
+        the batched tail, and the misses fill the same cache ``predict``
+        consults.  Answers equal ``predict``'s."""
         n_items = len(model.item_dict)
         if not queries or n_items == 0:
             return [URResult([]) for _ in queries]
         hists = [self._query_hist(model, q) for q in queries]
+        cache = _resp_cache.get_cache()
+        if not cache.armed_for(model):
+            return self._serve_batch_uncached(model, queries, hists)
+        keys: List[Tuple[tuple, Optional[tuple], int]] = []
+        out: List[Optional[URResult]] = [None] * len(queries)
+        misses: List[int] = []
+        audited: Dict[int, tuple] = {}
+        for r, q in enumerate(queries):
+            num = min(q.num, n_items)
+            rkey = self._mask_rule_key(q)
+            ckey = _resp_cache.make_key(num, rkey, hists[r], self._blacklist_ids(model, q))
+            keys.append((ckey, rkey, num))
+            items, audit = cache.lookup(model, ckey)
+            if items is not None and not audit:
+                out[r] = URResult([ItemScore(n, s) for n, s in items])
+            else:
+                misses.append(r)
+                if items is not None:
+                    audited[r] = items
+        if misses:
+            fills: List[dict] = [{} for _ in misses]
+            fresh = self._serve_batch_uncached(
+                model, [queries[r] for r in misses], [hists[r] for r in misses], fills)
+            for i, r in enumerate(misses):
+                out[r] = fresh[i]
+                ckey, rkey, num = keys[r]
+                self._cache_settle(cache, model, ckey, rkey, fresh[i],
+                                   audited.get(r), hists[r], fills[i], num)
+        return out
+
+    def _serve_batch_uncached(self, model: URModel, queries: Sequence[URQuery],
+                              hists, fills: Optional[List[dict]] = None
+                              ) -> List[URResult]:
+        """The batched tail itself (histories already read): one gather an
+        event type and one [B, 4, k] readback on the device tail; the host
+        tail runs per query (off one batched device gather when the scorer
+        is the device's)."""
+        n_items = len(model.item_dict)
         b = len(queries)
         bp = bucket_width(b, min_width=1)
         have_signal = [h is not None and any(len(v) for v in h.values()) for h in hists]
-        total = self._score_batch_device(model, hists, bp)
+        scorer = _serve_scorer(model)
+        if _serve_tail(model) == "host":
+            if scorer == "host":
+                sparses = [self._score_history_host(model, h) if h else None
+                           for h in hists]
+                if _serve_candidates(model) == "on":
+                    out = []
+                    for r, q in enumerate(queries):
+                        nm = min(q.num, n_items)
+                        f = fills[r] if fills is not None else None
+                        res = self._host_tail_pruned(model, q, sparses[r], nm, fill=f)
+                        if res is None:
+                            res = self._host_tail(
+                                model, q, self._sparse_signal_dense(n_items, sparses[r]),
+                                nm, fill=f)
+                        out.append(res)
+                    return out
+                rows = [self._sparse_signal_dense(n_items, s) for s in sparses]
+            else:
+                total = self._score_batch_device(model, hists, bp)
+                rows_all = None if total is None else total[:b].cpu().numpy()
+                rows = [rows_all[r] if rows_all is not None and have_signal[r]
+                        else None for r in range(b)]
+            return [self._host_tail(model, q, rows[r], min(q.num, n_items),
+                                    fill=fills[r] if fills is not None else None)
+                    for r, q in enumerate(queries)]
+        total = None
+        if scorer == "host":
+            rows_np = [self._sparse_signal_dense(n_items, self._score_history_host(model, h))
+                       if h else None for h in hists]
+            if any(r is not None for r in rows_np):
+                total = torch.as_tensor(np.stack(
+                    [r if r is not None else np.zeros(n_items, np.float32) for r in rows_np]
+                    + [np.zeros(n_items, np.float32)] * (bp - b)), device=model.device)
+        else:
+            total = self._score_batch_device(model, hists, bp)
         if total is None:
             total = torch.zeros((bp, n_items), dtype=torch.float32, device=model.device)
-        masks = []
-        for q in queries:
-            key = self._mask_rule_key(q)
-            masks.append(model.device_ones() if key is None
-                         else self._mask_from_key(model, key))
-        masks = torch.stack(masks + [model.device_zeros()] * (bp - b))
+        masks = torch.stack(
+            [m if (m := self._mask_for(model, q, host=False)) is not None
+             else model.device_ones() for q in queries]
+            + [model.device_zeros()] * (bp - b))
         blacks = [self._blacklist_ids(model, q) for q in queries]
         bm = np.full((bp, bucket_width(max((len(x) for x in blacks), default=1))),
                      -1, np.int32)
@@ -892,7 +1713,8 @@ class URAlgorithm(Algorithm):
         out = _serve_topk_batch(total, masks, model.device_popularity(), bm, k).cpu().numpy()
         return [self._assemble(model, nums[r], have_signal[r],
                                out[r, 0], out[r, 1].astype(np.int32),
-                               out[r, 2], out[r, 3].astype(np.int32))
+                               out[r, 2], out[r, 3].astype(np.int32),
+                               fill=fills[r] if fills is not None else None)
                 for r in range(b)]
 
     def _score_batch_device(self, model: URModel, hists, bp: int
@@ -946,11 +1768,14 @@ class URAlgorithm(Algorithm):
         return None
 
     def _assemble(self, model: URModel, num: int, have_signal: bool,
-                  st, si, bt, bi) -> URResult:
+                  st, si, bt, bi, fill: Optional[dict] = None) -> URResult:
         """Signal picks first, then popularity backfill pads short lists up
-        to num (reference UR appends popRank-ordered items)."""
+        to num (reference UR appends popRank-ordered items).  ``fill``, when
+        given, receives the response cache's entry facts: the picked item
+        ids and how many came from backfill."""
         results: List[ItemScore] = []
         chosen = set()
+        bf_ids: List[int] = []
         if have_signal:
             for s, j in zip(st, si):
                 if np.isfinite(s) and s > 0 and len(results) < num:
@@ -964,6 +1789,10 @@ class URAlgorithm(Algorithm):
                 if int(j) in chosen or not np.isfinite(s):
                     continue
                 results.append(ItemScore(model.item_dict.str(int(j)), float(s) / norm))
+                bf_ids.append(int(j))
+        if fill is not None:
+            fill["ids"] = list(chosen) + bf_ids
+            fill["backfill"] = len(bf_ids)
         return URResult(results)
 
     def _blacklist_ids(self, model: URModel, query: URQuery) -> List[int]:
@@ -1027,19 +1856,97 @@ class URAlgorithm(Algorithm):
         return (fields, drk, now, self.params.available_date_name,
                 self.params.expire_date_name)
 
-    def _mask_from_key(self, model: URModel, key: tuple) -> torch.Tensor:
-        """Build the mask from the CANONICAL key (not the query object).
+    def _mask_for(self, model: URModel, query: URQuery, host: bool):
+        """The composed business-rule mask for one query, memoized per
+        (model generation, canonical rule set, tail kind) in a bounded LRU
+        (hit/miss/evict in pio_ur_rule_mask_cache_total): repeated rule
+        sets skip the composition.  None = no rules (all ones)."""
+        key = self._mask_rule_key(query)
+        if key is None:
+            return None
+        cache = model.rule_mask_cache("host" if host else "device")
+        return cache.get_or_build(key, lambda: self._mask_from_key(model, key, host))
+
+    def _mask_from_key(self, model: URModel, key: tuple, host: bool = False):
+        """Build the mask from the CANONICAL key (not the query object): a
+        host f32 array with ``host``, else a tensor on the model's device.
+        Both compose the identical f32 factors in the identical order, each
+        a separate elementwise op (no fused multiply-add), so they agree
+        bit for bit, float biases included.
 
         Semantics are the Elasticsearch filter/boost analogue (reference:
         URAlgorithm field biases and date rules as ES bool-query
         filters); items missing a checked date property fail the check,
         like ES range filters."""
+        if host:
+            return self._mask_from_key_host(model, *key)
         return self._mask_from_key_device(model, *key)
 
     @staticmethod
     def _date_bound(epoch_s: float, base: float) -> int:
         # same rounding as the item offsets → exact boundary equality
         return int(np.clip(np.rint(epoch_s - base), -1, 2**31 - 2))
+
+    def _mask_from_key_host(self, model, fields, drk, now, avail, expire
+                            ) -> np.ndarray:
+        return self._compose_mask_host(
+            model, (fields, drk, now, avail, expire),
+            value_match=model.host_value_mask,   # cached full f32 bitsets
+            date_ts=lambda ts: ts,
+            zeros=model.host_zeros,
+            n=len(model.item_dict))
+
+    def _compose_mask_host(self, model, key: tuple, value_match, date_ts,
+                           zeros, n: int) -> np.ndarray:
+        """The ONE host factor composition behind both the full mask and
+        the candidate slice: pruned-equals-dense depends on both multiplying
+        the identical elementwise factors in the identical order, so the
+        callers only swap accessors: ``value_match(name, val)`` → f32 0/1
+        match over the domain, ``date_ts(full_ts)`` → the domain's slice of
+        a date-offset array, ``zeros()`` → the match-nothing result, ``n``
+        = the domain's length."""
+        fields, drk, now, avail, expire = key
+        one = np.float32(1.0)
+        mask = np.ones(n, np.float32)
+        for name, values, bias in fields:
+            match = None
+            for val in values:
+                m = value_match(name, val)
+                match = m if match is None else np.maximum(match, m)
+            if match is None:
+                match = zeros()
+            if bias < 0:
+                mask = mask * match              # hard filter
+            else:
+                mask = mask * np.where(match > 0, np.float32(bias), one)
+        if drk is not None:
+            name, after_s, before_s = drk
+            d = model.date_offsets(name)
+            if d is None:            # no item has the property: match nothing
+                return zeros()
+            base, ts = d
+            ts = date_ts(ts)
+            present = (ts >= 0)
+            mask = mask * present.astype(np.float32)
+            if after_s is not None:
+                mask = mask * ((ts >= self._date_bound(after_s, base))
+                               & present).astype(np.float32)
+            if before_s is not None:
+                mask = mask * ((ts <= self._date_bound(before_s, base))
+                               & present).astype(np.float32)
+        if now is not None:
+            for prop, op in ((avail, np.less_equal), (expire, np.greater_equal)):
+                # available <= now <= expire; boundary instants still valid
+                if not prop:
+                    continue
+                d = model.date_offsets(prop)
+                if d is None:
+                    return zeros()
+                base, ts = d
+                ts = date_ts(ts)
+                b = self._date_bound(now, base)
+                mask = mask * (op(ts, b) & (ts >= 0)).astype(np.float32)
+        return mask
 
     def _mask_from_key_device(self, model, fields, drk, now, avail, expire
                               ) -> torch.Tensor:

@@ -1,11 +1,14 @@
-"""``PIO_NATIVE`` and the ctypes bindings of the scan core's header parse
-and the HTTP core.
+"""``PIO_NATIVE`` and the ctypes bindings of the scan core's header parse,
+the serve core and the HTTP core.
 
-Counterpart of ``predictionio_tpu/native/core.py``, two of its cores
+Counterpart of ``predictionio_tpu/native/core.py``, three of its cores
 (``data_plane.cpp``): ``read_batch`` of a PIOCOL01 snapshot hands the JSON
 header to C, which returns the column specs, the dictionaries as
-undecoded UTF-8 blobs and the span of ``meta``; the event-loop front end
-(``api/http_util.py``) parses request heads and assembles large
+undecoded UTF-8 blobs and the span of ``meta``; the UR's host serve tail
+gathers posting lists, takes their unique union, accumulates scores and
+takes top-ks in C (``csr_gather``, ``unique_i32``, ``score_accum``,
+``topk_f32``; each bit for bit its numpy oracle); the event-loop front
+end (``api/http_util.py``) parses request heads and assembles large
 responses in C.  The GIL is released for every call.  The knob keeps the
 JAX package's meaning, re-read on every call:
 
@@ -17,14 +20,13 @@ JAX package's meaning, re-read on every call:
 
 The library builds with the host's C++ compiler at first use
 (``native/build.py``, into ``native/_build/``); with no compiler
-``scan_enabled()``/``http_enabled()`` are False and the Python paths
-answer.  Metrics, the JAX package's families:
+``scan_enabled()``/``serve_enabled()``/``http_enabled()`` are False and
+the Python paths answer.  Metrics, the JAX package's families:
 ``pio_native_calls_total{core}`` (operations a native core served),
 ``pio_native_fallback_total{reason}`` (``no_build``, ``error``,
 ``unsupported``) and ``pio_native_active``; ``calls`` and ``fallbacks``
 read them as dicts, and ``active`` is the last answer of the gate.  The
-dictionary-union handles (``BatchMerger``) and the serve core are not
-here.
+dictionary-union handles (``BatchMerger``) are not here.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from predictionio_tpu_torch.obs import metrics as obs_metrics
 
 _SRC = Path(__file__).parent / "data_plane.cpp"
 _STEM = "libdataplane"
-_ABI_VERSION = 2
+_ABI_VERSION = 3
 
 _M_ACTIVE = obs_metrics.get_registry().gauge(
     "pio_native_active",
@@ -56,7 +58,8 @@ _M_FALLBACK = obs_metrics.get_registry().counter(
     "native core, by reason (no_build/error/unsupported)")
 
 #: logical operations served by a native core, by core (registry view)
-calls = obs_metrics.SeriesView({c: (_M_CALLS, {"core": c}) for c in ("scan", "http")})
+calls = obs_metrics.SeriesView(
+    {c: (_M_CALLS, {"core": c}) for c in ("scan", "serve", "http")})
 #: operations the Python path answered instead, by reason (registry view)
 fallbacks = obs_metrics.SeriesView(
     {r: (_M_FALLBACK, {"reason": r}) for r in ("no_build", "error", "unsupported")})
@@ -71,6 +74,7 @@ _no_build_counted: set = set()
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
+_F32 = ctypes.c_float
 #: (name, argtypes, restype) of every entry point used here
 _SIGNATURES = [
     ("dp_abi_version", [], _I64),
@@ -89,6 +93,11 @@ _SIGNATURES = [
     ("dp_col_prop_dict_bytes", [_P, _I64], _I64),
     ("dp_col_prop_dict_copy", [_P, _I64, _P, _P], None),
     ("dp_col_meta_span", [_P, _P], None),
+    ("dp_csr_gather_size", [_P, _I64, _P, _I64], _I64),
+    ("dp_csr_gather", [_P, _I64, _P, _I64, _P, _P, _P, _P], _I64),
+    ("dp_unique_i32", [_P, _I64, _P], _I64),
+    ("dp_score_accum", [_P, _I64, _P, _I64, _P, _F32, _P, _P, _INT], None),
+    ("dp_topk_f32", [_P, _I64, _I64, _P, _P], None),
     ("dp_http_parse", [ctypes.c_char_p, _I64, _I64, _P, _P], _INT),
     ("dp_http_assemble", [ctypes.c_char_p, _I64, ctypes.c_char_p, _I64,
                           ctypes.c_char_p, _I64, ctypes.c_char_p, _I64, _P, _I64], _I64),
@@ -163,6 +172,10 @@ def _enabled(core: str) -> bool:
 
 def scan_enabled() -> bool:
     return _enabled("scan")
+
+
+def serve_enabled() -> bool:
+    return _enabled("serve")
 
 
 def http_enabled() -> bool:
@@ -260,6 +273,76 @@ class ColumnarHeader:
         if out[0] < 0:
             return None
         return int(out[0]), int(out[1])
+
+
+# ---------------------------------------------------------------------------
+# serve core wrappers
+# ---------------------------------------------------------------------------
+
+
+def csr_gather(indptr: np.ndarray, ids: np.ndarray, rows: np.ndarray,
+               w: Optional[np.ndarray] = None
+               ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Native twin of ``models.common.gather_csr_rows`` for the serve
+    tail's (int32 rows[, float32 weights]) columns: the same element
+    order, the GIL dropped for both passes."""
+    L = lib()
+    indptr = np.ascontiguousarray(indptr, np.int64)
+    ids = np.ascontiguousarray(ids, np.int64)
+    rows = np.ascontiguousarray(rows, np.int32)
+    n_rows = len(indptr) - 1
+    total = int(L.dp_csr_gather_size(_ptr(indptr), n_rows, _ptr(ids), len(ids)))
+    o0 = np.empty(total, np.int32)
+    o1 = None
+    w_ptr = o1_ptr = None
+    if w is not None:
+        w = np.ascontiguousarray(w, np.float32)
+        o1 = np.empty(total, np.float32)
+        w_ptr, o1_ptr = _ptr(w), _ptr(o1)
+    if total:
+        L.dp_csr_gather(_ptr(indptr), n_rows, _ptr(ids), len(ids),
+                        _ptr(rows), w_ptr, _ptr(o0), o1_ptr)
+    return o0, o1
+
+
+def unique_i32(values: np.ndarray) -> np.ndarray:
+    """Ascending unique int32 (``np.unique``'s set), GIL dropped."""
+    L = lib()
+    values = np.ascontiguousarray(values, np.int32)
+    out = np.empty(len(values), np.int32)
+    n = int(L.dp_unique_i32(_ptr(values), len(values), _ptr(out)))
+    return out[:n].copy()
+
+
+def score_accum(cand: np.ndarray, rows: np.ndarray, w: Optional[np.ndarray],
+                weight: float, scratch: np.ndarray, out: np.ndarray,
+                first: bool) -> None:
+    """One event type's score accumulation over the compacted candidate
+    space, into ``out`` (float32, len(cand)): bit for bit searchsorted +
+    float64 bincount + float32 cast + float32 weight multiply + float32
+    total add (see data_plane.cpp).  ``cand`` is ascending int32 and
+    ``scratch`` a float64 workspace of len(cand)."""
+    L = lib()
+    cand = np.ascontiguousarray(cand, np.int32)
+    rows = np.ascontiguousarray(rows, np.int32)
+    w_ptr = None
+    if w is not None:
+        w = np.ascontiguousarray(w, np.float32)
+        w_ptr = _ptr(w)
+    L.dp_score_accum(_ptr(cand), len(cand), _ptr(rows), len(rows), w_ptr,
+                     _F32(weight), _ptr(scratch), _ptr(out), 1 if first else 0)
+
+
+def topk_f32(s: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``host_topk_desc`` of a contiguous float32 vector (the same
+    composite key, the same total order), GIL dropped."""
+    L = lib()
+    k = min(int(k), len(s))
+    vals = np.empty(k, np.float32)
+    idx = np.empty(k, np.int32)
+    if k:
+        L.dp_topk_f32(_ptr(s), len(s), k, _ptr(vals), _ptr(idx))
+    return vals, idx
 
 
 # ---------------------------------------------------------------------------

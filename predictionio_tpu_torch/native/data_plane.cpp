@@ -1,14 +1,16 @@
-// The scan core's columnar header parse and the HTTP core, for the port's
-// native/core.py (ctypes C ABI, no Python.h).
+// The scan core's columnar header parse, the serve core and the HTTP core,
+// for the port's native/core.py (ctypes C ABI, no Python.h).
 //
-// Counterpart of predictionio_tpu/native/data_plane.cpp, two parts of it:
-// the PIOCOL01 snapshot header (JSON) -> column specs, the string
+// Counterpart of predictionio_tpu/native/data_plane.cpp, three parts of
+// it: the PIOCOL01 snapshot header (JSON) -> column specs, the string
 // dictionaries as UTF-8 blobs with int64 offsets, the property columns and
-// the raw span of "meta"; and the HTTP request-head parse and response
-// assembly of the event-loop front end (api/http_util.py).  Every entry
-// point is called through ctypes.CDLL, so the GIL is released for the
-// call.  The JAX file's dictionary-union handles and dp_take_i32 (its
-// BatchMerger) and its serve core are not here.
+// the raw span of "meta"; the UR host serve tail's CSR gather, unique,
+// score accumulation and top-k (models/common.py, the UR engine's
+// _score_history_host), each bit for bit its numpy oracle; and the HTTP
+// request-head parse and response assembly of the event-loop front end
+// (api/http_util.py).  Every entry point is called through ctypes.CDLL,
+// so the GIL is released for the call.  The JAX file's dictionary-union
+// handles and dp_take_i32 (its BatchMerger) are not here.
 //
 // Contract against the Python parse (json.loads): the same specs, the same
 // strings byte for byte (surrogate pairs combine; lone surrogates pass
@@ -16,10 +18,12 @@
 // round-trips them); a header this parser declines returns NULL and
 // json.loads answers.  tests/test_torch_native.py holds it.
 
+#include <algorithm>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <functional>
 #include <string>
 #include <vector>
 
@@ -389,7 +393,9 @@ bool parse_header(Json &j, const char *base, ColHeader &h) {
 // ===========================================================================
 
 // 2: the HTTP core (dp_http_parse, dp_http_assemble) joined the ABI
-EXPORT int64_t dp_abi_version() { return 2; }
+// 3: the serve core (dp_csr_gather[_size], dp_unique_i32, dp_score_accum,
+//    dp_topk_f32) joined the ABI
+EXPORT int64_t dp_abi_version() { return 3; }
 
 // -- scan core: snapshot header ---------------------------------------------
 
@@ -478,6 +484,111 @@ EXPORT void dp_col_meta_span(void *p, int64_t *out) {
     auto *h = (ColHeader *)p;
     out[0] = h->meta_off;
     out[1] = h->meta_len;
+}
+
+// -- serve core: CSR gather / score / top-k ---------------------------------
+
+// Total gathered element count for the in-range segments of ids: pass 1 of
+// the two-pass gather.
+EXPORT int64_t dp_csr_gather_size(const int64_t *indptr, int64_t n_rows,
+                                  const int64_t *ids, int64_t m) {
+    int64_t total = 0;
+    for (int64_t i = 0; i < m; ++i) {
+        int64_t id = ids[i];
+        if (id < 0 || id >= n_rows) continue;
+        total += indptr[id + 1] - indptr[id];
+    }
+    return total;
+}
+
+// Pass 2: the segments concatenated in id order, elements in storage order
+// (models.common.gather_csr_rows' order, so float accumulation downstream
+// sees the same addition order).  c1/o1 may be null (unweighted).
+// Returns the elements written.
+EXPORT int64_t dp_csr_gather(const int64_t *indptr, int64_t n_rows,
+                             const int64_t *ids, int64_t m,
+                             const int32_t *c0, const float *c1,
+                             int32_t *o0, float *o1) {
+    int64_t at = 0;
+    for (int64_t i = 0; i < m; ++i) {
+        int64_t id = ids[i];
+        if (id < 0 || id >= n_rows) continue;
+        int64_t a = indptr[id], b = indptr[id + 1];
+        if (b <= a) continue;
+        int64_t len = b - a;
+        memcpy(o0 + at, c0 + a, (size_t)len * sizeof(int32_t));
+        if (c1 != nullptr) memcpy(o1 + at, c1 + a, (size_t)len * sizeof(float));
+        at += len;
+    }
+    return at;
+}
+
+// Ascending unique of int32 values (np.unique's set); out holds n.
+// Returns the unique count.
+EXPORT int64_t dp_unique_i32(const int32_t *in, int64_t n, int32_t *out) {
+    if (n == 0) return 0;
+    memcpy(out, in, (size_t)n * sizeof(int32_t));
+    std::sort(out, out + n);
+    return std::unique(out, out + n) - out;
+}
+
+// One event type's score accumulation over the compacted candidate space,
+// bit for bit the numpy oracle:
+//   rel = np.searchsorted(cand, rows)            (lower_bound)
+//   score = np.bincount(rel, weights=w)          (float64, input order)
+//           or np.bincount(rel)                  (counts)
+//   score = score.astype(np.float32)
+//   score *= weight                              (float32) when weight != 1
+//   out = score (first) or out += score          (float32 adds)
+// scratch is a caller-provided float64[nc] workspace.  -std=c++17 keeps
+// -ffp-contract off, so no multiply-add is fused.
+EXPORT void dp_score_accum(const int32_t *cand, int64_t nc, const int32_t *rows,
+                           int64_t n, const float *w, float weight,
+                           double *scratch, float *out, int first) {
+    memset(scratch, 0, (size_t)nc * sizeof(double));
+    if (w != nullptr) {
+        for (int64_t i = 0; i < n; ++i) {
+            int64_t rel = std::lower_bound(cand, cand + nc, rows[i]) - cand;
+            scratch[rel] += (double)w[i];
+        }
+    } else {
+        for (int64_t i = 0; i < n; ++i) {
+            int64_t rel = std::lower_bound(cand, cand + nc, rows[i]) - cand;
+            scratch[rel] += 1.0;
+        }
+    }
+    for (int64_t jj = 0; jj < nc; ++jj) {
+        float s = (float)scratch[jj];
+        if (weight != 1.0f) s = s * weight;
+        out[jj] = first ? s : out[jj] + s;
+    }
+}
+
+// Top-k of a float32 vector in host_topk_desc's total order: the composite
+// int64 key (the float's monotone int32 image in the high word, the
+// descending index in the low word) makes every key distinct, so (value
+// desc, index asc) is exact, -0.0 < +0.0 and ties at the k-th place too.
+EXPORT void dp_topk_f32(const float *s, int64_t n, int64_t k, float *out_vals,
+                        int32_t *out_idx) {
+    if (k > n) k = n;
+    if (k <= 0) return;
+    std::vector<int64_t> keys((size_t)n);
+    for (int64_t i = 0; i < n; ++i) {
+        int32_t bits;
+        memcpy(&bits, &s[i], 4);
+        int32_t m = bits >> 31;
+        m &= 0x7FFFFFFF;
+        bits ^= m;
+        keys[(size_t)i] = ((int64_t)bits << 32) + (0xFFFFFFFFLL - i);
+    }
+    auto desc = std::greater<int64_t>();
+    if (k < n) std::nth_element(keys.begin(), keys.begin() + k, keys.end(), desc);
+    std::sort(keys.begin(), keys.begin() + k, desc);
+    for (int64_t j = 0; j < k; ++j) {
+        int64_t idx = 0xFFFFFFFFLL - (keys[(size_t)j] & 0xFFFFFFFFLL);
+        out_idx[j] = (int32_t)idx;
+        out_vals[j] = s[idx];
+    }
 }
 
 // -- HTTP core: request-head parse / response assembly -----------------

@@ -10,11 +10,12 @@ and evaluation instances included (the ``pio`` CLI reads and writes them).
 
 ``PEvents`` has the JAX package's columnar hooks: ``snapshot_scan`` and
 ``snapshot_status`` (None: no snapshot, the default) and ``find_batches``,
-which a segment backend with snapshots overrides.  Not ported yet: the
-append-listener bus (it serves the serving history cache, ROADMAP.md,
-queue A, 'The host tail, pruning and caches') and the delta-tail
-capability check of the streaming trainer (ROADMAP.md, queue A,
-'Streaming').
+which a segment backend with snapshots overrides.  The append-listener
+bus (``add_append_listener``, ``notify_append``) tells in-process
+subscribers — the serving history cache, ``serve/history_cache.py`` —
+which entities an event-log mutation touched.  Not ported yet: the
+delta-tail capability check of the streaming trainer (ROADMAP.md, queue
+A, 'Streaming').
 """
 
 from __future__ import annotations
@@ -108,6 +109,34 @@ class EvaluationInstance:
 # ---------------------------------------------------------------------------
 # Repository interfaces
 # ---------------------------------------------------------------------------
+
+
+# -- append listeners ---------------------------------------------------------
+# In-process subscribers to event-log mutations (the serving history cache
+# invalidates through this).  A listener is called with a list of
+# (entity_type, entity_id) pairs just appended, or None when the mutation's
+# entities are unknown or everything may have changed (event delete,
+# channel remove, TTL trim, a new default storage).  Listener exceptions
+# never fail a write.  The scope is this process, as the caches' is.
+_APPEND_LISTENERS: List[Any] = []
+
+
+def add_append_listener(fn) -> None:
+    """Subscribe ``fn(entities: Optional[List[tuple]])`` to event-log
+    mutations in this process (idempotent per function)."""
+    if fn not in _APPEND_LISTENERS:
+        _APPEND_LISTENERS.append(fn)
+
+
+def notify_append(entities: Optional[List[tuple]]) -> None:
+    """Called by event backends after a durable mutation; ``entities`` is
+    the appended (entity_type, entity_id) pairs, or None when unknown."""
+    for fn in list(_APPEND_LISTENERS):
+        try:
+            fn(entities)
+        except Exception:
+            import logging
+            logging.getLogger("pio.storage").exception("append listener failed")
 
 
 class Apps(abc.ABC):

@@ -796,6 +796,7 @@ class FSEvents(base.LEvents, base.PEvents):
                 w.close()
         if d.exists():
             shutil.rmtree(d)
+            base.notify_append(None)   # channel data gone: invalidate everything
             return True
         return False
 
@@ -818,6 +819,7 @@ class FSEvents(base.LEvents, base.PEvents):
     ) -> List[str]:
         self._append_lines("".join(e.to_json_line() + "\n" for e in events),
                            app_id, channel_id)
+        base.notify_append([(e.entity_type, e.entity_id) for e in events])
         return [e.event_id for e in events]
 
     def insert_json_batch(
@@ -829,16 +831,19 @@ class FSEvents(base.LEvents, base.PEvents):
         batch's one clock read."""
         results: List[dict] = []
         lines: List[str] = []
+        ents: List[tuple] = []
         now_iso = _dt.datetime.now(_dt.timezone.utc).isoformat()
         for item in items:
             try:
                 d = canonical_event_json(item, now_iso)
                 lines.append(json.dumps(d, separators=(",", ":"), sort_keys=True))
                 results.append({"status": 201, "eventId": d["eventId"]})
+                ents.append((str(d["entityType"]), str(d["entityId"])))
             except (ValueError, KeyError, TypeError) as e:
                 results.append({"status": 400, "message": str(e)})
         if lines:
             self._append_lines("".join(ln + "\n" for ln in lines), app_id, channel_id)
+            base.notify_append(ents)
         return results
 
     def _append_lines(self, lines: str, app_id: int, channel_id: Optional[int]) -> None:
@@ -978,9 +983,11 @@ class FSEvents(base.LEvents, base.PEvents):
                 lockf.close()
                 raise RuntimeError("another compaction is in progress for this channel")
             try:
-                return self._compact_locked(d, (app_id, channel_id), before)
+                out = self._compact_locked(d, (app_id, channel_id), before)
             finally:
                 lockf.close()
+        base.notify_append(None)   # events trimmed: invalidate everything
+        return out
 
     def _compact_locked(self, d: Path, key: tuple,
                         before: Optional[_dt.datetime]) -> Dict[str, int]:
@@ -1199,6 +1206,7 @@ class FSEvents(base.LEvents, base.PEvents):
                 return False
             with open(self._tombstone_path(d), "a") as f:
                 f.write(event_id + "\n")
+        base.notify_append(None)   # entity unknown here: invalidate everything
         return True
 
     def find(

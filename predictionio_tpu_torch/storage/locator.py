@@ -177,13 +177,22 @@ def get_storage(refresh: bool = False) -> Storage:
     use (or anew with ``refresh``)."""
     global _default
     with _default_lock:
-        if _default is None or refresh:
+        changed = _default is None or refresh
+        if changed:
             _default = Storage()
-        return _default
+        result = _default
+    if changed:
+        base.notify_append(None)   # new default: cached reads are stale
+    return result
 
 
 def set_storage(storage: Optional[Storage]) -> None:
-    """Override the process-default storage (used by tests and servers)."""
+    """Override the process-default storage (used by tests and servers).
+
+    Cached reads keyed by app and entity names (the serving history cache)
+    describe the OLD storage once the default moves: they are flushed
+    through the mutation bus."""
     global _default
     with _default_lock:
         _default = storage
+    base.notify_append(None)

@@ -209,7 +209,10 @@ class MemEvents(base.LEvents, base.PEvents):
 
     def remove(self, app_id: int, channel_id: Optional[int] = None) -> bool:
         with self._lock:
-            return self._events.pop((app_id, channel_id), None) is not None
+            removed = self._events.pop((app_id, channel_id), None) is not None
+        if removed:
+            base.notify_append(None)   # bucket gone: invalidate everything
+        return removed
 
     def compact(self, app_id: int, channel_id: Optional[int] = None,
                 before=None) -> Dict[str, int]:
@@ -223,12 +226,16 @@ class MemEvents(base.LEvents, base.PEvents):
                 doomed = [k for k, e in bucket.items() if e.event_time < before]
             for k in doomed:
                 del bucket[k]
-            return {"kept": len(bucket), "expired": len(doomed), "segments": 0}
+            out = {"kept": len(bucket), "expired": len(doomed), "segments": 0}
+        if doomed:
+            base.notify_append(None)   # TTL trim: invalidate everything
+        return out
 
     def insert(self, event: Event, app_id: int, channel_id: Optional[int] = None) -> str:
         bucket = self._bucket(app_id, channel_id)
         with self._lock:
             bucket[event.event_id] = event
+        base.notify_append([(event.entity_type, event.entity_id)])
         return event.event_id
 
     def insert_batch(self, events: Sequence[Event], app_id: int,
@@ -238,6 +245,7 @@ class MemEvents(base.LEvents, base.PEvents):
         with self._lock:
             for e in events:
                 bucket[e.event_id] = e
+        base.notify_append([(e.entity_type, e.entity_id) for e in events])
         return [e.event_id for e in events]
 
     def get(self, event_id: str, app_id: int, channel_id: Optional[int] = None) -> Optional[Event]:
@@ -246,7 +254,10 @@ class MemEvents(base.LEvents, base.PEvents):
     def delete(self, event_id: str, app_id: int, channel_id: Optional[int] = None) -> bool:
         bucket = self._bucket(app_id, channel_id)
         with self._lock:
-            return bucket.pop(event_id, None) is not None
+            ok = bucket.pop(event_id, None) is not None
+        if ok:
+            base.notify_append(None)   # entity unknown: invalidate all
+        return ok
 
     def find(
         self,

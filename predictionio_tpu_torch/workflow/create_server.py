@@ -20,11 +20,17 @@ answered query back as a ``predict`` event; ``--auto-reload SECS`` polls
 the model store and installs a newer instance without dropping the port;
 ``--workers N`` preforks N−1 more processes on the same port (CPU only).
 
+Each install re-arms the response cache (``serve/response_cache.py``)
+on the new models inside the install's lock, before the new predictor
+goes live: a swap keeps the entries its provenance proves unchanged and
+drops the rest (with no streaming fold yet, every swap flushes).  A UR
+model then answers repeated queries from the cache, on ``predict`` and
+on ``serve_batch_predict`` alike.
+
 Not here, each named in ROADMAP.md, queue A: the model plane, the
-follow-trainer and plane replication ('Streaming'); the response cache
-('The host tail, pruning and caches'); the trace, lineage, history,
-cluster and healthz routes ('Observability and the rest of the front
-end'), which answer 404.
+follow-trainer and plane replication ('Streaming'); the trace, lineage,
+history, cluster and healthz routes ('Observability and the rest of the
+front end'), which answer 404.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from predictionio_tpu_torch.api.http_util import JsonHandler, start_server
 from predictionio_tpu_torch.obs import metrics as obs_metrics
 from predictionio_tpu_torch.obs.exposition import StatsCollector, metrics_payload
 from predictionio_tpu_torch.obs.metrics import SIZE_BUCKETS
+from predictionio_tpu_torch.serve import response_cache as _response_cache
 from predictionio_tpu_torch.storage.locator import Storage, get_storage
 
 log = logging.getLogger("pio.queryserver")
@@ -394,6 +401,17 @@ class QueryServerState:
             if ticket <= self._installed_seq:
                 return False   # a build that started later already installed
             self._installed_seq = ticket
+            # the response cache re-arms on the new generation BEFORE the
+            # predictor goes live, dropping the entries its swap provenance
+            # cannot prove unchanged; it must never break an install
+            try:
+                _response_cache.get_cache().on_swap(models)
+            except Exception:
+                log.exception("response-cache swap sweep failed; disarming the cache")
+                try:
+                    _response_cache.get_cache().disarm()
+                except Exception:
+                    pass
             self.predictor = predictor
             self.batcher = batcher
             self.models = list(models)

@@ -121,6 +121,26 @@ for algo, params in (("cooccurrence", {"minLlr": 0.0}), ("als", {"rank": 3})):
     (model,) = engine.train(ep, device="cpu")
     assert engine.predictor(ep, [model])(factory.query_class.from_json(
         {"items": ["i1"], "num": 3, "categories": ["c1"]})).item_scores is not None
+
+# the UR's host scorer and tails, the response and history caches, the
+# native serve core and the checkpointed UR train
+from predictionio_tpu_torch.native import core as ncore
+from predictionio_tpu_torch.serve import history_cache, response_cache
+_, ur_engine, ur_ep = engine_from_variant(variant_ur := {
+    "engineFactory": "universal_recommender",
+    "datasource": {"params": {"appName": "a", "eventNames": ["buy", "view"]}},
+    "algorithms": [{"name": "ur", "params": {"appName": "a", "maxCorrelatorsPerItem": 4,
+                                             "checkpoint": True}}]})
+os.environ["PIO_CHECKPOINT_DIR"] = tempfile.mkdtemp()
+(ur_model,) = ur_engine.train(ur_ep, device="cpu")
+response_cache.get_cache().on_swap([ur_model])
+predict = ur_engine.predictor(ur_ep, [ur_model])
+first = predict(ur.URQuery(user="u1", num=4)).to_json()
+assert predict(ur.URQuery(user="u1", num=4)).to_json() == first
+assert response_cache.get_cache().hit_count == 1
+assert history_cache.get_cache()._lru.get(("a", None, "user", "u1", "buy", 100),
+                                          count=False) is not None
+assert ncore.calls["serve"] > 0 or not ncore.serve_enabled()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "predictionio_tpu" or m.startswith("predictionio_tpu."))

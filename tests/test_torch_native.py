@@ -442,3 +442,98 @@ def test_no_toolchain_simulation(tmp_path, monkeypatch):
         assert ncore.calls["scan"] == calls and ncore.active is False
     finally:
         ncore.reset_for_tests()
+
+
+# -- the serve core (csr_gather, unique_i32, score_accum, topk_f32) -------------------
+
+
+def _csr(rng, n_rows, nnz):
+    counts = np.bincount(rng.integers(0, n_rows, nnz), minlength=n_rows)
+    counts[rng.integers(0, n_rows, n_rows // 4)] = 0      # empty segments
+    indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    rows = rng.integers(0, 5_000, int(indptr[-1])).astype(np.int32)
+    w = (rng.random(int(indptr[-1])) * 4).astype(np.float32)
+    return indptr, rows, w
+
+
+@_port_only
+@pytest.mark.parametrize("seed", SEEDS)
+def test_serve_core_matches_numpy_oracle_and_jax(seed, monkeypatch):
+    """Each serve-core call bit for bit its numpy oracle (``PIO_NATIVE=off``)
+    and the JAX ``models.common`` on the same inputs: the CSR gather (ids
+    out of range, repeated and empty segments), the unique union, the score
+    accumulation with and without weights and a type weight, and the
+    top-k's total order (ties, ±0.0, -inf)."""
+    from predictionio_tpu.models import common as jax_common
+    from predictionio_tpu_torch.models import common
+
+    rng = np.random.default_rng(seed)
+    indptr, rows, w = _csr(rng, 800, 20_000)
+    ids = np.concatenate([rng.integers(-3, 803, 60), [5, 5]]).astype(np.int64)
+    calls = ncore.calls["serve"]
+    got = common.gather_csr_rows(indptr, ids, rows, w)
+    assert ncore.calls["serve"] == calls + 1
+    monkeypatch.setenv("PIO_NATIVE", "off")
+    want = common.gather_csr_rows(indptr, ids, rows, w)
+    jax_want = jax_common.gather_csr_rows(indptr, ids, rows, w)
+    monkeypatch.delenv("PIO_NATIVE")
+    for g, o, j in zip(got, want, jax_want):
+        assert g.dtype == o.dtype == j.dtype
+        np.testing.assert_array_equal(g, o)
+        np.testing.assert_array_equal(g, j)
+    (only_rows,) = common.gather_csr_rows(indptr, ids, rows)
+    np.testing.assert_array_equal(only_rows, got[0])
+    cand = ncore.unique_i32(got[0])
+    np.testing.assert_array_equal(cand, np.unique(got[0]))
+    assert len(ncore.unique_i32(np.zeros(0, np.int32))) == 0
+    # two event types' sums over the union, as the UR's host scorer adds them
+    other = rng.integers(0, 5_000, 3_000).astype(np.int32)
+    cand = np.unique(np.concatenate([got[0], other])).astype(np.int32)
+    for weights, type_w in ((got[1], 1.0), (None, 1.5), (got[1], 0.3)):
+        out = np.empty(len(cand), np.float32)
+        scratch = np.empty(len(cand), np.float64)
+        ncore.score_accum(cand, got[0], weights, type_w, scratch, out, True)
+        ncore.score_accum(cand, other, None, 2.0, scratch, out, False)
+        rel = np.searchsorted(cand, got[0])
+        s1 = (np.bincount(rel, weights=weights, minlength=len(cand)) if weights is not None
+              else np.bincount(rel, minlength=len(cand))).astype(np.float32)
+        if type_w != 1.0:
+            s1 *= type_w
+        s2 = np.bincount(np.searchsorted(cand, other), minlength=len(cand)).astype(np.float32)
+        s2 *= 2.0
+        np.testing.assert_array_equal(out.view(np.int32), (s1 + s2).view(np.int32))
+    scores = np.round(rng.random(6_000).astype(np.float32) * 3) / 2
+    scores[rng.integers(0, 6_000, 600)] = -np.inf
+    scores[rng.integers(0, 6_000, 600)] = -0.0
+    for k in (1, 37, 600, 6_000, 7_000):
+        v, i = ncore.topk_f32(scores, k)
+        jv, ji = jax_common.host_topk_desc(scores, k)
+        monkeypatch.setenv("PIO_NATIVE", "off")
+        ov, oi = common.host_topk_desc(scores, k)
+        monkeypatch.delenv("PIO_NATIVE")
+        np.testing.assert_array_equal(i, oi)
+        np.testing.assert_array_equal(i, ji)
+        np.testing.assert_array_equal(v.view(np.int32), ov.view(np.int32))
+
+
+@_port_only
+def test_serve_core_abi_and_fallback(monkeypatch):
+    """The library reports ABI 3 (a stale build is never loaded); with no
+    compiler the serve gate is closed and the oracle answers, counted once
+    as ``no_build``."""
+    from predictionio_tpu_torch.models import common
+
+    assert ncore.lib().dp_abi_version() == ncore._ABI_VERSION == 3
+    assert ncore.serve_enabled()
+    monkeypatch.setattr(port_build, "load", lambda src, stem: None)
+    ncore.reset_for_tests()
+    try:
+        before = ncore.fallbacks["no_build"]
+        assert not ncore.serve_enabled()
+        v, i = common.host_topk_desc(np.array([1.0, 3.0, 3.0], np.float32), 2)
+        np.testing.assert_array_equal(i, [1, 2])
+        assert ncore.fallbacks["no_build"] == before + 1
+    finally:
+        monkeypatch.undo()
+        ncore.reset_for_tests()
+    assert ncore.serve_enabled()

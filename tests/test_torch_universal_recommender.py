@@ -9,7 +9,10 @@ a run of scores within that tolerance.  Both packages read the users'
 histories from their event stores: the JAX package from its LocalFS event
 log (the ``fs_storage`` fixture), through its host tail with the history
 and response caches and the native lane off (its exact oracles); the port
-from its in-memory store, through its device tail on CPU tensors.
+from its in-memory store, through the host scorer and the candidate-pruned
+host tail (``auto`` on a CPU model); the ``*_device_halves_*`` cases pin
+``PIO_UR_SERVE_SCORER``/``PIO_UR_SERVE_TAIL`` to ``device`` in both
+packages, so the port's device tail runs on CPU tensors.
 Training, the model state, the history store and the popularity backfill
 are in tests/test_torch_ur_model.py; the rule tests of the JAX package's
 own suite, trained from events by each package, are in
@@ -196,3 +199,21 @@ def test_serve_batch_predict_matches_serial_and_jax(jax_model, use_llr):
         assert_same_answer(g.to_json(), serial)
         assert_same_answer(g.to_json(), w.to_json())
     assert port_algo.serve_batch_predict(port_model, []) == []
+
+
+def _device_halves(monkeypatch):
+    for k in ("PIO_UR_SERVE_SCORER", "PIO_UR_SERVE_TAIL"):
+        monkeypatch.setenv(k, "device")
+
+
+@pytest.mark.parametrize("use_llr", [False, True])
+@pytest.mark.parametrize("kind", sorted(QUERIES))
+def test_predict_device_halves_match_jax(jax_model, kind, use_llr, monkeypatch):
+    _device_halves(monkeypatch)
+    test_predict_matches_jax(jax_model, kind, use_llr)
+
+
+@pytest.mark.parametrize("use_llr", [False, True])
+def test_serve_batch_device_halves_match_serial_and_jax(jax_model, use_llr, monkeypatch):
+    _device_halves(monkeypatch)
+    test_serve_batch_predict_matches_serial_and_jax(jax_model, use_llr)

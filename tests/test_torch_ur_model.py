@@ -151,3 +151,71 @@ def test_backfill_scores_match_jax(kind):
     args = (kind, items, times, 40, 86400 * 20.0)
     np.testing.assert_array_equal(port_pop.backfill_scores(*args),
                                   jax_pop.backfill_scores(*args))
+
+
+@pytest.mark.parametrize("config", ["reference_ep", "per_type_blacklist_trending"])
+def test_checkpointed_train_resumes_past_finished_types(tmp_path, monkeypatch, config):
+    """``checkpoint: true`` snapshots each event type's indicators: a train
+    failed by ``PIO_FAULT_INJECT=ur.indicators:2`` leaves the first type's
+    snapshot, the retry trains only the second type, the run's directory
+    is gone at the end, and the model is bit-identical to a straight
+    train.  A run the JAX package faulted resumes in the port (the same
+    run key and layout): the first type's tables are JAX's bit for bit."""
+    from predictionio_tpu_torch.ops import cco as port_cco
+    from predictionio_tpu_torch.utils.checkpoint import InjectedFault
+
+    straight = ur.URAlgorithm(params(ur, config), device="cpu").train(port_td())
+    trained = []
+    real = port_cco.cco_train_indicators
+
+    def spy(p_user, p_item, others, *a, **kw):
+        trained.append([o[0] for o in others])
+        return real(p_user, p_item, others, *a, **kw)
+
+    monkeypatch.setattr(port_cco, "cco_train_indicators", spy)
+    for writer in ("port", "jax"):
+        ck_dir = tmp_path / writer
+        monkeypatch.setenv("PIO_FAULT_INJECT", "ur.indicators:2")
+        if writer == "port":
+            algo = ur.URAlgorithm(params(ur, config, checkpoint=True,
+                                         checkpoint_dir=str(ck_dir)), device="cpu")
+            with pytest.raises(InjectedFault):
+                algo.train(port_td())
+            assert trained == [["purchase"]]
+        else:
+            from predictionio_tpu.utils.checkpoint import InjectedFault as JaxFault
+
+            jalgo = jax_ur.URAlgorithm(params(jax_ur, config, checkpoint=True,
+                                              checkpoint_dir=str(ck_dir)))
+            with pytest.raises(JaxFault):
+                jalgo.train(jax_td())
+        (run_dir,) = list(ck_dir.iterdir())
+        assert sorted(p.name for p in run_dir.glob("step_*.npz")) == ["step_0.npz"]
+        snap = np.load(run_dir / "step_0.npz")
+        trained.clear()
+        resumed = ur.URAlgorithm(params(ur, config, checkpoint=True,
+                                        checkpoint_dir=str(ck_dir)), device="cpu"
+                                 ).train(port_td())
+        assert trained == [["view"]]
+        assert not any(ck_dir.iterdir())
+        # the resumed type is the writer's snapshot, the trained one the
+        # port's straight train; with the port as writer both are straight
+        for name in NAMES:
+            if name == "purchase":
+                want_i = snap["idx"].astype(np.int32)
+                want_s = np.where(np.isfinite(snap["scores"]), snap["scores"],
+                                  0.0).astype(np.float32)
+            else:
+                want_i, want_s = straight.indicator_idx[name], straight.indicator_llr[name]
+            np.testing.assert_array_equal(resumed.indicator_idx[name], want_i)
+            np.testing.assert_array_equal(resumed.indicator_llr[name].view(np.int32),
+                                          want_s.view(np.int32))
+        if writer == "port":
+            for name in NAMES:
+                np.testing.assert_array_equal(resumed.indicator_idx[name],
+                                              straight.indicator_idx[name])
+                np.testing.assert_array_equal(
+                    resumed.indicator_llr[name].view(np.int32),
+                    straight.indicator_llr[name].view(np.int32))
+        np.testing.assert_array_equal(resumed.popularity, straight.popularity)
+        trained.clear()

@@ -8,7 +8,9 @@ CPU tensors) and both serve the test's queries.  The answers agree under
 ``assert_same_answer`` and each test's own assertions hold for the port.
 A seeded sweep of random item properties and rule sets holds the port's
 composed rule mask against the JAX ``_mask_from_key_device`` bit for bit
-(f32), and the answers against the JAX answers.
+(f32), and the answers against the JAX answers.  On the CPU both packages'
+``auto`` serves through the host halves; the ``*_device_halves_*`` sweep
+pins both to the device scorer and tail.
 """
 
 import json
@@ -219,6 +221,16 @@ def test_rule_mask_sweep_matches_jax(stores, seed):
             n_rules += 1
         both.answer(body)
     assert n_rules >= 20
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_rule_mask_sweep_device_halves_match_jax(stores, seed, monkeypatch):
+    """The sweep with both packages pinned to the device scorer and tail
+    (the port's on CPU tensors): on the CPU ``auto`` serves the host
+    halves."""
+    for k in ("PIO_UR_SERVE_SCORER", "PIO_UR_SERVE_TAIL"):
+        monkeypatch.setenv(k, "device")
+    test_rule_mask_sweep_matches_jax(stores, seed)
 
 
 def test_mask_ops_match_jax():

@@ -284,7 +284,10 @@ def test_pickled_model_loads_without_a_card(stores, monkeypatch, kind):
         assert got == want and got["itemScores"]
 
 
-def test_to_device_drops_staged_tensors(stores):
+def test_to_device_drops_staged_tensors(stores, monkeypatch):
+    # the device halves stage tensors; on the CPU ``auto`` serves on the host
+    monkeypatch.setenv("PIO_UR_SERVE_SCORER", "device")
+    monkeypatch.setenv("PIO_UR_SERVE_TAIL", "device")
     model = _models(stores)["ur"][0]
     ur.URAlgorithm(ur.URAlgorithmParams.from_json(VARIANT["algorithms"][0]["params"])
                    ).predict(model, ur.URQuery.from_json(QUERIES[3]))
