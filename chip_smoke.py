@@ -217,6 +217,40 @@ phase 14, 16 before 15):
     whiteList, blackList, an unknown item), every answer held against the
     CPU predict of the same stored model (scores within rtol/atol 1e-5,
     swaps only at ties within that), p50/p99 printed;
+pio eval and the five remaining templates (after 16, before 15):
+18. 18a: ``pio eval`` of the port's copy of examples/recommendation/
+    evaluation.py (the example's classes with the port's imports, written
+    beside the work dir: precision@10, 3 folds, ALS ranks 4 and 8) on
+    bench_als's shape (943 x 1,682, 100k ratings from the seed, taste
+    groups; ``pio import`` into the localfs store), and the same
+    evaluation through ``run_eval``
+    with ``FastEvalEngine``: K1 launches >= 6 in each, both
+    EvaluationInstances EVALCOMPLETED, the data source read once for both
+    candidates, every score within 0.005 of the evaluation run on the CPU;
+    18b: the port's copy of examples/universal_recommender/evaluation.py
+    (UREvaluation + MinLlrGrid, min_llr 0, 2 and 5, eval_users 500) on 11b's
+    app through ``run_eval`` with ``FastEvalEngine``: K2 and K3 launch 3 x
+    50, and each candidate's card-trained model, moved to the CPU, answers
+    the 500 queries in ``batch_predict`` (the device halves pinned, the
+    card's code path) with the same lists but for near-tie swaps and the
+    same four rank metrics; 18c: the complementary-purchase template on
+    11b's purchases in 1-hour baskets (the tiled basket rules at the
+    reference's budget: 61 tiles of 1,664, one K3 launch each), ``pio
+    deploy`` on a thread and 200 carts of 1-5 items, every answer's ids
+    valid, scores finite and positive and equal to the CPU predict of the
+    stored model, and a 20,000-item cut of the first 4,000 baskets through
+    the tiled strategy on the card bit-equal (ids and lifts) to the CPU;
+    18d: examples/product_ranking/engine.json on 12b's shop, ``pio train``
+    and ``pio deploy``, 200 queries of 5-50 items from 8 keep-alive clients
+    (micro-batched), orders and scores against the CPU predict (rtol
+    1e-4); 18e: classification (L-BFGS and Adam; 5,000 users of 3
+    attributes), lead scoring (50,000 sessions) and text (NB, logistic
+    regression, MLP; 5,574 messages, dim 4,096) from seeded memory stores,
+    ``pio train``, ``pio deploy`` and 100 queries each, every answer equal
+    to the CPU predict of the stored weights (confidences within 1e-4).
+    A leg's train s and query p50/p99 and the launches the phase adds are
+    printed, and a K3 timing row on the 18c train's tile 12 (100k x 1,664,
+    carry form) joins phase 13;
 15. ``bench.py:bench_scale``'s parity corpus (30,000 users x 3,000 items,
     1M zipf events from its seed, top_k 20, ``exclude_self``) through
     ``cco_indicators_coo`` dense, resident, chunked (the resident budget at
@@ -3810,6 +3844,660 @@ def check_same_answer(body, got, want, full) -> int:
             swaps += 1
     return swaps
 
+# -- phase 18: pio eval and the five remaining templates ---------------------------
+
+EVAL_ALS = BENCH_ALS              # 18a: MovieLens-100K's shape (bench.py:363-380)
+EVAL_SCORE_ATOL = 0.005           # 18a: card vs CPU scores of the same evaluation
+UR_EVAL_USERS = 500               # 18b: the example's eval_users
+CP_QUERIES = 200                  # 18c: carts of 1-5 items
+CP_CUT = (20_000, 4_000)          # 18c: items and first baskets of the CPU cut
+PR_QUERIES, PR_CLIENTS = 200, 8   # 18d
+PR_RTOL = 1e-4
+LEG_QUERIES = 100                 # 18e: queries a leg
+TEXT_MESSAGES, TEXT_DIM = 5_574, 4_096   # the SMS Spam Collection's count
+# 18e's classification and lead-scoring sizes are halved (from 10,000 users
+# and 100,000 sessions) to keep phase 18 near 90 s; 18a-18c run whole
+CLS_USERS = 5_000
+LEAD_SESSIONS = 50_000
+CONF_ATOL = 1e-4                  # 18e: card vs CPU confidences and scores
+
+
+def port_example(workdir, example, name, replace=()):
+    """The port's copy of ``examples/<example>/evaluation.py`` — the same
+    classes, every ``predictionio_tpu.`` import on the port's module path,
+    and each (old, new) of ``replace`` applied — imported from a directory
+    of the work dir put on ``sys.path`` (the example imports the JAX
+    package, which the port never loads)."""
+    import importlib
+
+    src = (Path(__file__).resolve().parent / "examples" / example / "evaluation.py").read_text()
+    src = src.replace("from predictionio_tpu.", "from predictionio_tpu_torch.")
+    for old, new in replace:
+        src = src.replace(old, new)
+    check("predictionio_tpu." not in src, f"the port's copy of {example} names the JAX package")
+    mods = workdir / "evalmods"
+    mods.mkdir(exist_ok=True)
+    (mods / f"{name}.py").write_text(src)
+    if str(mods) not in sys.path:
+        sys.path.insert(0, str(mods))
+    return importlib.import_module(name)
+
+
+def eval_ratings():
+    """18a's rate events at bench_als's shape, from the seed: users in 8
+    taste groups, items in 8 genres; 60% of a user's ratings fall in the
+    group's genre (rated 4-5), the rest anywhere (rated 1-3)."""
+    n_users, n_items, n_ratings, _, _ = EVAL_ALS
+    rng = np.random.default_rng(SEED + 180)
+    group, genre = rng.integers(0, 8, n_users), rng.integers(0, 8, n_items)
+    u = rng.integers(0, n_users, n_ratings)
+    i = rng.integers(0, n_items, n_ratings)
+    pref = rng.random(n_ratings) < 0.6
+    for g in range(8):
+        sel = pref & (group[u] == g)
+        i[sel] = rng.choice(np.flatnonzero(genre == g), int(sel.sum()))
+    r = np.where(pref, rng.integers(4, 6, n_ratings), rng.integers(1, 4, n_ratings))
+    return u, i, r
+
+
+def eval_scores(inst):
+    check(inst.status == "EVALCOMPLETED", f"evaluation instance {inst.id}: {inst.status}")
+    doc = json.loads(inst.evaluator_results_json)
+    return doc["bestScore"], [c["score"] for c in doc["engineParamsScores"]]
+
+
+def write_ratings_jsonl(path, u, i, r):
+    """18a's rate events as a JSON-lines file for ``pio import``, one a
+    second from T0 (lines by one format string)."""
+    times = T0 + np.arange(len(u), dtype=np.float64)
+    iso_t = np.datetime_as_string(times.astype(np.int64).astype("datetime64[s]"),
+                                  timezone="UTC").tolist()
+    line = ('{"event":"rate","entityType":"user","entityId":"u%d","targetEntityType":"item",'
+            '"targetEntityId":"i%d","properties":{"rating":%d},"eventTime":"%s",'
+            '"creationTime":"%s"}\n')
+    with open(path, "w") as f:
+        f.writelines(map(line.__mod__, zip(u.tolist(), i.tolist(), r.tolist(), iso_t, iso_t)))
+
+
+def eval_reco_path(hk, dev, workdir):
+    """18a: ``pio eval`` of the port's copy of examples/recommendation/
+    evaluation.py (precision@10, 3 folds, ALS ranks 4 and 8) on bench_als's
+    shape, its app ``MyApp`` imported into the work dir's localfs store,
+    then the same evaluation through run_eval with ``FastEvalEngine`` (the
+    data source read once for both candidates), both on the card; and by
+    ``Evaluation.run`` on the CPU: every score within EVAL_SCORE_ATOL of
+    it."""
+    from predictionio_tpu_torch.models.recommendation import engine as reco_engine
+    from predictionio_tpu_torch.storage import get_storage
+    from predictionio_tpu_torch.workflow.core_workflow import run_eval
+    from predictionio_tpu_torch.workflow.fast_eval import FastEvalEngine
+
+    u, i, r = eval_ratings()
+    jsonl = workdir / "myapp.jsonl"
+    write_ratings_jsonl(jsonl, u, i, r)
+    t0 = time.perf_counter()
+    pio("app", "new", "MyApp")
+    pio("import", "--app-name", "MyApp", "--input", str(jsonl))
+    jsonl.unlink()
+    out = {"events": len(u), "import_s": time.perf_counter() - t0}
+    module = port_example(workdir, "recommendation", "port_reco_evaluation")
+    path = "port_reco_evaluation.RecommendationEvaluation"
+    hk.reset_k1_counts()
+    t0 = time.perf_counter()
+    pio("eval", path)
+    torch.cuda.synchronize()
+    out["pio_eval_s"] = time.perf_counter() - t0
+    out["k1_launches_pio_eval"] = hk.masked_score_matmul.launches
+
+    def instance(cls):
+        (inst,) = [x for x in get_storage().evaluation_instances.get_completed()
+                   if x.evaluation_class == cls]
+        return inst
+
+    inst = instance(path)
+    card_best, card = eval_scores(inst)
+    # the FastEval run's host clock by stage (each call synchronized), and
+    # the data source's reads counted
+    split = {"read_eval": [], "train": [], "batch_predict": []}
+    wrapped = [(reco_engine.RecoDataSource, "read_eval"), (reco_engine.ALSAlgorithm, "train"),
+               (reco_engine.ALSAlgorithm, "batch_predict")]
+    real = {name: getattr(cls, name) for cls, name in wrapped}
+
+    def timed(name):
+        def call(*args):
+            t0 = time.perf_counter()
+            try:
+                return real[name](*args)
+            finally:
+                torch.cuda.synchronize()
+                split[name].append(time.perf_counter() - t0)
+        return call
+
+    evaluation = module.RecommendationEvaluation()
+    fast = FastEvalEngine(evaluation.engine, device=dev)
+    for cls, name in wrapped:
+        setattr(cls, name, timed(name))
+    try:
+        hk.reset_k1_counts()
+        t0 = time.perf_counter()
+        res = run_eval(evaluation, evaluation_class=path + " (FastEval)", device=dev,
+                       eval_runner=fast.eval)
+        torch.cuda.synchronize()
+        out["fast_eval_s"] = time.perf_counter() - t0
+        out["k1_launches_fast_eval"] = hk.masked_score_matmul.launches
+    finally:
+        for cls, name in wrapped:
+            setattr(cls, name, real[name])
+    out["fast_eval_split_s"] = {k: sum(v) for k, v in split.items()}
+    reads = split["read_eval"]
+    check(len(reads) == 1 and fast.stats["folds"] == 1 and fast.stats["folds_hit"] == 1,
+          f"FastEvalEngine read the folds {len(reads)} times ({fast.stats})")
+    fast_best, fast_scores = eval_scores(instance(path + " (FastEval)"))
+    check(fast_best == res.best_score, "the FastEval instance's best score")
+    t0 = time.perf_counter()
+    cpu_eval = module.RecommendationEvaluation()
+    cpu = cpu_eval.run(eval_runner=FastEvalEngine(cpu_eval.engine, device="cpu").eval)
+    out["cpu_eval_s"] = time.perf_counter() - t0
+    cpu_scores = [s for _, s, _ in cpu.engine_params_scores]
+    for name, best, scores in (("pio eval", card_best, card),
+                               ("FastEval", fast_best, fast_scores)):
+        check(len(scores) == 2, f"{name}: {len(scores)} candidates")
+        check(abs(best - cpu.best_score) <= EVAL_SCORE_ATOL,
+              f"{name}: best {best} vs the CPU's {cpu.best_score}")
+        for s, c in zip(scores, cpu_scores):
+            check(abs(s - c) <= EVAL_SCORE_ATOL, f"{name}: score {s} vs the CPU's {c}")
+    for key in ("k1_launches_pio_eval", "k1_launches_fast_eval"):
+        check(out[key] >= 6, f"18a: {out[key]} K1 launches ({key}), want >= 6")
+    out.update({"pio_eval_scores": card, "fast_eval_scores": fast_scores,
+                "cpu_scores": cpu_scores, "fast_eval_stats": fast.stats,
+                "instance_status": inst.status})
+    print(f"  18a pio eval (recommendation, {len(u)} ratings, ranks 4 and 8, 3 folds): "
+          f"import {out['import_s']:.3f} s; pio eval {out['pio_eval_s']:.3f} s, precision@10 "
+          f"{card} (K1 launches {out['k1_launches_pio_eval']}); FastEval "
+          f"{out['fast_eval_s']:.3f} s (host clock by stage: "
+          f"{ {k: round(v, 3) for k, v in out['fast_eval_split_s'].items()} }), "
+          f"{fast_scores}, folds read once ({fast.stats}); CPU "
+          f"{out['cpu_eval_s']:.3f} s, {cpu_scores}; instances EVALCOMPLETED")
+    return out
+
+
+def same_rank_lists(card, cpu, rtol=RTOL):
+    """Card and CPU answers of one query: the same items in the same order
+    but for swaps between scores within ``rtol`` of each other; returns
+    the swaps."""
+    g = [(s.item, s.score) for s in card.item_scores]
+    w = [(s.item, s.score) for s in cpu.item_scores]
+    check(len(g) == len(w), f"{len(g)} items on the card, {len(w)} on the CPU")
+    swaps = 0
+    for (gi, gs), (wi, ws) in zip(g, w):
+        check(abs(gs - ws) <= ATOL + rtol * abs(ws), f"score {gs} vs {ws}")
+        if gi != wi:
+            check(gi in dict(w) and abs(dict(w)[gi] - ws) <= ATOL + rtol * abs(ws),
+                  f"item {gi} where {wi} belongs")
+            swaps += 1
+    return swaps
+
+
+def eval_ur_path(hk, dev, workdir):
+    """18b: the port's copy of examples/universal_recommender/evaluation.py
+    (UREvaluation + MinLlrGrid: min_llr 0, 2, 5; eval_users 500) on 11b's
+    app through run_eval with FastEvalEngine on the card: K2 and K3 launch
+    3 x a train's count; each candidate's card-trained model is then moved
+    to the CPU and its batch_predict run there (the device halves pinned,
+    the card's code path): the four rank metrics equal, lists equal but
+    for swaps at near ties."""
+    from predictionio_tpu_torch.workflow.core_workflow import run_eval
+    from predictionio_tpu_torch.workflow.fast_eval import FastEvalEngine
+
+    _, n_items, _, _, _, tile = DEPLOYED_UR
+    module = port_example(workdir, "universal_recommender", "port_ur_evaluation",
+                          [('"MyShop"', '"smoke"'),
+                           ("eval_users=500", f"eval_users={UR_EVAL_USERS}")])
+    evaluation = module.UREvaluation()
+    evaluation.engine_params_list = list(module.MinLlrGrid().engine_params_list)
+    fast = FastEvalEngine(evaluation.engine, device=dev)
+    recorded = []
+
+    def runner(engine, ep):
+        res = fast.eval(engine, ep)
+        recorded.append(res)
+        return res
+
+    result, r = timed_cco(hk, dev, lambda: run_eval(
+        evaluation, evaluation_class="port_ur_evaluation.UREvaluation", device=dev,
+        eval_runner=runner))
+    per_train = 2 * -(-n_items // tile)
+    n_cand = len(evaluation.engine_params_list)
+    check(r["launches"] == [n_cand * per_train] * 2,
+          f"18b: K2/K3 launches {r['launches']}, want {n_cand} x {per_train} each")
+    metrics = [evaluation.metric] + list(evaluation.other_metrics)
+    out = {"eval_s": r["wall_s"], "launches": r["launches"], "peak_device_gb":
+           r["peak_device_gb"], "candidates": []}
+    saved = {k: os.environ.get(k) for k in ("PIO_UR_SERVE_SCORER", "PIO_UR_SERVE_TAIL")}
+    os.environ.update(PIO_UR_SERVE_SCORER="device", PIO_UR_SERVE_TAIL="device")
+    try:
+        for ci, ep in enumerate(evaluation.engine_params_list):
+            (info, qpa), = recorded[ci]
+            check(len(qpa) == UR_EVAL_USERS, f"18b: {len(qpa)} eval queries")
+            _, per_fold = fast._get_models(ep)
+            model = per_fold[0][0]
+            algo = evaluation.engine.make_components(ep)[2][0]
+            model.to_device("cpu")
+            t0 = time.perf_counter()
+            cpu = algo.batch_predict(model, [q for q, _, _ in qpa])
+            cpu_s = time.perf_counter() - t0
+            swaps = sum(same_rank_lists(p, c) for (_, p, _), c in zip(qpa, cpu))
+            # the UR blacklists the user's own purchases: a held-out item
+            # bought before can never be a hit
+            seen = sum(model.item_dict.id(a) in set(model.user_seen.row(
+                model.user_dict.id(q.user)).tolist()) for q, _, a in qpa)
+            answered = sum(bool(p.item_scores) for _, p, _ in qpa)
+            card_v = [m.calculate([(info, qpa)]) for m in metrics]
+            cpu_v = [m.calculate([(info, [(q, c, a) for (q, _, a), c in zip(qpa, cpu)])])
+                     for m in metrics]
+            _, score, others = result.engine_params_scores[ci]
+            check(card_v == [score] + list(others), "18b: the recorded metrics")
+            check(cpu_v == card_v or swaps > 0,
+                  f"18b candidate {ci}: metrics {card_v} on the card, {cpu_v} on the CPU")
+            out["candidates"].append({"metrics_card": card_v, "metrics_cpu": cpu_v,
+                                      "near_tie_swaps": swaps, "cpu_batch_predict_s": cpu_s,
+                                      "answered": answered, "held_out_in_history": seen})
+            print(f"  18b candidate {ci} ({[m.header() for m in metrics]}): card {card_v}, "
+                  f"CPU {cpu_v}, {swaps} near-tie swaps over {len(qpa)} lists ({answered} "
+                  f"non-empty; {seen} held-out items already in the user's purchases); CPU "
+                  f"batch_predict {cpu_s:.3f} s")
+            del model
+    finally:
+        restore_env(saved)
+    torch.cuda.empty_cache()
+    print(f"  18b pio eval (UR, 11b's app, {n_cand} candidates, {UR_EVAL_USERS} users): "
+          f"{r['wall_s']:.3f} s, K2/K3 launches {r['launches']}, peak "
+          f"{r['peak_device_gb']:.3f} GB, best {result.metric_header} {result.best_score:.6f} "
+          f"(candidate {result.best_index})")
+    return out
+
+
+def cp_variant():
+    return {"id": "smoke-cp", "engineFactory": "complementary_purchase",
+            "datasource": {"params": {"appName": "smoke", "eventName": "purchase",
+                                      "basketWindow": "1 hour"}},
+            "algorithms": [{"name": "rules", "params": {"maxRulesPerItem": 20}}]}
+
+
+def capture_basket_tile(cco, td, dev, t):
+    """Tile ``t``'s rule scores [n_items, tile] of the complementary-purchase
+    train, rebuilt as ``basket_rules`` builds them (for phase 13's K3 row),
+    on the host."""
+    n_items = len(td.item_dict)
+    tile = cco.basket_tile(n_items)
+    chunk = max(256, min(cco._BASKET_CHUNK, (cco._BASKET_CHUNK_BYTES // (n_items * 2))
+                         // 256 * 256))
+    baskets = cco._StagedBaskets(td.basket_idx, td.item_idx, n_items, lambda n_b: chunk, dev)
+    t0 = t * tile
+    width = min(tile, n_items - t0)
+    counts = torch.zeros((baskets.rows, cco._round_up(width, 8)), dtype=torch.int32, device=dev)
+    for c in range(baskets.n_chunks):
+        m = baskets.matrix(c)
+        counts += cco._count_product(m, cco._tile_slab(m, t0, width))
+    ci = torch.as_tensor(baskets.ci.astype(np.float32)).to(dev)
+    n = torch.tensor(float(td.n_baskets), device=dev)
+    zero = torch.zeros((), device=dev)
+    s = cco._basket_scores(counts[:n_items, :width].to(torch.float32), ci[:, None],
+                           ci[t0:t0 + width][None, :], n, zero, zero)
+    s.diagonal(offset=-t0).fill_(float("-inf"))
+    return s.cpu()
+
+
+def cp_bodies(rng, n, n_items):
+    """Carts of 1-5 items, zipf-popular (as the purchases are), num 1, 5 or
+    20; every eighth with an item unknown to the model."""
+    out = []
+    for j in range(n):
+        items = [f"i{int(x)}" for x in rng.zipf(1.3, int(rng.integers(1, 6))) % n_items]
+        if j % 8 == 7:
+            items.append("no-such-item")
+        out.append({"items": items, "num": int(rng.choice([1, 5, 20]))})
+    return out
+
+
+def cp_path(cco, hk, dev, workdir):
+    """18c: the complementary-purchase template on 11b's app (its purchase
+    events in 1-hour baskets): ``pio train`` (item tiles through K3's carry
+    form, one launch a tile), ``pio deploy`` on a thread and CP_QUERIES
+    carts, each answer valid and held against the CPU predict of the same
+    model; a CP_CUT cut of the same baskets through the tiled strategy on
+    the card and on the CPU, bit-equal."""
+    from predictionio_tpu_torch.models.complementary_purchase import engine as cp
+    from predictionio_tpu_torch.workflow.core_workflow import load_latest_models
+    from predictionio_tpu_torch.workflow.create_workflow import engine_from_variant
+
+    path = workdir / "cp.json"
+    path.write_text(json.dumps(cp_variant()))
+    pio("build", "--engine-json", str(path))
+    factory, engine, ep = engine_from_variant(cp_variant())
+    td = engine.make_components(ep)[0].read_training()
+    n_items = len(td.item_dict)
+    tile = cco.basket_tile(n_items)
+    n_tiles = -(-n_items // tile)
+    _, r = timed_cco(hk, dev, lambda: pio("train", "--engine-json", str(path)))
+    check(r["launches"] == [0, n_tiles], f"18c: K2/K3 launches {r['launches']}, want "
+          f"[0, {n_tiles}] ({n_items} items, tile {tile})")
+    _, (model,) = load_latest_models("smoke-cp", device=dev)
+    _, (cpu_model,) = load_latest_models("smoke-cp", device="cpu")
+    check(type(model) is cp.CPModel and model.comp_idx.shape == (n_items, 20), "18c: the model")
+    rules = int((model.comp_idx >= 0).sum())
+    check(rules > 0 and bool((model.comp_idx < n_items).all()), "18c: the rule table")
+    cpu_predict = engine.predictor(ep, [cpu_model])
+    bodies = cp_bodies(np.random.default_rng(SEED + 181), CP_QUERIES, n_items)
+    with pio_deploy_here(path) as (base, up_s):
+        answers, lat_ms = timed_posts(base + "/queries.json", bodies)
+    swaps = answered = 0
+    for body, got in zip(bodies, answers):
+        for d in got["itemScores"]:
+            check(model.item_dict.id(d["item"]) is not None and np.isfinite(d["score"])
+                  and d["score"] > 0, f"18c: {body} answered {d}")
+        q = factory.query_class.from_json(body)
+
+        def full(q=q):
+            q.num = n_items
+            return {d.item: d.score for d in cpu_predict(q).item_scores}
+
+        swaps += check_same_answer(body, got, cpu_predict(q).to_json(), full)
+        answered += bool(got["itemScores"])
+    check(answered >= CP_QUERIES // 2, f"18c: {answered} of {CP_QUERIES} carts answered")
+    n_cut, b_cut = CP_CUT
+    keep = (td.item_idx < n_cut) & (td.basket_idx < b_cut)
+    check(n_cut > cco._BASKET_RULES_DENSE_MAX_ITEMS, "18c: the cut takes the tiled strategy")
+    t0 = time.perf_counter()
+    card_cut = cco.basket_rules(td.basket_idx[keep], td.item_idx[keep], b_cut, n_cut,
+                                top_k=20, device=dev)
+    cut_card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_cut = cco.basket_rules(td.basket_idx[keep], td.item_idx[keep], b_cut, n_cut,
+                               top_k=20, device="cpu")
+    cut_cpu_s = time.perf_counter() - t0
+    check(np.array_equal(card_cut[1], cpu_cut[1]) and np.array_equal(card_cut[0], cpu_cut[0]),
+          "18c: the cut's ids or lifts differ between the card and the CPU")
+    tile_scores = capture_basket_tile(cco, td, dev, min(12, n_tiles - 1))
+    rest = sorted(lat_ms[1:])
+    out = {"pio_train_s": r["wall_s"], "peak_device_gb": r["peak_device_gb"],
+           "launches": r["launches"], "n_items": n_items, "n_baskets": td.n_baskets,
+           "tile": tile, "tiles": n_tiles, "rules": rules, "deploy_to_first_answer_s": up_s,
+           "answered": answered, "near_tie_swaps": swaps,
+           "http_p50_ms": rest[len(rest) // 2],
+           "http_p99_ms": rest[min(len(rest) - 1, int(0.99 * len(rest)))],
+           "cut": {"items": n_cut, "baskets": b_cut, "events": int(keep.sum()),
+                   "rules": int((cpu_cut[1] >= 0).sum()), "card_s": cut_card_s,
+                   "cpu_s": cut_cpu_s}}
+    print(f"  18c complementary purchase: {td.n_baskets} baskets of {len(td.item_idx)} purchases "
+          f"over {n_items} items, pio train {r['wall_s']:.3f} s ({n_tiles} tiles of {tile}, "
+          f"K3 launches {r['launches'][1]}, peak {r['peak_device_gb']:.3f} GB), {rules} rules; "
+          f"{CP_QUERIES} carts ({answered} answered) equal the CPU predict, {swaps} near-tie "
+          f"swaps, p50 {out['http_p50_ms']:.3f} ms p99 {out['http_p99_ms']:.3f} ms; cut "
+          f"{n_cut} items x {b_cut} baskets bit-equal to the CPU (card {cut_card_s:.3f} s, "
+          f"CPU {cut_cpu_s:.3f} s)")
+    del model, cpu_model, td
+    torch.cuda.empty_cache()
+    return out, tile_scores
+
+
+def pr_bodies(rng, n, n_users, n_items):
+    """Queries of 5-50 items for known users, with an unknown user and an
+    unknown item now and then."""
+    out = []
+    for j in range(n):
+        user = f"u{int(rng.integers(0, n_users))}" if j % 10 else "no-such-user"
+        items = [f"i{int(x)}" for x in rng.integers(0, n_items, int(rng.integers(5, 51)))]
+        if j % 7 == 3:
+            items.append("no-such-item")
+        out.append({"user": user, "items": items})
+    return out
+
+
+def pr_path(dev, workdir):
+    """18d: examples/product_ranking/engine.json on 12b's shop: ``pio
+    train`` on the card, ``pio deploy`` on a thread, PR_QUERIES queries
+    from PR_CLIENTS keep-alive clients (micro-batched through
+    ``serve_batch_predict``), every answer held against the CPU predict of
+    the same model (order, scores within rtol PR_RTOL)."""
+    from predictionio_tpu_torch.workflow.core_workflow import load_latest_models
+    from predictionio_tpu_torch.workflow.create_workflow import engine_from_variant
+
+    n_users, n_items = DEPLOYED_ALS[:2]
+    variant = json.loads((Path(__file__).resolve().parent / "examples/product_ranking/"
+                          "engine.json").read_text())
+    variant["id"] = "smoke-pr"
+    variant["datasource"]["params"]["appName"] = "shop"
+    path = workdir / "pr.json"
+    path.write_text(json.dumps(variant))
+    pio("build", "--engine-json", str(path))
+    t0 = time.perf_counter()
+    pio("train", "--engine-json", str(path))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    factory, engine, ep = engine_from_variant(variant)
+    _, (cpu_model,) = load_latest_models("smoke-pr", device="cpu")
+    cpu_predict = engine.predictor(ep, [cpu_model])
+    bodies = pr_bodies(np.random.default_rng(SEED + 182), PR_QUERIES, n_users, n_items)
+    before = batch_hist_snapshot()
+    with pio_deploy_here(path) as (base, up_s):
+        port = int(base.rsplit(":", 1)[1])
+        statuses, lat_ms, answers, wall = run_clients(workdir, port, "/queries.json", bodies,
+                                                      PR_CLIENTS)
+    batch = batch_hist_delta(before, batch_hist_snapshot())
+    check(set(statuses) == {200}, f"18d: statuses {sorted(set(statuses))}")
+    swaps = 0
+    for body, got in zip(bodies, answers):
+        want = cpu_predict(factory.query_class.from_json(body)).to_json()
+        check(got["isOriginal"] == want["isOriginal"], f"18d: {body['user']} isOriginal")
+        g = [(d["item"], d["score"]) for d in got["itemScores"]]
+        w = [(d["item"], d["score"]) for d in want["itemScores"]]
+        check(sorted(i for i, _ in g) == sorted(i for i, _ in w), "18d: the items ranked")
+        for (gi, gs), (wi, ws) in zip(g, w):
+            check(abs(gs - ws) <= ATOL + PR_RTOL * abs(ws), f"18d: score {gs} vs {ws}")
+            if gi != wi:
+                check(abs(dict(w)[gi] - ws) <= ATOL + PR_RTOL * abs(ws),
+                      f"18d: {gi} where {wi} belongs")
+                swaps += 1
+    lat = sorted(lat_ms)
+    out = {"pio_train_s": train_s, "deploy_to_first_answer_s": up_s, "near_tie_swaps": swaps,
+           "p50_ms": lat[len(lat) // 2], "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+           "qps": len(bodies) / wall, "batch": batch,
+           "original": sum(a["isOriginal"] for a in answers)}
+    print(f"  18d product ranking (shop: {len(cpu_model.user_dict)} users x "
+          f"{len(cpu_model.item_dict)} items): pio train {train_s:.3f} s; {PR_QUERIES} queries "
+          f"of 5-50 items from {PR_CLIENTS} clients, p50 {out['p50_ms']:.3f} ms p99 "
+          f"{out['p99_ms']:.3f} ms {out['qps']:.1f} q/s, mean batch {batch['mean']:.2f}; equal to "
+          f"the CPU predict ({swaps} near-tie swaps, {out['original']} unrankable)")
+    return out
+
+
+def cls_events(Event, n_users):
+    rng = np.random.default_rng(SEED + 183)
+    a = rng.integers(0, 5, (n_users, 3)).astype(float)
+    z = a[:, 0] - 0.8 * a[:, 1] + 0.5 * a[:, 2] + rng.normal(0, 1.0, n_users)
+    labels = np.where(z > 2.5, "high", np.where(z > 0.5, "mid", "low"))
+    out = []
+    for u in range(n_users):
+        t = T0 + u
+        out.append(Event("$set", "user", f"u{u}", properties={
+            "attr0": a[u, 0], "attr1": a[u, 1], "attr2": a[u, 2]}, event_time=t, creation_time=t))
+        out.append(Event("$set", "user", f"u{u}", properties={"label": str(labels[u])},
+                         event_time=t + 0.5, creation_time=t + 0.5))
+    return out
+
+
+def lead_events(Event, n_sessions):
+    rng = np.random.default_rng(SEED + 184)
+    pages = [f"/p{k}" for k in range(40)]
+    refs, browsers = ["google", "direct", "ads", "mail", "social"], ["Chrome", "Safari", "Edge"]
+    out = []
+    for s in range(n_sessions):
+        t = T0 + 3 * s
+        page = pages[int(rng.zipf(1.4)) % len(pages)]
+        ref = refs[int(rng.integers(len(refs)))]
+        props = {"sessionId": f"s{s}", "landingPageId": page, "referrerId": ref,
+                 "browser": browsers[int(rng.integers(len(browsers)))]}
+        out.append(Event("view", "user", f"v{s % 20_000}", "item", page, properties=props,
+                         event_time=t, creation_time=t))
+        rate = 0.05 + 0.25 * (page in ("/p1", "/p2")) + 0.1 * (ref == "ads")
+        if rng.random() < rate:
+            out.append(Event("buy", "user", f"v{s % 20_000}", "item", "x",
+                             properties={"sessionId": f"s{s}"}, event_time=t + 1,
+                             creation_time=t + 1))
+    return out
+
+
+def text_events(Event, n):
+    """SMS-shaped messages from the seed: 13% spam (the collection's 747
+    of 5,574), 4-20 words of a 3,000-word vocabulary, spam skewed to its
+    own 300 words."""
+    rng = np.random.default_rng(SEED + 185)
+    vocab = [f"w{k}" for k in range(3_000)]
+    out = []
+    for k in range(n):
+        spam = rng.random() < 747 / 5_574
+        words = [vocab[int(x)] for x in (rng.integers(0, 300, rng.integers(4, 21)) if spam
+                                          else rng.zipf(1.2, rng.integers(4, 21)) % 3_000)]
+        t = T0 + k
+        out.append(Event("train", "content", f"m{k}", properties={
+            "text": " ".join(words), "label": "spam" if spam else "ham"},
+            event_time=t, creation_time=t))
+    return out
+
+
+LEGS = [  # name, app, engineFactory, algorithm name, algorithm params
+    ("classification lbfgs", "cls", "classification", "logreg", {"iterations": 100, "l2": 0.01}),
+    ("classification adam", "cls", "classification", "logreg",
+     {"iterations": 200, "l2": 0.01, "optimizer": "adam", "learningRate": 0.05}),
+    ("lead scoring", "lead", "lead_scoring", "logreg", {"iterations": 200, "l2": 0.001}),
+    ("text nb", "sms", "text", "nb", {"dim": TEXT_DIM}),
+    ("text logreg", "sms", "text", "logreg", {"dim": TEXT_DIM, "iterations": 60}),
+    ("text mlp", "sms", "text", "mlp", {"iterations": 150}),
+]
+
+
+def leg_bodies(rng, app, n):
+    if app == "cls":
+        return [{f"attr{k}": float(rng.integers(0, 5)) for k in range(3)} for _ in range(n)]
+    if app == "lead":
+        return [{"landingPageId": f"/p{int(rng.integers(0, 45))}",
+                 "referrerId": str(rng.choice(["google", "ads", "mail", "new"])),
+                 "browser": str(rng.choice(["Chrome", "Edge", "Lynx"]))} for _ in range(n)]
+    return [{"text": " ".join(f"w{int(x)}" for x in rng.integers(0, 600, rng.integers(1, 15)))}
+            for _ in range(n)]
+
+
+def same_leg_answer(app, got, want, body):
+    if app == "lead":
+        check(abs(got["score"] - want["score"]) <= 1e-6, f"18e: {body}: {got} vs {want}")
+        return
+    check(got["label"] == want["label"], f"18e: {body}: {got} vs {want}")
+    if "confidence" in want:
+        check(abs(got["confidence"] - want["confidence"]) <= CONF_ATOL,
+              f"18e: {body}: {got} vs {want}")
+
+
+def small_templates_path(dev, workdir):
+    """18e: classification (L-BFGS and Adam), lead scoring and text (NB,
+    logistic regression, MLP), each from a seeded memory store: ``pio
+    train`` on the card, ``pio deploy`` on a thread and LEG_QUERIES
+    queries, every answer held against the CPU predict of the same stored
+    weights."""
+    from predictionio_tpu_torch.events.event import Event
+    from predictionio_tpu_torch.storage import App, Storage, StorageConfig, set_storage
+    from predictionio_tpu_torch.workflow.core_workflow import load_latest_models
+    from predictionio_tpu_torch.workflow.create_workflow import engine_from_variant
+
+    store = Storage(StorageConfig.memory())
+    set_storage(store)      # pio train and pio deploy read the process default
+    cls_app, lead_app, sms_app = (store.apps.insert(App(0, a)) for a in ("cls", "lead", "sms"))
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        for app, events in ((cls_app, cls_events(Event, CLS_USERS)),
+                            (lead_app, lead_events(Event, LEAD_SESSIONS)),
+                            (sms_app, text_events(Event, TEXT_MESSAGES))):
+            store.l_events.insert_batch(events, app)
+        out["insert_s"] = time.perf_counter() - t0
+        rng = np.random.default_rng(SEED + 186)
+        for name, app, factory_name, algo, params in LEGS:
+            engine_id = "smoke-" + name.replace(" ", "-")
+            variant = {"id": engine_id, "engineFactory": factory_name,
+                       "datasource": {"params": {"appName": app}},
+                       "algorithms": [{"name": algo, "params": params}]}
+            path = workdir / f"{engine_id}.json"
+            path.write_text(json.dumps(variant))
+            t0 = time.perf_counter()
+            pio("train", "--engine-json", str(path))
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            factory, engine, ep = engine_from_variant(variant)
+            _, cpu_models = load_latest_models(engine_id, device="cpu")
+            cpu_predict = engine.predictor(ep, cpu_models)
+            bodies = leg_bodies(rng, app, LEG_QUERIES)
+            with pio_deploy_here(path) as (base, _):
+                answers, lat_ms = timed_posts(base + "/queries.json", bodies)
+            for body, got in zip(bodies, answers):
+                same_leg_answer(app, got, cpu_predict(factory.query_class.from_json(body))
+                                .to_json(), body)
+            lat = sorted(lat_ms)
+            labels = sorted({json.dumps(a.get("label", round(a.get("score", 0), 1)))
+                             for a in answers})
+            out[name] = {"pio_train_s": train_s, "p50_ms": lat[len(lat) // 2],
+                         "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+                         "distinct_answers": len(labels)}
+            print(f"  18e {name}: pio train {train_s:.3f} s; {LEG_QUERIES} queries equal the "
+                  f"CPU predict of the stored weights ({len(labels)} distinct answers), p50 "
+                  f"{out[name]['p50_ms']:.3f} ms p99 {out[name]['p99_ms']:.3f} ms")
+        return out
+    finally:
+        set_storage(None)
+
+
+def eval_templates_path(cco, hk, dev, workdir):
+    """Phase 18: 18a-18e, with the launches each kernel made in them."""
+    t_phase = time.perf_counter()
+    out = {}
+    walls = {}
+    lap = [time.perf_counter()]
+
+    def leg_done(name):
+        now = time.perf_counter()
+        walls[name] = now - lap[0]
+        lap[0] = now
+
+    phase("18a. pio eval of the recommendation template (bench_als's shape), plain and "
+          "FastEval, against the same evaluation on the CPU")
+    out["eval_reco"] = eval_reco_path(hk, dev, workdir)
+    leg_done("18a")
+    phase("18b. pio eval of the UR on 11b's app (min_llr grid), card models against "
+          "their CPU batch_predict")
+    out["eval_ur"] = eval_ur_path(hk, dev, workdir)
+    leg_done("18b")
+    phase("18c. the complementary-purchase template on 11b's purchases: pio train (tiled "
+          "basket rules), pio deploy, carts")
+    out["complementary_purchase"], tile_scores = cp_path(cco, hk, dev, workdir)
+    leg_done("18c")
+    phase("18d. the product-ranking template on 12b's shop: pio train, pio deploy under "
+          f"{PR_CLIENTS} clients")
+    out["product_ranking"] = pr_path(dev, workdir)
+    leg_done("18d")
+    phase("18e. classification, lead scoring and text: pio train, pio deploy, queries")
+    out["small_templates"] = small_templates_path(dev, workdir)
+    leg_done("18e")
+    ea, eu, ec = out["eval_reco"], out["eval_ur"], out["complementary_purchase"]
+    out["launches"] = {
+        "masked_score": ea["k1_launches_pio_eval"] + ea["k1_launches_fast_eval"],
+        "llr_masked": eu["launches"][0],
+        "tile_topk": eu["launches"][1] + ec["launches"][1]}
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["leg_wall_s"] = walls
+    print(f"  phase 18 wall {out['wall_s']:.3f} s (legs: "
+          f"{ {k: round(v, 3) for k, v in walls.items()} }); launches it adds: {out['launches']}")
+    return out, tile_scores
+
+
 # -- phase 13: ALS train timing ----------------------------------------------------
 
 
@@ -4058,6 +4746,10 @@ def run() -> None:
               "ALS), pio deploy, /queries.json against the CPU predict")
         similar = similar_product_path(hk, dev, workdir)
         torch.cuda.empty_cache()
+        phase("18. pio eval and the five remaining templates (product ranking, "
+              "complementary purchase, classification, lead scoring, text)")
+        slice13, basket_tile_scores = eval_templates_path(cco, hk, dev, workdir)
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -4089,6 +4781,13 @@ def run() -> None:
     rows["tile_topk"].append(time_topk(hk, scores, 64, flush, clock,
                                        "deployed train tile 12 of view",
                                        carry=topk_carry(n_items, 64, dev, gen, "initial")))
+    del scores
+    scores = basket_tile_scores.to(dev)
+    del basket_tile_scores
+    rows["tile_topk"].append(time_topk(hk, scores, 32, flush, clock,
+                                       "basket rules tile 12 of the 18c train",
+                                       carry=topk_carry(scores.shape[0], 32, dev, gen,
+                                                        "initial")))
     del scores
     k1_rounds = retime_k1(hk, dev, gen, flush, clock)
     del flush
@@ -4218,15 +4917,27 @@ def run() -> None:
           f"checkpointed pio train {caches['checkpointed_train']['wall_s']:.3f} s "
           f"(plain {caches['checkpointed_train']['plain_wall_s']:.3f} s); phase 17 "
           f"{caches['wall_s']:.3f} s | {smi}")
+    a18, b18, c18 = slice13["eval_reco"], slice13["eval_ur"], slice13["complementary_purchase"]
+    d18, e18 = slice13["product_ranking"], slice13["small_templates"]
+    print(f"  phase 18 {slice13['wall_s']:.3f} s: 18a pio eval {a18['pio_eval_s']:.3f} s, "
+          f"FastEval {a18['fast_eval_s']:.3f} s; 18b UR eval {b18['eval_s']:.3f} s (3 trains); "
+          f"18c pio train {c18['pio_train_s']:.3f} s, carts p50 {c18['http_p50_ms']:.3f} ms p99 "
+          f"{c18['http_p99_ms']:.3f} ms; 18d pio train {d18['pio_train_s']:.3f} s, {PR_CLIENTS} "
+          f"clients p50 {d18['p50_ms']:.3f} ms p99 {d18['p99_ms']:.3f} ms; 18e "
+          + "; ".join(f"{k} train {v['pio_train_s']:.3f} s p50 {v['p50_ms']:.3f} ms p99 "
+                      f"{v['p99_ms']:.3f} ms" for k, v in e18.items() if isinstance(v, dict))
+          + f"; launches {slice13['launches']} | {smi}")
     print(f"  chip_smoke wall {time.perf_counter() - t_start:.3f} s | {smi}")
     launches = {"masked_score": (http_launches + batch_launches + als_run["k1_launches"]
-                                 + load_launches),
+                                 + load_launches + slice13["launches"]["masked_score"]),
                 "llr_masked": (deployed["launches"][0] + scale["launches"][0]
                                + similar["launches"][0]
-                               + sum(c[1] for c in caches["checkpointed_train"]["calls"])),
+                               + sum(c[1] for c in caches["checkpointed_train"]["calls"])
+                               + slice13["launches"]["llr_masked"]),
                 "tile_topk": (deployed["launches"][1] + scale["launches"][1]
                               + similar["launches"][1]
-                              + sum(c[2] for c in caches["checkpointed_train"]["calls"]))}
+                              + sum(c[2] for c in caches["checkpointed_train"]["calls"])
+                              + slice13["launches"]["tile_topk"])}
     print(json.dumps({"ur_train": {"bench_shape": bench, "memory_store": memory,
                                    "deployed_width_localfs": deployed,
                                    "deployed_width_snapshot": snapshot},
@@ -4235,6 +4946,7 @@ def run() -> None:
                               "timing": als_timing},
                       "frontend": frontend, "cco_scale": scale,
                       "similar_product": similar, "ur_caches": caches,
+                      "slice13": slice13,
                       "k1_retime": k1_rounds, "empty_kernel_ms": empty_ms, "llr_sass": sass,
                       "wall_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": [{

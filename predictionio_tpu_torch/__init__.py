@@ -25,7 +25,32 @@ deploy workflow (``workflow/core_workflow.py``,
 (``python -m predictionio_tpu_torch.cli.main``); the event server, the
 event-loop HTTP front end with prefork workers, the query server's
 micro-batcher, hot reload and feedback (``api/``), and the metrics
-registry behind ``/metrics`` (``obs/``).
+registry behind ``/metrics`` (``obs/``); ``pio eval`` and the evaluation
+workflow (``controller/evaluation.py``, ``workflow/fast_eval.py``), the
+product-ranking, complementary-purchase (basket rules through the tile
+top-k kernel), classification, lead-scoring and text templates
+(``ops/logreg.py``, ``ops/naive_bayes.py``, ``ops/text.py``), the ``e2``
+helpers and ``pio template``.
 """
 
 __version__ = "0.1.0"
+
+from predictionio_tpu_torch.controller import (  # noqa: E402,F401
+    Algorithm,
+    AverageMetric,
+    DataSource,
+    EmptyParams,
+    Engine,
+    EngineFactory,
+    EngineParams,
+    Evaluation,
+    FirstServing,
+    Metric,
+    MetricEvaluator,
+    OptionAverageMetric,
+    Params,
+    PersistentModel,
+    Preparator,
+    Serving,
+    SumMetric,
+)

@@ -10,8 +10,9 @@ tools/.../console/Console.scala and bin/pio):
   channel new|delete                             channels
   snapshot <app> [--channel] [--status]          columnar snapshot of the event log
   import / export                                JSON-lines event files
+  template list|new                              built-in template gallery / scaffolding
   build                                          check engine.json, register its manifest
-  train / deploy / undeploy                      the DASE workflow
+  train / deploy / undeploy / eval               the DASE workflow
   eventserver / adminserver                      REST ingestion / admin API
   metrics <url>                                  pretty-print a server's /metrics
   status / version
@@ -43,14 +44,12 @@ from predictionio_tpu_torch.storage import AccessKey, App, Channel, get_storage
 ROADMAP = {
     "observability": "ROADMAP.md, queue A, 'Observability and the rest of the front end'",
     "streaming": "ROADMAP.md, queue A, 'Streaming'",
-    "templates": "ROADMAP.md, queue A, 'Remaining templates'",
 }
 #: subcommands of the JAX console the port does not have yet -> ROADMAP key
 NOT_PORTED = {
     "dashboard": "observability", "trace": "observability",
     "lineage": "observability", "top": "observability",
     "plane-subscribe": "streaming",
-    "eval": "templates", "template": "templates",
 }
 
 
@@ -295,6 +294,27 @@ def _cmd_train(args) -> int:
     return run_train_from_args(args)
 
 
+def _cmd_eval(args) -> int:
+    from predictionio_tpu_torch.workflow.create_workflow import run_eval_from_args
+
+    return run_eval_from_args(args)
+
+
+def _cmd_template(args) -> int:
+    from predictionio_tpu_torch.cli import templates
+
+    if args.template_command == "list":
+        for name, desc in templates.list_templates().items():
+            print(f"  {name:24s} {desc}")
+        return 0
+    try:
+        dest = templates.scaffold(args.template, args.directory)
+    except (ValueError, FileExistsError) as e:
+        return _error(str(e))
+    print(f"Created {args.template} engine in {dest}/ (engine.json, README.md).")
+    return 0
+
+
 def _cmd_deploy(args) -> int:
     from predictionio_tpu_torch.workflow.create_server import run_server_from_args
 
@@ -520,6 +540,22 @@ def build_parser() -> argparse.ArgumentParser:
     bd = sub.add_parser("build")
     engine_args(bd)
     bd.set_defaults(func=_cmd_build)
+
+    tp = sub.add_parser("template")
+    tp_sub = tp.add_subparsers(dest="template_command", required=True)
+    tp_sub.add_parser("list")
+    tp_new = tp_sub.add_parser("new")
+    tp_new.add_argument("template")
+    tp_new.add_argument("directory")
+    tp.set_defaults(func=_cmd_template)
+
+    ev = sub.add_parser("eval")
+    ev.add_argument("evaluation_class")
+    ev.add_argument("params_generator", nargs="?", default=None,
+                    help="dotted path to an EngineParamsGenerator supplying "
+                         "the candidate grid (reference: pio eval's second arg)")
+    ev.add_argument("--engine-json", default="engine.json")
+    ev.set_defaults(func=_cmd_eval)
 
     tr = sub.add_parser("train")
     engine_args(tr)

@@ -11,4 +11,16 @@ from predictionio_tpu_torch.controller.engine import (  # noqa: F401
     EngineFactory,
     EngineParams,
 )
+from predictionio_tpu_torch.controller.evaluation import (  # noqa: F401
+    AverageMetric,
+    EngineParamsGenerator,
+    Evaluation,
+    Metric,
+    MetricEvaluator,
+    MetricEvaluatorResult,
+    OptionAverageMetric,
+    SumMetric,
+    ZeroMetric,
+    params_grid,
+)
 from predictionio_tpu_torch.controller.params import EmptyParams, Params  # noqa: F401

@@ -1,8 +1,9 @@
 """User-facing DASE component classes (reference: core/.../controller/).
 
 Counterpart of ``predictionio_tpu/controller/dase.py``: the classes engine
-templates subclass.  The evaluation-only classes and the P/L naming
-aliases wait for the slices that use them.
+templates subclass.  The reference's P/L naming aliases,
+``IdentityPreparator`` and ``AverageServing`` are not here: no template of
+either package uses them.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from predictionio_tpu_torch.core.base import (
 
 
 class DataSource(BaseDataSource):
-    """Reads training data from the event store."""
+    """Reads training (and, through ``read_eval``, evaluation) data from the
+    event store."""
 
 
 class Preparator(BasePreparator):

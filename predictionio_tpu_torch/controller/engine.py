@@ -4,9 +4,9 @@ Counterpart of ``predictionio_tpu/controller/engine.py``.  An ``Engine``
 wires one DataSource, one Preparator, a named set of Algorithms, and one
 Serving class.  ``EngineParams`` carries the per-component params (bound
 from engine.json); ``EngineFactory`` is the user entry point named in
-engine.json's ``engineFactory`` key.  Evaluation (``Engine.eval``) waits
-for the slice that ports the evaluation workflow.  ``train`` takes the
-device the algorithms build their models on.
+engine.json's ``engineFactory`` key.  ``train`` and ``eval`` (the DASE
+chain over the data source's eval folds) take the device the algorithms
+build their models on.
 """
 
 from __future__ import annotations
@@ -38,6 +38,19 @@ class EngineParams:
     preparator_params: Params = dataclasses.field(default_factory=EmptyParams)
     algorithm_params_list: List[Tuple[str, Params]] = dataclasses.field(default_factory=list)
     serving_params: Params = dataclasses.field(default_factory=EmptyParams)
+
+    def to_json(self) -> Dict[str, Any]:
+        def pj(p):  # Params object or a plain dict from engine.json binding
+            return p.to_json() if hasattr(p, "to_json") else p
+
+        return {
+            "dataSourceParams": pj(self.data_source_params),
+            "preparatorParams": pj(self.preparator_params),
+            "algorithmParamsList": [
+                {"name": name, "params": pj(p)} for name, p in self.algorithm_params_list
+            ],
+            "servingParams": pj(self.serving_params),
+        }
 
 
 class Engine(BaseEngine):
@@ -93,6 +106,31 @@ class Engine(BaseEngine):
         td = data_source.read_training()
         pd = preparator.prepare(td)
         return [algo.train(pd) for algo in algorithms]
+
+    # -- eval ----------------------------------------------------------------
+
+    def eval(self, engine_params: EngineParams,
+             device=None) -> List[Tuple[Any, List[Tuple[Any, Any, Any]]]]:
+        """Run the evaluation folds: per fold ``(eval_info, [(query,
+        prediction, actual), ...])``, the reference's ``Engine.eval`` RDD of
+        (Q, P, A) triples, each fold's models trained on ``device``."""
+        data_source, preparator, algorithms, serving = self.make_components(
+            engine_params, device=device)
+        results = []
+        for fold in data_source.read_eval():
+            td, eval_info, qa_pairs = _unpack_fold(fold)
+            pd = preparator.prepare(td)
+            models = [algo.train(pd) for algo in algorithms]
+            queries = [q for q, _ in qa_pairs]
+            per_algo_preds = [
+                algo.batch_predict(model, queries) for algo, model in zip(algorithms, models)
+            ]
+            qpa = []
+            for i, (q, a) in enumerate(qa_pairs):
+                preds = [per_algo_preds[j][i] for j in range(len(algorithms))]
+                qpa.append((q, serving.serve(q, preds), a))
+            results.append((eval_info, qpa))
+        return results
 
     # -- serving -------------------------------------------------------------
 
@@ -214,6 +252,15 @@ def _params_block(block: Optional[Dict[str, Any]]) -> Dict[str, Any]:
     if "params" in block and isinstance(block["params"], dict):
         return block["params"]
     return block
+
+
+def _unpack_fold(fold: Any) -> Tuple[Any, Any, List[Tuple[Any, Any]]]:
+    """Accept (td, qa_pairs) or (td, eval_info, qa_pairs) fold shapes."""
+    if len(fold) == 2:
+        td, qa = fold
+        return td, None, list(qa)
+    td, info, qa = fold
+    return td, info, list(qa)
 
 
 def serialize_engine_params(engine_params: EngineParams) -> Dict[str, str]:

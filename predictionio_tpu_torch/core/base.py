@@ -42,6 +42,11 @@ class BaseDataSource(Doer[P], Generic[P, TD], abc.ABC):
     @abc.abstractmethod
     def read_training(self) -> TD: ...
 
+    def read_eval(self) -> Sequence[tuple]:
+        """(training_data, eval_info, [(query, actual), ...]) folds for
+        evaluation (reference: BaseDataSource.readEvalBase); default: none."""
+        return []
+
 
 class BasePreparator(Doer[P], Generic[P, TD, PD], abc.ABC):
     @abc.abstractmethod

@@ -1,18 +1,23 @@
 """Engine templates of the port (counterpart of ``predictionio_tpu/models``).
 
 ``ENGINE_FACTORIES`` maps the template shortnames engine.json may name in
-``engineFactory`` to the port's factories; ``NOT_PORTED`` names the JAX
-package's other templates, which wait for ROADMAP.md, queue A,
-'Remaining templates'.
+``engineFactory`` to the port's factories: all nine of the JAX package's
+templates.  ``NOT_PORTED`` (templates the port does not have yet) is empty.
 """
 
 ENGINE_FACTORIES = {
     "recommendation": "predictionio_tpu_torch.models.recommendation.RecommendationEngine",
-    "ecommerce": "predictionio_tpu_torch.models.ecommerce.ECommerceEngine",
+    "classification": "predictionio_tpu_torch.models.classification.ClassificationEngine",
     "similar_product": "predictionio_tpu_torch.models.similar_product.SimilarProductEngine",
     "universal_recommender":
         "predictionio_tpu_torch.models.universal_recommender.UniversalRecommenderEngine",
+    "text": "predictionio_tpu_torch.models.text.TextClassificationEngine",
+    "ecommerce": "predictionio_tpu_torch.models.ecommerce.ECommerceEngine",
+    "complementary_purchase":
+        "predictionio_tpu_torch.models.complementary_purchase.ComplementaryPurchaseEngine",
+    "product_ranking":
+        "predictionio_tpu_torch.models.product_ranking.ProductRankingEngine",
+    "lead_scoring": "predictionio_tpu_torch.models.lead_scoring.LeadScoringEngine",
 }
 
-NOT_PORTED = ("classification", "text", "complementary_purchase", "product_ranking",
-              "lead_scoring")
+NOT_PORTED: tuple = ()

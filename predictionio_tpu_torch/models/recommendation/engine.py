@@ -17,6 +17,7 @@ Query/response wire format matches the reference template:
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Dict, List, Optional, Sequence
 
@@ -96,10 +97,47 @@ class RecoDataSource(DataSource):
 
     params_class = DataSourceParams
 
+    IMPLICIT_RATING = 4.0
+
     def read_training(self) -> EventBatch:
         return PEventStore.batch(
             self.params.app_name, event_names=list(self.params.event_names)
         )
+
+    def read_eval(self):
+        """``eval_k`` folds of the rating events, each event's fold drawn
+        from ``np.random.default_rng(seed)`` (the JAX package's split, draw
+        for draw); a fold's queries are its held-out events' users, their
+        actuals (item, rating)."""
+        batch = self.read_training()
+        k = self.params.eval_k
+        if k <= 1:
+            return []
+        rng = np.random.default_rng(self.params.seed)
+        fold_of = rng.integers(0, k, size=len(batch))
+        users, items = batch.entity_dict.strings(), batch.target_dict.strings()
+        ratings = np.nan_to_num(batch.ratings, nan=self.IMPLICIT_RATING)
+        folds = []
+        for f in range(k):
+            train_idx = np.nonzero(fold_of != f)[0]
+            test_idx = np.nonzero(fold_of == f)[0]
+            td = _subset(batch, train_idx)
+            qa = [(RecoQuery(user=users[u], num=10), (items[t], r))
+                  for u, t, r in zip(batch.entity_ids[test_idx].tolist(),
+                                     batch.target_ids[test_idx].tolist(),
+                                     ratings[test_idx].tolist())]
+            folds.append((td, {"fold": f}, qa))
+        return folds
+
+
+def _subset(batch: EventBatch, idx: np.ndarray) -> EventBatch:
+    """The rows ``idx`` of a batch, sharing its dictionaries (the property
+    columns are dropped: the rating column carries what training reads)."""
+    return EventBatch(
+        batch.event_codes[idx], batch.entity_type_codes[idx], batch.entity_ids[idx],
+        batch.target_ids[idx], batch.times_us[idx], batch.ratings[idx],
+        batch.event_dict, batch.entity_type_dict, batch.entity_dict, batch.target_dict,
+    )
 
 
 @dataclasses.dataclass
@@ -318,10 +356,8 @@ class ALSAlgorithm(Algorithm):
             min(max(q.num for q in queries), len(model.item_factors)),
             len(model.item_factors),
         )
-        uids = np.array(
-            [model.user_dict.id(q.user) if model.user_dict.id(q.user) is not None else -1
-             for q in queries], np.int32,
-        )
+        uids = np.array([-1 if u is None else u
+                         for u in (model.user_dict.id(q.user) for q in queries)], np.int32)
         safe = np.maximum(uids, 0)
         excl_rows = [self._exclusions(model, q, int(u) if u >= 0 else None)
                      for q, u in zip(queries, uids)]
@@ -333,23 +369,22 @@ class ALSAlgorithm(Algorithm):
                                dtype=torch.int64).to(model.device)
         excl = np.full((bp, width), -1, np.int32)
         for j, e in enumerate(excl_rows):
-            excl[j, :len(e)] = e
+            if len(e):
+                excl[j, :len(e)] = e
         out = als_ops.recommend_batch_excl(
             model.user_factors_device()[rows], model.item_factors_device(),
             excl, k).cpu().numpy()
-        scores, idx = out[:, 0], out[:, 1].astype(np.int32)
+        scores, idx = out[:, 0].tolist(), out[:, 1].astype(np.int32).tolist()
+        names = model.item_dict.strings()
         out = []
         for j, q in enumerate(queries):
             if uids[j] < 0:
                 out.append(PredictedResult([]))
                 continue
             n = min(q.num, k)
-            out.append(
-                PredictedResult(
-                    [ItemScore(model.item_dict.str(int(i)), float(s))
-                     for s, i in zip(scores[j, :n], idx[j, :n]) if np.isfinite(s)]
-                )
-            )
+            out.append(PredictedResult([ItemScore(names[i], s)
+                                        for s, i in zip(scores[j][:n], idx[j][:n])
+                                        if math.isfinite(s)]))
         return out
 
 

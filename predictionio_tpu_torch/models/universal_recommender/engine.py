@@ -38,7 +38,10 @@ batch come back in one [B, 4, k] readback.
 
 Not ported yet, each named in ROADMAP.md: the per-query ``ur_predict``
 spans and trace laps (queue A, 'Observability and the rest of the front
-end'); multi-device training; eval.
+end'); multi-device training.  Evaluation: ``URDataSource.read_eval``'s
+leave-one-out fold and the rank metrics (``HitRateMetric``,
+``NDCGMetric``, ``PrecisionAtKMetric``, ``MRRMetric``) over
+``batch_predict``'s eval answers.
 
 Wire format (UR):
   query    {"user": "u1", "num": 10}
@@ -53,6 +56,7 @@ Wire format (UR):
 from __future__ import annotations
 
 import dataclasses
+import math
 import os as _os
 import threading as _threading
 import time as _time
@@ -342,6 +346,120 @@ class URDataSource(DataSource):
             interactions=interactions,
             item_properties={k: dict(v) for k, v in props.items()},
         )
+
+    def read_eval(self):
+        """Leave-one-out evaluation folds (the JAX package's split, user for
+        user): each qualifying user's LAST primary event (by eventTime) is
+        held out, sampled down to ``eval_users`` by
+        ``np.random.default_rng(eval_seed)``; training sees the rest.  The
+        reference UR ships no evaluation; this is the standard
+        implicit-feedback protocol."""
+        if self.params.eval_users <= 0:
+            return []
+        td = self.read_training()
+        primary = td.event_names[0]
+        u, i, item_dict, times = td.interactions[primary]
+        if len(u) == 0:
+            return []
+        order = np.lexsort((times, u))     # by user, then time
+        us, is_, ts_ = u[order], i[order], times[order]
+        last_of_user = np.flatnonzero(
+            np.concatenate((us[1:] != us[:-1], [True])))
+        counts = np.bincount(us, minlength=0)
+        holdout_rows = last_of_user[counts[us[last_of_user]] >= 2]
+        # sampled, not the first N: stores are often sorted by entity id
+        rng = np.random.default_rng(self.params.eval_seed)
+        holdout_rows = rng.permutation(holdout_rows)[: self.params.eval_users]
+        drop = np.zeros(len(us), bool)
+        drop[holdout_rows] = True
+        interactions = dict(td.interactions)
+        interactions[primary] = (us[~drop], is_[~drop], item_dict, ts_[~drop])
+        fold_td = URTrainingData(
+            event_names=td.event_names,
+            user_dict=td.user_dict,
+            interactions=interactions,
+            item_properties=td.item_properties,
+        )
+        qa = [
+            (URQuery(user=td.user_dict.str(int(us[r])), num=self.params.eval_num),
+             item_dict.str(int(is_[r])))
+            for r in holdout_rows
+        ]
+        return [(fold_td, {"fold": "leave-one-out"}, qa)]
+
+
+class _RankMetric:
+    """Base for rank metrics over URResult predictions with a single
+    held-out relevant item (the leave-one-out protocol of read_eval).
+    Subclasses score one ranked list by the 0-based rank of the actual
+    item, or None when it is absent."""
+
+    higher_is_better = True
+
+    def header(self) -> str:
+        raise NotImplementedError   # subclasses name themselves
+
+    def score_rank(self, rank) -> float:
+        raise NotImplementedError
+
+    def calculate(self, eval_data) -> float:
+        total = 0
+        score = 0.0
+        for _info, qpa in eval_data:
+            for _q, p, actual in qpa:
+                total += 1
+                rank = next((r for r, s in enumerate(p.item_scores)
+                             if s.item == actual), None)
+                score += self.score_rank(rank)
+        return score / total if total else 0.0
+
+    def compare(self, a: float, b: float) -> int:
+        return 0 if a == b else (1 if a > b else -1)
+
+
+class HitRateMetric(_RankMetric):
+    """hit@num: fraction of held-out items anywhere in the result list."""
+
+    def header(self) -> str:
+        return "HitRate"
+
+    def score_rank(self, rank) -> float:
+        return 1.0 if rank is not None else 0.0
+
+
+class NDCGMetric(_RankMetric):
+    """NDCG@num with one relevant item: 1/log2(rank+2), 0 on a miss —
+    the ideal DCG is 1, so no normalization divisor is needed."""
+
+    def header(self) -> str:
+        return "NDCG"
+
+    def score_rank(self, rank) -> float:
+        return 1.0 / math.log2(rank + 2) if rank is not None else 0.0
+
+
+class PrecisionAtKMetric(_RankMetric):
+    """precision@k with one relevant item: 1/k when the item ranks in the
+    top k, else 0 (reference e2 evaluation's precision family)."""
+
+    def __init__(self, k: int = 10):
+        self.k = k
+
+    def header(self) -> str:
+        return f"Precision@{self.k}"
+
+    def score_rank(self, rank) -> float:
+        return 1.0 / self.k if rank is not None and rank < self.k else 0.0
+
+
+class MRRMetric(_RankMetric):
+    """Mean reciprocal rank: 1/(rank+1), 0 on a miss."""
+
+    def header(self) -> str:
+        return "MRR"
+
+    def score_rank(self, rank) -> float:
+        return 1.0 / (rank + 1) if rank is not None else 0.0
 
 
 class URPreparator(Preparator):

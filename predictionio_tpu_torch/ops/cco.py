@@ -1247,3 +1247,182 @@ def cco_indicators(
         pu, pi, au, ai, primary.n_users, primary.n_items, other.n_items,
         n_total_users, top_k, llr_threshold, primary.user_block, item_tile,
         exclude_self, self_pair, dev)
+
+
+# ---------------------------------------------------------------------------
+# basket association rules (the complementary-purchase template)
+# ---------------------------------------------------------------------------
+
+# The reference's budgets, copied as they are: the dense [I, I] rule matrix
+# up to _BASKET_RULES_DENSE_MAX_ITEMS items, the item-tiled strategy past
+# it; baskets densified _BASKET_CHUNK at a time (dense), or as many as
+# _BASKET_CHUNK_BYTES holds at the reference's 2 bytes a cell (tiled); the
+# tile as wide as _BASKET_TILE_BYTES holds at 12 bytes a cell.  The tile
+# width, hence the tiles and the K3 launches, is the reference's.
+_BASKET_RULES_DENSE_MAX_ITEMS = 16_384
+_BASKET_CHUNK = 8192
+_BASKET_CHUNK_BYTES = 512 << 20
+_BASKET_TILE_BYTES = 2 << 30
+
+
+def _basket_scores(c, ci_row, ci_col, n, min_support, min_confidence):
+    """Per-cell rule scores in float32: lift where the support and
+    confidence cuts pass and the pair occurs, else -inf — the reference's
+    ``_basket_scores`` as XLA evaluates it: its algebraic simplifier folds
+    ``(c / r) / q`` into ``c / (r · q)``, so the lift is one division by
+    that product (bit-equal to the reference's lifts)."""
+    support = c / n
+    row = torch.clamp_min(ci_row, 1.0)
+    confidence = c / row
+    lift = c / (row * torch.clamp_min(ci_col / n, 1e-9))
+    ok = (support >= min_support) & (confidence >= min_confidence) & (c > 0)
+    return torch.where(ok, lift, float("-inf"))
+
+
+class _StagedBaskets:
+    """The (basket, item) pairs that can form a rule, on the device, in
+    basket chunks of ``chunk`` columns; each chunk densifies item-major
+    [items, chunk] on demand, and is kept when every chunk fits the
+    device's budget (the P-resident rule of the CCO strategies).
+
+    A basket with one distinct item adds only to its item's count, which
+    comes exact from the host (``ci``), and to the diagonal, which no rule
+    reads: such baskets are left out of the product, and the pair counts
+    off the diagonal stay exact."""
+
+    def __init__(self, basket_idx, item_idx, n_items: int, chunk_of, device: torch.device):
+        db, di = dedup_pairs(basket_idx, item_idx, n_items)
+        self.ci = np.bincount(di, minlength=n_items).astype(np.int64)
+        per_basket = np.bincount(db) if len(db) else np.zeros(0, np.int64)
+        keep = per_basket[db] >= 2
+        multi = np.flatnonzero(per_basket >= 2)
+        compact = np.full(len(per_basket), -1, np.int64)
+        compact[multi] = np.arange(len(multi))
+        self.n_multi = len(multi)
+        self.chunk = chunk_of(self.n_multi)
+        self.n_chunks = max(math.ceil(self.n_multi / self.chunk), 1)
+        self.rows = _item_rows(n_items)
+        self.staged = _StagedCOO(compact[db[keep]], di[keep], device, "user",
+                                 self.chunk, self.n_chunks)
+        self.keep_all = (self.n_chunks * self.chunk * self.rows
+                         <= _resident_budget(device) // 2)
+        self._kept: Dict[int, torch.Tensor] = {}
+
+    def matrix(self, c: int) -> torch.Tensor:
+        m = self._kept.get(c)
+        if m is None:
+            b, i = self.staged.span(c)
+            m = _densify(i, b - c * self.chunk, self.rows, self.chunk)
+            if self.keep_all:
+                self._kept[c] = m
+        return m
+
+
+def _basket_rules_dense(baskets: _StagedBaskets, n_items: int, b: int, score):
+    """The whole [I, I] pair counts summed over the basket chunks, the rule
+    scores, the diagonal at -inf, and K3's row top-b (no carry)."""
+    dev = baskets.staged.user.device
+    C = torch.zeros((baskets.rows, baskets.rows), dtype=torch.int32, device=dev)
+    for c in range(baskets.n_chunks):
+        m = baskets.matrix(c)
+        C += _count_product(m, m)
+    scores = score(C[:n_items, :n_items].to(torch.float32), 0, n_items)
+    scores.diagonal().fill_(float("-inf"))
+    return tile_topk_desc(scores, b)
+
+
+def _basket_rules_tiled(baskets: _StagedBaskets, n_items: int, tile: int, b: int, score):
+    """Item tiles: each tile's [I, tile] pair counts summed over the basket
+    chunks (the tile's rows of a chunk are a slice of it), the rule scores,
+    and K3's top-b merged into the running carry with the self-pair
+    excluded (``_tile_tail``), one launch a tile."""
+    dev = baskets.staged.user.device
+    best = _initial_carry(n_items, b, dev)
+    for t0 in range(0, n_items, tile):
+        width = min(tile, n_items - t0)
+        counts = torch.zeros((baskets.rows, _round_up(width, 8)), dtype=torch.int32,
+                             device=dev)
+        for c in range(baskets.n_chunks):
+            m = baskets.matrix(c)
+            counts += _count_product(m, _tile_slab(m, t0, width))
+        scores = score(counts[:n_items, :width].to(torch.float32), t0, width)
+        del counts
+        best = _tile_tail(scores, t0, True, b, best)
+        del scores
+    return best
+
+
+def basket_tile(n_items: int, item_tile: int = 4096) -> int:
+    """Items a tile of ``basket_rules`` spans: the whole catalog on the
+    dense strategy; past it, ``item_tile`` capped so the [I, tile] working
+    set (counts, scores, merge buffer: ~12 bytes a cell) stays within
+    ``_BASKET_TILE_BYTES`` — the reference's rule."""
+    if n_items <= _BASKET_RULES_DENSE_MAX_ITEMS:
+        return n_items
+    tile_cap = max((_BASKET_TILE_BYTES // max(n_items * 12, 1)) // 128 * 128, 128)
+    return min(item_tile, tile_cap, max(n_items, 1))
+
+
+def basket_rules(
+    basket_idx: np.ndarray, item_idx: np.ndarray,
+    n_baskets: int, n_items: int,
+    top_k: int = 20,
+    min_support: float = 0.0,
+    min_confidence: float = 0.0,
+    item_tile: int = 4096,
+    device=None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pairwise association rules from (basket, item) events
+    (``predictionio_tpu/ops/cco.py:basket_rules``) plus ``device``
+    (default ``"cuda"``): (lift [I, K], complement ids [I, K], confidence
+    [I, K]), -inf / -1 / 0 where fewer rules pass the cuts.
+
+    For each ordered pair i → j: support c_ij / N, confidence c_ij / c_i,
+    lift confidence / (c_j / N), all in float32 from exact pair counts
+    (the int8 count product, ``_count_product``); the per-row top-k by
+    lift is ``lax.top_k``'s order, ties included, with self-pairs excluded.
+    Up to ``_BASKET_RULES_DENSE_MAX_ITEMS`` items the whole count matrix is
+    built and K3 takes its row top-k; past it, item tiles of the
+    reference's width feed K3's carry form, one launch a tile.  Confidence
+    is derived from the top-k lift (lift·c_j/N) with the exact host counts.
+    """
+    if n_baskets >= (1 << 31):
+        raise ValueError(
+            f"{n_baskets} baskets would overflow the int32 pair-count "
+            "accumulator (exact to 2^31); shard the basket log first")
+    dev = resolve_device(device)
+    k = min(max(top_k, 1), max(n_items, 1))
+    b = block_width(k)
+    dense = n_items <= _BASKET_RULES_DENSE_MAX_ITEMS
+    tile = basket_tile(n_items, item_tile)
+    if dense:
+        def chunk_of(n_b):
+            return _BASKET_CHUNK
+    else:
+        def chunk_of(n_b):
+            return max(256, min(
+                _BASKET_CHUNK,
+                (_BASKET_CHUNK_BYTES // max(n_items * _REF_BYTES_PER_CELL, 1)) // 256 * 256,
+                math.ceil(max(n_b, 1) / 256) * 256))
+    baskets = _StagedBaskets(basket_idx, item_idx, n_items, chunk_of, dev)
+    ci_f = torch.as_tensor(baskets.ci.astype(np.float32)).to(dev)
+    n = torch.tensor(max(float(n_baskets), 1.0), dtype=torch.float32, device=dev)
+    ms = torch.tensor(min_support, dtype=torch.float32, device=dev)
+    mc = torch.tensor(min_confidence, dtype=torch.float32, device=dev)
+
+    def score(c, t0, width):
+        return _basket_scores(c, ci_f[:, None], ci_f[t0:t0 + width][None, :], n, ms, mc)
+
+    if dense:
+        st, si = _basket_rules_dense(baskets, n_items, b, score)
+    else:
+        st, si = _basket_rules_tiled(baskets, n_items, tile, b, score)
+    st, si = st[:, :k].cpu().numpy(), si[:, :k].cpu().numpy()
+    dead = ~np.isfinite(st) | (si < 0) | (si >= n_items)
+    si = np.where(dead, -1, si).astype(np.int32)
+    st = np.where(dead, -np.inf, st)
+    # conf = lift·c_j/N from the exact int64 host counts (-inf lifts zeroed
+    # before the multiply, so no NaN transient)
+    nf = max(float(n_baskets), 1.0)
+    conf = np.where(dead, 0.0, st) * baskets.ci[np.maximum(si, 0)] / nf
+    return st, si, conf

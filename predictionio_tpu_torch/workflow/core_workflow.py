@@ -1,18 +1,22 @@
-"""Training orchestration.
+"""Training and evaluation orchestration.
 
 Counterpart of ``predictionio_tpu/workflow/core_workflow.py`` (reference:
 core/.../workflow/CoreWorkflow.scala): ``run_train`` records an
 EngineInstance (INIT → TRAINING → COMPLETED, or FAILED with the exception
 re-raised), runs ``Engine.train`` on the named device and persists the
-models; ``load_latest_models`` is the deploy-time lookup.  The JAX
-package's span journals and train metrics wait for ROADMAP.md, queue A,
-'Observability and the rest of the front end'; ``run_eval`` waits for the
-evaluation workflow (ROADMAP.md, queue A, 'Remaining templates').
+models; ``load_latest_models`` is the deploy-time lookup; ``run_eval``
+runs an Evaluation on the named device and records an EvaluationInstance
+(EVALRUNNING → EVALCOMPLETED with the results as text, JSON and HTML, or
+EVALFAILED) and counts ``pio_eval_runs_total`` by final status.  The JAX
+package's span journals (around a train and an eval) and its train metrics
+wait for ROADMAP.md, queue A, 'Observability and the rest of the front
+end'.
 """
 
 from __future__ import annotations
 
 import datetime as _dt
+import json
 import logging
 import os
 import traceback
@@ -23,12 +27,18 @@ from predictionio_tpu_torch.controller.engine import (
     EngineParams,
     serialize_engine_params,
 )
+from predictionio_tpu_torch.controller.evaluation import Evaluation, MetricEvaluatorResult
+from predictionio_tpu_torch.core.base import doer_name
 from predictionio_tpu_torch.device import resolve_device
-from predictionio_tpu_torch.storage.base import EngineInstance
+from predictionio_tpu_torch.obs.metrics import get_registry
+from predictionio_tpu_torch.storage.base import EngineInstance, EvaluationInstance
 from predictionio_tpu_torch.storage.locator import Storage, get_storage
 from predictionio_tpu_torch.workflow import persistence
 
 log = logging.getLogger("pio.workflow")
+
+_M_EVALS = get_registry().counter(
+    "pio_eval_runs_total", "Evaluation runs by final status")
 
 
 def _now() -> _dt.datetime:
@@ -123,3 +133,73 @@ def load_latest_models(
         )
     models = persistence.load_models(storage, instance.id, device)
     return instance, models
+
+
+def _eval_results_html(result: MetricEvaluatorResult) -> str:
+    """Candidate table for the dashboard (reference: EvaluationInstances'
+    evaluatorResultsHTML rendered by the dashboard module)."""
+    import html as _html
+
+    rows = "".join(
+        "<tr{hl}><td>{i}</td><td>{score:.6f}</td><td>{others}</td>"
+        "<td><pre>{params}</pre></td></tr>".format(
+            hl=' style="background:#e8f4e8"' if i == result.best_index else "",
+            i=i + 1,
+            score=score,
+            others=_html.escape(", ".join(f"{o:.4f}" for o in others)),
+            params=_html.escape(json.dumps(ep.to_json(), indent=1)[:2000]),
+        )
+        for i, (ep, score, others) in enumerate(result.engine_params_scores)
+    )
+    return (
+        f"<h3>{_html.escape(result.metric_header)}</h3>"
+        f"<table><tr><th>#</th><th>{_html.escape(result.metric_header)}</th>"
+        f"<th>{_html.escape(', '.join(result.other_metric_headers))}</th>"
+        f"<th>engine params</th></tr>{rows}</table>"
+    )
+
+
+def run_eval(
+    evaluation: Evaluation,
+    evaluation_class: str = "",
+    storage: Optional[Storage] = None,
+    device="cuda",
+    eval_runner=None,
+) -> MetricEvaluatorResult:
+    """Run an Evaluation with its candidates' models on ``device``, record
+    the EvaluationInstance, return the result.  ``eval_runner`` (e.g.
+    ``FastEvalEngine(engine, device).eval``) replaces ``Engine.eval``.
+    Raises before recording anything when CUDA is asked for and absent."""
+    device = resolve_device(device)
+    storage = storage or get_storage()
+    instance = EvaluationInstance(
+        id="",
+        status="EVALRUNNING",
+        start_time=_now(),
+        end_time=None,
+        evaluation_class=evaluation_class or doer_name(evaluation),
+    )
+    instance_id = storage.evaluation_instances.insert(instance)
+    try:
+        log.info("evaluating %s (instance %s)", instance.evaluation_class, instance_id)
+        result = evaluation.run(eval_runner=eval_runner, device=device)
+        instance.status = "EVALCOMPLETED"
+        instance.end_time = _now()
+        instance.evaluator_results = (
+            f"{result.metric_header}: best={result.best_score:.6f} "
+            f"(candidate {result.best_index + 1}/{len(result.engine_params_scores)})"
+        )
+        instance.evaluator_results_json = json.dumps(result.to_json())
+        instance.evaluator_results_html = _eval_results_html(result)
+        storage.evaluation_instances.update(instance)
+        # counted only after the instance is durably COMPLETED: one run
+        # never counts under both statuses
+        _M_EVALS.inc(1, status="EVALCOMPLETED")
+        return result
+    except Exception:
+        _M_EVALS.inc(1, status="EVALFAILED")
+        instance.status = "EVALFAILED"
+        instance.end_time = _now()
+        storage.evaluation_instances.update(instance)
+        log.error("evaluation FAILED: %s", traceback.format_exc())
+        raise

@@ -5,15 +5,16 @@ Counterpart of ``predictionio_tpu/workflow/create_workflow.py``: resolve
 the engine factory named in engine.json (a template shortname or a dotted
 path, the JAX package's paths mapped onto the port's), load the variant,
 bind its params blocks to typed EngineParams, pick the engine id, and the
-``pio train`` and ``pio build`` entry points.  ``pio eval`` waits for the
-evaluation workflow (ROADMAP.md, queue A, 'Remaining templates') and
-``pio train --follow`` for ROADMAP.md, queue A, 'Streaming'.
+``pio train``, ``pio build`` and ``pio eval`` entry points.  ``pio train
+--follow`` waits for ROADMAP.md, queue A, 'Streaming'.
 """
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 import importlib
+import importlib.util
 import json
 import logging
 import sys
@@ -37,13 +38,15 @@ def resolve_engine_factory(name: str) -> Type[EngineFactory]:
     """The port's EngineFactory class for a template shortname or a dotted
     path; a path into the JAX package names the port's class on the same
     module path."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"engineFactory {name!r}: the port does not have this template "
-            f"yet ({ROADMAP_TEMPLATES})")
     dotted = ENGINE_FACTORIES.get(name, name)
     if dotted == _JAX_PACKAGE or dotted.startswith(_JAX_PACKAGE + "."):
         dotted = _PORT_PACKAGE + dotted[len(_JAX_PACKAGE):]
+    parts = dotted.split(".")
+    template = parts[2] if parts[:2] == [_PORT_PACKAGE, "models"] and len(parts) > 2 else name
+    if name in NOT_PORTED or template in NOT_PORTED:
+        raise NotImplementedError(
+            f"engineFactory {name!r}: the port does not have this template "
+            f"yet ({ROADMAP_TEMPLATES})")
     module_name, _, cls_name = dotted.rpartition(".")
     if not module_name:
         raise ValueError(
@@ -199,4 +202,86 @@ def run_build_from_args(args) -> int:
     n_algos = len(engine_params.algorithm_params_list)
     print(f"Build successful. Registered engine {engine_id} {args.engine_version} "
           f"(factory {variant['engineFactory']}, {n_algos} algorithm(s)).")
+    return 0
+
+
+def _imports_jax_package(module_name: str) -> bool:
+    """Whether ``module_name`` is, or its source imports, the JAX package
+    (``predictionio_tpu``): read from the source without importing it."""
+    if module_name == _JAX_PACKAGE or module_name.startswith(_JAX_PACKAGE + "."):
+        return True
+    spec = importlib.util.find_spec(module_name)
+    if spec is None or not spec.origin or not spec.origin.endswith(".py"):
+        return False
+    tree = ast.parse(Path(spec.origin).read_text(), filename=spec.origin)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        if any(n == _JAX_PACKAGE or n.startswith(_JAX_PACKAGE + ".") for n in names):
+            return True
+    return False
+
+
+def _load_dotted(path: str, what: str):
+    """The attribute a dotted path names.  A module that imports the JAX
+    package is refused before it is imported: the port never loads it (an
+    evaluation written against the JAX package needs the port's imports)."""
+    module_name, _, attr = path.rpartition(".")
+    if not module_name:
+        raise ValueError(f"{what} {path!r} must be a dotted path")
+    if _imports_jax_package(module_name):
+        raise ImportError(
+            f"{what} {path!r}: module {module_name!r} imports the JAX package "
+            f"({_JAX_PACKAGE}); the port does not load it — import the same "
+            f"names from {_PORT_PACKAGE} instead")
+    return getattr(importlib.import_module(module_name), attr)
+
+
+def run_eval_from_args(args) -> int:
+    """``pio eval <Evaluation> [<EngineParamsGenerator>]`` (reference:
+    Console.eval → EvaluationWorkflow), on ``args.device``: the evaluation
+    class is a dotted path to an Evaluation subclass or instance, the
+    optional generator a dotted path to an EngineParamsGenerator that
+    supplies the candidate grid."""
+    from predictionio_tpu_torch.controller.evaluation import (
+        EngineParamsGenerator,
+        Evaluation,
+    )
+    from predictionio_tpu_torch.workflow import core_workflow
+
+    try:
+        # like engine.json's directory for train: the working directory's
+        # modules are importable by dotted path
+        if "" not in sys.path and str(Path.cwd()) not in sys.path:
+            sys.path.insert(0, str(Path.cwd()))
+        obj = _load_dotted(args.evaluation_class, "evaluation class")
+        evaluation = obj() if isinstance(obj, type) else obj
+        if not isinstance(evaluation, Evaluation):
+            raise TypeError(f"{args.evaluation_class} is not an Evaluation")
+        gen_path = getattr(args, "params_generator", None)
+        if gen_path:
+            gobj = _load_dotted(gen_path, "engine params generator")
+            gen = gobj() if isinstance(gobj, type) else gobj
+            if not isinstance(gen, EngineParamsGenerator):
+                raise TypeError(f"{gen_path} is not an EngineParamsGenerator")
+            evaluation.engine_params_list = list(gen.engine_params_list)
+        result = core_workflow.run_eval(evaluation, evaluation_class=args.evaluation_class,
+                                        device=args.device)
+    except Exception as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    print(f"Evaluation completed: {result.metric_header} best={result.best_score:.6f}")
+    # the per-candidate table with the side metrics (the reference's
+    # MetricEvaluator prints the whole candidate/metric matrix)
+    headers = [result.metric_header] + list(result.other_metric_headers)
+    for i, (_ep, score, others) in enumerate(result.engine_params_scores):
+        marker = "*" if i == result.best_index else " "
+        cells = "  ".join(f"{h}={v:.6f}" for h, v in zip(headers, [score] + list(others)))
+        print(f"  {marker} candidate {i}: {cells}")
+    print("Best engine params:")
+    print(json.dumps(result.best_engine_params.to_json(), indent=2))
     return 0

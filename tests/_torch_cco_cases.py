@@ -235,3 +235,58 @@ def check_cco_matches_jax(name, strategy, ref):
         assert_indicators_match(got[event], want[event], exact_llr(c, event))
     ids = got["buy"][1]
     assert not (ids == np.arange(c["n_ip"])[:, None]).any()   # exclude_self
+
+
+def check_jax_written_localfs_store(fs_storage, path, strategy):
+    """The "naive" corpus posted as ``buy``/``view`` events to the JAX
+    event server, which writes them into its localfs store
+    (``fs_storage``): the port's UR training read of the same directory
+    equals the JAX one, and its indicators under ``strategy`` match the JAX
+    package's on that read."""
+    from predictionio_tpu.models.universal_recommender import engine as jax_ur
+    from predictionio_tpu_torch.models.universal_recommender import engine as port_ur
+    from predictionio_tpu_torch.storage import set_storage as port_set_storage
+
+    from _torch_event_cases import T0, jax_event_server_writes, port_localfs_storage
+
+    c = corpus("naive")
+    specs = [(name, "user", f"u{u}", "item", f"{name[0]}{i}", {}, T0 + k, T0 + k)
+             for name, us, its in (("buy", c["pu"], c["pi"]), ("view", c["vu"], c["vi"]))
+             for k, (u, i) in enumerate(zip(us.tolist(), its.tolist()))]
+    jax_event_server_writes(fs_storage, "ccoapp", specs)
+    port_set_storage(port_localfs_storage(path))
+    try:
+        params = dict(app_name="ccoapp", event_names=["buy", "view"])
+        got = port_ur.URDataSource(port_ur.URDataSourceParams(**params)).read_training()
+        want = jax_ur.URDataSource(jax_ur.URDataSourceParams(**params)).read_training()
+    finally:
+        port_set_storage(None)
+    assert got.user_dict.to_state() == want.user_dict.to_state()
+    read = {}
+    for name in ("buy", "view"):
+        for g, w in zip(got.interactions[name], want.interactions[name]):
+            if isinstance(w, np.ndarray):
+                np.testing.assert_array_equal(g, w)
+            else:
+                assert g.to_state() == w.to_state()
+        read[name] = got.interactions[name]
+    (pu, pi, pd, _), (vu, vi, vd, _) = read["buy"], read["view"]
+    r = dict(c, n_users=len(got.user_dict), n_ip=len(pd), n_it=len(vd),
+             pu=pu, pi=pi, vu=vu, vi=vi)
+    attrs, env = STRATEGIES[strategy]
+    mp = pytest.MonkeyPatch()
+    try:
+        for k in ("PIO_CCO_SPARSE", "PIO_CCO_SPARSE_TAIL", "PIO_CCO_DENSE"):
+            mp.delenv(k, raising=False)
+        for k, v in env.items():
+            mp.setenv(k, v)
+        for k, v in attrs.items():
+            mp.setattr(port_cco, k, v)
+        ours = port_cco.cco_train_indicators(pu, pi, others(r), r["n_users"], r["n_ip"],
+                                             device="cpu", **_kwargs(r))
+    finally:
+        mp.undo()
+    theirs = jax_cco.cco_train_indicators(pu, pi, others(r), r["n_users"], r["n_ip"],
+                                          **_kwargs(r))
+    for event in ("buy", "view"):
+        assert_indicators_match(ours[event], theirs[event], exact_llr(r, event))

@@ -160,6 +160,57 @@ def port_memory_storage():
     return PortStorage(PortStorageConfig.memory())
 
 
+def port_localfs_storage(path):
+    """A port ``Storage`` with every repository on the localfs directory
+    ``path``, the layout the JAX package writes (its ``fs_storage``)."""
+    return PortStorage(PortStorageConfig(
+        sources={"FS": {"type": "localfs", "path": str(path)}},
+        repositories={r: "FS" for r in ("METADATA", "EVENTDATA", "MODELDATA")}))
+
+
+def fill_jax(jax_store, app, specs):
+    """Create ``app`` in a JAX store and insert ``specs``; returns its id."""
+    app_id = jax_store.apps.insert(JaxApp(0, app))
+    jax_store.l_events.insert_batch(jax_events(specs), app_id)
+    return app_id
+
+
+def jax_event_server_writes(jax_store, app, specs, key="serverkey"):
+    """Create ``app`` (with access key ``key``) in a JAX store and POST
+    ``specs`` to the JAX event server in batches of 50, its limit, which
+    appends them to the store (event ids and creation times its own);
+    returns the app id."""
+    import json
+    import urllib.request
+
+    from predictionio_tpu.api.event_server import run_event_server
+    from predictionio_tpu.storage import AccessKey as JaxAccessKey
+
+    app_id = jax_store.apps.insert(JaxApp(0, app))
+    jax_store.l_events.init(app_id)
+    jax_store.access_keys.insert(JaxAccessKey(key, app_id, []))
+    docs = []
+    for ev, et, eid, tt, tid, props, t, _ in specs:
+        d = {"event": ev, "entityType": et, "entityId": eid, "eventTime": iso(t)}
+        if tt is not None:
+            d.update(targetEntityType=tt, targetEntityId=tid)
+        if props:
+            d["properties"] = props
+        docs.append(d)
+    srv = run_event_server(host="127.0.0.1", port=0, storage=jax_store, background=True)
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}/batch/events.json?accessKey={key}"
+        for s in range(0, len(docs), 50):
+            req = urllib.request.Request(url, data=json.dumps(docs[s:s + 50]).encode())
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                statuses = {r["status"] for r in json.loads(resp.read())}
+            assert statuses == {201}, statuses
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    return app_id
+
+
 def fill_both(jax_store, port_store, app, specs):
     """Create ``app`` in both stores and insert ``specs``; returns the two
     app ids."""

@@ -29,7 +29,8 @@ from predictionio_tpu_torch.ops import cco as port_cco
 from predictionio_tpu_torch.ops import hopper_kernels as hk
 from predictionio_tpu_torch.ops.topk import block_width, merge_desc
 
-from _torch_cco_cases import ATOL, JAX_ENVS, REFERENCE_CORPORA, RTOL, check_cco_matches_jax
+from _torch_cco_cases import (ATOL, JAX_ENVS, REFERENCE_CORPORA, RTOL, check_cco_matches_jax,
+                              check_jax_written_localfs_store)
 
 
 def _assert_llr(got, want):
@@ -369,3 +370,9 @@ def test_tile_topk_rejects_bad_carry(bad):
 @pytest.mark.parametrize("corpus", REFERENCE_CORPORA)
 def test_cco_train_indicators_matches_jax(corpus, strategy, ref):
     check_cco_matches_jax(corpus, strategy, ref)
+
+
+def test_indicators_from_a_jax_written_localfs_store(fs_storage, tmp_path):
+    """A corpus the JAX event server wrote into its localfs store, read by
+    the port's UR data source, trains the JAX indicators (dense strategy)."""
+    check_jax_written_localfs_store(fs_storage, tmp_path / "store", "dense")

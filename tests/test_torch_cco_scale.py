@@ -21,7 +21,8 @@ from predictionio_tpu_torch.ops import cco as port_cco
 from predictionio_tpu_torch.ops import hopper_kernels as hk
 
 from _torch_cco_cases import (CORPORA, JAX_ENVS, REFERENCE_CORPORA, STRATEGIES,
-                              check_cco_matches_jax, port_result, random_events)
+                              check_cco_matches_jax, check_jax_written_localfs_store,
+                              port_result, random_events)
 
 CPU = torch.device("cpu")
 
@@ -443,3 +444,10 @@ def test_sparse_over_budget_takes_the_device_strategy(monkeypatch):
     dense = port_cco.cco_indicators_coo(*args, device="cpu", **kw)
     assert_same_tables(sparse, dense)
     assert_same_tables(bailed, dense)
+
+
+def test_chunked_indicators_from_a_jax_written_localfs_store(fs_storage, tmp_path):
+    """A corpus the JAX event server wrote into its localfs store, read by
+    the port's UR data source, trains the JAX indicators through the
+    chunked strategy."""
+    check_jax_written_localfs_store(fs_storage, tmp_path / "store", "chunked")

@@ -216,3 +216,37 @@ def test_tile_topk_kernel_carry_equals_merge(dev, b, kind, carry_kind):
     want_v, want_i = merge_desc(cs, ci, *hk.tile_topk_desc_plain(s, b, id_offset=5000))
     torch.cuda.synchronize()
     assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+
+
+def _basket_corpus(seed, n_items, n_events, n_baskets):
+    rng = np.random.default_rng(seed)
+    b = np.sort(rng.integers(0, n_baskets, n_events)).astype(np.int32)
+    i = (rng.zipf(1.3, n_events) % n_items).astype(np.int32)
+    return b, i, int(b.max()) + 1
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+@pytest.mark.parametrize("shape", [(300, 5000, 2000), (3000, 40_000, 15_000)])
+def test_basket_rules_kernel_route_matches_plain(dev, monkeypatch, shape, tiled):
+    """``basket_rules`` on the card (the int8 count product, K3 without a
+    carry on the dense strategy, K3's carry form a tile on the tiled one)
+    against the same call on the CPU (the plain K3): ids and lifts
+    bit-equal, one K3 launch a tile."""
+    from predictionio_tpu_torch.ops import cco
+
+    n_items, n_events, n_baskets = shape
+    b, i, nb = _basket_corpus(n_items, n_items, n_events, n_baskets)
+    tile = 512
+    if tiled:
+        monkeypatch.setattr(cco, "_BASKET_RULES_DENSE_MAX_ITEMS", 64)
+    before = hk.tile_topk_desc.launches
+    got = cco.basket_rules(b, i, nb, n_items, top_k=20, min_support=1e-4,
+                           item_tile=tile, device="cuda")
+    launches = hk.tile_topk_desc.launches - before
+    want = cco.basket_rules(b, i, nb, n_items, top_k=20, min_support=1e-4,
+                            item_tile=tile, device="cpu")
+    assert launches == (-(-n_items // tile) if tiled else 1)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[2], want[2])
+    assert (got[1] >= 0).sum() > 0

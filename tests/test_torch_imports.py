@@ -288,6 +288,35 @@ def test_port_reads_a_jax_written_store_without_importing_it(tmp_path):
     assert (tmp_path / "out.jsonl").read_text().splitlines() == want
 
 
+def test_port_reads_what_the_jax_event_server_wrote_without_importing_it(tmp_path):
+    """The JAX event server appends posted events to its localfs store; the
+    port's console exports them in a fresh interpreter that never imports
+    the JAX package."""
+    import os
+
+    from _torch_event_cases import T0, jax_event_server_writes
+    from predictionio_tpu.storage.locator import Storage as JaxStorage
+    from predictionio_tpu.storage.locator import StorageConfig as JaxStorageConfig
+
+    store = JaxStorage(JaxStorageConfig(
+        sources={"S": {"type": "localfs", "path": str(tmp_path / "store")}},
+        repositories={r: "S" for r in ("METADATA", "EVENTDATA", "MODELDATA")}))
+    specs = [("buy", "user", f"u{k % 5}", "item", f"i{k % 7}", {}, T0 + k, T0 + k)
+             for k in range(30)]
+    specs.append(("$set", "item", "i1", None, None, {"category": "c"}, T0, T0))
+    app_id = jax_event_server_writes(store, "jaxapp", specs)
+    env = {**{k: v for k, v in os.environ.items() if not k.startswith("PIO_")},
+           "PIO_FS_BASEDIR": str(tmp_path / "store")}
+    out = subprocess.run([sys.executable, "-c", _READ_JAX_STORE, str(tmp_path / "out.jsonl")],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "[]"
+    assert lines[-2] == "31 ['category']"
+    want = [e.to_json_line() for e in store.l_events.find(app_id)]
+    assert (tmp_path / "out.jsonl").read_text().splitlines() == want
+
+
 # the front end in a fresh interpreter: the event server (HTTP ingest,
 # the native head parse), a micro-batched query server with feedback and
 # auto-reload, /metrics through `pio metrics`, the admin server
@@ -346,6 +375,100 @@ print(json.dumps(bad))
 
 def test_servers_load_no_jax_module():
     out = subprocess.run([sys.executable, "-c", _SERVERS], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+# the evaluation workflow, the five remaining templates trained from a
+# memory store and served, basket rules, the e2 helpers and pio template,
+# in a fresh interpreter
+_SLICE13 = r"""
+import json, os, sys, tempfile
+import numpy as np
+from predictionio_tpu_torch.controller import EngineParams, Evaluation, OptionAverageMetric
+from predictionio_tpu_torch.e2 import CategoricalNaiveBayes, MarkovChain, k_fold_split
+from predictionio_tpu_torch.events.event import Event
+from predictionio_tpu_torch.models.recommendation import engine as reco
+from predictionio_tpu_torch.ops import cco
+from predictionio_tpu_torch.storage import App, Storage, StorageConfig, set_storage
+from predictionio_tpu_torch.workflow.core_workflow import run_eval
+from predictionio_tpu_torch.workflow.create_workflow import engine_from_variant
+from predictionio_tpu_torch.workflow.fast_eval import FastEvalEngine
+
+rng = np.random.default_rng(0)
+store = Storage(StorageConfig.memory())
+set_storage(store)
+app = store.apps.insert(App(0, "a"))
+ev = []
+for k in range(400):
+    u, i, t = int(rng.integers(20)), int(rng.integers(15)), 1.7e9 + 60.0 * k
+    ev.append(Event("rate", "user", f"u{u}", "item", f"i{i}", properties={"rating": float(i % 5)},
+                    event_time=t, creation_time=t))
+    ev.append(Event("buy", "user", f"u{u}", "item", f"i{(i * 7) % 15}", event_time=t,
+                    creation_time=t))
+    ev.append(Event("view", "user", f"u{u}", "item", f"/p{i % 3}",
+                    properties={"sessionId": f"s{k // 2}", "landingPageId": f"/p{i % 3}",
+                                "referrerId": "r", "browser": "b"}, event_time=t,
+                    creation_time=t))
+    ev.append(Event("train", "content", f"d{k}", properties={
+        "text": "win free cash" if k % 3 else "see you at lunch",
+        "label": "spam" if k % 3 else "ham"}, event_time=t, creation_time=t))
+for u in range(20):
+    ev.append(Event("$set", "user", f"u{u}", properties={
+        "attr0": float(u % 3), "attr1": float(u % 2), "attr2": 1.0,
+        "label": "y" if u % 3 else "n"}, event_time=1.7e9, creation_time=1.7e9))
+store.l_events.insert_batch(ev, app)
+
+class P10(OptionAverageMetric):
+    def score_one(self, q, p, a):
+        return None if a[1] < 4.0 else float(a[0] in [s.item for s in p.item_scores])
+
+evaluation = Evaluation(engine=reco.RecommendationEngine.apply(), metric=P10(),
+                        engine_params_list=[EngineParams(
+                            data_source_params=reco.DataSourceParams(app_name="a", eval_k=2),
+                            algorithm_params_list=[("als", reco.ALSAlgorithmParams(
+                                rank=r, num_iterations=2))]) for r in (2, 3)])
+fast = FastEvalEngine(evaluation.engine, device="cpu")
+result = run_eval(evaluation, storage=store, device="cpu", eval_runner=fast.eval)
+assert fast.stats["folds"] == 1 and store.evaluation_instances.get_completed()
+for factory, algos, query in (
+        ("product_ranking", [("als", {"rank": 3, "numIterations": 2})],
+         {"user": "u1", "items": ["i1", "i2", "nope"]}),
+        ("complementary_purchase", [("rules", {})], {"items": ["i1"], "num": 3}),
+        ("classification", [("logreg", {"iterations": 5}), ("naivebayes", {})],
+         {"attr0": 1.0, "attr1": 0.0, "attr2": 1.0}),
+        ("lead_scoring", [("logreg", {"iterations": 5})], {"landingPageId": "/p1"}),
+        ("text", [("nb", {"dim": 64}), ("logreg", {"dim": 64, "iterations": 3}),
+                  ("mlp", {"vocabSize": 64, "iterations": 3})], {"text": "free cash"})):
+    for algo in algos:
+        f, engine, ep = engine_from_variant({
+            "engineFactory": factory, "datasource": {"params": {"appName": "a"}},
+            "algorithms": [{"name": algo[0], "params": algo[1]}]})
+        models = engine.train(ep, device="cpu")
+        assert engine.predictor(ep, models)(f.query_class.from_json(query)).to_json()
+b = rng.integers(0, 50, 300).astype(np.int32)
+cco._BASKET_RULES_DENSE_MAX_ITEMS = 4
+assert (cco.basket_rules(np.sort(b), b % 9, 50, 9, top_k=3, item_tile=4,
+                         device="cpu")[1] >= -1).all()
+assert CategoricalNaiveBayes.predict(CategoricalNaiveBayes.train(
+    [("a", ["x"]), ("b", ["y"])]), ["x"]) == "a"
+assert MarkovChain.train([(0, 1)], 2, 1).next_states(0) == [(1, 1.0)]
+assert len(list(k_fold_split(list(range(9)), 3))) == 3
+from predictionio_tpu_torch.cli.main import main
+d = tempfile.mkdtemp()
+assert main(["template", "list"]) == 0
+assert main(["template", "new", "text", os.path.join(d, "t")]) == 0
+assert main(["build", "--engine-json", os.path.join(d, "t", "engine.json")]) == 0
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "predictionio_tpu" or m.startswith("predictionio_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def test_slice13_path_loads_no_jax_module():
+    out = subprocess.run([sys.executable, "-c", _SLICE13], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"

@@ -40,7 +40,7 @@ from predictionio_tpu_torch.storage import (
 from predictionio_tpu_torch.storage import localfs as lfs
 from predictionio_tpu_torch.storage.localfs import FSEvents
 
-from _torch_event_cases import jax_events, port_events, seeded_corpus
+from _torch_event_cases import jax_event_server_writes, jax_events, port_events, seeded_corpus
 
 SEEDS = [0, 1, 2]
 
@@ -748,3 +748,17 @@ def test_append_error_nacks_the_whole_group(tmp_path, monkeypatch):
     boom["on"] = False
     ev.insert(Event(event="buy", entity_type="user", entity_id="ok", event_id="recovered"), 1)
     assert {e.event_id for e in ev._iter_raw(1, None)} == {"recovered"}
+
+
+def test_fs_events_read_what_the_jax_event_server_wrote(tmp_path):
+    """Events posted to the JAX event server, which appends them to its
+    localfs store: the port's ``FSEvents`` finds the same events, field
+    for field, as the JAX one."""
+    root = tmp_path / "store"
+    jax_store = JaxStorage(JaxStorageConfig(
+        sources={"S": {"type": "localfs", "path": str(root)}},
+        repositories={r: "S" for r in ("METADATA", "EVENTDATA", "MODELDATA")}))
+    app_id = jax_event_server_writes(jax_store, "serverapp", seeded_corpus(4))
+    got = [e.to_json_line() for e in FSEvents(root).find(app_id)]
+    want = [e.to_json_line() for e in jax_localfs.FSEvents(root).find(app_id)]
+    assert got == want and len(got) > 400

@@ -52,6 +52,7 @@ from predictionio_tpu_torch.store import event_store
 from _torch_event_cases import (
     T0,
     assert_same_batch,
+    jax_event_server_writes,
     jax_events,
     port_events,
     seeded_corpus,
@@ -264,6 +265,25 @@ def test_build_scan_parity_with_properties(both, builder):
     assert same_manifest(snap.load_manifest(d), first)
     assert snap.snapshot_status(d) | {"builtAt": 0, "buildSeconds": 0, "snapshot": 0} == \
         jax_snap.snapshot_status(d) | {"builtAt": 0, "buildSeconds": 0, "snapshot": 0}
+
+
+def test_snapshot_of_what_the_jax_event_server_wrote(tmp_path, small_segments):
+    """Events posted to the JAX event server, which appends them to its
+    localfs store: the port builds the snapshot, and both packages scan it
+    to the same batch."""
+    from predictionio_tpu.storage.locator import Storage as JaxStorage
+    from predictionio_tpu.storage.locator import StorageConfig as JaxStorageConfig
+
+    root = tmp_path / "store"
+    jax_store = JaxStorage(JaxStorageConfig(
+        sources={"S": {"type": "localfs", "path": str(root)}},
+        repositories={r: "S" for r in ("METADATA", "EVENTDATA", "MODELDATA")}))
+    app_id = jax_event_server_writes(jax_store, "snapapp", mixed_specs(120))
+    both = Both(root)
+    assert both.fs["port"].build_snapshot(app_id)["events"] == 120
+    got, want = both.fs["port"].snapshot_scan(app_id), both.fs["jax"].snapshot_scan(app_id)
+    assert_same_scan(got, want)
+    assert got["tail_events"] == 0
 
 
 @pytest.mark.parametrize("writer", PACKAGES)

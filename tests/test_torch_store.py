@@ -26,8 +26,8 @@ from predictionio_tpu_torch.storage import set_storage as port_set_storage
 from predictionio_tpu_torch.store import columnar as port_columnar
 from predictionio_tpu_torch.store.event_store import PEventStore
 
-from _torch_event_cases import (T0, fill_both, jax_events, port_events,
-                                port_memory_storage, seeded_corpus)
+from _torch_event_cases import (T0, assert_same_batch, fill_both, jax_event_server_writes,
+                                jax_events, port_events, port_memory_storage, seeded_corpus)
 
 APP = "storeapp"
 SEEDS = [0, 1, 2]
@@ -260,6 +260,24 @@ def test_event_store_reads_a_jax_written_localfs_store(tmp_path, seed):
     got = PEventStore.aggregate_properties(APP, "item", storage=port_store)
     want = JaxPEventStore.aggregate_properties(APP, "item", storage=jax_store)
     assert got and {k: dict(v) for k, v in got.items()} == {k: dict(v) for k, v in want.items()}
+
+
+def test_event_store_reads_what_the_jax_event_server_wrote(tmp_path):
+    """Events posted to the JAX event server, which appends them to its
+    localfs store: the port's ``PEventStore`` reads the rows and the batch
+    the JAX package reads there."""
+    from predictionio_tpu.storage.locator import Storage as JaxStorage
+    from predictionio_tpu.storage.locator import StorageConfig as JaxStorageConfig
+
+    cfg = dict(sources={"S": {"type": "localfs", "path": str(tmp_path)}},
+               repositories={r: "S" for r in ("METADATA", "EVENTDATA", "MODELDATA")})
+    jax_store = JaxStorage(JaxStorageConfig(**cfg))
+    port_store = locator.Storage(StorageConfig(**cfg))
+    jax_event_server_writes(jax_store, APP, seeded_corpus(3))
+    assert _ids(PEventStore.find(APP, storage=port_store)) == _ids(
+        JaxPEventStore.find(APP, storage=jax_store))
+    assert_same_batch(PEventStore.batch(APP, storage=port_store),
+                      JaxPEventStore.batch(APP, storage=jax_store))
 
 
 @pytest.mark.parametrize("entity_type", ["item", "user"])

@@ -228,7 +228,11 @@ def test_engine_factories_resolve_to_the_port(name, want):
 
 @pytest.mark.parametrize("name", ["classification",
                                   "predictionio_tpu.models.text.TextClassificationEngine"])
-def test_unported_templates_raise_naming_the_roadmap(name):
+def test_unported_templates_raise_naming_the_roadmap(name, monkeypatch):
+    # every template is ported: the refusal is held on a list naming two
+    from predictionio_tpu_torch.workflow import create_workflow
+
+    monkeypatch.setattr(create_workflow, "NOT_PORTED", ("classification", "text"))
     with pytest.raises(NotImplementedError, match="Remaining templates"):
         resolve_engine_factory(name)
 
