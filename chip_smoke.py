@@ -30,7 +30,9 @@ each of which fails the run (exit code != 0, no final ``ok`` line):
    that are -inf but a few finite scores (and one all -inf), ascending rows
    (the pre-filter's worst case), b in {8, 64, 1024}; and the carry form
    against ``merge_desc(carry, tile_topk_desc(...))`` from the tiled loop's
-   (-inf, 0) initial carry and from a random sorted carry;
+   (-inf, 0) initial carry and from a random sorted carry, at the UR
+   train's tile ([100,000 x 4,096], b = 64), the basket-rules tile
+   ([100,000 x 1,664], b = 32) and two edge shapes;
 ALS serving (slice 1):
 6. build the full-width ALS model — 5,000 users x 100,000 items x rank 32,
    random factors from a seed — through ``als_model_from_state``;
@@ -226,16 +228,27 @@ pio eval and the five remaining templates (after 16, before 15):
     evaluation through ``run_eval``
     with ``FastEvalEngine``: K1 launches >= 6 in each, both
     EvaluationInstances EVALCOMPLETED, the data source read once for both
-    candidates, every score within 0.005 of the evaluation run on the CPU;
-    18b: the port's copy of examples/universal_recommender/evaluation.py
-    (UREvaluation + MinLlrGrid, min_llr 0, 2 and 5, eval_users 500) on 11b's
-    app through ``run_eval`` with ``FastEvalEngine``: K2 and K3 launch 3 x
-    50, and each candidate's card-trained model, moved to the CPU, answers
-    the 500 queries in ``batch_predict`` (the device halves pinned, the
-    card's code path) with the same lists but for near-tie swaps and the
-    same four rank metrics; 18c: the complementary-purchase template on
-    11b's purchases in 1-hour baskets (the tiled basket rules at the
-    reference's budget: 61 tiles of 1,664, one K3 launch each), ``pio
+    candidates, every score within EVAL_SCORE_ATOL (1e-4, about 6 of the
+    ~60,000 scored held-out ratings) of the evaluation run on the CPU, and
+    each fold's served lists (every candidate) equal to those of the same
+    card-trained factors scored on the CPU but for near-tie swaps, with
+    precision@10 equal query by query where no swap moved the held-out
+    item;
+    18b: 20,000 planted purchases first join 11b's app (5,000 new users
+    each buy three items of one of 100 bundles from the catalog's tail,
+    then the bundle's fourth item, so that item is the one held out); the
+    port's copy of examples/universal_recommender/evaluation.py
+    (UREvaluation + MinLlrGrid, min_llr 0, 2 and 5, eval_users 500) on
+    that app through ``run_eval`` with ``FastEvalEngine``: K2 and K3 launch
+    3 x 50, every candidate's hit rate is above 0, and each candidate's
+    card-trained model, moved to the CPU, answers the 500 queries in
+    ``batch_predict`` (the device halves pinned, the card's code path)
+    with the same lists but for near-tie swaps; hit rate and precision@10
+    equal, NDCG and MRR equal query by query where no swap moved the
+    held-out item; 18c: the complementary-purchase template on 11b's
+    purchases (the planted ones included) in 1-hour baskets (the tiled
+    basket rules at the reference's budget: 61 tiles of 1,664, one K3
+    launch each), ``pio
     deploy`` on a thread and 200 carts of 1-5 items, every answer's ids
     valid, scores finite and positive and equal to the CPU predict of the
     stored model, and a 20,000-item cut of the first 4,000 baskets through
@@ -249,8 +262,10 @@ pio eval and the five remaining templates (after 16, before 15):
     ``pio train``, ``pio deploy`` and 100 queries each, every answer equal
     to the CPU predict of the stored weights (confidences within 1e-4).
     A leg's train s and query p50/p99 and the launches the phase adds are
-    printed, and a K3 timing row on the 18c train's tile 12 (100k x 1,664,
-    carry form) joins phase 13;
+    printed, and the 18c train's tile 12 (100k x 1,664, b = 32, carry form)
+    joins phase 13: K3 held against ``merge_desc(carry,
+    tile_topk_desc_plain(...))`` on it (the tile's id offset, the initial
+    and a random carry; values and ids equal), then timed;
 15. ``bench.py:bench_scale``'s parity corpus (30,000 users x 3,000 items,
     1M zipf events from its seed, top_k 20, ``exclude_self``) through
     ``cco_indicators_coo`` dense, resident, chunked (the resident budget at
@@ -704,7 +719,7 @@ def time_llr(hk, counts, row, col, n, flush, clock, ops_per_cell, label):
     return row_
 
 
-def time_topk(hk, s, b, flush, clock, label, carry=None):
+def time_topk(hk, s, b, flush, clock, label, carry=None, id_offset=0):
     """K3 on one input, without or with a carry: kernel, plain version,
     ``torch.topk(values, b)`` and the bound."""
     from predictionio_tpu_torch.ops.topk import merge_desc
@@ -712,13 +727,14 @@ def time_topk(hk, s, b, flush, clock, label, carry=None):
     launches = hk.tile_topk_desc.launches
     r, w = s.shape
     if carry is None:
-        plain = lambda: hk.tile_topk_desc_plain(s, b)  # noqa: E731
+        plain = lambda: hk.tile_topk_desc_plain(s, b, id_offset)  # noqa: E731
     else:
-        plain = lambda: merge_desc(*carry, *hk.tile_topk_desc_plain(s, b))  # noqa: E731
+        plain = lambda: merge_desc(  # noqa: E731
+            *carry, *hk.tile_topk_desc_plain(s, b, id_offset))
     clock.reset()
     row_ = {"input": label, "R": r, "W": w, "b": b, "carry": carry is not None,
             "finite_share": float(torch.isfinite(s).float().mean()),
-            "ms": time_cold(lambda: hk.tile_topk_desc(s, b, carry=carry), flush, clock),
+            "ms": time_cold(lambda: hk.tile_topk_desc(s, b, id_offset, carry), flush, clock),
             "plain_ms": time_cold(plain, flush, clock, reps=10),
             "library_ms": time_cold(lambda: torch.topk(s, b, dim=1), flush, clock)}
     hk.tile_topk_desc.launches = launches
@@ -903,9 +919,11 @@ TOPK_CASES = [("ties", 100_000, 4_096, 64), ("ties", 8_192, 8_192, 64),
               ("sparse", 8_192, 4_096, 8), ("ascending", 8_192, 4_097, 8),
               ("ties", 8_192, 4_096, 1024), ("sparse", 8_192, 4_096, 1024),
               ("ascending", 2_048, 4_096, 1024)]
-# (b, R) of the carry form, each over CARRY_W columns of every scores kind
-CARRY_CASES = [(64, 100_000), (8, 8_192), (1024, 2_048)]
-CARRY_W = 4_096
+# (b, R, W) of the carry form, each with every scores kind: the UR train's
+# tile, the basket-rules tile of 18c's train (100,000 items, tile 1,664,
+# b = 32) and two edge shapes
+CARRY_CASES = [(64, 100_000, 4_096), (32, 100_000, 1_664), (8, 8_192, 4_096),
+               (1024, 2_048, 4_096)]
 
 
 def compare_llr(hk, dev, gen) -> float:
@@ -981,20 +999,38 @@ def compare_topk(hk, dev, gen) -> float:
         print(f"  ok {tag} values and ids equal")
         del s, got_v, got_i, want_v, want_i
     for kind in ("ties", "sparse", "ascending"):
-        for b, r in CARRY_CASES:
-            s = topk_inputs(r, CARRY_W, dev, gen, kind)
+        for b, r, w in CARRY_CASES:
+            s = topk_inputs(r, w, dev, gen, kind)
             for carry_kind in ("initial", "random"):
                 cs, ci = topk_carry(r, b, dev, gen, carry_kind)
                 got_v, got_i = hk.tile_topk_desc(s, b, id_offset=40_960, carry=(cs, ci))
                 want_v, want_i = merge_desc(cs, ci, *hk.tile_topk_desc_plain(
                     s, b, id_offset=40_960))
                 torch.cuda.synchronize()
-                tag = f"K3 carry form [{r} x {CARRY_W}] {kind} b={b} carry={carry_kind}"
+                tag = f"K3 carry form [{r} x {w}] {kind} b={b} carry={carry_kind}"
                 check(torch.equal(got_v, want_v), f"{tag}: values differ from merge_desc")
                 check(torch.equal(got_i, want_i), f"{tag}: ids differ from merge_desc")
                 print(f"  ok {tag} equals merge_desc(carry, tile_topk_desc(...))")
             del s
     return 0.0
+
+
+def check_topk_carry(hk, s, b, id_offset, dev, gen, label):
+    """K3's carry form on a tile the main path captured, at its id offset,
+    against ``merge_desc(carry, tile_topk_desc_plain(...))`` from the
+    initial and from a random sorted carry: values and ids equal."""
+    from predictionio_tpu_torch.ops.topk import merge_desc
+
+    for carry_kind in ("initial", "random"):
+        cs, ci = topk_carry(s.shape[0], b, dev, gen, carry_kind)
+        got_v, got_i = hk.tile_topk_desc(s, b, id_offset=id_offset, carry=(cs, ci))
+        want_v, want_i = merge_desc(cs, ci, *hk.tile_topk_desc_plain(s, b, id_offset=id_offset))
+        torch.cuda.synchronize()
+        tag = (f"K3 carry form on the {label} [{s.shape[0]} x {s.shape[1]}] b={b} "
+               f"id_offset={id_offset} carry={carry_kind}")
+        check(torch.equal(got_v, want_v), f"{tag}: values differ from merge_desc")
+        check(torch.equal(got_i, want_i), f"{tag}: ids differ from merge_desc")
+        print(f"  ok {tag} equals merge_desc(carry, tile_topk_desc(...))")
 
 
 # -- phases 10-12: UR training and serving -----------------------------------------
@@ -3847,8 +3883,11 @@ def check_same_answer(body, got, want, full) -> int:
 # -- phase 18: pio eval and the five remaining templates ---------------------------
 
 EVAL_ALS = BENCH_ALS              # 18a: MovieLens-100K's shape (bench.py:363-380)
-EVAL_SCORE_ATOL = 0.005           # 18a: card vs CPU scores of the same evaluation
+# 18a: card vs CPU scores of the same evaluation; 1e-4 is about 6 of the
+# ~60,000 held-out ratings of 4 or more that precision@10 scores
+EVAL_SCORE_ATOL = 1e-4
 UR_EVAL_USERS = 500               # 18b: the example's eval_users
+UR_BUNDLES = (100, 5_000)         # 18b: planted bundles, and the new users who buy one
 CP_QUERIES = 200                  # 18c: carts of 1-5 items
 CP_CUT = (20_000, 4_000)          # 18c: items and first baskets of the CPU cut
 PR_QUERIES, PR_CLIENTS = 200, 8   # 18d
@@ -3926,7 +3965,8 @@ def eval_reco_path(hk, dev, workdir):
     then the same evaluation through run_eval with ``FastEvalEngine`` (the
     data source read once for both candidates), both on the card; and by
     ``Evaluation.run`` on the CPU: every score within EVAL_SCORE_ATOL of
-    it."""
+    it; and FastEval's served lists against its card-trained factors
+    scored on the CPU (``check_reco_folds``)."""
     from predictionio_tpu_torch.models.recommendation import engine as reco_engine
     from predictionio_tpu_torch.storage import get_storage
     from predictionio_tpu_torch.workflow.core_workflow import run_eval
@@ -3975,13 +4015,20 @@ def eval_reco_path(hk, dev, workdir):
 
     evaluation = module.RecommendationEvaluation()
     fast = FastEvalEngine(evaluation.engine, device=dev)
+    recorded = []
+
+    def runner(engine, ep):
+        res = fast.eval(engine, ep)
+        recorded.append(res)
+        return res
+
     for cls, name in wrapped:
         setattr(cls, name, timed(name))
     try:
         hk.reset_k1_counts()
         t0 = time.perf_counter()
         res = run_eval(evaluation, evaluation_class=path + " (FastEval)", device=dev,
-                       eval_runner=fast.eval)
+                       eval_runner=runner)
         torch.cuda.synchronize()
         out["fast_eval_s"] = time.perf_counter() - t0
         out["k1_launches_fast_eval"] = hk.masked_score_matmul.launches
@@ -3992,6 +4039,10 @@ def eval_reco_path(hk, dev, workdir):
     reads = split["read_eval"]
     check(len(reads) == 1 and fast.stats["folds"] == 1 and fast.stats["folds_hit"] == 1,
           f"FastEvalEngine read the folds {len(reads)} times ({fast.stats})")
+    stats = dict(fast.stats)
+    t0 = time.perf_counter()
+    out["folds_check"] = check_reco_folds(reco_engine, evaluation, fast, recorded)
+    out["folds_check"]["cpu_batch_predict_s"] = time.perf_counter() - t0
     fast_best, fast_scores = eval_scores(instance(path + " (FastEval)"))
     check(fast_best == res.best_score, "the FastEval instance's best score")
     t0 = time.perf_counter()
@@ -4009,16 +4060,66 @@ def eval_reco_path(hk, dev, workdir):
     for key in ("k1_launches_pio_eval", "k1_launches_fast_eval"):
         check(out[key] >= 6, f"18a: {out[key]} K1 launches ({key}), want >= 6")
     out.update({"pio_eval_scores": card, "fast_eval_scores": fast_scores,
-                "cpu_scores": cpu_scores, "fast_eval_stats": fast.stats,
+                "cpu_scores": cpu_scores, "fast_eval_stats": stats,
                 "instance_status": inst.status})
     print(f"  18a pio eval (recommendation, {len(u)} ratings, ranks 4 and 8, 3 folds): "
           f"import {out['import_s']:.3f} s; pio eval {out['pio_eval_s']:.3f} s, precision@10 "
           f"{card} (K1 launches {out['k1_launches_pio_eval']}); FastEval "
           f"{out['fast_eval_s']:.3f} s (host clock by stage: "
           f"{ {k: round(v, 3) for k, v in out['fast_eval_split_s'].items()} }), "
-          f"{fast_scores}, folds read once ({fast.stats}); CPU "
-          f"{out['cpu_eval_s']:.3f} s, {cpu_scores}; instances EVALCOMPLETED")
+          f"{fast_scores}, folds read once ({stats}); CPU "
+          f"{out['cpu_eval_s']:.3f} s, {cpu_scores}; instances EVALCOMPLETED; served "
+          f"lists of {out['folds_check']['lists']} fold queries equal to the card's factors "
+          f"scored on the CPU ({out['folds_check']['near_tie_swaps']} near-tie swaps, "
+          f"{out['folds_check']['moved_scores']} precision@10 scores moved by one; "
+          f"{out['folds_check']['cpu_batch_predict_s']:.3f} s)")
     return out
+
+
+def check_reco_folds(reco_engine, evaluation, fast, recorded):
+    """18a: every candidate's card-trained factors, fold by fold, answer the
+    fold's queries again in ``batch_predict`` on the CPU (K1's plain
+    version): the same lists as FastEval served on the card, but for swaps
+    between items whose float64 host scores tie within rtol/atol 1e-5;
+    precision@10 equal query by query unless the held-out item is one a
+    swap moved across the list's end."""
+    metric = evaluation.metric
+    swaps = moved = lists = 0
+    for ci, ep in enumerate(evaluation.engine_params_list):
+        _, per_fold = fast._get_models(ep)
+        algo = evaluation.engine.make_components(ep, device="cpu")[2][0]
+        check(len(recorded[ci]) == len(per_fold), f"18a: {len(recorded[ci])} folds recorded")
+        for (info, qpa), (model,) in zip(recorded[ci], per_fold):
+            cpu_model = reco_engine.ALSModel(model.user_factors, model.item_factors,
+                                             model.user_dict, model.item_dict, model.seen,
+                                             device="cpu")
+            cpu = algo.batch_predict(cpu_model, [q for q, _, _ in qpa])
+            fold_moved = moved
+            uf = np.asarray(model.user_factors, np.float64)
+            itf = np.asarray(model.item_factors, np.float64)
+            for (q, p, a), c in zip(qpa, cpu):
+                g = [(x.item, x.score) for x in p.item_scores]
+                w = [(x.item, x.score) for x in c.item_scores]
+                tag = f"18a candidate {ci} {info} user {q.user}"
+                check(len(g) == len(w), f"{tag}: {len(g)} items on the card, {len(w)} on the CPU")
+                for (gi, gs), (wi, ws) in zip(g, w):
+                    tol = ATOL + RTOL * abs(ws)
+                    check(abs(gs - ws) <= tol, f"{tag}: score {gs} vs {ws}")
+                    if gi != wi:
+                        host = float(uf[model.user_dict.id(q.user)]
+                                     @ itf[model.item_dict.id(gi)])
+                        check(abs(host - ws) <= tol, f"{tag}: item {gi} where {wi} belongs")
+                        swaps += 1
+                if metric.score_one(q, p, a) != metric.score_one(q, c, a):
+                    check(a[0] in {i for i, _ in g} ^ {i for i, _ in w},
+                          f"{tag}: precision@10 differs with no swap at the held-out item")
+                    moved += 1
+                lists += 1
+            if moved == fold_moved:
+                check(metric.calculate([(info, qpa)]) == metric.calculate(
+                    [(info, [(q, c, a) for (q, _, a), c in zip(qpa, cpu)])]),
+                      f"18a candidate {ci} {info}: precision@10 on the card and the CPU")
+    return {"lists": lists, "near_tie_swaps": swaps, "moved_scores": moved}
 
 
 def same_rank_lists(card, cpu, rtol=RTOL):
@@ -4038,18 +4139,50 @@ def same_rank_lists(card, cpu, rtol=RTOL):
     return swaps
 
 
+def plant_bundles(workdir, n_users, n_items):
+    """18b's signal in 11b's app, whose zipf purchases are independent of
+    the user: UR_BUNDLES[1] new users each buy the first three items of one
+    of UR_BUNDLES[0] bundles (four items each from the catalog's tail,
+    which the zipf draws almost never reach) and then its fourth, a second
+    apart and after every other event of the app, so the fourth is the
+    purchase the leave-one-out split holds out.  Imported with ``pio
+    import``; returns the events planted."""
+    n_bundles, n_buyers = UR_BUNDLES
+    users = (n_users + np.arange(n_buyers)).astype(np.int32)
+    bundle = np.arange(n_buyers) % n_bundles
+    items = n_items - 4 * n_bundles + 4 * bundle[:, None] + np.arange(4)
+    times = T0 + 100_000_000 + 4 * np.arange(n_buyers)[:, None] + np.arange(4)
+    path = workdir / "bundles.jsonl"
+    with open(path, "w") as f:
+        write_interactions(f, [("purchase", np.repeat(users, 4), items.ravel().astype(np.int32),
+                                times.ravel().astype(np.float64))])
+    pio("import", "--app-name", "smoke", "--input", str(path))
+    path.unlink()
+    return items.size
+
+
+def rank_of(result, item):
+    return next((r for r, s in enumerate(result.item_scores) if s.item == item), None)
+
+
 def eval_ur_path(hk, dev, workdir):
-    """18b: the port's copy of examples/universal_recommender/evaluation.py
-    (UREvaluation + MinLlrGrid: min_llr 0, 2, 5; eval_users 500) on 11b's
-    app through run_eval with FastEvalEngine on the card: K2 and K3 launch
-    3 x a train's count; each candidate's card-trained model is then moved
-    to the CPU and its batch_predict run there (the device halves pinned,
-    the card's code path): the four rank metrics equal, lists equal but
-    for swaps at near ties."""
+    """18b: UR_BUNDLES planted in 11b's app (``plant_bundles``), then the
+    port's copy of examples/universal_recommender/evaluation.py
+    (UREvaluation + MinLlrGrid: min_llr 0, 2, 5; eval_users 500) on it
+    through run_eval with FastEvalEngine on the card: K2 and K3 launch 3 x
+    a train's count, and every candidate's hit rate is above 0; each
+    candidate's card-trained model is then moved to the CPU and its
+    batch_predict run there (the device halves pinned, the card's code
+    path): lists equal but for swaps at near ties, and the four rank
+    metrics equal, with the card's list kept for any query whose held-out
+    item a swap moved."""
     from predictionio_tpu_torch.workflow.core_workflow import run_eval
     from predictionio_tpu_torch.workflow.fast_eval import FastEvalEngine
 
-    _, n_items, _, _, _, tile = DEPLOYED_UR
+    n_users, n_items, _, _, _, tile = DEPLOYED_UR
+    t0 = time.perf_counter()
+    planted = plant_bundles(workdir, n_users, n_items)
+    plant_s = time.perf_counter() - t0
     module = port_example(workdir, "universal_recommender", "port_ur_evaluation",
                           [('"MyShop"', '"smoke"'),
                            ("eval_users=500", f"eval_users={UR_EVAL_USERS}")])
@@ -4071,8 +4204,9 @@ def eval_ur_path(hk, dev, workdir):
     check(r["launches"] == [n_cand * per_train] * 2,
           f"18b: K2/K3 launches {r['launches']}, want {n_cand} x {per_train} each")
     metrics = [evaluation.metric] + list(evaluation.other_metrics)
-    out = {"eval_s": r["wall_s"], "launches": r["launches"], "peak_device_gb":
-           r["peak_device_gb"], "candidates": []}
+    out = {"planted_events": planted, "plant_import_s": plant_s, "eval_s": r["wall_s"],
+           "launches": r["launches"], "peak_device_gb": r["peak_device_gb"],
+           "candidates": []}
     saved = {k: os.environ.get(k) for k in ("PIO_UR_SERVE_SCORER", "PIO_UR_SERVE_TAIL")}
     os.environ.update(PIO_UR_SERVE_SCORER="device", PIO_UR_SERVE_TAIL="device")
     try:
@@ -4097,20 +4231,38 @@ def eval_ur_path(hk, dev, workdir):
                      for m in metrics]
             _, score, others = result.engine_params_scores[ci]
             check(card_v == [score] + list(others), "18b: the recorded metrics")
-            check(cpu_v == card_v or swaps > 0,
-                  f"18b candidate {ci}: metrics {card_v} on the card, {cpu_v} on the CPU")
+            check(card_v[0] > 0, f"18b candidate {ci}: hit rate {card_v[0]}")
+            # a held-out item ranked elsewhere on the CPU must sit where a
+            # near-tie swap changed the list; such a query keeps the card's
+            # list, and then every metric must agree exactly
+            moved, patched = 0, []
+            for (q, p, a), c in zip(qpa, cpu):
+                rp, rc = rank_of(p, a), rank_of(c, a)
+                if rp != rc:
+                    check(rp is not None and rc is not None
+                          and p.item_scores[rp].item != c.item_scores[rp].item
+                          and p.item_scores[rc].item != c.item_scores[rc].item,
+                          f"18b candidate {ci}: {q.user}'s held-out item moved without a swap")
+                    moved += 1
+                patched.append((q, p if rp != rc else c, a))
+            check([m.calculate([(info, patched)]) for m in metrics] == card_v
+                  and (moved > 0 or cpu_v == card_v),
+                  f"18b candidate {ci}: metrics {card_v} on the card, {cpu_v} on the CPU "
+                  f"({moved} held-out items moved by a swap)")
             out["candidates"].append({"metrics_card": card_v, "metrics_cpu": cpu_v,
-                                      "near_tie_swaps": swaps, "cpu_batch_predict_s": cpu_s,
-                                      "answered": answered, "held_out_in_history": seen})
+                                      "near_tie_swaps": swaps, "moved_by_a_swap": moved,
+                                      "cpu_batch_predict_s": cpu_s, "answered": answered,
+                                      "held_out_in_history": seen})
             print(f"  18b candidate {ci} ({[m.header() for m in metrics]}): card {card_v}, "
-                  f"CPU {cpu_v}, {swaps} near-tie swaps over {len(qpa)} lists ({answered} "
-                  f"non-empty; {seen} held-out items already in the user's purchases); CPU "
-                  f"batch_predict {cpu_s:.3f} s")
+                  f"CPU {cpu_v}, {swaps} near-tie swaps over {len(qpa)} lists ({moved} moved "
+                  f"a held-out item; {answered} non-empty; {seen} held-out items already in "
+                  f"the user's purchases); CPU batch_predict {cpu_s:.3f} s")
             del model
     finally:
         restore_env(saved)
     torch.cuda.empty_cache()
-    print(f"  18b pio eval (UR, 11b's app, {n_cand} candidates, {UR_EVAL_USERS} users): "
+    print(f"  18b pio eval (UR, 11b's app and {planted} planted purchases imported in "
+          f"{plant_s:.3f} s, {n_cand} candidates, {UR_EVAL_USERS} users): "
           f"{r['wall_s']:.3f} s, K2/K3 launches {r['launches']}, peak "
           f"{r['peak_device_gb']:.3f} GB, best {result.metric_header} {result.best_score:.6f} "
           f"(candidate {result.best_index})")
@@ -4127,7 +4279,7 @@ def cp_variant():
 def capture_basket_tile(cco, td, dev, t):
     """Tile ``t``'s rule scores [n_items, tile] of the complementary-purchase
     train, rebuilt as ``basket_rules`` builds them (for phase 13's K3 row),
-    on the host."""
+    on the host, and the tile's first item id."""
     n_items = len(td.item_dict)
     tile = cco.basket_tile(n_items)
     chunk = max(256, min(cco._BASKET_CHUNK, (cco._BASKET_CHUNK_BYTES // (n_items * 2))
@@ -4145,7 +4297,7 @@ def capture_basket_tile(cco, td, dev, t):
     s = cco._basket_scores(counts[:n_items, :width].to(torch.float32), ci[:, None],
                            ci[t0:t0 + width][None, :], n, zero, zero)
     s.diagonal(offset=-t0).fill_(float("-inf"))
-    return s.cpu()
+    return s.cpu(), t0
 
 
 def cp_bodies(rng, n, n_items):
@@ -4782,12 +4934,14 @@ def run() -> None:
                                        "deployed train tile 12 of view",
                                        carry=topk_carry(n_items, 64, dev, gen, "initial")))
     del scores
-    scores = basket_tile_scores.to(dev)
+    scores, t0 = basket_tile_scores
+    scores = scores.to(dev)
     del basket_tile_scores
+    check_topk_carry(hk, scores, 32, t0, dev, gen, "basket rules tile 12 of the 18c train")
     rows["tile_topk"].append(time_topk(hk, scores, 32, flush, clock,
                                        "basket rules tile 12 of the 18c train",
                                        carry=topk_carry(scores.shape[0], 32, dev, gen,
-                                                        "initial")))
+                                                        "initial"), id_offset=t0))
     del scores
     k1_rounds = retime_k1(hk, dev, gen, flush, clock)
     del flush

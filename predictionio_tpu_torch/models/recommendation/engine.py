@@ -375,7 +375,7 @@ class ALSAlgorithm(Algorithm):
             model.user_factors_device()[rows], model.item_factors_device(),
             excl, k).cpu().numpy()
         scores, idx = out[:, 0].tolist(), out[:, 1].astype(np.int32).tolist()
-        names = model.item_dict.strings()
+        names = model.item_dict.to_state()   # the live list, not a copy
         out = []
         for j, q in enumerate(queries):
             if uids[j] < 0:

@@ -60,11 +60,14 @@ data) in a temporary directory:
    of the segments (``FSEvents._is_live``) against the full parse of the
    log that the JAX package's ``delete`` runs.
 
-With ``--ab-parent DIR`` (``--only store``; DIR a checkout of another
-commit, e.g. ``git archive`` of the parent unpacked into ``_archive/``),
-step 9's store is also read by ``read_training`` through the native scan
-in fresh processes, 3 reads each, in the order DIR, this checkout, this
-checkout, DIR: the two commits' native-scan reads on one store and host.
+With ``--ab-parent DIR`` (DIR a checkout of another commit, e.g. ``git
+archive`` of the parent unpacked into ``_archive/``), fresh processes of
+DIR and of this checkout, in the order DIR, this, this, DIR, each run the
+same work on one host: with ``--only store``, ``read_training`` of step
+9's store through the native scan, 3 reads each; with ``--only als``,
+the ALS batch run the serving micro-batcher makes (``batch_predictor``
+on step 1's model, 100,000 items) at micro-batches of 4 and 64 queries,
+host clock, p50 of ``--queries`` queries' batches.
 
 Needs a CUDA card; imports neither JAX nor the JAX package.  Prints one
 JSON object as its last line.
@@ -297,6 +300,54 @@ print(json.dumps(out))
 """
 
 
+AB_BATCH = r"""
+import json, sys, time
+import numpy as np
+import chip_smoke
+from predictionio_tpu_torch.controller import EngineParams
+from predictionio_tpu_torch.models import recommendation as reco
+rng = np.random.default_rng(chip_smoke.SEED)
+model = reco.als_model_from_state(chip_smoke.make_state(rng), device="cuda")
+ep = EngineParams(algorithm_params_list=[("als", reco.ALSAlgorithmParams())])
+predict_batch = reco.RecommendationEngine.apply().batch_predictor(ep, [model])
+qs = [reco.RecoQuery.from_json(b) for b in chip_smoke.queries(rng, int(sys.argv[1]))]
+out = {}
+for size in (4, 64):
+    predict_batch(qs[:size])
+    ms = []
+    for s in range(0, len(qs) - size + 1, size):
+        t0 = time.perf_counter()
+        predict_batch(qs[s:s + size])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out[size] = sorted(ms)[len(ms) // 2]
+print(json.dumps(out))
+"""
+
+
+def als_batch_ab(parent: Path, n_queries: int, smi: str) -> dict:
+    """The ALS batch run of the serving micro-batcher (``batch_predictor``
+    on step 1's model) at 4 and 64 queries a batch, p50 ms on the host
+    clock, by ``parent``'s package and by this checkout's, each in fresh
+    processes, in the order parent, this, this, parent."""
+    import os
+
+    here = Path(__file__).resolve().parent
+    out = {"parent": [], "change": []}
+    for who, root in (("parent", parent), ("change", here), ("change", here),
+                      ("parent", parent)):
+        r = subprocess.run([sys.executable, "-c", AB_BATCH, str(n_queries)], cwd=root,
+                           env={**os.environ, "PYTHONPATH": str(root)},
+                           capture_output=True, text=True, timeout=900)
+        if r.returncode != 0:
+            raise RuntimeError(f"{who} batch run failed: {r.stderr[-2000:]}")
+        out[who].append(json.loads(r.stdout.strip().splitlines()[-1]))
+    for who in ("parent", "change"):
+        print(f"  ALS batch run p50, {who}: " + " | ".join(
+            ", ".join(f"{b} queries {ms:.3f} ms" for b, ms in run.items())
+            for run in out[who]) + f" | {smi}")
+    return out
+
+
 def read_training_ab(chip_smoke, parent: Path, store_root: Path, reads: int = 3) -> dict:
     """``read_training`` through the native scan of step 9's store (no
     snapshot yet) by ``parent``'s package and by this checkout's, each in
@@ -452,8 +503,9 @@ def main() -> int:
     ap.add_argument("--queries", type=int, default=200)
     ap.add_argument("--only", choices=("als", "ur", "k1", "store"), default=None)
     ap.add_argument("--ab-parent", type=Path, default=None,
-                    help="with --only store: a checkout of another commit whose "
-                         "native-scan read_training runs beside this one's")
+                    help="with --only store or --only als: a checkout of another "
+                         "commit whose native-scan read_training (store) or ALS "
+                         "batch run (als) runs beside this one's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch: needs a CUDA card", file=sys.stderr)
@@ -467,6 +519,8 @@ def main() -> int:
     out = {"card": smi}
     if args.only in (None, "als"):
         out["als_serving"] = profile_als_serving(chip_smoke, args.queries)
+    if args.only == "als" and args.ab_parent is not None:
+        out["als_batch_ab"] = als_batch_ab(args.ab_parent, args.queries, smi)
     if args.only in (None, "ur"):
         out["ur_train"] = profile_ur_train(chip_smoke, smi)
     if args.only == "k1":
