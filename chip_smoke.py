@@ -144,6 +144,28 @@ checkpointed UR training (run right after 12, on its store):
     this process: ``pio_history_cache_total{outcome="stale"}`` rises by >=
     20, their answers equal the CPU predict on the new histories and the
     answers under ``PIO_HISTORY_CACHE=off``;
+the streaming fold and the follow-trainer (slice 14; right after 17):
+19. ``deploy(follow=0.2)`` of 12's stored model (LLR weights off) in this
+    process: the follower bootstraps from the app's log (snapshot, tail,
+    tombstones), every row of both event types re-selected through K2/K3
+    on the card (150 launches each: row chunks of 1 GiB); 8 rounds of
+    ``bench_freshness``'s protocol (bench.py:4080-4097): a probe user buys
+    a brand-new seed item and, once that folds, 6 new users buy the seed
+    and a brand-new item, and ``/queries.json`` is polled until the
+    probe's answer holds the new item (30 s a round at most); the
+    append -> reflected p50/p99 against the reference's 10 s gate, ticks
+    by outcome (no retrain, no restage), rows certified and selected,
+    K2/K3 launches during the folds (> 0), device memory after the
+    bootstrap and after the last fold (growth within one generation's
+    model plus the re-selection slice budget), K2 gathered at the nonzero
+    cells of a row slice of each type bit for bit ``_score_llr_cells`` on
+    the card, and after the drain the live tables, item dictionaries and
+    popularity bit-identical to a from-scratch card ``engine.train``, 200
+    probe answers byte-equal to it; 19b: ``pio train --follow`` as a
+    subprocess on a 500 x 300 app of 5,000 purchases (the CLI wiring at a
+    small size): its bootstrap and one delta each publish a COMPLETED
+    instance, the second equal to a card train, and SIGINT ends it with
+    exit 0;
 ALS training and the e-commerce template (slice 9):
 12b. the deployed ALS width (bench.py:151: 5,000 users x 100,000 items,
     270k ``rate`` events covering the catalog + 30k ``buy``, rank 32, 4
@@ -2410,6 +2432,365 @@ def ur_caches_path(ur, cco, hk, ncore, dev, workdir, variants, stored, plain_tra
         restore_env(saved)
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"  phase 17 wall {out['wall_s']:.3f} s")
+    return out
+
+
+# -- phase 19: the streaming fold and the follow-trainer ----------------------------
+
+FOLLOW_ROUNDS = 8                # bench_freshness's rounds (bench.py:4080-4097)
+FOLLOW_COBUYERS = 6              # co-buyers of a round's brand-new item
+FOLLOW_INTERVAL_S = 0.2          # deploy(follow=): the follower's tick interval
+FOLLOW_CAP_S = 30.0              # a round not reflected within this fails the phase
+FOLLOW_GATE_S = 10.0             # the reference's append -> reflected p99 gate
+FOLLOW_PROBES = 200              # probe queries held byte-equal to a card retrain
+FOLLOW_SMALL = (500, 300, 5_000)  # 19b's app: users, items, purchases
+
+
+def follow_counts(hk):
+    """K2's and K3's launch counts, read under the wrappers' lock."""
+    with hk._count_lock:
+        return hk.llr_masked_scores.launches, hk.tile_topk_desc.launches
+
+
+def follower_drained(follower, covered) -> bool:
+    st = follower.status()
+    return st["lastOutcome"] == "idle" and (st["coveredEvents"] or 0) >= covered
+
+
+def wait_until(cond, timeout, what):
+    end = time.perf_counter() + timeout
+    while time.perf_counter() < end:
+        if cond():
+            return
+        time.sleep(0.02)
+    raise SmokeFailure(f"timed out after {timeout} s waiting for {what}")
+
+
+def model_device_bytes(model) -> int:
+    """Device bytes one URModel generation stages for serving."""
+    total = 0
+    for attr in model.__dict__.get("_staged", ()):
+        v = model.__dict__.get(attr)
+        tensors = (list(v.values()) if isinstance(v, dict) else [v])
+        for t in tensors:
+            for x in (t if isinstance(t, tuple) else (t,)):
+                if isinstance(x, torch.Tensor) and x.device.type == "cuda":
+                    total += x.numel() * x.element_size()
+    return total
+
+
+def k2_against_cell_scoring(fold_mod, cco, hk, state, dev, n_rows=512):
+    """On a row slice of each event type's resident counts: K2's output
+    gathered at the nonzero cells against ``_score_llr_cells`` on the card,
+    the certificate's scoring, bit for bit.  → (cells, differing cells)."""
+    cells = differ = 0
+    n_total = float(len(state.user_dict))
+    for name, st in state.types.items():
+        if st.sc is None or not st.sc.nnz:
+            continue
+        _, t_llr = state._tuning(name)
+        rows = np.unique(st.sc.keys[:: max(1, st.sc.nnz // n_rows)] >> np.int64(32))[:n_rows]
+        local, cols, counts = st.sc.row_cells(rows)
+        c = torch.zeros((len(rows), st.n_items), dtype=torch.int32, device=dev)
+        li = torch.as_tensor(local, device=dev)
+        ci = torch.as_tensor(cols.astype(np.int64), device=dev)
+        c[li, ci] = torch.as_tensor(counts, device=dev)
+        k2 = hk.llr_masked_scores(c, torch.as_tensor(state.row_counts[rows].astype(np.int32),
+                                                     device=dev),
+                                  torch.as_tensor(st.col_counts.astype(np.int32), device=dev),
+                                  n_total, t_llr)[li, ci].cpu().numpy()
+        cell = cco._score_llr_cells(counts.astype(np.float32),
+                                    state.row_counts[rows][local].astype(np.float32),
+                                    st.col_counts[cols].astype(np.float32), n_total, t_llr,
+                                    device=dev)
+        cells += len(cell)
+        differ += int((k2.view(np.int32) != cell.view(np.int32)).sum())
+        del c
+    return cells, differ
+
+
+def follow_small_cli(dev, workdir):
+    """19b: ``pio train --follow`` as a subprocess on a small localfs app
+    (FOLLOW_SMALL: a check of the CLI wiring, not of scale): the bootstrap
+    publishes a COMPLETED instance, one delta (a brand-new item) another,
+    equal to a card train of the same events; SIGINT ends it with exit 0."""
+    from predictionio_tpu_torch.events.event import Event
+    from predictionio_tpu_torch.storage import get_storage
+    from predictionio_tpu_torch.store.event_store import invalidate_staging_cache
+    from predictionio_tpu_torch.workflow.core_workflow import load_latest_models
+    from predictionio_tpu_torch.workflow.create_workflow import engine_from_variant
+
+    n_users, n_items, n_buy = FOLLOW_SMALL
+    rng = np.random.default_rng(SEED + 19)
+    users = rng.integers(0, n_users, n_buy)
+    items = rng.zipf(1.3, n_buy) % n_items
+    jsonl = workdir / "follow19b.jsonl"
+    with open(jsonl, "w") as f:
+        write_interactions(f, [("purchase", users, items,
+                                T0 + np.arange(n_buy, dtype=np.float64))])
+    pio("app", "new", "follow19b")
+    pio("import", "--app-name", "follow19b", "--input", str(jsonl))
+    variant = {"id": "smoke-follow19b", "engineFactory": "universal_recommender",
+               "datasource": {"params": {"appName": "follow19b", "eventNames": ["purchase"]}},
+               "algorithms": [{"name": "ur", "params": {"appName": "follow19b",
+                                                        "maxCorrelatorsPerItem": 20}}]}
+    path = workdir / "engine-follow19b.json"
+    path.write_text(json.dumps(variant))
+    store = get_storage()
+    app_id = store.apps.get_by_name("follow19b").id
+
+    def completed():
+        return sorted((i for i in store.engine_instances.get_all()
+                       if i.engine_id == variant["id"] and i.status == "COMPLETED"),
+                      key=lambda i: i.start_time)
+
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent),
+           "PIO_TORCH_DEVICE": dev.type}
+    log_path = workdir / "follow19b.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.cli.main", "train", "--follow",
+             "--follow-interval", "0.2", "--engine-json", str(path)],
+            env=env, cwd=str(workdir), stdout=log, stderr=subprocess.STDOUT)
+        try:
+            try:
+                wait_until(lambda: len(completed()) >= 1 or proc.poll() is not None, 300,
+                           "19b's bootstrap instance")
+                check(proc.poll() is None, f"19b: pio train --follow exited {proc.returncode}")
+                boot_s = time.perf_counter() - t0
+                fresh = [f"cob19b_{j}" for j in range(FOLLOW_COBUYERS)]
+                store.l_events.insert_batch(
+                    [Event("purchase", "user", u, "item", it) for u in fresh
+                     for it in ("i1", "fresh19b")], app_id)
+                t1 = time.perf_counter()
+                wait_until(lambda: len(completed()) >= 2 or proc.poll() is not None, 120,
+                           "19b's folded instance")
+                check(proc.poll() is None, f"19b: pio train --follow exited {proc.returncode}")
+                fold_s = time.perf_counter() - t1
+            finally:
+                if proc.poll() is None:
+                    proc.send_signal(2)   # SIGINT: the CLI stops the trainer, exits 0
+                try:
+                    rc = proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(timeout=30)
+                    raise SmokeFailure("19b: pio train --follow did not stop on SIGINT")
+        except BaseException:
+            print(log_path.read_text()[-4000:])
+            raise
+    check(rc == 0, f"19b: pio train --follow exited {rc} after SIGINT: "
+                   f"{log_path.read_text()[-2000:]}")
+    instances = completed()
+    check(len(instances) == 2, f"19b: {len(instances)} COMPLETED instances, expected 2")
+    _, (model,) = load_latest_models(variant["id"], device=dev)
+    check("fresh19b" in model.item_dict, "19b: the folded instance lacks the delta's item")
+    _, engine, ep = engine_from_variant(variant)
+    invalidate_staging_cache()
+    (ref,) = engine.train(ep, device=dev)
+    for name in ref.indicator_idx:
+        check(ref.item_dict.strings() == model.item_dict.strings()
+              and np.array_equal(ref.indicator_idx[name], model.indicator_idx[name])
+              and np.array_equal(ref.indicator_llr[name].view(np.int32),
+                                 model.indicator_llr[name].view(np.int32)),
+              f"19b: the folded {name} table differs from a card train")
+    print(f"  19b: pio train --follow (a subprocess, {n_users} users x {n_items} items, "
+          f"{n_buy} purchases: the CLI wiring at a small size) published its bootstrap "
+          f"instance {boot_s:.3f} s after start and the delta's instance {fold_s:.3f} s after "
+          f"the append, equal to a card train; SIGINT -> exit 0")
+    return {"bootstrap_s": boot_s, "fold_s": fold_s, "instances": len(instances)}
+
+
+def follow_path(ur, cco, hk, dev, workdir, variants):
+    """Phase 19: ``deploy(follow=FOLLOW_INTERVAL_S)`` of phase 11b's stored UR
+    (LLR weights off) in this process, so the launch counters and the
+    follower read.  The follower bootstraps from the log (snapshot, tail,
+    tombstones) through K2/K3 on the card; then FOLLOW_ROUNDS rounds of
+    bench_freshness's protocol (bench.py:4080-4097): a probe user buys a
+    brand-new seed item, and once that folds, FOLLOW_COBUYERS users buy the
+    seed and a brand-new item, and /queries.json is polled until the probe's
+    answer holds it (FOLLOW_CAP_S a round).  Every tick must fold (no retrain
+    tick), K2 and K3 must launch during the folds, device memory may not
+    grow past one generation's model plus the re-selection slice budget,
+    K2 must equal the certificate's cell scoring bit for bit, and after the
+    drain the live tables equal a from-scratch card train bit for bit, with
+    FOLLOW_PROBES answers byte-equal.  19b: ``pio train --follow``."""
+    import gc
+
+    from predictionio_tpu_torch.events.event import Event
+    from predictionio_tpu_torch.storage import get_storage
+    from predictionio_tpu_torch.store.event_store import invalidate_staging_cache
+    from predictionio_tpu_torch.streaming import fold as fold_mod
+    from predictionio_tpu_torch.streaming import follow as follow_mod
+    from predictionio_tpu_torch.workflow.create_server import deploy
+    from predictionio_tpu_torch.workflow.create_workflow import engine_from_variant
+
+    t_phase = time.perf_counter()
+    out = {}
+    store = get_storage()
+    app_id = store.apps.get_by_name("smoke").id
+    folds = follow_mod._M_FOLDS
+    outcomes = ("fold", "retrain", "restage", "idle", "error", "disabled")
+    f0 = {o: folds.value(outcome=o) for o in outcomes}
+    r0 = {o: fold_mod._M_RELLR_ROWS.value(outcome=o) for o in ("certified", "selected")}
+    gc.collect()
+    torch.cuda.synchronize()
+    with hk._count_lock:
+        hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+    t0 = time.perf_counter()
+    server = deploy(str(variants[False]), host="127.0.0.1", port=0, device=dev,
+                    follow=FOLLOW_INTERVAL_S)
+    try:
+        state = server.pio_state
+        follower = state.follower
+        check(follower is not None and follower.mode == "fold",
+              "19: deploy(follow=) hosts no fold-mode follower")
+        url = f"http://127.0.0.1:{server.server_address[1]}/queries.json"
+        wait_until(lambda: follower.generation >= 1
+                   and follower.status()["lastOutcome"] == "idle", 600, "the bootstrap")
+        out["bootstrap_s"] = time.perf_counter() - t0
+        fstate = follower._fold
+        covered = len(fstate.batch)
+        boot_launches = follow_counts(hk)
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_boot = torch.cuda.memory_allocated(dev)
+        st = follower.status()
+        print(f"  deploy(follow={FOLLOW_INTERVAL_S}) bootstrapped the fold state from "
+              f"{covered} events in {out['bootstrap_s']:.3f} s (deploy included): "
+              f"stateMode {st['stateMode']}, pio_follow_state_bytes {st['stateBytes']} "
+              f"(PIO_FOLLOW_STATE_BYTES default {fold_mod.state_budget_bytes()}), K2/K3 "
+              f"launches {boot_launches} (every row re-selected on the card, chunks of "
+              f"{fold_mod._RESELECT_SLICE_BYTES} B), device memory {mem_boot} B")
+        check(st["stateMode"] == "sparse", f"19: state mode {st['stateMode']}")
+        check(boot_launches[0] > 0 and boot_launches[1] > 0,
+              f"19: the bootstrap launched K2/K3 {boot_launches}")
+        lat_ms, rounds = [], []
+        for r in range(FOLLOW_ROUNDS):
+            seed, fresh, probe = f"seed19_{r}", f"fresh19_{r}", f"probe19_{r}"
+            rel0 = {o: fold_mod._M_RELLR_ROWS.value(outcome=o)
+                    for o in ("certified", "selected")}
+            k0 = follow_counts(hk)
+            store.l_events.insert_batch([Event("purchase", "user", probe, "item", seed)],
+                                        app_id)
+            covered += 1
+            wait_until(lambda: follower_drained(follower, covered), 120,
+                       f"round {r}'s probe fold")
+            cobuyers = [f"cob19_{r}_{j}" for j in range(FOLLOW_COBUYERS)]
+            t_append = time.perf_counter()
+            store.l_events.insert_batch(
+                [Event("purchase", "user", u, "item", it) for u in cobuyers
+                 for it in (seed, fresh)], app_id)
+            covered += 2 * FOLLOW_COBUYERS
+            reflected = None
+            while time.perf_counter() - t_append < FOLLOW_CAP_S:
+                got = post(url, {"user": probe, "num": 30})
+                if any(s["item"] == fresh for s in got["itemScores"]):
+                    reflected = (time.perf_counter() - t_append) * 1e3
+                    break
+                time.sleep(0.01)
+            check(reflected is not None,
+                  f"19: round {r}: {fresh} not reflected within {FOLLOW_CAP_S} s")
+            wait_until(lambda: follower_drained(follower, covered), 120,
+                       f"round {r}'s drain")
+            k1 = follow_counts(hk)
+            rel = {o: fold_mod._M_RELLR_ROWS.value(outcome=o) - rel0[o] for o in rel0}
+            rounds.append({"reflected_ms": reflected, "k2": k1[0] - k0[0], "k3": k1[1] - k0[1],
+                           "rellr_rows": rel, "phase_s": dict(fstate.last_phase_s),
+                           "emit_s": fstate.last_emit_s,
+                           "last_rellr": dict(fstate.last_rellr_stats)})
+            lat_ms.append(reflected)
+            print(f"  round {r}: {fresh} reflected {reflected:.3f} ms after the append; "
+                  f"rows certified/selected {rel}, K2/K3 launches {k1[0] - k0[0]}/"
+                  f"{k1[1] - k0[1]}; the last fold's phases "
+                  f"{ {k: round(v, 4) for k, v in fstate.last_phase_s.items()} } s, emit "
+                  f"{fstate.last_emit_s:.4f} s")
+        fold_launches = follow_counts(hk)
+        out["launches"] = fold_launches
+        during = (fold_launches[0] - boot_launches[0], fold_launches[1] - boot_launches[1])
+        tick = {o: folds.value(outcome=o) - f0[o] for o in outcomes}
+        rel_all = {o: fold_mod._M_RELLR_ROWS.value(outcome=o) - r0[o] for o in r0}
+        check(tick["retrain"] == 0 and tick["restage"] == 0 and tick["error"] == 0,
+              f"19: follow ticks {tick}: the follower left fold mode")
+        check(tick["fold"] >= 2 * FOLLOW_ROUNDS, f"19: only {tick['fold']} fold ticks")
+        check(during[0] > 0 and during[1] > 0,
+              f"19: K2/K3 launched {during} times during the folds")
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_last = torch.cuda.memory_allocated(dev)
+        (live,) = state.models
+        gen_bytes = model_device_bytes(live)
+        check(mem_last - mem_boot <= gen_bytes + fold_mod._RESELECT_SLICE_BYTES,
+              f"19: device memory grew {mem_last - mem_boot} B over the folds, past one "
+              f"generation ({gen_bytes} B) plus the slice budget")
+        st = follower.status()
+        p50, p99 = np.percentile(lat_ms, 50), np.percentile(lat_ms, 99)
+        out.update({"reflected_ms": lat_ms, "p50_ms": float(p50), "p99_ms": float(p99),
+                    "gate_ms": FOLLOW_GATE_S * 1e3, "ticks": tick, "rellr_rows": rel_all,
+                    "launches_during_folds": during, "bootstrap_launches": boot_launches,
+                    "state_bytes": st["stateBytes"], "state_mode": st["stateMode"],
+                    "memory_after_bootstrap": mem_boot, "memory_after_last_fold": mem_last,
+                    "generation_device_bytes": gen_bytes, "rounds": rounds})
+        print(f"  append -> reflected over {FOLLOW_ROUNDS} rounds: p50 {p50:.3f} ms, p99 "
+              f"{p99:.3f} ms against the reference's {FOLLOW_GATE_S:g} s gate "
+              f"({'held' if p99 <= FOLLOW_GATE_S * 1e3 else 'missed'}); pio_follow_folds_total "
+              f"{tick}; pio_follow_rellr_rows_total {rel_all}; K2/K3 launches during the "
+              f"folds {during}; stateMode {st['stateMode']}, state bytes {st['stateBytes']}; "
+              f"device memory after the bootstrap {mem_boot} B, after the last fold "
+              f"{mem_last} B (a generation stages {gen_bytes} B)")
+
+        # K2 on a captured row slice against the certificate's cell scoring
+        cells, differ = k2_against_cell_scoring(fold_mod, cco, hk, fstate, dev)
+        check(cells > 0 and differ == 0,
+              f"19: K2 and _score_llr_cells(device=cuda) differ at {differ} of {cells} cells")
+        out["k2_vs_cell_scoring"] = {"cells": cells, "differ": differ}
+        print(f"  K2 gathered at {cells} nonzero cells of a row slice of each type equals "
+              "_score_llr_cells on the card bit for bit")
+
+        # the live model against a from-scratch card train
+        _, engine, ep = engine_from_variant(engine_variant(False))
+        invalidate_staging_cache()
+        t1 = time.perf_counter()
+        (ref,) = engine.train(ep, device=dev)
+        out["retrain_s"] = time.perf_counter() - t1
+        check(ref.item_dict.strings() == live.item_dict.strings(),
+              "19: the live item dictionary differs from the card train's")
+        for name in ref.indicator_idx:
+            check(live.event_item_dicts[name].strings() == ref.event_item_dicts[name].strings()
+                  and np.array_equal(live.indicator_idx[name], ref.indicator_idx[name])
+                  and np.array_equal(live.indicator_llr[name].view(np.int32),
+                                     ref.indicator_llr[name].view(np.int32)),
+                  f"19: the live {name} table differs from a from-scratch card train")
+        check(np.array_equal(np.asarray(live.popularity), np.asarray(ref.popularity)),
+              "19: the live popularity differs from the card train's")
+        rng = np.random.default_rng(SEED + 190)
+        users = ([f"u{int(u)}" for u in rng.choice(DEPLOYED_UR[0], FOLLOW_PROBES - 41,
+                                                   replace=False)]
+                 + [f"probe19_{r}" for r in range(FOLLOW_ROUNDS)]
+                 + [f"cob19_{r}_{j}" for r in range(FOLLOW_ROUNDS) for j in range(4)]
+                 + ["never-seen"])
+        algo = engine.make_components(ep, device=dev)[2][0]
+        differ_answers = 0
+        for u in users:
+            body = {"user": u, "num": 20}
+            want = json.dumps(algo.predict(ref, ur.URQuery.from_json(body)).to_json()).encode()
+            differ_answers += post_raw(url, body) != want
+        check(differ_answers == 0,
+              f"19: {differ_answers} of {len(users)} answers differ from the card train's")
+        print(f"  after the drain: the live tables (ids and LLR of both types), item "
+              f"dictionaries and popularity are bit-identical to a from-scratch card train "
+              f"({out['retrain_s']:.3f} s); {len(users)} probe answers byte-equal")
+        del ref
+    finally:
+        server.shutdown()
+        server.server_close()
+    check(follower._thread is not None and not follower._thread.is_alive(),
+          "19: the follower thread outlived the server")
+    torch.cuda.empty_cache()
+    out["small_cli"] = follow_small_cli(dev, workdir)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  phase 19 wall {out['wall_s']:.3f} s")
     return out
 
 
@@ -4876,6 +5257,12 @@ def run() -> None:
         del ur_model
         torch.cuda.empty_cache()
 
+        phase("19. the streaming fold and the follow-trainer: deploy(follow=) on 11b's app, "
+              "freshness rounds, K2/K3 re-selecting folded rows, parity with a card train; "
+              "19b pio train --follow")
+        follow = follow_path(ur, cco, hk, dev, workdir, variants)
+        torch.cuda.empty_cache()
+
         phase("12b. ALS at the deployed width through localfs and pio "
               "(import, train, deploy, /queries.json)")
         als_model, als_pd, shop, shop_app, _, als_run = als_path(reco, als_ops, hk, dev,
@@ -5081,15 +5468,21 @@ def run() -> None:
           + "; ".join(f"{k} train {v['pio_train_s']:.3f} s p50 {v['p50_ms']:.3f} ms p99 "
                       f"{v['p99_ms']:.3f} ms" for k, v in e18.items() if isinstance(v, dict))
           + f"; launches {slice13['launches']} | {smi}")
+    print(f"  phase 19 {follow['wall_s']:.3f} s: bootstrap {follow['bootstrap_s']:.3f} s, "
+          f"append -> reflected p50 {follow['p50_ms']:.3f} ms p99 {follow['p99_ms']:.3f} ms "
+          f"(gate {follow['gate_ms']:.0f} ms), state bytes {follow['state_bytes']}, "
+          f"K2/K3 launches during the folds {follow['launches_during_folds']}, card retrain "
+          f"{follow['retrain_s']:.3f} s; 19b bootstrap {follow['small_cli']['bootstrap_s']:.3f} "
+          f"s, fold {follow['small_cli']['fold_s']:.3f} s | {smi}")
     print(f"  chip_smoke wall {time.perf_counter() - t_start:.3f} s | {smi}")
     launches = {"masked_score": (http_launches + batch_launches + als_run["k1_launches"]
                                  + load_launches + slice13["launches"]["masked_score"]),
                 "llr_masked": (deployed["launches"][0] + scale["launches"][0]
-                               + similar["launches"][0]
+                               + similar["launches"][0] + follow["launches"][0]
                                + sum(c[1] for c in caches["checkpointed_train"]["calls"])
                                + slice13["launches"]["llr_masked"]),
                 "tile_topk": (deployed["launches"][1] + scale["launches"][1]
-                              + similar["launches"][1]
+                              + similar["launches"][1] + follow["launches"][1]
                               + sum(c[2] for c in caches["checkpointed_train"]["calls"])
                               + slice13["launches"]["tile_topk"])}
     print(json.dumps({"ur_train": {"bench_shape": bench, "memory_store": memory,
@@ -5100,6 +5493,7 @@ def run() -> None:
                               "timing": als_timing},
                       "frontend": frontend, "cco_scale": scale,
                       "similar_product": similar, "ur_caches": caches,
+                      "follow": follow,
                       "slice13": slice13,
                       "k1_retime": k1_rounds, "empty_kernel_ms": empty_ms, "llr_sass": sass,
                       "wall_s": time.perf_counter() - t_start}))

@@ -12,7 +12,8 @@ tools/.../console/Console.scala and bin/pio):
   import / export                                JSON-lines event files
   template list|new                              built-in template gallery / scaffolding
   build                                          check engine.json, register its manifest
-  train / deploy / undeploy / eval               the DASE workflow
+  train / deploy / undeploy / eval               the DASE workflow (train --follow and
+                                                 deploy --follow: the follow-trainer)
   eventserver / adminserver                      REST ingestion / admin API
   metrics <url>                                  pretty-print a server's /metrics
   status / version
@@ -564,7 +565,13 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--stop-after-prepare", action="store_true",
                     help="run the data source and preparator, then stop")
     tr.add_argument("--follow", action="store_true",
-                    help=f"not ported yet ({ROADMAP['streaming']})")
+                    help="stay resident after training: tail the event store and "
+                         "publish an incrementally folded model generation "
+                         "whenever new events arrive (pair deployments with "
+                         "--auto-reload to pick them up)")
+    tr.add_argument("--follow-interval", type=float, default=0.0, metavar="SECS",
+                    help="seconds between follow ticks (default "
+                         "PIO_FOLLOW_INTERVAL_S or 2)")
     tr.set_defaults(func=_cmd_train)
 
     dp = sub.add_parser("deploy")
@@ -580,8 +587,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="prefork N processes serving this port (CPU only)")
     dp.add_argument("--reuse-port", action="store_true",
                     help=argparse.SUPPRESS)   # a prefork child
+    dp.add_argument("--follow", type=float, default=0.0, metavar="SECS",
+                    help="host an embedded follow-trainer: tail the event store "
+                         "every SECS and hot-swap each folded generation")
     # the options below raise naming their ROADMAP item
-    dp.add_argument("--follow", type=float, default=0.0, metavar="SECS")
     dp.add_argument("--plane-publish", default=None, metavar="[HOST:]PORT")
     dp.add_argument("--plane-from", default=None, metavar="HOST:PORT")
     dp.set_defaults(func=_cmd_deploy)

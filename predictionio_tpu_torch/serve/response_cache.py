@@ -51,10 +51,11 @@ reference reads them:
   valid iff its ``prevGeneration`` equals the cached generation's plane
   generation.
 
-Neither source exists in this package until the streaming fold and the
-model plane are ported (ROADMAP.md, queue A, 'Streaming'), so every swap
-here finds no provenance and flushes everything — the reference's own
-behaviour after a retrain or a reload.
+The fold (``streaming/fold.py``) stamps ``_plane_prov`` on every model it
+emits, so an embedded follower's swap sweeps only the affected entries.
+The model plane, and with it ``_serve_prov``, waits for ROADMAP.md, queue
+A, 'Streaming'; a retrain or a reload carries no provenance and flushes
+everything, as in the reference.
 
 Knobs: ``PIO_SERVE_CACHE`` (on|off, default on), ``PIO_SERVE_CACHE_MAX``
 (entries, default 4096), ``PIO_SERVE_CACHE_TTL_S`` (0 = no TTL),

@@ -13,9 +13,11 @@ and evaluation instances included (the ``pio`` CLI reads and writes them).
 which a segment backend with snapshots overrides.  The append-listener
 bus (``add_append_listener``, ``notify_append``) tells in-process
 subscribers — the serving history cache, ``serve/history_cache.py`` —
-which entities an event-log mutation touched.  Not ported yet: the
-delta-tail capability check of the streaming trainer (ROADMAP.md, queue
-A, 'Streaming').
+which entities an event-log mutation touched.  ``delta_tail_supported``
+and ``require_delta_tail`` check an event backend for the delta-tail
+protocol (``scan_tail_from``, ``scan_events_up_to``, ``tombstone_state``)
+that the follow-trainer's fold mode needs; ``StoreCapabilityError`` names
+the backend and the missing capability.
 """
 
 from __future__ import annotations
@@ -378,6 +380,35 @@ def match_filters(
     if target_entity_id is not None and e.target_entity_id != target_entity_id:
         return False
     return True
+
+
+class StoreCapabilityError(NotImplementedError):
+    """An event backend was asked for an optional capability it does not
+    provide (the ``scan_tail_from``/``scan_events_up_to`` delta-tail
+    protocol of ``pio deploy --follow`` and delta staging), with a message
+    naming the backend and the capability."""
+
+
+def delta_tail_supported(backend) -> bool:
+    """True when ``backend`` implements the delta-tail protocol
+    (``scan_tail_from`` + ``scan_events_up_to`` + ``tombstone_state``):
+    the capability the follow-trainer's fold mode requires.  The memory
+    and localfs backends implement it."""
+    return all(
+        callable(getattr(backend, name, None))
+        for name in ("scan_tail_from", "scan_events_up_to", "tombstone_state"))
+
+
+def require_delta_tail(backend, what: str) -> None:
+    """Raise :class:`StoreCapabilityError` when ``backend`` lacks the
+    delta-tail protocol."""
+    if not delta_tail_supported(backend):
+        raise StoreCapabilityError(
+            f"{what} requires the event backend to support the delta-tail "
+            f"protocol (scan_tail_from/scan_events_up_to/tombstone_state), "
+            f"but {type(backend).__module__}.{type(backend).__name__} does "
+            "not provide it; use a localfs or memory event store, or "
+            "implement the protocol on the backend")
 
 
 class PEvents(abc.ABC):

@@ -10,8 +10,14 @@ time) — newest first when ``reversed_order`` — then cut to ``limit``.  It
 filters before it sorts: a stable sort and a filter commute, so the order
 is the reference's and only the matching events are sorted.
 
-Deletes are in place, so ``compact`` is only the TTL trim.  Not ported
-yet: the delta-tail protocol (ROADMAP.md, queue A, 'Streaming').
+Deletes are in place, so ``compact`` is only the TTL trim.  ``MemEvents``
+implements the delta-tail protocol (``scan_tail_from``,
+``scan_events_up_to``, ``tombstone_state``) over a bucket's insertion
+order, as the JAX package does: the watermark is the consumed event count
+(``{"mem": n}``) and ``heads`` carries the bucket's generation.  A delete,
+a ``remove``, a TTL trim or an overwrite of an existing id changes the
+bucket in place and bumps its generation, which invalidates every
+outstanding watermark (the holder restages, as after a compacted log).
 """
 
 from __future__ import annotations
@@ -193,15 +199,22 @@ class MemModels(base.Models):
 
 
 class MemEvents(base.LEvents, base.PEvents):
-    """Thread-safe in-memory event store keyed by (app_id, channel_id)."""
+    """Thread-safe in-memory event store keyed by (app_id, channel_id),
+    with the delta-tail protocol over each bucket's insertion order."""
 
     def __init__(self):
         self._events: Dict[Tuple[int, Optional[int]], Dict[str, Event]] = {}
+        self._gens: Dict[Tuple[int, Optional[int]], int] = {}
         self._lock = threading.Lock()
 
     def _bucket(self, app_id: int, channel_id: Optional[int]) -> Dict[str, Event]:
         with self._lock:
             return self._events.setdefault((app_id, channel_id), {})
+
+    def _bump_locked(self, key: Tuple[int, Optional[int]]) -> None:
+        """An in-place change of a bucket's prefix (delete, remove, trim,
+        overwrite): outstanding count watermarks no longer describe it."""
+        self._gens[key] = self._gens.get(key, 0) + 1
 
     def init(self, app_id: int, channel_id: Optional[int] = None) -> bool:
         self._bucket(app_id, channel_id)
@@ -209,7 +222,9 @@ class MemEvents(base.LEvents, base.PEvents):
 
     def remove(self, app_id: int, channel_id: Optional[int] = None) -> bool:
         with self._lock:
-            removed = self._events.pop((app_id, channel_id), None) is not None
+            key = (app_id, channel_id)
+            self._bump_locked(key)
+            removed = self._events.pop(key, None) is not None
         if removed:
             base.notify_append(None)   # bucket gone: invalidate everything
         return removed
@@ -226,25 +241,29 @@ class MemEvents(base.LEvents, base.PEvents):
                 doomed = [k for k, e in bucket.items() if e.event_time < before]
             for k in doomed:
                 del bucket[k]
+            if doomed:
+                self._bump_locked((app_id, channel_id))
             out = {"kept": len(bucket), "expired": len(doomed), "segments": 0}
         if doomed:
             base.notify_append(None)   # TTL trim: invalidate everything
         return out
 
     def insert(self, event: Event, app_id: int, channel_id: Optional[int] = None) -> str:
-        bucket = self._bucket(app_id, channel_id)
-        with self._lock:
-            bucket[event.event_id] = event
-        base.notify_append([(event.entity_type, event.entity_id)])
-        return event.event_id
+        return self.insert_batch([event], app_id, channel_id)[0]
 
     def insert_batch(self, events: Sequence[Event], app_id: int,
                      channel_id: Optional[int] = None) -> List[str]:
-        """``insert`` of each event in order, under one lock acquisition."""
+        """``insert`` of each event in order, under one lock acquisition.
+        Overwriting an existing id moves neither the count watermark nor
+        the bucket's length, so it bumps the generation."""
         bucket = self._bucket(app_id, channel_id)
         with self._lock:
+            overwrote = False
             for e in events:
+                overwrote = overwrote or e.event_id in bucket
                 bucket[e.event_id] = e
+            if overwrote:
+                self._bump_locked((app_id, channel_id))
         base.notify_append([(e.entity_type, e.entity_id) for e in events])
         return [e.event_id for e in events]
 
@@ -255,9 +274,66 @@ class MemEvents(base.LEvents, base.PEvents):
         bucket = self._bucket(app_id, channel_id)
         with self._lock:
             ok = bucket.pop(event_id, None) is not None
+            if ok:
+                self._bump_locked((app_id, channel_id))
         if ok:
             base.notify_append(None)   # entity unknown: invalidate all
         return ok
+
+    # -- delta-tail protocol (count watermark + generation in heads) ---------
+
+    def tombstone_state(self, app_id: int, channel_id: Optional[int] = None) -> frozenset:
+        """Deletes are in place (no tombstones): the generation in the
+        watermark's heads invalidates instead, so this is always empty."""
+        return frozenset()
+
+    def _tail_state(self, app_id: int, channel_id: Optional[int]):
+        with self._lock:
+            bucket = self._events.get((app_id, channel_id), {})
+            return list(bucket.values()), self._gens.get((app_id, channel_id), 0)
+
+    @staticmethod
+    def _columnar(events: List[Event], base_batch=None):
+        """Events → (EventBatch with property columns, EventIdColumn)
+        through the snapshot tail parser's builder (the fold reads the
+        property columns).  With ``base_batch`` the codes are assigned in
+        its dictionaries, which grow in place (the ``scan_tail_from``
+        contract)."""
+        from predictionio_tpu_torch.storage.snapshot import ColumnarBuilder
+
+        b = ColumnarBuilder(base=base_batch)
+        for e in events:
+            b.add(e.to_json())
+        return b.finish()
+
+    @staticmethod
+    def _generation_ok(heads: Optional[Dict], gen: int) -> bool:
+        return heads is None or (heads.get("mem") or {}).get("gen", 0) == gen
+
+    def scan_tail_from(self, app_id: int, channel_id: Optional[int],
+                       watermark: Dict[str, int], base=None,
+                       heads: Optional[Dict] = None) -> Optional[Dict]:
+        """The events past the count watermark, or None (restage) when the
+        bucket changed in place since the watermark was taken."""
+        events, gen = self._tail_state(app_id, channel_id)
+        start = int(watermark.get("mem", 0))
+        if not self._generation_ok(heads, gen) or start > len(events):
+            return None
+        batch, ids = self._columnar(events[start:], base_batch=base)
+        return {"batch": batch, "ids": ids, "events": len(events) - start,
+                "watermark": {"mem": len(events)}, "heads": {"mem": {"gen": gen}}}
+
+    def scan_events_up_to(self, app_id: int, channel_id: Optional[int],
+                          watermark: Dict[str, int],
+                          heads: Optional[Dict] = None) -> Optional[Dict]:
+        """The covered prefix a persisted watermark describes (a restarted
+        follower's read), or None when the bucket changed since."""
+        events, gen = self._tail_state(app_id, channel_id)
+        end = int(watermark.get("mem", 0))
+        if not self._generation_ok(heads, gen) or end > len(events):
+            return None
+        batch, _ = self._columnar(events[:end])
+        return {"batch": batch, "events": end}
 
     def find(
         self,

@@ -111,6 +111,17 @@ class IdDict:
     def strings(self) -> List[str]:
         return list(self._strings())
 
+    def clone(self) -> "IdDict":
+        """A copy that grows independently (the copy-on-write step of the
+        streaming fold, whose emitted model shares the dictionary): the
+        dict and list copy constructors, pending blobs shared (they are
+        immutable), nothing decoded."""
+        out = IdDict.__new__(IdDict)
+        out._to_id = dict(self._to_id) if self._to_id is not None else None
+        out._to_str = list(self._to_str)
+        out._pending = list(self._pending) if self._pending is not None else None
+        return out
+
     def encode(self, values: Sequence[str]) -> np.ndarray:
         """int32 codes of ``values``, adding the unknown ones in order."""
         get = self._index().get
@@ -184,6 +195,20 @@ class CSRLookup:
         indptr = np.zeros(n_rows + 1, np.int64)
         np.cumsum(counts, out=indptr[1:])
         return cls(indptr, values.astype(np.int32))
+
+    @classmethod
+    def from_sorted_pairs(cls, rows: np.ndarray, values: np.ndarray,
+                          n_rows: int) -> "CSRLookup":
+        """``from_pairs`` for pairs already sorted by (row, value) and
+        deduplicated (the fold state's ``(user << 32 | item)`` key sets):
+        no sort, and array-identical to ``from_pairs`` on such input.  The
+        order and uniqueness are the caller's contract, not checked."""
+        rows = np.asarray(rows, np.int64)
+        counts = (np.bincount(rows, minlength=n_rows) if len(rows)
+                  else np.zeros(n_rows, np.int64))
+        indptr = np.zeros(n_rows + 1, np.int64)
+        np.cumsum(counts, out=indptr[1:])
+        return cls(indptr, np.asarray(values, np.int32))
 
     @classmethod
     def empty(cls, n_rows: int = 0) -> "CSRLookup":

@@ -4,13 +4,15 @@ Counterpart of ``predictionio_tpu/workflow/core_workflow.py`` (reference:
 core/.../workflow/CoreWorkflow.scala): ``run_train`` records an
 EngineInstance (INIT → TRAINING → COMPLETED, or FAILED with the exception
 re-raised), runs ``Engine.train`` on the named device and persists the
-models; ``load_latest_models`` is the deploy-time lookup; ``run_eval``
-runs an Evaluation on the named device and records an EvaluationInstance
-(EVALRUNNING → EVALCOMPLETED with the results as text, JSON and HTML, or
-EVALFAILED) and counts ``pio_eval_runs_total`` by final status.  The JAX
-package's span journals (around a train and an eval) and its train metrics
-wait for ROADMAP.md, queue A, 'Observability and the rest of the front
-end'.
+models, counting the events it staged by source (snapshot, tail, delta:
+``pio_train_staged_events_total``, through ``_staging_delta``, which the
+follow-trainer's retrain tick reads too); ``load_latest_models`` is the
+deploy-time lookup; ``run_eval`` runs an Evaluation on the named device
+and records an EvaluationInstance (EVALRUNNING → EVALCOMPLETED with the
+results as text, JSON and HTML, or EVALFAILED) and counts
+``pio_eval_runs_total`` by final status.  The JAX package's span journals
+(around a train and an eval) and its other train metrics wait for
+ROADMAP.md, queue A, 'Observability and the rest of the front end'.
 """
 
 from __future__ import annotations
@@ -39,6 +41,27 @@ log = logging.getLogger("pio.workflow")
 
 _M_EVALS = get_registry().counter(
     "pio_eval_runs_total", "Evaluation runs by final status")
+_M_TRAIN_STAGED = get_registry().counter(
+    "pio_train_staged_events_total",
+    "Events staged during training runs, by source: snapshot = mmap'd "
+    "columns, tail = JSONL past snapshot coverage, delta = JSONL past a "
+    "retained batch's watermark (delta-aware retrain)")
+
+
+def _staging_delta(before):
+    """Per-source staged-event counts accrued since ``before`` (a
+    ``store.event_store.staging_counts`` reading)."""
+    from predictionio_tpu_torch.store.event_store import staging_counts
+
+    after = staging_counts()
+    return {mode: after[mode] - before.get(mode, 0) for mode in after}
+
+
+def count_staged(staged) -> None:
+    """Add one run's ``_staging_delta`` to pio_train_staged_events_total."""
+    for mode, v in staged.items():
+        if v:
+            _M_TRAIN_STAGED.inc(v, mode=mode)
 
 
 def _now() -> _dt.datetime:
@@ -91,7 +114,16 @@ def run_train(
         try:
             log.info("training engine %s (instance %s, attempt %d)",
                      engine_id, instance_id, attempt + 1)
+            from predictionio_tpu_torch.store.event_store import staging_counts
+
+            stage_before = staging_counts()
             models = engine.train(engine_params, device=device)
+            # how many events this run staged from where (snapshot columns,
+            # the parsed tail, or a delta past a retained batch); all zero
+            # when the engine read through a non-snapshot path
+            staged = _staging_delta(stage_before)
+            count_staged(staged)
+            log.info("training staged %s", staged)
             persistence.save_models(storage, instance_id, models)
             instance.status = "COMPLETED"
             instance.end_time = _now()

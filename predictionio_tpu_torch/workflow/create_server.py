@@ -18,19 +18,25 @@ time meet in ``_MicroBatcher`` and leave as one ``serve_batch_predict``
 pass, so the card scores them in one launch.  ``--feedback`` writes every
 answered query back as a ``predict`` event; ``--auto-reload SECS`` polls
 the model store and installs a newer instance without dropping the port;
-``--workers N`` preforks N−1 more processes on the same port (CPU only).
+``--follow SECS`` hosts an embedded follow-trainer
+(``streaming/follow.py``) that tails the event store every SECS, folds
+the delta into the live model on the deploy's device and hot-swaps it
+through ``QueryServerState.swap_models`` (the freshness document's
+``follower`` key reports it); ``--workers N`` preforks N−1 more
+processes on the same port (CPU only).
 
 Each install re-arms the response cache (``serve/response_cache.py``)
 on the new models inside the install's lock, before the new predictor
-goes live: a swap keeps the entries its provenance proves unchanged and
-drops the rest (with no streaming fold yet, every swap flushes).  A UR
-model then answers repeated queries from the cache, on ``predict`` and
-on ``serve_batch_predict`` alike.
+goes live: a swap keeps the entries its provenance proves unchanged (a
+fold's ``_plane_prov``) and drops the rest (a reload or a retrain
+flushes).  A UR model then answers repeated queries from the cache, on
+``predict`` and on ``serve_batch_predict`` alike.
 
-Not here, each named in ROADMAP.md, queue A: the model plane, the
-follow-trainer and plane replication ('Streaming'); the trace, lineage,
-history, cluster and healthz routes ('Observability and the rest of the
-front end'), which answer 404.
+Not here, each named in ROADMAP.md, queue A: the model plane and plane
+replication (``plane_publish``, ``plane_from``, and ``follow`` with
+``workers > 1``, 'Streaming'); the trace, lineage, history, cluster and
+healthz routes ('Observability and the rest of the front end'), which
+answer 404.
 """
 
 from __future__ import annotations
@@ -66,7 +72,8 @@ _M_SERIAL_RERUNS = obs_metrics.get_registry().counter(
 _M_GENERATION = obs_metrics.get_registry().gauge(
     "pio_model_generation",
     "Monotonic generation counter of the live model: bumped by every "
-    "hot-swap (auto-reload, manual /reload)")
+    "hot-swap (follow fold, auto-reload, manual /reload) — serving "
+    "caches key on the model object this counts")
 
 ROADMAP_STREAMING = "ROADMAP.md, queue A, 'Streaming'"
 
@@ -305,6 +312,8 @@ class QueryServerState:
         # invalidation
         self.generation = 0
         self.swapped_at: Optional[_dt.datetime] = None
+        self.follower = None          # embedded FollowTrainer, if any
+        self.follow_info: Optional[Dict] = None
         self._build_seq = 0           # install-order tickets (see _install)
         self._installed_seq = 0
         self._tune_gil_switch()
@@ -362,8 +371,11 @@ class QueryServerState:
                     log.exception("auto-reload: reload failed; keeping current instance")
 
     def stop_auto_reload(self) -> None:
-        """Stop the auto-reload poller (wired into server shutdown)."""
+        """Stop every background updater, the auto-reload poller and the
+        embedded follower (wired into server shutdown)."""
         self._auto_stop.set()
+        if self.follower is not None:
+            self.follower.stop(timeout=2.0)
         t = self._auto_thread
         if t is not None and t is not threading.current_thread():
             t.join(timeout=5.0)
@@ -381,15 +393,23 @@ class QueryServerState:
             return instance.id
         return None
 
-    def _install(self, models, instance=None) -> bool:
-        """The one model-installation path (deploy, reload, auto-reload):
-        build and warm the serving bundle OUTSIDE the lock (on the card
-        that stages the new tensors while the old model still serves, so
-        for a moment the peak holds both), then swap the predictor,
-        batcher and generation in one lock hold.  Builds are ordered by a
-        ticket taken at build START: a bundle whose build began before a
-        later build installed is dropped, so a slow stale build never
-        replaces a newer generation.  False when dropped as stale."""
+    def swap_models(self, models, info: Optional[Dict] = None) -> None:
+        """The embedded follower's hot-swap: install already-built models
+        without a round trip through the model store.  The swap is atomic
+        under the serving lock; in-flight queries finish on the old
+        generation, whose tensors are released once they drop it."""
+        self._install(models, follow_info=info)
+
+    def _install(self, models, instance=None, follow_info: Optional[Dict] = None) -> bool:
+        """The one model-installation path (deploy, reload, auto-reload,
+        follower swap): build and warm the serving bundle OUTSIDE the lock
+        (on the card that stages the new tensors while the old model still
+        serves, so for a moment the peak holds both), then swap the
+        predictor, batcher and generation in one lock hold.  Builds are
+        ordered by a ticket taken at build START: a bundle whose build
+        began before a later build installed is dropped, so a slow stale
+        build (the auto-reload poller's, the follower's) never replaces a
+        newer generation.  False when dropped as stale."""
         with self._lock:
             self._build_seq += 1
             ticket = self._build_seq
@@ -419,17 +439,30 @@ class QueryServerState:
                 self.instance = instance
             self.generation += 1
             self.swapped_at = _dt.datetime.now(_dt.timezone.utc)
+            if follow_info is not None:
+                self.follow_info = dict(follow_info)
         _M_GENERATION.set(self.generation)
         return True
 
     def freshness(self) -> Dict:
-        """How current the live model is (``/stats.json``'s and ``GET /``'s
-        ``freshness``)."""
-        return {
+        """How current the live model is and who keeps it so
+        (``/stats.json``'s and ``GET /``'s ``freshness``): with a
+        follower, its ``status()`` under ``follower`` and the fold state's
+        footprint mirrored at the top."""
+        doc: Dict[str, Any] = {
             "generation": self.generation,
             "swappedAt": self.swapped_at.isoformat() if self.swapped_at else None,
             "engineInstanceId": self.instance.id if self.instance else None,
         }
+        if self.follower is not None:
+            doc["follower"] = self.follower.status()
+        elif self.follow_info is not None:
+            doc["follower"] = dict(self.follow_info)
+        fr = doc.get("follower")
+        if isinstance(fr, dict):
+            doc["stateBytes"] = fr.get("stateBytes")
+            doc["stateMode"] = fr.get("stateMode")
+        return doc
 
     def parse_query(self, body: Dict) -> Any:
         if self.query_class is not None and hasattr(self.query_class, "from_json"):
@@ -651,20 +684,26 @@ def deploy(
     from ``PIO_STORAGE_*`` (a ``storage`` object cannot cross the process
     boundary) and serve on ``device`` too.  It raises on a CUDA device, as
     the JAX package raises on an accelerator.  A manual ``/reload``
-    reaches one worker: pair workers with ``auto_reload``.  ``follow``,
-    ``plane_publish`` and ``plane_from`` raise naming ROADMAP's
-    'Streaming'."""
+    reaches one worker: pair workers with ``auto_reload``.
+
+    ``follow`` (seconds) hosts an embedded ``FollowTrainer`` on ``device``
+    that tails the event store at that interval, folds each delta into the
+    live model and swaps it in (``QueryServerState.swap_models``); an
+    engine it cannot follow (no data source ``app_name``) deploys without
+    one, with a warning.  ``plane_publish``, ``plane_from``, and
+    ``follow`` with ``workers > 1`` (the model plane's topologies) raise
+    naming ROADMAP's 'Streaming'."""
     from predictionio_tpu_torch.workflow.create_workflow import (
         engine_from_variant,
         load_engine_variant,
         resolve_engine_id,
     )
 
-    for given, option in ((follow, "follow"), (plane_publish, "plane_publish"),
-                          (plane_from, "plane_from")):
+    for given, option in ((plane_publish, "plane_publish="), (plane_from, "plane_from="),
+                          (follow and workers > 1, "follow= with workers > 1")):
         if given:
             raise NotImplementedError(
-                f"deploy {option}= is not ported yet ({ROADMAP_STREAMING})")
+                f"deploy {option} is not ported yet ({ROADMAP_STREAMING})")
     if workers > 1:
         import torch
 
@@ -699,6 +738,9 @@ def deploy(
         feedback_app_name=feedback_app, plugins=plugins, auto_reload=auto_reload,
         device=device)
     log.info("deploying engine instance %s of %s", state.instance.id, eid)
+    if follow > 0:
+        _start_follower(state, engine, engine_params, eid, engine_version, variant,
+                        follow, device)
     _warm_entity_index(engine_params)
     httpd = _serve(state, host, port, background, reuse_port=workers > 1 or reuse_port)
     bound_port = httpd.server_address[1]
@@ -734,6 +776,27 @@ def deploy(
     finally:
         httpd.server_close()
     return 0
+
+
+def _start_follower(state: QueryServerState, engine, engine_params, eid: str,
+                    engine_version: str, variant: str, interval: float, device) -> None:
+    """The embedded follow-trainer of ``deploy(follow=)``: it bootstraps
+    from the log on its own thread and swaps each generation in."""
+    from predictionio_tpu_torch.streaming.fold import FoldUnsupported
+    from predictionio_tpu_torch.streaming.follow import FollowTrainer
+
+    try:
+        state.follower = FollowTrainer(
+            engine, engine_params, eid, engine_version, variant,
+            storage=state.storage, interval=interval, on_publish=state.swap_models,
+            persist=False, device=device)
+    except FoldUnsupported as e:
+        # nothing to tail (no app_name): serve without a follower rather
+        # than raise with the auto-reload poller and plugins started
+        log.warning("--follow unsupported for this engine (%s); deploying without "
+                    "a follower", e)
+        return
+    state.follower.start()
 
 
 def _warm_entity_index(engine_params) -> None:

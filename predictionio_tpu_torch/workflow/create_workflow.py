@@ -5,8 +5,8 @@ Counterpart of ``predictionio_tpu/workflow/create_workflow.py``: resolve
 the engine factory named in engine.json (a template shortname or a dotted
 path, the JAX package's paths mapped onto the port's), load the variant,
 bind its params blocks to typed EngineParams, pick the engine id, and the
-``pio train``, ``pio build`` and ``pio eval`` entry points.  ``pio train
---follow`` waits for ROADMAP.md, queue A, 'Streaming'.
+``pio train`` (with ``--follow``, the resident follow-trainer of
+``streaming/follow.py``), ``pio build`` and ``pio eval`` entry points.
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ log = logging.getLogger("pio.workflow")
 _JAX_PACKAGE = "predictionio_tpu"
 _PORT_PACKAGE = "predictionio_tpu_torch"
 ROADMAP_TEMPLATES = "ROADMAP.md, queue A, 'Remaining templates'"
-ROADMAP_STREAMING = "ROADMAP.md, queue A, 'Streaming'"
 
 
 def resolve_engine_factory(name: str) -> Type[EngineFactory]:
@@ -144,9 +143,6 @@ def run_train_from_args(args) -> int:
     from predictionio_tpu_torch.workflow import core_workflow
 
     try:
-        if args.follow:
-            raise NotImplementedError(
-                f"pio train --follow is not ported yet ({ROADMAP_STREAMING})")
         variant = load_engine_variant(resolve_variant_path(args), args.variant)
         factory, engine, engine_params = engine_from_variant(variant)
         engine_id = resolve_engine_id(args.engine_id, variant, factory)
@@ -160,6 +156,8 @@ def run_train_from_args(args) -> int:
                 print(f"prepare -> {_describe(preparator.prepare(td))}")
             print("Stopped before training (debug flag).")
             return 0
+        if args.follow:
+            return _run_follow(args, variant, engine, engine_params, engine_id)
         instance = core_workflow.run_train(
             engine,
             engine_params,
@@ -173,6 +171,32 @@ def run_train_from_args(args) -> int:
         print(f"Error: {e}", file=sys.stderr)
         return 1
     print(f"Training completed. Engine instance id: {instance.id}")
+    return 0
+
+
+def _run_follow(args, variant, engine, engine_params, engine_id: str) -> int:
+    """``pio train --follow``: the resident follow-trainer on
+    ``args.device``.  It bootstraps (or resumes from its persisted
+    watermark or checkpoint), then tails the event store and publishes a
+    COMPLETED engine instance for every folded generation; deployments
+    with ``--auto-reload`` pick each one up.  Runs until SIGINT."""
+    from predictionio_tpu_torch.streaming.follow import FollowTrainer
+
+    trainer = FollowTrainer(
+        engine, engine_params, engine_id=engine_id,
+        engine_version=args.engine_version, engine_variant=args.variant,
+        engine_factory=variant["engineFactory"],
+        interval=getattr(args, "follow_interval", 0.0) or None,
+        persist=True, device=args.device)
+    print(f"Follow-trainer for {engine_id} resident (mode={trainer.mode}, "
+          f"interval={trainer.interval:g}s, device={trainer.device}); Ctrl-C stops.",
+          flush=True)
+    try:
+        trainer.run_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        trainer.stop()
     return 0
 
 

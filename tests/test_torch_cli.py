@@ -385,10 +385,10 @@ def test_unported_subcommands_exit_naming_their_item(argv, capsys):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["deploy", "--follow", "2"], "Streaming"),
+    (["deploy", "--follow", "2", "--workers", "2"], "Streaming"),
     (["deploy", "--plane-publish", "9000"], "Streaming"),
     (["deploy", "--plane-from", "h:9000"], "Streaming"),
-    (["train", "--follow"], "Streaming"),
+    (["deploy", "--follow", "2", "--plane-publish", "9000"], "Streaming"),
 ])
 def test_unported_options_exit_naming_their_item(port_store, tmp_path, monkeypatch, capsys,
                                                  argv, item):

@@ -196,10 +196,14 @@ def test_entry_points_raise_without_a_card(stores, monkeypatch, tmp_path, entry)
 @pytest.mark.parametrize("option,value", [
     ("follow", 1.0), ("plane_publish", "7000"), ("plane_from", "host:7000")])
 def test_deploy_refuses_options_it_cannot_honour(tmp_path, option, value):
+    """The model plane's topologies raise naming ROADMAP's item: its
+    publish and subscribe sides, and a follower behind prefork workers
+    (one embedded follower serves; tests/test_torch_streaming_follow.py)."""
     path = tmp_path / "engine.json"
     path.write_text(json.dumps(VARIANT))
+    extra = {"workers": 2} if option == "follow" else {}
     with pytest.raises(NotImplementedError, match=f"{option}=.*ROADMAP"):
-        deploy(str(path), device="cpu", **{option: value})
+        deploy(str(path), device="cpu", **{option: value}, **extra)
 
 
 def test_deploy_workers_on_cuda_raises(tmp_path):
