@@ -166,6 +166,27 @@ the streaming fold and the follow-trainer (slice 14; right after 17):
     small size): its bootstrap and one delta each publish a COMPLETED
     instance, the second equal to a card train, and SIGINT ends it with
     exit 0;
+the model plane and its replication (slice 15; right after 19):
+20. ``deploy(follow=0.2, plane_publish=...)`` of the same stored model in
+    this process, its own node-local plane directory: the stored instance
+    seeds the plane, the follower's bootstrap and folds (K2/K3 on the card)
+    publish keyframes and delta arenas, and the process serves each
+    composed generation; ``pio deploy --plane-from`` as a subprocess on the
+    card (another plane directory, the history read uncached) subscribes
+    over PRP1 on loopback.  A duplicate-only delta (write amplification <=
+    5%); the 8 rounds of 19, each timed at the SUBSCRIBER (p99 <= 10 s,
+    a round > 30 s fails), both planeGenerations converging after each,
+    every fold delta's write amplification printed beside the JAX
+    package's 10% bar; the subscriber SIGKILLed while the stream moves on
+    and restarted (no cold or lag re-sync); file frames torn in flight
+    (sha256 mismatch) until two torn re-syncs, quarantined on the
+    subscriber while its old generation answers byte-equal, then healed;
+    200 answers byte-equal between the two; a ``ModelPlane`` in this
+    process composing the subscriber's newest generation bit-equal to the
+    publisher's live model and its fold's; K2/K3 launches during the folds
+    (> 0), publish bytes by path, the full arena's bytes, map/compose
+    seconds and each process's card memory (``nvidia-smi``) after the
+    first and the last generation;
 ALS training and the e-commerce template (slice 9):
 12b. the deployed ALS width (bench.py:151: 5,000 users x 100,000 items,
     270k ``rate`` events covering the catalog + 30k ``buy``, rank 32, 4
@@ -2794,6 +2815,431 @@ def follow_path(ur, cco, hk, dev, workdir, variants):
     return out
 
 
+# -- phase 20: the model plane and its replication ---------------------------------
+
+PLANE_PROBES = 200          # answers held byte-equal, publisher against subscriber
+PLANE_DELTA_BAR = 0.10      # a fold delta's write amplification (bench.py:2239-2340)
+PLANE_DUP_BAR = 0.05        # a duplicate-only delta's
+PLANE_TORN_CYCLES = 2       # torn re-syncs observed before the fault is lifted
+
+
+def smi_query(*args) -> str:
+    return subprocess.run(["nvidia-smi", *args], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+
+
+def card_memory(dev) -> dict:
+    """The card's memory in use (nvidia-smi, MiB), this process's torch
+    reservations and allocations, and the compute processes with their
+    memory as ``nvidia-smi --query-compute-apps`` lists them (a sandboxed
+    machine may show other pids, or one line for all)."""
+    used = smi_query("--query-gpu=memory.used", "--format=csv,noheader,nounits")
+    return {"device_used_mib": float(used.splitlines()[0]),
+            "this_reserved_mib": torch.cuda.memory_reserved(dev) / 2**20,
+            "this_allocated_mib": torch.cuda.memory_allocated(dev) / 2**20,
+            "compute_apps": "; ".join(smi_query(
+                "--query-compute-apps=pid,used_memory",
+                "--format=csv,noheader").splitlines()) or "none listed"}
+
+
+def memory_split(base: dict, now: dict) -> dict:
+    """Each process's card memory from two readings of ``card_memory``:
+    ``base`` taken in this process alone (its context and what torch does
+    not reserve: the card's use less torch's reservation), ``now`` with the
+    subscriber running (the card's use less this process's share)."""
+    own = base["device_used_mib"] - base["this_reserved_mib"]
+    return {**now, "publisher_mib": own + now["this_reserved_mib"],
+            "subscriber_mib": now["device_used_mib"] - own - now["this_reserved_mib"]}
+
+
+def same_bits(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def plane_differences(got, want) -> list:
+    """What of ``got`` (a composed plane model) differs from ``want`` bit for
+    bit: every array the plane carries, the derived inverted CSRs and
+    popularity order, the dictionaries and the item properties."""
+    pairs = [("popularity", got.popularity, want.popularity),
+             ("pop_order", got.__dict__["_host_pop_order"], want.host_pop_order()),
+             ("user_seen indptr", got.user_seen.indptr, want.user_seen.indptr),
+             ("user_seen values", got.user_seen.values, want.user_seen.values)]
+    for n in want.indicator_idx:
+        pairs += [(f"{n} idx", got.indicator_idx[n], want.indicator_idx[n]),
+                  (f"{n} llr", got.indicator_llr[n], want.indicator_llr[n])]
+        pairs += [(f"{n} inverted {part}", x, y) for part, x, y in zip(
+            ("indptr", "rows", "w"), got.__dict__["_host_inv"][n], want.host_inverted(n))]
+    for n, csr in want.user_seen_by_event.items():
+        pairs += [(f"{n} seen indptr", got.user_seen_by_event[n].indptr, csr.indptr),
+                  (f"{n} seen values", got.user_seen_by_event[n].values, csr.values)]
+    bad = [name for name, x, y in pairs if not same_bits(x, y)]
+    if list(got.indicator_idx) != list(want.indicator_idx):
+        bad.append("event types")
+    for name, x, y in [("item dictionary", got.item_dict, want.item_dict),
+                       ("user dictionary", got.user_dict, want.user_dict)] + [
+            (f"{n} dictionary", got.event_item_dicts[n], want.event_item_dicts[n])
+            for n in want.event_item_dicts]:
+        if x.strings() != y.strings():
+            bad.append(name)
+    if dict(got.item_properties) != dict(want.item_properties):
+        bad.append("item properties")
+    return bad
+
+
+def metric_values(text: str, name: str) -> list:
+    """The values of every series of ``name`` in a Prometheus scrape."""
+    import re
+
+    return [float(m.group(1)) for m in re.finditer(
+        rf"^{name}(?:\{{[^}}]*\}})? (\S+)$", text, re.M)]
+
+
+def plane_path(ur, hk, dev, workdir, variants, env):
+    """Phase 20: the model plane and its replication at the deployed UR width,
+    on phase 11b's stored model (LLR weights off) and app.  The publisher is
+    ``deploy(follow=FOLLOW_INTERVAL_S, plane_publish=...)`` in this process
+    (its own node-local plane directory; K2/K3's counters read here): it
+    seeds its plane with the stored instance, its follower bootstraps and
+    folds on the card, every generation goes through the plane (a keyframe
+    or a delta arena) and is served composed.  The subscriber is ``pio
+    deploy --plane-from`` as a subprocess on the card with a plane directory
+    of its own.  A duplicate-only delta first (write amplification at most
+    PLANE_DUP_BAR); then FOLLOW_ROUNDS rounds of bench_freshness's protocol
+    (as phase 19), each timed from the co-buyers' append to the brand-new
+    item in the probe's answer AT THE SUBSCRIBER (p99 at most FOLLOW_GATE_S,
+    a round past FOLLOW_CAP_S fails), the two planeGenerations converging
+    after each; the subscriber SIGKILLed while the stream moves on and
+    restarted (no cold or lag re-sync: it resumes from its last flipped
+    generation); file frames torn in flight (an advertised sha256 that is
+    not the bytes') until PLANE_TORN_CYCLES torn re-syncs, the subscriber
+    quarantining them while its old generation answers byte-equal, then
+    converging; PLANE_PROBES answers byte-equal between the two; a fresh
+    ``ModelPlane`` here composing the subscriber's newest generation bit-equal
+    to the publisher's live model and its fold's.  K2 and K3 must launch
+    during the folds; bytes by path, map/compose seconds and each process's
+    card memory are printed."""
+    import gc
+    import signal
+
+    from predictionio_tpu_torch.events.event import Event
+    from predictionio_tpu_torch.obs import metrics as obs_metrics
+    from predictionio_tpu_torch.storage import get_storage
+    from predictionio_tpu_torch.streaming import plane as plane_mod
+    from predictionio_tpu_torch.streaming import replicate
+    from predictionio_tpu_torch.workflow.create_server import deploy
+
+    t_phase = time.perf_counter()
+    out = {}
+    store = get_storage()
+    app_id = store.apps.get_by_name("smoke").id
+    root = Path(__file__).resolve().parent
+    pub_dir, sub_dir = workdir / "plane-pub", workdir / "plane-sub"
+    repl_port, sub_port = free_port(), free_port()
+    sub_base = f"http://127.0.0.1:{sub_port}"
+    # the subscriber's store sees this process's appends: its history cache
+    # hears only its own, so it reads history uncached
+    sub_env = {**os.environ, **env, "PYTHONPATH": str(root), "PIO_TORCH_DEVICE": dev.type,
+               "PIO_MODEL_PLANE_DIR": str(sub_dir), "PIO_HISTORY_CACHE": "off"}
+    log_path = workdir / "plane-subscriber.log"
+    resync, pub_bytes = replicate._M_RESYNC, plane_mod._M_PUB_BYTES
+    reasons = ("cold", "lag", "torn")
+    b0 = {p: pub_bytes.value(path=p) for p in ("full", "delta", "ref")}
+    publishes = []
+    sub = {"proc": None}
+
+    def start_subscriber():
+        with open(log_path, "a") as log:
+            sub["proc"] = subprocess.Popen(
+                [sys.executable, "-m", "predictionio_tpu_torch.cli.main", "deploy",
+                 "--engine-json", str(variants[False]), "--ip", "127.0.0.1",
+                 "--port", str(sub_port), "--plane-from", f"127.0.0.1:{repl_port}"],
+                cwd=root, env=sub_env, stdout=log, stderr=subprocess.STDOUT)
+
+    def sub_info():
+        proc = sub["proc"]
+        check(proc.poll() is None, f"20: the subscriber exited {proc.returncode}: "
+                                   f"{log_path.read_text()[-4000:]}")
+        try:
+            return get_json(sub_base + "/", timeout=5)
+        except (urllib.error.URLError, ConnectionError, OSError):
+            return None
+
+    gc.collect()
+    torch.cuda.synchronize()
+    with hk._count_lock:
+        hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+    os.environ["PIO_MODEL_PLANE_DIR"] = str(pub_dir)
+    t0 = time.perf_counter()
+    try:
+        server = deploy(str(variants[False]), host="127.0.0.1", port=0, device=dev,
+                        follow=FOLLOW_INTERVAL_S, plane_publish=f"127.0.0.1:{repl_port}")
+    finally:
+        os.environ.pop("PIO_MODEL_PLANE_DIR", None)
+    try:
+        state = server.pio_state
+        follower = state.follower
+        check(state.plane is not None and state.replication is not None
+              and follower is not None and follower.mode == "fold",
+              "20: deploy(follow=, plane_publish=) hosts no plane, replicator or fold-mode "
+              "follower")
+        follower.add_publish_listener(lambda: publishes.append({
+            **state.plane.last_publish_stats,
+            "generation": int((state.plane.current() or {}).get("generation") or 0),
+            "kind": (state.plane.current() or {}).get("kind")}))
+        mem_base = card_memory(dev)   # this process alone
+        start_subscriber()
+        pub_url = f"http://127.0.0.1:{server.server_address[1]}/queries.json"
+        sub_url = sub_base + "/queries.json"
+        tag = obs_metrics.worker_tag()
+
+        def converged():
+            info = sub_info()
+            return (info is not None and state.plane_generation > 0
+                    and info["planeGeneration"] == state.plane_generation)
+
+        def settled(covered):
+            return follower_drained(follower, covered) and converged()
+
+        wait_until(lambda: follower.generation >= 1
+                   and follower.status()["lastOutcome"] == "idle", 600,
+                   "20: the publisher's bootstrap")
+        out["bootstrap_s"] = time.perf_counter() - t0
+        fstate = follower._fold
+        check(fstate.device.type == "cuda", f"20: the fold state is on {fstate.device}")
+        covered = len(fstate.batch)
+        boot_launches = follow_counts(hk)
+        wait_until(converged, DEPLOY_TIMEOUT_S, "20: the subscriber's first generation")
+        out["first_converged_s"] = time.perf_counter() - t0
+        out["memory_first"] = memory_split(mem_base, card_memory(dev))
+        keyframes = [p for p in publishes if p["kind"] == "full"]
+        check(keyframes, "20: no keyframe was published after the listener was added")
+        out["full_arena_bytes"] = keyframes[-1]["file"]
+        print(f"  publisher: deploy(follow={FOLLOW_INTERVAL_S}, plane_publish) bootstrapped "
+              f"from {covered} events in {out['bootstrap_s']:.3f} s (K2/K3 {boot_launches}); "
+              f"the subscriber (pio deploy --plane-from, a subprocess) first converged on "
+              f"generation {state.plane_generation} {out['first_converged_s']:.3f} s after "
+              f"the deploy; the full arena {out['full_arena_bytes']} B on disk "
+              f"({keyframes[-1]['logical']} B logical); card memory: {out['memory_first']}")
+
+        # a duplicate-only delta: a new pair folded, then bought again
+        store.l_events.insert_batch([Event("purchase", "user", "probe20_dup", "item",
+                                           "seed20_dup")], app_id)
+        covered += 1
+        wait_until(lambda: settled(covered), 120, "20: the pair's fold")
+        n0 = len(publishes)
+        store.l_events.insert_batch([Event("purchase", "user", "probe20_dup", "item",
+                                           "seed20_dup")], app_id)
+        covered += 1
+        wait_until(lambda: settled(covered), 120, "20: the duplicate's fold")
+        dup = publishes[n0:]
+        check(dup and all(p["kind"] == "delta" for p in dup),
+              f"20: the duplicate published {[p['kind'] for p in dup]}")
+        dup_amp = max(p["written"] / p["logical"] for p in dup)
+        out["duplicate_delta"] = {"publishes": dup, "write_amplification": dup_amp}
+        check(dup_amp <= PLANE_DUP_BAR,
+              f"20: a duplicate-only delta wrote {dup_amp:.4%} of its generation's bytes")
+        print(f"  a duplicate-only delta: {dup[-1]['written']} B written of "
+              f"{dup[-1]['logical']} B logical (write amplification {dup_amp:.6f}, bar "
+              f"{PLANE_DUP_BAR})")
+
+        lat_ms, rounds = [], []
+        for r in range(FOLLOW_ROUNDS):
+            seed, fresh, probe = f"seed20_{r}", f"fresh20_{r}", f"probe20_{r}"
+            k0, n0 = follow_counts(hk), len(publishes)
+            store.l_events.insert_batch([Event("purchase", "user", probe, "item", seed)],
+                                        app_id)
+            covered += 1
+            wait_until(lambda: settled(covered), 120, f"20: round {r}'s probe fold")
+            cobuyers = [f"cob20_{r}_{j}" for j in range(FOLLOW_COBUYERS)]
+            t_append = time.perf_counter()
+            store.l_events.insert_batch(
+                [Event("purchase", "user", u, "item", it) for u in cobuyers
+                 for it in (seed, fresh)], app_id)
+            covered += 2 * FOLLOW_COBUYERS
+            reflected = None
+            while time.perf_counter() - t_append < FOLLOW_CAP_S:
+                got = post(sub_url, {"user": probe, "num": 30})
+                if any(s["item"] == fresh for s in got["itemScores"]):
+                    reflected = (time.perf_counter() - t_append) * 1e3
+                    break
+                time.sleep(0.01)
+            check(reflected is not None,
+                  f"20: round {r}: {fresh} not reflected at the subscriber within "
+                  f"{FOLLOW_CAP_S} s")
+            wait_until(lambda: settled(covered), 120, f"20: round {r}'s drain")
+            k1 = follow_counts(hk)
+            with urllib.request.urlopen(sub_base + "/metrics", timeout=30) as resp:
+                sub_map_s = metric_values(resp.read().decode(), "pio_model_plane_map_seconds")
+            pubs = publishes[n0:]
+            rounds.append({
+                "reflected_ms": reflected, "k2": k1[0] - k0[0], "k3": k1[1] - k0[1],
+                "publishes": pubs,
+                "publisher_map_s": plane_mod._M_MAP_S.value(worker=tag),
+                "subscriber_map_s": sub_map_s})
+            lat_ms.append(reflected)
+            print(f"  round {r}: {fresh} reflected at the subscriber {reflected:.3f} ms after "
+                  f"the append; publishes (kind, written/logical B) "
+                  f"{[(p['kind'], p['written'], p['logical']) for p in pubs]}; K2/K3 "
+                  f"{k1[0] - k0[0]}/{k1[1] - k0[1]}; map/compose+install s publisher "
+                  f"{rounds[-1]['publisher_map_s']:.4f}, subscriber {sub_map_s}")
+        fold_deltas = [p for rd in rounds for p in rd["publishes"] if p["kind"] == "delta"]
+        check(fold_deltas, "20: no fold published a delta")
+        amps = [p["written"] / p["logical"] for p in fold_deltas]
+        p50, p99 = np.percentile(lat_ms, 50), np.percentile(lat_ms, 99)
+        check(p99 <= FOLLOW_GATE_S * 1e3,
+              f"20: append -> reflected at the subscriber p99 {p99:.3f} ms, past the "
+              f"{FOLLOW_GATE_S:g} s gate")
+        during = follow_counts(hk)
+        during = (during[0] - boot_launches[0], during[1] - boot_launches[1])
+        check(during[0] > 0 and during[1] > 0,
+              f"20: K2/K3 launched {during} times during the folds")
+        out.update({"reflected_ms": lat_ms, "p50_ms": float(p50), "p99_ms": float(p99),
+                    "gate_ms": FOLLOW_GATE_S * 1e3, "rounds": rounds,
+                    "fold_delta_amplification": {"min": min(amps), "max": max(amps),
+                                                 "median": float(np.median(amps)),
+                                                 "bar": PLANE_DELTA_BAR},
+                    "launches_during_folds": during, "bootstrap_launches": boot_launches})
+        print(f"  append -> reflected at the subscriber over {FOLLOW_ROUNDS} rounds: p50 "
+              f"{p50:.3f} ms, p99 {p99:.3f} ms (gate {FOLLOW_GATE_S:g} s: held); a fold "
+              f"delta's write amplification min {min(amps):.4f} median "
+              f"{np.median(amps):.4f} max {max(amps):.4f} over {len(amps)} deltas, beside "
+              f"the JAX package's bar {PLANE_DELTA_BAR} "
+              f"({'held' if max(amps) <= PLANE_DELTA_BAR else 'missed'}); K2/K3 launches "
+              f"during the folds {during}")
+
+        # SIGKILL the subscriber while the stream moves on, then restart it
+        have = sub_info()["planeGeneration"]
+        r_kill = {k: resync.value(reason=k) for k in reasons}
+        sub["proc"].send_signal(signal.SIGKILL)
+        sub["proc"].wait(timeout=60)
+        store.l_events.insert_batch(
+            [Event("purchase", "user", f"cob20_kill_{j}", "item", it)
+             for j in range(FOLLOW_COBUYERS) for it in ("seed20_0", "fresh20_kill")], app_id)
+        covered += 2 * FOLLOW_COBUYERS
+        wait_until(lambda: follower_drained(follower, covered), 120, "20: the fold while down")
+        moved_to = state.plane_generation
+        check(moved_to > have, "20: the stream did not move while the subscriber was down")
+        t1 = time.perf_counter()
+        start_subscriber()
+        wait_until(converged, DEPLOY_TIMEOUT_S, "20: the restarted subscriber's convergence")
+        out["restart_converged_s"] = time.perf_counter() - t1
+        rs = {k: resync.value(reason=k) - r_kill[k] for k in reasons}
+        repl_status = sub_info()["freshness"]["replication"]
+        check(rs["cold"] == 0 and rs["lag"] == 0 and repl_status["resyncs"] == 0,
+              f"20: the restarted subscriber re-synced {rs}, {repl_status}")
+        out["kill"] = {"had": have, "moved_to": moved_to, "resyncs": rs,
+                       "restart_converged_s": out["restart_converged_s"]}
+        print(f"  SIGKILL at generation {have}; the publisher moved to {moved_to} while it "
+              f"was down; the restarted subscriber resumed (re-syncs {rs}) and converged "
+              f"{out['restart_converged_s']:.3f} s after its start")
+
+        # file frames torn in flight: quarantined, the old generation serves
+        bodies = [{"user": f"cob20_{r}_0", "num": 20} for r in range(FOLLOW_ROUNDS)] + [
+            {"user": f"u{j}", "num": 20} for j in range(12)]
+        old_gen = state.plane_generation
+        before = [post_raw(sub_url, b) for b in bodies]
+        real_send = replicate._send_frame
+        tear = {"on": True, "frames": 0}
+
+        def tearing_send(sock, header, payload_len=0):
+            if tear["on"] and header.get("type") == "file":
+                tear["frames"] += 1
+                header = dict(header, sha256="0" * 64)
+            real_send(sock, header, payload_len)
+
+        torn0 = resync.value(reason="torn")
+        replicate._send_frame = tearing_send
+        try:
+            store.l_events.insert_batch([Event("purchase", "user", "probe20_torn", "item",
+                                               "seed20_1")], app_id)
+            covered += 1
+            wait_until(lambda: follower_drained(follower, covered)
+                       and resync.value(reason="torn") - torn0 >= PLANE_TORN_CYCLES
+                       and any(sub_dir.glob("*.quarantine")), 120,
+                       "20: the torn transfers' quarantine")
+            info = sub_info()
+            during_tear = [post_raw(sub_url, b) for b in bodies]
+        finally:
+            tear["on"] = False
+            replicate._send_frame = real_send
+        quarantined = sorted(p.name for p in sub_dir.glob("*.quarantine"))
+        check(info["planeGeneration"] == old_gen < state.plane_generation,
+              f"20: while torn the subscriber served generation {info['planeGeneration']} "
+              f"(old {old_gen}, new {state.plane_generation})")
+        check(during_tear == before, "20: the old generation's answers changed while torn")
+        t1 = time.perf_counter()
+        wait_until(converged, 120, "20: convergence after the torn transfers")
+        out["torn"] = {"frames_torn": tear["frames"],
+                       "torn_resyncs": resync.value(reason="torn") - torn0,
+                       "quarantined": quarantined, "old_generation": old_gen,
+                       "healed_s": time.perf_counter() - t1}
+        print(f"  {tear['frames']} file frames torn in flight: {out['torn']['torn_resyncs']} "
+              f"torn re-syncs, quarantined {quarantined}; generation {old_gen} kept "
+              f"answering byte-equal ({len(bodies)} queries); converged on "
+              f"{state.plane_generation} {out['torn']['healed_s']:.3f} s after the fault "
+              "was lifted")
+
+        # PLANE_PROBES answers, publisher against subscriber
+        rng = np.random.default_rng(SEED + 200)
+        users = ([f"u{int(u)}" for u in rng.choice(DEPLOYED_UR[0], PLANE_PROBES - 34,
+                                                   replace=False)]
+                 + [f"probe20_{r}" for r in range(FOLLOW_ROUNDS)]
+                 + [f"cob20_{r}_{j}" for r in range(FOLLOW_ROUNDS) for j in range(3)]
+                 + ["cob20_kill_0", "never-seen"])
+        differ = sum(post_raw(pub_url, {"user": u, "num": 20})
+                     != post_raw(sub_url, {"user": u, "num": 20}) for u in users)
+        check(differ == 0, f"20: {differ} of {len(users)} answers differ between the "
+                           "publisher and the subscriber")
+
+        # a fresh reader of the subscriber's plane, in this process
+        t1 = time.perf_counter()
+        reader = plane_mod.ModelPlane(str(sub_dir), device="cpu")
+        got, info = reader.load(reader.current())
+        out["fresh_compose_s"] = time.perf_counter() - t1
+        check(info["planeGeneration"] == state.plane_generation,
+              f"20: the subscriber's plane holds {info['planeGeneration']}")
+        (live,) = state.models
+        bad = plane_differences(got, live) + plane_differences(got, fstate.model)
+        check(not bad, f"20: the subscriber's composed generation differs in {bad}")
+        out["memory_last"] = memory_split(mem_base, card_memory(dev))
+        fr = state.freshness()
+        out.update({
+            "answers": len(users), "generation": state.plane_generation,
+            "publish_bytes": {p: pub_bytes.value(path=p) - b0[p]
+                              for p in ("full", "delta", "ref")},
+            "resyncs": {k: resync.value(reason=k) for k in reasons},
+            "publisher_replication": fr.get("replication"),
+            "publishes": len(publishes),
+            "launches": follow_counts(hk)})
+        print(f"  {len(users)} answers byte-equal between the publisher and the subscriber; "
+              f"a fresh ModelPlane composed the subscriber's generation "
+              f"{info['planeGeneration']} in {out['fresh_compose_s']:.3f} s, every array, "
+              f"dictionary and the properties bit-equal to the publisher's live model and "
+              f"its fold's; publish bytes by path {out['publish_bytes']} over "
+              f"{len(publishes)} publishes; card memory: {out['memory_last']}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        proc = sub["proc"]
+        if proc is not None and proc.poll() is None:
+            proc.send_signal(signal.SIGINT)
+            try:
+                rc = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+                rc = None
+            out["subscriber_exit"] = rc
+    check(out.get("subscriber_exit") == 0,
+          f"20: the subscriber exited {out.get('subscriber_exit')} on SIGINT: "
+          f"{log_path.read_text()[-2000:]}")
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  phase 20 wall {out['wall_s']:.3f} s")
+    return out
+
+
 def refused(url, body) -> int:
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -5263,6 +5709,12 @@ def run() -> None:
         follow = follow_path(ur, cco, hk, dev, workdir, variants)
         torch.cuda.empty_cache()
 
+        phase("20. the model plane and its replication: deploy(follow=, plane_publish=) "
+              "here, pio deploy --plane-from as a subprocess, freshness rounds at the "
+              "subscriber, a killed and a torn subscriber, answers and arrays bit-equal")
+        planes = plane_path(ur, hk, dev, workdir, variants, env)
+        torch.cuda.empty_cache()
+
         phase("12b. ALS at the deployed width through localfs and pio "
               "(import, train, deploy, /queries.json)")
         als_model, als_pd, shop, shop_app, _, als_run = als_path(reco, als_ops, hk, dev,
@@ -5474,15 +5926,26 @@ def run() -> None:
           f"K2/K3 launches during the folds {follow['launches_during_folds']}, card retrain "
           f"{follow['retrain_s']:.3f} s; 19b bootstrap {follow['small_cli']['bootstrap_s']:.3f} "
           f"s, fold {follow['small_cli']['fold_s']:.3f} s | {smi}")
+    print(f"  phase 20 {planes['wall_s']:.3f} s: append -> reflected at the subscriber p50 "
+          f"{planes['p50_ms']:.3f} ms p99 {planes['p99_ms']:.3f} ms (gate "
+          f"{planes['gate_ms']:.0f} ms); full arena {planes['full_arena_bytes']} B; publish "
+          f"bytes by path {planes['publish_bytes']}; fold delta write amplification "
+          f"{planes['fold_delta_amplification']}; duplicate-only "
+          f"{planes['duplicate_delta']['write_amplification']:.6f}; fresh compose "
+          f"{planes['fresh_compose_s']:.3f} s; restart to convergence "
+          f"{planes['restart_converged_s']:.3f} s; card memory first {planes['memory_first']} "
+          f"last {planes['memory_last']} | {smi}")
     print(f"  chip_smoke wall {time.perf_counter() - t_start:.3f} s | {smi}")
     launches = {"masked_score": (http_launches + batch_launches + als_run["k1_launches"]
                                  + load_launches + slice13["launches"]["masked_score"]),
                 "llr_masked": (deployed["launches"][0] + scale["launches"][0]
                                + similar["launches"][0] + follow["launches"][0]
+                               + planes["launches"][0]
                                + sum(c[1] for c in caches["checkpointed_train"]["calls"])
                                + slice13["launches"]["llr_masked"]),
                 "tile_topk": (deployed["launches"][1] + scale["launches"][1]
                               + similar["launches"][1] + follow["launches"][1]
+                              + planes["launches"][1]
                               + sum(c[2] for c in caches["checkpointed_train"]["calls"])
                               + slice13["launches"]["tile_topk"])}
     print(json.dumps({"ur_train": {"bench_shape": bench, "memory_store": memory,
@@ -5493,7 +5956,7 @@ def run() -> None:
                               "timing": als_timing},
                       "frontend": frontend, "cco_scale": scale,
                       "similar_product": similar, "ur_caches": caches,
-                      "follow": follow,
+                      "follow": follow, "plane": planes,
                       "slice13": slice13,
                       "k1_retime": k1_rounds, "empty_kernel_ms": empty_ms, "llr_sass": sass,
                       "wall_s": time.perf_counter() - t_start}))

@@ -26,7 +26,9 @@ This module holds the machinery both servers share:
   logs non-clean exits and ``wait()``s them (no zombies);
 - ``stop_workers`` / ``wire_shutdown``: tear the children down with the
   parent's HTTP server, however it is shut down (``shutdown()`` /
-  ``server_close()``, ``/stop``, or ``pio undeploy``).
+  ``server_close()``, ``/stop``, or ``pio undeploy``);
+- ``plane_child_env``: the environment that makes a query worker a pure
+  reader of the group's model plane (``streaming/plane.py``).
 
 Workers resolve storage from the ``PIO_STORAGE_*`` environment — a
 programmatic storage object cannot cross the process boundary.
@@ -48,6 +50,15 @@ CHILD_ENV = "PIO_PREFORK_CHILD"
 def is_prefork_child() -> bool:
     """True in a worker process spawned by ``spawn_workers``."""
     return os.environ.get(CHILD_ENV) == "1"
+
+
+def plane_child_env(plane_dir: Optional[str]) -> Dict[str, str]:
+    """A query worker's environment in a plane group: the plane forced on
+    at the parent's directory (the worker watches and maps it, never
+    publishes); empty without a plane."""
+    if plane_dir is None:
+        return {}
+    return {"PIO_MODEL_PLANE": "on", "PIO_MODEL_PLANE_DIR": plane_dir}
 
 
 def watch_parent_process(log: Optional[logging.Logger] = None) -> None:

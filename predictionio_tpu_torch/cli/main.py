@@ -13,7 +13,10 @@ tools/.../console/Console.scala and bin/pio):
   template list|new                              built-in template gallery / scaffolding
   build                                          check engine.json, register its manifest
   train / deploy / undeploy / eval               the DASE workflow (train --follow and
-                                                 deploy --follow: the follow-trainer)
+                                                 deploy --follow: the follow-trainer;
+                                                 deploy --plane-publish / --plane-from:
+                                                 model-plane replication)
+  plane-subscribe --from HOST:PORT --plane-dir D  a standalone replication subscriber
   eventserver / adminserver                      REST ingestion / admin API
   metrics <url>                                  pretty-print a server's /metrics
   status / version
@@ -44,13 +47,11 @@ from predictionio_tpu_torch.storage import AccessKey, App, Channel, get_storage
 
 ROADMAP = {
     "observability": "ROADMAP.md, queue A, 'Observability and the rest of the front end'",
-    "streaming": "ROADMAP.md, queue A, 'Streaming'",
 }
 #: subcommands of the JAX console the port does not have yet -> ROADMAP key
 NOT_PORTED = {
     "dashboard": "observability", "trace": "observability",
     "lineage": "observability", "top": "observability",
-    "plane-subscribe": "streaming",
 }
 
 
@@ -322,6 +323,29 @@ def _cmd_deploy(args) -> int:
     return run_server_from_args(args)
 
 
+def _cmd_plane_subscribe(args) -> int:
+    """A standalone replication subscriber: mirror the publisher's plane
+    into ``--plane-dir`` until interrupted.  The node's servers watch that
+    directory (``PIO_MODEL_PLANE_DIR``) as they would a local publisher's."""
+    from predictionio_tpu_torch.streaming.replicate import PlaneSubscriber
+
+    try:
+        sub = PlaneSubscriber(args.plane_dir, args.source, node=args.node)
+        sub.start()
+    except (RuntimeError, ValueError) as e:
+        return _error(str(e))
+    print(f"plane-subscribe: mirroring {args.source} into {args.plane_dir} "
+          f"(node {sub.node})", flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        sub.stop()
+    return 0
+
+
 def _cmd_eventserver(args) -> int:
     from predictionio_tpu_torch.api.event_server import run_event_server
 
@@ -590,10 +614,27 @@ def build_parser() -> argparse.ArgumentParser:
     dp.add_argument("--follow", type=float, default=0.0, metavar="SECS",
                     help="host an embedded follow-trainer: tail the event store "
                          "every SECS and hot-swap each folded generation")
-    # the options below raise naming their ROADMAP item
-    dp.add_argument("--plane-publish", default=None, metavar="[HOST:]PORT")
-    dp.add_argument("--plane-from", default=None, metavar="HOST:PORT")
+    dp.add_argument("--plane-publisher", action="store_true",
+                    help=argparse.SUPPRESS)   # a prefork plane group's fold process
+    dp.add_argument("--plane-publish", default=None, metavar="[HOST:]PORT",
+                    help="also stream this node's model plane to replication "
+                         "subscribers on [HOST:]PORT")
+    dp.add_argument("--plane-from", default=None, metavar="HOST:PORT",
+                    help="be a replication subscriber: serve the node-local plane "
+                         "(PIO_MODEL_PLANE_DIR) the publisher at HOST:PORT feeds "
+                         "(conflicts with --follow)")
     dp.set_defaults(func=_cmd_deploy)
+
+    ps = sub.add_parser("plane-subscribe",
+                        help="mirror a publisher's model plane into a local directory")
+    ps.add_argument("--from", dest="source", required=True, metavar="HOST:PORT",
+                    help="the publisher (deploy --plane-publish)")
+    ps.add_argument("--plane-dir", required=True,
+                    help="the node-local plane directory (the servers' "
+                         "PIO_MODEL_PLANE_DIR)")
+    ps.add_argument("--node", default=None,
+                    help="the name reported to the publisher (default hostname-pid)")
+    ps.set_defaults(func=_cmd_plane_subscribe)
 
     ud = sub.add_parser("undeploy")
     ud.add_argument("--ip", default="127.0.0.1")

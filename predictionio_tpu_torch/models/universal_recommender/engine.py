@@ -551,9 +551,11 @@ class URModel(DeviceCacheMixin, PersistentModel):
             out = {}
             for name, idx in self.indicator_idx.items():
                 n_t = max(len(self.event_item_dicts[name]), 1)
-                idx = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
-                llr = torch.as_tensor(np.asarray(self.indicator_llr[name], np.float32),
-                                      device=self.device)
+                # torch.tensor copies: a model plane's tables are read-only
+                # mapped views, which no tensor may alias
+                idx = torch.tensor(np.asarray(idx, np.int64), device=self.device)
+                llr = torch.tensor(np.asarray(self.indicator_llr[name], np.float32),
+                                   device=self.device)
                 valid = idx >= 0
                 out[name] = (torch.where(valid, idx, n_t), valid.to(torch.float32),
                              torch.where(valid, llr, 0.0))

@@ -52,10 +52,10 @@ reference reads them:
   generation.
 
 The fold (``streaming/fold.py``) stamps ``_plane_prov`` on every model it
-emits, so an embedded follower's swap sweeps only the affected entries.
-The model plane, and with it ``_serve_prov``, waits for ROADMAP.md, queue
-A, 'Streaming'; a retrain or a reload carries no provenance and flushes
-everything, as in the reference.
+emits, so an embedded follower's swap sweeps only the affected entries;
+the model plane (``streaming/plane.py``) writes the same sets beside each
+generation and its readers stamp ``_serve_prov``.  A retrain or a reload
+carries no provenance and flushes everything, as in the reference.
 
 Knobs: ``PIO_SERVE_CACHE`` (on|off, default on), ``PIO_SERVE_CACHE_MAX``
 (entries, default 4096), ``PIO_SERVE_CACHE_TTL_S`` (0 = no TTL),

@@ -7,9 +7,10 @@ native scan (``PropColumn``), ``EventBatch`` (``from_events``,
 snapshot container (``write_batch``, ``read_batch``: byte-equal files and
 the same reads in both packages), ``fold_properties`` and
 ``category_masks``.  The port keeps its own copies: it imports nothing of
-the JAX package.  The JAX ``BatchMerger`` (the sharded store's k-way merge) and
-``write_arrays``/``read_arrays`` (the model plane's container) wait for
-ROADMAP.md, queue A, 'Streaming'.
+the JAX package.  The PIOARR01 named-array container of the model plane
+(``write_arrays``, ``read_arrays``: byte-equal files in both packages,
+read-only mapped views) is here too.  The JAX ``BatchMerger`` (the sharded
+store's k-way merge) waits for ROADMAP.md, queue A, 'Streaming' (§A.12c).
 """
 from __future__ import annotations
 
@@ -741,6 +742,86 @@ def _read_batch_native(path, mm: np.ndarray, nh, hdr_bytes: bytes, data_base: in
     span = nh.meta_span()
     meta = json.loads(hdr_bytes[span[0]:span[0] + span[1]]) if span is not None else {}
     return batch, ids, meta
+
+
+# -- the named-array container (the model plane's arenas) ----------------------
+#
+# The snapshot's discipline (magic, JSON header, 64-aligned blobs, mapped
+# loads) for any dict of n-D arrays: bytes 0..7 b"PIOARR01", 8..15 the
+# header length H, then the JSON header {"version", "arrays": {name:
+# {dtype, shape, off}}, "meta"} and the blobs at offsets relative to 16 + H.
+
+_ARRAYS_MAGIC = b"PIOARR01"
+
+
+def write_arrays(path, arrays: Dict[str, np.ndarray], meta: Optional[Dict] = None) -> None:
+    """Serialise named n-D arrays into one PIOARR01 file, byte for byte as
+    the JAX package's ``write_arrays`` does.  Flushed and fsync'd but not
+    atomic: the caller owns the temporary name and the rename (the model
+    plane renames under its publish lock)."""
+    entries: Dict[str, Dict] = {}
+    blobs: List[np.ndarray] = []
+    pos = 0
+    for name, arr in arrays.items():
+        arr = np.ascontiguousarray(arr)
+        pos = (pos + _ALIGN - 1) // _ALIGN * _ALIGN
+        entries[name] = {"dtype": arr.dtype.str, "shape": list(arr.shape), "off": pos}
+        blobs.append(arr)
+        pos += arr.nbytes
+    hdr = json.dumps({"version": 1, "arrays": entries, "meta": meta or {}},
+                     separators=(",", ":")).encode()
+    data_base = 16 + len(hdr)
+    with open(path, "wb") as f:
+        f.write(_ARRAYS_MAGIC)
+        f.write(len(hdr).to_bytes(8, "little"))
+        f.write(hdr)
+        at = data_base
+        for arr in blobs:
+            off = (at - data_base + _ALIGN - 1) // _ALIGN * _ALIGN
+            f.write(b"\0" * (data_base + off - at))
+            # no tobytes() copy: a keyframe arena is hundreds of MB
+            f.write(arr.data)
+            at = data_base + off + arr.nbytes
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def read_arrays(path, mmap: bool = True) -> Tuple[Dict[str, np.ndarray], Dict]:
+    """Load a PIOARR01 file → ``(arrays, meta)``.
+
+    With ``mmap`` the arrays are read-only views of one shared mapping
+    (every process mapping the file shares its page cache; a write
+    raises), kept alive by the views themselves; without it, copies.
+    Nothing may hand such a view to torch without copying it.  Raises
+    ValueError on a torn or corrupt file (callers quarantine)."""
+    with open(path, "rb") as f:
+        try:
+            raw = _mmap.mmap(f.fileno(), 0, access=_mmap.ACCESS_READ)
+        except ValueError as e:   # an empty file: a torn write
+            raise ValueError(f"{path}: not an array container: {e}") from None
+    mm = np.frombuffer(raw, dtype=np.uint8)
+    if mm.shape[0] < 16 or bytes(mm[:8]) != _ARRAYS_MAGIC:
+        raise ValueError(f"{path}: not an array container (bad magic)")
+    hlen = int.from_bytes(bytes(mm[8:16]), "little")
+    if 16 + hlen > mm.shape[0]:
+        raise ValueError(f"{path}: truncated header")
+    try:
+        header = json.loads(bytes(mm[16:16 + hlen]))
+    except (UnicodeDecodeError, json.JSONDecodeError) as e:
+        raise ValueError(f"{path}: corrupt header: {e}") from None
+    data_base = 16 + hlen
+    out: Dict[str, np.ndarray] = {}
+    for name, spec in header.get("arrays", {}).items():
+        dt = np.dtype(spec["dtype"])
+        shape = tuple(spec["shape"])
+        n = int(np.prod(shape)) if shape else 1
+        a = data_base + spec["off"]
+        b = a + n * dt.itemsize
+        if b > mm.shape[0]:
+            raise ValueError(f"{path}: truncated array data ({name})")
+        arr = mm[a:b].view(dt).reshape(shape)
+        out[name] = arr if mmap else np.array(arr)
+    return out, header.get("meta", {})
 
 
 def fold_properties(batch: EventBatch, entity_type: Optional[str] = None

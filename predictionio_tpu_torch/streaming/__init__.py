@@ -3,9 +3,11 @@
 Counterpart of ``predictionio_tpu/streaming``: ``URFoldState`` (the
 additive fold of a Universal Recommender's counts, ``fold.py``),
 ``FollowTrainer`` (tail → fold → hot-swap, ``follow.py``) and
-``FoldUnsupported``.  The model plane and its replication
-(``plane.py``, ``replicate.py``) wait for ROADMAP.md, queue A,
-'Streaming'.
+``FoldUnsupported``; the model plane (``plane.py``: ``ModelPlane``, the
+delta arenas, ``PlaneWatcher``) and its replication over TCP
+(``replicate.py``: ``PlaneReplicator``, ``PlaneSubscriber``).  The store
+backends the reference's streaming also runs on (sharded, sharedfs, sql)
+wait for ROADMAP.md, queue A, 'Streaming' (§A.12c).
 """
 
 from predictionio_tpu_torch.streaming.fold import FoldUnsupported, URFoldState

@@ -27,10 +27,13 @@ the reference's defaults: ``PIO_FOLLOW_INTERVAL_S`` (2),
 ``PIO_FOLLOW_MAX_LAG_EVENTS`` (1M), ``PIO_FOLLOW_CHECKPOINT_S`` (60),
 ``PIO_FOLLOW_PIPELINE`` (on).
 
+``add_publish_listener(fn)`` calls ``fn()`` after every publish: the plane
+replicator's ``poke``, so a generation the in-process follower published
+reaches the wire without waiting out a directory watch.
+
 Not here: the reference's lineage stages and per-fold traces, which wait
 for ROADMAP.md, queue A, 'Observability and the rest of the front end'
-(the publish info carries no ``lineageId``), and the model-plane listeners
-(ROADMAP.md, queue A, 'Streaming').
+(the publish info carries no ``lineageId``).
 """
 
 from __future__ import annotations
@@ -226,6 +229,7 @@ class FollowTrainer:
         # events covered by the last PUBLISHED generation (the drain
         # signal: with the pipeline the fold state runs ahead of serving)
         self._published_events: Optional[int] = None
+        self._publish_listeners: list = []
         self._resolve_mode()
         self._state_path = (follow_state_path(self.storage, engine_id, engine_variant)
                             if persist else None)
@@ -892,6 +896,11 @@ class FollowTrainer:
             self.generation -= 1
             raise
         self.last_publish_at = time.time()
+        for fn in list(self._publish_listeners):
+            try:
+                fn()
+            except Exception:
+                log.exception("follow: publish listener failed")
         if self.on_publish is None:
             # an embedded host's install sets pio_model_generation from the
             # server's generation (which counts reloads too)
@@ -930,6 +939,11 @@ class FollowTrainer:
                 self._backoff = min(max(self.interval, self._backoff * 2 or self.interval),
                                     60.0)
             self._stop.wait(self.interval + self._backoff)
+
+    def add_publish_listener(self, fn: Callable[[], None]) -> None:
+        """Call ``fn()`` (no arguments; its exceptions are logged) after
+        every successful publish."""
+        self._publish_listeners.append(fn)
 
     def start(self) -> threading.Thread:
         """Run the loop on a daemon thread (the embedded mode)."""

@@ -32,11 +32,22 @@ fold's ``_plane_prov``) and drops the rest (a reload or a retrain
 flushes).  A UR model then answers repeated queries from the cache, on
 ``predict`` and on ``serve_batch_predict`` alike.
 
-Not here, each named in ROADMAP.md, queue A: the model plane and plane
-replication (``plane_publish``, ``plane_from``, and ``follow`` with
-``workers > 1``, 'Streaming'); the trace, lineage, history, cluster and
-healthz routes ('Observability and the rest of the front end'), which
-answer 404.
+The model plane (``streaming/plane.py``): with a plane directory the
+state's ``PlaneWatcher`` installs each generation published there, mapped
+read-only and composed (on the card the install stages the device tables);
+a ``/reload`` or the auto-reload poller publishes the new instance into the
+plane once, the embedded follower publishes each fold there
+(``plane_publish``) and serves the composed generation, and the freshness
+document reports ``planeGeneration``, ``planePublish`` and the replication
+role and lag.  ``deploy(plane_publish=)`` streams the plane to replication
+subscribers (``streaming/replicate.py``), ``deploy(plane_from=)`` serves a
+node-local plane fed by one.  A prefork group (``workers > 1``, CPU only)
+shares one plane: no worker folds, a dedicated ``--plane-publisher``
+process hosts the one follower.
+
+Not here, named in ROADMAP.md, queue A: the trace, lineage, history,
+cluster and healthz routes ('Observability and the rest of the front
+end'), which answer 404.
 """
 
 from __future__ import annotations
@@ -74,8 +85,6 @@ _M_GENERATION = obs_metrics.get_registry().gauge(
     "Monotonic generation counter of the live model: bumped by every "
     "hot-swap (follow fold, auto-reload, manual /reload) — serving "
     "caches key on the model object this counts")
-
-ROADMAP_STREAMING = "ROADMAP.md, queue A, 'Streaming'"
 
 
 def _to_jsonable(obj: Any) -> Any:
@@ -286,6 +295,7 @@ class QueryServerState:
         auto_reload: float = 0.0,
         device="cuda",
         models: Optional[Sequence[Any]] = None,
+        plane_dir: Optional[str] = None,
     ):
         from predictionio_tpu_torch.api.plugins import PluginRegistry
 
@@ -316,11 +326,24 @@ class QueryServerState:
         self.follow_info: Optional[Dict] = None
         self._build_seq = 0           # install-order tickets (see _install)
         self._installed_seq = 0
+        # the model plane this state reads (streaming/plane.py), and the
+        # replication endpoint this process hosts (a PlaneReplicator or a
+        # PlaneSubscriber): freshness() reports both
+        self.plane = None
+        self.plane_watcher = None
+        self.plane_generation = 0
+        self.replication = None
         self._tune_gil_switch()
         if models is not None:
             self._install(list(models))
         else:
             self.reload()
+        if plane_dir:
+            from predictionio_tpu_torch.streaming.plane import ModelPlane, PlaneWatcher
+
+            self.plane = ModelPlane(plane_dir, device=device)
+            self.plane_watcher = PlaneWatcher(self.plane, self._install_plane)
+            self.plane_watcher.start()
         # plugins start once the state is whole (a live predictor)
         for p in plugins or []:
             self.plugins.register(p)
@@ -349,6 +372,63 @@ class QueryServerState:
         except (ValueError, OSError):
             pass
 
+    # -- the model plane ------------------------------------------------------
+
+    def _install_plane(self, models, info: Optional[Dict] = None) -> bool:
+        """The PlaneWatcher's install hook: a composed generation goes
+        through the one build-ticket install path."""
+        info = dict(info or {})
+        installed = self._install(models, follow_info=info)
+        gen = int(info.get("planeGeneration") or 0)
+        if gen:
+            self.plane_generation = gen
+        return installed
+
+    def plane_reload(self):
+        """``/reload`` with a plane: load the newest instance once, publish
+        it as a plane generation and install it here (every sibling's
+        watcher converges on it).  → (plane generation, instance id)."""
+        from predictionio_tpu_torch.workflow import core_workflow
+
+        instance, models = core_workflow.load_latest_models(
+            self.engine_id, self.engine_version, self.engine_variant,
+            storage=self.storage, device=self.device)
+        gen = self.plane.publish(models, {"mode": "reload", "engineInstanceId": instance.id})
+        self.plane_watcher.check_now()
+        # the composed install carries no instance: record it, so freshness
+        # names it and the poller does not publish it again
+        self.instance = instance
+        return gen, instance.id
+
+    def plane_publish_initial(self) -> None:
+        """Seed an empty plane with the loaded instance (the deploy of a
+        plane's owner); a plane that has a generation is left as it is."""
+        if self.plane is None or self.plane.current() is not None:
+            return
+        self.plane_reload()
+
+    def plane_publish(self, models, info: Optional[Dict] = None) -> None:
+        """The embedded follower's publish hook with a plane: write the
+        generation, then install the composed one here (this process serves
+        what every reader of the plane serves).  A bundle the plane cannot
+        carry installs in-process."""
+        from predictionio_tpu_torch.streaming.plane import PlaneUnsupported
+
+        try:
+            self.plane.publish(models, info)
+        except PlaneUnsupported as e:
+            log.warning("model plane cannot carry this bundle (%s); installing in-process", e)
+            self.swap_models(models, info)
+            return
+        self.plane_watcher.check_now()
+
+    def disable_plane(self) -> None:
+        """Serve private models (a bundle the plane cannot carry)."""
+        if self.plane_watcher is not None:
+            self.plane_watcher.stop()
+        self.plane = None
+        self.plane_watcher = None
+
     def _auto_reload_loop(self, interval: float) -> None:
         while not self._auto_stop.wait(interval):
             try:
@@ -359,6 +439,16 @@ class QueryServerState:
                 continue
             current = self.instance
             if latest is not None and (current is None or latest.id != current.id):
+                if self.plane is not None:
+                    # one publish converges the whole group
+                    try:
+                        gen, iid = self.plane_reload()
+                        log.info("auto-reload: published instance %s as plane generation %d",
+                                 iid, gen)
+                    except Exception:
+                        log.exception("auto-reload: plane publish failed; keeping the "
+                                      "current generation")
+                    continue
                 try:
                     if self.reload() is not None:
                         log.info("auto-reload: hot-swapped to instance %s", latest.id)
@@ -376,6 +466,14 @@ class QueryServerState:
         self._auto_stop.set()
         if self.follower is not None:
             self.follower.stop(timeout=2.0)
+        if self.replication is not None:
+            try:
+                self.replication.stop(timeout=1.0)
+            except Exception:
+                log.exception("plane replication stop failed")
+            self.replication = None
+        if self.plane_watcher is not None:
+            self.plane_watcher.stop()
         t = self._auto_thread
         if t is not None and t is not threading.current_thread():
             t.join(timeout=5.0)
@@ -454,6 +552,15 @@ class QueryServerState:
             "swappedAt": self.swapped_at.isoformat() if self.swapped_at else None,
             "engineInstanceId": self.instance.id if self.instance else None,
         }
+        if self.plane is not None:
+            # equal across the group: every process serves one plane copy
+            doc["planeGeneration"] = self.plane_generation
+            if self.plane.last_publish_stats:
+                # this process published: the write profile of its last
+                # generation (logical bytes against bytes written)
+                doc["planePublish"] = dict(self.plane.last_publish_stats)
+        if self.replication is not None:
+            doc["replication"] = self.replication.status()
         if self.follower is not None:
             doc["follower"] = self.follower.status()
         elif self.follow_info is not None:
@@ -517,7 +624,8 @@ class QueryServerState:
             "queryCount": self.query_count,
             "startedAt": self.started.isoformat(),
             "modelGeneration": self.generation,
-            "planeGeneration": None,
+            # None without a plane, else this process's installed generation
+            "planeGeneration": self.plane_generation if self.plane is not None else None,
             "freshness": self.freshness(),
             "engine": type(self.engine).__name__,
             "algorithms": [name for name, _ in self.engine_params.algorithm_params_list],
@@ -576,7 +684,19 @@ def make_handler(state: QueryServerState):
                 doc["freshness"] = state.freshness()
                 self.send_json(doc)
             elif path == "/reload":
+                from predictionio_tpu_torch.streaming.plane import PlaneUnsupported
+
                 try:
+                    if state.plane is not None:
+                        try:
+                            # one reload on any worker publishes a generation
+                            # the whole group converges on
+                            gen, iid = state.plane_reload()
+                            self.send_json({"reloaded": True, "generation": gen,
+                                            "engineInstanceId": iid})
+                            return
+                        except PlaneUnsupported:
+                            pass   # a non-UR bundle: the private reload
                     iid = state.reload()
                     live = state.instance.id if state.instance else None
                     self.send_json({"reloaded": iid is not None,
@@ -683,27 +803,38 @@ def deploy(
     (SO_REUSEPORT; the kernel balances accepts), which resolve storage
     from ``PIO_STORAGE_*`` (a ``storage`` object cannot cross the process
     boundary) and serve on ``device`` too.  It raises on a CUDA device, as
-    the JAX package raises on an accelerator.  A manual ``/reload``
-    reaches one worker: pair workers with ``auto_reload``.
+    the JAX package raises on an accelerator.  The group shares one model
+    plane (``PIO_MODEL_PLANE=auto``): one ``/reload`` converges every
+    worker, and with ``follow`` a dedicated ``--plane-publisher`` process
+    folds once for the group; ``PIO_MODEL_PLANE=off`` gives each worker
+    its own model (and follower), and then a ``/reload`` reaches one.
 
     ``follow`` (seconds) hosts an embedded ``FollowTrainer`` on ``device``
     that tails the event store at that interval, folds each delta into the
-    live model and swaps it in (``QueryServerState.swap_models``); an
+    live model and swaps it in (through the plane when there is one); an
     engine it cannot follow (no data source ``app_name``) deploys without
-    one, with a warning.  ``plane_publish``, ``plane_from``, and
-    ``follow`` with ``workers > 1`` (the model plane's topologies) raise
-    naming ROADMAP's 'Streaming'."""
+    one, with a warning.
+
+    ``plane_publish="[HOST:]PORT"`` also streams this node's plane to
+    replication subscribers; ``plane_from="HOST:PORT"`` makes the node a
+    subscriber (no local fold: it conflicts with ``follow``), its plane
+    fed by that publisher.  Both need a node-local plane directory
+    (``PIO_MODEL_PLANE_DIR``, or a localfs METADATA store)."""
+    from predictionio_tpu_torch.streaming import plane as plane_mod
     from predictionio_tpu_torch.workflow.create_workflow import (
         engine_from_variant,
         load_engine_variant,
         resolve_engine_id,
     )
 
-    for given, option in ((plane_publish, "plane_publish="), (plane_from, "plane_from="),
-                          (follow and workers > 1, "follow= with workers > 1")):
-        if given:
-            raise NotImplementedError(
-                f"deploy {option} is not ported yet ({ROADMAP_STREAMING})")
+    # cheap refusals first: after the state exists they would leak its
+    # threads
+    if plane_from and follow > 0:
+        raise ValueError("deploy --plane-from serves replicated generations instead of "
+                         "folding locally: drop --follow (the publisher's node folds)")
+    if plane_from and plane_publish:
+        raise ValueError("deploy cannot subscribe to a plane and publish one at once "
+                         "(relaying is not supported)")
     if workers > 1:
         import torch
 
@@ -732,20 +863,74 @@ def deploy(
 
         metrics_dir = tempfile.mkdtemp(prefix="pio-metrics-")
         obs_metrics.start_worker_flusher(metrics_dir, f"w0-{os.getpid()}")
+    plane_dir: Optional[str] = None
+    if plane_mod.plane_wanted(workers) or plane_from or plane_publish:
+        plane_dir = plane_mod.resolve_plane_dir(storage or get_storage(), eid, variant)
+        if plane_dir is None:
+            if plane_from or plane_publish:
+                raise ValueError(
+                    "plane replication needs a model-plane directory: set "
+                    "PIO_MODEL_PLANE_DIR to a node-local path (or use a localfs "
+                    "METADATA store)")
+            log.warning("model plane wanted but no plane directory resolves (set "
+                        "PIO_MODEL_PLANE_DIR or use a localfs METADATA store); the "
+                        "workers serve private models")
     state = QueryServerState(
         engine, engine_params, getattr(factory, "query_class", None), eid,
         engine_version, variant, storage=storage, feedback=feedback,
         feedback_app_name=feedback_app, plugins=plugins, auto_reload=auto_reload,
-        device=device)
+        device=device, plane_dir=plane_dir)
     log.info("deploying engine instance %s of %s", state.instance.id, eid)
-    if follow > 0:
+    if state.plane is not None and plane_from is None and not prefork.is_prefork_child():
+        # the plane's owner seeds it (a subscriber's belongs to its
+        # publisher); a bundle the plane cannot carry, or a plane that
+        # cannot be written, degrades the deploy to private models
+        try:
+            state.plane_publish_initial()
+        except plane_mod.PlaneUnsupported as e:
+            log.warning("model plane disabled for this engine (%s); serving private "
+                        "models", e)
+            state.disable_plane()
+            plane_dir = None
+        except Exception:
+            log.exception("model plane seed publish failed; serving private models")
+            state.disable_plane()
+            plane_dir = None
+    if follow > 0 and not (plane_dir is not None and workers > 1):
+        # a prefork plane group folds in its publisher process (below)
         _start_follower(state, engine, engine_params, eid, engine_version, variant,
                         follow, device)
+    if plane_publish is not None and state.plane is not None:
+        from predictionio_tpu_torch.streaming.replicate import PlaneReplicator
+
+        repl = PlaneReplicator(state.plane, bind=plane_publish)
+        repl.start()
+        state.replication = repl
+        if state.follower is not None:
+            state.follower.add_publish_listener(repl.poke)
+    elif plane_from is not None and state.plane is not None:
+        from predictionio_tpu_torch.streaming.replicate import PlaneSubscriber
+
+        # started once the port is bound: its sync frames name that port
+        state.replication = PlaneSubscriber(state.plane.dir, plane_from)
     _warm_entity_index(engine_params)
     httpd = _serve(state, host, port, background, reuse_port=workers > 1 or reuse_port)
     bound_port = httpd.server_address[1]
+    if plane_from is not None and state.replication is not None:
+        state.replication.http_port = bound_port
+        try:
+            state.replication.start()
+        except Exception:
+            state.replication = None   # never started: nothing to stop
+            state.stop_auto_reload()
+            if background:
+                httpd.shutdown()
+            httpd.server_close()
+            raise
     children: list = []
     if workers > 1:
+        # with a plane the children only read it: no follower, no poller
+        # (the parent's publishes converge them)
         children = prefork.spawn_workers(
             workers - 1,
             lambda w: (
@@ -755,13 +940,34 @@ def deploy(
                  "--ip", host, "--port", str(bound_port), "--reuse-port"]
                 + (["--engine-id", engine_id] if engine_id else [])
                 + (["--feedback"] if feedback else [])
-                + (["--auto-reload", str(auto_reload)] if auto_reload else [])),
+                + (["--auto-reload", str(auto_reload)]
+                   if auto_reload and plane_dir is None else [])
+                + (["--follow", str(follow)] if follow and plane_dir is None else [])),
             build_env=lambda w: {
                 "PIO_METRICS_TAG": f"w{w + 1}-{os.getpid()}",
                 "PIO_METRICS_DIR": metrics_dir,
-                "PIO_TORCH_DEVICE": str(device)},
+                "PIO_TORCH_DEVICE": str(device),
+                **prefork.plane_child_env(plane_dir)},
             log=log,
         )
+        if plane_dir is not None and follow > 0:
+            # the group's one fold: a process that folds and publishes into
+            # the plane and serves no queries
+            children += prefork.spawn_workers(
+                1,
+                lambda w: (
+                    [sys.executable, "-m", "predictionio_tpu_torch.cli.main",
+                     "deploy", "--engine-json", str(engine_json),
+                     "--variant", variant, "--engine-version", engine_version,
+                     "--follow", str(follow), "--plane-publisher"]
+                    + (["--engine-id", engine_id] if engine_id else [])),
+                build_env=lambda w: {
+                    "PIO_METRICS_TAG": f"pub-{os.getpid()}",
+                    "PIO_METRICS_DIR": metrics_dir,
+                    "PIO_TORCH_DEVICE": str(device),
+                    "PIO_MODEL_PLANE_DIR": plane_dir},
+                log=log,
+            )
     log.info("Query server for %s listening on %s:%d", eid, host, bound_port)
     httpd.pio_workers = children
     prefork.wire_shutdown(httpd, children, before=state.stop_auto_reload)
@@ -781,14 +987,17 @@ def deploy(
 def _start_follower(state: QueryServerState, engine, engine_params, eid: str,
                     engine_version: str, variant: str, interval: float, device) -> None:
     """The embedded follow-trainer of ``deploy(follow=)``: it bootstraps
-    from the log on its own thread and swaps each generation in."""
+    from the log on its own thread and publishes each generation, into the
+    plane when the state has one (then serving the composed generation),
+    else straight into the server."""
     from predictionio_tpu_torch.streaming.fold import FoldUnsupported
     from predictionio_tpu_torch.streaming.follow import FollowTrainer
 
     try:
         state.follower = FollowTrainer(
             engine, engine_params, eid, engine_version, variant,
-            storage=state.storage, interval=interval, on_publish=state.swap_models,
+            storage=state.storage, interval=interval,
+            on_publish=state.plane_publish if state.plane is not None else state.swap_models,
             persist=False, device=device)
     except FoldUnsupported as e:
         # nothing to tail (no app_name): serve without a follower rather
@@ -797,6 +1006,49 @@ def _start_follower(state: QueryServerState, engine, engine_params, eid: str,
                     "a follower", e)
         return
     state.follower.start()
+
+
+def run_plane_publisher(engine_json: str, variant: str = "default",
+                        engine_id: Optional[str] = None, engine_version: str = "1",
+                        follow: float = 2.0, device="cuda") -> int:
+    """The prefork plane group's fold process (``deploy --plane-publisher``,
+    spawned by ``deploy --workers N --follow``): the group's one
+    follow-trainer, publishing every generation into
+    ``PIO_MODEL_PLANE_DIR`` and serving no queries.  Dies with its parent."""
+    from predictionio_tpu_torch.streaming.fold import FoldUnsupported
+    from predictionio_tpu_torch.streaming.follow import FollowTrainer
+    from predictionio_tpu_torch.streaming.plane import ModelPlane
+    from predictionio_tpu_torch.workflow.create_workflow import (
+        engine_from_variant,
+        load_engine_variant,
+        resolve_engine_id,
+    )
+
+    plane_dir = os.environ.get("PIO_MODEL_PLANE_DIR")
+    if not plane_dir:
+        print("Error: --plane-publisher requires PIO_MODEL_PLANE_DIR", file=sys.stderr)
+        return 1
+    prefork.maybe_watch_parent(log)
+    obs_metrics.start_worker_flusher()
+    obs_metrics.mark_worker_up()
+    doc = load_engine_variant(engine_json, variant)
+    factory, engine, engine_params = engine_from_variant(doc)
+    eid = resolve_engine_id(engine_id, doc, factory)
+    plane = ModelPlane(plane_dir, device=device)
+    try:
+        trainer = FollowTrainer(engine, engine_params, eid, engine_version, variant,
+                                interval=follow, on_publish=plane.publish, persist=False,
+                                device=device)
+    except FoldUnsupported as e:
+        print(f"Error: the plane publisher cannot follow this engine: {e}", file=sys.stderr)
+        return 1
+    log.info("model-plane publisher for %s: folding every %.2f s into %s", eid,
+             trainer.interval, plane_dir)
+    try:
+        trainer.run_forever()
+    except KeyboardInterrupt:
+        pass
+    return 0
 
 
 def _warm_entity_index(engine_params) -> None:
@@ -819,6 +1071,15 @@ def run_server_from_args(args) -> int:
     ``PIO_TORCH_DEVICE``)."""
     from predictionio_tpu_torch.workflow.create_workflow import resolve_variant_path
 
+    if getattr(args, "plane_publisher", False):
+        try:
+            return run_plane_publisher(
+                engine_json=resolve_variant_path(args), variant=args.variant,
+                engine_id=args.engine_id, engine_version=args.engine_version,
+                follow=args.follow or 2.0, device=args.device)
+        except Exception as e:
+            print(f"Error: {e}", file=sys.stderr)
+            return 1
     try:
         server = deploy(
             engine_json=resolve_variant_path(args),

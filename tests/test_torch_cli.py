@@ -385,15 +385,21 @@ def test_unported_subcommands_exit_naming_their_item(argv, capsys):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["deploy", "--follow", "2", "--workers", "2"], "Streaming"),
-    (["deploy", "--plane-publish", "9000"], "Streaming"),
-    (["deploy", "--plane-from", "h:9000"], "Streaming"),
-    (["deploy", "--follow", "2", "--plane-publish", "9000"], "Streaming"),
+    (["deploy", "--follow", "2", "--workers", "2"], "--workers requires the CPU"),
+    (["deploy", "--plane-publish", "9000", "--plane-from", "h:9000"], "relaying"),
+    (["deploy", "--plane-from", "h:9000", "--follow", "2"], "drop --follow"),
+    (["deploy", "--follow", "2", "--plane-publish", "9000", "--workers", "2"],
+     "--workers requires the CPU"),
 ])
 def test_unported_options_exit_naming_their_item(port_store, tmp_path, monkeypatch, capsys,
                                                  argv, item):
+    """Since the model plane is ported every deploy option is; the
+    combinations deploy cannot honour exit 1 naming why: a subscriber that
+    also folds or publishes, prefork workers on the card (the CLI's
+    default device)."""
     (tmp_path / "engine.json").write_text(json.dumps(VARIANT))
     monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("PIO_TORCH_DEVICE", raising=False)
     assert cli.main(argv) == 1
     assert item in capsys.readouterr().err
 

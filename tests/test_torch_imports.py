@@ -474,6 +474,51 @@ def test_slice13_path_loads_no_jax_module():
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+# the model plane and its replication in a fresh interpreter: a CPU fold's
+# model published through a plane, replicated over loopback and composed
+_PLANE = r"""
+import json, os, sys, tempfile
+from predictionio_tpu_torch.events.event import Event
+from predictionio_tpu_torch.models.universal_recommender.engine import (
+    URAlgorithmParams, URDataSourceParams)
+from predictionio_tpu_torch.store.columnar import EventBatch
+from predictionio_tpu_torch.streaming.fold import URFoldState
+from predictionio_tpu_torch.streaming.plane import ModelPlane
+from predictionio_tpu_torch.streaming.replicate import PlaneReplicator, PlaneSubscriber
+
+d = tempfile.mkdtemp()
+batch = EventBatch.from_events([Event("buy", "user", f"u{j // 3}", "item", f"i{j}")
+                                for j in range(60)])
+batch.prop_columns = {}
+state = URFoldState.bootstrap(URAlgorithmParams(app_name="p", max_correlators_per_item=4),
+                              URDataSourceParams(app_name="p", event_names=["buy"]), batch,
+                              device="cpu")
+pub = ModelPlane(os.path.join(d, "pub"), device="cpu")
+pub.publish([state.model])
+repl = PlaneReplicator(pub, bind="127.0.0.1:0")
+repl.start()
+sub = PlaneSubscriber(os.path.join(d, "sub"), f"127.0.0.1:{repl.port}")
+sub.start()
+assert sub.wait_generation(1, timeout=60)
+sub.stop()
+repl.stop()
+reader = ModelPlane(os.path.join(d, "sub"), device="cpu")
+model, info = reader.load(reader.current())
+assert info["planeGeneration"] == 1 and len(model.item_dict) == 60
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "predictionio_tpu" or m.startswith("predictionio_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def test_plane_path_loads_no_jax_module():
+    out = subprocess.run([sys.executable, "-c", _PLANE], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 def test_forbidden_module_match_is_exact():
     assert _is_forbidden("jax") and _is_forbidden("jax.numpy")
     assert _is_forbidden("predictionio_tpu")

@@ -196,13 +196,21 @@ def test_entry_points_raise_without_a_card(stores, monkeypatch, tmp_path, entry)
 @pytest.mark.parametrize("option,value", [
     ("follow", 1.0), ("plane_publish", "7000"), ("plane_from", "host:7000")])
 def test_deploy_refuses_options_it_cannot_honour(tmp_path, option, value):
-    """The model plane's topologies raise naming ROADMAP's item: its
-    publish and subscribe sides, and a follower behind prefork workers
-    (one embedded follower serves; tests/test_torch_streaming_follow.py)."""
+    """The model plane's topologies refuse what they cannot honour before
+    any state exists: a subscriber that also folds or also publishes, and
+    replication without a node-local plane directory (a memory store
+    resolves none; tests/test_torch_plane_replication.py drives the rest)."""
+    from predictionio_tpu_torch.storage import Storage, StorageConfig
+
     path = tmp_path / "engine.json"
     path.write_text(json.dumps(VARIANT))
-    extra = {"workers": 2} if option == "follow" else {}
-    with pytest.raises(NotImplementedError, match=f"{option}=.*ROADMAP"):
+    extra, why = {
+        "follow": ({"plane_from": "host:7000"}, "drop --follow"),
+        "plane_publish": ({"plane_from": "host:7000"}, "relaying"),
+        "plane_from": ({"storage": Storage(StorageConfig.memory())},
+                       "model-plane directory"),
+    }[option]
+    with pytest.raises(ValueError, match=why):
         deploy(str(path), device="cpu", **{option: value}, **extra)
 
 
