@@ -38,6 +38,7 @@ __version__ = "0.1.0"
 from predictionio_tpu_torch.controller import (  # noqa: E402,F401
     Algorithm,
     AverageMetric,
+    AverageServing,
     DataSource,
     EmptyParams,
     Engine,
@@ -45,6 +46,7 @@ from predictionio_tpu_torch.controller import (  # noqa: E402,F401
     EngineParams,
     Evaluation,
     FirstServing,
+    IdentityPreparator,
     Metric,
     MetricEvaluator,
     OptionAverageMetric,

@@ -602,6 +602,9 @@ def build_parser() -> argparse.ArgumentParser:
     engine_args(dp)
     dp.add_argument("--ip", default="0.0.0.0")
     dp.add_argument("--port", type=int, default=8000)
+    # accepted and not read, as in the JAX package: the server deploys the
+    # latest COMPLETED instance of the engine variant
+    dp.add_argument("--engine-instance-id", default=None)
     dp.add_argument("--feedback", action="store_true",
                     help="write every answered query back as a predict event")
     dp.add_argument("--auto-reload", type=float, default=0.0, metavar="SECS",

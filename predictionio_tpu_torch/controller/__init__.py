@@ -1,8 +1,18 @@
 from predictionio_tpu_torch.controller.dase import (  # noqa: F401
     Algorithm,
+    AverageServing,
     DataSource,
     FirstServing,
+    IdentityPreparator,
+    LAlgorithm,
+    LDataSource,
+    LPreparator,
+    LServing,
+    P2LAlgorithm,
+    PAlgorithm,
+    PDataSource,
     PersistentModel,
+    PPreparator,
     Preparator,
     Serving,
 )
@@ -13,7 +23,6 @@ from predictionio_tpu_torch.controller.engine import (  # noqa: F401
 )
 from predictionio_tpu_torch.controller.evaluation import (  # noqa: F401
     AverageMetric,
-    EngineParamsGenerator,
     Evaluation,
     Metric,
     MetricEvaluator,
@@ -21,6 +30,5 @@ from predictionio_tpu_torch.controller.evaluation import (  # noqa: F401
     OptionAverageMetric,
     SumMetric,
     ZeroMetric,
-    params_grid,
 )
 from predictionio_tpu_torch.controller.params import EmptyParams, Params  # noqa: F401

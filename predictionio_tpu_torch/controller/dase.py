@@ -1,9 +1,9 @@
 """User-facing DASE component classes (reference: core/.../controller/).
 
 Counterpart of ``predictionio_tpu/controller/dase.py``: the classes engine
-templates subclass.  The reference's P/L naming aliases,
-``IdentityPreparator`` and ``AverageServing`` are not here: no template of
-either package uses them.
+templates subclass, ``IdentityPreparator``, ``AverageServing`` and the
+reference's P/L naming aliases (``PAlgorithm``, ``LDataSource``, ...), so
+a reference template maps onto this API name for name.
 """
 
 from __future__ import annotations
@@ -28,6 +28,13 @@ class Preparator(BasePreparator):
     """Transforms TrainingData into the algorithm-ready PreparedData."""
 
 
+class IdentityPreparator(Preparator):
+    """Reference: IdentityPreparator / PIdentityPreparator."""
+
+    def prepare(self, training_data):
+        return training_data
+
+
 class Algorithm(BaseAlgorithm):
     """train(prepared_data) -> model; predict(model, query) -> prediction."""
 
@@ -41,6 +48,13 @@ class FirstServing(Serving):
 
     def serve(self, query: Any, predictions: Sequence[Any]) -> Any:
         return predictions[0]
+
+
+class AverageServing(Serving):
+    """Reference: AverageServing — averages numeric predictions."""
+
+    def serve(self, query: Any, predictions: Sequence[Any]) -> Any:
+        return sum(predictions) / len(predictions)
 
 
 class PersistentModel:
@@ -63,3 +77,15 @@ class PersistentModel:
         if not isinstance(obj, cls):
             raise TypeError(f"model blob holds {type(obj).__name__}, expected {cls.__name__}")
         return obj
+
+
+# -- naming-parity aliases ---------------------------------------------------
+
+PDataSource = DataSource
+LDataSource = DataSource
+PPreparator = Preparator
+LPreparator = Preparator
+PAlgorithm = Algorithm
+LAlgorithm = Algorithm
+P2LAlgorithm = Algorithm
+LServing = Serving

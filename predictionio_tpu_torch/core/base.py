@@ -21,6 +21,7 @@ PD = TypeVar("PD")   # prepared data
 M = TypeVar("M")     # model
 Q = TypeVar("Q")     # query
 PR = TypeVar("PR")   # prediction
+A = TypeVar("A")     # actual (ground truth for eval)
 
 
 class Doer(Generic[P]):
@@ -37,8 +38,12 @@ class Doer(Generic[P]):
             params = self.params_class()
         self.params = params
 
+    @classmethod
+    def with_params(cls, params_json: Any) -> "Doer":
+        return cls(cls.params_class.from_json(params_json))
 
-class BaseDataSource(Doer[P], Generic[P, TD], abc.ABC):
+
+class BaseDataSource(Doer[P], Generic[P, TD, Q, A], abc.ABC):
     @abc.abstractmethod
     def read_training(self) -> TD: ...
 
@@ -83,9 +88,17 @@ class BaseServing(Doer[P], Generic[P, Q, PR], abc.ABC):
     def serve(self, query: Q, predictions: Sequence[PR]) -> PR: ...
 
 
+class BaseEvaluator(Doer[P], abc.ABC):
+    @abc.abstractmethod
+    def evaluate_base(self, engine, engine_params_list, params): ...
+
+
 class BaseEngine(abc.ABC):
     @abc.abstractmethod
     def train(self, engine_params) -> Any: ...
+
+    @abc.abstractmethod
+    def eval(self, engine_params) -> Any: ...
 
 
 def doer_name(obj: Any) -> str:

@@ -9,7 +9,9 @@ gathers posting lists, takes their unique union, accumulates scores and
 takes top-ks in C (``csr_gather``, ``unique_i32``, ``score_accum``,
 ``topk_f32``; each bit for bit its numpy oracle); the event-loop front
 end (``api/http_util.py``) parses request heads and assembles large
-responses in C.  The GIL is released for every call.  The knob keeps the
+responses in C; ``store/columnar.BatchMerger`` unions the dictionaries of a
+k-way merge (``DictHandle``) and gathers the re-coded columns
+(``take_i32``) in C.  The GIL is released for every call.  The knob keeps the
 JAX package's meaning, re-read on every call:
 
 - ``PIO_NATIVE=auto`` (default): the native parse where the library builds
@@ -25,8 +27,7 @@ the Python paths answer.  Metrics, the JAX package's families:
 ``pio_native_calls_total{core}`` (operations a native core served),
 ``pio_native_fallback_total{reason}`` (``no_build``, ``error``,
 ``unsupported``) and ``pio_native_active``; ``calls`` and ``fallbacks``
-read them as dicts, and ``active`` is the last answer of the gate.  The
-dictionary-union handles (``BatchMerger``) are not here.
+read them as dicts, and ``active`` is the last answer of the gate.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from predictionio_tpu_torch.obs import metrics as obs_metrics
 
 _SRC = Path(__file__).parent / "data_plane.cpp"
 _STEM = "libdataplane"
-_ABI_VERSION = 3
+_ABI_VERSION = 4
 
 _M_ACTIVE = obs_metrics.get_registry().gauge(
     "pio_native_active",
@@ -93,6 +94,14 @@ _SIGNATURES = [
     ("dp_col_prop_dict_bytes", [_P, _I64], _I64),
     ("dp_col_prop_dict_copy", [_P, _I64, _P, _P], None),
     ("dp_col_meta_span", [_P, _P], None),
+    ("dp_dict_new", [], _P),
+    ("dp_dict_free", [_P], None),
+    ("dp_dict_len", [_P], _I64),
+    ("dp_dict_union", [_P, ctypes.c_char_p, _P, _I64, _P], _I64),
+    ("dp_dict_export", [_P, _I64], _I64),
+    ("dp_dict_export_blob", [_P], _P),
+    ("dp_dict_export_offs", [_P], _P),
+    ("dp_take_i32", [_P, _I64, _P, _I64, _P, _INT], _INT),
     ("dp_csr_gather_size", [_P, _I64, _P, _I64], _I64),
     ("dp_csr_gather", [_P, _I64, _P, _I64, _P, _P, _P, _P], _I64),
     ("dp_unique_i32", [_P, _I64, _P], _I64),
@@ -273,6 +282,71 @@ class ColumnarHeader:
         if out[0] < 0:
             return None
         return int(out[0]), int(out[1])
+
+
+class DictHandle:
+    """A native string dictionary of ``BatchMerger``'s k-way merge: codes
+    in first-appearance order across its unions, the order of the Python
+    path.  Raises RuntimeError where the library did not load."""
+
+    __slots__ = ("_h", "_lib")
+
+    def __init__(self):
+        L = lib()
+        if L is None:
+            raise RuntimeError("native library unavailable")
+        self._lib = L
+        self._h = L.dp_dict_new()
+
+    def __del__(self):
+        try:
+            if self._h:
+                self._lib.dp_dict_free(self._h)
+                self._h = None
+        except Exception:
+            pass
+
+    def __len__(self) -> int:
+        return int(self._lib.dp_dict_len(self._h))
+
+    def union(self, blob: bytes, offs: np.ndarray) -> Tuple[np.ndarray, int]:
+        """Union the ``len(offs) - 1`` strings of ``blob``: (their int32
+        codes, how many were new)."""
+        n = len(offs) - 1
+        offs = np.ascontiguousarray(offs, np.int64)
+        if n < 0 or (n and (offs[0] < 0 or offs[-1] > len(blob))):
+            raise ValueError("offsets outside the blob")
+        out = np.empty(n, np.int32)
+        nnew = self._lib.dp_dict_union(self._h, blob, _ptr(offs), n, _ptr(out))
+        return out, int(nnew)
+
+    def export(self, start: int) -> Tuple[bytes, np.ndarray]:
+        """Strings [start, len) as (UTF-8 blob, int64 offsets)."""
+        nb = int(self._lib.dp_dict_export(self._h, start))
+        if nb < 0:
+            raise ValueError("bad export range")
+        n = len(self) - start
+        blob = ctypes.string_at(self._lib.dp_dict_export_blob(self._h), nb)
+        offs = np.ctypeslib.as_array(
+            ctypes.cast(self._lib.dp_dict_export_offs(self._h), ctypes.POINTER(_I64)),
+            shape=(n + 1,)).copy()
+        return blob, offs
+
+
+def take_i32(cmap: np.ndarray, codes: np.ndarray, out: np.ndarray, sentinel: bool) -> bool:
+    """``out[i] = cmap[codes[i]]`` in C; with ``sentinel`` a code -1 gives
+    -1 (the merged ``target_ids``).  False at an out-of-range code, or an
+    ``out`` that is not a writable contiguous int32 array of ``codes``'
+    length: the caller runs the numpy oracle, which raises its IndexError."""
+    L = lib()
+    if (out.dtype != np.int32 or not out.flags.c_contiguous or not out.flags.writeable
+            or len(out) != len(codes)):
+        return False
+    cmap = np.ascontiguousarray(cmap, np.int32)
+    codes = np.ascontiguousarray(codes, np.int32)
+    rc = L.dp_take_i32(_ptr(cmap), len(cmap), _ptr(codes), len(codes),
+                       _ptr(out), 1 if sentinel else 0)
+    return rc == 0
 
 
 # ---------------------------------------------------------------------------

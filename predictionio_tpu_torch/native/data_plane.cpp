@@ -1,16 +1,17 @@
-// The scan core's columnar header parse, the serve core and the HTTP core,
-// for the port's native/core.py (ctypes C ABI, no Python.h).
+// The scan core's columnar header parse and merge handles, the serve core
+// and the HTTP core, for the port's native/core.py (ctypes C ABI, no
+// Python.h).
 //
 // Counterpart of predictionio_tpu/native/data_plane.cpp, three parts of
 // it: the PIOCOL01 snapshot header (JSON) -> column specs, the string
 // dictionaries as UTF-8 blobs with int64 offsets, the property columns and
-// the raw span of "meta"; the UR host serve tail's CSR gather, unique,
+// the raw span of "meta"; the dictionary-union handles and the code gather
+// of store/columnar.BatchMerger (dp_dict_*, dp_take_i32); the UR host serve tail's CSR gather, unique,
 // score accumulation and top-k (models/common.py, the UR engine's
 // _score_history_host), each bit for bit its numpy oracle; and the HTTP
 // request-head parse and response assembly of the event-loop front end
 // (api/http_util.py).  Every entry point is called through ctypes.CDLL,
-// so the GIL is released for the call.  The JAX file's dictionary-union
-// handles and dp_take_i32 (its BatchMerger) are not here.
+// so the GIL is released for the call.
 //
 // Contract against the Python parse (json.loads): the same specs, the same
 // strings byte for byte (surrogate pairs combine; lone surrogates pass
@@ -23,8 +24,11 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <deque>
 #include <functional>
 #include <string>
+#include <string_view>
+#include <unordered_map>
 #include <vector>
 
 #if defined(_WIN32)
@@ -384,6 +388,14 @@ bool parse_header(Json &j, const char *base, ColHeader &h) {
     return j.ok;
 }
 
+// A string dictionary of the merge handles: codes in first-appearance
+// order; the deque keeps the keys' bytes at stable addresses.
+struct Dict {
+    std::unordered_map<std::string_view, int32_t> map;
+    std::deque<std::string> store;
+    std::string exp_blob;
+    std::vector<int64_t> exp_offs;
+};
 
 }  // namespace
 
@@ -395,7 +407,8 @@ bool parse_header(Json &j, const char *base, ColHeader &h) {
 // 2: the HTTP core (dp_http_parse, dp_http_assemble) joined the ABI
 // 3: the serve core (dp_csr_gather[_size], dp_unique_i32, dp_score_accum,
 //    dp_topk_f32) joined the ABI
-EXPORT int64_t dp_abi_version() { return 3; }
+// 4: the merge handles (dp_dict_*, dp_take_i32) joined the ABI
+EXPORT int64_t dp_abi_version() { return 4; }
 
 // -- scan core: snapshot header ---------------------------------------------
 
@@ -484,6 +497,75 @@ EXPORT void dp_col_meta_span(void *p, int64_t *out) {
     auto *h = (ColHeader *)p;
     out[0] = h->meta_off;
     out[1] = h->meta_len;
+}
+
+// -- scan core: dictionary union handles ------------------------------------
+
+EXPORT void *dp_dict_new() { return new Dict(); }
+EXPORT void dp_dict_free(void *p) { delete (Dict *)p; }
+EXPORT int64_t dp_dict_len(void *p) { return (int64_t)((Dict *)p)->map.size(); }
+
+// Union n strings (a UTF-8 blob + n+1 offsets) into the dictionary, codes
+// in first-appearance order (BatchMerger's contract).  out_map[i] = the
+// code of string i.  Returns how many strings were new: they got codes
+// [old_len, old_len + new).
+EXPORT int64_t dp_dict_union(void *p, const char *blob, const int64_t *offs,
+                             int64_t n, int32_t *out_map) {
+    auto *d = (Dict *)p;
+    int64_t nnew = 0;
+    for (int64_t i = 0; i < n; ++i) {
+        std::string_view s(blob + offs[i], (size_t)(offs[i + 1] - offs[i]));
+        auto it = d->map.find(s);
+        if (it != d->map.end()) {
+            out_map[i] = it->second;
+        } else {
+            d->store.emplace_back(s);
+            const std::string &owned = d->store.back();
+            int32_t id = (int32_t)d->map.size();
+            d->map.emplace(std::string_view(owned.data(), owned.size()), id);
+            out_map[i] = id;
+            ++nnew;
+        }
+    }
+    return nnew;
+}
+
+// Pack strings [from, len) as blob + offsets (what the unions added since
+// `from`); returns the blob's size, or -1 for a bad range.  Read the
+// pointers with dp_dict_export_blob / _offs.
+EXPORT int64_t dp_dict_export(void *p, int64_t from) {
+    auto *d = (Dict *)p;
+    int64_t n = (int64_t)d->map.size();
+    if (from < 0 || from > n) return -1;
+    d->exp_blob.clear();
+    d->exp_offs.assign(1, 0);
+    for (int64_t i = from; i < n; ++i) {
+        const std::string &s = d->store[(size_t)i];
+        d->exp_blob.append(s);
+        d->exp_offs.push_back((int64_t)d->exp_blob.size());
+    }
+    return (int64_t)d->exp_blob.size();
+}
+
+EXPORT const char *dp_dict_export_blob(void *p) { return ((Dict *)p)->exp_blob.data(); }
+EXPORT const int64_t *dp_dict_export_offs(void *p) { return ((Dict *)p)->exp_offs.data(); }
+
+// -- scan core: merge gather --------------------------------------------------
+
+// out[i] = cmap[codes[i]].  With sentinel != 0 it is numpy's take over
+// cmap with -1 appended (the target_ids merge): code -1 gives -1, other
+// negative codes index from the end of the extended map, as numpy wraps.
+// Returns 0, or -1 at a code numpy would raise IndexError for (the caller
+// then runs the numpy oracle, which raises it).
+EXPORT int dp_take_i32(const int32_t *cmap, int64_t n_map, const int32_t *codes,
+                       int64_t n, int32_t *out, int sentinel) {
+    for (int64_t i = 0; i < n; ++i) {
+        int64_t c = codes[i];
+        if (sentinel && c < 0) c += n_map + 1;   // an index into cmap + [-1]
+        if (c < 0 || c > n_map || (c == n_map && !sentinel)) return -1;
+        out[i] = (c == n_map) ? -1 : cmap[c];
+    }
+    return 0;
 }
 
 // -- serve core: CSR gather / score / top-k ---------------------------------

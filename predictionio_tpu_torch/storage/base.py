@@ -392,8 +392,8 @@ class StoreCapabilityError(NotImplementedError):
 def delta_tail_supported(backend) -> bool:
     """True when ``backend`` implements the delta-tail protocol
     (``scan_tail_from`` + ``scan_events_up_to`` + ``tombstone_state``):
-    the capability the follow-trainer's fold mode requires.  The memory
-    and localfs backends implement it."""
+    the capability the follow-trainer's fold mode requires.  The memory,
+    localfs, sharedfs and sharded backends implement it; sql does not."""
     return all(
         callable(getattr(backend, name, None))
         for name in ("scan_tail_from", "scan_events_up_to", "tombstone_state"))
@@ -407,8 +407,8 @@ def require_delta_tail(backend, what: str) -> None:
             f"{what} requires the event backend to support the delta-tail "
             f"protocol (scan_tail_from/scan_events_up_to/tombstone_state), "
             f"but {type(backend).__module__}.{type(backend).__name__} does "
-            "not provide it; use a localfs or memory event store, or "
-            "implement the protocol on the backend")
+            "not provide it; use a localfs, sharedfs, sharded, or memory "
+            "event store, or implement the protocol on the backend")
 
 
 class PEvents(abc.ABC):

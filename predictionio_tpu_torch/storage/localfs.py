@@ -34,7 +34,11 @@ server's prefork workers get) they are ``seg-<tag>-NNNNN.jsonl`` and its
 tombstones ``tombstones-<tag>.txt``; without one ``seg-NNNNN.jsonl`` and
 ``tombstones.txt``, and its snapshots are tagged ``local``.  Readers glob
 ``seg-*.jsonl`` and ``tombstones*.txt`` and see the union.  The write
-path's instruments are the JAX package's ``pio_storage_*`` families.
+path's instruments are the JAX package's ``pio_storage_*`` families.  The
+group-commit leader calls ``_commit_point`` and ``_post_commit``, which do
+nothing here: the sharded store's nodes override them with the
+replication barrier (``storage/sharded.py``).  ``scan`` is the bulk read
+in log order that ``find_batches`` takes without a snapshot.
 """
 
 from __future__ import annotations
@@ -873,6 +877,7 @@ class FSEvents(base.LEvents, base.PEvents):
                 batch = None
         if batch is not None:
             err: Optional[BaseException] = None
+            commit_info = None
             try:
                 with self._lock:
                     w = self._writers.get(key)
@@ -889,6 +894,7 @@ class FSEvents(base.LEvents, base.PEvents):
                     w.append(payload)
                     _M_GROUP.observe(len(batch))
                     _M_EVENTS.inc(payload.count("\n"))
+                    commit_info = self._commit_point(key, w)
                     # the snapshot auto-trigger, checked only when this
                     # commit opened a new segment
                     if w.rotations != self._rot_seen.get(key, 0):
@@ -897,6 +903,14 @@ class FSEvents(base.LEvents, base.PEvents):
             except BaseException as e:
                 # a failed write (ENOSPC, EIO) NACKs every event in the group
                 err = e
+            if err is None and commit_info is not None:
+                try:
+                    # the replication barrier, outside the instance lock (a
+                    # slow replica must not block other channels); a failed
+                    # barrier NACKs the group as a failed write does
+                    self._post_commit(key, commit_info)
+                except BaseException as e:
+                    err = e
             with g.cond:
                 for i in batch:
                     if err is not None:
@@ -907,6 +921,20 @@ class FSEvents(base.LEvents, base.PEvents):
         err2 = item.get("err")
         if err2 is not None:
             raise err2
+
+    # -- replication hooks (storage.sharded overrides them) -------------------
+
+    def _commit_point(self, key: tuple, writer: _SegmentWriter):
+        """Called by the group-commit leader with the instance lock held,
+        right after the write: what this commit covered.  A replicated
+        backend returns (segment path, end offset); here there is no
+        barrier, and None."""
+        return None
+
+    def _post_commit(self, key: tuple, info) -> None:
+        """Called by the leader after the lock is released when
+        ``_commit_point`` returned something: raising NACKs every event of
+        the group (the semi-sync replication barrier)."""
 
     # -- compaction ------------------------------------------------------------
 
@@ -1144,7 +1172,8 @@ class FSEvents(base.LEvents, base.PEvents):
     # -- reads -------------------------------------------------------------------
 
     @staticmethod
-    def _iter_segments(segs: Sequence[Path], dead: set) -> Iterator[Event]:
+    def _iter_segments(segs: Sequence[Path], dead: set,
+                       needles: Optional[List[bytes]] = None) -> Iterator[Event]:
         for seg in segs:
             with open(seg, "rb") as f:
                 for raw in f:
@@ -1154,15 +1183,32 @@ class FSEvents(base.LEvents, base.PEvents):
                     if not raw.endswith(b"\n"):
                         break
                     line = raw.strip()
-                    if line:
+                    if line and (needles is None or any(nd in line for nd in needles)):
                         e = Event.from_json(json.loads(line))
                         if e.event_id not in dead:
                             yield e
 
-    def _iter_raw(self, app_id: int, channel_id: Optional[int]) -> Iterator[Event]:
+    @staticmethod
+    def _event_needles(event_names: Optional[Sequence[str]]) -> Optional[List[bytes]]:
+        """Raw-line prefilter of a name-filtered scan: a line that holds
+        none of these bytes cannot carry a wanted event name, so it is not
+        parsed.  ``json.dumps`` gives the escaping both writers emit; the
+        spaced form matches pretty-printed external lines.  A needle inside
+        a property value only costs a parse: the filter after it decides."""
+        if event_names is None:
+            return None
+        needles: List[bytes] = []
+        for n in event_names:
+            j = json.dumps(n)
+            needles.append(f'"event":{j}'.encode())
+            needles.append(f'"event": {j}'.encode())
+        return needles
+
+    def _iter_raw(self, app_id: int, channel_id: Optional[int],
+                  needles: Optional[List[bytes]] = None) -> Iterator[Event]:
         d = self._chan_dir(app_id, channel_id)
         yield from self._iter_segments(self.segment_paths(app_id, channel_id),
-                                       self._tombstones(d))
+                                       self._tombstones(d), needles=needles)
 
     def get(self, event_id: str, app_id: int, channel_id: Optional[int] = None) -> Optional[Event]:
         return next((e for e in self._iter_raw(app_id, channel_id) if e.event_id == event_id),
@@ -1238,3 +1284,23 @@ class FSEvents(base.LEvents, base.PEvents):
         if limit is not None and limit >= 0:
             ordered = ordered[:limit]
         yield from ordered
+
+    def scan(
+        self,
+        app_id: int,
+        channel_id: Optional[int] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        entity_type: Optional[str] = None,
+        event_names: Optional[Sequence[str]] = None,
+        target_entity_type: Optional[str] = None,
+    ) -> Iterator[Event]:
+        """The bulk training read: the segments streamed in log order,
+        unsorted (``find`` sorts by time), lines of other event names
+        skipped before their parse (``_event_needles``).  ``find_batches``
+        reads through it when no snapshot serves."""
+        for e in self._iter_raw(app_id, channel_id,
+                                needles=self._event_needles(event_names)):
+            if base.match_filters(e, start_time, until_time, entity_type, None,
+                                  event_names, target_entity_type, None):
+                yield e

@@ -7,10 +7,11 @@ conf/pio-env.sh), exactly as in the JAX package; each repository binds to a
 source.  With no repository configured, the default is the reference's: one
 ``localfs`` source under ``PIO_FS_BASEDIR`` (or ``~/.pio_store``).
 
-The ``memory`` and ``localfs`` source types are ported.  ``sharedfs``,
-``sharded`` and ``sql`` raise ``NotImplementedError`` naming their ROADMAP
-item when a repository on them is first used; none of them stands in as
-another store.
+The source types are the JAX package's: ``memory``, ``localfs``,
+``sharedfs`` (a multi-host shared prefix, ``storage/sharedfs.py``),
+``sharded`` (events hashed over ``_SHARDS`` shards with ``_REPLICAS`` 1 or
+2, metadata and models on the prefix: ``storage/sharded.py``) and ``sql``
+(one sqlite3 database, ``_PATH`` or an in-memory one: ``storage/sql.py``).
 """
 
 from __future__ import annotations
@@ -21,14 +22,9 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Optional
 
-from predictionio_tpu_torch.storage import base, localfs, memory
+from predictionio_tpu_torch.storage import base, localfs, memory, sql
 
 _REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
-
-ROADMAP_STREAMING = "ROADMAP.md, queue A, 'Streaming'"
-#: source types of the JAX package that the port does not have yet
-NOT_PORTED = {"sharedfs": ROADMAP_STREAMING, "sharded": ROADMAP_STREAMING,
-              "sql": ROADMAP_STREAMING}
 
 
 @dataclass
@@ -75,7 +71,7 @@ class StorageConfig:
 
 
 class _MemorySource:
-    def __init__(self):
+    def __init__(self, spec: Dict[str, str]):
         self.apps = memory.MemApps()
         self.access_keys = memory.MemAccessKeys()
         self.channels = memory.MemChannels()
@@ -87,8 +83,8 @@ class _MemorySource:
 
 
 class _LocalFSSource:
-    def __init__(self, path: str):
-        root = Path(path)
+    def __init__(self, spec: Dict[str, str]):
+        root = Path(spec.get("path", ".pio_store"))
         self.apps = localfs.FSApps(root)
         self.access_keys = localfs.FSAccessKeys(root)
         self.channels = localfs.FSChannels(root)
@@ -97,6 +93,35 @@ class _LocalFSSource:
         self.evaluation_instances = localfs.FSEvaluationInstances(root)
         self.models = localfs.FSModels(root)
         self.events = localfs.FSEvents(root)
+
+
+def _sql_source(spec: Dict[str, str]):
+    # the reference's JDBC URL is the path here; without one the database
+    # is in memory
+    return sql.SQLSource(spec.get("path", ":memory:"))
+
+
+def _sharedfs_source(spec: Dict[str, str]):
+    from predictionio_tpu_torch.storage import sharedfs
+
+    return sharedfs.SharedFSSource(spec.get("path", ".pio_store"))
+
+
+def _sharded_source(spec: Dict[str, str]):
+    # path, shards and replicas (PIO_STORAGE_SOURCES_<NAME>_{PATH,SHARDS,REPLICAS})
+    from predictionio_tpu_torch.storage import sharded
+
+    return sharded.ShardedSource(spec)
+
+
+# each factory takes the source's whole spec and reads its own keys
+_SOURCE_TYPES = {
+    "memory": _MemorySource,
+    "localfs": _LocalFSSource,
+    "sql": _sql_source,
+    "sharedfs": _sharedfs_source,
+    "sharded": _sharded_source,
+}
 
 
 class Storage:
@@ -113,19 +138,10 @@ class Storage:
             if name not in self._clients:
                 spec = self.config.sources[name]
                 typ = spec.get("type", "localfs")
-                if typ in NOT_PORTED:
-                    raise NotImplementedError(
-                        f"storage source {name!r} has type {typ!r}, which the "
-                        f"port does not have yet ({NOT_PORTED[typ]}); use a "
-                        "'localfs' or 'memory' source")
-                if typ == "localfs":
-                    self._clients[name] = _LocalFSSource(spec.get("path", ".pio_store"))
-                elif typ == "memory":
-                    self._clients[name] = _MemorySource()
-                else:
+                if typ not in _SOURCE_TYPES:
                     raise ValueError(
-                        f"unknown storage source type {typ!r} (have: "
-                        f"{sorted(['localfs', 'memory', *NOT_PORTED])})")
+                        f"unknown storage source type {typ!r} (have: {sorted(_SOURCE_TYPES)})")
+                self._clients[name] = _SOURCE_TYPES[typ](spec)
             return self._clients[name]
 
     # Metadata repositories

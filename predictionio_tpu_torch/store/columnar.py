@@ -9,8 +9,8 @@ the same reads in both packages), ``fold_properties`` and
 ``category_masks``.  The port keeps its own copies: it imports nothing of
 the JAX package.  The PIOARR01 named-array container of the model plane
 (``write_arrays``, ``read_arrays``: byte-equal files in both packages,
-read-only mapped views) is here too.  The JAX ``BatchMerger`` (the sharded
-store's k-way merge) waits for ROADMAP.md, queue A, 'Streaming' (§A.12c).
+read-only mapped views) is here too, and ``BatchMerger``, the k-way merge
+of the sharded store's cross-shard reads and of ``EventBatch.concat``.
 """
 from __future__ import annotations
 
@@ -111,6 +111,17 @@ class IdDict:
 
     def strings(self) -> List[str]:
         return list(self._strings())
+
+    def _append_pending(self, blob: bytes, offs: np.ndarray) -> None:
+        """Append strings not yet in the dictionary (codes continue from
+        its length) as an undecoded blob; the index is rebuilt at the next
+        lookup."""
+        if len(offs) <= 1:
+            return
+        if self._pending is None:
+            self._pending = []
+        self._pending.append((blob, offs))
+        self._to_id = None
 
     def clone(self) -> "IdDict":
         """A copy that grows independently (the copy-on-write step of the
@@ -294,19 +305,23 @@ class PropColumn:
                           codes.astype(np.int32), self.dict)
 
 
-def _code_map(target: IdDict, part: IdDict) -> Optional[np.ndarray]:
-    """Add ``part``'s strings to ``target`` in order; the int32 code of
-    each in ``target``, or None when ``part`` is ``target``."""
-    if part is target:
-        return None
-    return np.fromiter((target.add(x) for x in part.strings()), np.int32, count=len(part))
-
-
-def _recode(codes: np.ndarray, code_map: Optional[np.ndarray]) -> np.ndarray:
-    """``codes`` through ``code_map``, -1 (no target) kept."""
-    if code_map is None or not len(codes):
-        return codes
-    return np.where(codes >= 0, code_map[np.maximum(codes, 0)], -1).astype(np.int32)
+def _export_dict_blob(d: IdDict) -> Tuple[bytes, np.ndarray]:
+    """(UTF-8 blob, int64 offsets) of every string of ``d``: a dictionary
+    still in its one blob (a native snapshot read) hands it back as it is;
+    any other is encoded once."""
+    if not d._to_str and d._pending is not None and len(d._pending) == 1:
+        return d._pending[0]
+    strs = d._strings()
+    joined = "".join(strs)
+    blob = joined.encode("utf-8", "surrogatepass")
+    if len(blob) == len(joined):
+        lens = [len(x) for x in strs]
+    else:
+        lens = [len(x.encode("utf-8", "surrogatepass")) for x in strs]
+    offs = np.zeros(len(strs) + 1, np.int64)
+    if strs:
+        np.cumsum(lens, out=offs[1:])
+    return blob, offs
 
 
 @dataclass
@@ -366,68 +381,24 @@ class EventBatch:
         return cls(ev, et, ei, ti, ts, rt, event_dict, entity_type_dict, entity_dict, target_dict)
 
     _DICTS = ("event_dict", "entity_type_dict", "entity_dict", "target_dict")
-    _CODES = ("event_codes", "entity_type_codes", "entity_ids", "target_ids")
 
     @classmethod
     def concat(cls, batches: Sequence["EventBatch"]) -> "EventBatch":
-        """Rows of ``batches`` in order.  Batches that share their four
-        dictionaries (the same objects) concatenate their columns as they
-        are; otherwise every batch's codes are re-coded into fresh
-        dictionaries, strings in first appearance over the batches' own
-        dictionaries in order (the JAX package's ``BatchMerger`` order).
-        Property columns merge when every batch has them (see
-        ``_concat_props``)."""
+        """Rows of ``batches`` in order, through ``BatchMerger``.  Batches
+        that share their four dictionaries (the same objects: the snapshot
+        and tail contract) merge into those dictionaries with no re-coding;
+        otherwise every batch is re-coded into fresh dictionaries, strings
+        in first appearance over the batches' own dictionaries in order.
+        Property columns merge when every batch has them; a key whose
+        dictionaries differ re-codes into a new one.  No input changes."""
         if len(batches) == 1:
             return batches[0]
         b0 = batches[0]
-        if all(getattr(b, d) is getattr(b0, d) for b in batches[1:] for d in cls._DICTS):
-            dicts = [getattr(b0, d) for d in cls._DICTS]
-            maps = [[None] * 4 for _ in batches]
-        else:
-            dicts = [IdDict() for _ in cls._DICTS]
-            maps = [[_code_map(t, getattr(b, d)) for t, d in zip(dicts, cls._DICTS)]
-                    for b in batches]
-        codes = [np.concatenate([_recode(getattr(b, c), m[k]) for b, m in zip(batches, maps)])
-                 for k, c in enumerate(cls._CODES)]
-        return cls(*codes,
-                   np.concatenate([b.times_us for b in batches]),
-                   np.concatenate([b.ratings for b in batches]),
-                   *dicts, prop_columns=cls._concat_props(batches))
-
-    @staticmethod
-    def _concat_props(batches: Sequence["EventBatch"]) -> Optional[Dict[str, PropColumn]]:
-        """Row-shifted merge of the per-key property columns, or None when
-        some batch has none.  A key whose string dictionary is the same
-        object in every batch merges its codes as they are; otherwise they
-        are re-coded into one merged dictionary."""
-        if any(b.prop_columns is None for b in batches):
-            return None
-        offsets = np.cumsum([0] + [len(b) for b in batches])
-        keys: List[str] = []
+        shared = all(getattr(b, d) is getattr(b0, d) for b in batches[1:] for d in cls._DICTS)
+        merger = BatchMerger(base=b0 if shared else None, grow_base_props=False)
         for b in batches:
-            keys.extend(k for k in b.prop_columns if k not in keys)
-        out: Dict[str, PropColumn] = {}
-        for key in keys:
-            entries = [(offsets[i], b.prop_columns[key]) for i, b in enumerate(batches)
-                       if key in b.prop_columns]
-            d = entries[0][1].dict
-            if any(c.dict is not d for _, c in entries[1:]):
-                d = IdDict()
-                code_cols = [_recode(np.asarray(c.codes, np.int32), _code_map(d, c.dict))
-                             for _, c in entries]
-            else:
-                code_cols = [np.asarray(c.codes, np.int32) for _, c in entries]
-            code_base = np.cumsum([0] + [len(c.codes) for _, c in entries])
-            str_offs = np.concatenate([np.zeros(1, np.int64)] + [
-                c.str_offs[1:] + code_base[i] for i, (_, c) in enumerate(entries)])
-            out[key] = PropColumn(
-                np.concatenate([c.rows + off for off, c in entries]),
-                np.concatenate([c.kind for _, c in entries]),
-                np.concatenate([c.num for _, c in entries]),
-                str_offs,
-                np.concatenate(code_cols) if code_base[-1] else np.empty(0, np.int32),
-                d)
-        return out
+            merger.add(b)
+        return merger.finish()[0]
 
     def subset(self, mask: np.ndarray) -> "EventBatch":
         """Row-filter by boolean mask; dictionaries are shared."""
@@ -548,6 +519,246 @@ class EventIdColumn:
             return EventIdColumn(np.empty(0, np.uint8), offs)
         gather = np.arange(total, dtype=np.int64) + np.repeat(self.offs[idx] - offs[:-1], lens)
         return EventIdColumn(self.blob[gather], offs)
+
+
+class BatchMerger:
+    """The k-way merge of batch parts (and their id columns), in two phases.
+
+    ``add`` (phase A, once per part, in part order) unions the part's
+    dictionaries into the target ones and keeps its code maps: the sharded
+    store's parallel scan calls it for each shard as it completes, while
+    later shards still parse.  ``finish`` (phase B) allocates each output
+    column once and gathers every part into its slice.
+
+    With ``base`` the codes are assigned in the base batch's dictionaries,
+    which grow in place (its property dictionaries too, as
+    ``ColumnarBuilder(base=...)`` does), so the result concatenates with
+    the base through the shared-dictionary path: the sharded store splices
+    a cross-shard tail into a retained batch that way.  With
+    ``grow_base_props=False`` (``EventBatch.concat``) a base property
+    dictionary that a later part does not share is copied first.
+
+    Rows come in ``add`` order and codes in first appearance across the
+    parts' own dictionaries: the order of a pairwise concatenation, and the
+    JAX package's.  Where ``PIO_NATIVE`` engages the native core, the
+    unions (``native.core.DictHandle``) and the gathers (``take_i32``) run
+    in C with the same result; a native failure mid-merge is counted
+    (``pio_native_fallback_total{reason="error"}``) and the Python path
+    carries on from the same state."""
+
+    def __init__(self, base: Optional[EventBatch] = None, grow_base_props: bool = True):
+        from predictionio_tpu_torch.native import core as ncore
+
+        if base is not None:
+            self.event_dict = base.event_dict
+            self.entity_type_dict = base.entity_type_dict
+            self.entity_dict = base.entity_dict
+            self.target_dict = base.target_dict
+            self._base_props = base.prop_columns or {}
+        else:
+            self.event_dict = IdDict()
+            self.entity_type_dict = IdDict()
+            self.entity_dict = IdDict()
+            self.target_dict = IdDict()
+            self._base_props = {}
+        # False: a base property dictionary that a part does not share is
+        # copied before it grows, so the base batch stays as it was
+        self._grow_base_props = grow_base_props
+        # per part: (batch, ids, event map, entity-type map, entity map,
+        # target map); a None map: the part's codes are the target's
+        self._parts: List[tuple] = []
+        # key -> {"dict": target IdDict, "entries": [(row offset, column, map)]}
+        self._props: Dict[str, dict] = {}
+        self._props_ok = True
+        self._ids_ok = True
+        self._rows = 0
+        # native unions only into fresh targets: seeding a handle from a
+        # large base dictionary would cost O(base) a tail merge
+        self._native = base is None and ncore.scan_enabled()
+        self._handles: Dict[int, object] = {}
+        self._handle_keep: List[IdDict] = []
+
+    def _code_map(self, target: IdDict, part_dict: IdDict) -> Optional[np.ndarray]:
+        """Union ``part_dict`` into ``target``: the int32 code of each of
+        its strings there, or None where they are already the target's
+        codes (the same object, or the first part into an empty target)."""
+        if part_dict is target:
+            return None
+        if self._native:
+            from predictionio_tpu_torch.native import core as ncore
+
+            try:
+                return self._code_map_native(target, part_dict)
+            except Exception:
+                ncore.note_fallback("error")
+                self._native = False
+        if not len(target):
+            strings = part_dict.strings()
+            target._to_str = strings
+            target._to_id = {x: i for i, x in enumerate(strings)}
+            target._pending = None
+            return None
+        n = len(part_dict)
+        if not n:
+            return np.empty(0, np.int32)
+        # misses first, installed in bulk, then one lookup a string
+        strings = part_dict.strings()
+        to_id = target._index()
+        miss = [x for x in strings if x not in to_id]
+        if miss:
+            start = len(target._to_str)
+            to_id.update(zip(miss, range(start, start + len(miss))))
+            target._to_str.extend(miss)
+        return np.fromiter(map(to_id.__getitem__, strings), np.int32, count=n)
+
+    def _code_map_native(self, target: IdDict, part_dict: IdDict) -> Optional[np.ndarray]:
+        from predictionio_tpu_torch.native import core as ncore
+
+        h = self._handles.get(id(target))
+        if h is None:
+            h = ncore.DictHandle()
+            if len(target):
+                blob, offs = _export_dict_blob(target)
+                h.union(blob, offs)
+            self._handles[id(target)] = h
+            self._handle_keep.append(target)   # keeps id(target) unique
+        was_empty = len(h) == 0
+        blob, offs = _export_dict_blob(part_dict)
+        cmap, n_new = h.union(blob, offs)
+        if was_empty:
+            # the part's codes are the target's: install its blob as it is
+            target._append_pending(blob, offs)
+            return None
+        if n_new:
+            new_blob, new_offs = h.export(len(h) - n_new)
+            target._append_pending(new_blob, new_offs)
+        return cmap
+
+    def add(self, batch: EventBatch, ids: Optional["EventIdColumn"] = None) -> None:
+        """Phase A of one part: the dictionary unions and code maps."""
+        self._parts.append((
+            batch, ids,
+            self._code_map(self.event_dict, batch.event_dict),
+            self._code_map(self.entity_type_dict, batch.entity_type_dict),
+            self._code_map(self.entity_dict, batch.entity_dict),
+            self._code_map(self.target_dict, batch.target_dict),
+        ))
+        if ids is None:
+            self._ids_ok = False
+        if batch.prop_columns is None:
+            self._props_ok = False
+        elif self._props_ok:
+            for key, col in batch.prop_columns.items():
+                st = self._props.get(key)
+                if st is None:
+                    base_col = self._base_props.get(key)
+                    st = self._props[key] = {
+                        "dict": base_col.dict if base_col is not None else IdDict(),
+                        "entries": [],
+                        "borrowed": base_col is not None and not self._grow_base_props}
+                if st["borrowed"] and col.dict is not st["dict"]:
+                    # the copy keeps the base's codes: earlier parts' maps hold
+                    st["dict"], st["borrowed"] = st["dict"].clone(), False
+                st["entries"].append((self._rows, col, self._code_map(st["dict"], col.dict)))
+        self._rows += len(batch)
+
+    @staticmethod
+    def _take(cmap: np.ndarray, codes: np.ndarray, out: np.ndarray, native: bool,
+              sentinel: bool) -> None:
+        """``out = cmap[codes]`` (a code -1 stays -1 with ``sentinel``), in
+        C where ``native``, else numpy."""
+        from predictionio_tpu_torch.native import core as ncore
+
+        if native and ncore.take_i32(cmap, codes, out, sentinel):
+            return
+        if sentinel:
+            # code -1 reads the appended last slot, which holds -1
+            cmap = np.append(cmap, np.int32(-1))
+        np.take(cmap, np.asarray(codes), out=out)
+
+    def _finish_props(self, native: bool) -> Optional[Dict[str, PropColumn]]:
+        if not self._props_ok:
+            return None
+        out: Dict[str, PropColumn] = {}
+        for key, st in self._props.items():
+            entries = st["entries"]
+            n = sum(len(c) for _, c, _ in entries)
+            total = sum(len(c.codes) for _, c, _ in entries)
+            rows = np.empty(n, np.int64)
+            kind = np.empty(n, np.int8)
+            num = np.empty(n, np.float64)
+            str_offs = np.empty(n + 1, np.int64)
+            str_offs[0] = 0
+            codes = np.empty(total, np.int32)
+            ep = cp = 0
+            for row_off, col, cmap in entries:
+                m, k = len(col), len(col.codes)
+                np.add(col.rows, row_off, out=rows[ep:ep + m])
+                kind[ep:ep + m] = col.kind
+                num[ep:ep + m] = col.num
+                np.add(col.str_offs[1:], cp, out=str_offs[ep + 1:ep + m + 1])
+                if k:
+                    if cmap is None:
+                        codes[cp:cp + k] = col.codes
+                    else:
+                        self._take(cmap, col.codes, codes[cp:cp + k], native, False)
+                ep += m
+                cp += k
+            out[key] = PropColumn(rows, kind, num, str_offs, codes, st["dict"])
+        return out
+
+    def _finish_ids(self) -> Optional["EventIdColumn"]:
+        if not self._ids_ok:
+            return None
+        total = sum(int(ids.offs[-1]) for _, ids, *_ in self._parts)
+        blob = np.empty(total, np.uint8)
+        offs = np.empty(self._rows + 1, np.int64)
+        offs[0] = 0
+        rp = bp = 0
+        for _b, ids, *_ in self._parts:
+            m, k = len(ids), int(ids.offs[-1])
+            np.add(ids.offs[1:], bp, out=offs[rp + 1:rp + m + 1])
+            blob[bp:bp + k] = ids.blob
+            rp += m
+            bp += k
+        return EventIdColumn(blob, offs)
+
+    def finish(self) -> Tuple[EventBatch, Optional["EventIdColumn"]]:
+        """Phase B: (the merged batch, the merged ids or None)."""
+        from predictionio_tpu_torch.native import core as ncore
+
+        n = self._rows
+        ev, et, ei, ti = (np.empty(n, np.int32) for _ in range(4))
+        ts = np.empty(n, np.int64)
+        rt = np.empty(n, np.float32)
+        # a merge of shared dictionaries (the snapshot and tail splice)
+        # gathers nothing, and is no native operation
+        gathers = (any(m is not None for part in self._parts for m in part[2:])
+                   or any(e[2] is not None for st in self._props.values()
+                          for e in st["entries"]))
+        native = gathers and ncore.scan_enabled()
+        if native:
+            ncore.note_call("scan")
+        at = 0
+        for b, _ids, ev_map, et_map, ei_map, ti_map in self._parts:
+            m = len(b)
+            if m:
+                for out_col, codes, cmap, sentinel in (
+                        (ev, b.event_codes, ev_map, False),
+                        (et, b.entity_type_codes, et_map, False),
+                        (ei, b.entity_ids, ei_map, False),
+                        (ti, b.target_ids, ti_map, True)):
+                    if cmap is None:
+                        out_col[at:at + m] = codes
+                    else:
+                        self._take(cmap, codes, out_col[at:at + m], native, sentinel)
+                ts[at:at + m] = b.times_us
+                rt[at:at + m] = b.ratings
+            at += m
+        batch = EventBatch(ev, et, ei, ti, ts, rt, self.event_dict, self.entity_type_dict,
+                           self.entity_dict, self.target_dict,
+                           prop_columns=self._finish_props(native))
+        return batch, self._finish_ids()
 
 
 # -- the PIOCOL01 container (snapshot files) -------------------------------------

@@ -5,9 +5,10 @@ additive fold of a Universal Recommender's counts, ``fold.py``),
 ``FollowTrainer`` (tail → fold → hot-swap, ``follow.py``) and
 ``FoldUnsupported``; the model plane (``plane.py``: ``ModelPlane``, the
 delta arenas, ``PlaneWatcher``) and its replication over TCP
-(``replicate.py``: ``PlaneReplicator``, ``PlaneSubscriber``).  The store
-backends the reference's streaming also runs on (sharded, sharedfs, sql)
-wait for ROADMAP.md, queue A, 'Streaming' (§A.12c).
+(``replicate.py``: ``PlaneReplicator``, ``PlaneSubscriber``).  The
+follower runs on every event backend with the delta-tail protocol: memory,
+localfs, sharedfs and the sharded store (``storage/sharded.py``, whose
+watermarks are shard-namespaced); on sql it retrains every tick.
 """
 
 from predictionio_tpu_torch.streaming.fold import FoldUnsupported, URFoldState

@@ -14,6 +14,7 @@ user ``$set`` events.
 
 import numpy as np
 
+import _torch_native_prebuild  # noqa: F401  (the JAX native libraries, built once)
 from predictionio_tpu.events.event import Event as JaxEvent
 from predictionio_tpu.storage import App as JaxApp
 from predictionio_tpu_torch.events.event import Event as PortEvent

@@ -519,6 +519,89 @@ def test_plane_path_loads_no_jax_module():
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+# the store backends streaming runs on, in a fresh interpreter: events on a
+# 2 x 2 sharded store (the merged snapshot, a tail, a promotion), metadata in
+# SQLite, models on sharedfs, a fold over the sharded tail
+_STORES = r"""
+import json, os, shutil, sys, tempfile
+from pathlib import Path
+from predictionio_tpu_torch.events.event import Event
+from predictionio_tpu_torch.models.universal_recommender.engine import (
+    URAlgorithmParams, URDataSourceParams)
+from predictionio_tpu_torch.storage import App, Storage, StorageConfig
+from predictionio_tpu_torch.streaming.fold import URFoldState
+
+d = Path(tempfile.mkdtemp())
+store = Storage(StorageConfig(
+    sources={"EV": {"type": "sharded", "path": str(d / "ev"), "shards": "2", "replicas": "2"},
+             "META": {"type": "sql", "path": str(d / "meta.db")},
+             "MOD": {"type": "sharedfs", "path": str(d / "models")}},
+    repositories={"EVENTDATA": "EV", "METADATA": "META", "MODELDATA": "MOD"}))
+app = store.apps.insert(App(0, "s"))
+ev = store.l_events
+ev.insert_batch([Event("buy", "user", f"u{j % 9}", "item", f"i{j % 7}") for j in range(80)], app)
+ev.build_snapshot(app)
+res = ev.snapshot_scan(app)
+state = URFoldState.bootstrap(URAlgorithmParams(app_name="s", max_correlators_per_item=4),
+                              URDataSourceParams(app_name="s", event_names=["buy"]),
+                              res["batch"], device="cpu")
+shutil.move(str(d / "ev" / "shard_00" / "a"), str(d / "lost"))
+ev.insert_batch([Event("buy", "user", f"v{j}", "item", "i1") for j in range(6)], app)
+tail = ev.scan_tail_from(app, None, res["watermark"], base=state.batch, heads=res["heads"])
+state.fold(tail["batch"])
+store.models.insert("m", b"x")
+assert tail["events"] == 6 and store.models.get("m") == b"x"
+assert ev.topology_status()["perShard"][0]["epoch"] == 1
+ev.close()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "predictionio_tpu" or m.startswith("predictionio_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def test_store_backends_load_no_jax_module():
+    out = subprocess.run([sys.executable, "-c", _STORES], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def _registered_families(path):
+    """(name, kind, help) of every ``_REG.counter/gauge/histogram`` call at
+    the top of a module's source (read, not imported)."""
+    tree = ast.parse(Path(path).read_text())
+    out = []
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr in ("counter", "gauge", "histogram")
+                and isinstance(node.func.value, ast.Name) and node.func.value.id == "_REG"):
+            name, help_ = (ast.literal_eval(a) for a in node.args[:2])
+            out.append((name, node.func.attr, help_))
+    return out
+
+
+def test_pio_store_families_are_the_jax_ones():
+    """The nine ``pio_store_*`` families of the JAX sharded store (its
+    ``sharded.py``, read as source) are in the port's registry under the
+    same names, kinds and help texts once the port's store is imported."""
+    from predictionio_tpu_torch.obs.metrics import get_registry
+    from predictionio_tpu_torch.storage import sharded  # noqa: F401  (registers them)
+
+    want = _registered_families(REPO / "predictionio_tpu" / "storage" / "sharded.py")
+    assert [w[0] for w in want] == [
+        "pio_store_shard_events_total", "pio_store_replica_lag_events",
+        "pio_store_replicated_bytes_total", "pio_store_replica_heals_total",
+        "pio_store_promotions_total", "pio_store_shards",
+        "pio_store_scan_shard_duration_seconds", "pio_store_scan_workers",
+        "pio_store_scan_merged_events_per_sec"]
+    assert _registered_families(PORT / "storage" / "sharded.py") == want
+    reg = get_registry()
+    for name, kind, help_ in want:
+        m = reg._metrics[name]
+        assert (m.kind, m.help) == (kind, help_), name
+
+
 def test_forbidden_module_match_is_exact():
     assert _is_forbidden("jax") and _is_forbidden("jax.numpy")
     assert _is_forbidden("predictionio_tpu")

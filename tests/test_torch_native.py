@@ -518,12 +518,12 @@ def test_serve_core_matches_numpy_oracle_and_jax(seed, monkeypatch):
 
 @_port_only
 def test_serve_core_abi_and_fallback(monkeypatch):
-    """The library reports ABI 3 (a stale build is never loaded); with no
+    """The library reports ABI 4 (a stale build is never loaded); with no
     compiler the serve gate is closed and the oracle answers, counted once
     as ``no_build``."""
     from predictionio_tpu_torch.models import common
 
-    assert ncore.lib().dp_abi_version() == ncore._ABI_VERSION == 3
+    assert ncore.lib().dp_abi_version() == ncore._ABI_VERSION == 4
     assert ncore.serve_enabled()
     monkeypatch.setattr(port_build, "load", lambda src, stem: None)
     ncore.reset_for_tests()

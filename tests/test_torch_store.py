@@ -168,24 +168,30 @@ def test_locator_reads_the_env_contract():
 
 @pytest.mark.parametrize("typ", ["localfs", "sharedfs", "sharded", "sql", None])
 def test_unported_sources_raise_naming_the_roadmap(typ, tmp_path):
-    """sharedfs, sharded and sql raise naming their ROADMAP item; localfs,
-    named or as the default configuration (None: ``$PIO_FS_BASEDIR``), is
-    ported and opens a store at its path."""
+    """Every source type of the JAX locator opens a store at its path in the
+    port (none raises any more): localfs, named or as the default
+    configuration (None: ``$PIO_FS_BASEDIR``), sharedfs, sharded and sql (a
+    SQLite file at the path)."""
     path = str(tmp_path / "store")
     env = ({"PIO_FS_BASEDIR": path} if typ is None else
-           {"PIO_STORAGE_SOURCES_X_TYPE": typ, "PIO_STORAGE_SOURCES_X_PATH": path,
+           {"PIO_STORAGE_SOURCES_X_TYPE": typ,
+            "PIO_STORAGE_SOURCES_X_PATH": path + (".db" if typ == "sql" else ""),
             **{f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": "X"
                for r in ("METADATA", "EVENTDATA", "MODELDATA")}})
     storage = locator.Storage(StorageConfig.from_env(env))   # the default is localfs
-    if typ in ("localfs", None):
-        assert storage.apps.insert(App(0, "a")) == 1
-        assert (tmp_path / "store" / "meta" / "apps.json").exists()
+    try:
+        assert storage.apps.insert(App(0, "a")) is not None
         assert storage.l_events.init(1) and storage.l_events is storage.p_events
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        storage.apps
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        storage.l_events
+        if typ in ("localfs", None):
+            assert (tmp_path / "store" / "meta" / "apps.json").exists()
+        elif typ == "sql":
+            assert (tmp_path / "store.db").exists()
+        else:
+            assert (tmp_path / "store" / "meta").is_dir()
+    finally:
+        if hasattr(storage.l_events, "close"):
+            storage.l_events.close()
+    assert not hasattr(locator, "NOT_PORTED")
 
 
 # -- columnar batches and PEventStore -----------------------------------------------------------
