@@ -364,6 +364,43 @@ pio eval and the five remaining templates (after 16, before 15):
     factorisations and the solves (CUDA events at ``solve_half``'s stage
     marks, the mean of three sweeps), with the sweeps' peak device memory.
 
+Observability and the rest of the front end (slice 17) ride on the phases
+above, each check failing the run:
+7. two ALS queries sent with ``X-PIO-Debug``: each trace retained with
+   route /queries.json and status 200, K1's counter moved by them;
+11b. each ``pio train``'s span journal: ``train`` -> ``engine_train``
+   (attempt 1), ``staging_summary`` (its staged counts equal the
+   ``pio_train_staged_events_total`` delta), ``save_models``; the 50 K2 +
+   50 K3 launches inside the ``train`` span; ``pio_train_runs_total`` and
+   ``pio_train_duration_seconds`` moved by one;
+14. the event server's first ingest batch traced (``group_commit_append``
+   in its trace, either worker answering), the last PIPELINED_EVENTS
+   events through the SDK's ``EventPipeline``; both servers'
+   ``/metrics/history.json`` (two samples or more) and ``/healthz``; the
+   1-client level's queries again through ``EngineClient``, equal to raw
+   HTTP's answers; 32-client levels with ``PIO_TRACING=off`` and then on
+   again, printed beside the default's p50 and q/s;
+17. a second deploy with ``PIO_SERVE_BATCH=off`` answers TRACED_QUERIES
+   traced queries on the device tail byte-equal to the batched deploy's,
+   each trace's ``ur_predict`` holding the history, score, mask, topk and
+   assemble laps (summing to no more than the span); one waterfall printed
+   through ``pio trace --rid``;
+19. a ``fold-*`` trace (``model_swap``) with ``follow_tail`` and
+   ``follow_fold`` for each fold tick; each round's lineage record from
+   ``append_observed`` to ``first_serve`` in ``STAGE_ORDER`` with
+   ``fold.rellr``, its span printed beside the round's reflected time;
+20. the two processes named by ``PIO_CLUSTER_NODE``; the subscriber's own
+   records holding the ``repl.*`` stages, ``watcher_wake``, ``compose``,
+   ``install`` and ``first_serve`` each round; every round's record
+   stitched ``cluster_complete`` at the publisher and counted by
+   ``pio_cluster_propagation_seconds``; ``/cluster/metrics.json`` naming
+   the publisher and the subscriber up; ``/healthz`` with the cluster SLO
+   rows; ``pio lineage --cluster`` and ``pio top --window 10`` printed;
+22. ``pio dashboard`` (a subprocess) on 11b's store: ``/dashboard.json``
+   equal to the store's instances and evaluations, the index listing 11b's
+   trains with their span breakdowns, their ``/spans/<id>.json``, SIGINT
+   ending it with exit 0.
+
 The line before the last is one JSON object with a row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -595,6 +632,240 @@ def post(url, body):
     with urllib.request.urlopen(req, timeout=60) as resp:
         check(resp.status == 200, f"HTTP {resp.status} for {body}")
         return json.loads(resp.read())
+
+
+# -- observability: traces, span journals, lineage (phases 7, 11b, 14, 17, 19, 20, 22)
+
+TRACED_QUERIES = 20        # phase 17's traced queries on the unbatched device tail
+TRACE_WAIT_S = 10.0        # a trace or lineage record is recorded after the response
+UR_LAPS = ("history", "score", "mask", "topk", "assemble")
+
+
+def post_traced(url, body, rid) -> bytes:
+    """POST ``body`` with ``X-PIO-Debug`` (the flight recorder keeps its
+    trace) under the request id ``rid``; the response bytes."""
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), headers={
+        "Content-Type": "application/json", "X-PIO-Debug": "1", "X-Request-ID": rid})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        check(resp.status in (200, 201), f"HTTP {resp.status} for {body}")
+        return resp.read()
+
+
+def fetch_trace(base, rid, timeout=TRACE_WAIT_S) -> dict:
+    """``/traces/<rid>.json`` of the server at ``base``, polled with a
+    deadline: the front end records a trace after the response is queued."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            return get_json(f"{base}/traces/{rid}.json", timeout=10)
+        except urllib.error.HTTPError as e:
+            check(e.code == 404 and time.monotonic() < deadline,
+                  f"the trace {rid} at {base}: HTTP {e.code}")
+            time.sleep(0.05)
+
+
+def hist_count(h) -> int:
+    """Observations of a registry histogram, over all its label sets."""
+    return int(sum(v["count"] for v in h._snapshot_series().values()))
+
+
+def cli_out(*argv) -> str:
+    """One port ``pio`` command in this process; its standard output,
+    which is printed as well."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        pio(*argv)
+    text = buf.getvalue()
+    print(text, end="" if text.endswith("\n") else "\n")
+    return text
+
+
+def trace_als_queries(hk, base, bodies) -> list:
+    """Phase 7: ALS queries sent with ``X-PIO-Debug``, each retained by the
+    flight recorder with route /queries.json and status 200; K1's counter
+    moved by them."""
+    k0 = hk.masked_score_matmul.launches
+    docs = []
+    for j, body in enumerate(bodies):
+        rid = f"smoke7-{j}"
+        post_traced(base + "/queries.json", body, rid)
+        doc = fetch_trace(base, rid)
+        check(doc["route"] == "/queries.json" and doc["status"] == 200
+              and doc["reason"] == "debug" and doc["method"] == "POST",
+              f"7: the trace of {rid}: {doc['route']} {doc['status']} {doc['reason']}")
+        docs.append(doc)
+    moved = hk.masked_score_matmul.launches - k0
+    check(moved >= len(bodies), f"7: the traced queries launched K1 {moved} times")
+    print(f"  {len(docs)} queries with X-PIO-Debug retained: "
+          + ", ".join(f"{d['rid']} {d['method']} {d['route']} {d['status']} {d['reason']} "
+                      f"{d['durationMs']:.3f} ms" for d in docs)
+          + f"; K1 launched {moved} times by them")
+    return docs
+
+
+def train_obs_counts() -> dict:
+    """The train metrics a ``pio train`` moves: runs, timed runs and the
+    staged events by source."""
+    from predictionio_tpu_torch.store.event_store import staging_counts
+    from predictionio_tpu_torch.workflow import core_workflow as cw
+
+    return {"runs": cw._M_TRAINS.value(status="COMPLETED"), "timed": hist_count(cw._M_TRAIN_S),
+            "staged": {m: cw._M_TRAIN_STAGED.value(mode=m) for m in staging_counts()}}
+
+
+def check_train_journal(store, engine_id, before, launches) -> dict:
+    """Phase 11b: the span journal of ``engine_id``'s newest train is the
+    tree ``train`` -> ``engine_train`` (attempt 1), ``staging_summary``,
+    ``save_models``; the staged counts on ``staging_summary`` equal the
+    ``pio_train_staged_events_total`` delta; ``pio_train_runs_total`` and
+    ``pio_train_duration_seconds`` moved by one.  The K2/K3 counters were
+    zeroed just before the train and read just after, so ``launches`` fell
+    inside the ``train`` span."""
+    from predictionio_tpu_torch.obs import spans
+
+    after = train_obs_counts()
+    inst = store.engine_instances.get_latest_completed(engine_id, "1", "default")
+    recs = spans.read_journal(spans.journal_path(store, inst.id))
+    roots = [s for s in recs if s.get("parent") is None]
+    check(len(roots) == 1 and roots[0]["name"] == "train",
+          f"11b: journal roots {[s['name'] for s in roots]}")
+    root = roots[0]
+    kids = {s["name"]: s for s in recs if s.get("parent") == root["id"]}
+    check(sorted(kids) == ["engine_train", "save_models", "staging_summary"]
+          and len(recs) == 4, f"11b: the train's spans {[s['name'] for s in recs]}")
+    check(kids["engine_train"]["attrs"] == {"attempt": 1},
+          f"11b: engine_train {kids['engine_train'].get('attrs')}")
+    staged = {m: int(after["staged"][m] - before["staged"][m]) for m in after["staged"]}
+    check(kids["staging_summary"].get("attrs", {}) == {f"staged_{m}": v
+                                                        for m, v in staged.items()},
+          f"11b: staging_summary {kids['staging_summary'].get('attrs')} against the "
+          f"counter's delta {staged}")
+    check(after["runs"] - before["runs"] == 1 and after["timed"] - before["timed"] == 1,
+          f"11b: pio_train_runs_total moved {after['runs'] - before['runs']}, "
+          f"pio_train_duration_seconds {after['timed'] - before['timed']}")
+    out = {"instance": inst.id, "staged": staged, "launches_in_train_span": launches,
+           **{f"{n}_s": kids[n]["duration_s"] for n in kids}, "train_s": root["duration_s"]}
+    print(f"  pio train's span journal ({inst.id}): train {root['duration_s']:.3f} s -> "
+          f"engine_train {out['engine_train_s']:.3f} s (attempt 1, K2/K3 {launches} inside), "
+          f"staging_summary {kids['staging_summary']['attrs']} (= the "
+          f"pio_train_staged_events_total delta), save_models {out['save_models_s']:.3f} s; "
+          "pio_train_runs_total and pio_train_duration_seconds moved by one")
+    return out
+
+
+def traced_unbatched(dev, variants, batched_port, users) -> dict:
+    """Phase 17: a second ``deploy`` of the same model with
+    ``PIO_SERVE_BATCH=off`` answers TRACED_QUERIES queries sent with
+    ``X-PIO-Debug`` on the device tail, byte-equal to the batched deploy's
+    answers; each trace holds one ``ur_predict`` span whose laps (history,
+    score, mask, topk, assemble) sum to no more than the span; one
+    waterfall printed through ``pio trace --rid``.  The laps read the host
+    clock: the device's work lands in the lap that reads it back."""
+    from predictionio_tpu_torch.serve import response_cache
+    from predictionio_tpu_torch.workflow.create_server import deploy
+
+    bodies = [{"user": u, "num": 10} for u in users[:TRACED_QUERIES]]
+    os.environ["PIO_SERVE_CACHE"] = "off"     # every query runs the tail
+    server = None
+    try:
+        batched = [post_raw(f"http://127.0.0.1:{batched_port}/queries.json", b)
+                   for b in bodies]
+        os.environ["PIO_SERVE_BATCH"] = "off"
+        try:
+            server = deploy(str(variants[False]), host="127.0.0.1", port=0, device=dev)
+        finally:
+            os.environ.pop("PIO_SERVE_BATCH", None)
+        check(server.pio_state.batcher is None, "17: PIO_SERVE_BATCH=off still batches")
+        port = server.server_address[1]
+        base = f"http://127.0.0.1:{port}"
+        got = [post_traced(base + "/queries.json", b, f"smoke17-{j}")
+               for j, b in enumerate(bodies)]
+        differ = sum(g != w for g, w in zip(got, batched))
+        check(differ == 0, f"17: {differ} unbatched answers differ from the batched deploy's")
+        laps, spans_ms, slack = {}, [], []
+        for j in range(len(bodies)):
+            doc = fetch_trace(base, f"smoke17-{j}")
+            urs = [s for s in doc["spans"] if s["name"] == "ur_predict"]
+            check(len(urs) == 1, f"17: smoke17-{j} holds {len(urs)} ur_predict spans")
+            sp = urs[0]
+            kids = [s for s in doc["spans"] if s.get("parent") == sp["id"]]
+            names = [k["name"] for k in kids]
+            check(sp["attrs"]["tail"] == "device" and names == list(UR_LAPS),
+                  f"17: smoke17-{j}: tail {sp['attrs'].get('tail')}, laps {names}")
+            total = sum(k["duration_s"] for k in kids)
+            check(total <= sp["duration_s"] + 1e-6,
+                  f"17: smoke17-{j}: laps {total} s past the span's {sp['duration_s']} s")
+            for k in kids:
+                laps.setdefault(k["name"], []).append(k["duration_s"] * 1e3)
+            spans_ms.append(sp["duration_s"] * 1e3)
+            slack.append((sp["duration_s"] - total) * 1e3)
+        med = {n: statistics.median(v) for n, v in laps.items()}
+        print(f"  {len(bodies)} traced queries on the device tail (PIO_SERVE_BATCH=off, "
+              "response cache off), answers byte-equal to the batched deploy's; ur_predict "
+              f"median {statistics.median(spans_ms):.3f} ms, laps median ms "
+              f"{ {n: round(v, 4) for n, v in med.items()} } (their sum under the span by a "
+              f"median {statistics.median(slack):.4f} ms); the widest lap: "
+              f"{max(med, key=med.get)}")
+        text = cli_out("trace", f"127.0.0.1:{port}", "--rid", "smoke17-0")
+        check("ur_predict" in text and "topk" in text, "17: pio trace --rid printed no laps")
+        return {"queries": len(bodies), "ur_predict_ms": spans_ms, "laps_median_ms": med,
+                "widest_lap": max(med, key=med.get)}
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        os.environ.pop("PIO_SERVE_CACHE", None)
+
+
+def fold_traces(base, folds: int) -> list:
+    """Phase 19: the flight recorder holds a ``fold-*`` trace (reason
+    ``model_swap``) for each fold tick, with ``follow_tail``,
+    ``follow_fold`` and ``model_swap`` spans."""
+    index = get_json(base + "/traces.json")["traces"]
+    docs = [get_json(f"{base}/traces/{t['rid']}.json") for t in index
+            if t["rid"].startswith("fold-") and t["reason"] == "model_swap"]
+    with_fold = [d for d in docs if {"follow_tail", "follow_fold", "model_swap"}
+                 <= {s["name"] for s in d["spans"]}]
+    check(len(with_fold) >= folds,
+          f"19: {len(with_fold)} fold traces with follow_tail and follow_fold for "
+          f"{folds} fold ticks")
+    return with_fold
+
+
+def round_records(records, starts, what) -> list:
+    """The lineage record of each round: the first one that begins at or
+    after the round's append (less one follower interval: the tick that
+    saw the append began before it) and holds every stage from
+    ``append_observed`` to ``first_serve``, in ``STAGE_ORDER``, with
+    ``fold.rellr``."""
+    from predictionio_tpu_torch.obs.lineage import STAGE_ORDER
+
+    out = []
+    for r, t_wall in enumerate(starts):
+        cands = sorted((d for d in records if d["start"] >= t_wall - FOLLOW_INTERVAL_S - 0.05
+                        and {"append_observed", "fold.rellr", "publish", "install",
+                             "first_serve"} <= {s["stage"] for s in d["stages"]}),
+                       key=lambda d: d["start"])
+        check(cands, f"{what}: no complete lineage record for round {r}")
+        doc = cands[0]
+        ranks = [STAGE_ORDER.index(s["stage"]) for s in doc["stages"]
+                 if s["stage"] in STAGE_ORDER]
+        check(ranks == sorted(ranks), f"{what}: round {r}'s stages out of STAGE_ORDER: "
+                                      f"{[s['stage'] for s in doc['stages']]}")
+        serve = [s for s in doc["stages"] if s["stage"] == "first_serve"]
+        end = max(s["start"] + s["duration_s"] for s in serve)
+        out.append({"lid": doc["lid"], "generation": doc.get("generation"),
+                    "outcome": doc["outcome"], "stages": [s["stage"] for s in doc["stages"]],
+                    "append_to_first_serve_ms": (end - doc["start"]) * 1e3})
+    return out
+
+
+def lineage_records(base) -> list:
+    """Every merged lineage record the server at ``base`` answers."""
+    index = get_json(base + "/lineage.json")["records"]
+    return [get_json(f"{base}/lineage/{r['lid']}.json") for r in index]
 
 
 # -- phase 13: timing ----------------------------------------------------------
@@ -1566,7 +1837,7 @@ def train_localfs(ur, cco, hk, dev, workdir):
     params = ep.algorithm_params_list[0][1]
     check(params.min_llr == 0.0, "the unfused rebuild assumes LLR threshold 0")
     tiles = 2 * -(-n_items // tile)
-    launches = {}
+    launches, journals = {}, {}
     with count_card_merges() as merges:
         t["train_wall_s"], train_launches = timed_train(hk, ur.URAlgorithm(params, device=dev), td)
         for use_llr, path in variants.items():
@@ -1574,10 +1845,13 @@ def train_localfs(ur, cco, hk, dev, workdir):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
             hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+            obs0 = train_obs_counts()
             t0 = time.perf_counter()
             pio("train", "--engine-json", str(path))
             t[f"pio_train_s_llr_{use_llr}"] = time.perf_counter() - t0
             launches[use_llr] = (hk.llr_masked_scores.launches, hk.tile_topk_desc.launches)
+            journals[use_llr] = check_train_journal(store, engine_variant(use_llr)["id"],
+                                                    obs0, launches[use_llr])
     t["peak_device_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     for what, got in (("URAlgorithm.train", train_launches), *(
             (f"pio train (useLlrWeights {k})", v) for k, v in launches.items())):
@@ -1604,7 +1878,7 @@ def train_localfs(ur, cco, hk, dev, workdir):
           f"{t['blob_mb']:.1f} MB, save_s={t['save_s']:.3f} load_s={t['load_s']:.3f}")
     return model, td, arrays, cols, env, variants, {
         **t, "events": n_p + n_v, "set_events": n_items, "segments": len(segs),
-        "segment_bytes": seg_bytes, "launches": launches[False]}
+        "segment_bytes": seg_bytes, "launches": launches[False], "journals": journals}
 
 
 def training_read(engine, ep, what, staged_want):
@@ -2278,6 +2552,8 @@ def ur_caches_path(ur, cco, hk, ncore, dev, workdir, variants, stored, plain_tra
                   f"({r['near_tie_swaps']} near-tie swaps)")
         print(f"  17a: the {len(first_raw)} distinct answers byte-equal to "
               "PIO_SERVE_CACHE=off")
+        out["traced"] = traced_unbatched(dev, variants, port, users)
+        cache.on_swap([model])   # the second deploy's install armed the cache on its model
 
         # -- (b) the composed rule-mask cache (response cache off)
         os.environ["PIO_SERVE_CACHE"] = "off"
@@ -2706,7 +2982,7 @@ def follow_path(ur, cco, hk, dev, workdir, variants):
         check(st["stateMode"] == "sparse", f"19: state mode {st['stateMode']}")
         check(boot_launches[0] > 0 and boot_launches[1] > 0,
               f"19: the bootstrap launched K2/K3 {boot_launches}")
-        lat_ms, rounds = [], []
+        lat_ms, rounds, starts = [], [], []
         for r in range(FOLLOW_ROUNDS):
             seed, fresh, probe = f"seed19_{r}", f"fresh19_{r}", f"probe19_{r}"
             rel0 = {o: fold_mod._M_RELLR_ROWS.value(outcome=o)
@@ -2718,6 +2994,7 @@ def follow_path(ur, cco, hk, dev, workdir, variants):
             wait_until(lambda: follower_drained(follower, covered), 120,
                        f"round {r}'s probe fold")
             cobuyers = [f"cob19_{r}_{j}" for j in range(FOLLOW_COBUYERS)]
+            starts.append(time.time())
             t_append = time.perf_counter()
             store.l_events.insert_batch(
                 [Event("purchase", "user", u, "item", it) for u in cobuyers
@@ -2779,6 +3056,16 @@ def follow_path(ur, cco, hk, dev, workdir, variants):
               f"folds {during}; stateMode {st['stateMode']}, state bytes {st['stateBytes']}; "
               f"device memory after the bootstrap {mem_boot} B, after the last fold "
               f"{mem_last} B (a generation stages {gen_bytes} B)")
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        traces = fold_traces(base, tick["fold"])
+        recs = round_records(lineage_records(base), starts, "19")
+        out["observability"] = {"fold_traces": len(traces), "rounds": recs}
+        print(f"  /traces.json: {len(traces)} fold-* traces (model_swap) with follow_tail and "
+              f"follow_fold for {tick['fold']} fold ticks; /lineage.json: each round's record "
+              "from append_observed to first_serve in STAGE_ORDER, fold.rellr in each: "
+              + "; ".join(f"round {r} {d['lid']} gen {d['generation']} {d['outcome']} "
+                          f"append_observed -> first serve {d['append_to_first_serve_ms']:.3f} ms "
+                          f"(reflected {lat_ms[r]:.3f} ms)" for r, d in enumerate(recs)))
 
         # K2 on a captured row slice against the certificate's cell scoring
         cells, differ = k2_against_cell_scoring(fold_mod, cco, hk, fstate, dev)
@@ -2840,6 +3127,72 @@ PLANE_PROBES = 200          # answers held byte-equal, publisher against subscri
 PLANE_DELTA_BAR = 0.10      # a fold delta's write amplification (bench.py:2239-2340)
 PLANE_DUP_BAR = 0.05        # a duplicate-only delta's
 PLANE_TORN_CYCLES = 2       # torn re-syncs observed before the fault is lifted
+PUB_NODE, SUB_NODE = "smoke-pub", "smoke-sub"   # the two nodes' PIO_CLUSTER_NODE
+CLUSTER_SLOS = ("cluster_propagation_p99", "cluster_repl_lag", "cluster_qps_divergence",
+                "cluster_p95_divergence")
+
+
+def cluster_obs(pub_base, sub_base, prop0, starts, lat_ms, generation) -> dict:
+    """Phase 20, after the freshness rounds: the subscriber's own lineage
+    records hold, for each round, the ``repl.*`` stages, ``watcher_wake``,
+    ``compose``, ``install`` and ``first_serve``; the publisher's
+    federation lists the subscriber up (beside its own node) in
+    ``/cluster/metrics.json``; ``pio_cluster_propagation_seconds`` counted
+    every round (polled: the federation pulls the subscriber's stages on
+    its scrape); ``pio lineage --cluster`` renders the stitched waterfall;
+    the publisher's ``/healthz`` carries the cluster SLO rows; ``pio top
+    --window 10`` prints against the publisher."""
+    from predictionio_tpu_torch.obs import cluster as obs_cluster
+
+    need = {"repl.recv", "repl.verify", "repl.land", "watcher_wake", "compose", "install",
+            "first_serve"}
+    sub_recs = lineage_records(sub_base)
+    lanes = []
+    for r, t_wall in enumerate(starts):
+        cands = sorted((d for d in sub_recs if d["start"] >= t_wall
+                        and need <= {s["stage"] for s in d["stages"]}),
+                       key=lambda d: d["start"])
+        check(cands, f"20: the subscriber holds no complete record for round {r}")
+        lanes.append(cands[0])
+        nodes = {s.get("node") for s in cands[0]["stages"]}
+        check(nodes == {SUB_NODE}, f"20: the subscriber's stages are stamped {nodes}")
+    def stitched_all():
+        docs = [get_json(f"{pub_base}/lineage/{d['lid']}.json") for d in lanes]
+        return docs if all(d["outcome"] == "cluster_complete" for d in docs) else None
+
+    wait_until(stitched_all, 60, "20: each round's record stitched cluster_complete")
+    wait_until(lambda: hist_count(obs_cluster._M_PROP) - prop0 >= len(starts), 30,
+               "20: pio_cluster_propagation_seconds for every round")
+    props = hist_count(obs_cluster._M_PROP) - prop0
+    cm = get_json(pub_base + "/cluster/metrics.json")
+    sub_node = cm["nodes"].get(SUB_NODE) or {}
+    check(cm["node"] == PUB_NODE and sub_node.get("up") is True,
+          f"20: /cluster/metrics.json node {cm['node']}, nodes {cm['nodes']}")
+    health = get_json(pub_base + "/healthz")
+    check(set(CLUSTER_SLOS) <= set(health["slos"]),
+          f"20: /healthz SLO rows {sorted(health['slos'])}")
+    stitched = get_json(f"{pub_base}/lineage/{lanes[-1]['lid']}.json")
+    check(stitched.get("cluster", {}).get("expected") == [SUB_NODE]
+          and stitched["outcome"] == "cluster_complete",
+          f"20: the stitched record: {stitched['outcome']} {stitched.get('cluster')}")
+    text = cli_out("lineage", pub_base.replace("http://", ""), "--lid", lanes[-1]["lid"],
+                   "--cluster")
+    check(SUB_NODE in text and "repl.land" in text, "20: pio lineage --cluster: no node lane")
+    top = cli_out("top", pub_base.replace("http://", ""), "--window", "10")
+    check("req/s" in top, "20: pio top printed no rows")
+    out = {"subscriber_rounds": [{"lid": d["lid"], "stages": [s["stage"] for s in d["stages"]]}
+                                 for d in lanes],
+           "propagation_observed": props, "cluster_nodes": cm["nodes"],
+           "healthz_cluster": {k: health["slos"][k]["verdict"] for k in CLUSTER_SLOS},
+           "stitched_propagation_ms": stitched["cluster"].get("propagationMs")}
+    print(f"  the subscriber's records ({SUB_NODE}) hold, each round, "
+          f"{sorted(need)}; pio_cluster_propagation_seconds observed {props} stitched "
+          f"records over {len(starts)} rounds; /cluster/metrics.json: publisher "
+          f"{cm['node']}, {SUB_NODE} up, generation {sub_node.get('generation')} (the "
+          f"publisher's {generation}); /healthz cluster rows "
+          f"{out['healthz_cluster']}; the last round's stitched propagation "
+          f"{out['stitched_propagation_ms']} ms beside its reflected {lat_ms[-1]:.3f} ms")
+    return out
 
 
 def smi_query(*args) -> str:
@@ -2942,6 +3295,7 @@ def plane_path(ur, hk, dev, workdir, variants, env):
     import signal
 
     from predictionio_tpu_torch.events.event import Event
+    from predictionio_tpu_torch.obs import cluster as obs_cluster
     from predictionio_tpu_torch.obs import metrics as obs_metrics
     from predictionio_tpu_torch.storage import get_storage
     from predictionio_tpu_torch.streaming import plane as plane_mod
@@ -2958,8 +3312,13 @@ def plane_path(ur, hk, dev, workdir, variants, env):
     sub_base = f"http://127.0.0.1:{sub_port}"
     # the subscriber's store sees this process's appends: its history cache
     # hears only its own, so it reads history uncached
+    # each node names itself (PIO_CLUSTER_NODE) and keeps its own lineage
+    # records; the subscriber samples its history every second, which the
+    # publisher's federation scrapes every second
     sub_env = {**os.environ, **env, "PYTHONPATH": str(root), "PIO_TORCH_DEVICE": dev.type,
-               "PIO_MODEL_PLANE_DIR": str(sub_dir), "PIO_HISTORY_CACHE": "off"}
+               "PIO_MODEL_PLANE_DIR": str(sub_dir), "PIO_HISTORY_CACHE": "off",
+               "PIO_CLUSTER_NODE": SUB_NODE, "PIO_LINEAGE_DIR": str(workdir / "lineage-sub"),
+               "PIO_TSDB_INTERVAL_S": "1"}
     log_path = workdir / "plane-subscriber.log"
     resync, pub_bytes = replicate._M_RESYNC, plane_mod._M_PUB_BYTES
     reasons = ("cold", "lag", "torn")
@@ -2989,12 +3348,16 @@ def plane_path(ur, hk, dev, workdir, variants, env):
     with hk._count_lock:
         hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
     os.environ["PIO_MODEL_PLANE_DIR"] = str(pub_dir)
+    saved_obs = {k: os.environ.get(k) for k in ("PIO_CLUSTER_NODE", "PIO_CLUSTER_SCRAPE_S")}
+    os.environ.update(PIO_CLUSTER_NODE=PUB_NODE, PIO_CLUSTER_SCRAPE_S="1")
+    prop0 = hist_count(obs_cluster._M_PROP)
     t0 = time.perf_counter()
     try:
         server = deploy(str(variants[False]), host="127.0.0.1", port=0, device=dev,
                         follow=FOLLOW_INTERVAL_S, plane_publish=f"127.0.0.1:{repl_port}")
     finally:
         os.environ.pop("PIO_MODEL_PLANE_DIR", None)
+        os.environ.pop("PIO_CLUSTER_SCRAPE_S")
     try:
         state = server.pio_state
         follower = state.follower
@@ -3062,7 +3425,7 @@ def plane_path(ur, hk, dev, workdir, variants, env):
               f"{dup[-1]['logical']} B logical (write amplification {dup_amp:.6f}, bar "
               f"{PLANE_DUP_BAR})")
 
-        lat_ms, rounds = [], []
+        lat_ms, rounds, starts = [], [], []
         for r in range(FOLLOW_ROUNDS):
             seed, fresh, probe = f"seed20_{r}", f"fresh20_{r}", f"probe20_{r}"
             k0, n0 = follow_counts(hk), len(publishes)
@@ -3071,6 +3434,7 @@ def plane_path(ur, hk, dev, workdir, variants, env):
             covered += 1
             wait_until(lambda: settled(covered), 120, f"20: round {r}'s probe fold")
             cobuyers = [f"cob20_{r}_{j}" for j in range(FOLLOW_COBUYERS)]
+            starts.append(time.time())
             t_append = time.perf_counter()
             store.l_events.insert_batch(
                 [Event("purchase", "user", u, "item", it) for u in cobuyers
@@ -3126,6 +3490,9 @@ def plane_path(ur, hk, dev, workdir, variants, env):
               f"the JAX package's bar {PLANE_DELTA_BAR} "
               f"({'held' if max(amps) <= PLANE_DELTA_BAR else 'missed'}); K2/K3 launches "
               f"during the folds {during}")
+        out["observability"] = cluster_obs(
+            f"http://127.0.0.1:{server.server_address[1]}", sub_base, prop0, starts, lat_ms,
+            state.plane_generation)
 
         # SIGKILL the subscriber while the stream moves on, then restart it
         have = sub_info()["planeGeneration"]
@@ -3251,12 +3618,93 @@ def plane_path(ur, hk, dev, workdir, variants, env):
                 proc.wait(timeout=30)
                 rc = None
             out["subscriber_exit"] = rc
+        restore_env(saved_obs)
     check(out.get("subscriber_exit") == 0,
           f"20: the subscriber exited {out.get('subscriber_exit')} on SIGINT: "
           f"{log_path.read_text()[-2000:]}")
     torch.cuda.empty_cache()
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"  phase 20 wall {out['wall_s']:.3f} s")
+    return out
+
+
+# -- phase 22: pio dashboard on phase 11b's store -----------------------------------
+
+
+def dashboard_path(workdir, env) -> dict:
+    """Phase 22: ``pio dashboard`` (a subprocess) on phase 11b's localfs
+    store: ``/dashboard.json`` lists the store's engine instances and
+    evaluations as the store holds them, the index page lists 11b's trains
+    and the span breakdowns of the trains it shows, ``/spans/<id>.json``
+    serves each of 11b's train journals, and SIGINT stops it with exit 0."""
+    import signal
+
+    from predictionio_tpu_torch.storage import Storage, StorageConfig
+
+    t0 = time.perf_counter()
+    store = Storage(StorageConfig(
+        sources={"FS": {"type": "localfs", "path": env["PIO_STORAGE_SOURCES_FS_PATH"]}},
+        repositories={r: "FS" for r in ("METADATA", "EVENTDATA", "MODELDATA")}))
+    root = Path(__file__).resolve().parent
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    log_path = workdir / "dashboard.log"
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.cli.main", "dashboard", "--ip",
+             "127.0.0.1", "--port", str(port)], cwd=root,
+            env={**os.environ, **env, "PYTHONPATH": str(root)}, stdout=log,
+            stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            check(proc.poll() is None, f"22: pio dashboard exited: {log_path.read_text()[-2000:]}")
+            try:
+                doc = get_json(base + "/dashboard.json", timeout=10)
+                break
+            except (urllib.error.URLError, ConnectionError, OSError):
+                check(time.monotonic() < deadline, "22: pio dashboard never answered")
+                time.sleep(0.2)
+        up_s = time.perf_counter() - t0
+        want = sorted((i.id, i.status, i.engine_id) for i in store.engine_instances.get_all())
+        got = sorted((e["id"], e["status"], e["engineId"]) for e in doc["engineInstances"])
+        check(got == want, f"22: /dashboard.json lists {len(got)} engine instances, the store "
+                           f"{len(want)}")
+        evals = sorted(i.id for i in store.evaluation_instances.get_completed())
+        check(sorted(e["id"] for e in doc["evaluations"]) == evals,
+              "22: /dashboard.json's evaluations differ from the store's")
+        trains = [i for i in store.engine_instances.get_all()
+                  if i.engine_id in (engine_variant(False)["id"], engine_variant(True)["id"])
+                  and i.status == "COMPLETED"]
+        check(trains, "22: no 11b train in the store")
+        with urllib.request.urlopen(base + "/", timeout=60) as resp:
+            page = resp.read().decode()
+        missing = [i.id for i in trains if i.id[:12] not in page]
+        check(not missing, f"22: the index lacks 11b's trains {missing}")
+        check("engine_train: " in page and "save_models: " in page,
+              "22: the index shows no train span breakdown")
+        breakdowns = {}
+        for i in trains:
+            spans = get_json(f"{base}/spans/{i.id}.json")["spans"]
+            names = {s["name"]: s["duration_s"] for s in spans}
+            check({"train", "engine_train", "staging_summary", "save_models"} <= set(names),
+                  f"22: /spans/{i.id}.json holds {sorted(names)}")
+            breakdowns[i.id] = names
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+        check(rc == 0, f"22: pio dashboard exited {rc} on SIGINT")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    out = {"up_s": up_s, "engine_instances": len(got), "evaluations": len(evals),
+           "trains_11b": breakdowns, "wall_s": time.perf_counter() - t0}
+    print(f"  pio dashboard answered {up_s:.3f} s after its start; /dashboard.json lists the "
+          f"store's {len(got)} engine instances and {len(evals)} evaluations; the index lists "
+          f"11b's {len(trains)} trains with span breakdowns: "
+          + "; ".join(f"{k[:12]} " + ", ".join(f"{n} {v:.3f} s" for n, v in sorted(b.items()))
+                      for k, b in breakdowns.items())
+          + f"; SIGINT, exit 0; phase 22 wall {out['wall_s']:.3f} s")
     return out
 
 
@@ -4166,6 +4614,7 @@ RELOAD_INTERVAL_S = 1.0          # the deploy's auto-reload poll
 RELOAD_SLACK_S = 5.0             # the install's bound beyond the poll interval
 SWAP_SLACK_BYTES = 2 << 20       # device memory after the swap, beyond the models' own
 FEEDBACK_QUERIES = 200
+PIPELINED_EVENTS = 2_000         # phase 14's ingest sent one by one through EventPipeline
 UR_LOAD = (500, 32, 100)         # UR queries, clients, distinct bodies
 PROFILED_QUERIES = 500           # a profiled 32-client window after each setting's levels
 
@@ -4394,6 +4843,115 @@ def level_bodies(pool, n, seed):
     return [pool[int(j)] for j in rng.integers(0, len(pool), n)]
 
 
+def ingest_pipelined(es_base, key, events):
+    """Phase 14: ``events`` one by one through the SDK's ``EventPipeline``
+    (one keep-alive connection, pipelined); their event ids, each
+    acknowledged 201 as over raw HTTP, and the wall seconds."""
+    from predictionio_tpu_torch.sdk import EventClient
+
+    client = EventClient(key, es_base, timeout=60.0)
+    t0 = time.perf_counter()
+    with client.pipeline(depth=64) as pipe:
+        handles = [pipe.create_event(
+            e["event"], e["entityType"], e["entityId"], e["targetEntityType"],
+            e["targetEntityId"], e.get("properties"),
+            datetime.datetime.fromtimestamp(epoch(e["eventTime"]), datetime.timezone.utc))
+            for e in events]
+    ids = [h.result()["eventId"] for h in handles]
+    wall = time.perf_counter() - t0
+    check(len(ids) == len(events) and all(isinstance(i, str) and i for i in ids),
+          "14: the pipelined events were not all acknowledged")
+    print(f"  {len(ids)} events through the SDK's EventPipeline in {wall:.3f} s "
+          f"({len(ids) / wall:.0f} events/s), each acknowledged with an event id")
+    return ids, wall
+
+
+def history_and_healthz(base, what) -> dict:
+    """``/metrics/history.json`` of the server at ``base`` holds at least
+    two samples (polled: the sampler ticks every PIO_TSDB_INTERVAL_S) and
+    ``/healthz`` answers 200 with a verdict."""
+    deadline = time.monotonic() + 30
+    while True:
+        hist = get_json(base + "/metrics/history.json")
+        if len(hist["samples"]) >= 2:
+            break
+        check(time.monotonic() < deadline,
+              f"{what}: /metrics/history.json holds {len(hist['samples'])} samples")
+        time.sleep(0.5)
+    with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
+        check(resp.status == 200, f"{what}: /healthz answered {resp.status}")
+        health = json.loads(resp.read())
+    check(health["status"] in ("ok", "warn", "burning", "no_data"),
+          f"{what}: /healthz {health}")
+    return {"history_samples": len(hist["samples"]), "healthz": health["status"],
+            "slos": {k: v["verdict"] for k, v in health.get("slos", {}).items()}}
+
+
+def eventserver_obs(es_base, rid) -> dict:
+    """Phase 14: the event server's trace of the debug batch holds the
+    group commit's ``group_commit_append`` span (either worker answers: the
+    group's traces are merged); its history ring and ``/healthz``."""
+    doc = fetch_trace(es_base, rid)
+    names = [s["name"] for s in doc["spans"]]
+    check(doc["route"] == "/batch/events.json" and doc["status"] == 200
+          and "group_commit_append" in names,
+          f"14: the debug batch's trace: {doc['route']} {doc['status']} spans {names}")
+    out = {"batch_trace_spans": names, "batch_trace_ms": doc["durationMs"],
+           "eventserver": history_and_healthz(es_base, "14 event server")}
+    print(f"  the debug batch's trace (worker {doc['worker']}): {doc['durationMs']:.3f} ms, "
+          f"spans {names}; the event server's /metrics/history.json "
+          f"{out['eventserver']['history_samples']} samples, /healthz "
+          f"{out['eventserver']['healthz']}")
+    return out
+
+
+def queryserver_obs(workdir, port, level_1, round_32, n_queries) -> dict:
+    """Phase 14, on the default deploy: the 1-client level's bodies again
+    through the SDK's ``EngineClient`` (one keep-alive connection) answer
+    what raw HTTP answered; the history ring and ``/healthz``; then a
+    32-client level with the flight recorder off (``PIO_TRACING=off``),
+    then on again, beside the default's level: the recorder's per-request
+    cost against the spread of two rounds with it on."""
+    from predictionio_tpu_torch.obs import tracing
+    from predictionio_tpu_torch.sdk import EngineClient
+
+    base = f"http://127.0.0.1:{port}"
+    bodies, raw = level_1
+    client = EngineClient(base, timeout=60.0)
+    got = [client.send_query(b) for b in bodies]
+    differ = sum(g != w for g, w in zip(got, raw))
+    check(differ == 0, f"14: {differ} EngineClient answers differ from raw HTTP's")
+    out = {"engine_client_queries": len(got), "queryserver": history_and_healthz(base, "14")}
+    kept = tracing.get_recorder()
+    saved = os.environ.get("PIO_TRACING")
+    bodies32 = level_bodies(bodies, n_queries, SEED + 32)
+    rounds = {"on": {"p50_ms": round_32["p50_ms"], "qps": round_32["qps"]}}
+    for name in ("off", "on_again"):
+        if name == "off":
+            os.environ["PIO_TRACING"] = "off"
+            tracing.set_recorder(tracing.FlightRecorder())
+        try:
+            check(tracing.get_recorder().enabled == (name != "off"),
+                  f"14: the flight recorder is {'on' if name == 'off' else 'off'} for {name}")
+            statuses, lat_ms, _, wall = run_clients(workdir, port, "/queries.json", bodies32,
+                                                    32)
+        finally:
+            tracing.set_recorder(kept)
+            restore_env({"PIO_TRACING": saved})
+        check(set(statuses) == {200}, f"14 tracing {name}: statuses {set(statuses)}")
+        rounds[name] = {"p50_ms": float(np.percentile(lat_ms, 50)),
+                        "qps": len(bodies32) / wall}
+    out["tracing_32_clients"] = rounds
+    print(f"  {len(got)} queries through the SDK's EngineClient answer what raw HTTP "
+          f"answered; the query server's /metrics/history.json "
+          f"{out['queryserver']['history_samples']} samples, /healthz "
+          f"{out['queryserver']['healthz']}; 32 clients, {n_queries} queries a round, the "
+          "flight recorder on (default), off (PIO_TRACING=off), on again: "
+          + ", ".join(f"{k} p50 {v['p50_ms']:.3f} ms {v['qps']:.1f} q/s"
+                      for k, v in rounds.items()) + " (host clock)")
+    return out
+
+
 def frontend_path(hk, dev, workdir, shop):
     """Phase 14: ``pio eventserver --workers 2`` ingest over HTTP → ``pio
     train`` → ``deploy(auto_reload=..., device="cuda")`` in this process
@@ -4442,13 +5000,26 @@ def frontend_path(hk, dev, workdir, shop):
                     e["properties"] = {"rating": int(ratings[j])}
                 events.append(e)
                 t_ev += 1
-        batches = [events[k:k + INGEST_BATCH] for k in range(0, len(events), INGEST_BATCH)]
+        # the first batch goes with X-PIO-Debug (its trace must hold the group
+        # commit's span), the last PIPELINED_EVENTS one by one through the
+        # SDK's EventPipeline, the rest as batches from the client processes
+        piped = events[len(events) - PIPELINED_EVENTS:]
+        batches = [events[k:k + INGEST_BATCH]
+                   for k in range(0, len(events) - PIPELINED_EVENTS, INGEST_BATCH)]
+        debug_acks = json.loads(post_traced(f"{es_base}/batch/events.json?accessKey={key}",
+                                            batches[0], "smoke14-batch"))
         statuses, lat_ms, answers, wall = run_clients(
-            workdir, es_port, f"/batch/events.json?accessKey={key}", batches, INGEST_CLIENTS)
+            workdir, es_port, f"/batch/events.json?accessKey={key}", batches[1:],
+            INGEST_CLIENTS)
         check(set(statuses) == {200}, f"batch statuses {sorted(set(statuses))}")
-        acked = [r["eventId"] for a in answers for r in a if r["status"] == 201]
+        piped_ids, piped_s = ingest_pipelined(es_base, key, piped)
+        acked = ([r["eventId"] for r in debug_acks if r["status"] == 201]
+                 + [r["eventId"] for a in answers for r in a if r["status"] == 201]
+                 + piped_ids)
         check(len(acked) == len(events) == n_rate + n_buy,
               f"{len(acked)} of {len(events)} events acknowledged 201")
+        out["observability"] = eventserver_obs(es_base, "smoke14-batch")
+        out["observability"]["pipelined"] = {"events": len(piped_ids), "wall_s": piped_s}
         store = get_storage()
         chan = Path(store.l_events.segment_paths(app_id)[0]).parent
         segs = sorted(p.name for p in chan.glob("seg-*.jsonl"))
@@ -4503,6 +5074,7 @@ def frontend_path(hk, dev, workdir, shop):
         rng = np.random.default_rng(SEED + 14)
         pool = queries(rng, FRONTEND_POOL)
         rounds, refs = [], {}   # one trained instance serves every round
+        level_answers = {}
         # the PIO_HTTP_POOL=32 server, batching as a CUDA deploy does by
         # default, stays up for the hot reload below
         settings = [("default pool", {}, FRONTEND_LEVELS),
@@ -4543,6 +5115,7 @@ def frontend_path(hk, dev, workdir, shop):
                 swaps = check_als_answers(model, bodies, answers, refs)
                 check(reruns == 0, f"{name} c={conc}: {reruns} serial re-runs on a clean load")
                 check(launches[0] > 0, f"{name} c={conc}: no masked_score launch")
+                level_answers[(name, conc)] = (bodies, answers)
                 p50, p99 = np.percentile(lat_ms, [50, 99])
                 r = {"setting": name, "clients": conc, "queries": len(bodies),
                      "p50_ms": float(p50), "p99_ms": float(p99), "qps": len(bodies) / wall,
@@ -4561,6 +5134,9 @@ def frontend_path(hk, dev, workdir, shop):
                       f"{run_ms['p99_ms']:.3f} ms mean {run_ms['mean_ms']:.3f} ms, their sum "
                       f"{run_ms['share_of_wall']:.3f} of the wall; serial re-runs {reruns}; "
                       f"every answer against float64 host scoring ({swaps} near-tie swaps)")
+            if name == "default pool":
+                out["observability"].update(queryserver_obs(
+                    workdir, port, level_answers[(name, 1)], rounds[-1], FRONTEND_QUERIES))
             # where a concurrent query's time goes: the device's busy share
             # of a 32-client window, beside the host time of its batch runs
             bodies = level_bodies(pool, PROFILED_QUERIES, SEED + 17)
@@ -6079,6 +6655,8 @@ def run() -> None:
         url = f"http://127.0.0.1:{server.server_address[1]}/queries.json"
         answers, lat_ms = timed_posts(url, bodies)
         http_launches = hk.masked_score_matmul.launches
+        traced_7 = trace_als_queries(hk, f"http://127.0.0.1:{server.server_address[1]}",
+                                     listed[:2])
     finally:
         server.shutdown()
         server.server_close()
@@ -6162,6 +6740,10 @@ def run() -> None:
         shard = sharded_path(ur, hk, dev, workdir, variants, tables_11b)
         del tables_11b
         torch.cuda.empty_cache()
+
+        phase("22. pio dashboard on 11b's store: the index with 11b's trains and their span "
+              "breakdowns, /dashboard.json against the store")
+        dashboard = dashboard_path(workdir, env)
 
         phase("12b. ALS at the deployed width through localfs and pio "
               "(import, train, deploy, /queries.json)")
@@ -6390,6 +6972,19 @@ def run() -> None:
           f"append -> reflected p50 {shard['p50_ms']:.3f} ms p99 {shard['p99_ms']:.3f} ms; "
           f"promotion to the next acknowledged write {shard['promotion_to_acked_write_s']:.3f} "
           f"s; replica lag at the end {shard['replica_lag_end']} | {smi}")
+    tr = caches["traced"]
+    fo = frontend["observability"]
+    print(f"  observability: phase 17's traced device-tail queries (PIO_SERVE_BATCH=off) "
+          f"ur_predict median {statistics.median(tr['ur_predict_ms']):.3f} ms, laps median "
+          f"{ {k: round(v, 4) for k, v in tr['laps_median_ms'].items()} } ms, the widest "
+          f"{tr['widest_lap']}; phase 14 at 32 clients, the flight recorder "
+          + ", ".join(f"{k} p50 {v['p50_ms']:.3f} ms {v['qps']:.1f} q/s"
+                      for k, v in fo["tracing_32_clients"].items())
+          + "; phase 19 append_observed -> first serve "
+          f"{[round(d['append_to_first_serve_ms'], 3) for d in follow['observability']['rounds']]}"
+          f" ms; phase 20 propagation observed "
+          f"{planes['observability']['propagation_observed']} times; phase 22 "
+          f"{dashboard['wall_s']:.3f} s | {smi}")
     print(f"  chip_smoke wall {time.perf_counter() - t_start:.3f} s | {smi}")
     launches = {"masked_score": (http_launches + batch_launches + als_run["k1_launches"]
                                  + load_launches + slice13["launches"]["masked_score"]),
@@ -6414,7 +7009,7 @@ def run() -> None:
                       "frontend": frontend, "cco_scale": scale,
                       "similar_product": similar, "ur_caches": caches,
                       "follow": follow, "plane": planes, "sharded": shard,
-                      "slice13": slice13,
+                      "slice13": slice13, "dashboard": dashboard, "traced_als": traced_7,
                       "k1_retime": k1_rounds, "empty_kernel_ms": empty_ms, "llr_sass": sass,
                       "wall_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": [{

@@ -2,9 +2,10 @@
 
 Counterpart of ``predictionio_tpu/api/event_server.py`` (reference:
 data/src/main/scala/io/prediction/data/api/EventServer.scala).  The
-event server has no device.  The JAX package's trace, lineage, history
-and healthz routes wait for ROADMAP.md, queue A, 'Observability and the
-rest of the front end', and answer 404 here.
+event server has no device.  Besides the routes below it serves the flight
+recorder (``/traces.json``, ``/traces/<rid>.json``), lineage
+(``/lineage.json``), the metrics history (``/metrics/history.json``) and
+``/healthz``, in the JAX package's order.
 
   POST   /events.json?accessKey=K[&channel=C]         single event  → 201
   POST   /batch/events.json?accessKey=K               ≤50 events, per-item status
@@ -33,7 +34,11 @@ from typing import Any, Dict, List, Optional, Tuple
 from predictionio_tpu_torch import __version__
 from predictionio_tpu_torch.api.http_util import JsonHandler, start_server
 from predictionio_tpu_torch.events.event import Event, parse_time
+from predictionio_tpu_torch.obs import lineage as obs_lineage
 from predictionio_tpu_torch.obs import metrics as obs_metrics
+from predictionio_tpu_torch.obs import slo as obs_slo
+from predictionio_tpu_torch.obs import tracing as obs_tracing
+from predictionio_tpu_torch.obs import tsdb as obs_tsdb
 from predictionio_tpu_torch.obs.exposition import StatsCollector, metrics_payload
 from predictionio_tpu_torch.storage.base import AccessKey
 from predictionio_tpu_torch.storage.locator import Storage, get_storage
@@ -177,6 +182,18 @@ def make_handler(state: EventServerState):
                 self._send_raw(200, metrics_payload(),
                                ctype="text/plain; version=0.0.4; "
                                      "charset=utf-8")
+                return
+            if obs_tracing.handle_trace_request(self, path):
+                # flight-recorder index + waterfalls, cross-worker merged
+                return
+            if obs_lineage.handle_lineage_request(self, path):
+                # generation lineage (the query-server side writes the
+                # records; an event server sharing the group dir serves
+                # the merged view too)
+                return
+            if obs_tsdb.handle_history_request(self, path):
+                return
+            if obs_slo.handle_healthz_request(self, path):
                 return
             if path == "/stop":
                 # graceful shutdown (same contract as the query server's
@@ -513,6 +530,13 @@ def run_event_server(
             os.environ.pop("PIO_WRITER_TAG", None)
         else:
             os.environ["PIO_WRITER_TAG"] = prev_tag
+    # flight recorder: retained traces persist where siblings (prefork
+    # workers via PIO_METRICS_DIR env; a dashboard via the shared storage
+    # path) can merge them into their /traces.json
+    obs_tracing.arm(storage=state.storage)
+    obs_lineage.arm(storage=state.storage)
+    if obs_metrics.get_registry().enabled:
+        obs_tsdb.start_sampler()
     httpd = start_server(make_handler(state), host, port,
                          background=background,
                          reuse_port=workers > 1 or reuse_port)
@@ -528,6 +552,12 @@ def run_event_server(
 
         metrics_dir = tempfile.mkdtemp(prefix="pio-metrics-")
         obs_metrics.start_worker_flusher(metrics_dir, f"w0-{os.getpid()}")
+        # the parent's traces join the group dir the children will
+        # resolve from their PIO_METRICS_DIR environment
+        obs_tracing.arm(directory=os.path.join(metrics_dir, "traces"),
+                        tag=f"w0-{os.getpid()}")
+        obs_lineage.arm(directory=os.path.join(metrics_dir, "lineage"),
+                        tag=f"w0-{os.getpid()}")
         children = prefork.spawn_workers(
             workers - 1,
             lambda w: [sys.executable, "-m", "predictionio_tpu_torch.cli.main",

@@ -3,10 +3,9 @@
 Counterpart of ``predictionio_tpu/api/http_util.py``: the same event-loop
 front end, the same wire behaviour (refusals, their order, keep-alive,
 pipelining, the body cap), the same ``pio_http_*`` instruments and
-``PIO_HTTP_*`` settings.  The JAX package's flight-recorder hook in
-``_execute`` is not here (ROADMAP.md, queue A, 'Observability and the rest
-of the front end'); the request id is minted and echoed in
-``X-Request-ID`` as there.
+``PIO_HTTP_*`` settings, and the same flight-recorder hook in ``_execute``
+(``obs/tracing.py``): the request id is minted and echoed in
+``X-Request-ID``, and keys the request's trace, as there.
 
 The front end is a nonblocking event loop, not a thread per connection
 (a thread per connection convoys on the GIL and the accept queue under
@@ -60,6 +59,7 @@ from typing import Any, Dict, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 from predictionio_tpu_torch.native import core as _ncore
+from predictionio_tpu_torch.obs import tracing as _tracing
 from predictionio_tpu_torch.obs.metrics import get_registry
 
 _access_log = logging.getLogger("pio.http")
@@ -80,8 +80,9 @@ _M_CONNS = _REG.gauge(
 _RID = itertools.count(1)
 _RID_PREFIX = f"{os.getpid():x}"
 # an incoming X-Request-ID is honored only in this shape: it is echoed
-# into headers (and, once the flight recorder is ported, trace files and
-# exemplars), so an unconstrained client value could corrupt them
+# into headers, trace files, /traces/<rid>.json URLs, and /metrics
+# exemplar annotations, so an unconstrained client value could corrupt
+# any of those surfaces
 _RID_SAFE = re.compile(r"^[A-Za-z0-9._:-]{1,64}$")
 
 # static routes exposed verbatim; everything else is normalized (or
@@ -514,10 +515,11 @@ class EventLoopHTTPServer:
         self._conns: Dict[int, _Connection] = {}
         self._tasks: "queue.SimpleQueue" = queue.SimpleQueue()
         # server-global count of queued + executing handler tasks,
-        # INCLUDING the post-response middleware tail (metrics, stats).
-        # Per-connection inflight can't serve as the shutdown barrier: a
-        # close-marked response closes its connection the moment it
-        # flushes, while the handler thread is still recording — a
+        # INCLUDING the post-response middleware tail (metrics, trace
+        # persistence).  Per-connection inflight can't serve as the
+        # shutdown barrier: a close-marked response closes its connection
+        # the moment it flushes, while the handler thread is still
+        # persisting the trace — a
         # ThreadingMixIn server_close() joined handler threads, and
         # shutdown here must give the same guarantee
         self._task_cv = threading.Condition()
@@ -614,7 +616,7 @@ class EventLoopHTTPServer:
 
     def _final_flush(self) -> None:
         """Best-effort drain after shutdown: let in-flight handler tasks
-        (e.g. the /stop response itself, its metrics still recording)
+        (e.g. the /stop response itself, a trace still persisting)
         finish and their bytes leave.  Exits as soon as everything is
         idle — the deadline only bounds a wedged handler."""
         deadline = time.monotonic() + 2.0
@@ -911,9 +913,10 @@ class EventLoopHTTPServer:
     def _run_task(self, conn: _Connection, req: _Request) -> None:
         """Execute one request end to end, then settle the connection's
         accounting.  The in-flight decrement happens HERE — after the
-        middleware tail (metrics, stats), not at response-send time — so
-        shutdown's final flush and the idle reaper never observe a
-        request as done while it is still being recorded."""
+        middleware tail (trace persist, metrics), not at response-send
+        time — so shutdown's final flush and the idle reaper never
+        observe a request as done while its trace is still being
+        written."""
         try:
             self._execute(conn, req)
         except Exception:
@@ -970,6 +973,15 @@ class EventLoopHTTPServer:
         h.request_id = (rid if rid and _RID_SAFE.match(rid)
                         else f"{_RID_PREFIX}-{next(_RID):x}")
         method = getattr(h, "do_" + req.command, None)
+        # flight recorder: open a live trace keyed by the request id;
+        # spans from instrumented layers accumulate via the contextvar
+        # (set in THIS thread, where the handler runs), and the
+        # tail-sampling keep/drop decision happens at the end
+        recorder = _tracing.get_recorder()
+        trace = recorder.begin(
+            h.request_id, req.command,
+            debug=req.headers.get("x-pio-debug") is not None)
+        token = _tracing._CURRENT.set(trace) if trace is not None else None
         _M_INFLIGHT.inc()
         t0 = time.perf_counter()
         try:
@@ -989,13 +1001,20 @@ class EventLoopHTTPServer:
             if not h._responded:
                 # a handler that returned without answering would wedge
                 # every later pipelined response behind its empty slot;
-                # send the 500 BEFORE the instruments record so metrics
-                # and stats see the status the client got
+                # send the 500 BEFORE the instruments record so metrics,
+                # stats, and the trace all see the status the client got
                 h.close_connection = True
                 h.send_error_json(500, "handler sent no response")
             _M_INFLIGHT.dec()
             route = route_label(req.path)
-            _M_LAT.observe(time.perf_counter() - t0, route=route)
+            if token is not None:
+                _tracing._CURRENT.reset(token)
+                recorder.finish(trace, h._status_sent or 0, route)
+            # exemplar: the max-latency observation per window carries
+            # its trace id, linking /metrics tails to /traces/<rid>.json
+            _M_LAT.observe(time.perf_counter() - t0, route=route,
+                           exemplar=h.request_id if trace is not None
+                           else None)
             _M_REQS.inc(1, route=route, status=str(h._status_sent or 0))
             sc = h.stats_collector
             if sc is not None:

@@ -19,14 +19,17 @@ tools/.../console/Console.scala and bin/pio):
   plane-subscribe --from HOST:PORT --plane-dir D  a standalone replication subscriber
   eventserver / adminserver                      REST ingestion / admin API
   metrics <url>                                  pretty-print a server's /metrics
+  dashboard [--ip] [--port]                      evaluations, trains and their spans (HTML)
+  trace <url> [--rid|--slow]                     a server's flight recorder / a waterfall
+  lineage <url> [--gen|--lid] [--cluster]        generation lineage / a freshness waterfall
+  top <url> [--window] [--cluster]               sparklines of the metrics history ring
   status / version
 
 The device is the counterpart of the JAX package's ``PIO_JAX_PLATFORM``:
 ``PIO_TORCH_DEVICE=cpu|cuda`` (default ``cuda``), read here once and
 handed to ``train`` and ``deploy`` as their ``device``; ``cuda`` without a
-card raises, and nothing falls back to the CPU.  The other subcommands of
-the JAX console exist and exit non-zero naming the ROADMAP item that
-brings them.
+card raises, and nothing falls back to the CPU.  Every subcommand of the
+JAX console exists here.
 """
 
 from __future__ import annotations
@@ -44,15 +47,6 @@ from typing import List, Optional
 
 from predictionio_tpu_torch import __version__
 from predictionio_tpu_torch.storage import AccessKey, App, Channel, get_storage
-
-ROADMAP = {
-    "observability": "ROADMAP.md, queue A, 'Observability and the rest of the front end'",
-}
-#: subcommands of the JAX console the port does not have yet -> ROADMAP key
-NOT_PORTED = {
-    "dashboard": "observability", "trace": "observability",
-    "lineage": "observability", "top": "observability",
-}
 
 
 def _error(message: str) -> int:
@@ -492,8 +486,297 @@ def _cmd_snapshot(args) -> int:
     return 0
 
 
-def _cmd_not_ported(args) -> int:
-    return _error(f"pio {args.command} is not ported yet ({ROADMAP[NOT_PORTED[args.command]]})")
+def _cmd_dashboard(args) -> int:
+    from predictionio_tpu_torch.api.dashboard import run_dashboard
+
+    return run_dashboard(host=args.ip, port=args.port)
+
+
+def _cmd_trace(args) -> int:
+    """`pio trace <url>` — browse a server's flight recorder: the
+    retained-trace index by default, one request's full waterfall with
+    `--rid`, or the slowest retained request's waterfall with `--slow`.
+    Any pio server works; one worker of a prefork group answers for the
+    whole group (cross-worker merge)."""
+    import urllib.error
+    import urllib.request
+
+    from predictionio_tpu_torch.obs.tracing import render_waterfall_text
+
+    base = args.url
+    if "://" not in base:
+        base = f"http://{base}"
+    base = base.rstrip("/")
+    for suffix in ("/traces.json", "/traces"):
+        if base.endswith(suffix):
+            base = base[: -len(suffix)]
+
+    def fetch(path):
+        with urllib.request.urlopen(base + path, timeout=args.timeout) as r:
+            return json.loads(r.read().decode("utf-8", "replace"))
+
+    try:
+        if args.rid:
+            doc = fetch(f"/traces/{args.rid}.json")
+            sys.stdout.write(render_waterfall_text(doc))
+            return 0
+        index = fetch("/traces.json")
+        traces = index.get("traces", [])
+        if args.slow:
+            if not traces:
+                print("No retained traces (nothing slow/errored/sampled "
+                      "yet — send a request with an X-PIO-Debug header to "
+                      "force one).", file=sys.stderr)
+                return 1
+            slowest = max(traces,
+                          key=lambda t: float(t.get("durationMs") or 0.0))
+            doc = fetch(f"/traces/{slowest['rid']}.json")
+            sys.stdout.write(render_waterfall_text(doc))
+            return 0
+        print(f"{len(traces)} retained trace(s) "
+              f"(answered by worker {index.get('worker', '?')}):")
+        for t in traces:
+            print("  %-28s %7.1f ms  %s %-24s %s  kept=%s worker=%s"
+                  % (t.get("rid", "?"), float(t.get("durationMs") or 0.0),
+                     t.get("method", ""), t.get("route", ""),
+                     t.get("status", 0), t.get("reason", "?"),
+                     t.get("worker", "?")))
+        if traces:
+            print(f"(pio trace {args.url} --rid <id> renders a waterfall)")
+        return 0
+    except urllib.error.HTTPError as e:
+        try:
+            msg = json.loads(e.read()).get("message", "")
+        except Exception:
+            msg = str(e)
+        print(f"Error: {base}: HTTP {e.code}: {msg}", file=sys.stderr)
+        return 1
+    except (urllib.error.URLError, OSError, ValueError) as e:
+        print(f"Error: cannot reach {base}: {e}", file=sys.stderr)
+        return 1
+
+
+def _cmd_lineage(args) -> int:
+    """`pio lineage <url>` — browse a deployment's generation lineage:
+    the merged record index by default, one generation's freshness
+    waterfall (append-observed → fold → publish → plane write → watcher
+    wake → compose → install → first serve) with `--gen` or `--lid`.
+    Any worker of a prefork group answers for the whole group (the
+    records are merged across the publisher and every worker)."""
+    import urllib.error
+    import urllib.request
+
+    from predictionio_tpu_torch.obs.lineage import (
+        render_lineage_cluster_text,
+        render_lineage_text,
+    )
+
+    base = args.url
+    if "://" not in base:
+        base = f"http://{base}"
+    base = base.rstrip("/")
+    for suffix in ("/lineage.json", "/lineage"):
+        if base.endswith(suffix):
+            base = base[: -len(suffix)]
+
+    def fetch(path):
+        with urllib.request.urlopen(base + path, timeout=args.timeout) as r:
+            return json.loads(r.read().decode("utf-8", "replace"))
+
+    try:
+        token = args.gen if args.gen is not None else args.lid
+        if token is not None:
+            doc = fetch(f"/lineage/{token}.json")
+            if args.cluster:
+                sys.stdout.write(render_lineage_cluster_text(doc))
+            else:
+                sys.stdout.write(render_lineage_text(doc))
+            return 0
+        index = fetch("/lineage.json")
+        records = index.get("records", [])
+        print(f"{len(records)} lineage record(s) "
+              f"(answered by worker {index.get('worker', '?')}):")
+        for r in records:
+            cl = r.get("cluster") or {}
+            cl_txt = (" cluster=%d/%d" % (cl.get("done", 0),
+                                          cl.get("expected", 0))
+                      if cl else "")
+            print("  gen %-6s %-18s %-16s %8.1f ms  %2d stages  "
+                  "origin=%s workers=%s%s"
+                  % (r.get("generation", "?"), r.get("lid", "?"),
+                     r.get("outcome", "?"),
+                     float(r.get("durationMs") or 0.0),
+                     r.get("stageCount", 0), r.get("origin", "?"),
+                     ",".join(r.get("workers") or []), cl_txt))
+        if records:
+            print(f"(pio lineage {args.url} --gen <generation> renders a "
+                  "waterfall)")
+        return 0
+    except urllib.error.HTTPError as e:
+        try:
+            msg = json.loads(e.read()).get("message", "")
+        except Exception:
+            msg = str(e)
+        print(f"Error: {base}: HTTP {e.code}: {msg}", file=sys.stderr)
+        return 1
+    except (urllib.error.URLError, OSError, ValueError) as e:
+        print(f"Error: cannot reach {base}: {e}", file=sys.stderr)
+        return 1
+
+
+_SPARK_BLOCKS = "▁▂▃▄▅▆▇█"
+
+
+def _sparkline(vals) -> str:
+    if not vals:
+        return ""
+    lo, hi = min(vals), max(vals)
+    if hi - lo < 1e-12:
+        return _SPARK_BLOCKS[0] * len(vals)
+    return "".join(
+        _SPARK_BLOCKS[int((v - lo) / (hi - lo) * (len(_SPARK_BLOCKS) - 1))]
+        for v in vals)
+
+
+def _cmd_top_cluster(args, base: str) -> int:
+    """`pio top <url> --cluster` — the publisher's federated per-node
+    view (/cluster/metrics.json + /cluster/history.json): one row per
+    subscriber node with liveness, generation, lag, qps and p95, plus a
+    qps sparkline per node over the federated ring."""
+    import urllib.error
+    import urllib.request
+
+    def fetch(path):
+        with urllib.request.urlopen(base + path, timeout=args.timeout) as r:
+            return json.loads(r.read().decode("utf-8", "replace"))
+
+    try:
+        doc = fetch("/cluster/metrics.json")
+        history = fetch(f"/cluster/history.json?limit={args.window}")
+    except urllib.error.HTTPError as e:
+        try:
+            msg = json.loads(e.read()).get("message", "")
+        except Exception:
+            msg = str(e)
+        print(f"Error: {base}: HTTP {e.code}: {msg}", file=sys.stderr)
+        return 1
+    except (urllib.error.URLError, OSError, ValueError) as e:
+        print(f"Error: cannot reach {base}: {e}", file=sys.stderr)
+        return 1
+    nodes = doc.get("nodes") or {}
+    samples = history.get("samples") or []
+    print(f"{base}  —  cluster of {len(nodes)} subscriber node(s), "
+          f"scraped every {doc.get('scrapeIntervalSeconds', '?')}s "
+          f"(publisher node {doc.get('node') or '?'})")
+    if not nodes:
+        print("  (no subscribers have connected to this publisher yet)")
+        return 0
+    fmt = "  %-20s %-4s %6s %5s %9s %9s %8s"
+    print(fmt % ("node", "up", "gen", "lag", "qps", "p95 ms", "stale s"))
+    for name in sorted(nodes):
+        n = nodes[name]
+
+        def num(v, scale=1.0, pat="%.1f"):
+            return pat % (float(v) * scale) if v is not None else "-"
+
+        print(fmt % (
+            name[:20], "yes" if n.get("up") else "NO",
+            "%d" % n["generation"] if n.get("generation") is not None
+            else "-",
+            num(n.get("replLag"), pat="%.0f"), num(n.get("qps")),
+            num(n.get("p95"), 1e3), num(n.get("staleSeconds")))
+            + (f"  ({n.get('error')})" if n.get("error") else ""))
+        qps = [((s.get("nodes") or {}).get(name) or {}).get("qps")
+               for s in samples]
+        qps = [float(v) for v in qps if v is not None]
+        if len(qps) >= 2:
+            print("    qps %s" % _sparkline(qps))
+    return 0
+
+
+def _cmd_top(args) -> int:
+    """`pio top <url>` — one-shot terminal view of a server's recent
+    history (/metrics/history.json: the local time-series ring): a
+    sparkline + latest value per key signal.  No Prometheus needed.
+    `--cluster` switches to the publisher's federated per-node view."""
+    import urllib.error
+    import urllib.request
+
+    base = args.url
+    if "://" not in base:
+        base = f"http://{base}"
+    base = base.rstrip("/")
+    if args.cluster:
+        return _cmd_top_cluster(args, base)
+    url = base + "/metrics/history.json"
+    try:
+        with urllib.request.urlopen(url, timeout=args.timeout) as r:
+            history = json.loads(r.read().decode("utf-8", "replace"))
+    except urllib.error.HTTPError as e:
+        print(f"Error: {url}: HTTP {e.code}", file=sys.stderr)
+        return 1
+    except (urllib.error.URLError, OSError, ValueError) as e:
+        print(f"Error: cannot reach {url}: {e}", file=sys.stderr)
+        return 1
+    samples = history.get("samples", [])[-args.window:]
+    if len(samples) < 2:
+        print("Not enough history yet (the sampler ticks every "
+              f"{history.get('intervalSeconds', '?')} s) — try again "
+              "shortly.")
+        return 1
+
+    def series_vals(metric, reducer, match=""):
+        out = []
+        for s in samples:
+            entry = (s.get("m") or {}).get(metric)
+            vals = [float(v) for k, v in (entry or {}).get(
+                "series", {}).items()
+                if not match or match in k] if entry else []
+            out.append(reducer(vals) if vals else 0.0)
+        return out
+
+    def rate(vals):
+        rates = []
+        for (p, c), (tp, tc) in zip(
+                zip(vals, vals[1:]),
+                zip((s["t"] for s in samples),
+                    (s["t"] for s in samples[1:]))):
+            dt = max(tc - tp, 1e-9)
+            rates.append(max(c - p, 0.0) / dt)
+        return rates
+
+    rows = [
+        ("req/s", rate(series_vals("pio_http_requests_total", sum)),
+         "{:.1f}"),
+        ("events ingested/s",
+         rate(series_vals("pio_events_ingested_total", sum)), "{:.1f}"),
+        ("folds/s", rate(series_vals("pio_follow_folds_total", sum)),
+         "{:.2f}"),
+        ("fold lag (events)",
+         series_vals("pio_follow_lag_events", max)[1:], "{:.0f}"),
+        ("state MB",
+         [v / 1e6 for v in
+          series_vals("pio_follow_state_bytes", max)[1:]], "{:.1f}"),
+        ("rss MB (sum)",
+         [v / 1e6 for v in
+          series_vals("pio_process_rss_bytes", sum)[1:]], "{:.0f}"),
+        ("plane chain len",
+         series_vals("pio_model_plane_chain_len", max)[1:], "{:.0f}"),
+        ("cache entries",
+         series_vals("pio_serve_cache_entries", sum)[1:], "{:.0f}"),
+        ("slo burn (fast, max)",
+         series_vals("pio_slo_burn_rate", max, match='window="fast"')[1:],
+         "{:.2f}"),
+    ]
+    span_s = samples[-1]["t"] - samples[0]["t"]
+    print(f"{base}  —  {len(samples)} samples over {span_s:.0f}s "
+          f"(worker {history.get('worker', '?')})")
+    for label, vals, fmt in rows:
+        if not vals:
+            continue
+        last = fmt.format(vals[-1])
+        print(f"  {label:<22} {_sparkline(vals)}  {last}")
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -667,10 +950,60 @@ def build_parser() -> argparse.ArgumentParser:
                     help="print the raw Prometheus text instead")
     mt.set_defaults(func=_cmd_metrics)
 
-    for name in NOT_PORTED:
-        sp = sub.add_parser(name, help=f"not ported yet ({ROADMAP[NOT_PORTED[name]]})")
-        sp.add_argument("rest", nargs=argparse.REMAINDER)
-        sp.set_defaults(func=_cmd_not_ported)
+    db = sub.add_parser("dashboard")
+    db.add_argument("--ip", default="127.0.0.1")
+    db.add_argument("--port", type=int, default=9000)
+    db.set_defaults(func=_cmd_dashboard)
+
+    tc = sub.add_parser(
+        "trace",
+        help="browse a server's request flight recorder "
+             "(/traces.json index; --rid/--slow render a waterfall)")
+    tc.add_argument("url",
+                    help="server base URL or host:port (e.g. "
+                         "http://127.0.0.1:8000 or 127.0.0.1:8000)")
+    tc.add_argument("--rid", default=None,
+                    help="render the waterfall of this request id")
+    tc.add_argument("--slow", action="store_true",
+                    help="render the slowest retained trace's waterfall")
+    tc.add_argument("--timeout", type=float, default=10.0)
+    tc.set_defaults(func=_cmd_trace)
+
+    ln = sub.add_parser(
+        "lineage",
+        help="browse a deployment's generation lineage "
+             "(/lineage.json index; --gen/--lid render a freshness "
+             "waterfall)")
+    ln.add_argument("url",
+                    help="server base URL or host:port (e.g. "
+                         "http://127.0.0.1:8000 or 127.0.0.1:8000)")
+    ln.add_argument("--gen", default=None,
+                    help="render the waterfall of this plane/model "
+                         "generation")
+    ln.add_argument("--lid", default=None,
+                    help="render the waterfall of this lineage id "
+                         "(ln-...)")
+    ln.add_argument("--cluster", action="store_true",
+                    help="render the stitched cross-node waterfall with "
+                         "one lane per subscriber node (publisher URL)")
+    ln.add_argument("--timeout", type=float, default=10.0)
+    ln.set_defaults(func=_cmd_lineage)
+
+    tp = sub.add_parser(
+        "top",
+        help="sparkline view of a server's recent metrics history "
+             "(/metrics/history.json ring)")
+    tp.add_argument("url",
+                    help="server base URL or host:port (e.g. "
+                         "http://127.0.0.1:8000 or 127.0.0.1:8000)")
+    tp.add_argument("--window", type=int, default=60,
+                    help="samples to render (default 60)")
+    tp.add_argument("--cluster", action="store_true",
+                    help="federated per-node view from the publisher's "
+                         "/cluster/metrics.json + /cluster/history.json")
+    tp.add_argument("--timeout", type=float, default=10.0)
+    tp.set_defaults(func=_cmd_top)
+
     return p
 
 

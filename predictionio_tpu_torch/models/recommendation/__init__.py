@@ -8,6 +8,8 @@ from predictionio_tpu_torch.models.recommendation.engine import (  # noqa: F401
     ItemScore,
     PredictedResult,
     RecommendationEngine,
+    RecoDataSource,
+    RecoPreparator,
     RecoQuery,
     RecoServing,
 )

@@ -36,9 +36,13 @@ cache hits peel off first, then the misses' histories score against the
 resident tables in one gather an event type, and both top-ks for the whole
 batch come back in one [B, 4, k] readback.
 
-Not ported yet, each named in ROADMAP.md: the per-query ``ur_predict``
-spans and trace laps (queue A, 'Observability and the rest of the front
-end'); multi-device training.  Evaluation: ``URDataSource.read_eval``'s
+When a span journal is active (eval and batch runs) or a request trace is
+live (the flight recorder), each query records a ``ur_predict`` span with
+its tail, candidates and ``<lap>_ms`` attributes; under a trace the laps
+become child spans.  The laps read the host clock: on the card the
+device's work lands in the lap that synchronises (the device tail's
+``[4, k]`` readback), as JAX's async dispatch does.  Not ported yet,
+named in ROADMAP.md: multi-device training.  Evaluation: ``URDataSource.read_eval``'s
 leave-one-out fold and the rank metrics (``HitRateMetric``,
 ``NDCGMetric``, ``PrecisionAtKMetric``, ``MRRMetric``) over
 ``batch_predict``'s eval answers.
@@ -89,6 +93,8 @@ from predictionio_tpu_torch.models.universal_recommender.popmodel import (
 )
 from predictionio_tpu_torch.native import core as _ncore
 from predictionio_tpu_torch.obs import metrics as _obs_metrics
+from predictionio_tpu_torch.obs import spans as _spans
+from predictionio_tpu_torch.obs import tracing as _tracing
 from predictionio_tpu_torch.ops import cco as cco_ops
 from predictionio_tpu_torch.ops.als import bucket_width, check_f32_id_range, pad_ids
 from predictionio_tpu_torch.ops.topk import topk_desc
@@ -1410,16 +1416,40 @@ class URAlgorithm(Algorithm):
         → the resolved tail (device: rule mask, blacklist, both top-ks, one
         [4, k] readback; host: the same in numpy, candidate-pruned when
         both halves are host) → host assembly.  Stage wall times land in
-        pio_ur_serve_stage_duration_seconds."""
-        return self._predict_staged(model, query, hist_override)
+        pio_ur_serve_stage_duration_seconds and, when a span journal is
+        active or a request trace is live, as a per-query ``ur_predict``
+        span; under a trace the stage laps also become child spans, so
+        /traces/<rid>.json shows the history→score→mask→topk→assemble
+        waterfall.  With neither, no span object is built."""
+        stages: List[Tuple[str, float]] = []
+        meta: Dict[str, str] = {}
+        journal = _spans.current_journal()
+        trace = _tracing.current_trace() if journal is None else None
+        if journal is None and trace is None:
+            return self._predict_staged(model, query, hist_override, stages, meta)
+        sink = journal if journal is not None else trace
+        with sink.span("ur_predict") as rec:
+            res = self._predict_staged(model, query, hist_override, stages, meta)
+            rec["attrs"] = {"tail": _serve_tail(model),
+                            "candidates": meta.get("candidates", "off"),
+                            **{f"{n}_ms": round(dt * 1e3, 4) for n, dt in stages}}
+        if trace is not None:
+            # the laps are strictly sequential, so reconstructed offsets give
+            # exact child-span boundaries without a context manager per
+            # stage on the serve hot path
+            off = rec["start"]
+            for n, dt in stages:
+                trace.add_span(n, off, dt, parent=rec["id"])
+                off += dt
+        return res
 
-    def _predict_staged(self, model: URModel, query: URQuery,
-                        hist_override) -> URResult:
+    def _predict_staged(self, model: URModel, query: URQuery, hist_override,
+                        stages: List[Tuple[str, float]],
+                        meta: Optional[Dict[str, str]] = None) -> URResult:
         n_items = len(model.item_dict)
         if n_items == 0:
             return URResult([])
         tail = _serve_tail(model)
-        stages: List[Tuple[str, float]] = []
         t = [_time.perf_counter()]
 
         def lap(name: str) -> None:
@@ -1450,6 +1480,8 @@ class URAlgorithm(Algorithm):
                 cached_items, audit = cache.lookup(model, ckey)
                 lap("cache")
                 if cached_items is not None and not audit:
+                    if meta is not None:
+                        meta["candidates"] = "cache"
                     for name, dt in stages:
                         _M_STAGE.observe(dt, stage=name, tail=tail, candidates="cache")
                     return URResult([ItemScore(n, s) for n, s in cached_items])
@@ -1487,6 +1519,8 @@ class URAlgorithm(Algorithm):
         if ckey is not None:
             self._cache_settle(cache, model, ckey, rkey, res, cached_items, hist,
                                fill, num)
+        if meta is not None:
+            meta["candidates"] = cand_label
         for name, dt in stages:
             _M_STAGE.observe(dt, stage=name, tail=tail, candidates=cand_label)
         return res

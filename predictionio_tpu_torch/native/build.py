@@ -37,8 +37,14 @@ def compiler() -> Optional[str]:
     return None
 
 
+def source_key(src: Path) -> str:
+    """Content hash of ``src``, the build-cache key (its first 16 hex
+    characters)."""
+    return hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+
+
 def artifact_path(src: Path, stem: str) -> Path:
-    key = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    key = source_key(src)
     return BUILD_DIR / f"{stem}-{key}.so"
 
 

@@ -18,7 +18,7 @@ Naming contract (enforced at registration): every metric name matches
 ``PIO_METRICS=off`` disables recording globally; exposition then serves
 whatever was recorded before the switch.  Exemplars (a trace id on a
 histogram's max observation) are kept and merged as in the JAX package;
-nothing in the port sets one until the flight recorder is ported.
+the front end's ``_execute`` sets the request id on ``pio_http_request_duration_seconds``.
 """
 
 from __future__ import annotations

@@ -59,6 +59,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 from predictionio_tpu_torch.events.event import Event, canonical_event_json, parse_time
 from predictionio_tpu_torch.obs.metrics import LATENCY_BUCKETS, SIZE_BUCKETS, get_registry
+from predictionio_tpu_torch.obs.tracing import trace_span
 from predictionio_tpu_torch.storage import base
 from predictionio_tpu_torch.storage.base import (
     AccessKey,
@@ -858,6 +859,11 @@ class FSEvents(base.LEvents, base.PEvents):
         for the next leader.  Leadership is released, never handed on: any
         waiter woken without its buffer written claims the vacancy.  A
         failed write raises in every thread whose lines it held."""
+        with trace_span("group_commit_append"):
+            self._append_lines_traced(lines, app_id, channel_id)
+
+    def _append_lines_traced(self, lines: str, app_id: int,
+                             channel_id: Optional[int]) -> None:
         key = (app_id, channel_id)
         with self._lock:
             g = self._groups.get(key)
@@ -1085,9 +1091,10 @@ class FSEvents(base.LEvents, base.PEvents):
 
         if not _snap.enabled():
             return None
-        self.segment_paths(app_id, channel_id)   # recover a crashed compaction
-        d = self._chan_dir(app_id, channel_id)
-        res = _snap.scan_snapshot(d, self._tombstones(d))
+        with trace_span("snapshot_scan"):
+            self.segment_paths(app_id, channel_id)   # recover a crashed compaction
+            d = self._chan_dir(app_id, channel_id)
+            res = _snap.scan_snapshot(d, self._tombstones(d))
         if res is None:
             _snap.record_miss()
         else:

@@ -13,5 +13,7 @@ watermarks are shard-namespaced); on sql it retrains every tick.
 
 from predictionio_tpu_torch.streaming.fold import FoldUnsupported, URFoldState
 from predictionio_tpu_torch.streaming.follow import FollowTrainer
+from predictionio_tpu_torch.streaming.plane import ModelPlane, PlaneUnsupported, PlaneWatcher
 
-__all__ = ["FoldUnsupported", "FollowTrainer", "URFoldState"]
+__all__ = ["FoldUnsupported", "FollowTrainer", "ModelPlane", "PlaneUnsupported",
+           "PlaneWatcher", "URFoldState"]

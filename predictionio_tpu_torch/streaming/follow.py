@@ -31,9 +31,16 @@ the reference's defaults: ``PIO_FOLLOW_INTERVAL_S`` (2),
 replicator's ``poke``, so a generation the in-process follower published
 reaches the wire without waiting out a directory watch.
 
-Not here: the reference's lineage stages and per-fold traces, which wait
-for ROADMAP.md, queue A, 'Observability and the rest of the front end'
-(the publish info carries no ``lineageId``).
+Each fold tick opens a lineage record (``obs/lineage.py``) when it sees
+appended events: ``append_observed``, ``fold.apply``, ``fold.rellr``,
+``fold.emit`` and ``publish`` land on it, and the publish info carries its
+``lineageId`` to the installer (and through the model plane to every
+consumer).  The tick's ``Trace("fold-…")`` holds ``follow_tail`` and
+``follow_fold`` and is recorded as ``model_swap`` in the flight recorder
+(``obs/tracing.py``).  Both are handed to the publisher thread by value,
+never read from a contextvar it does not own.  The spans read the host
+clock: on the card a span around a launch without a readback measures
+the launch.
 """
 
 from __future__ import annotations
@@ -53,7 +60,9 @@ from typing import Callable, Dict, Optional
 import numpy as np
 
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.obs import lineage as _lineage
 from predictionio_tpu_torch.obs import metrics as _obs_metrics
+from predictionio_tpu_torch.obs import tracing as _tracing
 from predictionio_tpu_torch.obs.metrics import LATENCY_BUCKETS
 from predictionio_tpu_torch.storage.locator import Storage, get_storage
 from predictionio_tpu_torch.streaming.fold import (
@@ -208,8 +217,12 @@ class FollowTrainer:
         self._heads: Dict[str, dict] = {}
         self._tombstones = frozenset()
         self._retrain_count = -1
+        # lineage id of the generation being published: set just before
+        # on_publish so _publish_info stamps it into the info that rides
+        # the model plane to every consumer
+        self._lineage_id: Optional[str] = None
         # a generation whose fold succeeded but whose publish raised:
-        # (models, mode, duration_s), retried first thing next tick (the
+        # (models, mode, duration_s, lineage id), retried first thing next tick (the
         # watermark has advanced, so a 0-event tick would otherwise idle
         # on a stale live model)
         self._pending: Optional[tuple] = None
@@ -366,13 +379,21 @@ class FollowTrainer:
                 models = job.get("models")
                 if models is None:
                     t0 = time.perf_counter()
+                    w_emit = time.time()
                     # the job pins its state: a loop-thread restage nulling
                     # self._fold must not strand an in-flight emit
                     models = [job["state"].emit_snapshot(job["snap"])]
-                    _M_PHASE_S.observe(time.perf_counter() - t0, phase="emit")
+                    emit_s = time.perf_counter() - t0
+                    _M_PHASE_S.observe(emit_s, phase="emit")
+                    if job.get("lineage"):
+                        _lineage.get_lineage().stage(
+                            job["lineage"], "fold.emit", start=w_emit,
+                            duration_s=emit_s)
                     job["models"] = models   # a publish retry skips the emit
-                self._publish(models, job["mode"], job["duration_s"], wm=job.get("wm"),
-                              heads=job.get("heads"), fold_events=job.get("events"))
+                self._publish(models, job["mode"], job["duration_s"],
+                              trace=job.get("trace"), wm=job.get("wm"),
+                              heads=job.get("heads"), fold_events=job.get("events"),
+                              lineage=job.get("lineage"))
                 self._published_events = job.get("covered")
                 return
             except Exception:
@@ -684,8 +705,8 @@ class FollowTrainer:
 
     def _tick_inner(self) -> str:
         if self._pending is not None:
-            models, pmode, dur = self._pending
-            self._publish(models, pmode, dur)
+            models, pmode, dur, plid = self._pending
+            self._publish(models, pmode, dur, lineage=plid)
             self._pending = None
             if self.mode == "fold" and self._fold is not None:
                 self._published_events = len(self._fold.batch)
@@ -708,14 +729,17 @@ class FollowTrainer:
             self._maybe_checkpoint()
         app_id, chan = self._app_channel()
         t0 = time.perf_counter()
+        w_tick = time.time()
         tombs = self._backend.tombstone_state(app_id, chan)
         if tombs != self._tombstones:
             # folded events may be dead and the state cannot subtract
             log.info("follow: tombstone set changed; full restage")
             self._fold = None
             return "restage" if self._restage(publish=True) else "idle"
-        tail = self._backend.scan_tail_from(app_id, chan, self._wm, base=self._fold.batch,
-                                            heads=self._heads)
+        trace = _tracing.Trace(f"fold-{uuid.uuid4().hex[:12]}")
+        with trace.activate(), trace.span("follow_tail"):
+            tail = self._backend.scan_tail_from(app_id, chan, self._wm,
+                                                base=self._fold.batch, heads=self._heads)
         if tail is None:
             log.info("follow: watermark no longer matches the log; full restage")
             self._fold = None
@@ -731,23 +755,50 @@ class FollowTrainer:
             self._fold = None
             return "restage" if self._restage(publish=True) else "idle"
         pipelined = self._pub_queue is not None
-        try:
-            if pipelined:
-                snap = self._fold.fold_apply(tail["batch"])
-            else:
-                model = self._fold.fold(tail["batch"])
-        except FoldUnsupported as e:
-            log.warning("fold unsupported mid-stream (%s); restaging in retrain mode", e)
-            self._fold = None
-            self.mode = "retrain"
-            return self._retrain_tick(force=True)
-        except Exception:
-            # a partial apply cannot be trusted, and retrying the suffix on
-            # it would double-fold: drop it, the next cycle restages
-            self._fold = None
-            raise
-        for phase, dur in (self._fold.last_phase_s or {}).items():
+        # the generation's lineage record opens HERE, the first moment the
+        # fold tick observed appended events; every later stage (fold,
+        # emit, publish, plane write, watcher wake, compose, install,
+        # first serve) hangs off this id
+        lin = _lineage.get_lineage()
+        lid: Optional[str] = None
+        if lin.enabled:
+            lid = lin.new_id()
+            lin.begin(lid, start=w_tick)
+            lin.stage(lid, "append_observed", start=w_tick,
+                      duration_s=time.perf_counter() - t0,
+                      events=int(tail["events"]))
+        w_fold = time.time()
+        with trace.activate():
+            with trace.span("follow_fold", events=tail["events"]):
+                try:
+                    if pipelined:
+                        snap = self._fold.fold_apply(tail["batch"])
+                    else:
+                        model = self._fold.fold(tail["batch"])
+                except FoldUnsupported as e:
+                    log.warning("fold unsupported mid-stream (%s); restaging in retrain "
+                                "mode", e)
+                    self._fold = None
+                    self.mode = "retrain"
+                    return self._retrain_tick(force=True)
+                except Exception:
+                    # a partial apply cannot be trusted, and retrying the
+                    # suffix on it would double-fold: drop it, the next
+                    # cycle restages
+                    self._fold = None
+                    raise
+        phases = dict(self._fold.last_phase_s or {})
+        for phase, dur in phases.items():
             _M_PHASE_S.observe(dur, phase=phase)
+        if lid is not None:
+            # the fold phases laid out one after another from the fold's
+            # wall start: apply runs first, the re-LLR inside it is
+            # accounted separately (the fold subtracts it from apply)
+            cursor = w_fold
+            for phase in ("apply", "rellr"):
+                dur = float(phases.get(phase, 0.0))
+                lin.stage(lid, f"fold.{phase}", start=cursor, duration_s=dur)
+                cursor += dur
         covered = len(self._fold.batch)
         self._wm, self._heads = tail["watermark"], tail["heads"]
         self.last_fold_events = int(tail["events"])
@@ -758,11 +809,12 @@ class FollowTrainer:
                 # are not fold cost
                 "duration_s": time.perf_counter() - t0,
                 "covered": covered, "wm": dict(self._wm), "heads": dict(self._heads),
-                "events": int(tail["events"]),
+                "events": int(tail["events"]), "trace": trace, "lineage": lid,
             })
         else:
             _M_PHASE_S.observe(self._fold.last_emit_s, phase="emit")
-            self._publish_guarded([model], "fold", time.perf_counter() - t0)
+            self._publish_guarded([model], "fold", time.perf_counter() - t0,
+                                  trace=trace, lineage=lid)
             self._published_events = covered
         _M_LAG.set(0)
         return "fold"
@@ -825,7 +877,7 @@ class FollowTrainer:
     # -- publication ----------------------------------------------------------
 
     def _publish_info(self, mode: str) -> dict:
-        return {
+        info = {
             "mode": mode,
             "generation": self.generation,
             "engineInstanceId": self.instance_id,
@@ -834,17 +886,27 @@ class FollowTrainer:
             "stateBytes": self._state_bytes,
             "stateMode": self._state_mode,
         }
+        if self._lineage_id is not None:
+            # rides the plane manifest's info to every consumer, so the
+            # install and first-serve stages land on the record this fold
+            # tick opened, from processes that never saw the fold
+            info["lineageId"] = self._lineage_id
+        return info
 
-    def _publish_guarded(self, models, mode: str, duration_s: float) -> None:
+    def _publish_guarded(self, models, mode: str, duration_s: float,
+                         trace: Optional[_tracing.Trace] = None,
+                         lineage: Optional[str] = None) -> None:
         """Publish, keeping the generation in ``_pending`` so a transient
         publish failure is retried first thing next tick."""
-        self._pending = (models, mode, duration_s)
-        self._publish(models, mode, duration_s)
+        self._pending = (models, mode, duration_s, lineage)
+        self._publish(models, mode, duration_s, trace=trace, lineage=lineage)
         self._pending = None
 
     def _publish(self, models, mode: str, duration_s: float,
+                 trace: Optional[_tracing.Trace] = None,
                  wm: Optional[Dict] = None, heads: Optional[Dict] = None,
-                 fold_events: Optional[int] = None) -> None:
+                 fold_events: Optional[int] = None,
+                 lineage: Optional[str] = None) -> None:
         """Publish one generation: the durable instance record (``persist``)
         and the in-process hot-swap (``on_publish``), then the watermark,
         which advances only after the generation it describes is out (a
@@ -853,43 +915,52 @@ class FollowTrainer:
         from predictionio_tpu_torch.storage.base import EngineInstance
         from predictionio_tpu_torch.workflow import persistence
 
+        if trace is None:
+            trace = _tracing.Trace(f"fold-{uuid.uuid4().hex[:12]}")
         self.generation += 1
         t_pub0 = time.perf_counter()
+        w_pub = time.time()
         t_warm = 0.0
+        self._lineage_id = lineage
         try:
-            if self.persist:
-                now = _dt.datetime.now(_dt.timezone.utc)
-                params_json = serialize_engine_params(self.engine_params)
-                instance = EngineInstance(
-                    id="", status="TRAINING", start_time=now, end_time=None,
-                    engine_id=self.engine_id, engine_version=self.engine_version,
-                    engine_variant=self.engine_variant,
-                    engine_factory=self.engine_factory,
-                    data_source_params=params_json["data_source_params"],
-                    preparator_params=params_json["preparator_params"],
-                    algorithms_params=params_json["algorithms_params"],
-                    serving_params=params_json["serving_params"])
-                iid = self.storage.engine_instances.insert(instance)
-                try:
-                    persistence.save_models(self.storage, iid, models)
-                    instance.status = "COMPLETED"
-                    instance.end_time = _dt.datetime.now(_dt.timezone.utc)
-                    self.storage.engine_instances.update(instance)
-                except BaseException:
-                    # the retry inserts a fresh row; this one must not
-                    # linger TRAINING forever
-                    try:
-                        instance.status = "ABORTED"
-                        instance.end_time = _dt.datetime.now(_dt.timezone.utc)
-                        self.storage.engine_instances.update(instance)
-                    except Exception:
-                        log.exception("follow: could not mark instance %s ABORTED", iid)
-                    raise
-                self.instance_id = iid
-            if self.on_publish is not None:
-                tw = time.perf_counter()
-                self.on_publish(models, self._publish_info(mode))
-                t_warm = time.perf_counter() - tw
+            with trace.activate(), trace.span(
+                    "model_swap", mode=mode, generation=self.generation,
+                    events=self.last_fold_events):
+                if self.persist:
+                    now = _dt.datetime.now(_dt.timezone.utc)
+                    params_json = serialize_engine_params(self.engine_params)
+                    instance = EngineInstance(
+                        id="", status="TRAINING", start_time=now, end_time=None,
+                        engine_id=self.engine_id, engine_version=self.engine_version,
+                        engine_variant=self.engine_variant,
+                        engine_factory=self.engine_factory,
+                        data_source_params=params_json["data_source_params"],
+                        preparator_params=params_json["preparator_params"],
+                        algorithms_params=params_json["algorithms_params"],
+                        serving_params=params_json["serving_params"])
+                    with trace.span("follow_publish"):
+                        iid = self.storage.engine_instances.insert(instance)
+                        try:
+                            persistence.save_models(self.storage, iid, models)
+                            instance.status = "COMPLETED"
+                            instance.end_time = _dt.datetime.now(_dt.timezone.utc)
+                            self.storage.engine_instances.update(instance)
+                        except BaseException:
+                            # the retry inserts a fresh row; this one must
+                            # not linger TRAINING forever
+                            try:
+                                instance.status = "ABORTED"
+                                instance.end_time = _dt.datetime.now(_dt.timezone.utc)
+                                self.storage.engine_instances.update(instance)
+                            except Exception:
+                                log.exception("follow: could not mark instance %s "
+                                              "ABORTED", iid)
+                            raise
+                    self.instance_id = iid
+                if self.on_publish is not None:
+                    tw = time.perf_counter()
+                    self.on_publish(models, self._publish_info(mode))
+                    t_warm = time.perf_counter() - tw
         except BaseException:
             # the retry re-runs _publish whole: generations advance by one
             # a published swap
@@ -914,6 +985,15 @@ class FollowTrainer:
             # synchronous mode only: from the publisher thread a checkpoint
             # would race the loop's next _apply
             self._maybe_checkpoint()
+        lin = _lineage.get_lineage()
+        if lineage is not None and lin.enabled:
+            lin.stage(lineage, "publish", start=w_pub,
+                      duration_s=time.perf_counter() - t_pub0,
+                      mode=mode, warm_s=round(t_warm, 6))
+            lin.close(lineage, outcome="published")
+        rec = _tracing.get_recorder()
+        if rec.enabled:
+            rec.record(trace.to_doc(rec.tag, "model_swap"))
         log.info("follow: published generation %d (%s, %d events, %.3fs)",
                  self.generation, mode, self.last_fold_events, duration_s)
 

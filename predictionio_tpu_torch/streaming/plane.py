@@ -39,9 +39,11 @@ one worker; ``auto`` (default) turns it on for prefork groups.  Only a
 bundle of exactly one ``URModel`` rides the plane: anything else raises
 :class:`PlaneUnsupported` and the caller serves private models.
 
-Not here: the reference's lineage stages (``plane.write``,
-``watcher_wake``, ``compose``), which wait for ROADMAP.md, queue A,
-'Observability and the rest of the front end'.
+Lineage (``obs/lineage.py``): a publish whose info carries a
+``lineageId`` stages ``plane.write`` on that record and stamps the id into
+the manifest (replication forwards it); a watcher that installs such a
+generation stages ``watcher_wake`` (publish → this watcher noticing it)
+and ``compose``.
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from predictionio_tpu_torch.obs import lineage as _lineage
 from predictionio_tpu_torch.obs import metrics as _obs_metrics
 from predictionio_tpu_torch.store.columnar import CSRLookup, IdDict, read_arrays, write_arrays
 
@@ -385,6 +388,7 @@ class ModelPlane:
                 "the model plane serializes exactly one URModel; got "
                 f"{[type(m).__name__ for m in (models or [])]}")
         model = models[0]
+        w0, t0 = time.time(), time.perf_counter()
         # the one derived-state build (or the fold's patch) per node
         model.ensure_host_serving_state()
         arrays, meta = self._model_payload(model)
@@ -440,11 +444,17 @@ class ModelPlane:
             write_arrays(tmp, payload, meta)
             os.replace(tmp, path)
             size = os.path.getsize(path)
+            # the lineage id rides the manifest too (not only the container
+            # header): replication forwards it in flip and file frames, so
+            # a subscriber's repl.* stages stitch under the publisher's
+            # record without composing the container first
+            lin_id = (info or {}).get("lineageId")
             self._write_manifest({
                 "version": 1, "generation": gen, "file": fname,
                 "kind": meta["planeKind"], "bytes": size, "logicalBytes": logical,
                 "keyframeGeneration": keyframe_gen, "publisherPid": os.getpid(),
-                "publishedAt": time.time()})
+                "publishedAt": time.time(),
+                **({"lineageId": str(lin_id)} if lin_id else {})})
             self._gc_keyframes[gen] = keyframe_gen
             kept = self._gc(gen)
         self._pub_prev = {"gen": gen, "file": fname, "keyframe_gen": keyframe_gen,
@@ -460,6 +470,18 @@ class ModelPlane:
         _M_CHAIN.set(gen - keyframe_gen, worker=tag)
         if kept is not None:
             _M_BLOBS.set(kept, worker=tag)
+        lid = (info or {}).get("lineageId")
+        if lid:
+            lin = _lineage.get_lineage()
+            if lin.enabled:
+                # the PLANE generation is the one consumers install under:
+                # noted here so /lineage/<gen>.json resolves from it
+                lin.stage(lid, "plane.write", start=w0,
+                          duration_s=time.perf_counter() - t0,
+                          generation=gen, kind=meta["planeKind"],
+                          bytes=int(size), full=int(stats["full"]),
+                          delta=int(stats["delta"]), ref=int(stats["ref"]))
+                lin.note_generation(lid, gen)
         log.info("model plane: published generation %d (%s, %.1f MB on disk, %.1f MB "
                  "logical; full/delta/ref %.1f/%.2f/%.1f MB)", gen, fname, size / 1e6,
                  logical / 1e6, stats["full"] / 1e6, stats["delta"] / 1e6, stats["ref"] / 1e6)
@@ -1312,6 +1334,7 @@ class PlaneWatcher:
             if gen <= self.generation or gen == self._bad_gen:
                 return False
             t0 = time.perf_counter()
+            w_wake = time.time()
             try:
                 model, info = self.plane.load(cur)
             except (ValueError, KeyError) as e:
@@ -1329,6 +1352,19 @@ class PlaneWatcher:
                     log.warning("model plane: could not map generation %s (%s); keeping "
                                 "the served generation, will retry", gen, e)
                 return False
+            lid = (info or {}).get("lineageId")
+            if lid:
+                lin = _lineage.get_lineage()
+                if lin.enabled:
+                    # watcher_wake spans publish → this watcher noticing it
+                    # (the cross-process freshness gap); compose is the map
+                    # and chain compose this process just paid
+                    pub_at = float(cur.get("publishedAt") or w_wake)
+                    lin.stage(lid, "watcher_wake", start=pub_at,
+                              duration_s=max(w_wake - pub_at, 0.0))
+                    lin.stage(lid, "compose", start=w_wake,
+                              duration_s=time.perf_counter() - t0,
+                              generation=gen, kind=str(cur.get("kind") or ""))
             installed = self.install([model], info)
             # consumed either way: False means a newer build installed first
             self.generation = gen

@@ -31,10 +31,15 @@ publisher's generation while idle).  Every manifest a subscriber lands
 carries ``replicatedFrom`` (``plane.REPLICA_KEY``); a subscriber refuses a
 directory whose manifest lacks it.
 
-Not here: the lineage records a sync frame carries and the publisher's
-``cluster_view`` behind ``/cluster/*.json``, which wait for ROADMAP.md,
-queue A, 'Observability and the rest of the front end' (the payload is
-still read and the HTTP port kept).
+Lineage (``obs/lineage.py``): the manifest's ``lineageId`` rides each
+``file`` frame (``lid``), so a subscriber stages ``repl.recv``,
+``repl.verify`` and ``repl.land`` under the publisher's record, and every
+sync frame's payload carries the subscriber's recent records, which the
+publisher ingests (stitching them into one cross-node record).  The
+publisher stages ``repl.plan``.  ``PlaneReplicator.peers()`` (every
+subscriber ever seen, with its HTTP port) feeds the cluster federation
+(``obs/cluster.py``) and ``cluster_view()`` the stitching's expected set.
+Each of these threads records into the lineage id it is handed.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+from predictionio_tpu_torch.obs import lineage as _obs_lineage
 from predictionio_tpu_torch.obs import metrics as _obs_metrics
 from predictionio_tpu_torch.streaming.plane import (
     REPLICA_KEY,
@@ -172,16 +178,25 @@ def _safe_plane_name(name: str) -> str:
     return base
 
 
+def _manifest_lid(manifest: Optional[Dict[str, Any]]) -> Optional[str]:
+    """The publisher's lineage id riding the manifest; None on manifests
+    without one (stitching then stays off for them)."""
+    lid = (manifest or {}).get("lineageId")
+    return str(lid) if lid else None
+
+
 class _Session:
     """One publisher → subscriber connection, owned by its thread."""
 
-    def __init__(self, sock: socket.socket, node: str, have: int):
+    def __init__(self, sock: socket.socket, addr, node: str, have: int):
         self.sock = sock
+        self.addr = addr
         self.node = node
         self.have = int(have)
         self.http_port = 0           # the subscriber's serving port, if any
         self.sent_bytes = 0
         self.resyncs = 0
+        self.connected_at = time.time()
 
 
 class PlaneReplicator:
@@ -197,6 +212,10 @@ class PlaneReplicator:
         self.plane = plane
         self.host, self.port = parse_endpoint(bind)
         self._sessions: Dict[int, _Session] = {}
+        # every subscriber node ever seen in this process: the cluster's
+        # expected set for lineage stitching and the federation's scrape
+        # list; a disconnect marks a peer, never removes it
+        self._peers: Dict[str, Dict[str, Any]] = {}
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._cur_gen = 0
@@ -263,26 +282,60 @@ class PlaneReplicator:
         with self._lock:
             subs = [{"node": s.node, "ackedGeneration": s.have,
                      "lagGenerations": max(self._cur_gen - s.have, 0),
-                     "sentBytes": s.sent_bytes, "resyncs": s.resyncs,
-                     "httpPort": s.http_port} for s in self._sessions.values()]
+                     "sentBytes": s.sent_bytes, "resyncs": s.resyncs}
+                    for s in self._sessions.values()]
         return {"role": "publisher", "bind": f"{self.host}:{self.port}",
                 "generation": self._cur_gen,
                 "subscribers": sorted(subs, key=lambda d: d["node"])}
 
-    @staticmethod
-    def _read_sync_payload(sess: _Session, raw: bytes) -> None:
-        """A sync frame's payload: the subscriber's node document (its HTTP
-        port kept; the lineage records the reference ships there are
-        ignored).  A malformed one never kills the session."""
+    # -- cluster membership ----------------------------------------------------
+
+    def peers(self) -> Dict[str, Dict[str, Any]]:
+        """Every subscriber node this publisher has ever seen: node →
+        {addr, httpPort, connected, lastSeen}.  The federation scrapes
+        this list; lineage stitching uses it as the expected set."""
+        with self._lock:
+            return {n: dict(p) for n, p in self._peers.items()}
+
+    def cluster_view(self) -> Dict[str, Any]:
+        """{"expected", "live"} node-name sets for
+        :func:`~predictionio_tpu_torch.obs.lineage.set_cluster_provider`."""
+        with self._lock:
+            return {"expected": sorted(self._peers),
+                    "live": sorted(n for n, p in self._peers.items()
+                                   if p.get("connected"))}
+
+    def _note_peer(self, sess: _Session, connected: bool = True) -> None:
+        with self._lock:
+            p = self._peers.setdefault(sess.node, {"httpPort": 0})
+            p["addr"] = sess.addr[0]
+            p["lastSeen"] = time.time()
+            p["connected"] = connected
+            if sess.http_port:
+                p["httpPort"] = sess.http_port
+
+    def _ingest_sync(self, sess: _Session, raw: bytes) -> None:
+        """The push half of lineage stitching: a subscriber's sync frames
+        (the first and each flip's ack) carry its recent lineage fragments
+        and its HTTP port as the payload.  An empty payload is fine; a
+        malformed one never kills the session."""
         if not raw:
             return
         try:
             doc = json.loads(raw)
-            port = int(doc.get("httpPort") or 0) if isinstance(doc, dict) else 0
+            if not isinstance(doc, dict):
+                return
+            port = int(doc.get("httpPort") or 0)
             if port:
                 sess.http_port = port
-        except (ValueError, TypeError, AttributeError):
-            log.debug("plane replication: bad sync payload from %s", sess.node)
+            recs = doc.get("records")
+            if recs:
+                rec = _obs_lineage.get_lineage()
+                if rec.enabled:
+                    rec.ingest(recs, node=sess.node)
+        except Exception:
+            log.debug("plane replication: bad sync payload from %s",
+                      sess.node, exc_info=True)
 
     # -- watch ---------------------------------------------------------------
 
@@ -335,8 +388,9 @@ class PlaneReplicator:
                 raise ConnectionError(f"expected sync, got {header.get('type')!r}")
             raw = _recv_exact(sock, plen) if plen else b""
             node = str(header.get("node") or node)
-            sess = _Session(sock, node, int(header.get("have") or 0))
-            self._read_sync_payload(sess, raw)
+            sess = _Session(sock, addr, node, int(header.get("have") or 0))
+            self._ingest_sync(sess, raw)
+            self._note_peer(sess)
             with self._lock:
                 self._session_seq += 1
                 sid = self._session_seq
@@ -359,6 +413,9 @@ class PlaneReplicator:
                 with self._lock:
                     self._sessions.pop(sid, None)
                     _M_RSUBS.set(len(self._sessions))
+                    if node in self._peers:
+                        self._peers[node]["connected"] = False
+                        self._peers[node]["lastSeen"] = time.time()
                 _M_RLAG.remove(node=node)   # no stale series for a dead peer
 
     def _session_loop(self, sess: _Session, reason: str) -> None:
@@ -407,6 +464,9 @@ class PlaneReplicator:
         """One catch-up batch (files, then the flip), then block on the
         subscriber's ack; returns the next batch's reason (the ack's)."""
         gen = int(cur["generation"])
+        lid = _manifest_lid(cur)
+        t_plan = time.time()
+        p0 = time.perf_counter()
         try:
             files, resync = self._plan(sess.have, cur, reason)
         except _PlaneCorrupt as e:
@@ -422,21 +482,32 @@ class PlaneReplicator:
             _M_RESYNC.inc(reason=resync)
             log.info("plane replication: re-syncing %s from a keyframe (%s, %d files)",
                      sess.node, resync, len(files))
+        if lid:
+            lin = _obs_lineage.get_lineage()
+            if lin.enabled:
+                lin.stage(lid, "repl.plan", start=t_plan,
+                          duration_s=time.perf_counter() - p0,
+                          generation=gen, peer=sess.node, files=len(files),
+                          resync=resync or "incremental")
         for nm in files:
-            if not self._send_file(sess, nm):
+            if not self._send_file(sess, nm, lid):
                 return "lag"   # vanished mid-plan (GC): re-plan next turn
         _send_frame(sess.sock, {"type": "flip", "manifest": cur, "resync": resync})
         header, plen = _recv_frame(sess.sock)   # the ack
         if header.get("type") != "sync":
             raise ConnectionError(f"expected ack sync, got {header.get('type')!r}")
-        self._read_sync_payload(sess, _recv_exact(sess.sock, plen) if plen else b"")
+        self._ingest_sync(sess, _recv_exact(sess.sock, plen) if plen else b"")
+        self._note_peer(sess)
         sess.have = int(header.get("have") or 0)
         _M_RLAG.set(max(self._cur_gen - sess.have, 0), node=sess.node)
         return str(header.get("reason") or "ack")
 
-    def _send_file(self, sess: _Session, name: str) -> bool:
+    def _send_file(self, sess: _Session, name: str, lid: Optional[str] = None) -> bool:
         """Hash, then stream, one file from one open fd (GC may unlink the
-        path mid-send; the fd keeps the bytes).  False when already gone."""
+        path mid-send; the fd keeps the bytes).  False when already gone.
+        ``lid`` rides the frame header, so the subscriber opens its
+        ``repl.recv`` stage under the publisher's lineage id before the
+        flip arrives."""
         chunk = repl_chunk_bytes()
         try:
             f = open(os.path.join(self.plane.dir, name), "rb")
@@ -452,9 +523,11 @@ class PlaneReplicator:
                 h.update(b)
                 size += len(b)
             kind = "delta" if name.endswith(".delta") else "full"
-            _send_frame(sess.sock, {"type": "file", "name": name, "gen": _gen_of(name),
-                                    "bytes": size, "sha256": h.hexdigest(), "kind": kind},
-                        payload_len=size)
+            hdr = {"type": "file", "name": name, "gen": _gen_of(name),
+                   "bytes": size, "sha256": h.hexdigest(), "kind": kind}
+            if lid:
+                hdr["lid"] = lid
+            _send_frame(sess.sock, hdr, payload_len=size)
             f.seek(0)
             left = size
             while left:
@@ -479,7 +552,8 @@ class PlaneSubscriber:
         self.plane = ModelPlane(plane_dir)
         self.source = source
         self.host, self.port = parse_endpoint(source, default_host="127.0.0.1")
-        self.node = node or f"{socket.gethostname()}-{os.getpid()}"
+        self.node = (node or _obs_lineage.cluster_node()
+                     or f"{socket.gethostname()}-{os.getpid()}")
         # this node's serving port, announced in every sync frame; 0 = none
         self.http_port = 0
         self.generation = 0          # last flipped locally
@@ -636,12 +710,34 @@ class PlaneSubscriber:
 
     def _send_sync(self, sock: socket.socket, reason: str) -> None:
         """A sync frame (the first, and each flip's ack); its payload names
-        this node and its HTTP port."""
-        payload = json.dumps({"node": self.node, "httpPort": int(self.http_port)},
-                             separators=(",", ":")).encode()
+        this node and its HTTP port and carries this node's recent lineage
+        records (the push half of stitching)."""
+        payload = b""
+        try:
+            doc: Dict[str, Any] = {"node": self.node, "httpPort": int(self.http_port)}
+            rec = _obs_lineage.get_lineage()
+            if rec.enabled:
+                doc["records"] = rec.export()
+            payload = json.dumps(doc, separators=(",", ":")).encode()
+        except Exception:
+            payload = b""
         _send_frame(sock, {"type": "sync", "have": self.generation, "node": self.node,
                            "reason": reason}, payload_len=len(payload))
-        sock.sendall(payload)
+        if payload:
+            sock.sendall(payload)
+
+    def _repl_stage(self, lid: Any, name: str, **kw: Any) -> None:
+        """One replication stage under the publisher's lineage id.
+        ``node=`` is passed explicitly (not left to the environment's
+        stamp): one process may run several subscribers."""
+        if not lid:
+            return
+        try:
+            rec = _obs_lineage.get_lineage()
+            if rec.enabled:
+                rec.stage(str(lid), name, node=self.node, **kw)
+        except Exception:
+            log.debug("plane replication: lineage stage %s failed", name, exc_info=True)
 
     def _land_file(self, sock: socket.socket, header: Dict[str, Any],
                    plen: int) -> Tuple[str, bool]:
@@ -653,6 +749,8 @@ class PlaneSubscriber:
         kind = "delta" if name.endswith(".delta") else "full"
         os.makedirs(self.plane.dir, exist_ok=True)
         tmp = os.path.join(self.plane.dir, f".{name}.tmp-{os.getpid()}")
+        t_recv = time.time()
+        r0 = time.perf_counter()
         h = hashlib.sha256()
         left = plen
         chunk = repl_chunk_bytes()
@@ -667,6 +765,10 @@ class PlaneSubscriber:
             f.flush()
             os.fsync(f.fileno())
         _M_RBYTES.inc(plen, dir="in", kind=kind)
+        torn_flag = 0 if h.hexdigest() == want_sha else 1
+        self._repl_stage(header.get("lid"), "repl.recv", start=t_recv,
+                         duration_s=time.perf_counter() - r0,
+                         generation=_gen_of(name), kind=kind, bytes=plen, torn=torn_flag)
         if h.hexdigest() != want_sha:
             try:
                 os.replace(tmp, os.path.join(self.plane.dir, name + ".quarantine"))
@@ -686,16 +788,23 @@ class PlaneSubscriber:
                 or "file" not in manifest:
             raise ConnectionError("flip without a usable manifest")
         gen = int(manifest["generation"])
+        lid = _manifest_lid(manifest)
+        t_ver = time.time()
+        v0 = time.perf_counter()
         try:
             self.plane.chain_files(str(manifest["file"]))
         except _PlaneCorrupt as e:
             log.warning("plane replication: not flipping to generation %d, the chain is "
                         "incomplete locally (%s)", gen, e)
             return False
+        self._repl_stage(lid, "repl.verify", start=t_ver,
+                         duration_s=time.perf_counter() - v0, generation=gen)
         doc = dict(manifest)
         doc[REPLICA_KEY] = self.source
         doc["publisherPid"] = os.getpid()
         doc["replicatedAt"] = time.time()
+        t_land = time.time()
+        l0 = time.perf_counter()
         with self.plane._publish_lock():
             local = self.plane.current()
             if (local is not None and REPLICA_KEY not in local
@@ -708,6 +817,17 @@ class PlaneSubscriber:
             self.plane._gc(gen)
         self.generation = gen
         self.last_flip_at = time.time()
+        # repl.land is a subscriber's publish-equivalent marker: lineage
+        # supersession closes pre-resync records against it
+        self._repl_stage(lid, "repl.land", start=t_land,
+                         duration_s=time.perf_counter() - l0, generation=gen, flush=True)
+        if lid:
+            try:
+                rec = _obs_lineage.get_lineage()
+                if rec.enabled:
+                    rec.note_generation(str(lid), gen)
+            except Exception:
+                pass
         with self._flip_cond:
             self._flip_cond.notify_all()
         log.info("plane replication: generation %d live locally (%s)", gen,

@@ -10,9 +10,14 @@ follow-trainer's retrain tick reads too); ``load_latest_models`` is the
 deploy-time lookup; ``run_eval`` runs an Evaluation on the named device
 and records an EvaluationInstance (EVALRUNNING → EVALCOMPLETED with the
 results as text, JSON and HTML, or EVALFAILED) and counts
-``pio_eval_runs_total`` by final status.  The JAX package's span journals
-(around a train and an eval) and its other train metrics wait for
-ROADMAP.md, queue A, 'Observability and the rest of the front end'.
+``pio_eval_runs_total`` by final status.  Each run writes a span journal
+next to its instance (``obs/spans.py``; ``pio dashboard`` renders it): a
+train's ``train`` root holds ``engine_train`` (with its attempt),
+``staging_summary`` (the staged counts as attributes) and
+``save_models``, an eval's is ``eval``.  ``pio_train_runs_total`` and
+``pio_train_duration_seconds`` count and time the trains.  The spans read
+the host clock: on the card a train's last readback closes
+``engine_train``.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from predictionio_tpu_torch.controller.engine import (
 from predictionio_tpu_torch.controller.evaluation import Evaluation, MetricEvaluatorResult
 from predictionio_tpu_torch.core.base import doer_name
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.obs import spans as _spans
 from predictionio_tpu_torch.obs.metrics import get_registry
 from predictionio_tpu_torch.storage.base import EngineInstance, EvaluationInstance
 from predictionio_tpu_torch.storage.locator import Storage, get_storage
@@ -39,9 +45,14 @@ from predictionio_tpu_torch.workflow import persistence
 
 log = logging.getLogger("pio.workflow")
 
-_M_EVALS = get_registry().counter(
+_REG = get_registry()
+_M_TRAINS = _REG.counter(
+    "pio_train_runs_total", "Training runs by final status")
+_M_TRAIN_S = _REG.histogram(
+    "pio_train_duration_seconds", "Wall-clock duration of training runs")
+_M_EVALS = _REG.counter(
     "pio_eval_runs_total", "Evaluation runs by final status")
-_M_TRAIN_STAGED = get_registry().counter(
+_M_TRAIN_STAGED = _REG.counter(
     "pio_train_staged_events_total",
     "Events staged during training runs, by source: snapshot = mmap'd "
     "columns, tail = JSONL past snapshot coverage, delta = JSONL past a "
@@ -110,38 +121,56 @@ def run_train(
     instance.status = "TRAINING"
     storage.engine_instances.update(instance)
     attempt = 0
-    while True:
-        try:
-            log.info("training engine %s (instance %s, attempt %d)",
-                     engine_id, instance_id, attempt + 1)
-            from predictionio_tpu_torch.store.event_store import staging_counts
+    # span journal persisted next to the engine instance: every timed()
+    # inside engine.train nests under this run's root span, and
+    # `pio dashboard` renders the breakdown per completed train
+    journal = _spans.SpanJournal(_spans.journal_path(storage, instance_id))
+    t_run = _dt.datetime.now(_dt.timezone.utc).timestamp()
+    with journal.activate():
+        with journal.span("train", engine_id=engine_id, instance_id=instance_id):
+            while True:
+                try:
+                    log.info("training engine %s (instance %s, attempt %d)",
+                             engine_id, instance_id, attempt + 1)
+                    from predictionio_tpu_torch.store.event_store import staging_counts
 
-            stage_before = staging_counts()
-            models = engine.train(engine_params, device=device)
-            # how many events this run staged from where (snapshot columns,
-            # the parsed tail, or a delta past a retained batch); all zero
-            # when the engine read through a non-snapshot path
-            staged = _staging_delta(stage_before)
-            count_staged(staged)
-            log.info("training staged %s", staged)
-            persistence.save_models(storage, instance_id, models)
-            instance.status = "COMPLETED"
-            instance.end_time = _now()
-            storage.engine_instances.update(instance)
-            log.info("training done: instance %s COMPLETED", instance_id)
-            return instance
-        except Exception:
-            attempt += 1
-            if attempt <= retries:
-                log.warning(
-                    "training attempt %d failed, retrying (%d left):\n%s",
-                    attempt, retries - attempt + 1, traceback.format_exc())
-                continue
-            instance.status = "FAILED"
-            instance.end_time = _now()
-            storage.engine_instances.update(instance)
-            log.error("training FAILED: %s", traceback.format_exc())
-            raise
+                    stage_before = staging_counts()
+                    with journal.span("engine_train", attempt=attempt + 1):
+                        models = engine.train(engine_params, device=device)
+                    # how many events this run staged from where (snapshot
+                    # columns, the parsed tail, or a delta past a retained
+                    # batch): a span attribute a run and a cross-run
+                    # counter; all zero when the engine read through a
+                    # non-snapshot path
+                    staged = _staging_delta(stage_before)
+                    with journal.span("staging_summary", **{
+                            f"staged_{k}": int(v) for k, v in staged.items()}):
+                        pass
+                    count_staged(staged)
+                    log.info("training staged %s", staged)
+                    with journal.span("save_models"):
+                        persistence.save_models(storage, instance_id, models)
+                    instance.status = "COMPLETED"
+                    instance.end_time = _now()
+                    storage.engine_instances.update(instance)
+                    log.info("training done: instance %s COMPLETED", instance_id)
+                    _M_TRAINS.inc(1, status="COMPLETED")
+                    _M_TRAIN_S.observe(
+                        _dt.datetime.now(_dt.timezone.utc).timestamp() - t_run)
+                    return instance
+                except Exception:
+                    attempt += 1
+                    if attempt <= retries:
+                        log.warning(
+                            "training attempt %d failed, retrying (%d left):\n%s",
+                            attempt, retries - attempt + 1, traceback.format_exc())
+                        continue
+                    instance.status = "FAILED"
+                    instance.end_time = _now()
+                    storage.engine_instances.update(instance)
+                    log.error("training FAILED: %s", traceback.format_exc())
+                    _M_TRAINS.inc(1, status="FAILED")
+                    raise
 
 
 def load_latest_models(
@@ -212,9 +241,13 @@ def run_eval(
         evaluation_class=evaluation_class or doer_name(evaluation),
     )
     instance_id = storage.evaluation_instances.insert(instance)
+    journal = _spans.SpanJournal(_spans.journal_path(storage, instance_id))
     try:
         log.info("evaluating %s (instance %s)", instance.evaluation_class, instance_id)
-        result = evaluation.run(eval_runner=eval_runner, device=device)
+        with journal.activate(), journal.span(
+                "eval", instance_id=instance_id,
+                evaluation_class=instance.evaluation_class):
+            result = evaluation.run(eval_runner=eval_runner, device=device)
         instance.status = "EVALCOMPLETED"
         instance.end_time = _now()
         instance.evaluator_results = (

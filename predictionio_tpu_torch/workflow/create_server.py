@@ -45,9 +45,13 @@ node-local plane fed by one.  A prefork group (``workers > 1``, CPU only)
 shares one plane: no worker folds, a dedicated ``--plane-publisher``
 process hosts the one follower.
 
-Not here, named in ROADMAP.md, queue A: the trace, lineage, history,
-cluster and healthz routes ('Observability and the rest of the front
-end'), which answer 404.
+Observability, as in the JAX package: ``GET /traces.json`` and
+``/traces/<rid>.json`` (the flight recorder, ``obs/tracing.py``),
+``/lineage.json`` and ``/lineage/<gen|ln-id>.json`` (``obs/lineage.py``:
+each install stages ``install`` and ``cache_invalidation``, the next
+answer ``first_serve``), ``/metrics/history.json`` (``obs/tsdb.py``),
+``/cluster/{metrics,history}.json`` (a replication publisher's
+federation, ``obs/cluster.py``) and ``/healthz`` (``obs/slo.py``).
 """
 
 from __future__ import annotations
@@ -64,7 +68,12 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 from predictionio_tpu_torch.api import prefork
 from predictionio_tpu_torch.api.http_util import JsonHandler, start_server
+from predictionio_tpu_torch.obs import cluster as obs_cluster
+from predictionio_tpu_torch.obs import lineage as obs_lineage
 from predictionio_tpu_torch.obs import metrics as obs_metrics
+from predictionio_tpu_torch.obs import slo as obs_slo
+from predictionio_tpu_torch.obs import tracing as obs_tracing
+from predictionio_tpu_torch.obs import tsdb as obs_tsdb
 from predictionio_tpu_torch.obs.exposition import StatsCollector, metrics_payload
 from predictionio_tpu_torch.obs.metrics import SIZE_BUCKETS
 from predictionio_tpu_torch.serve import response_cache as _response_cache
@@ -326,6 +335,10 @@ class QueryServerState:
         self.follow_info: Optional[Dict] = None
         self._build_seq = 0           # install-order tickets (see _install)
         self._installed_seq = 0
+        # (lineage id, generation) of the newest install whose
+        # first_serve stage this worker still owes — grabbed by the
+        # first predict() that runs on the new generation
+        self._lineage_pending: Optional[tuple] = None
         # the model plane this state reads (streaming/plane.py), and the
         # replication endpoint this process hosts (a PlaneReplicator or a
         # PlaneSubscriber): freshness() reports both
@@ -472,6 +485,9 @@ class QueryServerState:
             except Exception:
                 log.exception("plane replication stop failed")
             self.replication = None
+            # publisher-side cluster observability dies with replication
+            obs_lineage.set_cluster_provider(None)
+            obs_cluster.set_federation(None)
         if self.plane_watcher is not None:
             self.plane_watcher.stop()
         t = self._auto_thread
@@ -508,6 +524,7 @@ class QueryServerState:
         began before a later build installed is dropped, so a slow stale
         build (the auto-reload poller's, the follower's) never replaces a
         newer generation.  False when dropped as stale."""
+        w_inst, t_inst = time.time(), time.perf_counter()
         with self._lock:
             self._build_seq += 1
             ticket = self._build_seq
@@ -522,8 +539,22 @@ class QueryServerState:
             # the response cache re-arms on the new generation BEFORE the
             # predictor goes live, dropping the entries its swap provenance
             # cannot prove unchanged; it must never break an install
+            w_cache, t_cache = time.time(), time.perf_counter()
+            cache_attrs = None
             try:
-                _response_cache.get_cache().on_swap(models)
+                cache = _response_cache.get_cache()
+                cache.on_swap(models)
+                cache_attrs = {
+                    "start": w_cache,
+                    "duration_s": time.perf_counter() - t_cache,
+                    # workers without provenance flush everything — that
+                    # IS the interesting outcome on a lineage waterfall
+                    "outcome": ("full_flush"
+                                if cache.last_swap_reason == "no_provenance"
+                                else cache.last_swap_reason or "noop"),
+                    "dropped": int(cache.last_swap_invalidated),
+                    "entries": len(cache),
+                }
             except Exception:
                 log.exception("response-cache swap sweep failed; disarming the cache")
                 try:
@@ -539,7 +570,25 @@ class QueryServerState:
             self.swapped_at = _dt.datetime.now(_dt.timezone.utc)
             if follow_info is not None:
                 self.follow_info = dict(follow_info)
+            lid = (follow_info or {}).get("lineageId")
+            gen = int((follow_info or {}).get("planeGeneration")
+                      or self.generation)
+            if lid:
+                # first_serve is owed by whichever predict() runs next on
+                # this generation; newer installs overwrite the debt (the
+                # superseded generation never served from this worker)
+                self._lineage_pending = (lid, gen)
         _M_GENERATION.set(self.generation)
+        if lid:
+            lin = obs_lineage.get_lineage()
+            if lin.enabled:
+                lin.note_generation(lid, gen)
+                if cache_attrs is not None:
+                    lin.stage(lid, "cache_invalidation",
+                              parent="install", **cache_attrs)
+                lin.stage(lid, "install", start=w_inst,
+                          duration_s=time.perf_counter() - t_inst,
+                          generation=gen, flush=True)
         return True
 
     def freshness(self) -> Dict:
@@ -578,10 +627,20 @@ class QueryServerState:
 
     def predict(self, body: Dict) -> Any:
         query = self.parse_query(body)
+        w_q, t_q = time.time(), time.perf_counter()
         with self._lock:
             predictor = self.predictor
             batcher = self.batcher
+            pending, self._lineage_pending = self._lineage_pending, None
         prediction = batcher.predict(query) if batcher else predictor(query)
+        if pending is not None:
+            # the freshness waterfall's last hop: this worker ANSWERED a
+            # query from the new generation (not merely installed it)
+            lin = obs_lineage.get_lineage()
+            if lin.enabled:
+                lin.stage(pending[0], "first_serve", start=w_q,
+                          duration_s=time.perf_counter() - t_q,
+                          generation=pending[1], flush=True)
         prediction = self.plugins.apply(query, prediction)
         with self._lock:
             self.query_count += 1
@@ -673,6 +732,16 @@ def make_handler(state: QueryServerState):
             elif path == "/metrics":
                 self._send_raw(200, metrics_payload(),
                                ctype="text/plain; version=0.0.4; charset=utf-8")
+            elif obs_tracing.handle_trace_request(self, path):
+                pass   # /traces.json + /traces/{rid}.json (flight recorder)
+            elif obs_lineage.handle_lineage_request(self, path):
+                pass   # /lineage.json + /lineage/{gen|ln-id}.json
+            elif obs_tsdb.handle_history_request(self, path):
+                pass   # /metrics/history.json (local time-series ring)
+            elif obs_cluster.handle_cluster_request(self, path):
+                pass   # /cluster/{metrics,history}.json (publisher only)
+            elif obs_slo.handle_healthz_request(self, path):
+                pass   # /healthz (SLO burn-rate verdicts, always 200)
             elif path == "/stats.json":
                 if self.stats_collector is None:
                     self.send_error_json(503, "stats disabled (PIO_METRICS=off)")
@@ -835,6 +904,17 @@ def deploy(
     if plane_from and plane_publish:
         raise ValueError("deploy cannot subscribe to a plane and publish one at once "
                          "(relaying is not supported)")
+    if (plane_from or plane_publish) and not os.environ.get("PIO_CLUSTER_NODE"):
+        # multi-node deployment: every lineage stage this node records is
+        # SOURCE-stamped with a node name (obs.lineage reads the env
+        # lazily) so cross-node stitching attributes per-node lanes; set
+        # BEFORE the serving state exists so the install/first_serve
+        # stages carry it, and prefork children inherit it.  Operators
+        # set it explicitly for stable names across restarts.
+        import socket as _socket
+
+        role = "sub" if plane_from else "pub"
+        os.environ["PIO_CLUSTER_NODE"] = f"{_socket.gethostname()}-{role}-{os.getpid()}"
     if workers > 1:
         import torch
 
@@ -914,6 +994,15 @@ def deploy(
         # started once the port is bound: its sync frames name that port
         state.replication = PlaneSubscriber(state.plane.dir, plane_from)
     _warm_entity_index(engine_params)
+    # flight recorder: prefork children resolve the group's traces dir from
+    # PIO_METRICS_DIR; a single worker persists next to the storage's spans
+    # dir so the dashboard can merge them.  Lineage records persist next to
+    # the traces; the history sampler gives every serving process its
+    # /metrics/history.json ring and SLO gauges
+    obs_tracing.arm(storage=state.storage)
+    obs_lineage.arm(storage=state.storage)
+    if obs_metrics.get_registry().enabled:
+        obs_tsdb.start_sampler()
     httpd = _serve(state, host, port, background, reuse_port=workers > 1 or reuse_port)
     bound_port = httpd.server_address[1]
     if plane_from is not None and state.replication is not None:
@@ -927,8 +1016,24 @@ def deploy(
                 httpd.shutdown()
             httpd.server_close()
             raise
+    elif plane_publish is not None and state.replication is not None:
+        # cluster observability (publisher only): lineage reads answer with
+        # the stitched cross-node outcome, the federation thread scrapes
+        # every subscriber's metrics and lineage, and the cluster SLO rows
+        # ride /healthz like any local SLO
+        repl = state.replication
+        obs_lineage.set_cluster_provider(repl.cluster_view)
+        if obs_metrics.get_registry().enabled:
+            fed = obs_cluster.ClusterFederation(repl.peers)
+            fed.start()
+            obs_cluster.set_federation(fed)
+            obs_slo.arm_cluster_slos()
     children: list = []
     if workers > 1:
+        obs_tracing.arm(directory=os.path.join(metrics_dir, "traces"),
+                        tag=f"w0-{os.getpid()}")
+        obs_lineage.arm(directory=os.path.join(metrics_dir, "lineage"),
+                        tag=f"w0-{os.getpid()}")
         # with a plane the children only read it: no follower, no poller
         # (the parent's publishes converge them)
         children = prefork.spawn_workers(
@@ -1031,6 +1136,10 @@ def run_plane_publisher(engine_json: str, variant: str = "default",
     prefork.maybe_watch_parent(log)
     obs_metrics.start_worker_flusher()
     obs_metrics.mark_worker_up()
+    # the publisher OPENS every lineage record (fold + publish stages);
+    # PIO_METRICS_DIR is in its spawn env, so arm() lands the records in
+    # the group dir the serving workers merge from
+    obs_lineage.arm()
     doc = load_engine_variant(engine_json, variant)
     factory, engine, engine_params = engine_from_variant(doc)
     eid = resolve_engine_id(engine_id, doc, factory)

@@ -19,6 +19,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -377,11 +378,93 @@ def port_store(tmp_path):
     set_storage(None)
 
 
-@pytest.mark.parametrize("argv", sorted([name] for name in cli.NOT_PORTED))
-def test_unported_subcommands_exit_naming_their_item(argv, capsys):
-    assert cli.main(argv + ["x", "--y"]) == 1
-    item = cli.ROADMAP[cli.NOT_PORTED[argv[0]]]
-    assert item in capsys.readouterr().err
+@pytest.fixture()
+def obs_server(port_store):
+    """A live port event server over ``port_store`` with two retained
+    traces (debug header), one lineage record and a six-sample history
+    ring, for the observability commands."""
+    from predictionio_tpu_torch.api.event_server import run_event_server
+    from predictionio_tpu_torch.obs import lineage, tracing, tsdb
+
+    tracing.set_recorder(tracing.FlightRecorder(slow_ms=10_000, sample_n=0))
+    lineage.set_lineage(lineage.LineageRecorder())
+    rec = lineage.get_lineage()
+    lid = rec.new_id()
+    rec.begin(lid, start=1.7e9)
+    rec.stage(lid, "append_observed", start=1.7e9, duration_s=0.01, events=2)
+    rec.stage(lid, "publish", start=1.7e9 + 0.1, duration_s=0.02)
+    rec.note_generation(lid, 5)
+    rec.close(lid, outcome="published")
+    sampler = tsdb.MetricsSampler(interval=3600.0)
+    now = time.time()
+    sampler._ring.extend({"t": now - 5.0 * (6 - i), "m": {"pio_http_requests_total": {
+        "type": "counter", "series": {'route="/",status="200"': 7.0 * i}}}} for i in range(6))
+    tsdb.set_sampler(sampler)
+    srv = run_event_server(host="127.0.0.1", port=0, storage=port_store, background=True)
+    base = f"127.0.0.1:{srv.server_address[1]}"
+    for rid in ("cli-a", "cli-b"):
+        req = urllib.request.Request(f"http://{base}/", headers={
+            "X-Request-ID": rid, "X-PIO-Debug": "1"})
+        urllib.request.urlopen(req, timeout=30).read()
+    deadline = time.monotonic() + 5.0
+    while len(json.loads(urllib.request.urlopen(
+            f"http://{base}/traces.json", timeout=30).read())["traces"]) < 2:
+        assert time.monotonic() < deadline, "the traces were never recorded"
+        time.sleep(0.02)
+    yield {"base": base, "lid": lid}
+    srv.shutdown()
+    srv.server_close()
+    tsdb.get_sampler().stop()
+    tsdb.set_sampler(None)
+    tracing.set_recorder(None)
+    lineage.set_lineage(None)
+
+
+@pytest.mark.parametrize("command", ["dashboard", "trace", "lineage", "top"])
+def test_observability_commands_against_a_server(obs_server, port_store, tmp_path, command,
+                                                 capsys):
+    """Each of ``pio dashboard|trace|lineage|top`` runs against a live
+    port server: the dashboard (a subprocess over the store) answers
+    ``/dashboard.json`` with the store's instances and stops on SIGINT
+    with exit 0; the other three print the server's traces, lineage and
+    history (tests/test_torch_dashboard.py holds their output to the JAX
+    console's)."""
+    base = obs_server["base"]
+    if command == "dashboard":
+        port = _free_port()
+        env = {**_env(tmp_path), "PIO_FS_BASEDIR": str(tmp_path / "store")}
+        proc = subprocess.Popen([sys.executable, "-m", "predictionio_tpu_torch.cli.main",
+                                 "dashboard", "--ip", "127.0.0.1", "--port", str(port)],
+                                cwd=tmp_path, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        try:
+            doc = _wait_json(f"http://127.0.0.1:{port}/dashboard.json", timeout=60)
+            assert doc == {"evaluations": [], "engineInstances": []}
+            page = urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=30).read()
+            assert b"PredictionIO-TPU Dashboard" in page
+            proc.send_signal(signal.SIGINT)
+            assert proc.wait(timeout=60) == 0, proc.stdout.read()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        return
+    runs = {"trace": [[base], [base, "--rid", "cli-a"], [base, "--slow"]],
+            "lineage": [[base], [base, "--gen", "5"], [base, "--lid", obs_server["lid"]]],
+            "top": [[base], [base, "--window", "4"]]}[command]
+    outs = []
+    for argv in runs:
+        assert cli.main([command] + argv) == 0, argv
+        outs.append(capsys.readouterr().out)
+    if command == "trace":
+        assert "2 retained trace(s)" in outs[0] and "cli-b" in outs[0]
+        assert "cli-a" in outs[1] and "GET" in outs[1]
+    elif command == "lineage":
+        assert "1 lineage record(s)" in outs[0] and obs_server["lid"] in outs[0]
+        assert outs[1] == outs[2] and "append_observed" in outs[1] and "publish" in outs[1]
+    else:
+        assert "7 samples" in outs[0] and "req/s" in outs[0]   # the six and the start's
+        assert "4 samples" in outs[1]
 
 
 @pytest.mark.parametrize("argv, item", [

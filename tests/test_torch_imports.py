@@ -602,6 +602,109 @@ def test_pio_store_families_are_the_jax_ones():
         assert (m.kind, m.help) == (kind, help_), name
 
 
+# the observability slice in a fresh interpreter: the event and query
+# servers' trace, lineage, history, healthz and cluster routes, a traced
+# train's span journal, the dashboard, `pio trace|lineage|top` and the SDK
+_OBS = r"""
+import json, os, sys, tempfile, urllib.error, urllib.request
+d = tempfile.mkdtemp()
+os.environ.update(PIO_FS_BASEDIR=os.path.join(d, "store"), PIO_TORCH_DEVICE="cpu",
+                  PIO_TSDB_INTERVAL_S="0.2")
+from predictionio_tpu_torch.api.dashboard import run_dashboard
+from predictionio_tpu_torch.api.event_server import run_event_server
+from predictionio_tpu_torch.cli.main import main
+from predictionio_tpu_torch.obs import spans
+from predictionio_tpu_torch.sdk import EngineClient, EventClient
+from predictionio_tpu_torch.storage import AccessKey, App, get_storage
+from predictionio_tpu_torch.utils import load_pio_env, profile_to, timed
+from predictionio_tpu_torch.workflow.create_server import deploy
+
+def get(url, headers=None):
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url, headers=headers or {}),
+                                    timeout=30) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, None
+
+store = get_storage()
+app = store.apps.insert(App(0, "a"))
+key = store.access_keys.insert(AccessKey("", app, []))
+es = run_event_server(host="127.0.0.1", port=0, background=True)
+base = f"http://127.0.0.1:{es.server_address[1]}"
+pipe = EventClient(key, base).pipeline(depth=8)
+for j in range(300):
+    pipe.create_event("rate", "user", f"u{j % 13}", "item", f"i{j % 17}",
+                      {"rating": float(j % 5 + 1)})
+pipe.close()
+get(base + "/", {"X-Request-ID": "obs-1", "X-PIO-Debug": "1"})
+with open(os.path.join(d, "engine.json"), "w") as f:
+    json.dump({"id": "e", "engineFactory": "recommendation",
+               "datasource": {"params": {"appName": "a"}},
+               "algorithms": [{"name": "als", "params": {"rank": 3, "numIterations": 2}}]}, f)
+os.chdir(d)
+assert main(["train"]) == 0
+inst = store.engine_instances.get_latest_completed("e", "1", "default")
+tree = [s["name"] for s in spans.read_journal(spans.journal_path(store, inst.id))]
+assert sorted(tree) == ["engine_train", "save_models", "staging_summary", "train"], tree
+srv = deploy("engine.json", host="127.0.0.1", port=0, device="cpu")
+q = f"http://127.0.0.1:{srv.server_address[1]}"
+assert EngineClient(q).send_query({"user": "u1", "num": 3})["itemScores"]
+statuses = [get(q + p)[0] for p in ("/traces.json", "/lineage.json", "/metrics/history.json",
+                                    "/healthz", "/cluster/metrics.json")]
+assert statuses == [200, 200, 200, 200, 404], statuses
+assert get(base + "/traces/obs-1.json")[0] == 200
+for argv in (["trace", base, "--rid", "obs-1"], ["lineage", q], ["top", q]):
+    main(argv)
+dash = run_dashboard(host="127.0.0.1", port=0, background=True)
+doc = get(f"http://127.0.0.1:{dash.server_address[1]}/dashboard.json")[1]
+assert [e["id"] for e in doc["engineInstances"]] == [inst.id]
+with timed("probe"), profile_to(os.path.join(d, "prof"), host_tracer_level=0):
+    pass
+load_pio_env(apply=False)
+for s in (srv, es, dash):
+    s.shutdown(); s.server_close()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "predictionio_tpu" or m.startswith("predictionio_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def test_observability_path_loads_no_jax_module():
+    out = subprocess.run([sys.executable, "-c", _OBS], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+_OBS_FAMILIES = {
+    "obs/tracing.py": ("pio_trace",), "obs/lineage.py": ("pio_lineage_",),
+    "obs/slo.py": ("pio_slo_burn_rate",), "obs/cluster.py": ("pio_cluster_",),
+    "workflow/core_workflow.py": ("pio_train_runs_total", "pio_train_duration_seconds",
+                                  "pio_eval_runs_total", "pio_train_staged_events_total"),
+}
+
+
+@pytest.mark.parametrize("module", sorted(_OBS_FAMILIES))
+def test_observability_families_are_the_jax_ones(module):
+    """The families the JAX module registers (read as source) are the
+    port's module's, in order, with the same names, kinds and help texts,
+    and the port's registry holds them once the module is imported."""
+    import importlib
+
+    from predictionio_tpu_torch.obs.metrics import get_registry
+
+    want = _registered_families(REPO / "predictionio_tpu" / module)
+    assert want and all(n.startswith(_OBS_FAMILIES[module]) for n, _, _ in want)
+    assert _registered_families(PORT / module) == want
+    importlib.import_module("predictionio_tpu_torch." + module[:-3].replace("/", "."))
+    reg = get_registry()
+    for name, kind, help_ in want:
+        m = reg._metrics[name]
+        assert (m.kind, m.help) == (kind, help_), name
+
+
 def test_forbidden_module_match_is_exact():
     assert _is_forbidden("jax") and _is_forbidden("jax.numpy")
     assert _is_forbidden("predictionio_tpu")

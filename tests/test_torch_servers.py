@@ -103,8 +103,19 @@ def test_deploy_serves_queries_info_metrics_and_stats(als):
         status, stats = http("GET", base + "/stats.json")
         assert status == 200 and stats["engineId"] == "srv-als"
         assert stats["freshness"]["engineInstanceId"] == als["first"].id
-        for path in ("/traces.json", "/lineage.json", "/healthz", "/metrics/history.json",
-                     "/cluster/metrics.json", "/nope"):
+        # the observability routes answer as the JAX query server's: the
+        # flight recorder, lineage, the history ring and /healthz on every
+        # server, the federation only on a replication publisher
+        status, traces = http("GET", base + "/traces.json")
+        assert status == 200 and set(traces) >= {"traces", "worker"}
+        status, lineage = http("GET", base + "/lineage.json")
+        assert status == 200 and set(lineage) >= {"records", "worker"}
+        status, health = http("GET", base + "/healthz")
+        assert status == 200 and health["status"] in ("ok", "warn", "burning", "no_data")
+        status, history = http("GET", base + "/metrics/history.json")
+        assert status == 200 and "samples" in history
+        for path in ("/cluster/metrics.json", "/cluster/history.json", "/traces/none.json",
+                     "/nope"):
             assert http("GET", base + path)[0] == 404, path
         assert http("POST", base + "/queries.json", ["x"])[0] == 400
         assert http("POST", base + "/nope", {})[0] == 404
