@@ -71,10 +71,12 @@ UR training and serving, the store and the CLI (slices 2-8):
     ``read_training`` through ``PEventStore.native_batch`` (one native
     scan, counted) must equal ``ur_training_data_from_arrays``, interactions
     and item properties; ``URAlgorithm.train`` is timed on it (the wall
-    earlier runs timed); ``pio build`` and ``pio train --engine-json`` of two
-    engine variants (LLR weights off and on) each launch K2 and K3 50 times
-    (25 tiles x 2 event types) and ``merge_desc`` never on the card; both
-    stored models' tables must equal the unfused rebuild bit for bit; the
+    earlier runs timed); ``pio build`` of two engine variants (LLR weights
+    off and on) and ``pio train --engine-json`` of the first (the second
+    trains from the snapshot below: cut for the time limit) launch K2 and K3
+    50 times (25 tiles x 2 event types) and ``merge_desc`` never on the
+    card; the stored model's tables must equal the unfused rebuild bit for
+    bit; the
     JSON-lines write, import, read_training, train, save and load are timed,
     the segments' bytes, the blob's size and the train's peak device memory
     printed.  Then the columnar snapshot and the staged cache on the same
@@ -148,7 +150,7 @@ the streaming fold and the follow-trainer (slice 14; right after 17):
 19. ``deploy(follow=0.2)`` of 12's stored model (LLR weights off) in this
     process: the follower bootstraps from the app's log (snapshot, tail,
     tombstones), every row of both event types re-selected through K2/K3
-    on the card (150 launches each: row chunks of 1 GiB); 4 rounds (of
+    on the card (150 launches each: row chunks of 1 GiB); 3 rounds (of
     the reference's 8, a depth cut) of ``bench_freshness``'s protocol (bench.py:4080-4097): a probe user buys
     a brand-new seed item and, once that folds, 6 new users buy the seed
     and a brand-new item, and ``/queries.json`` is polled until the
@@ -174,7 +176,7 @@ the model plane and its replication (slice 15; right after 19):
     composed generation; ``pio deploy --plane-from`` as a subprocess on the
     card (another plane directory, the history read uncached) subscribes
     over PRP1 on loopback.  A duplicate-only delta (write amplification <=
-    5%); the 4 rounds of 19, each timed at the SUBSCRIBER (p99 <= 10 s,
+    5%); the 3 rounds of 19, each timed at the SUBSCRIBER (p99 <= 10 s,
     a round > 30 s fails), both planeGenerations converging after each,
     every fold delta's write amplification printed beside the JAX
     package's 10% bar; the subscriber SIGKILLed while the stream moves on
@@ -194,7 +196,7 @@ the model plane and its replication (slice 15; right after 19):
     per-shard seconds, ``pio_store_scan_workers`` 2), ``pio train`` (50 K2
     + 50 K3; tables equal 11b's through the item strings: LLR bits row for
     row, ids equal but among ties), ``deploy(follow=0.2)`` in this process
-    with an event server on the same store: 19's 4 rounds posted as HTTP
+    with an event server on the same store: 19's 3 rounds posted as HTTP
     batches, shard 0's primary node directory taken away after round 2
     (``pio_store_promotions_total`` +1, the next acknowledged write timed,
     every event answered 201 on its shard's primary, the follower folding
@@ -248,7 +250,7 @@ the event server, the front end and the micro-batcher (slice 10):
     over fresh connections must each read ``pio_events_ingested_total`` =
     300,000; ``pio train`` on the card; then ``deploy(auto_reload=1.0)`` on
     the card in this process under closed-loop keep-alive clients at 1, 8
-    and 32, 500 queries a level, with the default handler pool, with
+    and 32, 300 queries a level, with the default handler pool, with
     ``PIO_HTTP_POOL=32`` (the only way past K1's streaming pass on an
     8-core host: the pool caps a micro-batch) and with
     ``PIO_SERVE_BATCH=off`` at 32: p50, p99, q/s, the
@@ -400,6 +402,28 @@ above, each check failing the run:
    equal to the store's instances and evaluations, the index listing 11b's
    trains with their span breakdowns, their ``/spans/<id>.json``, SIGINT
    ending it with exit 0.
+
+Training over ranks (slice 18), after 18, in rank processes on this card
+(``python -c`` running ``rank_main``, joined at a localhost port, each
+with its own timeout and reaped at the end):
+23. (a) one rank with ``PIO_NUM_PROCESSES=1`` and a coordinator: its
+    backend must be NCCL; ``cco_train_indicators`` at ``bench_ur``'s shape
+    over a dp = 1 mesh (two count all-reduces through NCCL), tables bit
+    for bit phase 10's dense ones; it runs beside (b)-(d);
+    (b) ``pio import`` of 11b's JSON-lines file into a sharedfs store (in a
+    process of its own, started after phase 21), then two ranks sharing the
+    card (backend gloo) each run ``pio train`` of the
+    UR at the deployed width (``cli.main.main``, LLR weights off): the
+    chunked strategy over the two ranks, 50 K2 and 50 K3 launches and 50
+    count all-reduces a rank, ``merge_desc`` never on the card; both stored
+    models bit-identical to 11b's one-rank tables; each rank's train wall,
+    peak memory and the all-reduce's calls, GB and seconds printed, the
+    peaks' sum within the card; (c) ALS at 12b's width over the two ranks
+    (``prepare_als_data(dp=2)``, ``mesh=``) against one rank on the same
+    layout: bit-identical, else within rtol 1e-3, atol 2e-4, the largest
+    difference and the all-gathers' bytes printed; (d) logistic regression
+    at 18e's classification shape (L-BFGS, 100 steps): W and b equal in
+    both ranks and within 1e-4 of one rank's.
 
 The line before the last is one JSON object with a row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1619,7 +1643,7 @@ def train_bench_shape(cco, hk, dev):
           f"then={res_walls[1]:.4f}; dense then={walls[1]:.4f}")
     return {"wall_s": walls[1], "first_wall_s": walls[0], "events": events,
             "launches": launches, "resident_wall_s": res_walls[1],
-            "resident_first_wall_s": res_walls[0]}
+            "resident_first_wall_s": res_walls[0]}, dense
 
 
 def initial_carry(td, b, dev):
@@ -1784,8 +1808,8 @@ def train_localfs(ur, cco, hk, dev, workdir):
     """Phase 11b: the deployed UR width through the localfs store and the
     ``pio`` entry points — a JSON-lines file → ``pio app new`` → ``pio
     import`` → read_training through the native scan (held against the
-    arrays path) → ``pio build`` → ``pio train`` of both engine variants
-    (K2/K3 launches counted) → the model store."""
+    arrays path) → ``pio build`` of both engine variants → ``pio train`` of
+    the first (K2/K3 launches counted) → the model store."""
     from predictionio_tpu_torch.native import scanner
     from predictionio_tpu_torch.storage import get_storage, set_storage
     from predictionio_tpu_torch.workflow.core_workflow import load_latest_models
@@ -1840,8 +1864,11 @@ def train_localfs(ur, cco, hk, dev, workdir):
     launches, journals = {}, {}
     with count_card_merges() as merges:
         t["train_wall_s"], train_launches = timed_train(hk, ur.URAlgorithm(params, device=dev), td)
-        for use_llr, path in variants.items():
+        for path in variants.values():
             pio("build", "--engine-json", str(path))
+        # the LLR-weights variant trains from the snapshot below (cut here
+        # for the time limit: its tables are the same)
+        for use_llr, path in ((False, variants[False]),):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
             hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
@@ -1859,12 +1886,11 @@ def train_localfs(ur, cco, hk, dev, workdir):
               f"K2/K3 launches {got} in {what} at {n_items} items, expected {tiles} each")
     check(merges[0] == 0, f"merge_desc ran {merges[0]} times on the card")
     rebuilt = unfused_indicators(cco, hk, td, dev, top_k, tile)
-    for use_llr in (False, True):
-        t0 = time.perf_counter()
-        instance, (model,) = load_latest_models(engine_variant(use_llr)["id"], device=dev)
-        t["load_s"] = time.perf_counter() - t0
-        check(model.device == dev, "load_latest_models: the model is off the card")
-        check_tables(model, rebuilt, n_items, top_k, f"useLlrWeights {use_llr}")
+    t0 = time.perf_counter()
+    instance, (model,) = load_latest_models(engine_variant(False)["id"], device=dev)
+    t["load_s"] = time.perf_counter() - t0
+    check(model.device == dev, "load_latest_models: the model is off the card")
+    check_tables(model, rebuilt, n_items, top_k, "useLlrWeights False")
     t["blob_mb"] = len(store.models.get(instance.id)) / 1e6
     t0 = time.perf_counter()
     save_models(store, instance.id, [model])   # the same bytes again
@@ -1872,8 +1898,7 @@ def train_localfs(ur, cco, hk, dev, workdir):
     print(f"  users={n_users} items={n_items} events={n_p + n_v} tiles={tiles} "
           f"URAlgorithm.train wall_s={t['train_wall_s']:.3f} launches K2={train_launches[0]} "
           f"K3={train_launches[1]}; pio train wall_s LLR weights off "
-          f"{t['pio_train_s_llr_False']:.3f}, on {t['pio_train_s_llr_True']:.3f} "
-          f"(read, train, save), launches {launches}, peak_device_gb="
+          f"{t['pio_train_s_llr_False']:.3f} (read, train, save), launches {launches}, peak_device_gb="
           f"{t['peak_device_gb']:.2f}, merge_desc on the card={merges[0]}; model blob "
           f"{t['blob_mb']:.1f} MB, save_s={t['save_s']:.3f} load_s={t['load_s']:.3f}")
     return model, td, arrays, cols, env, variants, {
@@ -2050,9 +2075,8 @@ def snapshot_path(ur, cco, hk, dev, workdir, arrays, props, native_train_s):
         check_tables(model, rebuilt, n_items, top_k, f"from the snapshot, useLlrWeights {use_llr}")
     print(f"  pio train from the snapshot and its tail: LLR weights off "
           f"{t['pio_train_snapshot_s_llr_False']:.3f} s, on "
-          f"{t['pio_train_snapshot_s_llr_True']:.3f} s (native scan, same run: "
-          f"{native_train_s['pio_train_s_llr_False']:.3f} s, "
-          f"{native_train_s['pio_train_s_llr_True']:.3f} s), launches {launches}, "
+          f"{t['pio_train_snapshot_s_llr_True']:.3f} s (native scan, same run, LLR "
+          f"weights off: {native_train_s['pio_train_s_llr_False']:.3f} s), launches {launches}, "
           f"merge_desc on the card={merges[0]}")
     return model, td, {**t, "tail_events": n_tail, "tombstoned": SNAP_DELETES,
                        "launches": launches[False]}
@@ -2405,7 +2429,7 @@ def cpu_reference(ur, algo, cpu_model, body):
 # -- phase 17: the UR's caches, the host tail and checkpointed training -----------
 
 CACHE_TRIPLES, CACHE_QUERIES = 100, 400   # distinct (user, rules, num); zipf-drawn queries
-HOST_TAIL_QUERIES = 50    # 17d: plain and rule queries each (cut for the time limit)
+HOST_TAIL_QUERIES = 25    # 17d: plain and rule queries each (cut for the time limit)
 RULE_SETS, RULE_SET_QUERIES = 5, 10       # phase 17b
 HISTORY_USERS, HISTORY_BUYS = 20, 3       # phase 17c
 
@@ -2752,7 +2776,7 @@ def ur_caches_path(ur, cco, hk, ncore, dev, workdir, variants, stored, plain_tra
 
 # -- phase 19: the streaming fold and the follow-trainer ----------------------------
 
-FOLLOW_ROUNDS = 4                # rounds of bench_freshness's protocol (bench.py:4080-4097)
+FOLLOW_ROUNDS = 3                # rounds of bench_freshness's protocol (bench.py:4080-4097; cut for the time limit)
                                  # in phases 19-21; the reference runs 8 (cut for the time limit)
 FOLLOW_COBUYERS = 6              # co-buyers of a round's brand-new item
 FOLLOW_INTERVAL_S = 0.2          # deploy(follow=): the follower's tick interval
@@ -4114,7 +4138,6 @@ def sharded_path(ur, hk, dev, workdir, variants, want_tables):
     finally:
         if store is not None:
             store.l_events.close()
-        jsonl.unlink(missing_ok=True)
         for k in env:
             os.environ.pop(k, None)
         restore_env(saved)
@@ -4260,7 +4283,7 @@ def check_half_step(als_ops, pd, model, dev):
     n_users, n_items = len(pd.user_dict), len(pd.item_dict)
     data = als_ops.prepare_als_data(pd.user_idx, pd.item_idx, pd.rating, n_users,
                                     n_items, dp=1)
-    user_plan, item_plan = als_ops._als_device_args(data, model.item_factors.shape[1], dev)
+    (user_plan,), (item_plan,) = als_ops._als_device_args(data, model.item_factors.shape[1], dev)
     rng = np.random.default_rng(SEED + 6)
     worst = 0.0
     for plan, fixed, owner, other, n in (
@@ -4606,7 +4629,7 @@ def ecomm_path(dev, workdir, shop, app_id):
 # -- phase 14: the event server, the event-loop front end and the micro-batcher --
 
 FRONTEND_LEVELS = (1, 8, 32)     # closed-loop keep-alive clients
-FRONTEND_QUERIES = 500           # queries at each level (cut for the time limit)
+FRONTEND_QUERIES = 300           # queries at each level (cut for the time limit)
 FRONTEND_POOL = 500              # distinct query bodies the levels draw from
 INGEST_CLIENTS, INGEST_BATCH = 8, 50
 RELOAD_USERS, RELOAD_EVENTS = 500, 20_000
@@ -6557,6 +6580,352 @@ def half_step_stages(als_ops, data, rank, dev, implicit=False, sweeps=3):
     return out
 
 
+# -- phase 23: training over ranks -------------------------------------------------
+
+RANK_TIMEOUT_S = 600            # a phase-23 rank process, start to exit
+RANK_DIST_TIMEOUT_S = 300       # its process group's init and collective timeout
+RANKS_ALS_RTOL, RANKS_ALS_ATOL = 1e-3, 2e-4   # the card's bar for ALS factors (12b)
+RANKS_LOGREG_ATOL = 1e-4
+RANKS_ENGINE_ID = ENGINE_ID + "-ranks"
+
+
+def shared_env(workdir) -> dict:
+    """The ``PIO_STORAGE_*`` environment of phase 23b's sharedfs store."""
+    return {"PIO_STORAGE_SOURCES_SH_TYPE": "sharedfs",
+            "PIO_STORAGE_SOURCES_SH_PATH": str(workdir / "shared"),
+            **{f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": "SH"
+               for r in ("METADATA", "EVENTDATA", "MODELDATA")}}
+
+
+SHARED_IMPORT = r"""
+import sys, time
+from predictionio_tpu_torch.cli.main import main
+rc = main(["app", "new", "smoke"])
+t0 = time.perf_counter()
+rc = rc or main(["import", "--app-name", "smoke", "--input", sys.argv[1]])
+print(f"IMPORT_S {time.perf_counter() - t0}", flush=True)
+sys.exit(rc)
+"""
+
+
+def start_shared_import(workdir) -> subprocess.Popen:
+    """Phase 23b's sharedfs store filled by ``pio app new`` and ``pio import``
+    of 11b's file in a process of its own, started after phase 21 so it runs
+    beside the phases before 23 (``finish_shared_import`` joins it)."""
+    root = str(Path(__file__).resolve().parent)
+    with open(workdir / "shared-import.out", "w") as out, \
+            open(workdir / "shared-import.err", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", SHARED_IMPORT, str(workdir / "events.jsonl")], cwd=root,
+            env={**os.environ, **shared_env(workdir), "PYTHONPATH": root},
+            stdout=out, stderr=err)
+    proc.logs = workdir / "shared-import"
+    return proc
+
+
+def finish_shared_import(proc: subprocess.Popen) -> float:
+    """The background import's seconds; it fails the phase unless it ended
+    with exit 0 within RANK_TIMEOUT_S."""
+    try:
+        proc.wait(timeout=RANK_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    so, se = (Path(f"{proc.logs}{ext}").read_text() for ext in (".out", ".err"))
+    lines = [ln for ln in so.splitlines() if ln.startswith("IMPORT_S ")]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"23b: the sharedfs pio import exited {proc.returncode}\n{so[-2000:]}\n{se[-3000:]}")
+    return float(lines[0].split()[1])
+
+
+def rank_main(spec: dict) -> None:
+    """One rank of phase 23, started by ``start_ranks`` as ``python -c``: it
+    joins the process group from the PIO_* environment (the backend chosen
+    from the topology), runs the parts ``spec["parts"]`` names on its card
+    and prints one ``RANK_RESULT`` JSON line (walls, peak memory, K2/K3
+    launches, the collectives' calls, bytes and seconds)."""
+    from predictionio_tpu_torch.ops import als, cco, logreg
+    from predictionio_tpu_torch.ops import hopper_kernels as hk
+    from predictionio_tpu_torch.parallel import distributed as dist
+    from predictionio_tpu_torch.parallel.mesh import create_mesh
+
+    t0 = time.perf_counter()
+    dist.init_distributed(device=spec["device"])
+    dev = dist.local_device()
+    on_card = dev.type == "cuda"
+    rank = dist.process_index()
+    out = {"rank": rank, "world": dist.process_count(), "backend": dist.backend(),
+           "device": str(dev), "init_s": time.perf_counter() - t0}
+    mesh = create_mesh()
+    out["dp"] = mesh.shape["dp"]
+
+    def begin():
+        if on_card:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        dist.reset_collective_counts()
+        hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+        return time.perf_counter()
+
+    def end(t_begin, **extra):
+        if on_card:
+            torch.cuda.synchronize(dev)
+        return {"wall_s": time.perf_counter() - t_begin,
+                "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else 0.0,
+                "launches": [hk.llr_masked_scores.launches, hk.tile_topk_desc.launches],
+                "collectives": dist.collective_counts(), **extra}
+
+    if "bench" in spec["parts"]:
+        n_users, n_items, n_buy, n_view, top_k, _ = spec["bench_ur"]
+        bu, bi, vu, vi = synth_commerce(n_users, n_items, n_buy, n_view)
+        t = begin()
+        tables = cco.cco_train_indicators(
+            bu, bi, [("buy", bu, bi, n_items), ("view", vu, vi, n_items)], n_users, n_items,
+            top_k=top_k, exclude_self_for="buy", mesh=mesh, device=dev)
+        out["bench"] = end(t)
+        np.savez(spec["bench_out"].format(rank=rank),
+                 **{f"{k}_{j}": v[j] for k, v in tables.items() for j in (0, 1)})
+    if "ur" in spec["parts"]:
+        from predictionio_tpu_torch.cli.main import main as pio_main
+        from predictionio_tpu_torch.models import universal_recommender  # noqa: F401
+
+        with count_card_merges() as merges:
+            t = begin()
+            rc = pio_main(["train", "--engine-json", spec["engine_json"]])
+            out["ur"] = end(t, rc=rc, merges_on_card=merges[0])
+    if "als" in spec["parts"]:
+        a = np.load(spec["als_in"])
+        rank_k, iters = spec["als"]
+        data = als.prepare_als_data(a["u"], a["i"], a["r"], int(a["n_users"]),
+                                    int(a["n_items"]), dp=mesh.shape["dp"])
+        t = begin()
+        x, y = als.als_train(data, k=rank_k, reg=ALS_LAMBDA, iterations=iters, seed=7,
+                             mesh=mesh, device=dev)
+        out["als"] = end(t)
+        np.savez(spec["als_out"].format(rank=rank), x=x, y=y)
+    if "logreg" in spec["parts"]:
+        c = np.load(spec["logreg_in"])
+        t = begin()
+        w, b = logreg.logreg_train(c["x"], c["y"], int(c["n_classes"]), l2=0.01,
+                                   iterations=100, mesh=mesh, device=dev)
+        out["logreg"] = end(t)
+        np.savez(spec["logreg_out"].format(rank=rank), w=w, b=b)
+    out["wall_s"] = time.perf_counter() - t0
+    print("RANK_RESULT " + json.dumps(out), flush=True)
+
+
+def start_ranks(n: int, spec: dict, env: dict, dev, logs: Path) -> list:
+    """``n`` rank processes on ``dev``'s kind of device (``python -c``
+    running ``rank_main``), joined at a free localhost port; each writes
+    its output to ``<logs>-<k>.out`` and ``.err`` (a file: a rank never
+    blocks on a pipe while another waits for it in a collective)."""
+    root = str(Path(__file__).resolve().parent)
+    spec = {**spec, "device": dev.type}
+    env = {**env, "PYTHONPATH": root, "PIO_NUM_PROCESSES": str(n),
+           "PIO_COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}",
+           "PIO_DIST_TIMEOUT_S": str(RANK_DIST_TIMEOUT_S), "PIO_TORCH_DEVICE": dev.type}
+    code = "import json, sys, chip_smoke; chip_smoke.rank_main(json.loads(sys.argv[1]))"
+    procs = []
+    for k in range(n):
+        with open(f"{logs}-{k}.out", "w") as out, open(f"{logs}-{k}.err", "w") as err:
+            p = subprocess.Popen([sys.executable, "-c", code, json.dumps(spec)], cwd=root,
+                                 env={**env, "PIO_PROCESS_ID": str(k)}, stdout=out,
+                                 stderr=err)
+        p.logs = f"{logs}-{k}"
+        procs.append(p)
+    return procs
+
+
+def finish_ranks(procs: list, what: str) -> list:
+    """Each rank's RANK_RESULT; a rank that fails, or outlives
+    RANK_TIMEOUT_S, fails the phase.  Every rank is reaped."""
+    results = []
+    try:
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        for k, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"{what}: rank {k} ran past {RANK_TIMEOUT_S} s")
+            so, se = (Path(p.logs + ext).read_text() for ext in (".out", ".err"))
+            lines = [ln for ln in so.splitlines() if ln.startswith("RANK_RESULT ")]
+            check(p.returncode == 0 and len(lines) == 1,
+                  f"{what}: rank {k} exited {p.returncode}\n{so[-3000:]}\n{se[-6000:]}")
+            results.append(json.loads(lines[0][len("RANK_RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return results
+
+
+def collective_text(c: dict) -> str:
+    return ", ".join(f"{k} {v['calls']} calls {v['bytes'] / 1e9:.4f} GB {v['seconds']:.3f} s"
+                     for k, v in c.items() if v["calls"])
+
+
+def ranks_path(dev, workdir, bench_tables, tables_11b, als_pd, shared_import):
+    """Phase 23: training over ranks on this card.  (a) one rank under NCCL
+    trains bench_ur's shape with a dp = 1 mesh, tables bit-identical to
+    phase 10's; (b) two ranks sharing the card under gloo run ``pio train``
+    of the UR at the deployed width from a sharedfs store filled by ``pio
+    import`` of 11b's file (50 K2 and 50 K3 launches and 50 all-reduces
+    each, no ``merge_desc`` on the card), each stored model bit-identical to
+    11b's one-rank train; (c) ALS at 12b's width over the two ranks against
+    one rank on the same dp = 2 layout; (d) logistic regression at 18e's
+    classification shape over the two ranks against one rank.  The
+    sharedfs import runs from phase 21 on (``shared_import``); (a) runs
+    beside (b)-(d)."""
+    from predictionio_tpu_torch.ops import als as als_ops
+    from predictionio_tpu_torch.ops import logreg as lr_ops
+    from predictionio_tpu_torch.storage import Storage, StorageConfig
+    from predictionio_tpu_torch.workflow.persistence import load_models
+
+    t_phase = time.perf_counter()
+    out = {}
+    base = dict(os.environ)
+    shared = shared_env(workdir)
+    t0 = time.perf_counter()
+    out["import_s"] = finish_shared_import(shared_import)
+    out["import_wait_s"] = time.perf_counter() - t0
+    engine_json = workdir / "engine-ranks.json"
+    engine_json.write_text(json.dumps({**engine_variant(False), "id": RANKS_ENGINE_ID}))
+    n_users, n_items = len(als_pd.user_dict), len(als_pd.item_dict)
+    np.savez(workdir / "ranks-als-in.npz", u=als_pd.user_idx, i=als_pd.item_idx,
+             r=als_pd.rating, n_users=n_users, n_items=n_items)
+    x_cls, y_cls = cls_arrays(CLS_USERS)
+    np.savez(workdir / "ranks-logreg-in.npz", x=x_cls, y=y_cls, n_classes=3)
+    spec = {"parts": ["ur", "als", "logreg"], "engine_json": str(engine_json),
+            "als": list(DEPLOYED_ALS[4:]),
+            "als_in": str(workdir / "ranks-als-in.npz"),
+            "als_out": str(workdir / "ranks-als-{rank}.npz"),
+            "logreg_in": str(workdir / "ranks-logreg-in.npz"),
+            "logreg_out": str(workdir / "ranks-logreg-{rank}.npz")}
+    a_spec = {"parts": ["bench"], "bench_out": str(workdir / "ranks-bench-{rank}.npz"),
+              "bench_ur": list(BENCH_UR)}
+    t0 = time.perf_counter()
+    procs = (start_ranks(1, a_spec, base, dev, workdir / "rank-a")
+             + start_ranks(2, spec, {**base, **shared}, dev, workdir / "rank-b"))
+    try:
+        (a,) = finish_ranks(procs[:1], "23a")
+        ranks = finish_ranks(procs[1:], "23b-d")
+        out["ranks_wall_s"] = time.perf_counter() - t0
+    finally:   # a failed rank leaves none of the others running
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(a["backend"] == "nccl", f"23a: one rank on its own card joined with {a['backend']}")
+    got = np.load(workdir / "ranks-bench-0.npz")
+    for name, (s, i) in bench_tables.items():
+        check(np.array_equal(got[f"{name}_0"].view(np.int32), s.view(np.int32))
+              and np.array_equal(got[f"{name}_1"], i),
+              f"23a: {name}: the dp = 1 mesh's tables differ from phase 10's")
+    ar = a["bench"]["collectives"]["all_reduce"]
+    check(ar["calls"] == 2 and tuple(a["bench"]["launches"]) == (2, 2),
+          f"23a: {ar['calls']} all-reduces, launches {a['bench']['launches']}")
+    out["a"] = a
+    print(f"  23a: one rank, backend {a['backend']} on {a['device']} (init "
+          f"{a['init_s']:.3f} s): bench_ur's shape over a dp = 1 mesh, the dense runner, "
+          f"tables bit-identical to phase 10's; train {a['bench']['wall_s']:.3f} s, peak "
+          f"{a['bench']['peak_gb']:.3f} GB, {collective_text(a['bench']['collectives'])}")
+    out["ranks"] = ranks
+    card_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    tiles = 2 * -(-DEPLOYED_UR[1] // DEPLOYED_UR[5])
+    for r in ranks:
+        ur = r["ur"]
+        ar = ur["collectives"]["all_reduce"]
+        check(r["backend"] == "gloo", f"23b: two ranks on one card joined with {r['backend']}")
+        check(ur["rc"] == 0, f"23b: rank {r['rank']}: pio train exited {ur['rc']}")
+        check(tuple(ur["launches"]) == (tiles, tiles),
+              f"23b: rank {r['rank']}: K2/K3 launches {ur['launches']}, expected {tiles} each")
+        check(ar["calls"] == tiles, f"23b: rank {r['rank']}: {ar['calls']} all-reduces")
+        check(ur["merges_on_card"] == 0, f"23b: merge_desc ran {ur['merges_on_card']} times")
+        print(f"  23b: rank {r['rank']} backend {r['backend']} on {r['device']} (init "
+              f"{r['init_s']:.3f} s): pio train {ur['wall_s']:.3f} s, peak {ur['peak_gb']:.3f} "
+              f"GB, K2/K3 launches {ur['launches']}, merge_desc on the card "
+              f"{ur['merges_on_card']}, {collective_text(ur['collectives'])}")
+    peak_sum = a["bench"]["peak_gb"] + sum(max(r[p]["peak_gb"] for p in ("ur", "als", "logreg"))
+                                           for r in ranks)
+    check(peak_sum <= card_gb, f"23: the ranks' peaks {peak_sum:.3f} GB exceed the card")
+    store = Storage(StorageConfig(sources={"SH": {"type": "sharedfs",
+                                                  "path": str(workdir / "shared")}},
+                                  repositories={r: "SH" for r in
+                                                ("METADATA", "EVENTDATA", "MODELDATA")}))
+    stored = [inst for inst in store.engine_instances.get_all()
+              if inst.engine_id == RANKS_ENGINE_ID]
+    check(len(stored) == 2 and all(i.status == "COMPLETED" for i in stored),
+          f"23b: {len(stored)} stored instances, expected one a rank")
+    for inst in stored:
+        (model,) = load_models(store, inst.id, device="cpu")
+        got = host_tables(model)
+        check(got["items"] == tables_11b["items"], "23b: the item dictionaries differ")
+        for name in ("purchase", "view"):
+            (g_cols, g_idx, g_llr), (w_cols, w_idx, w_llr) = got[name], tables_11b[name]
+            check(g_cols == w_cols and np.array_equal(g_idx, w_idx)
+                  and np.array_equal(g_llr.view(np.int32), w_llr.view(np.int32)),
+                  f"23b: instance {inst.id}: the {name} table differs from 11b's one rank")
+        del model
+    print(f"  23b: both stored models ({[i.id for i in stored]}) bit-identical to 11b's "
+          f"one-rank train; the sharedfs pio import {out['import_s']:.3f} s (from phase 21 "
+          f"on; phase 23 waited {out['import_wait_s']:.3f} s for it); the three ranks' "
+          f"peaks sum to {peak_sum:.3f} GB of {card_gb:.1f}")
+
+    _, _, _, _, rank_k, iters = DEPLOYED_ALS
+    data = als_ops.prepare_als_data(als_pd.user_idx, als_pd.item_idx, als_pd.rating,
+                                    n_users, n_items, dp=2)
+    one = als_ops.als_train(data, k=rank_k, reg=ALS_LAMBDA, iterations=iters, seed=7,
+                            device=dev)
+    del data
+    out["als"] = {}
+    for r in ranks:
+        got = np.load(workdir / f"ranks-als-{r['rank']}.npz")
+        diffs = [float(np.abs(got[k] - w).max()) for k, w in zip("xy", one)]
+        same = all(np.array_equal(got[k].view(np.int32), w.view(np.int32))
+                   for k, w in zip("xy", one))
+        if not same:
+            for k, w in zip("xy", one):
+                check(np.allclose(got[k], w, rtol=RANKS_ALS_RTOL, atol=RANKS_ALS_ATOL),
+                      f"23c: rank {r['rank']}: {k} beyond rtol {RANKS_ALS_RTOL} atol "
+                      f"{RANKS_ALS_ATOL} of one rank (max {max(diffs)})")
+        out["als"][r["rank"]] = {"bit_identical": same, "max_abs_diff": max(diffs)}
+        ag = r["als"]["collectives"]["all_gather"]
+        print(f"  23c: rank {r['rank']}: ALS {n_users} x {n_items} x rank {rank_k}, {iters} "
+              f"sweeps over dp = 2: {r['als']['wall_s']:.3f} s, peak {r['als']['peak_gb']:.3f} "
+              f"GB; factors {'bit-identical to' if same else 'within the bar of'} one rank on "
+              f"the same layout (max |diff| {max(diffs):.3g}); all-gather {ag['calls']} calls "
+              f"{ag['bytes'] / 1e6:.3f} MB {ag['seconds']:.3f} s")
+
+    w1, b1 = lr_ops.logreg_train(x_cls, y_cls, 3, l2=0.01, iterations=100, device=dev)
+    r0, r1 = (np.load(workdir / f"ranks-logreg-{r['rank']}.npz") for r in ranks)
+    check(np.array_equal(r0["w"], r1["w"]) and np.array_equal(r0["b"], r1["b"]),
+          "23d: W and b differ between the ranks")
+    err = max(float(np.abs(r0["w"] - w1).max()), float(np.abs(r0["b"] - b1).max()))
+    check(err <= RANKS_LOGREG_ATOL, f"23d: W, b {err} from one rank's")
+    out["logreg_max_abs_diff"] = err
+    for r in ranks:
+        print(f"  23d: rank {r['rank']}: logistic regression {len(y_cls)} x "
+              f"{x_cls.shape[1]}, L-BFGS 100 steps: {r['logreg']['wall_s']:.3f} s, "
+              f"{collective_text(r['logreg']['collectives'])}")
+    print(f"  23d: W and b equal in both ranks, {err:.3g} from one rank's (bar "
+          f"{RANKS_LOGREG_ATOL})")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  phase 23 wall {out['wall_s']:.3f} s (the two ranks {out['ranks_wall_s']:.3f} s)")
+    return out
+
+
+def cls_arrays(n_users):
+    """18e's classification examples as arrays: the three attributes of
+    ``cls_events`` and the label's index among the sorted labels."""
+    rng = np.random.default_rng(SEED + 183)
+    a = rng.integers(0, 5, (n_users, 3)).astype(float)
+    z = a[:, 0] - 0.8 * a[:, 1] + 0.5 * a[:, 2] + rng.normal(0, 1.0, n_users)
+    y = np.where(z > 2.5, 0, np.where(z > 0.5, 2, 1))   # high, low, mid
+    return a.astype(np.float32), y.astype(np.int64)
+
+
 # -- the run ---------------------------------------------------------------------
 
 
@@ -6690,7 +7059,7 @@ def run() -> None:
     torch.cuda.empty_cache()
 
     phase("10. UR train at bench_ur's full shape: dense and resident tiled")
-    bench = train_bench_shape(cco, hk, dev)
+    bench, bench_tables = train_bench_shape(cco, hk, dev)   # the tables: phase 23a's reference
     torch.cuda.empty_cache()
 
     phase("11. UR train from the memory store at a cut depth (run_train)")
@@ -6698,6 +7067,7 @@ def run() -> None:
     torch.cuda.empty_cache()
 
     workdir = Path(tempfile.mkdtemp(prefix="chip-smoke-"))
+    shared_import = None
     try:
         phase("11b. UR at the deployed width through localfs and pio "
               "(app new, import, build, train)")
@@ -6738,7 +7108,7 @@ def run() -> None:
               "metadata in SQLite, models on sharedfs; pio import, pio train, "
               "deploy(follow=) with freshness rounds through a promotion of shard 0")
         shard = sharded_path(ur, hk, dev, workdir, variants, tables_11b)
-        del tables_11b
+        shared_import = start_shared_import(workdir)   # phase 23b's store, meanwhile
         torch.cuda.empty_cache()
 
         phase("22. pio dashboard on 11b's store: the index with 11b's trains and their span "
@@ -6771,7 +7141,18 @@ def run() -> None:
               "complementary purchase, classification, lead scoring, text)")
         slice13, basket_tile_scores = eval_templates_path(cco, hk, dev, workdir)
         torch.cuda.empty_cache()
+        phase("23. training over ranks on this card: one rank under NCCL (bench_ur's shape, "
+              "a dp = 1 mesh); two ranks sharing the card under gloo: pio train of the UR "
+              "at the deployed width from a sharedfs store, ALS at 12b's width, logistic "
+              "regression at 18e's shape")
+        ranks = ranks_path(dev, workdir, bench_tables, tables_11b, als_pd, shared_import)
+        del tables_11b, bench_tables
+        (workdir / "events.jsonl").unlink()
+        torch.cuda.empty_cache()
     finally:
+        if shared_import is not None and shared_import.poll() is None:
+            shared_import.kill()   # a phase before 23 failed
+            shared_import.wait()
         shutil.rmtree(workdir, ignore_errors=True)
 
     phase("15. CCO at bench_scale's shape: the parity corpus through every strategy, "
@@ -6985,6 +7366,12 @@ def run() -> None:
           f" ms; phase 20 propagation observed "
           f"{planes['observability']['propagation_observed']} times; phase 22 "
           f"{dashboard['wall_s']:.3f} s | {smi}")
+    rb = ranks["ranks"]
+    print(f"  phase 23 {ranks['wall_s']:.3f} s: 23a {ranks['a']['backend']}, 23b-d "
+          f"{rb[0]['backend']}; pio train over two ranks "
+          + ", ".join(f"rank {r['rank']} {r['ur']['wall_s']:.3f} s peak {r['ur']['peak_gb']:.3f} "
+                      f"GB, {collective_text(r['ur']['collectives'])}" for r in rb)
+          + f"; ALS factors {ranks['als']} | {smi}")
     print(f"  chip_smoke wall {time.perf_counter() - t_start:.3f} s | {smi}")
     launches = {"masked_score": (http_launches + batch_launches + als_run["k1_launches"]
                                  + load_launches + slice13["launches"]["masked_score"]),
@@ -6993,13 +7380,15 @@ def run() -> None:
                                + planes["launches"][0] + shard["train_launches"][0]
                                + shard["launches"][0]
                                + sum(c[1] for c in caches["checkpointed_train"]["calls"])
-                               + slice13["launches"]["llr_masked"]),
+                               + slice13["launches"]["llr_masked"]
+                               + sum(r["ur"]["launches"][0] for r in ranks["ranks"])),
                 "tile_topk": (deployed["launches"][1] + scale["launches"][1]
                               + similar["launches"][1] + follow["launches"][1]
                               + planes["launches"][1] + shard["train_launches"][1]
                               + shard["launches"][1]
                               + sum(c[2] for c in caches["checkpointed_train"]["calls"])
-                              + slice13["launches"]["tile_topk"])}
+                              + slice13["launches"]["tile_topk"]
+                              + sum(r["ur"]["launches"][1] for r in ranks["ranks"]))}
     print(json.dumps({"ur_train": {"bench_shape": bench, "memory_store": memory,
                                    "deployed_width_localfs": deployed,
                                    "deployed_width_snapshot": snapshot},
@@ -7010,6 +7399,7 @@ def run() -> None:
                       "similar_product": similar, "ur_caches": caches,
                       "follow": follow, "plane": planes, "sharded": shard,
                       "slice13": slice13, "dashboard": dashboard, "traced_als": traced_7,
+                      "ranks": ranks,
                       "k1_retime": k1_rounds, "empty_kernel_ms": empty_ms, "llr_sass": sass,
                       "wall_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": [{

@@ -38,7 +38,8 @@ from predictionio_tpu_torch.models.common import DeviceCacheMixin
 from predictionio_tpu_torch.models.common import pad_batch_rows as _pad_batch
 from predictionio_tpu_torch.ops import logreg as lr_ops
 from predictionio_tpu_torch.ops import naive_bayes as nb_ops
-from predictionio_tpu_torch.ops.cco import ROADMAP_MESH
+from predictionio_tpu_torch.parallel.distributed import process_count
+from predictionio_tpu_torch.parallel.mesh import MeshSpec, create_mesh
 from predictionio_tpu_torch.store.event_store import PEventStore
 
 
@@ -191,7 +192,7 @@ class LogRegParams(Params):
     l2: float = 1e-4
     optimizer: str = "lbfgs"
     learning_rate: float = 0.1
-    mesh_dp: int = 0        # 0 or 1: the one card; above 1 is not ported
+    mesh_dp: int = 0        # 0 = the examples over every rank
 
 
 class LogisticRegressionAlgorithm(Algorithm):
@@ -200,13 +201,13 @@ class LogisticRegressionAlgorithm(Algorithm):
 
     def train(self, td: LabeledData) -> LogRegModel:
         device = resolve_device(self.device)
-        if self.params.mesh_dp > 1:
-            raise NotImplementedError(f"mesh_dp={self.params.mesh_dp}: {ROADMAP_MESH}")
+        dp = self.params.mesh_dp or process_count()
+        mesh = create_mesh(MeshSpec(dp=dp, mp=1)) if dp > 1 else None
         w, b = lr_ops.logreg_train(
             td.x, td.y, n_classes=len(td.labels),
             l2=self.params.l2, iterations=self.params.iterations,
             optimizer=self.params.optimizer, learning_rate=self.params.learning_rate,
-            device=device,
+            mesh=mesh, device=device,
         )
         return LogRegModel(w, b, td.labels, td.attributes, device=device)
 

@@ -55,7 +55,8 @@ from predictionio_tpu_torch.models.common import (
 )
 from predictionio_tpu_torch.models.recommendation.engine import ItemScore, PredictedResult
 from predictionio_tpu_torch.ops import als as als_ops
-from predictionio_tpu_torch.ops.cco import ROADMAP_MESH
+from predictionio_tpu_torch.parallel.distributed import process_count
+from predictionio_tpu_torch.parallel.mesh import MeshSpec, create_mesh
 from predictionio_tpu_torch.store.columnar import IdDict, category_masks
 from predictionio_tpu_torch.store.event_store import LEventStore, PEventStore
 
@@ -152,7 +153,7 @@ class ECommAlgorithmParams(Params):
     lambda_: float = 0.01
     alpha: float = 1.0          # implicit-feedback confidence slope
     seed: int = 7
-    mesh_dp: int = 0            # 0 or 1: the one card; above 1 is not ported
+    mesh_dp: int = 0            # 0 = one shard a rank
     # event-strength weights by training event name; unlisted events weigh 1
     event_weights: Dict[str, float] = dataclasses.field(
         default_factory=lambda: {"buy": 4.0})
@@ -246,9 +247,6 @@ class ECommAlgorithm(Algorithm):
                 np.zeros((0, rank), np.float32), np.zeros((0, rank), np.float32),
                 td.user_dict, td.item_dict, td.item_categories,
                 np.zeros(n_items, np.float32), device=device)
-        if self.params.mesh_dp > 1:
-            raise NotImplementedError(
-                f"mesh_dp={self.params.mesh_dp}: {ROADMAP_MESH}")
         # event-weighted strengths, duplicates summed into one (u, i) cell —
         # the confidence input r of trainImplicit (the reference sums views)
         w = np.ones(len(td.event_names), np.float32)
@@ -264,10 +262,12 @@ class ECommAlgorithm(Algorithm):
         items = (uniq % n_items).astype(np.int32)
         popular = np.zeros(n_items, np.float32)
         np.add.at(popular, items, r)
-        data = als_ops.prepare_als_data(users, items, r, n_users, n_items, dp=1)
+        dp = self.params.mesh_dp or process_count()
+        mesh = create_mesh(MeshSpec(dp=dp, mp=1)) if dp > 1 else None
+        data = als_ops.prepare_als_data(users, items, r, n_users, n_items, dp=dp)
         X, Y = als_ops.als_train(
             data, k=rank, reg=self.params.lambda_,
-            iterations=self.params.num_iterations,
+            iterations=self.params.num_iterations, mesh=mesh,
             seed=self.params.seed, implicit=True, alpha=self.params.alpha,
             device=device)
         return ECommModel(X, Y, td.user_dict, td.item_dict, td.item_categories,

@@ -40,7 +40,8 @@ from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.models.common import DeviceCacheMixin, reindex_interactions
 from predictionio_tpu_torch.models.recommendation.engine import ItemScore
 from predictionio_tpu_torch.ops import als as als_ops
-from predictionio_tpu_torch.ops.cco import ROADMAP_MESH
+from predictionio_tpu_torch.parallel.distributed import process_count
+from predictionio_tpu_torch.parallel.mesh import MeshSpec, create_mesh
 from predictionio_tpu_torch.store.columnar import IdDict
 from predictionio_tpu_torch.store.event_store import PEventStore
 
@@ -102,7 +103,7 @@ class PRAlgorithmParams(Params):
     lambda_: float = 0.01
     alpha: float = 1.0
     seed: int = 7
-    mesh_dp: int = 0        # 0 or 1: the one card; above 1 is not ported
+    mesh_dp: int = 0        # 0 = one shard a rank
 
 
 class PRModel(DeviceCacheMixin, PersistentModel):
@@ -189,18 +190,18 @@ class PRAlgorithm(Algorithm):
         if n_users == 0 or n_items == 0:
             return PRModel(np.zeros((0, rank), np.float32), np.zeros((0, rank), np.float32),
                            td.user_dict, td.item_dict, device=device)
-        if self.params.mesh_dp > 1:
-            raise NotImplementedError(f"mesh_dp={self.params.mesh_dp}: {ROADMAP_MESH}")
         # implicit: interaction counts as confidences (trainImplicit)
         cell = td.user_idx.astype(np.int64) * n_items + td.item_idx
         uniq, counts = np.unique(cell, return_counts=True)
         users = (uniq // n_items).astype(np.int32)
         items = (uniq % n_items).astype(np.int32)
+        dp = self.params.mesh_dp or process_count()
+        mesh = create_mesh(MeshSpec(dp=dp, mp=1)) if dp > 1 else None
         data = als_ops.prepare_als_data(
-            users, items, counts.astype(np.float32), n_users, n_items, dp=1)
+            users, items, counts.astype(np.float32), n_users, n_items, dp=dp)
         X, Y = als_ops.als_train(
             data, k=rank, reg=self.params.lambda_, iterations=self.params.num_iterations,
-            seed=self.params.seed, implicit=True, alpha=self.params.alpha, device=device)
+            mesh=mesh, seed=self.params.seed, implicit=True, alpha=self.params.alpha, device=device)
         return PRModel(X, Y, td.user_dict, td.item_dict, device=device)
 
     def warm(self, model: PRModel) -> None:

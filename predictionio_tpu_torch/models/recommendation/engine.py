@@ -37,7 +37,8 @@ from predictionio_tpu_torch.controller import (
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.models.common import DeviceCacheMixin
 from predictionio_tpu_torch.ops import als as als_ops
-from predictionio_tpu_torch.ops.cco import ROADMAP_MESH
+from predictionio_tpu_torch.parallel.distributed import process_count
+from predictionio_tpu_torch.parallel.mesh import MeshSpec, create_mesh
 from predictionio_tpu_torch.store.columnar import CSRLookup, EventBatch, IdDict
 from predictionio_tpu_torch.store.event_store import PEventStore
 
@@ -184,7 +185,7 @@ class ALSAlgorithmParams(Params):
     num_iterations: int = 10
     lambda_: float = 0.01
     seed: int = 7
-    mesh_dp: int = 0        # 0 or 1: the one card; above 1 is not ported
+    mesh_dp: int = 0        # 0 = one shard a rank
     checkpoint_every: int = 0
     checkpoint_dir: str = ""
 
@@ -268,11 +269,10 @@ class ALSAlgorithm(Algorithm):
                 np.zeros((0, self.params.rank), np.float32),
                 pd.user_dict, pd.item_dict, device=device,
             )
-        if self.params.mesh_dp > 1:
-            raise NotImplementedError(
-                f"mesh_dp={self.params.mesh_dp}: {ROADMAP_MESH}")
+        dp = self.params.mesh_dp or process_count()
+        mesh = create_mesh(MeshSpec(dp=dp, mp=1)) if dp > 1 else None
         data = als_ops.prepare_als_data(
-            pd.user_idx, pd.item_idx, pd.rating, n_users, n_items, dp=1
+            pd.user_idx, pd.item_idx, pd.rating, n_users, n_items, dp=dp
         )
         checkpoint = None
         if self.params.checkpoint_every > 0:
@@ -297,6 +297,7 @@ class ALSAlgorithm(Algorithm):
             k=self.params.rank,
             reg=self.params.lambda_,
             iterations=self.params.num_iterations,
+            mesh=mesh,
             seed=self.params.seed,
             checkpoint=checkpoint,
             checkpoint_every=self.params.checkpoint_every,

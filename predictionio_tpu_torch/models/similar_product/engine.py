@@ -59,6 +59,8 @@ from predictionio_tpu_torch.models.common import (
 from predictionio_tpu_torch.models.recommendation.engine import ItemScore, PredictedResult
 from predictionio_tpu_torch.ops import als as als_ops
 from predictionio_tpu_torch.ops import cco as cco_ops
+from predictionio_tpu_torch.parallel.distributed import process_count
+from predictionio_tpu_torch.parallel.mesh import MeshSpec, create_mesh
 from predictionio_tpu_torch.store.columnar import IdDict, category_masks
 from predictionio_tpu_torch.store.event_store import PEventStore
 
@@ -201,7 +203,7 @@ class SPALSParams(Params):
     lambda_: float = 0.01
     alpha: float = 1.0      # implicit-feedback confidence slope
     seed: int = 7
-    mesh_dp: int = 0        # 0 or 1: the one card; above 1 is not ported
+    mesh_dp: int = 0        # 0 = every rank
 
 
 class SPALSAlgorithm(Algorithm):
@@ -214,20 +216,19 @@ class SPALSAlgorithm(Algorithm):
             return SPModel("als", td.item_dict, td.item_categories,
                            item_factors=np.zeros((0, self.params.rank), np.float32),
                            device=device)
-        if self.params.mesh_dp > 1:
-            raise NotImplementedError(
-                f"mesh_dp={self.params.mesh_dp}: {cco_ops.ROADMAP_MESH}")
         # implicit feedback (MLlib ALS.trainImplicit, as the reference
         # template calls it): view counts become confidences c = 1 + alpha·r
         cell = td.user_idx.astype(np.int64) * n_items + td.item_idx
         uniq, counts = np.unique(cell, return_counts=True)
         users = (uniq // n_items).astype(np.int32)
         items = (uniq % n_items).astype(np.int32)
+        dp = self.params.mesh_dp or process_count()
+        mesh = create_mesh(MeshSpec(dp=dp, mp=1)) if dp > 1 else None
         data = als_ops.prepare_als_data(
-            users, items, counts.astype(np.float32), n_users, n_items, dp=1)
+            users, items, counts.astype(np.float32), n_users, n_items, dp=dp)
         _, Y = als_ops.als_train(
             data, k=self.params.rank, reg=self.params.lambda_,
-            iterations=self.params.num_iterations, seed=self.params.seed,
+            iterations=self.params.num_iterations, mesh=mesh, seed=self.params.seed,
             implicit=True, alpha=self.params.alpha, device=device)
         return SPModel("als", td.item_dict, td.item_categories, item_factors=Y,
                        device=device)
@@ -248,7 +249,7 @@ class SPCooccurrenceParams(Params):
     min_llr: float = 0.0
     user_block: int = 1024
     item_tile: int = 4096
-    mesh_dp: int = 0        # 0 or 1: the one card; above 1 is not ported
+    mesh_dp: int = 0        # 0 = every rank
 
 
 class SPCooccurrenceAlgorithm(Algorithm):
@@ -261,9 +262,8 @@ class SPCooccurrenceAlgorithm(Algorithm):
             return SPModel("cooccurrence", td.item_dict, td.item_categories,
                            indicator_idx=np.zeros((0, 1), np.int32),
                            indicator_llr=np.zeros((0, 1), np.float32), device=device)
-        if self.params.mesh_dp > 1:
-            raise NotImplementedError(
-                f"mesh_dp={self.params.mesh_dp}: {cco_ops.ROADMAP_MESH}")
+        dp = self.params.mesh_dp or process_count()
+        mesh = create_mesh(MeshSpec(dp=dp, mp=1)) if dp > 1 else None
         scores, idx = cco_ops.cco_indicators_coo(
             td.user_idx, td.item_idx, td.user_idx, td.item_idx,
             n_users, n_items, n_items,
@@ -271,7 +271,7 @@ class SPCooccurrenceAlgorithm(Algorithm):
             llr_threshold=self.params.min_llr,
             user_block=self.params.user_block,
             item_tile=self.params.item_tile,
-            exclude_self=True, device=device,
+            mesh=mesh, exclude_self=True, device=device,
         )
         return SPModel(
             "cooccurrence", td.item_dict, td.item_categories,

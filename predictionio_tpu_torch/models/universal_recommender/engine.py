@@ -96,12 +96,15 @@ from predictionio_tpu_torch.obs import metrics as _obs_metrics
 from predictionio_tpu_torch.obs import spans as _spans
 from predictionio_tpu_torch.obs import tracing as _tracing
 from predictionio_tpu_torch.ops import cco as cco_ops
-from predictionio_tpu_torch.ops.als import bucket_width, check_f32_id_range, pad_ids
+from predictionio_tpu_torch.ops.als import bucket_width, check_f32_id_range
+from predictionio_tpu_torch.ops.als import pad_ids as als_pad_ids
 from predictionio_tpu_torch.ops.topk import topk_desc
+from predictionio_tpu_torch.parallel.distributed import process_count
+from predictionio_tpu_torch.parallel.mesh import MeshSpec, create_mesh
 from predictionio_tpu_torch.serve import history_cache as _history_cache
 from predictionio_tpu_torch.serve import response_cache as _resp_cache
 from predictionio_tpu_torch.store.columnar import CSRLookup, IdDict, fold_properties
-from predictionio_tpu_torch.store.event_store import PEventStore
+from predictionio_tpu_torch.store.event_store import LEventStore, PEventStore  # noqa: F401
 
 # -- serving instruments (the JAX package's families) ------------------------
 
@@ -704,7 +707,7 @@ class URModel(DeviceCacheMixin, PersistentModel):
             n = len(self.item_dict)
             if n:
                 _serve_topk(self.device_zeros(), self.device_ones(),
-                            self.device_popularity(), pad_ids([]),
+                            self.device_popularity(), als_pad_ids([]),
                             min(bucket_width(1), n)).cpu()
         self.pop_norm()
 
@@ -1158,9 +1161,8 @@ class URAlgorithm(Algorithm):
         if unknown:
             raise ValueError(
                 f"blacklist_events {unknown} not in event_names {td.event_names}")
-        if self.params.mesh_dp > 1:
-            raise NotImplementedError(
-                f"mesh_dp={self.params.mesh_dp}: {cco_ops.ROADMAP_MESH}")
+        dp = self.params.mesh_dp or process_count()
+        mesh = create_mesh(MeshSpec(dp=dp, mp=1)) if dp > 1 else None
         others = []
         event_item_dicts: Dict[str, IdDict] = {}
         for name in td.event_names:
@@ -1174,6 +1176,7 @@ class URAlgorithm(Algorithm):
         common = dict(
             top_k=self.params.max_correlators_per_item,
             llr_threshold=self.params.min_llr,
+            mesh=mesh,
             exclude_self_for=primary,
             user_block=self.params.user_block,
             item_tile=self.params.item_tile,
@@ -1322,7 +1325,7 @@ class URAlgorithm(Algorithm):
                 continue
             n_t = max(len(model.event_item_dicts[name]), 1)
             s = _indicator_score_ids(idx, llr if self.params.use_llr_weights
-                                     else valid, pad_ids(h_ids), n_t)
+                                     else valid, als_pad_ids(h_ids), n_t)
             weight = float(self.params.indicator_weights.get(name, 1.0))
             s = s * weight if weight != 1.0 else s
             total = s if total is None else total + s
@@ -1557,7 +1560,7 @@ class URAlgorithm(Algorithm):
         # backfill slot; bucketed so distinct nums share shapes
         k = min(bucket_width(2 * num, 16), len(model.item_dict))
         out = _serve_topk(sig, mask if mask is not None else model.device_ones(),
-                          model.device_popularity(), pad_ids(black_ids),
+                          model.device_popularity(), als_pad_ids(black_ids),
                           k).cpu().numpy()     # ONE [4, k] readback
         if lap is not None:
             lap("topk")

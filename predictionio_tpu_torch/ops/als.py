@@ -1,4 +1,5 @@
-"""Alternating least squares: training on one device, and serving.
+"""Alternating least squares: training on one device or over ranks, and
+serving.
 
 Counterpart of ``predictionio_tpu/ops/als.py``.
 
@@ -24,8 +25,15 @@ seed on one card give the same bits.  TF32 stays off
 
 Factors start from an explicit ``torch.Generator`` on the CPU (JAX draws
 from ``PRNGKey(seed)``, which torch cannot reproduce), so the CPU and the
-card start from the same factors.  A device mesh (``mesh``, or data laid
-out for dp > 1) is not ported: it raises naming ROADMAP.md's item.
+card start from the same factors.
+
+Data laid out for ``dp`` shards trains on one device shard by shard, as
+the JAX package's single runner vmaps over them.  Over a mesh of ranks
+(``mesh``, one process a device; JAX :219-254) each rank solves its
+contiguous share of the dp shards (``data.dp`` a multiple of the mesh's
+dp) and, in each half-step, all-gathers the opposite side's factor blocks
+(``parallel.distributed.all_gather_rows``); the implicit Gram comes from
+the gathered matrix, as in JAX.  Every rank gets the whole factors back.
 
 Serving (JAX :414-686).  Every route without business rules scores
 through the fused masked-score kernel
@@ -47,12 +55,16 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.device import resolve_device
-from predictionio_tpu_torch.ops.cco import ROADMAP_MESH
 from predictionio_tpu_torch.ops.hopper_kernels import (
     masked_score_matmul,
     recommend_batch_fused,
 )
 from predictionio_tpu_torch.ops.topk import topk_desc
+from predictionio_tpu_torch.parallel.distributed import (
+    all_gather_rows,
+    all_reduce_sum,
+    process_index,
+)
 
 #: bound on one chunk's device scratch in a half-step: the gathered
 #: factors, the weighted copy, the systems and their factors
@@ -316,10 +328,21 @@ def _half_step_implicit(
 # -- training: the sweeps (JAX :173-412) -------------------------------------------
 
 
-def _check_single(data: ALSData, mesh) -> None:
-    if mesh is not None or data.dp != 1:
-        raise NotImplementedError(
-            f"ALS over a device mesh (dp={data.dp}) is not ported yet ({ROADMAP_MESH})")
+def _mesh_shards(data: ALSData, mesh) -> Tuple[int, int]:
+    """(first shard, shard count) of ``data``'s dp shards this rank solves:
+    all of them without a mesh, else its contiguous share."""
+    if mesh is None:
+        return 0, data.dp
+    n = mesh.shape.get("dp", 1)
+    if data.dp % n:
+        raise ValueError(f"ALSData prepared for dp={data.dp}, mesh has dp={n}")
+    q = data.dp // n
+    return mesh.position("dp") * q, q
+
+
+def _gather(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Every rank's blocks along dim 0, in mesh order (``t`` without a mesh)."""
+    return t if mesh is None else all_gather_rows(t, mesh)
 
 
 def als_train(
@@ -346,17 +369,21 @@ def als_train(
     ``checkpoint`` (a ``utils.checkpoint.CheckpointStore``) +
     ``checkpoint_every`` snapshot the factor blocks every N sweeps and
     resume from the newest snapshot of the same run (``als_fingerprint``).
+
+    Over a ``mesh`` of ranks each rank solves its share of the dp shards
+    and all-gathers the opposite blocks each half-step; every rank returns
+    the whole factors.
     """
-    _check_single(data, mesh)
     dev = resolve_device(device)
     if checkpoint is not None and checkpoint_every > 0:
         return _als_train_checkpointed(
             data, k, reg, iterations, mesh, seed, checkpoint, checkpoint_every,
             implicit=implicit, alpha=alpha, device=dev)
     x0, y0 = _als_init(data, k, seed)
-    x, y = _als_sweeps(data, x0.to(dev), y0.to(dev), iterations, reg, mesh,
-                       implicit=implicit, alpha=alpha)
-    return _als_deinterleave(data, x, y, k)
+    s0, q = _mesh_shards(data, mesh)
+    x, y = _als_sweeps(data, x0[s0:s0 + q].to(dev), y0[s0:s0 + q].to(dev), iterations,
+                       reg, mesh, implicit=implicit, alpha=alpha)
+    return _als_deinterleave(data, x, y, k, mesh)
 
 
 def _als_init(data: ALSData, k: int, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -374,42 +401,52 @@ def _als_init(data: ALSData, k: int, seed: int) -> Tuple[torch.Tensor, torch.Ten
     return x0, y0
 
 
-def _als_device_args(data: ALSData, k: int, device) -> Tuple[HalfStepPlan, HalfStepPlan]:
-    """Both sides' plans on ``device``: one host->device upload a train."""
-    _check_single(data, None)
+PlanPair = Tuple[List[HalfStepPlan], List[HalfStepPlan]]
+
+
+def _als_device_args(data: ALSData, k: int, device, mesh=None) -> PlanPair:
+    """Both sides' plans, one a shard this rank solves, on ``device``: one
+    host->device upload a train."""
+    s0, q = _mesh_shards(data, mesh)
+    shards = range(s0, s0 + q)
     return (
-        half_step_plan(data.u_user_local[0], data.u_item_flat[0], data.u_rating[0],
-                       data.u_mask[0], data.user_rows, k, device),
-        half_step_plan(data.i_item_local[0], data.i_user_flat[0], data.i_rating[0],
-                       data.i_mask[0], data.item_rows, k, device),
+        [half_step_plan(data.u_user_local[s], data.u_item_flat[s], data.u_rating[s],
+                        data.u_mask[s], data.user_rows, k, device) for s in shards],
+        [half_step_plan(data.i_item_local[s], data.i_user_flat[s], data.i_rating[s],
+                        data.i_mask[s], data.item_rows, k, device) for s in shards],
     )
 
 
 def _als_sweeps(data: ALSData, x0: torch.Tensor, y0: torch.Tensor, n_sweeps: int,
                 reg: float, mesh=None, args=None, implicit: bool = False,
                 alpha: float = 1.0, mark: Optional[Callable[[str], None]] = None):
-    """``n_sweeps`` sweeps from (x0, y0) [dp, rows, K] on their device,
-    user side then item side; returns (x, y) there."""
-    _check_single(data, mesh)
-    dp, _, k = y0.shape
+    """``n_sweeps`` sweeps from this rank's blocks (x0, y0) [q, rows, K] on
+    their device (all dp shards without a mesh), user side then item side;
+    returns (x, y) there.  Each half-step solves every shard of the rank
+    against the opposite side's blocks of every rank."""
+    q, _, k = y0.shape
     if args is None:
-        args = _als_device_args(data, k, y0.device)
-    user_plan, item_plan = args
+        args = _als_device_args(data, k, y0.device, mesh)
+    user_plans, item_plans = args
+
+    def half(plans, other, rows):
+        full = _gather(other.reshape(-1, k), mesh)
+        gram = full.T @ full if implicit else None
+        return torch.stack([solve_half(p, full, reg, gram, alpha, mark=mark)
+                            for p in plans]).reshape(q, rows, k)
+
     x, y = x0, y0
     for _ in range(int(n_sweeps)):
-        y_full = y.reshape(dp * data.item_rows, k)
-        gram = y_full.T @ y_full if implicit else None
-        x = solve_half(user_plan, y_full, reg, gram, alpha, mark=mark).reshape(
-            dp, data.user_rows, k)
-        x_full = x.reshape(dp * data.user_rows, k)
-        gram = x_full.T @ x_full if implicit else None
-        y = solve_half(item_plan, x_full, reg, gram, alpha, mark=mark).reshape(
-            dp, data.item_rows, k)
+        x = half(user_plans, y, data.user_rows)
+        y = half(item_plans, x, data.item_rows)
     return x, y
 
 
-def _als_deinterleave(data: ALSData, x, y, k: int) -> Tuple[np.ndarray, np.ndarray]:
-    # [dp, rows, K] back to global [n, K]: global e = shard + dp*row
+def _als_deinterleave(data: ALSData, x, y, k: int,
+                      mesh=None) -> Tuple[np.ndarray, np.ndarray]:
+    # every rank's blocks, then [dp, rows, K] back to global [n, K]:
+    # global e = shard + dp*row
+    x, y = _gather(x, mesh), _gather(y, mesh)
     x = _host(x).transpose(1, 0, 2).reshape(-1, k)[: data.n_users]
     y = _host(y).transpose(1, 0, 2).reshape(-1, k)[: data.n_items]
     return np.ascontiguousarray(x), np.ascontiguousarray(y)
@@ -434,7 +471,9 @@ def _als_train_checkpointed(
     seed: int, checkpoint, checkpoint_every: int,
     implicit: bool = False, alpha: float = 1.0, device=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Chunked sweeps with snapshot/resume (see als_train's docstring)."""
+    """Chunked sweeps with snapshot/resume (see als_train's docstring).  Over
+    a mesh every rank must resume from the same step (it raises
+    otherwise), and rank 0 writes the snapshots of the whole factors."""
     from predictionio_tpu_torch.utils.checkpoint import maybe_inject
 
     dev = resolve_device(device)
@@ -452,18 +491,32 @@ def _als_train_checkpointed(
             y = torch.as_tensor(np.asarray(state["y"], np.float32))
     if x is None:
         x, y = _als_init(data, k, seed)
-    x, y = x.to(dev), y.to(dev)
-    args = _als_device_args(data, k, dev)   # one upload for all chunks
+    if mesh is not None:
+        _check_same_step(done, mesh, dev)
+    s0, q = _mesh_shards(data, mesh)
+    x, y = x[s0:s0 + q].to(dev), y[s0:s0 + q].to(dev)
+    args = _als_device_args(data, k, dev, mesh)   # one upload for all chunks
     while done < iterations:
         n = min(checkpoint_every, iterations - done)
         x, y = _als_sweeps(data, x, y, n, reg, mesh, args=args,
                            implicit=implicit, alpha=alpha)
         done += n
         maybe_inject("als.sweep")  # rehearse a mid-training failure
-        checkpoint.save(done, {
-            "x": _host(x), "y": _host(y), "fingerprint": fingerprint,
-        })
-    return _als_deinterleave(data, x, y, k)
+        x_all, y_all = _gather(x, mesh), _gather(y, mesh)
+        if mesh is None or process_index() == 0:
+            checkpoint.save(done, {
+                "x": _host(x_all), "y": _host(y_all), "fingerprint": fingerprint,
+            })
+    return _als_deinterleave(data, x, y, k, mesh)
+
+
+def _check_same_step(done: int, mesh, device: torch.device) -> None:
+    """Raise unless every rank of ``mesh`` resumes from sweep ``done``."""
+    t = torch.tensor([done, 1], dtype=torch.int64, device=device)
+    all_reduce_sum(t, mesh)
+    if int(t[0]) != done * int(t[1]):
+        raise ValueError(f"ranks resume ALS from different checkpoints (this rank "
+                         f"from sweep {done}; {int(t[0])} summed over {int(t[1])} ranks)")
 
 
 # -- serving (JAX :414-686) -----------------------------------------------------

@@ -13,6 +13,7 @@ There is no fallback: a missing ``nvcc`` or a failed build raises.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -95,19 +96,28 @@ def _finish(name: str, proc: subprocess.Popen, timeout: float) -> None:
 
 def build_all(names: Optional[List[str]] = None, timeout: float = 600) -> float:
     """Build every kernel (default: all of ``SIGNATURES``) with one ``nvcc``
-    each, started together; returns the wall seconds taken."""
+    each, started together; returns the wall seconds taken.  Processes that
+    find a library missing build under one file lock (the ranks of a
+    multi-process train): the first builds, the others wait and find it
+    built."""
     t0 = time.perf_counter()
+    names = names or list(SIGNATURES)
     with _lock:
-        procs = {n: _start(n) for n in (names or list(SIGNATURES))}
-        try:
-            for n, p in procs.items():
-                if p is not None:
-                    _finish(n, p, timeout)
-        finally:   # a failed or timed-out build leaves no nvcc running
-            for p in procs.values():
-                if p is not None and p.poll() is None:
-                    p.kill()
-                    p.wait()
+        if all(artifact(n).exists() for n in names):
+            return time.perf_counter() - t0
+        BUILD_DIR.mkdir(exist_ok=True)
+        with open(BUILD_DIR / ".build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            procs = {n: _start(n) for n in names}
+            try:
+                for n, p in procs.items():
+                    if p is not None:
+                        _finish(n, p, timeout)
+            finally:   # a failed or timed-out build leaves no nvcc running
+                for p in procs.values():
+                    if p is not None and p.poll() is None:
+                        p.kill()
+                        p.wait()
     return time.perf_counter() - t0
 
 

@@ -59,8 +59,19 @@ The rules that choose, against the reference's:
   the reference picks.  Past it the chunked strategy takes over.
 - The dense budgets stay the reference's.
 
-The ``mesh`` (multi-device) variants raise ``NotImplementedError`` naming
-their ROADMAP item.
+Over a mesh of ranks (``mesh``, ``parallel.mesh.create_mesh``; one
+process a device), as in the reference: the user space is split over the
+mesh's ``dp`` axis (user chunks, or user blocks, padded to a multiple of
+dp, rank r taking its contiguous share); each rank sums its partial counts
+and marginals, which are summed over the ranks by one all-reduce
+(``parallel.distributed.all_reduce_sum``, the reference's ``psum``) for
+each event type (dense) or each item tile (chunked), two counts a 32-bit
+word when the users fit 15 bits; then K2 and K3 run in every rank on the
+full counts, so every rank holds the whole tables.  A
+mesh takes the dense strategy when it fits, else the chunked one, never
+the P-resident strategy or the sparse runner (the reference's rule).
+Counts are exact, so a train over several ranks gives tables bit-identical
+to one rank's on the same device.
 
 Layouts: every 0/1 matrix is int8 and stored item-major, [items, users], so
 the count product is ``Pt · Atᵀ`` with both operands in the layout the int8
@@ -85,6 +96,7 @@ from predictionio_tpu_torch.ops.hopper_kernels import (
     tile_topk_desc,
 )
 from predictionio_tpu_torch.ops.topk import block_width
+from predictionio_tpu_torch.parallel.distributed import all_reduce_sum
 
 #: the reference's clamp ``-1 + 1e-9``, which rounds to exactly -1.0 in f32
 _LOG1P_FLOOR = -1.0
@@ -98,9 +110,6 @@ _DENSE_C_BYTES = 2 << 30       # the whole count matrix, 4 bytes a cell
 _REF_BYTES_PER_CELL = 2
 #: share of the card's memory the P-resident working set may take on CUDA
 _RESIDENT_CARD_SHARE = 0.5
-
-ROADMAP_MESH = "ROADMAP.md, queue A, 'parallel → torch.distributed'"
-
 
 def _env_switch(name: str) -> Optional[bool]:
     """``auto`` (None), ``on`` (True) or ``off`` (False) from the
@@ -399,6 +408,67 @@ class _StagedCOO:
         return self.span(t * self.n_blocks + b)
 
 
+def _mesh_share(n_spans: int, mesh) -> Tuple[int, int]:
+    """(this rank's first span, its span count): the spans padded to a
+    multiple of dp, rank r taking spans [r * per, (r + 1) * per)."""
+    if mesh is None:
+        return 0, n_spans
+    per = math.ceil(n_spans / mesh.shape["dp"])
+    return mesh.position("dp") * per, per
+
+
+def _local_pairs(user, item, lo: int, hi: int):
+    """The pairs of users [lo, hi), users renumbered from 0."""
+    user, item = np.asarray(user), np.asarray(item)
+    if lo == 0 and (len(user) == 0 or int(user.max()) < hi):
+        return user, item
+    keep = (user >= lo) & (user < hi)
+    return user[keep] - lo, item[keep]
+
+
+#: with fewer users than this every count and marginal fits 15 bits, so an
+#: all-reduce carries two of them in one int32 word: lane sums stay below
+#: the number of users (each user is on one rank), with no carry between
+#: the lanes and no sign
+_PACK_USERS = 1 << 15
+
+
+def _pack_pairs(buf: torch.Tensor) -> torch.Tensor:
+    """Counts ``buf`` (flat int32, each < 2**15) two a word: even index in
+    the low 16 bits, odd index in the high."""
+    packed = buf[0::2].clone()
+    packed[:buf.numel() // 2] += buf[1::2] << 16
+    return packed
+
+
+def _unpack_pairs(packed: torch.Tensor, buf: torch.Tensor) -> None:
+    """``_pack_pairs`` undone into ``buf``."""
+    buf[0::2] = packed & 0xFFFF
+    buf[1::2] = (packed >> 16)[:buf.numel() // 2]
+
+
+def _all_reduce_counts(buf: torch.Tensor, mesh, n_users: int) -> None:
+    """Sum a flat int32 count buffer over the mesh's dp ranks in one
+    all-reduce: two counts a word when the users fit ``_PACK_USERS`` (half
+    the bytes), else as they are."""
+    if mesh.group("dp") is None:
+        return
+    if n_users >= _PACK_USERS:
+        all_reduce_sum(buf, mesh)
+        return
+    packed = _pack_pairs(buf)
+    all_reduce_sum(packed, mesh)
+    _unpack_pairs(packed, buf)
+
+
+def _count_buffer(*shapes, device) -> List[torch.Tensor]:
+    """Zeroed int32 tensors of ``shapes`` as views of ONE buffer (the
+    first is the buffer's head), so a mesh sums them in one all-reduce."""
+    sizes = [math.prod(sh) for sh in shapes]
+    buf = torch.zeros(sum(sizes), dtype=torch.int32, device=device)
+    return [buf] + [v.view(sh) for v, sh in zip(buf.split(sizes), shapes)]
+
+
 def _check_ids(user, item, n_users: int, n_items: int, what: str) -> None:
     user, item = np.asarray(user), np.asarray(item)
     if len(user) and (int(user.min()) < 0 or int(user.max()) >= n_users):
@@ -412,13 +482,14 @@ def _check_ids(user, item, n_users: int, n_items: int, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _dense_chunk_users(n_items_p: int, it_pad: int, n_users: int) -> int:
+def _dense_chunk_users(n_items_p: int, it_pad: int, n_users: int, dp: int = 1) -> int:
     """Chunk size minimizing padded-user waste: the number of chunks the
-    budget forces, then users split evenly (``predictionio_tpu/ops/cco.py:
-    _dense_chunk_users``, one device)."""
+    budget forces (a multiple of dp), then users split evenly
+    (``predictionio_tpu/ops/cco.py:_dense_chunk_users``)."""
     per_user = (n_items_p + it_pad) * _REF_BYTES_PER_CELL
     max_chunk = max(_DENSE_CHUNK_BYTES // max(per_user, 1), 256)
     n_chunks = max(math.ceil(n_users / max_chunk), 1)
+    n_chunks = math.ceil(n_chunks / dp) * dp
     chunk = math.ceil(n_users / n_chunks / 256) * 256
     return max(chunk, 256)
 
@@ -450,20 +521,27 @@ class _DenseRunner:
     """Stages a primary event type once and runs the dense strategy for
     each event type against it.  One instance per training run.
     ``n_total_users`` is the LLR population, which may exceed ``n_users``
-    when the pairs are one slice of a larger user space."""
+    when the pairs are one slice of a larger user space.  Over a ``mesh``
+    the user chunks are padded to a multiple of dp and this rank stages
+    and counts its contiguous share of them."""
 
     def __init__(self, p_user, p_item, n_users: int, n_items_p: int,
                  it_pad_max: int, device: torch.device,
-                 n_total_users: Optional[int] = None):
+                 n_total_users: Optional[int] = None, mesh=None):
         self.device = device
+        self.mesh = mesh
         self.n_users = n_users
         self.n_total_users = n_total_users if n_total_users else n_users
         self.n_items_p = n_items_p
-        self.chunk = _dense_chunk_users(n_items_p, it_pad_max, n_users)
-        self.n_chunks = math.ceil(max(n_users, 1) / self.chunk)
+        dp = mesh.shape["dp"] if mesh is not None else 1
+        self.chunk = _dense_chunk_users(n_items_p, it_pad_max, n_users, dp)
+        c0, self.n_chunks = _mesh_share(
+            math.ceil(max(n_users, 1) / self.chunk), mesh)
+        self.users = (c0 * self.chunk, (c0 + self.n_chunks) * self.chunk)
         self.p = self._stage(p_user, p_item)
 
     def _stage(self, user, item) -> _StagedCOO:
+        user, item = _local_pairs(user, item, *self.users)
         return _StagedCOO(user, item, self.device, "user", self.chunk,
                           self.n_chunks)
 
@@ -480,15 +558,16 @@ class _DenseRunner:
             it_pad = max(_round_up(n_items_t, 128), 128)
             a = self._stage(a_user, a_item)
         i_p = self.n_items_p
-        C = torch.zeros((i_p, it_pad), dtype=torch.int32, device=self.device)
-        rc = torch.zeros(i_p, dtype=torch.int32, device=self.device)
-        cc = torch.zeros(it_pad, dtype=torch.int32, device=self.device)
+        buf, C, rc, cc = _count_buffer((i_p, it_pad), (i_p,), (it_pad,),
+                                       device=self.device)
         for c in range(self.n_chunks):
             pt = self._densify_chunk(self.p, c, i_p)
             at = pt if self_pair else self._densify_chunk(a, c, it_pad)
             C += _count_product(pt, at)[:i_p, :it_pad]
             rc += _marginal(pt[:i_p])
             cc += _marginal(at[:it_pad])
+        if self.mesh is not None:   # the reference's psum, once a type
+            _all_reduce_counts(buf, self.mesh, self.n_users)
         return C, rc, cc
 
     def dispatch(self, a_user, a_item, n_items_t: int, top_k: int,
@@ -623,19 +702,28 @@ class _ChunkedPrimary:
     """The primary's pairs staged once on the device in user blocks of
     ``user_block`` users; each block densifies on demand, item-major
     [I_p rows, block columns].  ``rc`` (distinct users per item) is summed
-    over the blocks by the first tile that runs and kept."""
+    over the blocks by the first tile that runs and kept.  Over a ``mesh``
+    the blocks are padded to a multiple of dp and this rank holds its
+    contiguous share of them (``local``: its users, renumbered)."""
 
     def __init__(self, p_user, p_item, n_users: int, n_items_p: int,
-                 user_block: int, device: torch.device):
+                 user_block: int, device: torch.device, mesh=None):
         if user_block < 1:
             raise ValueError(f"user_block must be positive, got {user_block}")
         self.n_items_p = n_items_p
+        self.n_users = n_users
         self.block = user_block
+        self.mesh = mesh
         self.cols = _round_up(user_block, 8)   # the int8 product's k rule
-        self.n_blocks = max(math.ceil(n_users / user_block), 1)
-        self.p = _StagedCOO(p_user, p_item, device, "user", user_block, self.n_blocks)
+        b0, self.n_blocks = _mesh_share(max(math.ceil(n_users / user_block), 1), mesh)
+        self.users = (b0 * user_block, (b0 + self.n_blocks) * user_block)
+        self.p = _StagedCOO(*self.local(p_user, p_item), device, "user", user_block,
+                            self.n_blocks)
         self.rc: Optional[torch.Tensor] = None
         self.device = device
+
+    def local(self, user, item):
+        return _local_pairs(user, item, *self.users)
 
     def block_matrix(self, b: int) -> torch.Tensor:
         u, i = self.p.span(b)
@@ -655,22 +743,25 @@ def _cco_indicators_chunked(
     diagonal mask and K3 with its carry, as the resident strategy runs
     them.  A block with no pairs of the tile adds nothing and is skipped
     once ``rc`` is known.  The other type is staged once, sorted by (tile,
-    block)."""
+    block).  Over a mesh each rank sums its own blocks, and one all-reduce
+    a tile (the reference's ``psum``, ``_cco_tile_step``) sums the tile's
+    counts and marginals over the ranks before K2 and K3 run in every
+    rank."""
     device, i_p = primary.device, primary.n_items_p
     tile = min(item_tile, max(n_items_t, 1))
     n_tiles = math.ceil(n_items_t / tile)
     w8 = _round_up(tile, 8)
     if not self_pair:
-        a = _StagedCOO(a_user, a_item, device, "item", tile, n_tiles,
+        a = _StagedCOO(*primary.local(a_user, a_item), device, "item", tile, n_tiles,
                        block=primary.block, n_blocks=primary.n_blocks)
     b = block_width(top_k)
     best = _initial_carry(i_p, top_k, device)
     for t in range(n_tiles):
         t0 = t * tile
         need_rc = primary.rc is None
-        rc = torch.zeros(i_p, dtype=torch.int32, device=device) if need_rc else primary.rc
-        counts = torch.zeros((_item_rows(i_p), w8), dtype=torch.int32, device=device)
-        cc = torch.zeros(w8, dtype=torch.int32, device=device)
+        shapes = [(_item_rows(i_p), w8), (w8,)] + ([(i_p,)] if need_rc else [])
+        buf, counts, cc, *rc = _count_buffer(*shapes, device=device)
+        rc = rc[0] if need_rc else primary.rc
         for blk in range(primary.n_blocks):
             if not self_pair:
                 u, i = a.span2(t, blk)
@@ -688,10 +779,14 @@ def _cco_indicators_chunked(
             counts += _count_product(pb, at)
             cc += _marginal(at)
             del pb, at
-        primary.rc = rc
+        if primary.mesh is not None:
+            _all_reduce_counts(buf, primary.mesh, primary.n_users)
+        if need_rc:   # kept past this tile: not as a view holding the buffer
+            primary.rc = rc.clone()
+        del buf
         scores = _llr_mask_scores(counts[:i_p, :tile], rc, cc[:tile],
                                   n_total_users, llr_threshold)
-        del counts
+        del counts, cc, rc   # the last views of the buffer: freed before K3
         best = _tile_tail(scores, t0, exclude_self, b, best)
         del scores
     return _finalize_topk(*best, n_items_t, top_k)
@@ -1036,11 +1131,6 @@ class _SparseHostRunner:
 # ---------------------------------------------------------------------------
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(f"CCO over a device mesh is not ported yet ({ROADMAP_MESH})")
-
-
 def cco_train_indicators(
     p_user: np.ndarray, p_item: np.ndarray,
     others: Sequence[Tuple[str, np.ndarray, np.ndarray, int]],
@@ -1067,15 +1157,17 @@ def cco_train_indicators(
     ``(top_k, llr_threshold)`` per event type.  Each event type takes the
     sparse runner when it is on and its budgets hold, else the dense
     strategy when it fits, else the P-resident one, else the chunked one,
-    whose user blocks are ``user_block`` users.
+    whose user blocks are ``user_block`` users.  Over a ``mesh`` (a mesh of
+    ranks, ``parallel.mesh.create_mesh``) the sparse runner and the
+    P-resident strategy are never taken, and every rank returns the whole
+    tables.
     """
-    _no_mesh(mesh)
     dev = resolve_device(device)
     per_type = per_type or {}
     _check_ids(p_user, p_item, n_users, n_items_p, "primary")
     dense_names = [nm for nm, _, _, nt in others if _dense_path_ok(n_items_p, nt)]
     sparse: Optional[_SparseHostRunner] = None
-    if _sparse_path_ok(dev):
+    if mesh is None and _sparse_path_ok(dev):
         sparse = _SparseHostRunner(p_user, p_item, n_users, n_items_p, dev)
     runner: Optional[_DenseRunner] = None
     resident: Optional[_ResidentPrimary] = None
@@ -1097,10 +1189,11 @@ def cco_train_indicators(
                 it_pad_max = max(max(_round_up(nt, 128), 128)
                                  for nm, _, _, nt in others if nm in dense_names)
                 runner = _DenseRunner(p_user, p_item, n_users, n_items_p,
-                                      max(it_pad_max, n_items_p), dev)
+                                      max(it_pad_max, n_items_p), dev, mesh=mesh)
             pending.append((name, runner.dispatch(au, ai, n_items_t, t_k, t_llr,
                                                   excl, self_pair=self_pair)))
-        elif _resident_p_ok(n_users, n_items_p, min(item_tile, max(n_items_t, 1)), dev):
+        elif mesh is None and _resident_p_ok(n_users, n_items_p,
+                                             min(item_tile, max(n_items_t, 1)), dev):
             if resident is None:
                 resident = _ResidentPrimary(p_user, p_item, n_users, n_items_p, dev)
             results[name] = _cco_indicators_resident(
@@ -1109,7 +1202,7 @@ def cco_train_indicators(
         else:
             if chunked is None:
                 chunked = _ChunkedPrimary(p_user, p_item, n_users, n_items_p,
-                                          user_block, dev)
+                                          user_block, dev, mesh=mesh)
             results[name] = _cco_indicators_chunked(
                 chunked, au, ai, n_items_t, n_users, t_k, t_llr, item_tile,
                 excl, self_pair)
@@ -1129,13 +1222,12 @@ def _cco_indicators_dense_coo(
     n_total_users: Optional[int] = None,
     device=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """One event type by the sparse runner when it is on and its budgets
-    hold, else by the dense strategy."""
-    _no_mesh(mesh)
+    """One event type by the sparse runner when it is on, its budgets hold
+    and there is no mesh, else by the dense strategy."""
     dev = resolve_device(device)
     # strict identity only: anything weaker could alias two event types
     self_pair = au is pu and ai is pi
-    if _sparse_path_ok(dev):
+    if mesh is None and _sparse_path_ok(dev):
         sr = _SparseHostRunner(pu, pi, n_users, n_items_p, dev, n_total_users=n_total_users)
         d = sr.dispatch(au, ai, n_items_t, top_k, llr_threshold, exclude_self,
                         self_pair=self_pair)
@@ -1143,7 +1235,7 @@ def _cco_indicators_dense_coo(
             return _SparseHostRunner.collect(d)
     it_pad = max(_round_up(n_items_t, 128), 128)
     runner = _DenseRunner(pu, pi, n_users, n_items_p, max(it_pad, n_items_p), dev,
-                          n_total_users=n_total_users)
+                          n_total_users=n_total_users, mesh=mesh)
     return _DenseRunner.collect(runner.dispatch(
         au, ai, n_items_t, top_k, llr_threshold, exclude_self, self_pair=self_pair))
 
@@ -1152,16 +1244,17 @@ def _cco_indicators_tiled(
     pu, pi, au, ai, n_users: int, n_items_p: int, n_items_t: int,
     n_total_users: int, top_k: int, llr_threshold: float, user_block: int,
     item_tile: int, exclude_self: bool, self_pair: bool, device: torch.device,
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """One event type by the P-resident strategy when its working set fits,
-    else by the chunked one."""
+    """One event type by the P-resident strategy when its working set fits
+    and there is no mesh, else by the chunked one."""
     tile = min(item_tile, max(n_items_t, 1))
-    if _resident_p_ok(n_users, n_items_p, tile, device):
+    if mesh is None and _resident_p_ok(n_users, n_items_p, tile, device):
         primary = _ResidentPrimary(pu, pi, n_users, n_items_p, device)
         return _cco_indicators_resident(
             primary, au, ai, n_items_t, n_total_users, top_k, llr_threshold,
             item_tile, exclude_self, self_pair)
-    primary = _ChunkedPrimary(pu, pi, n_users, n_items_p, user_block, device)
+    primary = _ChunkedPrimary(pu, pi, n_users, n_items_p, user_block, device, mesh=mesh)
     return _cco_indicators_chunked(
         primary, au, ai, n_items_t, n_total_users, top_k, llr_threshold,
         item_tile, exclude_self, self_pair)
@@ -1187,18 +1280,17 @@ def cco_indicators_coo(
     and ``other_deduped`` are accepted for the signature and ignored: no
     strategy needs dedup'd pairs."""
     del primary_deduped, other_deduped
-    _no_mesh(mesh)
     dev = resolve_device(device)
     _check_ids(p_user, p_item, n_users, max(n_items_p, 1), "primary")
     _check_ids(a_user, a_item, n_users, max(n_items_t, 1), "other")
     if _dense_path_ok(n_items_p, n_items_t):
         return _cco_indicators_dense_coo(
             p_user, p_item, a_user, a_item, n_users, n_items_p, n_items_t,
-            top_k, llr_threshold, None, exclude_self, device=dev)
+            top_k, llr_threshold, mesh, exclude_self, device=dev)
     return _cco_indicators_tiled(
         p_user, p_item, a_user, a_item, n_users, n_items_p, n_items_t, n_users,
         top_k, llr_threshold, user_block, item_tile, exclude_self,
-        a_user is p_user and a_item is p_item, dev)
+        a_user is p_user and a_item is p_item, dev, mesh)
 
 
 def cco_indicators(
@@ -1227,7 +1319,6 @@ def cco_indicators(
     ignored, as in the reference: every strategy takes its marginals from
     the densified (hence dedup'd) matrices."""
     del primary_item_counts, other_item_counts
-    _no_mesh(mesh)
     if n_total_users <= 0:
         raise ValueError(f"n_total_users must be positive, got {n_total_users}")
     dev = resolve_device(device)
@@ -1239,14 +1330,14 @@ def cco_indicators(
             raise ValueError("primary/other must share the user space")
         return _cco_indicators_dense_coo(
             pu, pi, au, ai, primary.n_users, primary.n_items, other.n_items,
-            top_k, llr_threshold, None, exclude_self,
+            top_k, llr_threshold, mesh, exclude_self,
             n_total_users=n_total_users, device=dev)
     if primary.n_blocks != other.n_blocks or primary.user_block != other.user_block:
         raise ValueError("primary/other must be blocked with the same user layout")
     return _cco_indicators_tiled(
         pu, pi, au, ai, primary.n_users, primary.n_items, other.n_items,
         n_total_users, top_k, llr_threshold, primary.user_block, item_tile,
-        exclude_self, self_pair, dev)
+        exclude_self, self_pair, dev, mesh)
 
 
 # ---------------------------------------------------------------------------

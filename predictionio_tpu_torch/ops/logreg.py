@@ -29,20 +29,26 @@ follows the JAX one step for step:
 
 The line search's scalars (step sizes, values, slopes, errors) are float32
 on the host, in the order optax computes them; its vectors stay on the
-device.  A multi-device mesh raises, naming its ROADMAP item.
+device.
+
+Over a mesh of ranks (JAX :52-66) the examples are padded to a multiple of
+dp and each rank holds its contiguous rows; every evaluation sums the
+loss's data term and its gradient over the ranks in one all-reduce
+(``parallel.distributed.all_reduce_sum``) before the L2 term is added, so
+Adam, L-BFGS and its line search see the same values in every rank, and W
+and b come out equal in every rank.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from predictionio_tpu_torch.device import resolve_device
-
-ROADMAP_MESH = "ROADMAP.md, queue A, 'parallel → torch.distributed'"
+from predictionio_tpu_torch.parallel.distributed import all_reduce_sum
 
 Tree = Tuple[torch.Tensor, ...]
 _F32 = np.float32
@@ -123,13 +129,23 @@ class Adam:
             for m, v in zip(self.mu, self.nu))
 
 
+Evaluate = Callable[[Tree], Tuple[torch.Tensor, Tree]]
+
+
+def _evaluator(fn: Callable[[Tree], torch.Tensor], vg: Optional[Evaluate]) -> Evaluate:
+    """``vg`` where given (a reduced evaluation), else autograd of ``fn``."""
+    return vg if vg is not None else (lambda p: value_and_grad(fn, p))
+
+
 def adam_run(loss_fn: Callable[[Tree], torch.Tensor], params: Tree, learning_rate: float,
-             iterations: int) -> Tuple[Tree, torch.Tensor]:
-    """``iterations`` Adam steps: (final params, the loss before each step)."""
+             iterations: int, vg: Optional[Evaluate] = None) -> Tuple[Tree, torch.Tensor]:
+    """``iterations`` Adam steps: (final params, the loss before each step).
+    ``vg(params)`` → (value, grads) replaces autograd of ``loss_fn``."""
+    evaluate = _evaluator(loss_fn, vg)
     opt = Adam(params, learning_rate)
     losses = []
     for _ in range(iterations):
-        value, grads = value_and_grad(loss_fn, params)
+        value, grads = evaluate(params)
         params = tuple(p + u for p, u in zip(params, opt.update(grads)))
         losses.append(value)
     return params, torch.stack(losses) if losses else torch.empty(0)
@@ -232,13 +248,15 @@ def _curvature_error(slope, slope_init):
 
 
 def zoom_linesearch(fn: Callable[[Tree], torch.Tensor], params: Tree, updates: Tree,
-                    value, grads: Tree, max_steps: int = LINESEARCH_STEPS):
+                    value, grads: Tree, max_steps: int = LINESEARCH_STEPS,
+                    vg: Optional[Evaluate] = None):
     """``scale_by_zoom_linesearch``'s search along ``updates`` from
     ``params`` with the initial guess 1: (stepsize, value, gradient) of the
     accepted point, the same decisions as optax's, step for step."""
+    evaluate = _evaluator(fn, vg)
 
     def on_line(stepsize):
-        v, g = value_and_grad(fn, _add_scale(params, float(stepsize), updates))
+        v, g = evaluate(_add_scale(params, float(stepsize), updates))
         return _f32(v), g, _f32(_vdot(g, updates))
 
     value_init = _f32(value)
@@ -323,17 +341,21 @@ def _zoom_step(s, on_line, value_init, slope_init, max_steps):
 
 
 def lbfgs_run(loss_fn: Callable[[Tree], torch.Tensor], params: Tree, iterations: int,
-              memory: int = LBFGS_MEMORY) -> Tuple[Tree, torch.Tensor]:
+              memory: int = LBFGS_MEMORY,
+              vg: Optional[Evaluate] = None) -> Tuple[Tree, torch.Tensor]:
     """``iterations`` steps of ``optax.lbfgs()``: (final params, the loss
-    before each step)."""
+    before each step).  ``vg(params)`` → (value, grads) replaces autograd
+    of ``loss_fn``."""
+    evaluate = _evaluator(loss_fn, vg)
     mem = _LBFGSMemory(params, memory)
     value = grads = None
     losses = []
     for _ in range(iterations):
         if value is None or not np.isfinite(_f32(value)):
-            value, grads = value_and_grad(loss_fn, params)
+            value, grads = evaluate(params)
         direction = _scale(-1.0, mem.precondition(grads, params))
-        step, ls_value, ls_grad = zoom_linesearch(loss_fn, params, direction, value, grads)
+        step, ls_value, ls_grad = zoom_linesearch(loss_fn, params, direction, value, grads,
+                                                  vg=vg)
         losses.append(value if torch.is_tensor(value) else torch.tensor(value))
         params = tuple(p + u for p, u in zip(params, _scale(float(step), direction)))
         value, grads = torch.tensor(ls_value, device=params[0].device), ls_grad
@@ -344,23 +366,50 @@ def lbfgs_run(loss_fn: Callable[[Tree], torch.Tensor], params: Tree, iterations:
 # -- logistic regression ----------------------------------------------------------
 
 
-def _loss_fn(params: Tree, x, y, mask, l2) -> torch.Tensor:
+def _data_sum(params: Tree, x, y, mask) -> torch.Tensor:
+    """The masked sum of the softmax cross-entropy over the rows held."""
     w, b = params
     logits = x @ w + b
     shifted = logits - logits.max(dim=-1, keepdim=True).values.detach()
     ll = torch.logsumexp(shifted, dim=-1) - shifted.gather(-1, y[:, None])[:, 0]
-    ll = torch.sum(ll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.sum(ll * mask)
+
+
+def _loss_fn(params: Tree, x, y, mask, l2) -> torch.Tensor:
+    w, _ = params
+    ll = _data_sum(params, x, y, mask) / torch.clamp_min(torch.sum(mask), 1.0)
     return ll + l2 * torch.sum(w * w)
 
 
+def _mesh_value_and_grad(x, y, mask, l2, mesh) -> Evaluate:
+    """The loss and its gradient over every rank's rows: this rank's data
+    term and gradient, summed over the ranks in one all-reduce, divided by
+    the rows of all ranks, plus the L2 term (and its gradient 2·l2·w)."""
+    n = all_reduce_sum(torch.sum(mask).reshape(1), mesh)
+    denom = torch.clamp_min(n[0], 1.0)
+
+    def vg(params: Tree):
+        s, gs = value_and_grad(lambda p: _data_sum(p, x, y, mask), params)
+        flat = all_reduce_sum(torch.cat([s.reshape(1), *(g.reshape(-1) for g in gs)]), mesh)
+        parts = flat.split([1, *(p.numel() for p in params)])
+        w = params[0]
+        value = parts[0][0] / denom + l2 * torch.sum(w * w)
+        grads = tuple(g.view_as(p) / denom for g, p in zip(parts[1:], params))
+        return value, (grads[0] + 2 * l2 * w, *grads[1:])
+
+    return vg
+
+
 def _logreg_run(x, y, mask, w0, b0, l2, *, optimizer: str, learning_rate: float,
-                iterations: int):
+                iterations: int, mesh=None):
     """The training loop on tensors (the JAX package's ``_logreg_run``):
-    ((W, b), the loss before each step)."""
+    ((W, b), the loss before each step).  With a ``mesh`` the tensors are
+    this rank's rows and every evaluation is summed over the ranks."""
     objective = lambda p: _loss_fn(p, x, y, mask, l2)  # noqa: E731
+    vg = _mesh_value_and_grad(x, y, mask, l2, mesh) if mesh is not None else None
     if optimizer == "lbfgs":
-        return lbfgs_run(objective, (w0, b0), iterations)
-    return adam_run(objective, (w0, b0), learning_rate, iterations)
+        return lbfgs_run(objective, (w0, b0), iterations, vg=vg)
+    return adam_run(objective, (w0, b0), learning_rate, iterations, vg=vg)
 
 
 def logreg_train(
@@ -377,21 +426,35 @@ def logreg_train(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """(W [d, C], b [C]) as host arrays, trained on ``device`` (default
     ``"cuda"``) from zeros.  ``seed`` is accepted for the signature (the
-    start is deterministic)."""
+    start is deterministic).  With a ``mesh`` of ranks the examples are
+    padded to a multiple of dp and each rank trains on its rows, the
+    evaluations summed over the ranks; every rank returns the same W, b."""
     del seed
-    if mesh is not None:
-        raise NotImplementedError(f"logistic regression over a mesh ({ROADMAP_MESH})")
     if optimizer not in ("lbfgs", "adam"):
         raise ValueError(f"unknown optimizer {optimizer!r} (lbfgs|adam)")
     dev = resolve_device(device)
     n, d = np.shape(x)
-    xt = torch.as_tensor(np.asarray(x, np.float32)).to(dev)
-    yt = torch.as_tensor(np.asarray(y, np.int64)).to(dev)
-    mask = torch.ones(n, dtype=torch.float32, device=dev)
+    x = np.asarray(x, np.float32)
+    y = np.asarray(y, np.int64)
+    mask = np.ones(n, np.float32)
+    if mesh is not None:
+        from predictionio_tpu_torch.parallel.sharding import (
+            pad_to_multiple,
+            shard_rows,
+            stage_global,
+        )
+
+        dp = mesh.shape["dp"]
+        x, y, mask = (pad_to_multiple(a, dp) for a in (x, y, mask))
+        xt, yt, mt = (stage_global(a, shard_rows(mesh, "dp", a.ndim), dev)
+                      for a in (x, y, mask))
+    else:
+        xt, yt, mt = (torch.as_tensor(a).to(dev) for a in (x, y, mask))
     w0 = torch.zeros((d, n_classes), dtype=torch.float32, device=dev)
     b0 = torch.zeros(n_classes, dtype=torch.float32, device=dev)
-    (w, b), _ = _logreg_run(xt, yt, mask, w0, b0, _F32(l2), optimizer=optimizer,
-                            learning_rate=float(learning_rate), iterations=int(iterations))
+    (w, b), _ = _logreg_run(xt, yt, mt, w0, b0, _F32(l2), optimizer=optimizer,
+                            learning_rate=float(learning_rate), iterations=int(iterations),
+                            mesh=mesh)
     return w.cpu().numpy(), b.cpu().numpy()
 
 

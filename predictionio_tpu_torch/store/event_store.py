@@ -180,20 +180,23 @@ class PEventStore:
         start_time: Optional[_dt.datetime] = None,
         until_time: Optional[_dt.datetime] = None,
         storage: Optional[Storage] = None,
+        local_shard: bool = False,
     ) -> EventBatch:
         """Read matching events as ONE columnar batch (the device-staging
         format): ``native_batch``'s (the staged cache's, the snapshot's or
         the native scan's, in log order) on a segment backend, else the
-        backend's ``find`` order.  The JAX package's
-        ``local_shard`` (multi-host reads) waits for ROADMAP.md, queue A,
-        'parallel → torch.distributed'."""
+        backend's ``find`` order.
+
+        ``local_shard=True`` in a multi-process run reads only this
+        process's share of the log (``parallel.distributed.shard_segments``):
+        whole segments on the segment-file path, strided events otherwise."""
         storage = storage or get_storage()
-        native = PEventStore.native_batch(
+        native = PEventStore._native_batch(
             app_name, channel_name, event_names, entity_type, start_time,
-            until_time, storage)
+            until_time, storage, local_shard)
         if native is not None:
             return native
-        return EventBatch.from_events(list(PEventStore.find(
+        events = list(PEventStore.find(
             app_name,
             channel_name=channel_name,
             event_names=event_names,
@@ -201,7 +204,12 @@ class PEventStore:
             start_time=start_time,
             until_time=until_time,
             storage=storage,
-        )))
+        ))
+        if local_shard:
+            from predictionio_tpu_torch.parallel import distributed as dist
+
+            events = dist.shard_segments(events)
+        return EventBatch.from_events(events)
 
     @staticmethod
     def native_batch(
@@ -220,27 +228,47 @@ class PEventStore:
         and its tail serve first (tombstones honoured); only a miss reaches
         the native scan.  Callers that need properties pick their read with
         it, before any row read."""
+        return PEventStore._native_batch(
+            app_name, channel_name, event_names, entity_type, start_time,
+            until_time, storage or get_storage())
+
+    @staticmethod
+    def _native_batch(
+        app_name, channel_name, event_names, entity_type, start_time,
+        until_time, storage, local_shard: bool = False,
+    ) -> Optional[EventBatch]:
         from predictionio_tpu_torch.native import native_available, scan_segments
         from predictionio_tpu_torch.storage import snapshot as _snap
 
-        storage = storage or get_storage()
         backend = storage.p_events
         if not hasattr(backend, "segment_paths"):
             return None
         app_id, channel_id = _app_channel_ids(app_name, channel_name, storage)
         filters = dict(event_names=event_names, entity_type=entity_type,
                        start_time=start_time, until_time=until_time)
-        staged = _STAGED.staged_batch(backend, app_id, channel_id)
-        if staged is not None:
-            return _snap.apply_filters(staged, **filters)
+        if not local_shard:
+            # a process's share is whole raw segments: the staged batch and
+            # the snapshot serve whole-log reads only
+            staged = _STAGED.staged_batch(backend, app_id, channel_id)
+            if staged is not None:
+                return _snap.apply_filters(staged, **filters)
         if not native_available():
             return None
         paths = backend.segment_paths(app_id, channel_id)
         if not paths:
             return EventBatch.from_events([])
+        # decided on state every process shares, before any sharding, so
+        # every process of a run partitions the same space (segments, or
+        # strided events when a tombstone sends all of them to ``find``)
         if any(t.stat().st_size > 0 for parent in {p.parent for p in paths}
                for t in parent.glob("tombstones*.txt")):
             return None
+        if local_shard:
+            from predictionio_tpu_torch.parallel import distributed as dist
+
+            paths = dist.shard_segments(paths)
+            if not paths:
+                return EventBatch.from_events([])
         return _snap.apply_filters(scan_segments(paths), **filters)
 
     @staticmethod

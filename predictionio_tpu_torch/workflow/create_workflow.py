@@ -140,9 +140,14 @@ def run_train_from_args(args) -> int:
     """``pio train`` (reference: Console.train → RunWorkflow →
     CreateWorkflow.main), on ``args.device`` (the CLI's
     ``PIO_TORCH_DEVICE``, default ``cuda``)."""
+    from predictionio_tpu_torch.parallel.distributed import init_distributed
     from predictionio_tpu_torch.workflow import core_workflow
 
     try:
+        # a no-op for one process; with PIO_COORDINATOR_ADDRESS et al. this
+        # joins the process group before any mesh is built.  Every process
+        # trains and persists its model, as in the JAX package.
+        init_distributed(device=args.device)
         variant = load_engine_variant(resolve_variant_path(args), args.variant)
         factory, engine, engine_params = engine_from_variant(variant)
         engine_id = resolve_engine_id(args.engine_id, variant, factory)

@@ -226,7 +226,7 @@ def test_two_trains_are_bit_identical():
 def test_plan_is_csr_order_in_power_of_two_buckets():
     u, i, r, n_u, n_i = ratings(n_u=50, n_i=300, n_e=900, seed=2)
     data = als.prepare_als_data(u, i, r, n_u, n_i, 1)
-    plan = als._als_device_args(data, 8, CPU)[1]
+    (plan,) = als._als_device_args(data, 8, CPU)[1]   # one plan a dp shard
     seen_rows = []
     n_events = 0
     for bk in plan.buckets:
@@ -242,14 +242,30 @@ def test_plan_is_csr_order_in_power_of_two_buckets():
     assert sorted(seen_rows) == sorted(set(i.tolist()))
 
 
-def test_mesh_and_dp_above_one_name_the_roadmap():
+def test_mesh_and_dp_above_one_name_the_roadmap(jax_init_in_port):
+    """Since the mesh port: a layout for dp > 1 trains on one device shard by
+    shard, as JAX's single runner does without a mesh; a one-process mesh
+    runs the same sweeps; a mesh whose dp does not divide the layout's
+    raises JAX's ValueError."""
+    from predictionio_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+
     u, i, r, n_u, n_i = ratings()
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        als.als_train(als.prepare_als_data(u, i, r, n_u, n_i, 2), k=4, reg=0.1,
-                      iterations=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        als.als_train(als.prepare_als_data(u, i, r, n_u, n_i, 1), k=4, reg=0.1,
-                      iterations=1, mesh=object(), device="cpu")
+    for dp, implicit in ((2, False), (4, True)):
+        jd = jax_als.prepare_als_data(u, i, r, n_u, n_i, dp)
+        xw, yw = jax_als.als_train(jd, k=4, reg=0.1, iterations=3, implicit=implicit,
+                                   alpha=2.0)
+        data = als.prepare_als_data(u, i, r, n_u, n_i, dp)
+        x, y = als.als_train(data, k=4, reg=0.1, iterations=3, implicit=implicit,
+                             alpha=2.0, device="cpu")
+        np.testing.assert_allclose(x, np.asarray(xw), rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(y, np.asarray(yw), rtol=RTOL, atol=ATOL)
+        xm, ym = als.als_train(data, k=4, reg=0.1, iterations=3, implicit=implicit,
+                               alpha=2.0, mesh=create_mesh(MeshSpec(dp=1)), device="cpu")
+        np.testing.assert_array_equal(xm, x)
+        np.testing.assert_array_equal(ym, y)
+    with pytest.raises(ValueError, match="ALSData prepared for dp=3, mesh has dp=2"):
+        als._mesh_shards(als.prepare_als_data(u, i, r, n_u, n_i, 3),
+                         type("M", (), {"shape": {"dp": 2}})())
 
 
 # -- the e-commerce rule serving ops --------------------------------------------

@@ -2,7 +2,8 @@
 against the JAX package on duplicated events, per-type thresholds and
 counts past bf16's exact range; the dense and P-resident strategies bit
 for bit; the exact int32 count product and marginals; and the mesh
-variants, not ported yet.
+variants on a one-process mesh (tests/test_torch_distributed.py runs them
+over two ranks).
 
 Inputs, tolerances and the indicator check are those of
 tests/test_torch_cco.py (tests/_torch_cco_cases.py); counts and marginals
@@ -70,10 +71,14 @@ def test_resident_count_product_is_exact_past_bf16():
 
 
 def test_unported_strategies_raise_naming_the_roadmap():
-    """Only the mesh variants are still to port: with both device budgets
-    at 0 the chunked strategy trains (equal to the dense one), and a mesh
-    raises in every entry."""
+    """Every strategy is ported: with both device budgets at 0 the chunked
+    strategy trains (equal to the dense one), and every entry takes a mesh
+    (a one-process mesh: the mesh's dense and chunked strategies, bit-equal
+    to the dense tables)."""
+    from predictionio_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+
     c = corpus("train")
+    mesh = create_mesh(MeshSpec(dp=1))
     mp = pytest.MonkeyPatch()
     try:
         mp.setenv("PIO_CCO_SPARSE", "0")
@@ -81,20 +86,41 @@ def test_unported_strategies_raise_naming_the_roadmap():
         mp.setattr(port_cco, "_TILED_P_BYTES", 0)
         got = port_cco.cco_train_indicators(c["pu"], c["pi"], others(c), c["n_users"],
                                             c["n_ip"], device="cpu", **_kwargs(c))
+        chunked_mesh = port_cco.cco_train_indicators(
+            c["pu"], c["pi"], others(c), c["n_users"], c["n_ip"], device="cpu", mesh=mesh,
+            **_kwargs(c))
     finally:
         mp.undo()
     dense = port_result("train", "dense")
-    for event in dense:
-        np.testing.assert_array_equal(got[event][0], dense[event][0])
-        np.testing.assert_array_equal(got[event][1], dense[event][1])
+    dense_mesh = port_cco.cco_train_indicators(c["pu"], c["pi"], others(c), c["n_users"],
+                                               c["n_ip"], device="cpu", mesh=mesh,
+                                               **_kwargs(c))
+    for tables in (got, chunked_mesh, dense_mesh):
+        for event in dense:
+            np.testing.assert_array_equal(tables[event][0], dense[event][0])
+            np.testing.assert_array_equal(tables[event][1], dense[event][1])
     blocked = port_cco.block_interactions(c["pu"], c["pi"], c["n_users"], c["n_ip"])
-    for call in (
-            lambda: port_cco.cco_train_indicators(c["pu"], c["pi"], others(c), c["n_users"],
-                                                  c["n_ip"], device="cpu", mesh=object()),
-            lambda: port_cco.cco_indicators_coo(c["pu"], c["pi"], c["pu"], c["pi"],
-                                                c["n_users"], c["n_ip"], c["n_ip"],
-                                                device="cpu", mesh=object()),
-            lambda: port_cco.cco_indicators(blocked, blocked, n_total_users=c["n_users"],
-                                            device="cpu", mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    coo = [port_cco.cco_indicators_coo(c["pu"], c["pi"], c["pu"], c["pi"], c["n_users"],
+                                       c["n_ip"], c["n_ip"], device="cpu", mesh=m)
+           for m in (None, mesh)]
+    blk = [port_cco.cco_indicators(blocked, blocked, n_total_users=c["n_users"],
+                                   device="cpu", mesh=m) for m in (None, mesh)]
+    for plain, meshed in (coo, blk):
+        np.testing.assert_array_equal(meshed[0], plain[0])
+        np.testing.assert_array_equal(meshed[1], plain[1])
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 4097])
+def test_counts_two_a_word_sum_exactly(n):
+    """The mesh's all-reduce of counts two a word: packed buffers summed as
+    int32 words, as the ranks' all-reduce sums them, unpack to the sum of
+    the counts, up to the largest (2**15 - 1 users split over the ranks)."""
+    g = torch.Generator().manual_seed(n)
+    parts = [torch.randint(0, 1 << 14, (n,), generator=g, dtype=torch.int32)
+             for _ in range(2)]
+    parts[1][:1] = (1 << 15) - 1 - parts[0][:1]     # the largest sum
+    words = port_cco._pack_pairs(parts[0]) + port_cco._pack_pairs(parts[1])
+    assert words.numel() == (n + 1) // 2
+    got = torch.empty(n, dtype=torch.int32)
+    port_cco._unpack_pairs(words, got)
+    assert torch.equal(got, parts[0] + parts[1])

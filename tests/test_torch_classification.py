@@ -99,8 +99,13 @@ def test_logreg_train_matches_and_refuses_a_mesh():
     np.testing.assert_array_equal(
         lr.logreg_predict(torch.tensor(tw), torch.tensor(tb), torch.tensor(x)),
         jax_lr.logreg_predict(jw, jb, x))
-    with pytest.raises(NotImplementedError, match="parallel"):
-        lr.logreg_train(x, y, c, mesh=object(), device="cpu")
+    from predictionio_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+
+    # a one-process mesh (tests/test_torch_distributed.py: two ranks)
+    mw, mb = lr.logreg_train(x, y, c, l2=1e-3, iterations=30, device="cpu",
+                             mesh=create_mesh(MeshSpec(dp=1)))
+    np.testing.assert_allclose(mw, jw, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(mb, jb, rtol=0, atol=ATOL)
     with pytest.raises(ValueError, match="optimizer"):
         lr.logreg_train(x, y, c, optimizer="sgd", device="cpu")
 
@@ -245,5 +250,6 @@ def test_mesh_dp_raises(stores):
     engine = port_cls.ClassificationEngine.apply()
     ep = _engine_params(port_cls, EngineParams, "logreg", {})
     ep.algorithm_params_list[0][1].mesh_dp = 2
-    with pytest.raises(NotImplementedError, match="parallel"):
+    # a dp above the ranks (one here) raises MeshSpec.resolve's error, as JAX
+    with pytest.raises(ValueError, match=r"mesh 2x1 != 1 devices"):
         engine.train(ep, device="cpu")

@@ -311,5 +311,6 @@ def test_mesh_dp_above_one_names_the_roadmap(both):
     b = both()
     params = ecomm.ECommAlgorithmParams(app_name=APP, mesh_dp=2)
     td = b.engine.make_components(b.ep)[0].read_training()
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    # a dp above the ranks (one here) raises MeshSpec.resolve's error, as JAX
+    with pytest.raises(ValueError, match=r"mesh 2x1 != 1 devices"):
         ecomm.ECommAlgorithm(params, device="cpu").train(td)

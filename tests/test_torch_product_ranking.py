@@ -128,7 +128,8 @@ def test_mesh_dp_raises(mem_storage):
         fill_both(mem_storage, port_store, APP, seeded_corpus(1, names=("view", "buy")))
         ep = _ep(port_pr, EngineParams)
         ep.algorithm_params_list[0][1].mesh_dp = 2
-        with pytest.raises(NotImplementedError, match="parallel"):
+        # a dp above the ranks (one here) raises MeshSpec.resolve's error, as JAX
+        with pytest.raises(ValueError, match=r"mesh 2x1 != 1 devices"):
             port_pr.ProductRankingEngine.apply().train(ep, device="cpu")
     finally:
         port_set_storage(None)

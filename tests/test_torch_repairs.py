@@ -129,6 +129,56 @@ def test_package_exports_cover_the_jax_package(name):
     assert want - _public(port_mod) == DELIBERATE.get(name, set())
 
 
+#: JAX names of the mesh slice's modules the port lacks on purpose: the
+#: pure-JAX top-k choice K3 replaces (ROADMAP.md, the deliberate differences)
+MESH_DELIBERATE = {".ops.cco": {"topk_impl"}}
+
+
+def _params(fn):
+    """Parameter names of ``fn`` without the port's ``device``."""
+    import inspect
+
+    return [p for p in inspect.signature(fn).parameters if p != "device"]
+
+
+@pytest.mark.parametrize("name", [
+    ".parallel", ".parallel.mesh", ".parallel.sharding", ".parallel.distributed",
+    ".store.event_store", ".ops.cco", ".ops.als", ".ops.logreg",
+    *(f".models.{m}.engine" for m in ("recommendation", "ecommerce", "similar_product",
+                                      "product_ranking", "classification",
+                                      "universal_recommender"))])
+def test_mesh_slice_names_and_signatures_as_jax(name):
+    """The re-anchor's name-and-signature probe over the modules of the
+    mesh slice: every name a JAX module defines or re-exports from the
+    package is in the port's module (the engines' ``MeshSpec`` and
+    ``create_mesh``, the UR's ``LEventStore`` and ``als_pad_ids`` were
+    not), and every function and class method both have takes the same
+    parameters but for the port's ``device`` (``PEventStore.batch`` lacked
+    ``local_shard``)."""
+    import importlib
+    import inspect
+
+    jax_mod = importlib.import_module("predictionio_tpu" + name)
+    port_mod = importlib.import_module("predictionio_tpu_torch" + name)
+
+    def ours(n):
+        mod = getattr(vars(jax_mod)[n], "__module__", None)
+        return mod is None or mod.startswith("predictionio_tpu")
+
+    want = {n for n in _public(jax_mod) if ours(n)}
+    assert want - _public(port_mod) == MESH_DELIBERATE.get(name, set())
+    for n in sorted(want & _public(port_mod)):
+        a, b = vars(jax_mod)[n], vars(port_mod)[n]
+        pairs = [(a, b)] if inspect.isfunction(a) else []
+        if inspect.isclass(a) and a.__module__ == jax_mod.__name__:
+            pairs += [(getattr(a, m), getattr(b, m, None)) for m, v in vars(a).items()
+                      if not m.startswith("_") and callable(getattr(a, m))
+                      and not isinstance(v, type)]
+        for fa, fb in pairs:
+            assert fb is not None, f"{name}.{n}: {fa.__name__} missing"
+            assert _params(fb) == _params(fa), f"{name}.{n}.{fa.__name__}"
+
+
 def test_native_build_source_key_as_jax(tmp_path):
     from predictionio_tpu.native import build as jax_build
     from predictionio_tpu_torch.native import build as port_build
