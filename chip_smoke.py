@@ -425,6 +425,27 @@ with its own timeout and reaped at the end):
     at 18e's classification shape (L-BFGS, 100 steps): W and b equal in
     both ranks and within 1e-4 of one rank's.
 
+The operator drills (slice 19), after 15 and before 13:
+24. drills 3-7 of ``predictionio_tpu_torch/tools`` at their tier-1
+    wrappers' depth, each ``python -m predictionio_tpu_torch.tools.<drill>
+    --device cuda`` in a process group of its own, all five started together:
+    the trace round trip (a forced-slow query's waterfall, ``/traces.json``,
+    the exemplar), serve parity (the host and device tails, serial and
+    batched, candidate-pruned, over HTTP serial and pipelined, then live
+    hot swaps, the model plane, the response cache and the native cores:
+    every answer equal to the float, every generation the cache phase's
+    follower swaps out collected), the freshness round trip (3 rounds of
+    append -> fold -> reflected, exact against a card retrain), plane
+    replication (a publisher and two ``--plane-from`` subscribers as ``pio
+    deploy`` processes on the card, one SIGKILLed and resumed) and the
+    lineage round trip (a ``--plane-publish`` publisher and a
+    ``--plane-from`` subscriber: the subscriber explains a generation it
+    did not produce).  Each must exit 0 within DRILL_TIMEOUT_S with its
+    ``ok:`` verdict last and its process's launch line before it, K2 and
+    K3 launched in each (each trains); each drill's wall and launch line
+    are printed with the card's name and power limit.  Their launches are
+    their own processes' and stay out of the kernels line.
+
 The line before the last is one JSON object with a row per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -437,6 +458,7 @@ import datetime
 import json
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -6929,6 +6951,89 @@ def cls_arrays(n_users):
 # -- the run ---------------------------------------------------------------------
 
 
+# -- phase 24: the operator drills ------------------------------------------------
+
+#: the drills that train and serve on the card (predictionio_tpu_torch/tools),
+#: each at its CPU wrapper's depth; every one trains its model in its own process
+DRILLS = ("check_trace_roundtrip", "check_serve_parity", "check_freshness_roundtrip",
+          "check_plane_replication", "check_lineage_roundtrip")
+DRILL_TIMEOUT_S = 300   # the drills run together: the phase's limit
+
+
+def drills_path(smi: str, device: str = "cuda") -> dict:
+    """Phase 24: drills 3-7 of the port's operator tools, each ``python -m
+    predictionio_tpu_torch.tools.<drill> --device cuda`` as a process of its
+    own, all started together (the freshness, plane and lineage drills start
+    ``pio deploy`` children of their own on the card) and reaped at the
+    end.  Each must exit 0 with its ``ok:`` verdict last and, before it, its
+    process's launch line: K2 and K3 launched in every drill (each trains).
+    A drill's wall is its process's, start to exit, while the others run.
+    Each drill leads a process group of its own: whatever it leaves running
+    when it exits or the phase fails is killed with it."""
+    root = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PIO_")}
+    env["PYTHONPATH"] = str(root)
+    logs = Path(tempfile.mkdtemp(prefix="chip-drills-"))
+    t0 = time.perf_counter()
+    running, out = {}, {}
+    try:
+        for name in DRILLS:
+            streams = (open(logs / f"{name}.out", "w+"), open(logs / f"{name}.err", "w+"))
+            running[name] = (subprocess.Popen(
+                [sys.executable, "-m", f"predictionio_tpu_torch.tools.{name}",
+                 "--device", device],
+                stdout=streams[0], stderr=streams[1], cwd=root, env=env,
+                start_new_session=True), streams)
+        walls = {}
+        while len(walls) < len(running):
+            for name, (proc, _) in running.items():
+                if name not in walls and proc.poll() is not None:
+                    walls[name] = time.perf_counter() - t0
+            check(time.perf_counter() - t0 < DRILL_TIMEOUT_S,
+                  f"24: drills {sorted(set(running) - set(walls))} still running after "
+                  f"{DRILL_TIMEOUT_S} s")
+            time.sleep(0.1)
+        failed = []
+        for name, (proc, (so, se)) in running.items():
+            so.seek(0)
+            se.seek(0)
+            stdout, stderr = so.read(), se.read()
+            lines = stdout.strip().splitlines()
+            try:
+                check(proc.returncode == 0 and len(lines) >= 2
+                      and lines[-1].startswith("ok: "), f"exited {proc.returncode}")
+                check(lines[-2].startswith("launches: "), "printed no launch line")
+                launches = json.loads(lines[-2][len("launches: "):])
+                check(launches["device"] == device, f"ran on {launches['device']}")
+                if device == "cuda":
+                    check(launches["llr_masked"] > 0 and launches["tile_topk"] > 0,
+                          f"trained without K2/K3: {launches}")
+            except SmokeFailure as e:
+                # every drill's verdict is read before the phase fails
+                tail = "\n".join((stdout + stderr).strip().splitlines()[-40:])
+                print(f"  {name}: {walls[name]:.3f} s, FAILED: {e}\n{tail}")
+                failed.append(name)
+                continue
+            out[name] = {"wall_s": walls[name], "launches": launches, "ok": lines[-1],
+                         "notes": [ln for ln in lines[:-2] if " phase: " in ln]}
+            print(f"  {name}: {walls[name]:.3f} s, {lines[-2]}")
+            for note in out[name]["notes"]:
+                print(f"    {note}")
+            print(f"    {lines[-1]} | {smi}")
+        check(not failed, f"24: drills {failed} failed")
+    finally:
+        for proc, streams in running.values():
+            # a drill's process group holds its pio deploy children too
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            for f in streams:
+                f.close()
+        shutil.rmtree(logs, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def run() -> None:
     if not torch.cuda.is_available():
         raise SmokeFailure("no CUDA card: the port's main path runs on the GPU")
@@ -7160,6 +7265,11 @@ def run() -> None:
     scale = scale_path(cco, hk, dev)
     torch.cuda.empty_cache()
 
+    phase("24. the operator drills on the card: trace, serve parity, freshness, plane "
+          "replication and lineage round trips (predictionio_tpu_torch/tools, "
+          "--device cuda), each a process of its own, started together")
+    drills = drills_path(smi.splitlines()[0])
+
     phase("13. timing")
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)   # > 50 MB L2
     clock = SMClock()
@@ -7372,6 +7482,11 @@ def run() -> None:
           + ", ".join(f"rank {r['rank']} {r['ur']['wall_s']:.3f} s peak {r['ur']['peak_gb']:.3f} "
                       f"GB, {collective_text(r['ur']['collectives'])}" for r in rb)
           + f"; ALS factors {ranks['als']} | {smi}")
+    print(f"  phase 24 {drills['wall_s']:.3f} s: "
+          + ", ".join(f"{name} {drills[name]['wall_s']:.3f} s (K2/K3 "
+                      f"{drills[name]['launches']['llr_masked']}/"
+                      f"{drills[name]['launches']['tile_topk']})" for name in DRILLS)
+          + f" | {smi}")
     print(f"  chip_smoke wall {time.perf_counter() - t_start:.3f} s | {smi}")
     launches = {"masked_score": (http_launches + batch_launches + als_run["k1_launches"]
                                  + load_launches + slice13["launches"]["masked_score"]),
@@ -7399,7 +7514,7 @@ def run() -> None:
                       "similar_product": similar, "ur_caches": caches,
                       "follow": follow, "plane": planes, "sharded": shard,
                       "slice13": slice13, "dashboard": dashboard, "traced_als": traced_7,
-                      "ranks": ranks,
+                      "ranks": ranks, "drills": drills,
                       "k1_retime": k1_rounds, "empty_kernel_ms": empty_ms, "llr_sass": sass,
                       "wall_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": [{

@@ -37,15 +37,16 @@ resident tables in one gather an event type, and both top-ks for the whole
 batch come back in one [B, 4, k] readback.
 
 When a span journal is active (eval and batch runs) or a request trace is
-live (the flight recorder), each query records a ``ur_predict`` span with
-its tail, candidates and ``<lap>_ms`` attributes; under a trace the laps
-become child spans.  The laps read the host clock: on the card the
-device's work lands in the lap that synchronises (the device tail's
-``[4, k]`` readback), as JAX's async dispatch does.  Not ported yet,
-named in ROADMAP.md: multi-device training.  Evaluation: ``URDataSource.read_eval``'s
-leave-one-out fold and the rank metrics (``HitRateMetric``,
-``NDCGMetric``, ``PrecisionAtKMetric``, ``MRRMetric``) over
-``batch_predict``'s eval answers.
+live (the flight recorder), each query ``predict`` serves records a
+``ur_predict`` span with its tail, candidates and ``<lap>_ms``
+attributes; under a trace the laps become child spans (a micro-batched
+query, served by ``serve_batch_predict``, records none, as in the JAX
+package).  The laps read the host clock: on the card the device's work
+lands in the lap that synchronises (the device tail's ``[4, k]``
+readback), as JAX's async dispatch does.  Evaluation:
+``URDataSource.read_eval``'s leave-one-out fold and the rank metrics
+(``HitRateMetric``, ``NDCGMetric``, ``PrecisionAtKMetric``,
+``MRRMetric``) over ``batch_predict``'s eval answers.
 
 Wire format (UR):
   query    {"user": "u1", "num": 10}
