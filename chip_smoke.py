@@ -150,7 +150,7 @@ the streaming fold and the follow-trainer (slice 14; right after 17):
 19. ``deploy(follow=0.2)`` of 12's stored model (LLR weights off) in this
     process: the follower bootstraps from the app's log (snapshot, tail,
     tombstones), every row of both event types re-selected through K2/K3
-    on the card (150 launches each: row chunks of 1 GiB); 3 rounds (of
+    on the card (150 launches each: row chunks of 1 GiB); 2 rounds (of
     the reference's 8, a depth cut) of ``bench_freshness``'s protocol (bench.py:4080-4097): a probe user buys
     a brand-new seed item and, once that folds, 6 new users buy the seed
     and a brand-new item, and ``/queries.json`` is polled until the
@@ -176,7 +176,7 @@ the model plane and its replication (slice 15; right after 19):
     composed generation; ``pio deploy --plane-from`` as a subprocess on the
     card (another plane directory, the history read uncached) subscribes
     over PRP1 on loopback.  A duplicate-only delta (write amplification <=
-    5%); the 3 rounds of 19, each timed at the SUBSCRIBER (p99 <= 10 s,
+    5%); the 2 rounds of 19, each timed at the SUBSCRIBER (p99 <= 10 s,
     a round > 30 s fails), both planeGenerations converging after each,
     every fold delta's write amplification printed beside the JAX
     package's 10% bar; the subscriber SIGKILLed while the stream moves on
@@ -189,15 +189,18 @@ the model plane and its replication (slice 15; right after 19):
     (> 0), publish bytes by path, the full arena's bytes, map/compose
     seconds and each process's card memory (``nvidia-smi``) after the
     first and the last generation;
-21. the store backends streaming runs on: 11b's import file into EVENTDATA
+21. the store backends streaming runs on: SHARDED_UR's events (11b's
+    catalog and item properties, 150k purchases and 300k views: a depth cut
+    for the time limit) into EVENTDATA
     on ``sharded`` (2 shards x 2 replicas, strict acknowledgement),
     METADATA on ``sql`` (a SQLite file) and MODELDATA on ``sharedfs``;
     ``pio import`` (events/s), the cold merged scan on 2 workers (events/s,
     per-shard seconds, ``pio_store_scan_workers`` 2), ``pio train`` (50 K2
-    + 50 K3; tables equal 11b's through the item strings: LLR bits row for
-    row, ids equal but among ties), ``deploy(follow=0.2)`` in this process
-    with an event server on the same store: 19's 3 rounds posted as HTTP
-    batches, shard 0's primary node directory taken away after round 2
+    + 50 K3; tables equal ``URAlgorithm.train``'s on the same events from
+    the arrays, through the item strings: LLR bits row for row, ids equal
+    but among ties), ``deploy(follow=0.2)`` in this process
+    with an event server on the same store: 19's 2 rounds posted as HTTP
+    batches, shard 0's primary node directory taken away after round 1
     (``pio_store_promotions_total`` +1, the next acknowledged write timed,
     every event answered 201 on its shard's primary, the follower folding
     on, p99 <= 10 s); after the drain the follower covers exactly the
@@ -352,7 +355,9 @@ pio eval and the five remaining templates (after 16, before 15):
     peaks) and the SM clock and clock-event reasons, sampled through NVML
     while the timed launches run: K2 and K3 on random inputs and on one count
     tile and one score tile captured from the deployed-width train (with
-    their measured share of nonzero counts and finite scores); K1 at 1x32,
+    their measured share of nonzero counts and finite scores), and K2 on
+    phase 4's row-strided sparse counts, 100,000 x 4,096 and the ragged
+    37 x 190, each also contiguous; K1 at 1x32,
     64x32 on the row-strided mask and 256x64, and at B=1 against ``addmm`` +
     ``masked_fill_`` in 5 interleaved rounds; an empty kernel through the
     same timer, the floor under every reading.  K2's
@@ -405,7 +410,8 @@ above, each check failing the run:
 
 Training over ranks (slice 18), after 18, in rank processes on this card
 (``python -c`` running ``rank_main``, joined at a localhost port, each
-with its own timeout and reaped at the end):
+with its own timeout and reaped at the end), started before 16 so that they
+train beside 16 and 18 (since slice 20; phase 23 joins and checks them):
 23. (a) one rank with ``PIO_NUM_PROCESSES=1`` and a coordinator: its
     backend must be NCCL; ``cco_train_indicators`` at ``bench_ur``'s shape
     over a dp = 1 mesh (two count all-reduces through NCCL), tables bit
@@ -521,8 +527,11 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+_T_IMPORT = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} [{time.perf_counter() - _T_IMPORT:.1f} s into the script]", flush=True)
 
 
 # -- phase 3: K1 against its plain version --------------------------------------
@@ -2798,7 +2807,7 @@ def ur_caches_path(ur, cco, hk, ncore, dev, workdir, variants, stored, plain_tra
 
 # -- phase 19: the streaming fold and the follow-trainer ----------------------------
 
-FOLLOW_ROUNDS = 3                # rounds of bench_freshness's protocol (bench.py:4080-4097; cut for the time limit)
+FOLLOW_ROUNDS = 2                # rounds of bench_freshness's protocol (bench.py:4080-4097; cut for the time limit)
                                  # in phases 19-21; the reference runs 8 (cut for the time limit)
 FOLLOW_COBUYERS = 6              # co-buyers of a round's brand-new item
 FOLLOW_INTERVAL_S = 0.2          # deploy(follow=): the follower's tick interval
@@ -3757,8 +3766,11 @@ def dashboard_path(workdir, env) -> dict:
 # -- phase 21: the sharded, replicated store streaming uses ---------------------------
 
 SHARDED = (2, 2)            # phase 21's events: shards, replicas (strict acknowledgement)
-SHARDED_PROMOTE_AFTER = 2   # the round after which shard 0's primary node is taken away:
-                            # two rounds follow it, spanning the new replica's re-sync
+#: phase 21's events: the deployed width's users and items, 3/8 of its
+#: interactions (cut for the time limit; the tiles and K2/K3 shapes are 11b's)
+SHARDED_UR = DEPLOYED_UR[:2] + (150_000, 300_000) + DEPLOYED_UR[4:]
+SHARDED_PROMOTE_AFTER = 1   # the round after which shard 0's primary node is taken away:
+                            # the next round spans the new replica's re-sync
 SHARDED_PROBES = 200        # answers held byte-equal to a card retrain
 
 
@@ -3871,13 +3883,15 @@ class FollowerRead:
         return {"batch": f._fold.batch, "watermark": dict(f._wm), "heads": dict(f._heads)}
 
 
-def sharded_path(ur, hk, dev, workdir, variants, want_tables):
-    """Phase 21: phase 11b's import file at the deployed UR width through the
-    backends streaming runs on: EVENTDATA ``sharded`` (SHARDED, strict
-    acknowledgement), METADATA ``sql``, MODELDATA ``sharedfs``.  ``pio app new``
-    → ``pio import`` → the cold merged scan (two scan workers) → ``pio train``
-    (50 K2 + 50 K3 launches; tables equal phase 11b's localfs train, ids
-    through the dictionaries) → ``deploy(follow=)`` in this process with an
+def sharded_path(ur, hk, dev, workdir, variants):
+    """Phase 21: SHARDED_UR's events (11b's catalog and item properties,
+    fewer interactions) through the backends streaming runs on: EVENTDATA
+    ``sharded`` (SHARDED, strict acknowledgement), METADATA ``sql``,
+    MODELDATA ``sharedfs``.  ``pio app new`` → ``pio import`` → the cold
+    merged scan (two scan workers) → ``pio train`` (50 K2 + 50 K3 launches;
+    tables equal those ``URAlgorithm.train`` gives on the same events through
+    ``ur_training_data_from_arrays``, ids through the dictionaries) →
+    ``deploy(follow=)`` in this process with an
     event server on the same store; FOLLOW_ROUNDS freshness rounds posted as
     HTTP batches, shard 0's primary node taken away after round
     SHARDED_PROMOTE_AFTER (one promotion, every event answered 201 on the new
@@ -3904,6 +3918,15 @@ def sharded_path(ur, hk, dev, workdir, variants, want_tables):
 
     t_phase = time.perf_counter()
     out = {}
+    n_users, n_items, n_p, n_v, top_k, tile = SHARDED_UR
+    arrays = deployed_arrays(SHARDED_UR)
+    props = item_properties(item_columns(n_items))
+    jsonl = workdir / "events21.jsonl"
+    write_jsonl(jsonl, arrays, props)
+    params = ur.URAlgorithmParams.from_json(engine_variant(False)["algorithms"][0]["params"])
+    want_tables = host_tables(ur.URAlgorithm(params, device=dev).train(
+        expected_training_data(ur, arrays, props, SHARDED_UR)))
+    del arrays, props
     env = {**sharded_env(workdir), "PIO_TORCH_DEVICE": dev.type}
     saved = {k: os.environ.get(k) for k in
              [k for k in os.environ if k.startswith("PIO_STORAGE_")] + list(env)}
@@ -3912,9 +3935,7 @@ def sharded_path(ur, hk, dev, workdir, variants, want_tables):
     os.environ.update(env)
     set_storage(None)
     store = None
-    jsonl = workdir / "events.jsonl"
     try:
-        n_users, n_items, n_p, n_v, top_k, tile = DEPLOYED_UR
         pio("app", "new", "smoke")
         t0 = time.perf_counter()
         pio("import", "--app-name", "smoke", "--input", str(jsonl))
@@ -3928,7 +3949,8 @@ def sharded_path(ur, hk, dev, workdir, variants, want_tables):
               f"21: EVENTDATA is {type(events).__name__}, not a {SHARDED} sharded store")
         app_id = store.apps.get_by_name("smoke").id
         per_shard = [len(list(sh.events().segment_paths(app_id))) for sh in events._shards]
-        print(f"  pio import of phase 11b's file: {n_events} events in {out['import_s']:.3f} s "
+        print(f"  pio import of {n_events} events (11b's catalog, {n_p} purchases and {n_v} "
+              f"views) in {out['import_s']:.3f} s "
               f"({out['import_events_per_s']:.0f} events/s) into {SHARDED[0]} shards x "
               f"{SHARDED[1]} nodes, strict acknowledgement (PIO_STORE_ACK_REPLICAS "
               f"{sharded_mod._ack_replicas()}); primary segments a shard {per_shard}")
@@ -3953,7 +3975,7 @@ def sharded_path(ur, hk, dev, workdir, variants, want_tables):
               f"pio_store_scan_merged_events_per_sec {sharded_mod._M_SCAN_RATE.value():.0f}")
         del staged
 
-        # pio train: K2/K3 a tile, tables against phase 11b's
+        # pio train: K2/K3 a tile, tables against the arrays path's
         tiles = 2 * -(-n_items // tile)
         pio("build", "--engine-json", str(variants[False]))
         torch.cuda.synchronize()
@@ -3970,12 +3992,13 @@ def sharded_path(ur, hk, dev, workdir, variants, want_tables):
               f"21: pio train launched K2/K3 {train_launches}, expected {tiles} each")
         _, (model,) = load_latest_models(engine_variant(False)["id"], device=dev)
         out["tables"] = tables_equal_up_to_ids(host_tables(model), want_tables,
-                                               "21: the sharded train against 11b's")
+                                               "21: the sharded train against the arrays "
+                                               "path's")
         del model
         print(f"  pio train {out['train_s']:.3f} s (its read served by the staged cache the cold "
               f"scan filled; train, save to sharedfs, instance in SQLite), K2/K3 launches "
-              f"{train_launches}; tables equal phase 11b's localfs "
-              f"train, ids through the dictionaries: LLR bits row for row, column items "
+              f"{train_launches}; tables equal URAlgorithm.train's on the same events "
+              f"from the arrays, ids through the dictionaries: LLR bits row for row, column items "
               f"equal but among ties ({out['tables']})")
         gc.collect()
         torch.cuda.empty_cache()
@@ -4164,6 +4187,7 @@ def sharded_path(ur, hk, dev, workdir, variants, want_tables):
             os.environ.pop(k, None)
         restore_env(saved)
         set_storage(None)
+        jsonl.unlink(missing_ok=True)
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"  phase 21 wall {out['wall_s']:.3f} s")
     return out
@@ -6788,35 +6812,21 @@ def collective_text(c: dict) -> str:
                      for k, v in c.items() if v["calls"])
 
 
-def ranks_path(dev, workdir, bench_tables, tables_11b, als_pd, shared_import):
-    """Phase 23: training over ranks on this card.  (a) one rank under NCCL
-    trains bench_ur's shape with a dp = 1 mesh, tables bit-identical to
-    phase 10's; (b) two ranks sharing the card under gloo run ``pio train``
-    of the UR at the deployed width from a sharedfs store filled by ``pio
-    import`` of 11b's file (50 K2 and 50 K3 launches and 50 all-reduces
-    each, no ``merge_desc`` on the card), each stored model bit-identical to
-    11b's one-rank train; (c) ALS at 12b's width over the two ranks against
-    one rank on the same dp = 2 layout; (d) logistic regression at 18e's
-    classification shape over the two ranks against one rank.  The
-    sharedfs import runs from phase 21 on (``shared_import``); (a) runs
-    beside (b)-(d)."""
-    from predictionio_tpu_torch.ops import als as als_ops
-    from predictionio_tpu_torch.ops import logreg as lr_ops
-    from predictionio_tpu_torch.storage import Storage, StorageConfig
-    from predictionio_tpu_torch.workflow.persistence import load_models
-
-    t_phase = time.perf_counter()
-    out = {}
+def launch_ranks(dev, workdir, als_pd, shared_import) -> dict:
+    """Phase 23's rank processes, started once the sharedfs import has
+    ended (``finish_shared_import``) so they train beside phases 16 and 18;
+    ``ranks_path`` joins and checks them.  (a) one rank under NCCL at
+    bench_ur's shape; (b)-(d) two ranks sharing the card under gloo: ``pio
+    train`` of the UR from the sharedfs store, ALS at 12b's width, logistic
+    regression at 18e's shape."""
     base = dict(os.environ)
-    shared = shared_env(workdir)
     t0 = time.perf_counter()
-    out["import_s"] = finish_shared_import(shared_import)
-    out["import_wait_s"] = time.perf_counter() - t0
+    launched = {"import_s": finish_shared_import(shared_import)}
+    launched["import_wait_s"] = time.perf_counter() - t0
     engine_json = workdir / "engine-ranks.json"
     engine_json.write_text(json.dumps({**engine_variant(False), "id": RANKS_ENGINE_ID}))
-    n_users, n_items = len(als_pd.user_dict), len(als_pd.item_dict)
     np.savez(workdir / "ranks-als-in.npz", u=als_pd.user_idx, i=als_pd.item_idx,
-             r=als_pd.rating, n_users=n_users, n_items=n_items)
+             r=als_pd.rating, n_users=len(als_pd.user_dict), n_items=len(als_pd.item_dict))
     x_cls, y_cls = cls_arrays(CLS_USERS)
     np.savez(workdir / "ranks-logreg-in.npz", x=x_cls, y=y_cls, n_classes=3)
     spec = {"parts": ["ur", "als", "logreg"], "engine_json": str(engine_json),
@@ -6827,13 +6837,41 @@ def ranks_path(dev, workdir, bench_tables, tables_11b, als_pd, shared_import):
             "logreg_out": str(workdir / "ranks-logreg-{rank}.npz")}
     a_spec = {"parts": ["bench"], "bench_out": str(workdir / "ranks-bench-{rank}.npz"),
               "bench_ur": list(BENCH_UR)}
-    t0 = time.perf_counter()
-    procs = (start_ranks(1, a_spec, base, dev, workdir / "rank-a")
-             + start_ranks(2, spec, {**base, **shared}, dev, workdir / "rank-b"))
+    launched["t0"] = time.perf_counter()
+    launched["procs"] = (start_ranks(1, a_spec, base, dev, workdir / "rank-a")
+                         + start_ranks(2, spec, {**base, **shared_env(workdir)}, dev,
+                                       workdir / "rank-b"))
+    return launched
+
+
+def ranks_path(dev, workdir, bench_tables, tables_11b, als_pd, launched):
+    """Phase 23: training over ranks on this card, the processes
+    ``launch_ranks`` started joined and checked.  (a) one rank under NCCL
+    trains bench_ur's shape with a dp = 1 mesh, tables bit-identical to
+    phase 10's; (b) two ranks sharing the card under gloo run ``pio train``
+    of the UR at the deployed width from a sharedfs store filled by ``pio
+    import`` of 11b's file (50 K2 and 50 K3 launches and 50 all-reduces
+    each, no ``merge_desc`` on the card), each stored model bit-identical to
+    11b's one-rank train; (c) ALS at 12b's width over the two ranks against
+    one rank on the same dp = 2 layout; (d) logistic regression at 18e's
+    classification shape over the two ranks against one rank.  The
+    sharedfs import runs from phase 21 on, the ranks from phase 16 on; (a)
+    runs beside (b)-(d)."""
+    from predictionio_tpu_torch.ops import als as als_ops
+    from predictionio_tpu_torch.ops import logreg as lr_ops
+    from predictionio_tpu_torch.storage import Storage, StorageConfig
+    from predictionio_tpu_torch.workflow.persistence import load_models
+
+    t_phase = time.perf_counter()
+    out = {k: launched[k] for k in ("import_s", "import_wait_s")}
+    n_users, n_items = len(als_pd.user_dict), len(als_pd.item_dict)
+    x_cls, y_cls = cls_arrays(CLS_USERS)
+    procs = launched["procs"]
     try:
         (a,) = finish_ranks(procs[:1], "23a")
         ranks = finish_ranks(procs[1:], "23b-d")
-        out["ranks_wall_s"] = time.perf_counter() - t0
+        out["ranks_wall_s"] = time.perf_counter() - launched["t0"]
+        out["join_wait_s"] = time.perf_counter() - t_phase
     finally:   # a failed rank leaves none of the others running
         for p in procs:
             if p.poll() is None:
@@ -6892,7 +6930,7 @@ def ranks_path(dev, workdir, bench_tables, tables_11b, als_pd, shared_import):
         del model
     print(f"  23b: both stored models ({[i.id for i in stored]}) bit-identical to 11b's "
           f"one-rank train; the sharedfs pio import {out['import_s']:.3f} s (from phase 21 "
-          f"on; phase 23 waited {out['import_wait_s']:.3f} s for it); the three ranks' "
+          f"on; the ranks' start waited {out['import_wait_s']:.3f} s for it); the three ranks' "
           f"peaks sum to {peak_sum:.3f} GB of {card_gb:.1f}")
 
     _, _, _, _, rank_k, iters = DEPLOYED_ALS
@@ -6934,7 +6972,9 @@ def ranks_path(dev, workdir, bench_tables, tables_11b, als_pd, shared_import):
     print(f"  23d: W and b equal in both ranks, {err:.3g} from one rank's (bar "
           f"{RANKS_LOGREG_ATOL})")
     out["wall_s"] = time.perf_counter() - t_phase
-    print(f"  phase 23 wall {out['wall_s']:.3f} s (the two ranks {out['ranks_wall_s']:.3f} s)")
+    print(f"  phase 23 wall {out['wall_s']:.3f} s, of which {out['join_wait_s']:.3f} s "
+          f"waiting for the ranks (started {out['ranks_wall_s']:.3f} s before they were "
+          "all joined, beside phases 16 and 18)")
     return out
 
 
@@ -7015,7 +7055,8 @@ def drills_path(smi: str, device: str = "cuda") -> dict:
                 failed.append(name)
                 continue
             out[name] = {"wall_s": walls[name], "launches": launches, "ok": lines[-1],
-                         "notes": [ln for ln in lines[:-2] if " phase: " in ln]}
+                         "notes": [ln for ln in lines[:-2]
+                                   if " phase: " in ln or ln.startswith("/healthz ")]}
             print(f"  {name}: {walls[name]:.3f} s, {lines[-2]}")
             for note in out[name]["notes"]:
                 print(f"    {note}")
@@ -7172,13 +7213,13 @@ def run() -> None:
     torch.cuda.empty_cache()
 
     workdir = Path(tempfile.mkdtemp(prefix="chip-smoke-"))
-    shared_import = None
+    shared_import = launched = None
     try:
         phase("11b. UR at the deployed width through localfs and pio "
               "(app new, import, build, train)")
         model, _, arrays, cols, env, variants, deployed = train_localfs(ur, cco, hk, dev,
                                                                         workdir)
-        tables_11b = host_tables(model)   # phase 21's reference, ids as strings
+        tables_11b = host_tables(model)   # phase 23b's reference, ids as strings
         del model
         torch.cuda.empty_cache()
         print("  -- the columnar snapshot and the staged cache")
@@ -7212,7 +7253,7 @@ def run() -> None:
         phase("21. the sharded store streaming runs on: events on 2 shards x 2 replicas, "
               "metadata in SQLite, models on sharedfs; pio import, pio train, "
               "deploy(follow=) with freshness rounds through a promotion of shard 0")
-        shard = sharded_path(ur, hk, dev, workdir, variants, tables_11b)
+        shard = sharded_path(ur, hk, dev, workdir, variants)
         shared_import = start_shared_import(workdir)   # phase 23b's store, meanwhile
         torch.cuda.empty_cache()
 
@@ -7238,6 +7279,9 @@ def run() -> None:
         frontend = frontend_path(hk, dev, workdir, shop)
         del shop
         torch.cuda.empty_cache()
+        # phase 23's ranks train from here on, beside 16 and 18 (the count
+        # all-reduces of 23b move 41 GB a rank through gloo)
+        launched = launch_ranks(dev, workdir, als_pd, shared_import)
         phase("16. the similar-product template on 11b's app: pio train (cooccurrence, "
               "ALS), pio deploy, /queries.json against the CPU predict")
         similar = similar_product_path(hk, dev, workdir)
@@ -7249,15 +7293,17 @@ def run() -> None:
         phase("23. training over ranks on this card: one rank under NCCL (bench_ur's shape, "
               "a dp = 1 mesh); two ranks sharing the card under gloo: pio train of the UR "
               "at the deployed width from a sharedfs store, ALS at 12b's width, logistic "
-              "regression at 18e's shape")
-        ranks = ranks_path(dev, workdir, bench_tables, tables_11b, als_pd, shared_import)
+              "regression at 18e's shape (started before phase 16)")
+        ranks = ranks_path(dev, workdir, bench_tables, tables_11b, als_pd, launched)
         del tables_11b, bench_tables
         (workdir / "events.jsonl").unlink()
         torch.cuda.empty_cache()
     finally:
-        if shared_import is not None and shared_import.poll() is None:
-            shared_import.kill()   # a phase before 23 failed
-            shared_import.wait()
+        # a phase before 23 failed: nothing it started runs on
+        for proc in [shared_import] + (launched["procs"] if launched else []):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(workdir, ignore_errors=True)
 
     phase("15. CCO at bench_scale's shape: the parity corpus through every strategy, "
@@ -7304,6 +7350,18 @@ def run() -> None:
                                                         "initial"), id_offset=t0))
     del scores
     k1_rounds = retime_k1(hk, dev, gen, flush, clock)
+    # K2 on the row-strided shapes phase 2 holds for correctness (LLR_CASES):
+    # sparse counts at the train tile's width and the ragged 37 x 190, each
+    # a view whose row stride is C + 3, then the same counts contiguous (the
+    # stride's cost, read in one run)
+    for kind, r, c, strided in LLR_CASES:
+        if strided:
+            counts, row, col, n = llr_inputs(r, c, dev, gen, kind)
+            for view, how in ((strided_view(counts), "row-strided view"),
+                              (counts, "the same counts contiguous")):
+                rows["llr_masked"].append(time_llr(hk, view, row, col, n, flush, clock,
+                                                   ops_per_cell, f"{kind} counts, {how}"))
+            del counts, view
     del flush
     torch.cuda.empty_cache()
     data, n_ratings = bench_als_data(als_ops)

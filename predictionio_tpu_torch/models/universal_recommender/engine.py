@@ -1290,6 +1290,16 @@ class URAlgorithm(Algorithm):
 
     def warm(self, model: URModel) -> None:
         model.warm()
+        if _serve_scorer(model) == "device" and len(model.item_dict):
+            # one history scored alone and as a micro-batch row: the
+            # scorer's first launches load their kernels lazily (tens of ms
+            # on the card), which a deploy's first query paid (ROADMAP §C.11)
+            for name, (idx, valid, _) in model.device_indicators().items():
+                n_t = max(len(model.event_item_dicts[name]), 1)
+                hist = als_pad_ids(np.zeros(1, np.int32))
+                _indicator_score_ids(idx, valid, hist, n_t)
+                _indicator_score_ids_batch(idx, valid, hist[None, :], n_t)
+                break
 
     # -- serving -------------------------------------------------------------
 

@@ -16,6 +16,7 @@ process (the JAX package's ``pio_native_calls_total{core="scan"}``).
 from __future__ import annotations
 
 import ctypes
+import logging
 import os
 import threading
 from pathlib import Path
@@ -24,6 +25,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from predictionio_tpu_torch.native import build as _native_build
+
+log = logging.getLogger("pio.native")
 
 _SRC = Path(__file__).parent / "eventlog_scanner.cpp"
 _lock = threading.Lock()
@@ -75,6 +78,7 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
             return _lib
         lib = _native_build.load(_SRC, "libeventscan")   # None: no compiler, or it failed
         if lib is None:
+            log.warning("native scanner unavailable; using the Python path")
             _load_failed = True
             return None
         for name, argtypes, restype in _SIGNATURES:

@@ -148,6 +148,14 @@ def make_key(num: int, rule_key, hist: Optional[Dict[str, np.ndarray]],
     return (int(num), rule_key, hk, bk)
 
 
+def warm() -> None:
+    """Build one key before a model serves: the first call of the key
+    builder's numpy functions may import a module (``numpy.ma``, in newer
+    numpy releases: 120-150 ms under the GIL), which a plane subscriber's
+    first query paid (ROADMAP §C.11)."""
+    make_key(1, None, {"warm": np.zeros(1, np.int64)}, [1, 0])
+
+
 class _Entry:
     __slots__ = ("items", "hist", "result_ids", "used_backfill",
                  "has_rules", "llr_sensitive", "ts")

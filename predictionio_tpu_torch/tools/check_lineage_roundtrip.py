@@ -198,6 +198,7 @@ def main(argv=None) -> int:
     replicated = args.topology == "replicated"
     n_serving = 2 if replicated else WORKERS
     problems = []
+    p95 = {}   # /healthz serve_p95 of each serving process, its last interval
     tmp = tempfile.mkdtemp(prefix="pio-lineage-rt-")
     store_path = os.path.join(tmp, "store")
     procs: dict = {}
@@ -401,6 +402,7 @@ def main(argv=None) -> int:
         # the two lineage consumers answer on the same sockets
         for b in dict.fromkeys(serving):
             st, hz = get_json(b, "/healthz")
+            p95[b] = (hz.get("slos", {}).get("serve_p95") or {}).get("lastValue")
             if st != 200:
                 problems.append(f"/healthz answered HTTP {st}")
             if hz.get("status") == "burning":
@@ -439,6 +441,8 @@ def main(argv=None) -> int:
 
         set_storage(None)
         shutil.rmtree(tmp, ignore_errors=True)
+    if p95:
+        print(f"/healthz serve_p95 (s) by serving process: {p95}")
     _drill.print_launches(device)
     for p in problems:
         print(f"FAIL {p}", file=sys.stderr)

@@ -57,6 +57,7 @@ federation, ``obs/cluster.py``) and ``/healthz`` (``obs/slo.py``).
 from __future__ import annotations
 
 import datetime as _dt
+import gc
 import json
 import logging
 import os
@@ -78,6 +79,12 @@ from predictionio_tpu_torch.obs.exposition import StatsCollector, metrics_payloa
 from predictionio_tpu_torch.obs.metrics import SIZE_BUCKETS
 from predictionio_tpu_torch.serve import response_cache as _response_cache
 from predictionio_tpu_torch.storage.locator import Storage, get_storage
+from predictionio_tpu_torch.workflow import core_workflow
+from predictionio_tpu_torch.workflow.create_workflow import (
+    engine_from_variant,
+    load_engine_variant,
+    resolve_engine_id,
+)
 
 log = logging.getLogger("pio.queryserver")
 
@@ -302,9 +309,9 @@ class QueryServerState:
         feedback_app_name: str = "",
         plugins=None,
         auto_reload: float = 0.0,
+        plane_dir: Optional[str] = None,
         device="cuda",
         models: Optional[Sequence[Any]] = None,
-        plane_dir: Optional[str] = None,
     ):
         from predictionio_tpu_torch.api.plugins import PluginRegistry
 
@@ -401,8 +408,6 @@ class QueryServerState:
         """``/reload`` with a plane: load the newest instance once, publish
         it as a plane generation and install it here (every sibling's
         watcher converges on it).  → (plane generation, instance id)."""
-        from predictionio_tpu_torch.workflow import core_workflow
-
         instance, models = core_workflow.load_latest_models(
             self.engine_id, self.engine_version, self.engine_variant,
             storage=self.storage, device=self.device)
@@ -498,8 +503,6 @@ class QueryServerState:
         """Load and install the latest persisted instance onto the
         deploy's device.  Its id, or None when the bundle was dropped as
         stale (a build that started later installed first)."""
-        from predictionio_tpu_torch.workflow import core_workflow
-
         instance, models = core_workflow.load_latest_models(
             self.engine_id, self.engine_version, self.engine_variant,
             storage=self.storage, device=self.device)
@@ -530,6 +533,7 @@ class QueryServerState:
             ticket = self._build_seq
         enable = _batch_wanted(models)
         predictor, bp = self.engine.serving_bundle(self.engine_params, models)
+        _response_cache.warm()
         batcher = (_MicroBatcher(bp, predictor, max_batch=getattr(bp, "max_batch", None))
                    if enable and bp is not None else None)
         with self._lock:
@@ -845,9 +849,9 @@ def deploy(
     engine_version: str = "1",
     host: str = "0.0.0.0",
     port: int = 8000,
+    feedback: bool = False,
     storage: Optional[Storage] = None,
     device="cuda",
-    feedback: bool = False,
     background: bool = True,
     plugins=None,
     auto_reload: float = 0.0,
@@ -890,11 +894,6 @@ def deploy(
     fed by that publisher.  Both need a node-local plane directory
     (``PIO_MODEL_PLANE_DIR``, or a localfs METADATA store)."""
     from predictionio_tpu_torch.streaming import plane as plane_mod
-    from predictionio_tpu_torch.workflow.create_workflow import (
-        engine_from_variant,
-        load_engine_variant,
-        resolve_engine_id,
-    )
 
     # cheap refusals first: after the state exists they would leak its
     # threads
@@ -1123,11 +1122,6 @@ def run_plane_publisher(engine_json: str, variant: str = "default",
     from predictionio_tpu_torch.streaming.fold import FoldUnsupported
     from predictionio_tpu_torch.streaming.follow import FollowTrainer
     from predictionio_tpu_torch.streaming.plane import ModelPlane
-    from predictionio_tpu_torch.workflow.create_workflow import (
-        engine_from_variant,
-        load_engine_variant,
-        resolve_engine_id,
-    )
 
     plane_dir = os.environ.get("PIO_MODEL_PLANE_DIR")
     if not plane_dir:
@@ -1180,6 +1174,14 @@ def run_server_from_args(args) -> int:
     ``PIO_TORCH_DEVICE``)."""
     from predictionio_tpu_torch.workflow.create_workflow import resolve_variant_path
 
+    # the serving process's heap as imported (the interpreter's, torch's and
+    # numpy's modules, which live as long as it does) goes to the permanent
+    # generation: a full collection of the cyclic GC, which lands on
+    # whichever query allocates past its threshold, then walks only what was
+    # made since (the engine, its models, the server), and a model swapped
+    # out later is still collected
+    gc.collect()
+    gc.freeze()
     if getattr(args, "plane_publisher", False):
         try:
             return run_plane_publisher(

@@ -678,6 +678,35 @@ def test_observability_path_loads_no_jax_module():
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+# the workflow package's exports and create_server's module-level names,
+# as the JAX package has them, in a fresh interpreter
+_WORKFLOW_NAMES = r"""
+import json, sys
+from predictionio_tpu_torch.workflow import (load_engine_variant, resolve_engine_factory,
+                                             run_eval, run_train)
+from predictionio_tpu_torch.workflow import core_workflow, create_workflow
+from predictionio_tpu_torch.workflow.create_server import (engine_from_variant,
+                                                           resolve_engine_id)
+from predictionio_tpu_torch.workflow.create_server import load_engine_variant as lev
+assert (run_train, run_eval) == (core_workflow.run_train, core_workflow.run_eval)
+assert load_engine_variant is lev is create_workflow.load_engine_variant
+assert resolve_engine_factory is create_workflow.resolve_engine_factory
+assert engine_from_variant is create_workflow.engine_from_variant
+assert resolve_engine_id is create_workflow.resolve_engine_id
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "predictionio_tpu" or m.startswith("predictionio_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def test_workflow_exports_load_no_jax_module():
+    out = subprocess.run([sys.executable, "-c", _WORKFLOW_NAMES], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 _OBS_FAMILIES = {
     "obs/tracing.py": ("pio_trace",), "obs/lineage.py": ("pio_lineage_",),
     "obs/slo.py": ("pio_slo_burn_rate",), "obs/cluster.py": ("pio_cluster_",),

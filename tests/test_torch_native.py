@@ -215,6 +215,30 @@ def test_no_compiler_reads_rows(tmp_path, monkeypatch):
         list(port_store.l_events.find(1)))
 
 
+def test_scanner_warns_as_jax_when_native_is_unavailable(tmp_path, monkeypatch, caplog):
+    """A scanner that cannot build says so once through ``pio.native``, as
+    the JAX scanner does, and the reads take the Python path."""
+    monkeypatch.setattr(port_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(port_build, "compiler", lambda: None)
+
+    def no_compiler(*args):
+        raise OSError("no compiler")
+
+    monkeypatch.setattr(jax_scanner._native_build, "build", no_compiler)
+    for mod in (scanner, jax_scanner):
+        monkeypatch.setattr(mod, "_lib", None)
+        monkeypatch.setattr(mod, "_load_failed", False)
+    with caplog.at_level("WARNING", logger="pio.native"):
+        assert not scanner.native_available() and not scanner.native_available()
+        ours = [r.getMessage() for r in caplog.records if r.module == "scanner"]
+        assert not jax_scanner.native_available()
+    theirs = [r.getMessage() for r in caplog.records if r.module == "scanner"][len(ours):]
+    assert scanner.log.name == jax_scanner.log.name == "pio.native"
+    assert len(ours) == len(theirs) == 1
+    assert ours[0].startswith("native scanner unavailable")
+    assert theirs[0].startswith("native scanner unavailable")
+
+
 _BUILD_RACE = r"""
 import sys, time
 from pathlib import Path

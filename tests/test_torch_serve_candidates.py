@@ -303,3 +303,21 @@ def test_warm_builds_all_types_in_parallel(monkeypatch):
             a.nbytes for a in model.host_inverted(name))
     assert "_dev_indicators" not in model.__dict__
     np.testing.assert_array_equal(model.host_pop_order(), jax_model.host_pop_order())
+
+
+@pytest.mark.parametrize("scorer", ["device", "host"])
+def test_warm_scores_one_history_with_the_device_scorer(monkeypatch, scorer):
+    """Under the device scorer the algorithm's warm scores one history alone
+    and as a micro-batch row, so the scorer's first launches (which load
+    its kernels on the card) come before the first query (ROADMAP §C.11);
+    under the host scorer it launches neither."""
+    _, model = make_models()
+    monkeypatch.setenv("PIO_UR_SERVE_SCORER", scorer)
+    calls = []
+    for fn in ("_indicator_score_ids", "_indicator_score_ids_batch"):
+        real = getattr(port_ur, fn)
+        monkeypatch.setattr(port_ur, fn,
+                            lambda *a, _fn=fn, _real=real: calls.append(_fn) or _real(*a))
+    algos()[1].warm(model)
+    want = ["_indicator_score_ids", "_indicator_score_ids_batch"] if scorer == "device" else []
+    assert calls == want

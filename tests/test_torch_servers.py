@@ -11,17 +11,20 @@ bounded: socket timeouts, joins with a timeout, a shrunk
 ``_WAIT_TIMEOUT_S`` where a waiter must give up.
 """
 
+import gc
 import json
 import os
 import random
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
 
 from predictionio_tpu_torch.api.plugins import OutputBlocker, OutputSniffer
 from predictionio_tpu_torch.obs import metrics as obs_metrics
+from predictionio_tpu_torch.serve import response_cache
 from predictionio_tpu_torch.storage import App, set_storage
 from predictionio_tpu_torch.workflow import core_workflow
 from predictionio_tpu_torch.workflow import create_server as cs
@@ -119,6 +122,63 @@ def test_deploy_serves_queries_info_metrics_and_stats(als):
             assert http("GET", base + path)[0] == 404, path
         assert http("POST", base + "/queries.json", ["x"])[0] == 400
         assert http("POST", base + "/nope", {})[0] == 404
+    finally:
+        stop(httpd)
+
+
+def test_pio_deploy_serves_from_a_frozen_heap(als, monkeypatch):
+    """``pio deploy`` moves its heap as imported to the permanent
+    generation before it loads the engine: a full collection of the cyclic
+    GC walks the engine, its models and the server, not every object of
+    torch and numpy (on the card such a walk landed on a plane
+    subscriber's first query), and the models it serves stay collectable
+    once swapped out (ROADMAP §C.11)."""
+    imported = [[]]   # a container that lived before the deploy
+    servers, rcs = [], []
+    real_deploy = cs.deploy
+
+    def deploy(**kw):
+        servers.append(real_deploy(storage=als["store"], **kw))
+        return servers[-1]
+
+    monkeypatch.setattr(cs, "deploy", deploy)
+    args = types.SimpleNamespace(
+        plane_publisher=False, engine_json=als["path"], variant="default", engine_id=None,
+        engine_version="1", ip="127.0.0.1", port=0, device="cpu", feedback=False,
+        auto_reload=0.0, workers=1, reuse_port=False, follow=0.0, plane_publish=False,
+        plane_from=None)
+    runner = threading.Thread(target=lambda: rcs.append(cs.run_server_from_args(args)))
+    try:
+        runner.start()
+        wait_for(lambda: servers)
+        httpd = servers[0]
+        assert http("POST", _base(httpd) + "/queries.json", BODIES[0])[0] == 200
+        assert gc.get_freeze_count() > 0
+        live = {id(o) for o in gc.get_objects()}   # what a full collection walks
+        assert id(imported) not in live
+        assert id(httpd.pio_state.models[0]) in live
+    finally:
+        if servers:
+            servers[0].shutdown()
+        runner.join(WAIT_S)
+        gc.unfreeze()
+    assert rcs == [0]
+
+
+def test_install_builds_a_response_cache_key_before_serving(als, monkeypatch):
+    """Every install builds one response-cache key before its model serves:
+    the key builder's first numpy calls may import a module, which a plane
+    subscriber's first query paid on the card (ROADMAP §C.11)."""
+    keys = []
+    real_make_key = response_cache.make_key
+    monkeypatch.setattr(response_cache, "make_key",
+                        lambda *a: keys.append(a) or real_make_key(*a))
+    httpd = _deploy(als)
+    try:
+        assert len(keys) == 1
+        als["train"]()
+        httpd.pio_state.reload()
+        assert len(keys) == 2
     finally:
         stop(httpd)
 
