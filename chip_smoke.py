@@ -284,9 +284,9 @@ phase 14, 16 before 15):
     CPU predict of the same stored model (scores within rtol/atol 1e-5,
     swaps only at ties within that), p50/p99 printed;
 pio eval and the five remaining templates (after 16, before 15):
-18. 18a: ``pio eval`` of the port's copy of examples/recommendation/
-    evaluation.py (the example's classes with the port's imports, written
-    beside the work dir: precision@10, 3 folds, ALS ranks 4 and 8) on
+18. 18a: ``pio eval`` of the port's example
+    ``predictionio_tpu_torch.examples.recommendation.evaluation`` by its
+    package path (precision@10, 3 folds, ALS ranks 4 and 8) on
     bench_als's users and items (943 x 1,682) with 50k ratings from the
     seed (its 100k cut to half for the script's time limit), taste
     groups; ``pio import`` into the localfs store), and the same
@@ -301,11 +301,12 @@ pio eval and the five remaining templates (after 16, before 15):
     item;
     18b: 20,000 planted purchases first join 11b's app (5,000 new users
     each buy three items of one of 100 bundles from the catalog's tail,
-    then the bundle's fourth item, so that item is the one held out); the
-    port's copy of examples/universal_recommender/evaluation.py
-    (UREvaluation + MinLlrGrid, min_llr 0, 2 and 5, eval_users 500) on
-    that app through ``run_eval`` with ``FastEvalEngine``: K2 and K3 launch
-    3 x 50, every candidate's hit rate is above 0, and each candidate's
+    then the bundle's fourth item, so that item is the one held out); a
+    copy of the port's predictionio_tpu_torch/examples/universal_recommender/
+    evaluation.py on the app ``smoke`` (UREvaluation + MinLlrGrid, min_llr
+    0, 2 and 5, eval_users 500) on that app through ``run_eval`` with
+    ``FastEvalEngine``: K2 and K3 launch 3 x 50, every candidate's hit
+    rate is above 0, and each candidate's
     card-trained model, moved to the CPU, answers the 500 queries in
     ``batch_predict`` (the device halves pinned, the card's code path)
     with the same lists but for near-tie swaps; hit rate and precision@10
@@ -5812,18 +5813,17 @@ CONF_ATOL = 1e-4                  # 18e: card vs CPU confidences and scores
 
 
 def port_example(workdir, example, name, replace=()):
-    """The port's copy of ``examples/<example>/evaluation.py`` — the same
-    classes, every ``predictionio_tpu.`` import on the port's module path,
-    and each (old, new) of ``replace`` applied — imported from a directory
-    of the work dir put on ``sys.path`` (the example imports the JAX
-    package, which the port never loads)."""
+    """A copy of the port's ``predictionio_tpu_torch/examples/<example>/
+    evaluation.py`` with each (old, new) of ``replace`` applied, imported as
+    ``name`` from a directory of the work dir put on ``sys.path``."""
     import importlib
 
-    src = (Path(__file__).resolve().parent / "examples" / example / "evaluation.py").read_text()
-    src = src.replace("from predictionio_tpu.", "from predictionio_tpu_torch.")
+    src = (Path(__file__).resolve().parent / "predictionio_tpu_torch" / "examples" / example
+           / "evaluation.py").read_text()
     for old, new in replace:
+        check(old in src, f"the port's {example} example has no {old!r}")
         src = src.replace(old, new)
-    check("predictionio_tpu." not in src, f"the port's copy of {example} names the JAX package")
+    check("predictionio_tpu." not in src, f"the port's {example} example names the JAX package")
     mods = workdir / "evalmods"
     mods.mkdir(exist_ok=True)
     (mods / f"{name}.py").write_text(src)
@@ -5869,14 +5869,16 @@ def write_ratings_jsonl(path, u, i, r):
 
 
 def eval_reco_path(hk, dev, workdir):
-    """18a: ``pio eval`` of the port's copy of examples/recommendation/
-    evaluation.py (precision@10, 3 folds, ALS ranks 4 and 8) on bench_als's
-    shape, its app ``MyApp`` imported into the work dir's localfs store,
-    then the same evaluation through run_eval with ``FastEvalEngine`` (the
-    data source read once for both candidates), both on the card; and by
+    """18a: ``pio eval`` of the port's example predictionio_tpu_torch/
+    examples/recommendation/evaluation.py by package path (precision@10,
+    3 folds, ALS ranks 4 and 8) on bench_als's shape, its app ``MyApp``
+    imported into the work dir's localfs store, then the same evaluation
+    through run_eval with ``FastEvalEngine`` (the data source read once for both candidates), both on the card; and by
     ``Evaluation.run`` on the CPU: every score within EVAL_SCORE_ATOL of
     it; and FastEval's served lists against its card-trained factors
     scored on the CPU (``check_reco_folds``)."""
+    import importlib
+
     from predictionio_tpu_torch.models.recommendation import engine as reco_engine
     from predictionio_tpu_torch.storage import get_storage
     from predictionio_tpu_torch.workflow.core_workflow import run_eval
@@ -5890,8 +5892,9 @@ def eval_reco_path(hk, dev, workdir):
     pio("import", "--app-name", "MyApp", "--input", str(jsonl))
     jsonl.unlink()
     out = {"events": len(u), "import_s": time.perf_counter() - t0}
-    module = port_example(workdir, "recommendation", "port_reco_evaluation")
-    path = "port_reco_evaluation.RecommendationEvaluation"
+    # the port's example itself, as `pio eval` names it by package path
+    module = importlib.import_module("predictionio_tpu_torch.examples.recommendation.evaluation")
+    path = f"{module.__name__}.RecommendationEvaluation"
     hk.reset_k1_counts()
     t0 = time.perf_counter()
     pio("eval", path)
@@ -6076,10 +6079,10 @@ def rank_of(result, item):
 
 
 def eval_ur_path(hk, dev, workdir):
-    """18b: UR_BUNDLES planted in 11b's app (``plant_bundles``), then the
-    port's copy of examples/universal_recommender/evaluation.py
-    (UREvaluation + MinLlrGrid: min_llr 0, 2, 5; eval_users 500) on it
-    through run_eval with FastEvalEngine on the card: K2 and K3 launch 3 x
+    """18b: UR_BUNDLES planted in 11b's app (``plant_bundles``), then a
+    copy of the port's predictionio_tpu_torch/examples/universal_recommender/
+    evaluation.py (UREvaluation + MinLlrGrid: min_llr 0, 2, 5; eval_users
+    500) on it through run_eval with FastEvalEngine on the card: K2 and K3 launch 3 x
     a train's count, and every candidate's hit rate is above 0; each
     candidate's card-trained model is then moved to the CPU and its
     batch_predict run there (the device halves pinned, the card's code

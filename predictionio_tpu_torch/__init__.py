@@ -5,32 +5,16 @@ held against.  Module paths mirror ``predictionio_tpu`` so each counterpart
 is easy to find.  This package imports ``torch`` and numpy only: never
 ``jax`` and nothing of ``predictionio_tpu``.
 
-Ported so far (ROADMAP.md, queue A): the ``recommendation`` (ALS)
-template, trained on the card (``ops/als.py``: explicit and implicit ALS,
-checkpoint/resume in ``utils/checkpoint.py``) and every query scored by a
-hand-written CUDA kernel (``ops/csrc/masked_score.cu``); the
-``ecommerce`` template (implicit ALS, category and list rules, live
-constraints); the Universal Recommender's CCO training
-through the LLR and tile top-k kernels (``ops/csrc/llr_masked.cu``,
-``ops/csrc/tile_topk.cu``), checkpointed per event type, and its serving
-with business rules through the device or the host scorer and tail
-(candidate pruning, the native serve core) behind the response, rule-mask
-and history caches (``serve/``); the event
-model, the memory and localfs storage backends with the native segment
-scanner (``native/eventlog_scanner.cpp``), the columnar snapshots and the
-staged retrain cache (``storage/snapshot.py``, their header parse in
-``native/data_plane.cpp``), ``PEventStore``, the model store, the train →
-deploy workflow (``workflow/core_workflow.py``,
-``workflow/create_server.py``) and the ``pio`` console
-(``python -m predictionio_tpu_torch.cli.main``); the event server, the
-event-loop HTTP front end with prefork workers, the query server's
-micro-batcher, hot reload and feedback (``api/``), and the metrics
-registry behind ``/metrics`` (``obs/``); ``pio eval`` and the evaluation
-workflow (``controller/evaluation.py``, ``workflow/fast_eval.py``), the
-product-ranking, complementary-purchase (basket rules through the tile
-top-k kernel), classification, lead-scoring and text templates
-(``ops/logreg.py``, ``ops/naive_bayes.py``, ``ops/text.py``), the ``e2``
-helpers and ``pio template``.
+The port covers the whole JAX package: every module of
+``predictionio_tpu`` has its counterpart here, with the same public names,
+parameters and ``PIO_*`` variables, but for the reasoned differences that
+``tests/test_torch_parity_audit.py`` lists and checks.  The three Pallas
+kernels run as hand-written CUDA kernels for ``sm_90a``
+(``ops/csrc/masked_score.cu``, ``ops/csrc/llr_masked.cu``,
+``ops/csrc/tile_topk.cu``, bound in ``ops/hopper_kernels.py``); the rest is
+PyTorch and numpy, with the native host code in ``native/``.  The console
+is ``python -m predictionio_tpu_torch.cli.main``, and the repo's evaluation
+examples ship as ``predictionio_tpu_torch.examples`` for ``pio eval``.
 """
 
 __version__ = "0.1.0"

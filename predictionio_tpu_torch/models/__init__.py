@@ -2,7 +2,7 @@
 
 ``ENGINE_FACTORIES`` maps the template shortnames engine.json may name in
 ``engineFactory`` to the port's factories: all nine of the JAX package's
-templates.  ``NOT_PORTED`` (templates the port does not have yet) is empty.
+templates.
 """
 
 ENGINE_FACTORIES = {
@@ -19,5 +19,3 @@ ENGINE_FACTORIES = {
         "predictionio_tpu_torch.models.product_ranking.ProductRankingEngine",
     "lead_scoring": "predictionio_tpu_torch.models.lead_scoring.LeadScoringEngine",
 }
-
-NOT_PORTED: tuple = ()

@@ -24,13 +24,12 @@ from typing import Any, Dict, Optional, Tuple, Type
 import numpy as np
 
 from predictionio_tpu_torch.controller.engine import Engine, EngineFactory, EngineParams
-from predictionio_tpu_torch.models import ENGINE_FACTORIES, NOT_PORTED
+from predictionio_tpu_torch.models import ENGINE_FACTORIES
 
 log = logging.getLogger("pio.workflow")
 
 _JAX_PACKAGE = "predictionio_tpu"
 _PORT_PACKAGE = "predictionio_tpu_torch"
-ROADMAP_TEMPLATES = "ROADMAP.md, queue A, 'Remaining templates'"
 
 
 def resolve_engine_factory(name: str) -> Type[EngineFactory]:
@@ -40,26 +39,13 @@ def resolve_engine_factory(name: str) -> Type[EngineFactory]:
     dotted = ENGINE_FACTORIES.get(name, name)
     if dotted == _JAX_PACKAGE or dotted.startswith(_JAX_PACKAGE + "."):
         dotted = _PORT_PACKAGE + dotted[len(_JAX_PACKAGE):]
-    parts = dotted.split(".")
-    template = parts[2] if parts[:2] == [_PORT_PACKAGE, "models"] and len(parts) > 2 else name
-    if name in NOT_PORTED or template in NOT_PORTED:
-        raise NotImplementedError(
-            f"engineFactory {name!r}: the port does not have this template "
-            f"yet ({ROADMAP_TEMPLATES})")
     module_name, _, cls_name = dotted.rpartition(".")
     if not module_name:
         raise ValueError(
             f"engineFactory {name!r} is not a dotted path or known template "
             f"({sorted(ENGINE_FACTORIES)})"
         )
-    try:
-        module = importlib.import_module(module_name)
-    except ModuleNotFoundError as e:
-        if module_name.startswith(_PORT_PACKAGE + ".models."):
-            raise NotImplementedError(
-                f"engineFactory {name!r}: the port has no {module_name} yet "
-                f"({ROADMAP_TEMPLATES})") from e
-        raise
+    module = importlib.import_module(module_name)
     factory = getattr(module, cls_name)
     if not (isinstance(factory, type) and issubclass(factory, EngineFactory)):
         raise TypeError(f"{dotted} is not an EngineFactory subclass")

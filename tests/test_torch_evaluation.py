@@ -16,14 +16,18 @@
 - ``run_eval`` records the EvaluationInstance (EVALCOMPLETED with the
   results as text, JSON and HTML; EVALFAILED and the error re-raised) and
   counts ``pio_eval_runs_total``.
-- ``pio eval`` of the port's copy of examples/recommendation/evaluation.py
-  exits 0 and prints the JAX console's lines; a module that imports the
-  JAX package is refused, naming it; in a fresh interpreter the whole eval
-  never puts ``predictionio_tpu`` into ``sys.modules``.
+- The port's examples (``predictionio_tpu_torch/examples/*/evaluation.py``)
+  are the JAX package's ``examples/*/evaluation.py`` byte for byte but for
+  the import prefix.  ``pio eval`` of them exits 0 and prints the JAX
+  console's lines; a module that imports the JAX package is refused,
+  naming it; in a fresh interpreter, from a working directory outside the
+  repo, ``pio eval`` of the port's example by package path never puts
+  ``predictionio_tpu`` into ``sys.modules``.
 """
 
 import json
 import math
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -80,16 +84,14 @@ def stores(mem_storage):
     port_set_storage(None)
 
 
-# the port's copies of examples/*/evaluation.py: those import the JAX
-# package, which the port never loads, so a test writes the same classes
-# with the port's imports into a directory on sys.path
+EXAMPLES = ["recommendation", "universal_recommender"]
 
 
 def port_copy(example: str, replace=()) -> str:
-    """``examples/<example>/evaluation.py`` with the port's imports and
-    each (old, new) of ``replace`` applied."""
-    src = (REPO / "examples" / example / "evaluation.py").read_text()
-    src = src.replace("from predictionio_tpu.", "from predictionio_tpu_torch.")
+    """The port's ``predictionio_tpu_torch/examples/<example>/evaluation.py``
+    with each (old, new) of ``replace`` applied, for a test to write as a
+    module of its own."""
+    src = (REPO / "predictionio_tpu_torch" / "examples" / example / "evaluation.py").read_text()
     for old, new in replace:
         src = src.replace(old, new)
     assert "predictionio_tpu." not in src
@@ -407,8 +409,20 @@ def test_pio_eval_refuses_a_module_that_imports_the_jax_package(stores, monkeypa
     assert repr(path.rpartition(".")[0]) in err and "imports the JAX package" in err
 
 
+@pytest.mark.parametrize("example", EXAMPLES)
+def test_port_example_is_the_jax_one_on_the_ports_imports(example):
+    """Each of the port's examples is the JAX example with every ``from
+    predictionio_tpu.`` on the port's path, and nothing else changed."""
+    jax_src = (REPO / "examples" / example / "evaluation.py").read_bytes()
+    port_src = (REPO / "predictionio_tpu_torch" / "examples" / example /
+                "evaluation.py").read_bytes()
+    assert b"from predictionio_tpu." in jax_src
+    assert port_src == jax_src.replace(b"from predictionio_tpu.", b"from predictionio_tpu_torch.")
+    assert b"predictionio_tpu." not in port_src
+
+
 _FRESH = r"""
-import json, os, sys, tempfile
+import json, os, sys
 sys.path.insert(0, sys.argv[1])
 os.environ["PIO_TORCH_DEVICE"] = "cpu"
 from predictionio_tpu_torch.cli.main import main
@@ -421,6 +435,9 @@ store.l_events.insert_batch([Event("rate", "user", f"u{u}", "item", f"i{i}",
                                    properties={"rating": 5.0 if (u + i) % 2 else 1.0},
                                    event_time=1.7e9 + 40 * u + i, creation_time=1.7e9)
                              for u in range(20) for i in range(30) if (u * 7 + i) % 3], app)
+assert os.getcwd() == sys.argv[1] and "" in sys.path
+assert main(["eval", "predictionio_tpu_torch.examples.recommendation.evaluation."
+                     "RecommendationEvaluation"]) == 0
 assert main(["eval", "port_reco_evaluation.RecommendationEvaluation"]) == 0
 os.chdir(sys.argv[2])
 assert main(["eval", "examples.recommendation.evaluation.RecommendationEvaluation"]) == 1
@@ -432,9 +449,16 @@ print(json.dumps(bad))
 
 
 def test_pio_eval_never_loads_the_jax_package(tmp_path):
+    """From a working directory outside the repo, with the repo alone on
+    ``PYTHONPATH``: the port's example by package path and a copy of it in
+    the working directory evaluate; the JAX example is refused."""
     write_module(tmp_path, "port_reco_evaluation", port_copy("recommendation"))
     out = subprocess.run([sys.executable, "-c", _FRESH, str(tmp_path), str(REPO)],
-                         cwd=REPO, capture_output=True, text=True, timeout=300)
+                         cwd=tmp_path, env={**os.environ, "PYTHONPATH": str(REPO)},
+                         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "imports the JAX package" in out.stderr
-    assert out.stdout.strip().splitlines()[-1] == "[]"
+    lines = out.stdout.strip().splitlines()
+    assert sum(line.startswith("Evaluation completed: PrecisionAt10 best=")
+               for line in lines) == 2
+    assert lines[-1] == "[]"

@@ -238,15 +238,60 @@ def test_engine_factories_resolve_to_the_port(name, want):
     assert resolve_engine_factory(name) is want
 
 
-@pytest.mark.parametrize("name", ["classification",
-                                  "predictionio_tpu.models.text.TextClassificationEngine"])
-def test_unported_templates_raise_naming_the_roadmap(name, monkeypatch):
-    # every template is ported: the refusal is held on a list naming two
-    from predictionio_tpu_torch.workflow import create_workflow
+# a misspelt engineFactory: the JAX package's import error propagates, and
+# the port's names the module on the port's path
+MISSPELT = [
+    ("predictionio_tpu.models.recomendation.RecommendationEngine", ModuleNotFoundError,
+     "predictionio_tpu_torch.models.recomendation"),
+    ("predictionio_tpu_torch.models.nosuch.X", ModuleNotFoundError,
+     "predictionio_tpu_torch.models.nosuch"),
+    ("nosuchpkg.mod.X", ModuleNotFoundError, "nosuchpkg"),
+    ("predictionio_tpu.models.recommendation.NoSuchEngine", AttributeError,
+     "predictionio_tpu_torch.models.recommendation"),
+]
 
-    monkeypatch.setattr(create_workflow, "NOT_PORTED", ("classification", "text"))
-    with pytest.raises(NotImplementedError, match="Remaining templates"):
+
+@pytest.mark.parametrize("name,error,port_module", MISSPELT)
+def test_misspelt_engine_factory_raises_as_jax_does(name, error, port_module):
+    from predictionio_tpu.workflow.create_workflow import (
+        resolve_engine_factory as jax_resolve_engine_factory,
+    )
+
+    with pytest.raises(Exception) as want:
+        jax_resolve_engine_factory(name)
+    with pytest.raises(Exception) as got:
         resolve_engine_factory(name)
+    assert type(want.value) is type(got.value) is error
+    assert repr(port_module) in str(got.value)
+
+
+@pytest.mark.parametrize("command", ["build", "train", "deploy"])
+def test_misspelt_engine_factory_fails_each_console_alike(mem_storage, tmp_path, monkeypatch,
+                                                          capsys, command):
+    """``pio build|train|deploy`` of an engine.json whose engineFactory is
+    misspelt: both consoles exit 1 and report the same import error, each
+    naming the module on its own package's path."""
+    from predictionio_tpu.cli import main as jax_cli
+    from predictionio_tpu_torch.cli import main as cli
+
+    name = MISSPELT[0][0]
+    path = tmp_path / "engine.json"
+    path.write_text(json.dumps({**VARIANT, "engineFactory": name}))
+    monkeypatch.setenv("PIO_TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("PIO_JAX_CACHE", "off")
+    argv = [command, "--engine-json", str(path)]
+    if command == "deploy":
+        argv += ["--ip", "127.0.0.1", "--port", "0"]
+    port_set_storage(port_memory_storage())
+    try:
+        assert jax_cli.main(argv) == 1
+        want = capsys.readouterr().err
+        assert cli.main(argv) == 1
+        got = capsys.readouterr().err
+    finally:
+        port_set_storage(None)
+    assert want == "Error: No module named 'predictionio_tpu.models.recomendation'\n"
+    assert got == want.replace("predictionio_tpu.", "predictionio_tpu_torch.")
 
 
 def test_serialize_engine_params_matches_jax():
