@@ -1217,26 +1217,22 @@ def llr_sass_count(build) -> dict:
             "probe_total": len(ins), "slow_path": len(sub), "kernels": kernels}
 
 
-def train_tiles(cco, hk, td, dev, tile, mark=lambda stage: None):
+def train_tiles(cco, hk, td, dev, tile):
     """The resident tiled loop of ``ops/cco.py:_cco_indicators_resident`` as
     the deployed train runs it (LLR threshold 0, the primary's diagonal
     masked), up to K3: yields (event name, first item of the tile, counts,
     row marginals, column marginals, scores) for each item tile of each
-    event type.  ``mark(stage)`` is called as each stage is enqueued
-    (``None`` before the first), for CUDA events between the stages."""
+    event type."""
     primary = td.event_names[0]
     p_user, p_item, p_dict, _ = td.interactions[primary]
     n_users, n_items = len(td.user_dict), len(p_dict)
-    mark(None)
     prim = cco._ResidentPrimary(p_user, p_item, n_users, n_items, dev)
-    mark("densify_p")
     for name in td.event_names:
         a_user, a_item, a_dict, _ = td.interactions[name]
         n_tiles = -(-len(a_dict) // tile)
         self_pair = name == primary
         if not self_pair:
             staged = cco._StagedCOO(a_user, a_item, dev, "item", tile, n_tiles)
-            mark("stage_events")
         for t in range(n_tiles):
             t0 = t * tile
             if self_pair:
@@ -1244,14 +1240,11 @@ def train_tiles(cco, hk, td, dev, tile, mark=lambda stage: None):
             else:
                 u, i = staged.span(t)
                 at = cco._densify(i - t0, u, cco._round_up(tile, 8), prim.n_rows)
-            mark("densify_tile")
             counts = cco._count_product(prim.pt, at)[:n_items, :tile]
-            mark("count_product")
             cc = cco._marginal(at)[:tile]
             scores = hk.llr_masked_scores(counts, prim.rc, cc, float(n_users), 0.0)
             if self_pair:
                 scores.diagonal(offset=-t0).fill_(float("-inf"))
-            mark("llr_k2")
             yield name, t0, counts, prim.rc, cc, scores
             del at, counts, cc, scores
 

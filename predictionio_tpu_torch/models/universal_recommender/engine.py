@@ -106,6 +106,7 @@ from predictionio_tpu_torch.serve import history_cache as _history_cache
 from predictionio_tpu_torch.serve import response_cache as _resp_cache
 from predictionio_tpu_torch.store.columnar import CSRLookup, IdDict, fold_properties
 from predictionio_tpu_torch.store.event_store import LEventStore, PEventStore  # noqa: F401
+from predictionio_tpu_torch.utils.tracing import timed
 
 # -- serving instruments (the JAX package's families) ------------------------
 
@@ -1149,6 +1150,7 @@ class URAlgorithm(Algorithm):
             per_type[name] = (t_k, t_llr)
         return per_type
 
+    @timed("ur.train")
     def train(self, td: URTrainingData) -> URModel:
         device = resolve_device(self.device)
         primary = td.event_names[0]
@@ -1191,43 +1193,48 @@ class URAlgorithm(Algorithm):
                 p_user, p_item, others, n_users, n_items, **common)
         indicator_idx: Dict[str, np.ndarray] = {}
         indicator_llr: Dict[str, np.ndarray] = {}
-        for name, (scores, idx) in results.items():
-            indicator_idx[name] = idx.astype(np.int32)
-            indicator_llr[name] = np.where(np.isfinite(scores), scores, 0.0).astype(np.float32)
-        user_seen = CSRLookup.from_pairs(p_user, p_item, n_users)
+        with timed("ur.train.tables"):
+            for name, (scores, idx) in results.items():
+                indicator_idx[name] = idx.astype(np.int32)
+                indicator_llr[name] = np.where(np.isfinite(scores), scores,
+                                               0.0).astype(np.float32)
+        with timed("ur.train.seen"):
+            user_seen = CSRLookup.from_pairs(p_user, p_item, n_users)
         # PopModel backfill over the event-time window (raw events: volume)
-        bf_names = self.params.backfill_event_names or [primary]
-        unknown_bf = [b for b in bf_names if b not in td.event_names]
-        if unknown_bf:
-            raise ValueError(
-                f"backfill_event_names {unknown_bf} not in event_names "
-                f"{td.event_names}")
-        bf_items, bf_times = [], []
-        for name in bf_names:
-            u, i, item_dict_t, times = td.interactions[name]
-            if name == primary:
-                bf_items.append(p_item)
-                bf_times.append(p_times)
-            else:
-                mapped = p_item_dict.lookup_many(item_dict_t.strings())[i]
-                keep = mapped >= 0
-                bf_items.append(mapped[keep])
-                bf_times.append(times[keep])
-        popularity = backfill_scores(
-            self.params.backfill_type, np.concatenate(bf_items),
-            np.concatenate(bf_times), n_items,
-            parse_duration(self.params.backfill_duration))
+        with timed("ur.train.backfill"):
+            bf_names = self.params.backfill_event_names or [primary]
+            unknown_bf = [b for b in bf_names if b not in td.event_names]
+            if unknown_bf:
+                raise ValueError(
+                    f"backfill_event_names {unknown_bf} not in event_names "
+                    f"{td.event_names}")
+            bf_items, bf_times = [], []
+            for name in bf_names:
+                u, i, item_dict_t, times = td.interactions[name]
+                if name == primary:
+                    bf_items.append(p_item)
+                    bf_times.append(p_times)
+                else:
+                    mapped = p_item_dict.lookup_many(item_dict_t.strings())[i]
+                    keep = mapped >= 0
+                    bf_items.append(mapped[keep])
+                    bf_times.append(times[keep])
+            popularity = backfill_scores(
+                self.params.backfill_type, np.concatenate(bf_items),
+                np.concatenate(bf_times), n_items,
+                parse_duration(self.params.backfill_duration))
         # per-event seen CSRs for non-primary blacklist_events, in the
         # primary item space
         user_seen_by_event: Dict[str, CSRLookup] = {}
-        for name in blacklist_events:
-            if name == primary or name not in event_item_dicts:
-                continue
-            u, i, item_dict, _ = td.interactions[name]
-            mapped = p_item_dict.lookup_many(item_dict.strings())[i]
-            keep = mapped >= 0
-            user_seen_by_event[name] = CSRLookup.from_pairs(
-                u[keep], mapped[keep], n_users)
+        with timed("ur.train.seen_by_event"):
+            for name in blacklist_events:
+                if name == primary or name not in event_item_dicts:
+                    continue
+                u, i, item_dict, _ = td.interactions[name]
+                mapped = p_item_dict.lookup_many(item_dict.strings())[i]
+                keep = mapped >= 0
+                user_seen_by_event[name] = CSRLookup.from_pairs(
+                    u[keep], mapped[keep], n_users)
         return URModel(
             primary_event=primary,
             item_dict=p_item_dict,

@@ -97,6 +97,7 @@ from predictionio_tpu_torch.ops.hopper_kernels import (
 )
 from predictionio_tpu_torch.ops.topk import block_width
 from predictionio_tpu_torch.parallel.distributed import all_reduce_sum
+from predictionio_tpu_torch.utils.tracing import timed
 
 #: the reference's clamp ``-1 + 1e-9``, which rounds to exactly -1.0 in f32
 _LOG1P_FLOOR = -1.0
@@ -305,6 +306,7 @@ def _llr_mask_scores(c, row_counts, col_counts, n_total, llr_threshold):
                              float(llr_threshold))
 
 
+@timed("cco.finalize")
 def _finalize_topk(best_scores, best_idx, n_items_t: int,
                    top_k: Optional[int] = None):
     """Host epilogue: -1-pad entries that are -inf or padding columns, and
@@ -469,6 +471,7 @@ def _count_buffer(*shapes, device) -> List[torch.Tensor]:
     return [buf] + [v.view(sh) for v, sh in zip(buf.split(sizes), shapes)]
 
 
+@timed("cco.check_ids")
 def _check_ids(user, item, n_users: int, n_items: int, what: str) -> None:
     user, item = np.asarray(user), np.asarray(item)
     if len(user) and (int(user.min()) < 0 or int(user.max()) >= n_users):
@@ -653,6 +656,7 @@ class _ResidentPrimary:
     """The densified primary, item-major [I_p rows, users], built once per
     training run and shared by every tiled event type."""
 
+    @timed("cco.stage")
     def __init__(self, p_user, p_item, n_users: int, n_items_p: int,
                  device: torch.device):
         self.n_items_p = n_items_p
@@ -678,23 +682,25 @@ def _cco_indicators_resident(
     tile = min(item_tile, max(n_items_t, 1))
     n_tiles = math.ceil(n_items_t / tile)
     if not self_pair:
-        a = _StagedCOO(a_user, a_item, device, "item", tile, n_tiles)
+        with timed("cco.stage"):
+            a = _StagedCOO(a_user, a_item, device, "item", tile, n_tiles)
     b = block_width(top_k)
     best = _initial_carry(i_p, top_k, device)
-    for t in range(n_tiles):
-        t0 = t * tile
-        if self_pair:
-            at = _tile_slab(pt, t0, tile)
-        else:
-            u, i = a.span(t)
-            at = _densify(i - t0, u, _round_up(tile, 8), primary.n_rows)
-        counts = _count_product(pt, at)[:i_p, :tile]
-        scores = _llr_mask_scores(counts, primary.rc, _marginal(at)[:tile],
-                                  n_total_users, llr_threshold)
-        best = _tile_tail(scores, t0, exclude_self, b, best)
-        # free this tile's [I_p, tile] counts and scores before the next
-        # product allocates its own: one of each is live, not two
-        del counts, scores
+    with timed("cco.tiles"):
+        for t in range(n_tiles):
+            t0 = t * tile
+            if self_pair:
+                at = _tile_slab(pt, t0, tile)
+            else:
+                u, i = a.span(t)
+                at = _densify(i - t0, u, _round_up(tile, 8), primary.n_rows)
+            counts = _count_product(pt, at)[:i_p, :tile]
+            scores = _llr_mask_scores(counts, primary.rc, _marginal(at)[:tile],
+                                      n_total_users, llr_threshold)
+            best = _tile_tail(scores, t0, exclude_self, b, best)
+            # free this tile's [I_p, tile] counts and scores before the next
+            # product allocates its own: one of each is live, not two
+            del counts, scores
     return _finalize_topk(*best, n_items_t, top_k)
 
 
@@ -706,6 +712,7 @@ class _ChunkedPrimary:
     the blocks are padded to a multiple of dp and this rank holds its
     contiguous share of them (``local``: its users, renumbered)."""
 
+    @timed("cco.stage")
     def __init__(self, p_user, p_item, n_users: int, n_items_p: int,
                  user_block: int, device: torch.device, mesh=None):
         if user_block < 1:
@@ -752,43 +759,45 @@ def _cco_indicators_chunked(
     n_tiles = math.ceil(n_items_t / tile)
     w8 = _round_up(tile, 8)
     if not self_pair:
-        a = _StagedCOO(*primary.local(a_user, a_item), device, "item", tile, n_tiles,
-                       block=primary.block, n_blocks=primary.n_blocks)
+        with timed("cco.stage"):
+            a = _StagedCOO(*primary.local(a_user, a_item), device, "item", tile, n_tiles,
+                           block=primary.block, n_blocks=primary.n_blocks)
     b = block_width(top_k)
     best = _initial_carry(i_p, top_k, device)
-    for t in range(n_tiles):
-        t0 = t * tile
-        need_rc = primary.rc is None
-        shapes = [(_item_rows(i_p), w8), (w8,)] + ([(i_p,)] if need_rc else [])
-        buf, counts, cc, *rc = _count_buffer(*shapes, device=device)
-        rc = rc[0] if need_rc else primary.rc
-        for blk in range(primary.n_blocks):
-            if not self_pair:
-                u, i = a.span2(t, blk)
-                if len(u) == 0 and not need_rc:
+    with timed("cco.tiles"):
+        for t in range(n_tiles):
+            t0 = t * tile
+            need_rc = primary.rc is None
+            shapes = [(_item_rows(i_p), w8), (w8,)] + ([(i_p,)] if need_rc else [])
+            buf, counts, cc, *rc = _count_buffer(*shapes, device=device)
+            rc = rc[0] if need_rc else primary.rc
+            for blk in range(primary.n_blocks):
+                if not self_pair:
+                    u, i = a.span2(t, blk)
+                    if len(u) == 0 and not need_rc:
+                        continue
+                pb = primary.block_matrix(blk)
+                if need_rc:
+                    rc += _marginal(pb[:i_p])
+                if self_pair:
+                    at = _tile_slab(pb, t0, tile)
+                elif len(u) == 0:
                     continue
-            pb = primary.block_matrix(blk)
-            if need_rc:
-                rc += _marginal(pb[:i_p])
-            if self_pair:
-                at = _tile_slab(pb, t0, tile)
-            elif len(u) == 0:
-                continue
-            else:
-                at = _densify(i - t0, u - blk * primary.block, w8, primary.cols)
-            counts += _count_product(pb, at)
-            cc += _marginal(at)
-            del pb, at
-        if primary.mesh is not None:
-            _all_reduce_counts(buf, primary.mesh, primary.n_users)
-        if need_rc:   # kept past this tile: not as a view holding the buffer
-            primary.rc = rc.clone()
-        del buf
-        scores = _llr_mask_scores(counts[:i_p, :tile], rc, cc[:tile],
-                                  n_total_users, llr_threshold)
-        del counts, cc, rc   # the last views of the buffer: freed before K3
-        best = _tile_tail(scores, t0, exclude_self, b, best)
-        del scores
+                else:
+                    at = _densify(i - t0, u - blk * primary.block, w8, primary.cols)
+                counts += _count_product(pb, at)
+                cc += _marginal(at)
+                del pb, at
+            if primary.mesh is not None:
+                _all_reduce_counts(buf, primary.mesh, primary.n_users)
+            if need_rc:   # kept past this tile: not as a view holding the buffer
+                primary.rc = rc.clone()
+            del buf
+            scores = _llr_mask_scores(counts[:i_p, :tile], rc, cc[:tile],
+                                      n_total_users, llr_threshold)
+            del counts, cc, rc   # the last views of the buffer: freed before K3
+            best = _tile_tail(scores, t0, exclude_self, b, best)
+            del scores
     return _finalize_topk(*best, n_items_t, top_k)
 
 
@@ -1131,6 +1140,7 @@ class _SparseHostRunner:
 # ---------------------------------------------------------------------------
 
 
+@timed("cco.train")
 def cco_train_indicators(
     p_user: np.ndarray, p_item: np.ndarray,
     others: Sequence[Tuple[str, np.ndarray, np.ndarray, int]],
@@ -1293,6 +1303,7 @@ def cco_indicators_coo(
         a_user is p_user and a_item is p_item, dev, mesh)
 
 
+@timed("cco.train")
 def cco_indicators(
     primary: BlockedInteractions,
     other: BlockedInteractions,
@@ -1323,8 +1334,9 @@ def cco_indicators(
         raise ValueError(f"n_total_users must be positive, got {n_total_users}")
     dev = resolve_device(device)
     self_pair = other is primary
-    pu, pi = _flatten_blocked(primary)
-    au, ai = (pu, pi) if self_pair else _flatten_blocked(other)
+    with timed("cco.flatten"):
+        pu, pi = _flatten_blocked(primary)
+        au, ai = (pu, pi) if self_pair else _flatten_blocked(other)
     if _dense_path_ok(primary.n_items, other.n_items):
         if primary.n_users != other.n_users:
             raise ValueError("primary/other must share the user space")

@@ -426,7 +426,7 @@ class EventBatch:
 # where the pass costs as much as an ``index_of`` scan an id.  Both grow
 # with the column's bytes, so the break-even does not; at 1.3M ids of 32
 # hex digits on an 8-core H100 host the pass took 0.426 s and
-# ``index_of`` 13.9 ms an id (``profile_torch.py --only store``, step 10).
+# ``index_of`` 13.9 ms an id (``profile_torch.py --only store``, step 7).
 ROWS_OF_ONE_PASS = 31
 
 

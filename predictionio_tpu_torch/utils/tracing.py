@@ -8,7 +8,16 @@ CUDA is available, of the card's kernels, and writes it into a directory
 as a Chrome trace; ``timed`` is a wall-clock span that feeds the workflow
 logs and, when a span journal is active (``obs.spans``: ``pio train`` and
 ``pio eval`` activate one a run), lands in the journal as a structured
-span with parent/child links, else in the live request trace.
+span with parent/child links, else in the live request trace.  Unlike the
+JAX package's, ``timed`` also opens a ``record_function`` range of the
+same name, so a ``torch.profiler`` trace shows the block, and keeps the
+last spans the process closed (``recent_spans``).
+
+One clock: the profiler's events carry Unix-epoch nanoseconds
+(``start_ns``), as a journal span's ``start`` carries ``time.time()``
+seconds and ``recent_spans`` ``time.time_ns()``, so the records of one
+span agree on when it ran, and a span names what the host was doing in
+an idle gap of the device's timeline.
 
 The spans read the host clock.  A CUDA launch returns before its work
 ends, so a ``timed`` block around a launch without a readback measures
@@ -17,13 +26,25 @@ the launch; the device's time lands in whichever block synchronises.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import logging
 import os
 import time
-from typing import Iterator, Optional
+from typing import Deque, Iterator, List, Optional, Tuple
 
 log = logging.getLogger("pio.trace")
+
+#: the spans ``timed`` closed last in this process, oldest first:
+#: (start ns, end ns, name), start on the Unix-epoch clock
+_RECENT: Deque[Tuple[int, int, str]] = collections.deque(maxlen=4096)
+
+
+def recent_spans() -> List[Tuple[int, int, str]]:
+    """The last spans ``timed`` closed in this process, oldest first, as
+    (start ns, end ns, name) on the Unix-epoch clock of a profiler trace:
+    a reader picks a traced window's spans by their times."""
+    return list(_RECENT)
 
 
 @contextlib.contextmanager
@@ -75,18 +96,25 @@ def timed(name: str, sink: Optional[dict] = None) -> Iterator[None]:
     is active (obs.spans: train/eval runs), the block is also recorded
     there as a structured span (with parent/child nesting); otherwise,
     when a request trace is live (obs.tracing flight recorder), it lands
-    in that trace's waterfall instead."""
+    in that trace's waterfall instead.  The block is a ``record_function``
+    range of the same name too, and lands in ``recent_spans``.  Used as a
+    decorator, it spans each call."""
+    from torch.profiler import record_function
+
     from predictionio_tpu_torch.obs import spans as _spans
     from predictionio_tpu_torch.obs import tracing as _tracing
 
     sink_obj = _spans.current_journal() or _tracing.current_trace()
     ctx = sink_obj.span(name) if sink_obj is not None else contextlib.nullcontext()
-    t0 = time.perf_counter()
+    start_ns = time.time_ns()
+    t0 = time.perf_counter_ns()
     try:
-        with ctx:
+        with ctx, record_function(name):
             yield
     finally:
-        dt = time.perf_counter() - t0
+        dt_ns = time.perf_counter_ns() - t0
+        _RECENT.append((start_ns, start_ns + dt_ns, name))
+        dt = dt_ns / 1e9
         log.info("%s took %.3fs", name, dt)
         if sink is not None:
             sink[name] = sink.get(name, 0.0) + dt

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where the PyTorch/H100 port's time goes: ALS serving and UR training.
+"""Where the PyTorch/H100 port's time goes: ALS serving, K1 and the store.
 
-    python3 profile_torch.py [--queries N] [--only als|ur|k1|store] [--ab-parent DIR]
+    python3 profile_torch.py [--queries N] [--only als|k1|store] [--ab-parent DIR]
 
 ALS serving.  Builds the model ``chip_smoke.py`` serves (5,000 users x
 100,000 items x rank 32, random factors from a seed) on the CUDA card and
@@ -15,24 +15,12 @@ measures, after a warm-up:
 3. a ``torch.profiler`` window over ``--queries`` predicts: the device's
    busy share of the wall time and kernel time by kernel name.
 
-UR training.  At ``chip_smoke.py``'s deployed width (20,000 users x
-100,000 items, 400k purchase + 800k view events, top_k 50, item tile
-4,096: the P-resident tiled CCO strategy), after one warm-up train:
-
-4. ``URAlgorithm.train``'s wall time;
-5. one pass over every item tile of both event types with CUDA events
-   between the stages (staging the events, densifying P once, then per
-   tile: densify, count product, K2, K3 with the carry merge fused in):
-   device ms per stage;
-6. a ``torch.profiler`` window over one train: device busy share and kernel
-   time by kernel name.
-
 K1 alone (``--only k1``, the quick loop for work on the masked-score
 kernel; not part of the default run):
 
-7. build K1 only and hold it against its plain version at every
+4. build K1 only and hold it against its plain version at every
    ``chip_smoke.K1_CASES`` shape (packed and row-strided masks);
-8. time it with ``chip_smoke.time_masked_score`` at ``chip_smoke.K1_TIMED``
+5. time it with ``chip_smoke.time_masked_score`` at ``chip_smoke.K1_TIMED``
    and at B = 8 and 16 (either side of the streaming / tiled cut), an empty
    kernel through the same ``time_cold``, and the 5 interleaved B = 1
    rounds against ``addmm`` + ``masked_fill_`` (``chip_smoke.retime_k1``).
@@ -42,11 +30,11 @@ the event store; not part of the default run), at the deployed width (1.2M
 interactions + 100k ``$set`` item events, ``chip_smoke.py`` phase 11b's
 data) in a temporary directory:
 
-9. the JSON-lines write, ``pio import`` (events/s), the native scan of the
+6. the JSON-lines write, ``pio import`` (events/s), the native scan of the
    segments (3 runs, its read rate, and the C++ parse and merge alone),
    ``fold_properties`` of the item ``$set`` events, and ``read_training``
    (scan, fold and translation);
-10. the columnar snapshot of the same store: its build (``pio snapshot``'s
+7. the columnar snapshot of the same store: its build (``pio snapshot``'s
    work), ``read_batch`` of the snapshot file with the native header parse
    and with the Python one (``PIO_NATIVE=on|off``, 3 runs each; the read
    alone, and with the dictionaries decoded and every column paged in),
@@ -64,7 +52,7 @@ With ``--ab-parent DIR`` (DIR a checkout of another commit, e.g. ``git
 archive`` of the parent unpacked into ``_archive/``), fresh processes of
 DIR and of this checkout, in the order DIR, this, this, DIR, each run the
 same work on one host: with ``--only store``, ``read_training`` of step
-9's store through the native scan, 3 reads each; with ``--only als``,
+6's store through the native scan, 3 reads each; with ``--only als``,
 the ALS batch run the serving micro-batcher makes (``batch_predictor``
 on step 1's model, 100,000 items) at micro-batches of 4 and 64 queries,
 host clock, p50 of ``--queries`` queries' batches.
@@ -97,7 +85,7 @@ def _ms(samples):
 
 def _device_kernels(prof, per: int):
     """Device time by kernel name from a profiler window, per ``per``
-    units (queries or trains), and the window's device busy µs."""
+    queries, and the window's device busy µs."""
     kernels = {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", 0) or 0
@@ -110,75 +98,8 @@ def _device_kernels(prof, per: int):
     return top, busy_us
 
 
-def profile_ur_train(chip_smoke, smi: str) -> dict:
-    """Steps 4-6: the UR train at the deployed width, stage by stage."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from predictionio_tpu_torch.models import universal_recommender as ur
-    from predictionio_tpu_torch.ops import cco
-    from predictionio_tpu_torch.ops import hopper_kernels as hk
-    from predictionio_tpu_torch.ops.topk import block_width
-
-    n_users, n_items, _, _, top_k, tile = chip_smoke.DEPLOYED_UR
-    arrays = chip_smoke.deployed_arrays()
-    pu, _, vu, _ = arrays
-    # the training data the store path reads (chip_smoke.py phase 11), from its arrays
-    td = chip_smoke.expected_training_data(ur, arrays, {})
-    algo = ur.URAlgorithm(ur.URAlgorithmParams(
-        app_name="profile", max_correlators_per_item=top_k, item_tile=tile),
-        device="cuda")
-    algo.train(td)   # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    algo.train(td)
-    train_s = time.perf_counter() - t0
-
-    # 5. the resident tiled loop of ops/cco.py, a CUDA event after each stage
-    stages = {k: 0.0 for k in ("stage_events", "densify_p", "densify_tile",
-                               "count_product", "llr_k2", "topk_k3_carry")}
-    events = []
-
-    def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append((name, ev))
-
-    dev = torch.device("cuda")
-    b = block_width(top_k)
-    n_tiles = -(-n_items // tile)
-    best = chip_smoke.initial_carry(td, b, dev)
-    for name, t0_, _, _, _, scores in chip_smoke.train_tiles(cco, hk, td, dev, tile, mark):
-        best[name] = hk.tile_topk_desc(scores, b, id_offset=t0_, carry=best[name])
-        mark("topk_k3_carry")
-    torch.cuda.synchronize()
-    for (_, a), (name, e) in zip(events, events[1:]):
-        stages[name] += a.elapsed_time(e)
-    staged_total = sum(stages.values())
-    for name, ms in stages.items():
-        print(f"  ur train stage {name:14s} {ms:10.3f} ms device "
-              f"({100 * ms / staged_total:5.1f}%) | {smi}")
-    del best
-    torch.cuda.empty_cache()
-
-    # 6. profiler window over one train
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        algo.train(td)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    top, busy_us = _device_kernels(prof, 1)
-    print(f"  ur train wall {train_s:.3f} s, staged device sum {staged_total:.3f} ms | {smi}")
-    return {"shape": {"users": n_users, "items": n_items, "events": len(pu) + len(vu),
-                      "top_k": top_k, "item_tile": tile, "tiles_per_type": n_tiles},
-            "train_wall_s": train_s, "stages_device_ms": stages,
-            "stages_device_total_ms": staged_total,
-            "profiler": {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
-                         "device_busy_share": busy_us / wall_us if wall_us else None,
-                         "kernels_us_per_train": top}}
-
-
 def profile_k1(chip_smoke, smi: str) -> dict:
-    """Steps 7-8: K1 built, checked and timed, nothing else."""
+    """Steps 4-5: K1 built, checked and timed, nothing else."""
     from predictionio_tpu_torch.device import resolve_device
     from predictionio_tpu_torch.ops import build
     from predictionio_tpu_torch.ops import hopper_kernels as hk
@@ -208,7 +129,7 @@ def profile_k1(chip_smoke, smi: str) -> dict:
 
 
 def profile_store(chip_smoke, smi: str, ab_parent: Optional[Path] = None) -> dict:
-    """Step 9: import, native scan and $set fold at the deployed width."""
+    """Step 6: import, native scan and $set fold at the deployed width."""
     import os
     import shutil
     import tempfile
@@ -349,7 +270,7 @@ def als_batch_ab(parent: Path, n_queries: int, smi: str) -> dict:
 
 
 def read_training_ab(chip_smoke, parent: Path, store_root: Path, reads: int = 3) -> dict:
-    """``read_training`` through the native scan of step 9's store (no
+    """``read_training`` through the native scan of step 6's store (no
     snapshot yet) by ``parent``'s package and by this checkout's, each in
     fresh processes, in the order parent, this, this, parent."""
     import os
@@ -395,7 +316,7 @@ def delete_liveness(store, app_id, ids, n_items, n_p, n_v) -> dict:
 
 
 def profile_snapshot(chip_smoke, store, ep, workdir) -> dict:
-    """Step 10: the snapshot's build, its read with either header parse,
+    """Step 7: the snapshot's build, its read with either header parse,
     the tail scan, the $set fold and read_training from it."""
     import os
 
@@ -501,7 +422,7 @@ def profile_snapshot(chip_smoke, store, ep, workdir) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--queries", type=int, default=200)
-    ap.add_argument("--only", choices=("als", "ur", "k1", "store"), default=None)
+    ap.add_argument("--only", choices=("als", "k1", "store"), default=None)
     ap.add_argument("--ab-parent", type=Path, default=None,
                     help="with --only store or --only als: a checkout of another "
                          "commit whose native-scan read_training (store) or ALS "
@@ -521,8 +442,6 @@ def main() -> int:
         out["als_serving"] = profile_als_serving(chip_smoke, args.queries)
     if args.only == "als" and args.ab_parent is not None:
         out["als_batch_ab"] = als_batch_ab(args.ab_parent, args.queries, smi)
-    if args.only in (None, "ur"):
-        out["ur_train"] = profile_ur_train(chip_smoke, smi)
     if args.only == "k1":
         out["k1"] = profile_k1(chip_smoke, smi)
     if args.only == "store":
