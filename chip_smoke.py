@@ -1226,7 +1226,7 @@ def train_tiles(cco, hk, td, dev, tile):
     primary = td.event_names[0]
     p_user, p_item, p_dict, _ = td.interactions[primary]
     n_users, n_items = len(td.user_dict), len(p_dict)
-    prim = cco._ResidentPrimary(p_user, p_item, n_users, n_items, dev)
+    prim = cco._ResidentPrimary((p_user, p_item), n_users, n_items, dev)
     for name in td.event_names:
         a_user, a_item, a_dict, _ = td.interactions[name]
         n_tiles = -(-len(a_dict) // tile)
@@ -1634,9 +1634,9 @@ def train_bench_shape(cco, hk, dev):
     for run_ in range(2):   # timed as the dense train is: staging included
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prim = cco._ResidentPrimary(bu, bi, n_users, n_items, dev)
+        prim = cco._ResidentPrimary((bu, bi), n_users, n_items, dev)
         resident = {name: cco._cco_indicators_resident(
-            prim, au, ai, n_items, n_users, top_k, 0.0, 1_024, name == "buy", au is bu)
+            prim, (au, ai), n_items, n_users, top_k, 0.0, 1_024, name == "buy", au is bu)
             for name, au, ai, _ in others}
         res_walls.append(time.perf_counter() - t0)
     for name in dense:

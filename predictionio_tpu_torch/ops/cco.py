@@ -78,6 +78,13 @@ the count product is ``Pt · Atᵀ`` with both operands in the layout the int8
 tensor-core product takes (``torch._int_mm``: the first operand row-major,
 the second column-major).  The host layout of blocked COO
 (``BlockedInteractions``) is the reference's, array for array.
+
+Staging: the tiled strategies copy a blocked layout to the device as it
+is, 32-bit, and flatten it there (``_flatten_blocked_on``); flat (user,
+item) ids are copied in the width they come in and widened there; the
+dense strategy and the sparse runner take the layout flattened on the host
+(``_flatten_blocked``).  Each staging copies its own input and nothing
+staged outlives it.  ``staging_by_route`` counts the stagings by route.
 """
 
 from __future__ import annotations
@@ -85,6 +92,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -248,11 +256,72 @@ def distinct_user_counts(user: np.ndarray, item: np.ndarray, n_items: int) -> np
     return interaction_counts(di, n_items)
 
 
+#: stagings of event pairs by route, so a run can show which it took:
+#: ``blocked_on_device``, a blocked layout flattened on the device (the tiled
+#: strategies of ``cco_indicators``); ``pairs_on_device``, host (user, item)
+#: arrays copied in their own width and widened on the device;
+#: ``host_flatten``, a blocked layout flattened on the host
+#: (``_flatten_blocked``: the dense and sparse routes of ``cco_indicators``)
+staging_by_route = {"blocked_on_device": 0, "pairs_on_device": 0, "host_flatten": 0}
+_staging_lock = threading.Lock()
+
+
+def reset_staging_counts() -> None:
+    """Set every route's staging count to 0."""
+    with _staging_lock:
+        staging_by_route.update(blocked_on_device=0, pairs_on_device=0, host_flatten=0)
+
+
+def _count_staging(route: str) -> None:
+    with _staging_lock:
+        staging_by_route[route] += 1
+
+
 def _flatten_blocked(b: BlockedInteractions) -> Tuple[np.ndarray, np.ndarray]:
     """Blocked layout → global COO (the inverse of ``block_interactions``)."""
+    _count_staging("host_flatten")
     gu = (np.arange(b.n_blocks, dtype=np.int64)[:, None] * b.user_block + b.local_u)
     keep = b.mask.ravel() > 0
     return gu.ravel()[keep].astype(np.int32), b.item.ravel()[keep].astype(np.int32)
+
+
+def _ids_to(ids, device: torch.device) -> torch.Tensor:
+    """Integer ids on ``device`` in the width they come in: a tensor moved
+    as it is, a host int32 or int64 array in one copy with no host pass;
+    any other dtype through NumPy's int64 first."""
+    if torch.is_tensor(ids):
+        return ids.to(device)
+    ids = np.asarray(ids)
+    if ids.dtype not in (np.int32, np.int64):
+        ids = ids.astype(np.int64)
+    return torch.as_tensor(ids, device=device)
+
+
+@timed("cco.flatten")
+def _flatten_blocked_on(b: BlockedInteractions,
+                        device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_flatten_blocked`` on the device, as int64 tensors: the layout's
+    three arrays copied as they are, one copy each; each pair's global user
+    (block × ``user_block`` + local user) computed there, and the pairs
+    whose mask is > 0 kept, in the layout's order."""
+    _count_staging("blocked_on_device")
+    keep = torch.as_tensor(b.mask, device=device) > 0
+    base = torch.arange(b.n_blocks, dtype=torch.int64, device=device)[:, None] * b.user_block
+    user = (base + _ids_to(b.local_u, device))[keep]
+    return user, _ids_to(b.item, device)[keep].to(torch.int64)
+
+
+def _pairs_on(pairs, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A staging's input as (user, item) int64 tensors on ``device``:
+    ``pairs`` is a ``BlockedInteractions`` (flattened there) or a (user,
+    item) pair of host arrays or tensors (copied in their width, widened
+    there)."""
+    if isinstance(pairs, BlockedInteractions):
+        return _flatten_blocked_on(pairs, device)
+    user, item = pairs
+    if not torch.is_tensor(user):
+        _count_staging("pairs_on_device")
+    return _ids_to(user, device).to(torch.int64), _ids_to(item, device).to(torch.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -384,8 +453,7 @@ class _StagedCOO:
 
     def __init__(self, user, item, device: torch.device, by: str, step: int,
                  n_steps: int, block: Optional[int] = None, n_blocks: int = 1):
-        u = torch.as_tensor(np.asarray(user, np.int64), device=device)
-        i = torch.as_tensor(np.asarray(item, np.int64), device=device)
+        u, i = _pairs_on((user, item), device)
         if len(u) != len(i):
             raise ValueError(f"user/item length mismatch: {len(u)} vs {len(i)}")
         self.n_blocks = n_blocks if block is not None else 1
@@ -420,8 +488,10 @@ def _mesh_share(n_spans: int, mesh) -> Tuple[int, int]:
 
 
 def _local_pairs(user, item, lo: int, hi: int):
-    """The pairs of users [lo, hi), users renumbered from 0."""
-    user, item = np.asarray(user), np.asarray(item)
+    """The pairs of users [lo, hi), users renumbered from 0, of host arrays
+    or of tensors."""
+    if not torch.is_tensor(user):
+        user, item = np.asarray(user), np.asarray(item)
     if lo == 0 and (len(user) == 0 or int(user.max()) < hi):
         return user, item
     keep = (user >= lo) & (user < hi)
@@ -654,36 +724,35 @@ def _initial_carry(n_rows: int, top_k: int, device: torch.device):
 
 class _ResidentPrimary:
     """The densified primary, item-major [I_p rows, users], built once per
-    training run and shared by every tiled event type."""
+    training run and shared by every tiled event type.  ``pairs``: a
+    staging's input (``_pairs_on``), freed when the primary is built."""
 
     @timed("cco.stage")
-    def __init__(self, p_user, p_item, n_users: int, n_items_p: int,
-                 device: torch.device):
+    def __init__(self, pairs, n_users: int, n_items_p: int, device: torch.device):
         self.n_items_p = n_items_p
         self.n_rows = max(_round_up(n_users, 128), 128)   # users, padded
-        u = torch.as_tensor(np.asarray(p_user, np.int64), device=device)
-        i = torch.as_tensor(np.asarray(p_item, np.int64), device=device)
+        u, i = _pairs_on(pairs, device)
         self.pt = _densify(i, u, _item_rows(n_items_p), self.n_rows)
         self.rc = _marginal(self.pt[:n_items_p])
 
 
 def _cco_indicators_resident(
-    primary: _ResidentPrimary, a_user, a_item, n_items_t: int,
+    primary: _ResidentPrimary, a, n_items_t: int,
     n_total_users: int, top_k: int, llr_threshold: float, item_tile: int,
     exclude_self: bool, self_pair: bool,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Item tiles of the other event type against the resident primary:
-    densify the tile (a slice of P itself for the self-indicator), one
-    count product, K2, the diagonal mask, and K3's top-b of the tile merged
-    into the carry in one launch.  The carry is ``block_width(top_k)``
-    wide."""
+    """Item tiles of the other event type ``a`` (a staging's input, unused
+    for the self-indicator) against the resident primary: densify the tile
+    (a slice of P itself for the self-indicator), one count product, K2,
+    the diagonal mask, and K3's top-b of the tile merged into the carry in
+    one launch.  The carry is ``block_width(top_k)`` wide."""
     pt, i_p = primary.pt, primary.n_items_p
     device = pt.device
     tile = min(item_tile, max(n_items_t, 1))
     n_tiles = math.ceil(n_items_t / tile)
     if not self_pair:
         with timed("cco.stage"):
-            a = _StagedCOO(a_user, a_item, device, "item", tile, n_tiles)
+            a = _StagedCOO(*_pairs_on(a, device), device, "item", tile, n_tiles)
     b = block_width(top_k)
     best = _initial_carry(i_p, top_k, device)
     with timed("cco.tiles"):
@@ -713,7 +782,7 @@ class _ChunkedPrimary:
     contiguous share of them (``local``: its users, renumbered)."""
 
     @timed("cco.stage")
-    def __init__(self, p_user, p_item, n_users: int, n_items_p: int,
+    def __init__(self, pairs, n_users: int, n_items_p: int,
                  user_block: int, device: torch.device, mesh=None):
         if user_block < 1:
             raise ValueError(f"user_block must be positive, got {user_block}")
@@ -721,16 +790,17 @@ class _ChunkedPrimary:
         self.n_users = n_users
         self.block = user_block
         self.mesh = mesh
+        self.device = device
         self.cols = _round_up(user_block, 8)   # the int8 product's k rule
         b0, self.n_blocks = _mesh_share(max(math.ceil(n_users / user_block), 1), mesh)
         self.users = (b0 * user_block, (b0 + self.n_blocks) * user_block)
-        self.p = _StagedCOO(*self.local(p_user, p_item), device, "user", user_block,
+        self.p = _StagedCOO(*self.local(pairs), device, "user", user_block,
                             self.n_blocks)
         self.rc: Optional[torch.Tensor] = None
-        self.device = device
 
-    def local(self, user, item):
-        return _local_pairs(user, item, *self.users)
+    def local(self, pairs):
+        """This rank's pairs of a staging's input, on the device."""
+        return _local_pairs(*_pairs_on(pairs, self.device), *self.users)
 
     def block_matrix(self, b: int) -> torch.Tensor:
         u, i = self.p.span(b)
@@ -738,7 +808,7 @@ class _ChunkedPrimary:
 
 
 def _cco_indicators_chunked(
-    primary: _ChunkedPrimary, a_user, a_item, n_items_t: int,
+    primary: _ChunkedPrimary, a, n_items_t: int,
     n_total_users: int, top_k: int, llr_threshold: float, item_tile: int,
     exclude_self: bool, self_pair: bool,
 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -749,8 +819,9 @@ def _cco_indicators_chunked(
     the tile's int32 counts and the marginals; then the tile's K2, the
     diagonal mask and K3 with its carry, as the resident strategy runs
     them.  A block with no pairs of the tile adds nothing and is skipped
-    once ``rc`` is known.  The other type is staged once, sorted by (tile,
-    block).  Over a mesh each rank sums its own blocks, and one all-reduce
+    once ``rc`` is known.  The other type ``a`` (a staging's input, unused
+    for the self-indicator) is staged once, sorted by (tile, block).  Over
+    a mesh each rank sums its own blocks, and one all-reduce
     a tile (the reference's ``psum``, ``_cco_tile_step``) sums the tile's
     counts and marginals over the ranks before K2 and K3 run in every
     rank."""
@@ -760,7 +831,7 @@ def _cco_indicators_chunked(
     w8 = _round_up(tile, 8)
     if not self_pair:
         with timed("cco.stage"):
-            a = _StagedCOO(*primary.local(a_user, a_item), device, "item", tile, n_tiles,
+            a = _StagedCOO(*primary.local(a), device, "item", tile, n_tiles,
                            block=primary.block, n_blocks=primary.n_blocks)
     b = block_width(top_k)
     best = _initial_carry(i_p, top_k, device)
@@ -1205,16 +1276,16 @@ def cco_train_indicators(
         elif mesh is None and _resident_p_ok(n_users, n_items_p,
                                              min(item_tile, max(n_items_t, 1)), dev):
             if resident is None:
-                resident = _ResidentPrimary(p_user, p_item, n_users, n_items_p, dev)
+                resident = _ResidentPrimary((p_user, p_item), n_users, n_items_p, dev)
             results[name] = _cco_indicators_resident(
-                resident, au, ai, n_items_t, n_users, t_k, t_llr, item_tile,
+                resident, (au, ai), n_items_t, n_users, t_k, t_llr, item_tile,
                 excl, self_pair)
         else:
             if chunked is None:
-                chunked = _ChunkedPrimary(p_user, p_item, n_users, n_items_p,
+                chunked = _ChunkedPrimary((p_user, p_item), n_users, n_items_p,
                                           user_block, dev, mesh=mesh)
             results[name] = _cco_indicators_chunked(
-                chunked, au, ai, n_items_t, n_users, t_k, t_llr, item_tile,
+                chunked, (au, ai), n_items_t, n_users, t_k, t_llr, item_tile,
                 excl, self_pair)
     for name, d in pending:
         results[name] = _DenseRunner.collect(d)
@@ -1251,22 +1322,24 @@ def _cco_indicators_dense_coo(
 
 
 def _cco_indicators_tiled(
-    pu, pi, au, ai, n_users: int, n_items_p: int, n_items_t: int,
+    p, a, n_users: int, n_items_p: int, n_items_t: int,
     n_total_users: int, top_k: int, llr_threshold: float, user_block: int,
     item_tile: int, exclude_self: bool, self_pair: bool, device: torch.device,
     mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """One event type by the P-resident strategy when its working set fits
-    and there is no mesh, else by the chunked one."""
+    and there is no mesh, else by the chunked one.  ``p`` and ``a`` are
+    stagings' inputs (``_pairs_on``), each staged on the device where its
+    strategy stages it, so nothing staged outlives its staging."""
     tile = min(item_tile, max(n_items_t, 1))
     if mesh is None and _resident_p_ok(n_users, n_items_p, tile, device):
-        primary = _ResidentPrimary(pu, pi, n_users, n_items_p, device)
+        primary = _ResidentPrimary(p, n_users, n_items_p, device)
         return _cco_indicators_resident(
-            primary, au, ai, n_items_t, n_total_users, top_k, llr_threshold,
+            primary, a, n_items_t, n_total_users, top_k, llr_threshold,
             item_tile, exclude_self, self_pair)
-    primary = _ChunkedPrimary(pu, pi, n_users, n_items_p, user_block, device, mesh=mesh)
+    primary = _ChunkedPrimary(p, n_users, n_items_p, user_block, device, mesh=mesh)
     return _cco_indicators_chunked(
-        primary, au, ai, n_items_t, n_total_users, top_k, llr_threshold,
+        primary, a, n_items_t, n_total_users, top_k, llr_threshold,
         item_tile, exclude_self, self_pair)
 
 
@@ -1298,7 +1371,7 @@ def cco_indicators_coo(
             p_user, p_item, a_user, a_item, n_users, n_items_p, n_items_t,
             top_k, llr_threshold, mesh, exclude_self, device=dev)
     return _cco_indicators_tiled(
-        p_user, p_item, a_user, a_item, n_users, n_items_p, n_items_t, n_users,
+        (p_user, p_item), (a_user, a_item), n_users, n_items_p, n_items_t, n_users,
         top_k, llr_threshold, user_block, item_tile, exclude_self,
         a_user is p_user and a_item is p_item, dev, mesh)
 
@@ -1324,20 +1397,23 @@ def cco_indicators(
     ``exclude_self`` masks the diagonal.
 
     The dense strategy (or the sparse runner before it) when the count
-    matrix fits (``PIO_CCO_DENSE``); else the P-resident strategy when its
-    working set fits, else the chunked one over the layout's user blocks.
-    ``n_total_users`` is the LLR population.  The item-count arguments are
-    ignored, as in the reference: every strategy takes its marginals from
-    the densified (hence dedup'd) matrices."""
+    matrix fits (``PIO_CCO_DENSE``), on pairs the host flattens
+    (``_flatten_blocked``); else the P-resident strategy when its working
+    set fits, else the chunked one over the layout's user blocks, both
+    staging the layout as it is and flattening it on the device
+    (``_flatten_blocked_on``).  ``n_total_users`` is the LLR population.
+    The item-count arguments are ignored, as in the reference: every
+    strategy takes its marginals from the densified (hence dedup'd)
+    matrices."""
     del primary_item_counts, other_item_counts
     if n_total_users <= 0:
         raise ValueError(f"n_total_users must be positive, got {n_total_users}")
     dev = resolve_device(device)
     self_pair = other is primary
-    with timed("cco.flatten"):
-        pu, pi = _flatten_blocked(primary)
-        au, ai = (pu, pi) if self_pair else _flatten_blocked(other)
     if _dense_path_ok(primary.n_items, other.n_items):
+        with timed("cco.flatten"):
+            pu, pi = _flatten_blocked(primary)
+            au, ai = (pu, pi) if self_pair else _flatten_blocked(other)
         if primary.n_users != other.n_users:
             raise ValueError("primary/other must share the user space")
         return _cco_indicators_dense_coo(
@@ -1347,7 +1423,7 @@ def cco_indicators(
     if primary.n_blocks != other.n_blocks or primary.user_block != other.user_block:
         raise ValueError("primary/other must be blocked with the same user layout")
     return _cco_indicators_tiled(
-        pu, pi, au, ai, primary.n_users, primary.n_items, other.n_items,
+        primary, other, primary.n_users, primary.n_items, other.n_items,
         n_total_users, top_k, llr_threshold, primary.user_block, item_tile,
         exclude_self, self_pair, dev, mesh)
 

@@ -61,7 +61,7 @@ def test_dense_counts_and_marginals_are_exact(name):
 def test_resident_count_product_is_exact_past_bf16():
     """One tile's product at planted counts of 4,097 and 301: exact int32."""
     c = corpus("planted4097")
-    prim = port_cco._ResidentPrimary(c["pu"], c["pi"], c["n_users"], c["n_ip"],
+    prim = port_cco._ResidentPrimary((c["pu"], c["pi"]), c["n_users"], c["n_ip"],
                                      torch.device("cpu"))
     counts = port_cco._count_product(prim.pt, prim.pt[:8])[:c["n_ip"], :8]
     P = np.zeros((c["n_users"], c["n_ip"]), np.int64)
