@@ -1087,6 +1087,23 @@ def _serve_topk_batch(signal, mask, bf, black_ids, k: int) -> torch.Tensor:
 # -- algorithm ---------------------------------------------------------------
 
 
+def _seen_lookup(rows, values, n_rows: int, device: torch.device) -> CSRLookup:
+    """``CSRLookup.from_pairs`` with the sort and the dedup of the pairs on
+    ``device`` (one copy of them each way): array for array the same, and
+    on a card no host sort of the primary's events."""
+    rows, values = np.asarray(rows), np.asarray(values)
+    if len(rows) == 0:
+        return CSRLookup.from_pairs(rows, values, n_rows)
+    r = torch.as_tensor(rows, device=device).to(torch.int64)
+    v = torch.as_tensor(values, device=device).to(torch.int64)
+    n_vals = int(v.max()) + 1
+    flat = torch.unique(r * n_vals + v)
+    indptr = torch.zeros(n_rows + 1, dtype=torch.int64, device=device)
+    torch.cumsum(torch.bincount(flat // n_vals, minlength=n_rows), 0, out=indptr[1:])
+    return CSRLookup(indptr.cpu().numpy(), (flat % n_vals).to(torch.int32).cpu().numpy())
+
+
+
 @dataclasses.dataclass
 class URAlgorithmParams(Params):
     app_name: str = "default"
@@ -1199,7 +1216,7 @@ class URAlgorithm(Algorithm):
                 indicator_llr[name] = np.where(np.isfinite(scores), scores,
                                                0.0).astype(np.float32)
         with timed("ur.train.seen"):
-            user_seen = CSRLookup.from_pairs(p_user, p_item, n_users)
+            user_seen = _seen_lookup(p_user, p_item, n_users, device)
         # PopModel backfill over the event-time window (raw events: volume)
         with timed("ur.train.backfill"):
             bf_names = self.params.backfill_event_names or [primary]
@@ -1222,7 +1239,7 @@ class URAlgorithm(Algorithm):
             popularity = backfill_scores(
                 self.params.backfill_type, np.concatenate(bf_items),
                 np.concatenate(bf_times), n_items,
-                parse_duration(self.params.backfill_duration))
+                parse_duration(self.params.backfill_duration), device=device)
         # per-event seen CSRs for non-primary blacklist_events, in the
         # primary item space
         user_seen_by_event: Dict[str, CSRLookup] = {}
@@ -1233,8 +1250,8 @@ class URAlgorithm(Algorithm):
                 u, i, item_dict, _ = td.interactions[name]
                 mapped = p_item_dict.lookup_many(item_dict.strings())[i]
                 keep = mapped >= 0
-                user_seen_by_event[name] = CSRLookup.from_pairs(
-                    u[keep], mapped[keep], n_users)
+                user_seen_by_event[name] = _seen_lookup(
+                    u[keep], mapped[keep], n_users, device)
         return URModel(
             primary_event=primary,
             item_dict=p_item_dict,

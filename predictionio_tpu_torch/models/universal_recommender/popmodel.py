@@ -12,9 +12,10 @@ event-time-windowed ranking selectable as ``backfill_type``:
   thirds of the window
 
 The reference computes these as Spark RDD countByKey passes over time
-ranges; here they are three ``np.bincount`` sweeps over the columnar event
-arrays — the arrays are already resident from training, so device offload
-would cost more in transfer than the counts cost on host.
+ranges; here they are up to three ``bincount`` sweeps over the columnar
+event arrays, on the host, or with ``device`` on that device after one
+copy of the items and times each (the counts are exact either way, so the
+scores are the same).
 
 Raw event streams (with duplicates) are the correct input: popularity ranks
 by event *volume*, unlike the CCO marginals which count distinct users.
@@ -26,6 +27,7 @@ import re
 from typing import Optional
 
 import numpy as np
+import torch
 
 BACKFILL_TYPES = ("popular", "trending", "hot", "none")
 
@@ -57,6 +59,8 @@ def _window_counts(
     start: float, end: float,
 ) -> np.ndarray:
     sel = (times >= start) & (times < end)
+    if torch.is_tensor(items):
+        return torch.bincount(items[sel], minlength=n_items).to(torch.float32).cpu().numpy()
     if not sel.any():
         return np.zeros(n_items, np.float32)
     return np.bincount(items[sel], minlength=n_items).astype(np.float32)
@@ -69,16 +73,22 @@ def backfill_scores(
     n_items: int,
     duration_s: float,
     end_ts: Optional[float] = None,
+    device: Optional[torch.device] = None,
 ) -> np.ndarray:
     """Per-item backfill score; higher = ranked earlier.  ``end_ts`` defaults
-    to the newest event (training-time \"now\")."""
+    to the newest event (training-time \"now\").  With ``device`` the
+    sweeps run there."""
     if backfill_type not in BACKFILL_TYPES:
         raise ValueError(
             f"backfill_type must be one of {BACKFILL_TYPES}, got {backfill_type!r}")
     if backfill_type == "none" or n_items == 0:
         return np.zeros(n_items, np.float32)
-    items = np.asarray(items, np.int64)
-    times = np.asarray(times, np.float64)
+    if device is None:
+        items = np.asarray(items, np.int64)
+        times = np.asarray(times, np.float64)
+    else:
+        items = torch.as_tensor(np.asarray(items), device=device).to(torch.int64)
+        times = torch.as_tensor(np.asarray(times, np.float64), device=device)
     if len(items) == 0:
         return np.zeros(n_items, np.float32)
     end = float(end_ts) if end_ts is not None else float(times.max()) + 1e-6

@@ -84,7 +84,14 @@ is, 32-bit, and flatten it there (``_flatten_blocked_on``); flat (user,
 item) ids are copied in the width they come in and widened there; the
 dense strategy and the sparse runner take the layout flattened on the host
 (``_flatten_blocked``).  Each staging copies its own input and nothing
-staged outlives it.  ``staging_by_route`` counts the stagings by route.
+staged outlives it.  Ids are checked on the host (``_check_ids``) before
+any strategy but the one-rank dense one, which checks them on the device
+as it stages them (``_StagedCOO``'s ``ids``): no host pass over the
+events.  ``staging_by_route`` counts the stagings by route,
+``strategy_by_type`` the event types by the strategy that trained them and
+``dense_chunks`` the dense strategy's user-chunk passes; each dense run
+(``_DenseRunner.dispatch``: its chunk loop, marginals, K2 and K3) is a
+``cco.dense`` span.
 """
 
 from __future__ import annotations
@@ -277,6 +284,30 @@ def _count_staging(route: str) -> None:
         staging_by_route[route] += 1
 
 
+#: event types trained, one count each, by the strategy that trained them:
+#: ``dense`` (``_DenseRunner``), ``resident``, ``chunked`` (the tiled
+#: loops) and ``sparse`` (``_SparseHostRunner``); and the dense strategy's
+#: user-chunk passes, one a chunk and event type (``dense_chunks``)
+strategy_by_type = {"dense": 0, "resident": 0, "chunked": 0, "sparse": 0}
+dense_chunks = 0
+_strategy_lock = threading.Lock()
+
+
+def reset_strategy_counts() -> None:
+    """Set ``strategy_by_type``'s counts and ``dense_chunks`` to 0."""
+    global dense_chunks
+    with _strategy_lock:
+        strategy_by_type.update(dense=0, resident=0, chunked=0, sparse=0)
+        dense_chunks = 0
+
+
+def _count_strategy(strategy: str, chunks: int = 0) -> None:
+    global dense_chunks
+    with _strategy_lock:
+        strategy_by_type[strategy] += 1
+        dense_chunks += chunks
+
+
 def _flatten_blocked(b: BlockedInteractions) -> Tuple[np.ndarray, np.ndarray]:
     """Blocked layout → global COO (the inverse of ``block_interactions``)."""
     _count_staging("host_flatten")
@@ -449,10 +480,13 @@ class _StagedCOO:
     readback.  ``by="user"``: spans of ``step`` users (user chunks or
     blocks); ``by="item"``: spans of ``step`` items (item tiles), and with
     ``block`` each tile further split into user blocks of ``block`` users,
-    tile-major, so every (tile, block) span is one slice (``span2``)."""
+    tile-major, so every (tile, block) span is one slice (``span2``).
+    ``ids=(n_users, n_items, what)`` checks every id there, read back with
+    the boundaries, and raises as ``_check_ids`` does."""
 
     def __init__(self, user, item, device: torch.device, by: str, step: int,
-                 n_steps: int, block: Optional[int] = None, n_blocks: int = 1):
+                 n_steps: int, block: Optional[int] = None, n_blocks: int = 1,
+                 ids: Optional[Tuple[int, int, str]] = None):
         u, i = _pairs_on((user, item), device)
         if len(u) != len(i):
             raise ValueError(f"user/item length mismatch: {len(u)} vs {len(i)}")
@@ -466,7 +500,14 @@ class _StagedCOO:
             starts = torch.arange(n_steps + 1, device=device, dtype=torch.int64) * step
         key, order = torch.sort(key, stable=True)
         self.user, self.item = u[order], i[order]
-        self.bounds: List[int] = torch.searchsorted(key, starts).tolist()
+        bounds = torch.searchsorted(key, starts)
+        check = ids is not None and len(u) > 0
+        if check:
+            bounds = torch.cat([bounds, torch.stack([u.min(), u.max(), i.min(), i.max()])])
+        self.bounds: List[int] = bounds.tolist()
+        if check:
+            _check_extremes(*self.bounds[-4:], *ids)
+            del self.bounds[-4:]
         self.step = step
 
     def span(self, s: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -541,13 +582,21 @@ def _count_buffer(*shapes, device) -> List[torch.Tensor]:
     return [buf] + [v.view(sh) for v, sh in zip(buf.split(sizes), shapes)]
 
 
+def _check_extremes(u_min: int, u_max: int, i_min: int, i_max: int,
+                    n_users: int, n_items: int, what: str) -> None:
+    if u_min < 0 or u_max >= n_users:
+        raise ValueError(f"{what}: user ids outside [0, {n_users})")
+    if i_min < 0 or i_max >= n_items:
+        raise ValueError(f"{what}: item ids outside [0, {n_items})")
+
+
 @timed("cco.check_ids")
 def _check_ids(user, item, n_users: int, n_items: int, what: str) -> None:
-    user, item = np.asarray(user), np.asarray(item)
-    if len(user) and (int(user.min()) < 0 or int(user.max()) >= n_users):
-        raise ValueError(f"{what}: user ids outside [0, {n_users})")
-    if len(item) and (int(item.min()) < 0 or int(item.max()) >= n_items):
-        raise ValueError(f"{what}: item ids outside [0, {n_items})")
+    def extremes(a):
+        a = np.asarray(a)
+        return (int(a.min()), int(a.max())) if len(a) else (0, -1)
+
+    _check_extremes(*extremes(user), *extremes(item), n_users, n_items, what)
 
 
 # ---------------------------------------------------------------------------
@@ -611,9 +660,16 @@ class _DenseRunner:
         c0, self.n_chunks = _mesh_share(
             math.ceil(max(n_users, 1) / self.chunk), mesh)
         self.users = (c0 * self.chunk, (c0 + self.n_chunks) * self.chunk)
-        self.p = self._stage(p_user, p_item)
+        self.p = self._stage(p_user, p_item, n_items_p, "primary")
 
-    def _stage(self, user, item) -> _StagedCOO:
+    def _stage(self, user, item, n_items: int, what: str) -> _StagedCOO:
+        """One type's pairs staged by user chunk, its ids checked: on one
+        rank on the device, as they are staged; over a mesh on the host
+        first, before this rank's share is cut out and renumbered."""
+        if self.mesh is None:
+            return _StagedCOO(user, item, self.device, "user", self.chunk,
+                              self.n_chunks, ids=(self.n_users, n_items, what))
+        _check_ids(user, item, self.n_users, n_items, what)
         user, item = _local_pairs(user, item, *self.users)
         return _StagedCOO(user, item, self.device, "user", self.chunk,
                           self.n_chunks)
@@ -622,14 +678,15 @@ class _DenseRunner:
         u, i = staged.span(c)
         return _densify(i, u - c * self.chunk, _item_rows(n_items), self.chunk)
 
-    def counts(self, a_user, a_item, n_items_t: int, self_pair: bool = False):
+    def counts(self, a_user, a_item, n_items_t: int, self_pair: bool = False,
+               what: str = "other"):
         """(C [I_p, it_pad] int32, row marginals [I_p], column marginals
         [it_pad]) on the device: the sum over user chunks of ``Pᵀ·A``."""
         if self_pair:
             it_pad, a = self.n_items_p, self.p
         else:
             it_pad = max(_round_up(n_items_t, 128), 128)
-            a = self._stage(a_user, a_item)
+            a = self._stage(a_user, a_item, max(n_items_t, 1), what)
         i_p = self.n_items_p
         buf, C, rc, cc = _count_buffer((i_p, it_pad), (i_p,), (it_pad,),
                                        device=self.device)
@@ -643,12 +700,14 @@ class _DenseRunner:
             _all_reduce_counts(buf, self.mesh, self.n_users)
         return C, rc, cc
 
+    @timed("cco.dense")
     def dispatch(self, a_user, a_item, n_items_t: int, top_k: int,
                  llr_threshold: float, exclude_self: bool,
-                 self_pair: bool = False):
+                 self_pair: bool = False, what: str = "other"):
         """One event type's indicators, left on the device until
-        ``collect``."""
-        C, rc, cc = self.counts(a_user, a_item, n_items_t, self_pair)
+        ``collect``; ``what`` names the type in an id error."""
+        _count_strategy("dense", self.n_chunks)
+        C, rc, cc = self.counts(a_user, a_item, n_items_t, self_pair, what)
         k = min(top_k, C.shape[1])
         s, i = _llr_topk_dense(C, rc, cc, float(self.n_total_users),
                                float(llr_threshold), k, bool(exclude_self))
@@ -746,6 +805,7 @@ def _cco_indicators_resident(
     (a slice of P itself for the self-indicator), one count product, K2,
     the diagonal mask, and K3's top-b of the tile merged into the carry in
     one launch.  The carry is ``block_width(top_k)`` wide."""
+    _count_strategy("resident")
     pt, i_p = primary.pt, primary.n_items_p
     device = pt.device
     tile = min(item_tile, max(n_items_t, 1))
@@ -825,6 +885,7 @@ def _cco_indicators_chunked(
     a tile (the reference's ``psum``, ``_cco_tile_step``) sums the tile's
     counts and marginals over the ranks before K2 and K3 run in every
     rank."""
+    _count_strategy("chunked")
     device, i_p = primary.device, primary.n_items_p
     tile = min(item_tile, max(n_items_t, 1))
     n_tiles = math.ceil(n_items_t / tile)
@@ -1162,6 +1223,7 @@ class _SparseHostRunner:
             float(self.n_total_users), float(llr_threshold),
             top_k=top_k, n_rows=self.n_items_p, n_cols=n_items_t,
             self_cols=self_cols, device=self.device)
+        _count_strategy("sparse")
         return s, i, n_items_t, top_k
 
     def dispatch(self, a_user, a_item, n_items_t: int, top_k: int,
@@ -1199,6 +1261,7 @@ class _SparseHostRunner:
                 put(got), put(self.p.col_counts), put(a.col_counts),
                 float(self.n_total_users), float(llr_threshold),
                 min(top_k, n_items_t), bool(exclude_self))
+        _count_strategy("sparse")
         return s, i, n_items_t, top_k
 
     @staticmethod
@@ -1256,10 +1319,11 @@ def cco_train_indicators(
     pending: List[Tuple[str, object]] = []
     results: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
     for name, au, ai, n_items_t in others:
-        _check_ids(au, ai, n_users, max(n_items_t, 1), name)
         excl = name == exclude_self_for
         t_k, t_llr = per_type.get(name, (top_k, llr_threshold))
         self_pair = au is p_user and ai is p_item
+        if sparse is not None or name not in dense_names:
+            _check_ids(au, ai, n_users, max(n_items_t, 1), name)
         if sparse is not None:
             d = sparse.dispatch(au, ai, n_items_t, t_k, t_llr, excl, self_pair=self_pair)
             if d is not None:
@@ -1272,7 +1336,8 @@ def cco_train_indicators(
                 runner = _DenseRunner(p_user, p_item, n_users, n_items_p,
                                       max(it_pad_max, n_items_p), dev, mesh=mesh)
             pending.append((name, runner.dispatch(au, ai, n_items_t, t_k, t_llr,
-                                                  excl, self_pair=self_pair)))
+                                                  excl, self_pair=self_pair,
+                                                  what=name)))
         elif mesh is None and _resident_p_ok(n_users, n_items_p,
                                              min(item_tile, max(n_items_t, 1)), dev):
             if resident is None:

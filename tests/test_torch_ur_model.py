@@ -154,6 +154,24 @@ def test_backfill_scores_match_jax(kind):
                                   jax_pop.backfill_scores(*args))
 
 
+@pytest.mark.parametrize("kind", ["popular", "trending", "hot", "none"])
+@pytest.mark.parametrize("window", ["default_end", "end_ts", "empty"])
+def test_backfill_scores_on_a_device_are_the_host_s(kind, window):
+    """The sweeps on a device (here the CPU's torch) give the host's scores
+    exactly: the same selection in float64, exact counts."""
+    rng = np.random.default_rng(4)
+    items = rng.integers(0, 40, 3000).astype(np.int32)
+    times = rng.uniform(T0, T0 + 86400 * 30, 3000)
+    end_ts = {"default_end": None, "end_ts": T0 + 86400 * 25,
+              "empty": T0 - 86400 * 40}[window]
+    args = (kind, items, times, 45, 86400 * 20.0, end_ts)
+    want = port_pop.backfill_scores(*args)
+    got = port_pop.backfill_scores(*args, device=torch.device("cpu"))
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    assert (want != 0).any() == (kind != "none" and window != "empty")
+
+
 @pytest.mark.parametrize("config", ["reference_ep", "per_type_blacklist_trending"])
 def test_checkpointed_train_resumes_past_finished_types(tmp_path, monkeypatch, config):
     """``checkpoint: true`` snapshots each event type's indicators: a train
