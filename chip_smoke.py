@@ -8,11 +8,12 @@ from beside this file (never JAX, never ``predictionio_tpu``).  Phases,
 each of which fails the run (exit code != 0, no final ``ok`` line):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build every CUDA kernel from the checkout's sources (K1, K2, K3: one
-   ``nvcc`` each, started together) and, beside them, the native event-log
-   scanner and the scan core's header parse (``native/data_plane.cpp``;
-   ``g++``, each on a thread; phase 11b fails rather than read without
-   them), and print the build seconds and ptxas reports;
+2. build every CUDA kernel from the checkout's sources (K1, K2, K3 and the
+   row count: one ``nvcc`` each, started together) and, beside them, the
+   native event-log scanner and the scan core's header parse
+   (``native/data_plane.cpp``; ``g++``, each on a thread; phase 11b fails
+   rather than read without them), and print the build seconds and ptxas
+   reports;
 3. hold K1 (masked score) against its plain PyTorch version at every
    ``K1_CASES`` shape: the serving shapes with packed masks and with the
    row-strided mask ALS serving hands it (``exclusion_mask``, stride I + 1)
@@ -33,6 +34,11 @@ each of which fails the run (exit code != 0, no final ``ok`` line):
    (-inf, 0) initial carry and from a random sorted carry, at the UR
    train's tile ([100,000 x 4,096], b = 64), the basket-rules tile
    ([100,000 x 1,664], b = 32) and two edge shapes;
+5b. hold the row-count kernel (the CCO marginals) against its plain version,
+   bit for bit, written and with ``accumulate``, on 0/1 and full-range int8:
+   the benchmark cells' marginal shapes ([8,192 x 32,000], [4,096 x
+   100,096], [4,096 x 200,064]), five long rows, and row-strided views at
+   unaligned bases with ragged widths, long rows and short;
 ALS serving (slice 1):
 6. build the full-width ALS model — 5,000 users x 100,000 items x rank 32,
    random factors from a seed — through ``als_model_from_state``;
@@ -358,7 +364,9 @@ pio eval and the five remaining templates (after 16, before 15):
     tile and one score tile captured from the deployed-width train (with
     their measured share of nonzero counts and finite scores), and K2 on
     phase 4's row-strided sparse counts, 100,000 x 4,096 and the ragged
-    37 x 190, each also contiguous; K1 at 1x32,
+    37 x 190, each also contiguous; the row-count kernel at the cells'
+    three marginal shapes beside its plain version and ``torch.sum(m, 1,
+    dtype=torch.int32)``; K1 at 1x32,
     64x32 on the row-strided mask and 256x64, and at B=1 against ``addmm`` +
     ``masked_fill_`` in 5 interleaved rounds; an empty kernel through the
     same timer, the floor under every reading.  K2's
@@ -487,7 +495,8 @@ PEAK_BYTES_S = 3.35e12        # H100 SXM HBM3
 PEAK_F32_FLOP_S = 67e12       # H100 SXM fp32 outside the tensor cores
 REPLACES = {"masked_score": "predictionio_tpu/ops/pallas_kernels.py:105",
             "llr_masked": "predictionio_tpu/ops/pallas_kernels.py:191",
-            "tile_topk": "predictionio_tpu/ops/pallas_kernels.py:321"}
+            "tile_topk": "predictionio_tpu/ops/pallas_kernels.py:321",
+            "row_count": "none (the reference's CCO marginals are an XLA sum)"}
 PEAK_ISSUE_S = PEAK_F32_FLOP_S / 2   # lane-instructions a second: 132 SMs x 128 x 1.98 GHz
 HOST_COVER_CYCLES = 2_000_000       # ~1 ms of device spin before each timed call
 # bench_ur's full shape (bench.py:62-63) and the deployed UR width
@@ -774,10 +783,11 @@ def train_obs_counts() -> dict:
 def check_train_journal(store, engine_id, before, launches) -> dict:
     """Phase 11b: the span journal of ``engine_id``'s newest train is the
     tree ``train`` -> ``engine_train`` (attempt 1), ``staging_summary``,
-    ``save_models``; the staged counts on ``staging_summary`` equal the
+    ``save_models``, each once, with the train's own spans (``ur.train``,
+    ``cco.*``) inside ``engine_train``; the staged counts on ``staging_summary`` equal the
     ``pio_train_staged_events_total`` delta; ``pio_train_runs_total`` and
-    ``pio_train_duration_seconds`` moved by one.  The K2/K3 counters were
-    zeroed just before the train and read just after, so ``launches`` fell
+    ``pio_train_duration_seconds`` moved by one.  The K2/K3/row-count
+    counters were zeroed just before the train and read just after, so ``launches`` fell
     inside the ``train`` span."""
     from predictionio_tpu_torch.obs import spans
 
@@ -788,9 +798,20 @@ def check_train_journal(store, engine_id, before, launches) -> dict:
     check(len(roots) == 1 and roots[0]["name"] == "train",
           f"11b: journal roots {[s['name'] for s in roots]}")
     root = roots[0]
-    kids = {s["name"]: s for s in recs if s.get("parent") == root["id"]}
-    check(sorted(kids) == ["engine_train", "save_models", "staging_summary"]
-          and len(recs) == 4, f"11b: the train's spans {[s['name'] for s in recs]}")
+    direct = [s for s in recs if s.get("parent") == root["id"]]
+    kids = {s["name"]: s for s in direct}
+    by_id = {s["id"]: s for s in recs}
+
+    def in_engine_train(s):
+        while s.get("parent") in by_id:
+            if s["parent"] == kids["engine_train"]["id"]:
+                return True
+            s = by_id[s["parent"]]
+        return False
+
+    check(sorted(s["name"] for s in direct) == ["engine_train", "save_models", "staging_summary"]
+          and all(in_engine_train(s) for s in recs if s is not root and s not in direct),
+          f"11b: the train's spans {[(s['name'], s.get('parent')) for s in recs]}")
     check(kids["engine_train"]["attrs"] == {"attempt": 1},
           f"11b: engine_train {kids['engine_train'].get('attrs')}")
     staged = {m: int(after["staged"][m] - before["staged"][m]) for m in after["staged"]}
@@ -804,7 +825,8 @@ def check_train_journal(store, engine_id, before, launches) -> dict:
     out = {"instance": inst.id, "staged": staged, "launches_in_train_span": launches,
            **{f"{n}_s": kids[n]["duration_s"] for n in kids}, "train_s": root["duration_s"]}
     print(f"  pio train's span journal ({inst.id}): train {root['duration_s']:.3f} s -> "
-          f"engine_train {out['engine_train_s']:.3f} s (attempt 1, K2/K3 {launches} inside), "
+          f"engine_train {out['engine_train_s']:.3f} s (attempt 1, K2/K3/row count {launches} "
+          "inside), "
           f"staging_summary {kids['staging_summary']['attrs']} (= the "
           f"pio_train_staged_events_total delta), save_models {out['save_models_s']:.3f} s; "
           "pio_train_runs_total and pio_train_duration_seconds moved by one")
@@ -1133,6 +1155,31 @@ def time_topk(hk, s, b, flush, clock, label, carry=None, id_offset=0):
     return row_
 
 
+def time_row_counts(hk, dev, gen, r, c, flush, clock, label):
+    """The row-count kernel on a 0/1 [r, c] matrix: kernel, plain version
+    (the blocked sum), ``torch.sum(m, 1, dtype=torch.int32)`` and the bound
+    (each byte read once, one int32 written a row)."""
+    m = row_count_inputs(r, c, dev, gen)
+    launches = hk.row_counts.launches
+    clock.reset()
+    row_ = {"input": label, "R": r, "C": c,
+            "ms": time_cold(lambda: hk.row_counts(m), flush, clock),
+            "plain_ms": time_cold(lambda: hk.row_counts_plain(m), flush, clock, reps=10),
+            "library_ms": time_cold(lambda: torch.sum(m, 1, dtype=torch.int32), flush, clock,
+                                    reps=10)}
+    hk.row_counts.launches = launches   # timing launches do not count
+    row_["bound_ms"], row_["bound_by"] = bound(r * c + 4 * r, 0)
+    row_["sm_clock"] = clock.summary()
+    return row_
+
+
+def row_count_text(r, smi) -> str:
+    return (f"  row_count [{r['R']} x {r['C']}] {r['input']}: kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, torch.sum(dtype=int32) {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of it) | {clock_text(r['sm_clock'])} | {smi}")
+
+
 def retime_k1(hk, dev, gen, flush, clock, rounds=5):
     """K1 at B=1 against addmm + masked_fill_, interleaved round by round."""
     u, v, mask, _ = score_inputs(1, 32, N_ITEMS, dev, gen)
@@ -1413,6 +1460,54 @@ def check_topk_carry(hk, s, b, id_offset, dev, gen, label):
         print(f"  ok {tag} equals merge_desc(carry, tile_topk_desc(...))")
 
 
+# (rows, cols, row stride or None, base offset in bytes) of the row-count
+# kernel's checks: the cells' marginal shapes (ur_catalog8k's chunk, the
+# 100k and 131k tiles), few long rows, rows long and short at unaligned
+# bases and ragged widths
+ROW_COUNT_CASES = [(8_192, 32_000, None, 0), (4_096, 100_096, None, 0),
+                   (4_096, 200_064, None, 0), (5, 200_064, None, 0),
+                   (37, 32_008, 32_011, 3), (4_100, 4_099, None, 1),
+                   (9_000, 4_095, 4_101, 1), (3, 17, None, 5), (2_111, 4_096, 4_113, 7)]
+# (rows, cols, label) of its timing rows: each cell's marginal shape
+ROW_COUNT_TIMED = [(8_192, 32_000, "ur_catalog8k's chunk marginal"),
+                   (4_096, 100_096, "ur_catalog100k's tile marginal"),
+                   (4_096, 200_064, "cco_catalog131k's tile marginal")]
+
+
+def row_count_inputs(r, c, dev, gen, ld=None, offset=0, kind="binary"):
+    """An int8 [r, c] view on the card (of an [r, ld] matrix, its base
+    ``offset`` bytes past an aligned one): 0/1 at ~5% ones, as the densified
+    matrices, or full-range int8."""
+    width = c if ld is None else ld
+    flat = torch.empty(r * width + offset, dtype=torch.int8, device=dev)
+    if kind == "binary":
+        flat.copy_((torch.rand(flat.shape, generator=gen, device=dev) < 0.05).to(torch.int8))
+    else:
+        flat.random_(-128, 128, generator=gen)
+    return flat[offset:].view(r, width)[:, :c]
+
+
+def compare_row_counts(hk, dev, gen) -> float:
+    """The row-count kernel against its plain version, written and with
+    ``accumulate``: equal bit for bit.  Its launches do not count."""
+    launches = hk.row_counts.launches
+    for r, c, ld, offset in ROW_COUNT_CASES:
+        for kind in ("binary", "full_range"):
+            m = row_count_inputs(r, c, dev, gen, ld, offset, kind)
+            start = torch.arange(r, dtype=torch.int32, device=dev) * 7 - 1000
+            got = hk.row_counts(m)
+            added = hk.row_counts(m, start.clone(), accumulate=True)
+            want = hk.row_counts_plain(m)
+            torch.cuda.synchronize()
+            tag = f"row_count [{r} x {c}] ld={m.stride(0)} offset={offset} {kind}"
+            check(torch.equal(got, want), f"{tag}: kernel and plain differ")
+            check(torch.equal(added, start + want), f"{tag}: accumulate differs")
+            print(f"  ok {tag} bit_equal=True, accumulate too")
+            del m, got, added, want
+    hk.row_counts.launches = launches
+    return 0.0
+
+
 # -- phases 10-12: UR training and serving -----------------------------------------
 
 
@@ -1623,13 +1718,16 @@ def train_bench_shape(cco, hk, dev):
     check(cco._dense_path_ok(n_items, n_items), "bench shape should take the dense path")
     walls = []
     for run_ in range(2):   # the first run pays one-time set-up
-        hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+        zero_cco_counts(hk)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         dense = cco.cco_train_indicators(bu, bi, others, n_users, n_items, top_k=top_k,
                                          exclude_self_for="buy", device=dev)
         walls.append(time.perf_counter() - t0)
-    launches = (hk.llr_masked_scores.launches, hk.tile_topk_desc.launches)
+    launches = cco_counts(hk)
+    check(launches[2] == 2 * cco.dense_chunks,
+          f"row-count launches {launches[2]} in the dense train, expected two a chunk pass "
+          f"({cco.dense_chunks})")
     res_walls = []
     for run_ in range(2):   # timed as the dense train is: staging included
         torch.cuda.synchronize()
@@ -1663,7 +1761,8 @@ def train_bench_shape(cco, hk, dev):
     events = n_buy + n_view
     print(f"  users={n_users} items={n_items} events={events} top_k={top_k} dense train "
           f"wall_s first={walls[0]:.3f} then={walls[1]:.3f} "
-          f"events_per_s={events / walls[1]:.0f} launches K2={launches[0]} K3={launches[1]}")
+          f"events_per_s={events / walls[1]:.0f} launches K2={launches[0]} K3={launches[1]} "
+          f"row_count={launches[2]}")
     print(f"  resident tiled (tile 1,024) on the same data: wall_s first={res_walls[0]:.4f} "
           f"then={res_walls[1]:.4f}; dense then={walls[1]:.4f}")
     return {"wall_s": walls[1], "first_wall_s": walls[0], "events": events,
@@ -1723,13 +1822,14 @@ def count_card_merges():
 
 def timed_train(hk, algo, td):
     """``URAlgorithm.train``'s wall after a warm-up train (one-time set-up
-    of the count product and kernels), and its K2/K3 launches."""
+    of the count product and kernels), and its K2, K3 and row-count launches
+    (``cco.dense_chunks`` is its train's afterwards)."""
     algo.train(td)
     torch.cuda.synchronize()
-    hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+    zero_cco_counts(hk)
     t0 = time.perf_counter()
     algo.train(td)
-    return time.perf_counter() - t0, (hk.llr_masked_scores.launches, hk.tile_topk_desc.launches)
+    return time.perf_counter() - t0, cco_counts(hk)
 
 
 def check_tables(model, rebuilt, n_items, top_k, what):
@@ -1789,15 +1889,19 @@ def train_memory(ur, cco, hk, dev):
     tiles = 2
     with count_card_merges() as merges:
         wall, train_launches = timed_train(hk, ur.URAlgorithm(params, device=dev), td)
-        hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+        train_rc = 2 * cco.dense_chunks
+        zero_cco_counts(hk)
         t0 = time.perf_counter()
         instance = run_train(engine, ep, ENGINE_ID, storage=store, device=dev)
         run_train_s = time.perf_counter() - t0
-        launches = (hk.llr_masked_scores.launches, hk.tile_topk_desc.launches)
+        launches = cco_counts(hk)
+        run_rc = 2 * cco.dense_chunks
     check(instance.status == "COMPLETED", f"run_train left its instance {instance.status}")
-    for what, got in (("URAlgorithm.train", train_launches), ("run_train", launches)):
-        check(got == (tiles, tiles),
-              f"K2/K3 launches {got} in {what} at {n_items} items, expected {tiles} each")
+    for what, got, rc in (("URAlgorithm.train", train_launches, train_rc),
+                          ("run_train", launches, run_rc)):
+        check(got == (tiles, tiles, rc),
+              f"K2/K3/row-count launches {got} in {what} at {n_items} items, expected "
+              f"{tiles} each and two a dense chunk pass ({rc})")
     check(merges[0] == 0, f"merge_desc ran {merges[0]} times on the card")
     found, (model,) = load_latest_models(ENGINE_ID, storage=store, device=dev)
     check(found.id == instance.id and model.device == dev, "load_latest_models")
@@ -1805,8 +1909,9 @@ def train_memory(ur, cco, hk, dev):
                  "memory store")
     print(f"  users={n_users} items={n_items} events={n_p + n_v} (dense) "
           f"URAlgorithm.train wall_s={wall:.3f} launches K2={train_launches[0]} "
-          f"K3={train_launches[1]}; run_train wall_s={run_train_s:.3f} launches "
-          f"K2={launches[0]} K3={launches[1]} merge_desc on the card={merges[0]}")
+          f"K3={train_launches[1]} row_count={train_launches[2]}; run_train "
+          f"wall_s={run_train_s:.3f} launches K2={launches[0]} K3={launches[1]} "
+          f"row_count={launches[2]} merge_desc on the card={merges[0]}")
     set_storage(None)
     return {"shape": list(MEMORY_UR), "wall_s": wall, "launches": launches,
             "insert_s": insert_s, "event_build_s": build_s, "read_training_s": read_s,
@@ -1896,19 +2001,20 @@ def train_localfs(ur, cco, hk, dev, workdir):
         for use_llr, path in ((False, variants[False]),):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
-            hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+            zero_cco_counts(hk)
             obs0 = train_obs_counts()
             t0 = time.perf_counter()
             pio("train", "--engine-json", str(path))
             t[f"pio_train_s_llr_{use_llr}"] = time.perf_counter() - t0
-            launches[use_llr] = (hk.llr_masked_scores.launches, hk.tile_topk_desc.launches)
+            launches[use_llr] = cco_counts(hk)
             journals[use_llr] = check_train_journal(store, engine_variant(use_llr)["id"],
                                                     obs0, launches[use_llr])
     t["peak_device_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     for what, got in (("URAlgorithm.train", train_launches), *(
             (f"pio train (useLlrWeights {k})", v) for k, v in launches.items())):
-        check(got == (tiles, tiles),
-              f"K2/K3 launches {got} in {what} at {n_items} items, expected {tiles} each")
+        check(got == (tiles, tiles, tiles + 1),
+              f"K2/K3/row-count launches {got} in {what} at {n_items} items, expected "
+              f"{tiles} each and the primary's row count once more")
     check(merges[0] == 0, f"merge_desc ran {merges[0]} times on the card")
     rebuilt = unfused_indicators(cco, hk, td, dev, top_k, tile)
     t0 = time.perf_counter()
@@ -1922,7 +2028,7 @@ def train_localfs(ur, cco, hk, dev, workdir):
     t["save_s"] = time.perf_counter() - t0
     print(f"  users={n_users} items={n_items} events={n_p + n_v} tiles={tiles} "
           f"URAlgorithm.train wall_s={t['train_wall_s']:.3f} launches K2={train_launches[0]} "
-          f"K3={train_launches[1]}; pio train wall_s LLR weights off "
+          f"K3={train_launches[1]} row_count={train_launches[2]}; pio train wall_s LLR weights off "
           f"{t['pio_train_s_llr_False']:.3f} (read, train, save), launches {launches}, peak_device_gb="
           f"{t['peak_device_gb']:.2f}, merge_desc on the card={merges[0]}; model blob "
           f"{t['blob_mb']:.1f} MB, save_s={t['save_s']:.3f} load_s={t['load_s']:.3f}")
@@ -2081,17 +2187,18 @@ def snapshot_path(ur, cco, hk, dev, workdir, arrays, props, native_train_s):
             path = workdir / f"engine-{use_llr}.json"
             _STAGED.invalidate()    # a pio train process reads cold
             before = snap.staged_counts()
-            hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+            zero_cco_counts(hk)
             t0 = time.perf_counter()
             pio("train", "--engine-json", str(path))
             t[f"pio_train_snapshot_s_llr_{use_llr}"] = time.perf_counter() - t0
-            launches[use_llr] = (hk.llr_masked_scores.launches, hk.tile_topk_desc.launches)
+            launches[use_llr] = cco_counts(hk)
             moved = {k: v - before[k] for k, v in snap.staged_counts().items()}
             check(moved == {"snapshot": n_snap, "tail": n_tail, "delta": 0},
                   f"pio train (useLlrWeights {use_llr}) staged {moved}")
     for use_llr, got in launches.items():
-        check(got == (tiles, tiles), f"K2/K3 launches {got} in pio train from the snapshot "
-              f"(useLlrWeights {use_llr}), expected {tiles} each")
+        check(got == (tiles, tiles, tiles + 1), f"K2/K3/row-count launches {got} in pio train "
+              f"from the snapshot (useLlrWeights {use_llr}), expected {tiles} each and the "
+              "primary's row count once more")
     check(merges[0] == 0, f"merge_desc ran {merges[0]} times on the card")
     check(params.min_llr == 0.0, "the unfused rebuild assumes LLR threshold 0")
     rebuilt = unfused_indicators(cco, hk, td, dev, top_k, tile)
@@ -2712,12 +2819,12 @@ def ur_caches_path(ur, cco, hk, ncore, dev, workdir, variants, stored, plain_tra
         calls, real = [], cco.cco_train_indicators
 
         def counted(p_user, p_item, others, *a, **kw):
-            k2, k3 = hk.llr_masked_scores.launches, hk.tile_topk_desc.launches
+            k0 = cco_counts(hk)
             try:
                 return real(p_user, p_item, others, *a, **kw)
             finally:
-                calls.append(([o[0] for o in others], hk.llr_masked_scores.launches - k2,
-                              hk.tile_topk_desc.launches - k3))
+                calls.append(([o[0] for o in others],
+                              *(k1 - k for k, k1 in zip(k0, cco_counts(hk)))))
 
         cco.cco_train_indicators = counted
         try:
@@ -2731,7 +2838,7 @@ def ur_caches_path(ur, cco, hk, ncore, dev, workdir, variants, stored, plain_tra
         tiles = -(-DEPLOYED_UR[1] // DEPLOYED_UR[5])
         check(fired, "17e: the injected fault did not fire")
         check([c[0] for c in calls] == [["purchase"], ["view"]]
-              and all(c[1:] == (tiles, tiles) for c in calls),
+              and all(c[1:] == (tiles, tiles, tiles + 1) for c in calls),
               f"17e: training calls {calls}: the retry did not resume past the first type")
         left = [p for p in (ck_dir / "ur").iterdir()] if (ck_dir / "ur").exists() else []
         check(not left, f"17e: snapshots left behind: {left}")
@@ -2744,7 +2851,8 @@ def ur_caches_path(ur, cco, hk, ncore, dev, workdir, variants, stored, plain_tra
         out["checkpointed_train"] = {"wall_s": ck_s, "plain_wall_s": plain_train_s,
                                      "calls": calls}
         print(f"  17e: pio train checkpointed, PIO_FAULT_INJECT=ur.indicators:2 fired, the "
-              f"retry trained {calls[-1][0]} only (K2/K3 {calls[-1][1:]}; the faulted attempt "
+              f"retry trained {calls[-1][0]} only (K2/K3/row count {calls[-1][1:]}; the faulted "
+              f"attempt "
               f"{calls[0][0]} {calls[0][1:]}), snapshots removed, tables bit-identical to "
               f"phase 11b's; wall {ck_s:.3f} s against the plain pio train "
               f"{plain_train_s:.3f} s")
@@ -2811,10 +2919,25 @@ FOLLOW_PROBES = 200              # probe queries held byte-equal to a card retra
 FOLLOW_SMALL = (500, 300, 5_000)  # 19b's app: users, items, purchases
 
 
-def follow_counts(hk):
-    """K2's and K3's launch counts, read under the wrappers' lock."""
+def zero_cco_counts(hk):
+    """Set the CCO kernels' launch counts (K2, K3, the row count) and the CCO
+    driver's strategy counts (``dense_chunks``) to 0, before a path's train."""
+    from predictionio_tpu_torch.ops import cco
+
     with hk._count_lock:
-        return hk.llr_masked_scores.launches, hk.tile_topk_desc.launches
+        hk.row_counts.launches = 0
+        hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+    cco.reset_strategy_counts()
+
+
+def cco_counts(hk):
+    """K2's, K3's and the row-count kernel's launch counts, read under the
+    wrappers' lock.  A train launches the row count twice a dense chunk pass
+    (``2 * cco.dense_chunks``), once a resident tile and once for the
+    resident primary's marginals."""
+    with hk._count_lock:
+        return (hk.llr_masked_scores.launches, hk.tile_topk_desc.launches,
+                hk.row_counts.launches)
 
 
 def follower_drained(follower, covered) -> bool:
@@ -3001,8 +3124,7 @@ def follow_path(ur, cco, hk, dev, workdir, variants):
     r0 = {o: fold_mod._M_RELLR_ROWS.value(outcome=o) for o in ("certified", "selected")}
     gc.collect()
     torch.cuda.synchronize()
-    with hk._count_lock:
-        hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+    zero_cco_counts(hk)
     t0 = time.perf_counter()
     server = deploy(str(variants[False]), host="127.0.0.1", port=0, device=dev,
                     follow=FOLLOW_INTERVAL_S)
@@ -3017,7 +3139,7 @@ def follow_path(ur, cco, hk, dev, workdir, variants):
         out["bootstrap_s"] = time.perf_counter() - t0
         fstate = follower._fold
         covered = len(fstate.batch)
-        boot_launches = follow_counts(hk)
+        boot_launches = cco_counts(hk)
         gc.collect()
         torch.cuda.synchronize()
         mem_boot = torch.cuda.memory_allocated(dev)
@@ -3036,7 +3158,7 @@ def follow_path(ur, cco, hk, dev, workdir, variants):
             seed, fresh, probe = f"seed19_{r}", f"fresh19_{r}", f"probe19_{r}"
             rel0 = {o: fold_mod._M_RELLR_ROWS.value(outcome=o)
                     for o in ("certified", "selected")}
-            k0 = follow_counts(hk)
+            k0 = cco_counts(hk)
             store.l_events.insert_batch([Event("purchase", "user", probe, "item", seed)],
                                         app_id)
             covered += 1
@@ -3060,7 +3182,7 @@ def follow_path(ur, cco, hk, dev, workdir, variants):
                   f"19: round {r}: {fresh} not reflected within {FOLLOW_CAP_S} s")
             wait_until(lambda: follower_drained(follower, covered), 120,
                        f"round {r}'s drain")
-            k1 = follow_counts(hk)
+            k1 = cco_counts(hk)
             rel = {o: fold_mod._M_RELLR_ROWS.value(outcome=o) - rel0[o] for o in rel0}
             rounds.append({"reflected_ms": reflected, "k2": k1[0] - k0[0], "k3": k1[1] - k0[1],
                            "rellr_rows": rel, "phase_s": dict(fstate.last_phase_s),
@@ -3072,7 +3194,7 @@ def follow_path(ur, cco, hk, dev, workdir, variants):
                   f"{k1[1] - k0[1]}; the last fold's phases "
                   f"{ {k: round(v, 4) for k, v in fstate.last_phase_s.items()} } s, emit "
                   f"{fstate.last_emit_s:.4f} s")
-        fold_launches = follow_counts(hk)
+        fold_launches = cco_counts(hk)
         out["launches"] = fold_launches
         during = (fold_launches[0] - boot_launches[0], fold_launches[1] - boot_launches[1])
         tick = {o: folds.value(outcome=o) - f0[o] for o in outcomes}
@@ -3394,8 +3516,7 @@ def plane_path(ur, hk, dev, workdir, variants, env):
 
     gc.collect()
     torch.cuda.synchronize()
-    with hk._count_lock:
-        hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+    zero_cco_counts(hk)
     os.environ["PIO_MODEL_PLANE_DIR"] = str(pub_dir)
     saved_obs = {k: os.environ.get(k) for k in ("PIO_CLUSTER_NODE", "PIO_CLUSTER_SCRAPE_S")}
     os.environ.update(PIO_CLUSTER_NODE=PUB_NODE, PIO_CLUSTER_SCRAPE_S="1")
@@ -3439,7 +3560,7 @@ def plane_path(ur, hk, dev, workdir, variants, env):
         fstate = follower._fold
         check(fstate.device.type == "cuda", f"20: the fold state is on {fstate.device}")
         covered = len(fstate.batch)
-        boot_launches = follow_counts(hk)
+        boot_launches = cco_counts(hk)
         wait_until(converged, DEPLOY_TIMEOUT_S, "20: the subscriber's first generation")
         out["first_converged_s"] = time.perf_counter() - t0
         out["memory_first"] = memory_split(mem_base, card_memory(dev))
@@ -3477,7 +3598,7 @@ def plane_path(ur, hk, dev, workdir, variants, env):
         lat_ms, rounds, starts = [], [], []
         for r in range(FOLLOW_ROUNDS):
             seed, fresh, probe = f"seed20_{r}", f"fresh20_{r}", f"probe20_{r}"
-            k0, n0 = follow_counts(hk), len(publishes)
+            k0, n0 = cco_counts(hk), len(publishes)
             store.l_events.insert_batch([Event("purchase", "user", probe, "item", seed)],
                                         app_id)
             covered += 1
@@ -3500,7 +3621,7 @@ def plane_path(ur, hk, dev, workdir, variants, env):
                   f"20: round {r}: {fresh} not reflected at the subscriber within "
                   f"{FOLLOW_CAP_S} s")
             wait_until(lambda: settled(covered), 120, f"20: round {r}'s drain")
-            k1 = follow_counts(hk)
+            k1 = cco_counts(hk)
             with urllib.request.urlopen(sub_base + "/metrics", timeout=30) as resp:
                 sub_map_s = metric_values(resp.read().decode(), "pio_model_plane_map_seconds")
             pubs = publishes[n0:]
@@ -3522,7 +3643,7 @@ def plane_path(ur, hk, dev, workdir, variants, env):
         check(p99 <= FOLLOW_GATE_S * 1e3,
               f"20: append -> reflected at the subscriber p99 {p99:.3f} ms, past the "
               f"{FOLLOW_GATE_S:g} s gate")
-        during = follow_counts(hk)
+        during = cco_counts(hk)
         during = (during[0] - boot_launches[0], during[1] - boot_launches[1])
         check(during[0] > 0 and during[1] > 0,
               f"20: K2/K3 launched {during} times during the folds")
@@ -3647,7 +3768,7 @@ def plane_path(ur, hk, dev, workdir, variants, env):
             "resyncs": {k: resync.value(reason=k) for k in reasons},
             "publisher_replication": fr.get("replication"),
             "publishes": len(publishes),
-            "launches": follow_counts(hk)})
+            "launches": cco_counts(hk)})
         print(f"  {len(users)} answers byte-equal between the publisher and the subscriber; "
               f"a fresh ModelPlane composed the subscriber's generation "
               f"{info['planeGeneration']} in {out['fresh_compose_s']:.3f} s, every array, "
@@ -3973,17 +4094,17 @@ def sharded_path(ur, hk, dev, workdir, variants):
         tiles = 2 * -(-n_items // tile)
         pio("build", "--engine-json", str(variants[False]))
         torch.cuda.synchronize()
-        with hk._count_lock:
-            hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+        zero_cco_counts(hk)
         deltas = staging_counts()["delta"]
         t0 = time.perf_counter()
         pio("train", "--engine-json", str(variants[False]))
         out["train_s"] = time.perf_counter() - t0
         check(staging_counts()["delta"] == deltas,
               "21: pio train staged events past the cold scan's watermark")
-        train_launches = out["train_launches"] = follow_counts(hk)
-        check(train_launches == (tiles, tiles),
-              f"21: pio train launched K2/K3 {train_launches}, expected {tiles} each")
+        train_launches = out["train_launches"] = cco_counts(hk)
+        check(train_launches == (tiles, tiles, tiles + 1),
+              f"21: pio train launched K2/K3/row count {train_launches}, expected {tiles} "
+              "each and the primary's row count once more")
         _, (model,) = load_latest_models(engine_variant(False)["id"], device=dev)
         out["tables"] = tables_equal_up_to_ids(host_tables(model), want_tables,
                                                "21: the sharded train against the arrays "
@@ -4004,8 +4125,7 @@ def sharded_path(ur, hk, dev, workdir, variants):
         folds = follow_mod._M_FOLDS
         outcomes = ("fold", "retrain", "restage", "idle", "error", "disabled")
         f0 = {o: folds.value(outcome=o) for o in outcomes}
-        with hk._count_lock:
-            hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+        zero_cco_counts(hk)
         t0 = time.perf_counter()
         server = deploy(str(variants[False]), host="127.0.0.1", port=0, device=dev,
                         follow=FOLLOW_INTERVAL_S)
@@ -4081,7 +4201,7 @@ def sharded_path(ur, hk, dev, workdir, variants):
             tick = {o: folds.value(outcome=o) - f0[o] for o in outcomes}
             check(tick["error"] == 0 and tick["fold"] >= 2 * FOLLOW_ROUNDS,
                   f"21: follow ticks {tick}")
-            out["launches"] = follow_counts(hk)
+            out["launches"] = cco_counts(hk)
             check(out["launches"][0] > 0 and out["launches"][1] > 0,
                   f"21: the follower launched K2/K3 {out['launches']}")
             # every event answered 201 is on its shard's primary
@@ -5419,17 +5539,20 @@ def cco_setting(cco, env, attrs):
 
 
 def timed_cco(hk, dev, fn):
-    """``fn()``'s indicator table, wall seconds, peak device memory and
-    K2/K3 launches (counts set to 0 just before, read just after)."""
+    """``fn()``'s indicator table, wall seconds, peak device memory, K2,
+    K3 and row-count launches and dense chunk passes (counts set to 0 just
+    before, read just after)."""
+    from predictionio_tpu_torch.ops import cco
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+    zero_cco_counts(hk)
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     return out, {"wall_s": time.perf_counter() - t0,
                  "peak_device_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-                 "launches": [hk.llr_masked_scores.launches, hk.tile_topk_desc.launches]}
+                 "launches": list(cco_counts(hk)), "dense_chunks": cco.dense_chunks}
 
 
 def check_self_table(s, i, n_items, top_k, what):
@@ -5499,6 +5622,12 @@ def scale_path(cco, hk, dev):
     pu = rng.integers(0, n_users, n_events).astype(np.int32)
     pi = (rng.zipf(1.25, n_events) % n_items).astype(np.int32)
     n_tiles = -(-n_items // tile)
+    blocks = -(-n_users // 4_096)
+    # the row count: two a dense chunk pass; resident, a tile's and the
+    # primary's; chunked (a self-indicator), every block's in each tile and,
+    # in the first, the primary's too; none in the sparse runner
+    row_counts = {"resident": n_tiles + 1, "chunked": blocks * (n_tiles + 1),
+                  "sparse_host": 0, "sparse_device": 0}
     settings = {   # name: (environment, module budgets, K2/K3 launches each)
         "dense": ({"PIO_CCO_DENSE": "1", "PIO_CCO_SPARSE": "0"}, {}, 1),
         "resident": ({"PIO_CCO_DENSE": "0", "PIO_CCO_SPARSE": "0"}, {}, n_tiles),
@@ -5514,8 +5643,10 @@ def scale_path(cco, hk, dev):
                 pu, pi, pu, pi, n_users, n_items, n_items, top_k=top_k, user_block=4_096,
                 item_tile=tile, exclude_self=True, device=dev))
         check_self_table(*tables[name], n_items, top_k, f"parity leg, {name}")
-        check(r["launches"] == [want, want],
-              f"parity leg, {name}: K2/K3 launches {r['launches']}, expected {want} each")
+        rc = row_counts.get(name, 2 * r["dense_chunks"])
+        check(r["launches"] == [want, want, rc],
+              f"parity leg, {name}: K2/K3/row-count launches {r['launches']}, expected "
+              f"{want} each and {rc}")
         check(same_table(tables[name], tables["dense"]),
               f"parity leg: the {name} table differs from the dense one")
         out["parity"][name] = {**r, "events_per_s": n_events / r["wall_s"]}
@@ -5538,6 +5669,7 @@ def scale_path(cco, hk, dev):
           f"block_interactions_stream in {stage_s:.3f} s ({n_events / stage_s:.4g} events/s; "
           f"{blocked.n_blocks} blocks x {blocked.local_u.shape[1]} wide)")
     n_tiles = -(-n_items // tile)
+    row_counts = {"resident": n_tiles + 1, "chunked": -(-n_users // user_block) * (n_tiles + 1)}
     tables = {}
     for name, attrs in (("resident", {}), ("chunked", {"_RESIDENT_CARD_SHARE": 0.0})):
         with cco_setting(cco, {}, attrs):
@@ -5546,8 +5678,9 @@ def scale_path(cco, hk, dev):
                 exclude_self=True, device=dev))
         torch.cuda.empty_cache()
         check_self_table(*tables[name], n_items, top_k, f"full leg, {name}")
-        check(r["launches"] == [n_tiles, n_tiles],
-              f"full leg, {name}: K2/K3 launches {r['launches']}, expected {n_tiles} each")
+        check(r["launches"] == [n_tiles, n_tiles, row_counts[name]],
+              f"full leg, {name}: K2/K3/row-count launches {r['launches']}, expected "
+              f"{n_tiles} each and {row_counts[name]}")
         check(r["peak_device_gb"] * 1e9 <= CARD_BYTES,
               f"full leg, {name}: peak {r['peak_device_gb']:.3f} GB")
         out["full"][name] = {**r, "events_per_s": n_events / r["wall_s"]}
@@ -5560,7 +5693,7 @@ def scale_path(cco, hk, dev):
           "full leg: the resident and chunked tables differ")
     print("  full leg: resident and chunked tables bit-identical")
     launches = [sum(r["launches"][k] for leg in out.values() for r in leg.values()
-                    if isinstance(r, dict) and "launches" in r) for k in (0, 1)]
+                    if isinstance(r, dict) and "launches" in r) for k in (0, 1, 2)]
     out["launches"] = launches
     return out
 
@@ -5701,9 +5834,10 @@ def similar_product_path(hk, dev, workdir):
         _, r["pio_train"] = timed_cco(hk, dev, lambda: pio(
             "train", "--engine-json", str(paths[name])))
         want = n_tiles if name == "cooccurrence" else 0
-        check(r["pio_train"]["launches"] == [want, want],
-              f"similar-product {name}: K2/K3 launches {r['pio_train']['launches']}, "
-              f"expected {want} each")
+        rc = want + 1 if want else 0   # a tile's and the resident primary's
+        check(r["pio_train"]["launches"] == [want, want, rc],
+              f"similar-product {name}: K2/K3/row-count launches "
+              f"{r['pio_train']['launches']}, expected {want} each and {rc}")
         factory, engine, ep = engine_from_variant(json.loads(paths[name].read_text()))
         if name == "cooccurrence":
             td = engine.make_components(ep)[0].read_training()
@@ -5757,7 +5891,7 @@ def similar_product_path(hk, dev, workdir):
         del model, cpu_model
         torch.cuda.empty_cache()
     del td
-    out["launches"] = [out["cooccurrence"]["pio_train"]["launches"][k] for k in (0, 1)]
+    out["launches"] = [out["cooccurrence"]["pio_train"]["launches"][k] for k in (0, 1, 2)]
     return out
 
 
@@ -6107,8 +6241,9 @@ def eval_ur_path(hk, dev, workdir):
         eval_runner=runner))
     per_train = 2 * -(-n_items // tile)
     n_cand = len(evaluation.engine_params_list)
-    check(r["launches"] == [n_cand * per_train] * 2,
-          f"18b: K2/K3 launches {r['launches']}, want {n_cand} x {per_train} each")
+    check(r["launches"] == [n_cand * per_train] * 2 + [n_cand * (per_train + 1)],
+          f"18b: K2/K3/row-count launches {r['launches']}, want {n_cand} x {per_train} "
+          f"each and {n_cand} x {per_train + 1} row counts (the resident primary's too)")
     metrics = [evaluation.metric] + list(evaluation.other_metrics)
     out = {"planted_events": planted, "plant_import_s": plant_s, "eval_s": r["wall_s"],
            "launches": r["launches"], "peak_device_gb": r["peak_device_gb"],
@@ -6238,8 +6373,8 @@ def cp_path(cco, hk, dev, workdir):
     tile = cco.basket_tile(n_items)
     n_tiles = -(-n_items // tile)
     _, r = timed_cco(hk, dev, lambda: pio("train", "--engine-json", str(path)))
-    check(r["launches"] == [0, n_tiles], f"18c: K2/K3 launches {r['launches']}, want "
-          f"[0, {n_tiles}] ({n_items} items, tile {tile})")
+    check(r["launches"] == [0, n_tiles, 0], f"18c: K2/K3/row-count launches {r['launches']}, "
+          f"want [0, {n_tiles}, 0] ({n_items} items, tile {tile})")
     _, (model,) = load_latest_models("smoke-cp", device=dev)
     _, (cpu_model,) = load_latest_models("smoke-cp", device="cpu")
     check(type(model) is cp.CPModel and model.comp_idx.shape == (n_items, 20), "18c: the model")
@@ -6548,7 +6683,8 @@ def eval_templates_path(cco, hk, dev, workdir):
     out["launches"] = {
         "masked_score": ea["k1_launches_pio_eval"] + ea["k1_launches_fast_eval"],
         "llr_masked": eu["launches"][0],
-        "tile_topk": eu["launches"][1] + ec["launches"][1]}
+        "tile_topk": eu["launches"][1] + ec["launches"][1],
+        "row_count": eu["launches"][2] + ec["launches"][2]}
     out["wall_s"] = time.perf_counter() - t_phase
     out["leg_wall_s"] = walls
     print(f"  phase 18 wall {out['wall_s']:.3f} s (legs: "
@@ -6707,7 +6843,7 @@ def rank_main(spec: dict) -> None:
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
         dist.reset_collective_counts()
-        hk.llr_masked_scores.launches = hk.tile_topk_desc.launches = 0
+        zero_cco_counts(hk)
         return time.perf_counter()
 
     def end(t_begin, **extra):
@@ -6715,7 +6851,7 @@ def rank_main(spec: dict) -> None:
             torch.cuda.synchronize(dev)
         return {"wall_s": time.perf_counter() - t_begin,
                 "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else 0.0,
-                "launches": [hk.llr_masked_scores.launches, hk.tile_topk_desc.launches],
+                "launches": list(cco_counts(hk)), "dense_chunks": cco.dense_chunks,
                 "collectives": dist.collective_counts(), **extra}
 
     if "bench" in spec["parts"]:
@@ -6880,8 +7016,10 @@ def ranks_path(dev, workdir, bench_tables, tables_11b, als_pd, launched):
               and np.array_equal(got[f"{name}_1"], i),
               f"23a: {name}: the dp = 1 mesh's tables differ from phase 10's")
     ar = a["bench"]["collectives"]["all_reduce"]
-    check(ar["calls"] == 2 and tuple(a["bench"]["launches"]) == (2, 2),
-          f"23a: {ar['calls']} all-reduces, launches {a['bench']['launches']}")
+    check(ar["calls"] == 2
+          and tuple(a["bench"]["launches"]) == (2, 2, 2 * a["bench"]["dense_chunks"]),
+          f"23a: {ar['calls']} all-reduces, K2/K3/row-count launches "
+          f"{a['bench']['launches']} ({a['bench']['dense_chunks']} dense chunk passes)")
     out["a"] = a
     print(f"  23a: one rank, backend {a['backend']} on {a['device']} (init "
           f"{a['init_s']:.3f} s): bench_ur's shape over a dp = 1 mesh, the dense runner, "
@@ -6895,13 +7033,14 @@ def ranks_path(dev, workdir, bench_tables, tables_11b, als_pd, launched):
         ar = ur["collectives"]["all_reduce"]
         check(r["backend"] == "gloo", f"23b: two ranks on one card joined with {r['backend']}")
         check(ur["rc"] == 0, f"23b: rank {r['rank']}: pio train exited {ur['rc']}")
-        check(tuple(ur["launches"]) == (tiles, tiles),
-              f"23b: rank {r['rank']}: K2/K3 launches {ur['launches']}, expected {tiles} each")
+        check(tuple(ur["launches"][:2]) == (tiles, tiles) and ur["launches"][2] > 0,
+              f"23b: rank {r['rank']}: K2/K3/row-count launches {ur['launches']}, expected "
+              f"{tiles} each and the chunked marginals")
         check(ar["calls"] == tiles, f"23b: rank {r['rank']}: {ar['calls']} all-reduces")
         check(ur["merges_on_card"] == 0, f"23b: merge_desc ran {ur['merges_on_card']} times")
         print(f"  23b: rank {r['rank']} backend {r['backend']} on {r['device']} (init "
               f"{r['init_s']:.3f} s): pio train {ur['wall_s']:.3f} s, peak {ur['peak_gb']:.3f} "
-              f"GB, K2/K3 launches {ur['launches']}, merge_desc on the card "
+              f"GB, K2/K3/row-count launches {ur['launches']}, merge_desc on the card "
               f"{ur['merges_on_card']}, {collective_text(ur['collectives'])}")
     peak_sum = a["bench"]["peak_gb"] + sum(max(r[p]["peak_gb"] for p in ("ur", "als", "logreg"))
                                            for r in ranks)
@@ -7140,6 +7279,8 @@ def run() -> None:
     errs["llr_masked"] = compare_llr(hk, dev, gen)
     phase("5. K3 vs plain")
     errs["tile_topk"] = compare_topk(hk, dev, gen)
+    phase("5b. the row-count kernel (the CCO marginals) vs plain")
+    errs["row_count"] = compare_row_counts(hk, dev, gen)
     torch.cuda.empty_cache()
 
     phase("6. ALS model")
@@ -7345,6 +7486,8 @@ def run() -> None:
                                        carry=topk_carry(scores.shape[0], 32, dev, gen,
                                                         "initial"), id_offset=t0))
     del scores
+    rows["row_count"] = [time_row_counts(hk, dev, gen, r, c, flush, clock, label)
+                         for r, c, label in ROW_COUNT_TIMED]
     k1_rounds = retime_k1(hk, dev, gen, flush, clock)
     # K2 on the row-strided shapes phase 2 holds for correctness (LLR_CASES):
     # sparse counts at the train tile's width and the ragged 37 x 190, each
@@ -7395,6 +7538,8 @@ def run() -> None:
         print(f"    estimate: issue slots of {sass['instructions']} instructions a cell at "
               f"{PEAK_ISSUE_S:.3g} a second take {est['nonzero_cells']:.4f} ms for the "
               f"nonzero cells, {est['every_cell']:.4f} ms were every cell computed")
+    for r in rows["row_count"]:
+        print(row_count_text(r, smi))
     for r in rows["tile_topk"]:
         print(f"  tile_topk [{r['R']} x {r['W']}] b={r['b']} {r['input']}"
               f"{' with the initial carry' if r['carry'] else ''}, finite share "
@@ -7557,7 +7702,14 @@ def run() -> None:
                               + shard["launches"][1]
                               + sum(c[2] for c in caches["checkpointed_train"]["calls"])
                               + slice13["launches"]["tile_topk"]
-                              + sum(r["ur"]["launches"][1] for r in ranks["ranks"]))}
+                              + sum(r["ur"]["launches"][1] for r in ranks["ranks"])),
+                "row_count": (deployed["launches"][2] + scale["launches"][2]
+                              + similar["launches"][2] + follow["launches"][2]
+                              + planes["launches"][2] + shard["train_launches"][2]
+                              + shard["launches"][2]
+                              + sum(c[3] for c in caches["checkpointed_train"]["calls"])
+                              + slice13["launches"]["row_count"]
+                              + sum(r["ur"]["launches"][2] for r in ranks["ranks"]))}
     print(json.dumps({"ur_train": {"bench_shape": bench, "memory_store": memory,
                                    "deployed_width_localfs": deployed,
                                    "deployed_width_snapshot": snapshot},

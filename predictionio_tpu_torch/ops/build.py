@@ -40,6 +40,8 @@ SIGNATURES = {
     "llr_masked": ("pio_llr_masked", [_P, _L, _P, _P, _F, _F, _P, _I, _I, _P]),
     # scores, ld, R, W, b, id_offset, carry_s, carry_i, out_s, out_i, stream
     "tile_topk": ("pio_tile_topk", [_P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+    # m, ld, out, R, C, accumulate, stream
+    "row_count": ("pio_row_count", [_P, _L, _P, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -108,6 +108,7 @@ import torch
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.ops.hopper_kernels import (
     llr_masked_scores,
+    row_counts,
     tile_topk_desc,
 )
 from predictionio_tpu_torch.ops.topk import block_width
@@ -459,19 +460,12 @@ def _count_product(pt: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
     return (pt.to(torch.float32) @ at.to(torch.float32).t()).to(torch.int32)
 
 
-#: rows per block of ``_marginal``'s sum
-_MARGINAL_ROWS = 4096
-
-
-def _marginal(m: torch.Tensor) -> torch.Tensor:
-    """Distinct users per item of an item-major 0/1 matrix, exact int32.
-    Summed in row blocks: ``sum(dtype=int32)`` first casts its whole input
-    to int32, which for the resident primary is 4x its int8 bytes."""
-    out = torch.empty(m.shape[0], dtype=torch.int32, device=m.device)
-    for s in range(0, m.shape[0], _MARGINAL_ROWS):
-        torch.sum(m[s:s + _MARGINAL_ROWS], 1, dtype=torch.int32,
-                  out=out[s:s + _MARGINAL_ROWS])
-    return out
+def _marginal(m: torch.Tensor, out: Optional[torch.Tensor] = None,
+              accumulate: bool = False) -> torch.Tensor:
+    """Distinct users per item of an item-major 0/1 matrix, exact int32,
+    written into ``out`` or, with ``accumulate``, added to it: on the card
+    the row-count kernel, one pass over the int8 bytes with no int32 copy."""
+    return row_counts(m, out, accumulate)
 
 
 class _StagedCOO:
@@ -694,8 +688,8 @@ class _DenseRunner:
             pt = self._densify_chunk(self.p, c, i_p)
             at = pt if self_pair else self._densify_chunk(a, c, it_pad)
             C += _count_product(pt, at)[:i_p, :it_pad]
-            rc += _marginal(pt[:i_p])
-            cc += _marginal(at[:it_pad])
+            _marginal(pt[:i_p], rc, accumulate=True)
+            _marginal(at[:it_pad], cc, accumulate=True)
         if self.mesh is not None:   # the reference's psum, once a type
             _all_reduce_counts(buf, self.mesh, self.n_users)
         return C, rc, cc
@@ -910,7 +904,7 @@ def _cco_indicators_chunked(
                         continue
                 pb = primary.block_matrix(blk)
                 if need_rc:
-                    rc += _marginal(pb[:i_p])
+                    _marginal(pb[:i_p], rc, accumulate=True)
                 if self_pair:
                     at = _tile_slab(pb, t0, tile)
                 elif len(u) == 0:
@@ -918,7 +912,7 @@ def _cco_indicators_chunked(
                 else:
                     at = _densify(i - t0, u - blk * primary.block, w8, primary.cols)
                 counts += _count_product(pb, at)
-                cc += _marginal(at)
+                _marginal(at, cc, accumulate=True)
                 del pb, at
             if primary.mesh is not None:
                 _all_reduce_counts(buf, primary.mesh, primary.n_users)

@@ -16,6 +16,10 @@ Counterpart of ``predictionio_tpu/ops/pallas_kernels.py``:
   ``_topk_sort_kernel``): the row top-k of the dense CCO strategy and, with
   the running carry merged in the same launch, the per-tile top-k and carry
   merge of the tiled one.
+- ``row_counts`` — the CCO marginals: each row's sum of an item-major int8
+  matrix into int32, in one pass over its bytes (``ops/csrc/row_count.cu``).
+  It replaces no Pallas kernel (the reference's marginals are an XLA sum):
+  ``torch.sum(dtype=torch.int32)`` casts its whole input to int32 first.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 only for tensors on the CPU (the CPU tests).  It checks device, dtype,
@@ -317,3 +321,82 @@ def tile_topk_desc(
 
 
 tile_topk_desc.launches = 0
+
+
+# -- the CCO marginals: row counts of an int8 matrix ---------------------------
+
+#: rows a block of the plain version's sum: ``sum(dtype=int32)`` first casts
+#: its whole input to int32, 4x its int8 bytes
+_PLAIN_ROWS = 4096
+
+
+def _check_row_count_args(m, out, accumulate: bool) -> None:
+    if m.dim() != 2:
+        raise ValueError(f"row_counts: m [R, C] expected, got {tuple(m.shape)}")
+    if m.dtype != torch.int8:
+        raise TypeError(f"row_counts: int8 m expected, got {m.dtype}")
+    if m.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"row_counts: unsupported device {m.device}")
+    r, c = m.shape
+    # m may be a row-strided view (a slice of a wider or padded matrix); an
+    # empty m reads nothing, whatever its strides
+    if m.numel() and (c > 1 and m.stride(1) != 1 or r > 1 and m.stride(0) < c):
+        raise ValueError("row_counts: m's rows must be contiguous")
+    if r >= 2**31 or c >= 2**31:
+        raise ValueError(f"row_counts: R={r}, C={c} exceed the kernel's int indices")
+    if out is None:
+        if accumulate:
+            raise ValueError("row_counts: accumulate needs an out to add into")
+        return
+    if out.dtype != torch.int32 or tuple(out.shape) != (r,) or not out.is_contiguous():
+        raise ValueError(f"row_counts: out must be a contiguous int32 [{r}], got "
+                         f"{out.dtype} {tuple(out.shape)}")
+    if out.device != m.device:
+        raise ValueError("row_counts: m and out on different devices")
+
+
+def row_counts_plain(m: torch.Tensor, out: Optional[torch.Tensor] = None,
+                     accumulate: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the row-count kernel: ``torch.sum(m, 1,
+    dtype=torch.int32)`` in blocks of ``_PLAIN_ROWS`` rows, written into
+    ``out`` (a new tensor by default) or, with ``accumulate``, added to it."""
+    if out is None:
+        out = torch.empty(m.shape[0], dtype=torch.int32, device=m.device)
+    for s in range(0, m.shape[0], _PLAIN_ROWS):
+        block, dst = m[s:s + _PLAIN_ROWS], out[s:s + _PLAIN_ROWS]
+        if accumulate:
+            dst += torch.sum(block, 1, dtype=torch.int32)
+        else:
+            torch.sum(block, 1, dtype=torch.int32, out=dst)
+    return out
+
+
+def row_counts(m: torch.Tensor, out: Optional[torch.Tensor] = None,
+               accumulate: bool = False) -> torch.Tensor:
+    """Each row's sum of int8 ``m`` [R, C] → int32 [R]: written into ``out``
+    (a new tensor by default) or, with ``accumulate``, added to it.  For the
+    CCO's 0/1 matrices, the distinct users of each item.
+
+    CUDA tensors launch ``ops/csrc/row_count.cu`` on the current stream (no
+    synchronisation); ``m`` may be a row-strided view at any alignment.  CPU
+    tensors take ``row_counts_plain``."""
+    _check_row_count_args(m, out, accumulate)
+    if m.device.type == "cpu":
+        return row_counts_plain(m, out, accumulate)
+    r, c = m.shape
+    if out is None:
+        out = torch.empty(r, dtype=torch.int32, device=m.device)
+    if r == 0:
+        return out
+    fn = build.load("row_count").pio_row_count
+    with torch.cuda.device(m.device):
+        err = fn(m.data_ptr(), m.stride(0) if r > 1 else c, out.data_ptr(), r, c,
+                 int(accumulate), torch.cuda.current_stream(m.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"row_count kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        row_counts.launches += 1
+    return out
+
+
+row_counts.launches = 0
